@@ -1,0 +1,51 @@
+"""Carry a reference (JAX) serving state over to the port.
+
+The caller fetches the reference state to the host as numpy arrays (for
+example with ``jax.device_get``); nothing here imports JAX. The embedding
+part is read by attribute (``w``, ``acc``, ``counts``, ``cache.keys``,
+``cache.rows``, ``cache.acc``), the dense part is a nested dict of arrays
+with the same layout as ``WDLModel.init_dense``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.packed_embedding import CacheState
+from repro_torch.core.packing import PicassoPlan
+from repro_torch.embedding.state import EmbeddingState
+
+
+def _tensor(x: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, copy=True)).to(device)
+
+
+def _tree(x: Any, device: torch.device) -> Any:
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    return _tensor(x, device)
+
+
+def state_from_jax(emb_np: Dict[str, Any], dense_np: Dict[str, Any], plan: PicassoPlan,
+                   device: Union[str, torch.device] = "cuda"
+                   ) -> Tuple[Dict[str, EmbeddingState], Dict[str, Any]]:
+    """Reference ``state["emb"]``/``state["dense"]`` (host numpy) -> the
+    port's ``emb`` dict and dense params on ``device``."""
+    device = resolve_device(device)
+    emb = {}
+    for g in plan.groups:
+        st = emb_np[str(g.gid)]
+        if getattr(st, "l2", None) is not None or getattr(st, "proj", None) is not None:
+            raise NotImplementedError(
+                f"g{g.gid}: L2 and narrow tiers belong to a later slice of the port")
+        w = _tensor(st.w, device)
+        if tuple(w.shape) != (g.rows, g.dim):
+            raise ValueError(f"g{g.gid}: table {tuple(w.shape)} does not match the "
+                             f"plan's {(g.rows, g.dim)}")
+        emb[str(g.gid)] = EmbeddingState(
+            w=w, acc=_tensor(st.acc, device), counts=_tensor(st.counts, device),
+            cache=CacheState(*(_tensor(x, device) for x in st.cache)))
+    return emb, _tree(dense_np, device)

@@ -1,0 +1,76 @@
+"""D-Packing of the input batch (paper Fig. 7a -> 7b), ``repro.core.features``
+in torch.
+
+Turns the per-field numpy batch dict {field: ids [B, L], weights [B, L]}
+into one packed (ids, weights, seg) triple per PackedGroup on the device.
+Scrambling + table offsets map raw per-table IDs into the packed global row
+space. All of a group's fields are scrambled in one pass over a ``[B, L]``
+matrix with per-column constants, so a group costs three host-to-device
+copies whatever its field count.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashing import _coprime_mult, affine_u32
+from repro_torch.core.packing import PackedGroup, PicassoPlan
+
+
+class PackedBatch(NamedTuple):
+    ids: torch.Tensor      # [B * ids_per_sample] int32
+    weights: torch.Tensor  # [B * ids_per_sample] float32
+    seg: torch.Tensor      # [B * ids_per_sample] int32 bag index in [0, B*n_bags)
+    n_bags: int            # per sample
+
+
+class FieldView(NamedTuple):
+    gid: int
+    bag_offset: int
+    n_bags: int
+    dim: int
+
+
+def field_index(plan: PicassoPlan) -> Dict[str, FieldView]:
+    out = {}
+    for g in plan.groups:
+        for s in g.slots:
+            out[s.field.name] = FieldView(g.gid, s.bag_offset, s.n_bags, g.dim)
+    return out
+
+
+def pack_group(group: PackedGroup, batch: Dict[str, Dict[str, np.ndarray]],
+               device: Union[str, torch.device]) -> PackedBatch:
+    """Build the packed ID tensor for one group on ``device``.
+
+    The per-table salt is ``hash(table) % 10007`` exactly as in the
+    reference. Python salts ``str`` hashes per process, so packed ids agree
+    with the reference only inside one process (see ROADMAP Queue 3)."""
+    raw_l, w_l = [], []
+    cols = []  # per packed column: (mult, salt, vocab, row offset, bag)
+    for s in group.slots:
+        f = s.field
+        raw_l.append(np.asarray(batch[f.name]["ids"], np.int32))       # [B, L]
+        w = np.asarray(batch[f.name]["weights"], np.float32)            # [B, L]
+        if f.pooling == "mean":
+            denom = np.clip(w.sum(axis=1, keepdims=True), 1e-9, None)
+            w = (w / denom).astype(np.float32)
+        w_l.append(w)
+        table = next(t for t in group.tables if t.name == s.table)
+        const = (_coprime_mult(table.vocab), hash(s.table) % 10007, table.vocab,
+                 group.table_offsets[s.table])
+        for j in range(f.max_len):
+            bag = s.bag_offset + (j if f.pooling == "none" else 0)
+            cols.append(const + (bag,))
+    raw = np.concatenate(raw_l, axis=1)
+    b = raw.shape[0]
+    c = torch.as_tensor(np.asarray(cols, np.int64).T).to(device)        # [5, L]
+    ids64 = torch.as_tensor(raw).to(device).to(torch.int64)
+    ids = (affine_u32(ids64, c[0], c[1], c[2]) + c[3]).to(torch.int32)
+    weights = torch.as_tensor(np.concatenate(w_l, axis=1)).to(device)
+    seg = (torch.arange(b, device=device, dtype=torch.int64)[:, None] * group.n_bags
+           + c[4][None, :]).to(torch.int32)
+    return PackedBatch(ids=ids.reshape(-1), weights=weights.reshape(-1),
+                       seg=seg.reshape(-1), n_bags=group.n_bags)

@@ -1,0 +1,17 @@
+from repro_torch.engine.engine import (AUTO_NAMES, EmbeddingEngine, EngineContext,
+                                      resolve_assignment)
+from repro_torch.engine.strategies import (LookupStrategy, PicassoStrategy,
+                                           available_strategies, get_strategy,
+                                           register_strategy)
+
+__all__ = [
+    "AUTO_NAMES",
+    "EmbeddingEngine",
+    "EngineContext",
+    "LookupStrategy",
+    "PicassoStrategy",
+    "available_strategies",
+    "get_strategy",
+    "register_strategy",
+    "resolve_assignment",
+]

@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and bind them.
+
+Each ``csrc/<name>.cu`` has a plain C entry point (``<name>_launch``) and is
+compiled for ``sm_90a`` into its own shared library, loaded with ``ctypes``:
+no PyTorch headers, so a build takes seconds. One ``nvcc`` runs per source,
+all started together. Libraries are named by a hash of their source and
+flags inside ``_build/`` (git-ignored), so a changed source is rebuilt and
+an unchanged one is reused within a checkout. A failed build raises; there
+is no fallback.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine-side build needs the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# kernel name -> argtypes of its C entry point ``<name>_launch``
+SIGNATURES: Dict[str, List] = {
+    # uniq, uvalid, keys, rows, hit, slot, rows_out, n, h, d, stream
+    "tier_probe": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # rows_u, inv, w, seg, offsets (scratch), out, n, n_bags, d, stream
+    "gather_pool": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # x, out, b, f, d, stream
+    "fm_interaction": [_P, _P, _I64, _I, _I, _P],
+}
+
+_LAUNCHERS: Dict[str, Callable[..., int]] = {}
+_LIBS: List[ctypes.CDLL] = []  # keep the loaded libraries alive
+# kernel name -> compiler output of its last build (``-Xptxas -v`` lines)
+BUILD_LOG: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built at first use and "
+        "need the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel whose library is missing, one ``nvcc`` process
+    per source, all running at once. Returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in SIGNATURES:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def launcher(name: str) -> Callable[..., int]:
+    """The C entry point of kernel ``name``, building everything first if
+    needed. It returns the ``cudaGetLastError()`` code of its launch."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)[1]))
+        _LIBS.append(lib)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[name] = fn
+    return fn
