@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: builds its CUDA kernels, holds each one
-against its plain PyTorch version, and serves full-width deepfm on one card.
+against its plain PyTorch version, serves full-width deepfm and trains it on
+one card.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-2. run each kernel at the serve path's shape (B = 512) and at a bulk shape
-   (B = 65,536) against its plain version on the same inputs: ``hit``/``slot``
-   bitwise, rows/bags/FM to max-abs <= 1e-5 of the value scale, miss rows
-   and an empty bag exactly 0; time kernel, plain version and, where one
-   PyTorch call computes the same function, that call (CUDA events, median
-   of 30 after warm-up) beside the byte/op bound;
+2. run each kernel at its path's shape (serving B = 512, training B = 256)
+   and at a bulk shape (B = 65,536) against its plain version on the same
+   inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows to
+   max-abs <= 1e-5 of the value scale, miss rows, empty bags, unused
+   gradient slots exactly 0, rows ``dedup_adagrad`` does not touch bitwise
+   unchanged; time kernel, plain version and, where one PyTorch call
+   computes the same function, that call (CUDA events, median of 30 after
+   warm-up) beside the byte/op bound;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
    the kernel launch counters reset just before and read just after; one
    request with the plain versions must give the same probabilities; a
-   deepfm-smoke request served on the card must match the CPU.
+   deepfm-smoke request served on the card must match the CPU;
+4. train full-width deepfm on the train launcher's plan (B = 256, flush
+   every 20 steps after 10) through ``make_train_step``: 30 steps from seed
+   0 with the launch counters reset just before and read just after; every
+   loss finite, every kernel launched, tier hits on every step after the
+   step-20 flush; a second kernel run repeats the first bit for bit; the
+   same 30 steps on the plain versions (under deterministic algorithms)
+   give the same losses (rtol 1e-4 / atol 1e-5, the JAX package's
+   fused-vs-plain bar) and the same hits; then per-stage host clock, a
+   profiled window and peak memory; a deepfm-smoke training run on the card
+   must match the CPU.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -43,10 +56,11 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_shapes  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
-from repro_torch.data.synthetic import make_batch  # noqa: E402
+from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step  # noqa: E402
+from repro_torch.train import train_step as ts  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -55,7 +69,10 @@ SEED = 0
 SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks: longer than any timed call's enqueue
 # the registry's serve_p99 request (B = 512); the bulk shape is 128x that
 SERVE_B = next(s["batch"] for s in get_shapes("deepfm") if s.name == "serve_p99")
+# the train launcher's default --global-batch and its full-width plan
+TRAIN_B, TRAIN_STEPS, FLUSH_ITERS, WARMUP_ITERS = 256, 30, 20, 10
 BULK_B, N_FIELDS, DIM = 65_536, 39, 10
+LR, EPS = 0.05, 1e-8  # TrainConfig's lr_emb and eps
 N_TIMED = 300  # timed requests: enough that p99 is not the maximum
 FULL_ROWS, HOT_ROWS = 187_780_711, 4_194_304
 DEV = torch.device("cuda", 0)
@@ -67,7 +84,14 @@ SOURCES = {
                     "src/repro/kernels/fused_embedding.py:81"),
     "fm_interaction": ("src/repro_torch/kernels/csrc/fm_interaction.cu",
                        "src/repro/kernels/fm_interaction.py:24"),
+    "segment_grad": ("src/repro_torch/kernels/csrc/segment_grad.cu",
+                     "src/repro/kernels/fused_embedding.py:111"),
+    "dedup_adagrad": ("src/repro_torch/kernels/csrc/dedup_adagrad.cu",
+                      "src/repro/kernels/fused_embedding.py:194"),
+    "fm_interaction_bwd": ("src/repro_torch/kernels/csrc/fm_interaction_bwd.cu",
+                           "src/repro/kernels/interaction_bwd.py:43"),
 }
+TRAIN_KERNELS = ("segment_grad", "dedup_adagrad", "fm_interaction_bwd")
 
 
 def check(ok, what: str) -> None:
@@ -209,6 +233,112 @@ def run_fm(b: int, gen: torch.Generator) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def run_segment_grad(b: int, gen: torch.Generator) -> dict:
+    """deepfm's packed layout (one bag per (sample, field), seg = arange):
+    the bag gradients back onto the unique-row slots of a fixed unique."""
+    n = b * N_FIELDS
+    ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen, dtype=torch.int32)
+    u = pe.fixed_unique(ids, sentinel=n)
+    inv, n_uniq = u.inv, int(u.n_uniq)
+    g_bags = torch.randn((n, DIM), device=DEV, generator=gen)
+    w = torch.rand((n,), device=DEV, generator=gen) + 0.5
+    seg = torch.arange(n, device=DEV, dtype=torch.int32)
+    out = ops.segment_grad(g_bags, seg, w, inv, n)
+    rout = ref.segment_grad_ref(g_bags, seg, w, inv, n)
+    torch.cuda.synchronize(DEV)
+    err = max_err(out, rout)
+    check(err <= TOL * scale_of(rout), f"segment_grad err {err}")
+    check(n_uniq < n and bool((out[n_uniq:] == 0).all()),
+          "segment_grad unused slots exactly 0")
+    # the library yardstick: embedding_bag's backward onto its weight
+    rows_u = torch.randn((n, DIM), device=DEV, generator=gen).requires_grad_(True)
+    offsets = torch.arange(n, device=DEV)
+    lib_out = F.embedding_bag(inv.long(), rows_u, offsets, mode="sum", per_sample_weights=w)
+
+    def lib():
+        return torch.autograd.grad(lib_out, rows_u, g_bags, retain_graph=True)[0]
+
+    check(max_err(lib(), rout) <= TOL * scale_of(rout), "embedding_bag backward agrees")
+    b_ms, b_by = bound(n * DIM * 4 + n * 12 + n * DIM * 4, 2 * n * DIM)
+    return {"n": n, "n_uniq": n_uniq, "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n)),
+            "call_ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n),
+                               device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.segment_grad_ref(g_bags, seg, w, inv, n)),
+            "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+
+
+_TABLES = {}
+
+
+def full_tables(gen: torch.Generator):
+    """Two identical full-width tables + accumulators (kernel and plain
+    version each update one in place), made once for both shapes."""
+    if not _TABLES:
+        w = torch.randn((FULL_ROWS, DIM), device=DEV, generator=gen)
+        acc = torch.rand((FULL_ROWS, 1), device=DEV, generator=gen)
+        _TABLES.update(w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
+    return _TABLES
+
+
+def run_dedup_adagrad(b: int, gen: torch.Generator) -> dict:
+    """The miss-gradient update of a B-sample step: m = the plan's bucket
+    capacity gradient rows into the full 187,780,711-row table, a quarter of
+    them duplicates of other rows and a tenth invalid slots that point at
+    row 0 (the clamped ``recv_local`` of an empty bucket slot)."""
+    m = make_plan(get_config("deepfm"), world=1, per_device_batch=b).capacity[0]
+    t = full_tables(gen)
+    w_k, acc_k, w_p, acc_p = t["w_k"], t["acc_k"], t["w_p"], t["acc_p"]
+    idx = torch.randint(0, FULL_ROWS, (m,), device=DEV, generator=gen, dtype=torch.int32)
+    dup = torch.randperm(m, device=DEV, generator=gen)[: m // 4]
+    idx[dup] = idx[torch.randint(0, m, (dup.numel(),), device=DEV, generator=gen)]
+    valid = torch.rand((m,), device=DEV, generator=gen) >= 0.1
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    g = torch.randn((m, DIM), device=DEV, generator=gen)
+    touched = torch.unique(idx[valid]).long()
+    u = touched.numel()
+    w_p.copy_(w_k)  # the previous shape's timing moved the two apart
+    acc_p.copy_(acc_k)
+    w0, acc0 = w_k[touched].clone(), acc_k[touched].clone()
+    ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)
+    ref.dedup_adagrad_ref(w_p, acc_p, idx, g, valid, LR, EPS)
+    torch.cuda.synchronize(DEV)
+    err = max(max_err(w_k[touched], w_p[touched]), max_err(acc_k[touched], acc_p[touched]))
+    check(err <= TOL * scale_of(w_p[touched]), f"dedup_adagrad touched rows err {err}")
+    check(not torch.equal(w_k[touched], w0), "dedup_adagrad moved the touched rows")
+    # every other row of the 7.5 GB table: put the touched rows back, then
+    # the kernel's table must equal the plain version's bit for bit
+    for tw, ta in ((w_k, acc_k), (w_p, acc_p)):
+        tw[touched], ta[touched] = w0, acc0
+    check(torch.equal(w_k, w_p) and torch.equal(acc_k, acc_p),
+          "dedup_adagrad untouched rows bitwise unchanged")
+    # inputs once (idx, valid, g), touched rows of w and acc read and written
+    nbytes = m * (4 + 1 + DIM * 4) + u * (DIM * 4 + 4) * 2
+    b_ms, b_by = bound(nbytes, m * DIM + u * (3 * DIM + 4))
+    return {"m": m, "rows": FULL_ROWS, "touched_rows": u, "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)),
+            "call_ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS),
+                               device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.dedup_adagrad_ref(w_p, acc_p, idx, g, valid,
+                                                              LR, EPS)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_fm_bwd(b: int, gen: torch.Generator) -> dict:
+    x = torch.randn((b, N_FIELDS, DIM), device=DEV, generator=gen) * 0.3
+    g = torch.randn((b, 1), device=DEV, generator=gen)
+    out, rout = ops.fm_interaction_bwd(x, g), ref.fm_interaction_bwd_ref(x, g)
+    torch.cuda.synchronize(DEV)
+    err = max_err(out, rout)
+    check(err <= TOL * scale_of(rout), f"fm_interaction_bwd err {err}")
+    b_ms, b_by = bound(2 * x.numel() * 4 + b * 4, 3 * x.numel())
+    return {"n": b, "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g)),
+            "call_ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.fm_interaction_bwd_ref(x, g)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -216,8 +346,8 @@ def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple):  # EmbeddingState / CacheState
-        return type(tree)(*(None if v is None else to_device(v, dev) for v in tree))
-    return tree.to(dev)
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
 def warm_tier(serve, state, cfg, rng, n_requests: int):
@@ -266,7 +396,9 @@ def serve_full_width() -> dict:
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
           "full-width probabilities finite [B, 1]")
-    check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    check(all(v > 0 for n, v in launches.items() if n not in TRAIN_KERNELS)
+          and not any(launches[n] for n in TRAIN_KERNELS),
+          f"every serving kernel launched, no training kernel: {launches}")
     check(min(hits) > 0, f"cache hits on every request: {hits}")
     plain = make_serve_step(model, plan, SERVE_B, ServeConfig(use_fused_kernels="off"), DEV)
     p_plain = plain(state, batches[-1])
@@ -350,6 +482,177 @@ def smoke_against_cpu() -> dict:
     return {"max_abs_err": err, "cache_hits": hits_of(ctx_gpu)}
 
 
+# ------------------------------------------------------------------ phase 4
+
+
+def train_plan(cfg):
+    return make_plan(cfg, world=1, per_device_batch=TRAIN_B, hot_bytes=1 << 30,
+                     flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS)
+
+
+def train_run(fused: str, batches, breakdown: bool = False) -> dict:
+    """30 full-width training steps from seed 0; the state is freed after."""
+    cfg = get_config("deepfm")
+    plan = train_plan(cfg)
+    model = WDLModel(cfg, plan)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    step = ts.make_train_step(model, plan, TRAIN_B,
+                              ts.TrainConfig(use_fused_kernels=fused), DEV)
+    torch.cuda.synchronize(DEV)
+    ops.reset_launches()
+    lat, losses, hits, ovf = [], [], [], []
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        hits.append(int(m["cache_hits"]))
+        ovf.append(int(m["overflow"]))
+    out = {"launches": dict(ops.launches), "lat": lat, "losses": losses, "hits": hits,
+           "overflow": ovf}
+    if breakdown:
+        out["stages"] = train_breakdown(step, state, batches[TRAIN_STEPS:])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_breakdown(step, state, batches) -> dict:
+    """Steps 31-35 under the profiler (device time by kernel), then steps
+    36-39 with the clock read after each named stage (each ended by a
+    synchronize). None of them flushes: the next flush is step 40."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_batches, stage_batches = batches[:5], batches[5:9]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in prof_batches:
+            step(state, b)
+        torch.cuda.synchronize(DEV)
+    stages, last = {}, [0.0]
+
+    def mark(name):
+        torch.cuda.synchronize(DEV)
+        now = time.perf_counter()
+        stages.setdefault(name, []).append((now - last[0]) * 1e3)
+        last[0] = now
+
+    step.on_stage = mark
+    for b in stage_batches:
+        last[0] = time.perf_counter()
+        step(state, b)
+    step.on_stage = None
+    out = {f"{k}_ms": float(np.median(v)) for k, v in stages.items()}
+    host_ms = sum(out.values())
+    per_kernel = {e.key: e.self_device_time_total / 1e3 / len(prof_batches)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+    dev_ms = float(sum(per_kernel.values())) if per_kernel else None
+    out["host_ms_per_step"] = host_ms
+    out["device_ms_per_step"] = dev_ms
+    out["kernels_per_step"] = (sum(e.count for e in prof.key_averages()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                               / len(prof_batches))
+    out["device_busy_share"] = dev_ms / host_ms if dev_ms else None
+    out["top_kernels_ms_per_step"] = sorted(
+        ((k[:70], v) for k, v in per_kernel.items()), key=lambda kv: -kv[1])[:10]
+    return out
+
+
+def train_full_width() -> dict:
+    cfg = get_config("deepfm")
+    plan = train_plan(cfg)
+    g = plan.groups[0]
+    check(len(plan.groups) == 1 and g.rows == FULL_ROWS and plan.cache_rows[0] == HOT_ROWS
+          and plan.microbatch == TRAIN_B and len(plan.interleave) == 1,
+          f"full deepfm train plan: {g.rows} {plan.cache_rows} {plan.microbatch} "
+          f"{plan.interleave}")
+    stream = batch_stream(cfg, TRAIN_B, seed=SEED)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 9)]
+    k = train_run("auto", batches, breakdown=True)
+    launches = k["launches"]
+    check(all(np.isfinite(k["losses"])), f"finite losses: {k['losses']}")
+    check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    check(all(launches[n] == TRAIN_STEPS for n in TRAIN_KERNELS),
+          f"training kernels once per step: {launches}")
+    check(min(k["hits"][FLUSH_ITERS:]) > 0 and max(k["hits"][:FLUSH_ITERS]) == 0,
+          f"tier hits exactly on the steps after the step-{FLUSH_ITERS} flush: {k['hits']}")
+    # the kernels sum in a fixed order, so the kernel path repeats itself
+    k2 = train_run("auto", batches)
+    check(k2["losses"] == k["losses"] and k2["hits"] == k["hits"],
+          "a second kernel run repeats the first bit for bit")
+    # The plain versions' index_add_ sums with atomics, in an order that can
+    # change from run to run, and past the flush this model amplifies any
+    # last-bit difference by orders of magnitude within a few steps
+    # (scripts/torch_train_divergence.py measures it). Deterministic
+    # algorithms fix the plain path's order, so the comparison below holds
+    # the kernels against one reproducible plain trajectory.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        p = train_run("off", batches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(all(v == 0 for v in p["launches"].values()), f"plain run launched: {p['launches']}")
+    diff = np.abs(np.array(k["losses"]) - np.array(p["losses"]))
+    check(np.allclose(k["losses"], p["losses"], rtol=1e-4, atol=1e-5),
+          f"kernel vs plain loss trajectory: {k['losses']} vs {p['losses']}")
+    check(k["hits"] == p["hits"] and k["overflow"] == p["overflow"],
+          "kernel vs plain hits and overflow equal")
+    lat = np.array(k["lat"])
+    steady = np.array([t for i, t in enumerate(lat, start=1)
+                       if i > WARMUP_ITERS and i != FLUSH_ITERS])
+    return {"table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
+            "capacity": plan.capacity[0], "batch": TRAIN_B, "steps": TRAIN_STEPS,
+            "step_p50_ms": float(np.percentile(steady, 50)),
+            "step_p99_ms": float(np.percentile(steady, 99)),
+            "step_mean_ms": float(steady.mean()), "steady_steps": int(steady.size),
+            "samples_per_s": float(TRAIN_B / (steady.mean() / 1e3)),
+            "flush_step_ms": float(lat[FLUSH_ITERS - 1]), "first_step_ms": float(lat[0]),
+            "plain_step_p50_ms": float(np.percentile(
+                [t for i, t in enumerate(p["lat"], start=1)
+                 if i > WARMUP_ITERS and i != FLUSH_ITERS], 50)),
+            "losses": k["losses"], "plain_losses": p["losses"],
+            "max_abs_loss_diff": float(diff.max()), "hits": k["hits"],
+            "overflow": k["overflow"], "launches": launches,
+            "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"]}
+
+
+def train_smoke_against_cpu() -> dict:
+    """deepfm-smoke with a tiny tier flushed at step 3: 8 steps on the card's
+    kernels against 8 on the CPU's plain versions, same state and batches."""
+    cfg = get_config("deepfm", smoke=True)
+    b = 64
+    plan = make_plan(cfg, world=1, per_device_batch=b, hot_bytes=1 << 14, flush_iters=3,
+                     warmup_iters=2)
+    model = WDLModel(cfg, plan)
+    cpu = torch.device("cpu")
+    state_cpu, state_gpu = (
+        ts.init_state(model, plan, torch.Generator().manual_seed(SEED), cpu) for _ in "ab")
+    state_gpu = to_device(state_gpu, DEV)
+    step_cpu = ts.make_train_step(model, plan, b, ts.TrainConfig(), cpu)
+    step_gpu = ts.make_train_step(model, plan, b, ts.TrainConfig(use_fused_kernels="on"), DEV)
+    rng = np.random.default_rng(SEED + 2)
+    lc, lg, hc, hg = [], [], [], []
+    for _ in range(8):
+        batch = make_batch(cfg, b, rng)
+        state_gpu, mg = step_gpu(state_gpu, batch)
+        state_cpu, mc = step_cpu(state_cpu, batch)
+        lg.append(float(mg["loss"]))
+        lc.append(float(mc["loss"]))
+        hg.append(int(mg["cache_hits"]))
+        hc.append(int(mc["cache_hits"]))
+    check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"smoke train card vs CPU: {lg} vs {lc}")
+    check(hg == hc and min(hg[3:]) > 0, f"smoke train hits equal and > 0 after flush: {hg} {hc}")
+    err = max_err(state_gpu["emb"]["0"].w.cpu(), state_cpu["emb"]["0"].w)
+    check(err <= 1e-4, f"smoke train table card vs CPU err {err}")
+    return {"losses_card": lg, "losses_cpu": lc,
+            "max_abs_loss_diff": float(np.max(np.abs(np.array(lg) - np.array(lc)))),
+            "table_max_abs_err": err, "hits": hg}
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -374,15 +677,21 @@ def main() -> None:
     print(f"[build] {len(SOURCES)} kernels in {secs:.2f}s", flush=True)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    runners = {"tier_probe": run_tier_probe, "gather_pool": run_gather_pool,
-               "fm_interaction": run_fm}
+    runners = {"tier_probe": (run_tier_probe, "serve", SERVE_B),
+               "gather_pool": (run_gather_pool, "serve", SERVE_B),
+               "fm_interaction": (run_fm, "serve", SERVE_B),
+               "segment_grad": (run_segment_grad, "train", TRAIN_B),
+               "dedup_adagrad": (run_dedup_adagrad, "train", TRAIN_B),
+               "fm_interaction_bwd": (run_fm_bwd, "train", TRAIN_B)}
     main_shape = {}
-    for name, run in runners.items():
-        for label, b in (("serve", SERVE_B), ("bulk", BULK_B)):
+    for name, (run, path, main_b) in runners.items():
+        for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen)
             print(f"[kernel] {name} {label} " + json.dumps(r), flush=True)
-            if label == "serve":
+            if label != "bulk":
                 main_shape[name] = r
+    _TABLES.clear()
+    torch.cuda.empty_cache()
 
     full = serve_full_width()
     print("[serve] deepfm full width " + json.dumps(full), flush=True)
@@ -391,11 +700,22 @@ def main() -> None:
           f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
     print("[serve] deepfm-smoke card vs CPU " + json.dumps(smoke_against_cpu()), flush=True)
 
+    train = train_full_width()
+    print("[train] deepfm full width " + json.dumps(train), flush=True)
+    print(f"[train] deepfm B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
+          f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
+          f"flush step={train['flush_step_ms']:.1f}ms", flush=True)
+    print("[train] deepfm-smoke card vs CPU " + json.dumps(train_smoke_against_cpu()),
+          flush=True)
+
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = main_shape[name]
+        # each kernel's launches on the main path it was ported for
+        main_run = train if name in TRAIN_KERNELS else full
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": full["launches"][name], "max_abs_err": r["max_abs_err"],
+                        "launches": main_run["launches"][name],
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(card_stamp(), flush=True)

@@ -1,10 +1,10 @@
-"""Carry a reference (JAX) serving state over to the port.
+"""Carry a reference (JAX) serving or training state over to the port.
 
 The caller fetches the reference state to the host as numpy arrays (for
 example with ``jax.device_get``); nothing here imports JAX. The embedding
 part is read by attribute (``w``, ``acc``, ``counts``, ``cache.keys``,
-``cache.rows``, ``cache.acc``), the dense part is a nested dict of arrays
-with the same layout as ``WDLModel.init_dense``.
+``cache.rows``, ``cache.acc``), the dense part and the Adam moments are
+nested dicts of arrays with the same layout as ``WDLModel.init_dense``.
 """
 from __future__ import annotations
 
@@ -49,3 +49,17 @@ def state_from_jax(emb_np: Dict[str, Any], dense_np: Dict[str, Any], plan: Picas
             w=w, acc=_tensor(st.acc, device), counts=_tensor(st.counts, device),
             cache=CacheState(*(_tensor(x, device) for x in st.cache)))
     return emb, _tree(dense_np, device)
+
+
+def train_state_from_jax(state_np: Dict[str, Any], plan: PicassoPlan,
+                         device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """A reference train state (host numpy: ``emb``, ``dense``, ``opt`` with
+    ``m``/``v``/``t``, ``step``) -> the port's train state on ``device``,
+    with ``step`` a host int, so both sides can resume from one state."""
+    device = resolve_device(device)
+    emb, dense = state_from_jax(state_np["emb"], state_np["dense"], plan, device)
+    opt = state_np["opt"]
+    return {"emb": emb, "dense": dense,
+            "opt": {"m": _tree(opt["m"], device), "v": _tree(opt["v"], device),
+                    "t": _tensor(opt["t"], device).to(torch.int32)},
+            "step": int(np.asarray(state_np["step"]))}

@@ -1,5 +1,5 @@
-"""PICASSO packed-embedding primitives, forward subset
-(``repro.core.packed_embedding`` in torch).
+"""PICASSO packed-embedding primitives (``repro.core.packed_embedding`` in
+torch), for the ``picasso`` strategy's L1 path.
 
 The kernel layer beneath ``repro_torch.engine.EmbeddingEngine``: stateless,
 fixed-shape building blocks for one *packed* lookup per D-packed group:
@@ -7,14 +7,19 @@ fixed-shape building blocks for one *packed* lookup per D-packed group:
     ids -> [Unique&Partition] -> Shuffle -> local Gather -> Shuffle back
         -> Stitch (+ hot-tier merge) -> unique rows -> pool
 
+and the transposed path for the sparse gradients (``apply_sparse_grads``):
+miss grads ride the transposed Shuffle to their owner rows and a fused
+dedup + row-wise Adagrad; hit grads go into the hot tier (``'psum'``) or to
+their owner rows (``'stale'``).
+
 The reference keeps static shapes for its TPU collectives (sort-based fixed
 unique, fixed-capacity per-peer buckets, sentinel slots); the port keeps
 them too, so ``overflow``, ``send_slot`` and the exact-zero contracts match
 bit for bit. This slice runs one rank: the all_to_all Shuffle, ``psum`` and
 ``all_gather`` are identities at world 1, and ``world > 1`` raises until
 the multi-rank (NCCL) slice. The FCounter update and the HybridHash flush
-update the state's tensors in place: the full-width table is 7.5 GB and a
-functional copy per flush would double it.
+update the state's tensors in place, and so do the sparse updates: the
+full-width table is 7.5 GB and a functional copy per step would double it.
 """
 from __future__ import annotations
 
@@ -190,6 +195,130 @@ def pool(
     """SegmentReduction: ids -> bags, through ``ops.gather_pool`` (the CUDA
     kernel never materializes the ``[n, D]`` per-id intermediate)."""
     return ops.gather_pool(rows_u, ctx_inv, weights, seg, n_bags, fused=fused)
+
+
+# ---------------------------------------------------------------------------
+# backward: transposed Shuffle + row-wise adagrad (sparse-exact), in place
+# ---------------------------------------------------------------------------
+
+
+def _dedup_apply(w_shard: torch.Tensor, acc_shard: torch.Tensor, idx: torch.Tensor,
+                 g: torch.Tensor, valid: torch.Tensor, lr: float, eps: float,
+                 fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum duplicate row grads, then row-wise adagrad on touched rows only,
+    in place on ``w_shard``/``acc_shard`` (``ops.dedup_adagrad``)."""
+    return ops.dedup_adagrad(w_shard, acc_shard, idx, g, valid, lr, eps, fused=fused)
+
+
+def apply_sparse_grads(
+    w_shard: torch.Tensor,
+    acc_shard: torch.Tensor,
+    cache: Optional["CacheState"],
+    ctx: LookupCtx,
+    g_u: torch.Tensor,    # [n, D] grad wrt unique rows
+    *,
+    world: int,
+    lr: float,
+    eps: float = 1e-8,
+    cache_update: str = "psum",   # 'psum' (tier authoritative, exact) | 'stale'
+    fused: Optional[bool] = None,
+    compress: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"]]:
+    """Transposed path: miss grads -> owners; hit grads -> hot tier or owners.
+
+    'psum'  -- hit grads are summed into the hot tier, which is authoritative
+               for its rows between flushes (exact training);
+    'stale' -- hit grads are routed to the owner rows and the tier stays
+               read-only between flushes (Algorithm 1's bounded staleness).
+
+    ``w_shard``, ``acc_shard`` and the tier are updated in place; the
+    returned tuple names them. Routed-gradient compression belongs to a
+    later slice and raises.
+    """
+    _require_single_rank(world)
+    if compress != "none":
+        raise NotImplementedError(
+            f"grad compression {compress!r} comes with a later slice of the port")
+    if cache_update not in ("psum", "stale"):
+        raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused)
+
+    if cache is None or cache.keys.shape[0] == 0:
+        return w_shard, acc_shard, cache
+    if cache_update == "stale":
+        _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit, g_u, world, lr, eps, fused)
+        return w_shard, acc_shard, cache
+    return w_shard, acc_shard, _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u,
+                                               lr, eps)
+
+
+def _scatter_rows(send_slot: torch.Tensor, values: torch.Tensor, n_slots: int,
+                  fill: float = 0.0) -> torch.Tensor:
+    """``[n_slots + 1, ...]`` buffer with ``values`` at ``send_slot``; the
+    last row is the drop slot every not-kept position writes to (the
+    reference's ``mode='drop'``), so callers slice it off."""
+    buf = torch.full((n_slots + 1,) + tuple(values.shape[1:]), fill, dtype=values.dtype,
+                     device=values.device)
+    buf[send_slot.long()] = values
+    return buf[:-1]
+
+
+def _apply_miss_grads(w_shard, acc_shard, ctx: LookupCtx, g_u, world: int, lr: float,
+                      eps: float, fused: Optional[bool] = None):
+    """Transposed Shuffle: route miss grads to owner rows and apply. Kept
+    positions have distinct slots; the rest all land in the drop slot."""
+    cap = ctx.recv_ids.shape[1]
+    send_g = _scatter_rows(ctx.routing.send_slot, g_u, world * cap)
+    recv_g = send_g  # the transposed all_to_all is the identity at world 1
+    return _dedup_apply(w_shard, acc_shard, ctx.recv_local.reshape(-1), recv_g,
+                        ctx.recv_valid.reshape(-1), lr, eps, fused)
+
+
+def _route_hit_grads(w_shard, acc_shard, ctx: LookupCtx, hit_mask, g_u, world: int,
+                     lr: float, eps: float, fused: Optional[bool] = None):
+    """'stale' mode: grads of tier-served ids ride a second small Shuffle to
+    their owner rows; the tier itself stays read-only between flushes."""
+    rps = w_shard.shape[0]
+    cap = ctx.recv_ids.shape[1]
+    r = partition(ctx.uniq, hit_mask, rps, world, cap)
+    send_ids = _scatter_rows(r.send_slot, ctx.uniq.to(torch.int32), world * cap, -1)
+    send_hg = _scatter_rows(r.send_slot, g_u, world * cap)
+    recv_ids, recv_hg = send_ids, send_hg  # identity all_to_all at world 1
+    base = 0  # this rank's first row
+    local = torch.clamp(recv_ids - base, 0, rps - 1)
+    return _dedup_apply(w_shard, acc_shard, local, recv_hg, recv_ids >= 0, lr, eps,
+                        fused)
+
+
+def _tier_adagrad(tier: "CacheState", g_hot: torch.Tensor, lr: float,
+                  eps: float) -> "CacheState":
+    """Row-wise adagrad on the tier from a per-slot gradient, in place; rows
+    without gradient stay bitwise unchanged."""
+    gsq = (g_hot * g_hot).mean(dim=-1, keepdim=True)
+    touched = (g_hot.abs().amax(dim=-1, keepdim=True) > 0).to(gsq.dtype)
+    acc_new = tier.acc + gsq * touched
+    upd = lr * g_hot / torch.sqrt(acc_new + eps)
+    tier.rows.sub_(upd.to(tier.rows.dtype))
+    tier.acc.copy_(acc_new)
+    return tier
+
+
+def _psum_into_tier(tier: "CacheState", hit_mask: torch.Tensor, slot: torch.Tensor,
+                    g_u: torch.Tensor, lr: float, eps: float) -> "CacheState":
+    """'psum' mode: sum the tier-hit grads per tier slot and adagrad the tier
+    in place (the psum over replicas is the identity at world 1).
+
+    Plain PyTorch on purpose, as in the reference: the dense ``[H, D]``
+    gradient buffer exists anyway, after which the row-wise adagrad is an
+    elementwise pass, and a per-row scatter kernel would only serialize it.
+    Non-hit positions add into a drop row past the tier. At world 1 the
+    hit positions are distinct unique ids, so their tier slots are distinct
+    and this ``index_add_`` is deterministic on the card too."""
+    h = tier.keys.shape[0]
+    dst = torch.where(hit_mask, slot.long(), torch.full_like(slot, h, dtype=torch.long))
+    g_hot = torch.zeros((h + 1, g_u.shape[1]), dtype=g_u.dtype, device=g_u.device)
+    g_hot.index_add_(0, dst, g_u)
+    return _tier_adagrad(tier, g_hot[:h], lr, eps)
 
 
 # ---------------------------------------------------------------------------

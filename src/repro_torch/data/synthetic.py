@@ -1,11 +1,11 @@
 """Synthetic skewed WDL batches (paper §II-B, Fig. 3), a numpy copy of
-``repro.data.synthetic.make_batch``/``zipf_ids``: the same seed gives the
-same batch on both sides. The batch stays a numpy dict until
+``repro.data.synthetic.make_batch``/``zipf_ids``/``batch_stream``: the same
+seed gives the same batch on both sides. The batch stays a numpy dict until
 ``core.features.pack_group`` moves it to the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -51,3 +51,16 @@ def make_batch(cfg: WDLConfig, batch: int, rng: Optional[np.random.Generator] = 
     if cfg.n_dense > 0:
         out["dense"] = rng.normal(size=(batch, cfg.n_dense)).astype(np.float32)
     return out
+
+
+def batch_stream(cfg: WDLConfig, batch: int, seed: int = 0, zipf_a: float = 1.2,
+                 learnable: bool = False, start: int = 0) -> Iterator[Dict]:
+    """Infinite batch stream, seekable in O(1): batch ``i`` is generated from
+    ``SeedSequence((seed, i))`` independent of every other batch, so a stream
+    opened at ``start=i`` yields exactly what the original stream yielded at
+    position ``i``."""
+    i = start
+    while True:
+        rng = np.random.default_rng(np.random.SeedSequence((seed, i)))
+        yield make_batch(cfg, batch, rng, zipf_a, learnable=learnable)
+        i += 1

@@ -1,18 +1,21 @@
 """EmbeddingEngine: the one owner of PICASSO's packed sparse path
-(``repro.engine.engine`` in torch, forward + L1 flush).
+(``repro.engine.engine`` in torch, with the L1 tier).
 
     EmbeddingEngine(plan, world=1, strategy=<name>)
         .forward(emb, packed)          -> (pooled, ctx)     # K-interleaved
+        .backward(emb, ctx, g_pooled)  -> (emb', metrics)   # transposed path
         .flush(emb)                    -> emb'              # HybridHash flush
         .lookup_rows(emb, gid, ids)    -> rows              # raw per-id rows
 
 ``forward`` runs the planner's K-Interleaving waves and pools each packed
 group into ``pooled[gid]: [B, n_bags, D]``. Strategy is a per-group
 property: the engine owns a ``Dict[gid, LookupStrategy]``. The HybridHash
-hot tier participates only where the strategy has ``uses_cache`` AND the
-plan budgets ``cache_rows`` for that gid (``make_plan(enable_cache=False)``
-budgets none), and ``flush`` skips every other group. The flush writes the
-tier back to the master first (the reference's ``'psum'`` mode).
+hot tier participates only where ``use_cache`` is on, the strategy has
+``uses_cache`` AND the plan budgets ``cache_rows`` for that gid
+(``make_plan(enable_cache=False)`` budgets none), and ``flush`` skips every
+other group. In ``'psum'`` mode the flush writes the tier back to the master
+first; in ``'stale'`` mode the master is already exact and is not
+overwritten. ``backward`` and ``flush`` update the state's tensors in place.
 """
 from __future__ import annotations
 
@@ -54,34 +57,52 @@ class EmbeddingEngine:
     """Owns the sparse path for one PicassoPlan on one rank.
 
     strategy: a registry name, broadcast to every group.
+    use_cache / use_interleave: the HybridHash tier and K-Interleaving
+        waves (False: no tier; one wave of every group).
+    lr_emb / eps: the row-wise Adagrad of the sparse update.
+    cache_update: ``'psum'`` (tier authoritative) or ``'stale'``.
     use_fused_kernels: ``'auto'`` (CUDA kernels for tensors on the card,
         plain versions on the CPU), ``'on'``/``True``, ``'off'``/``False``;
         resolved once here by ``kernels.ops.resolve_fused``.
     """
 
     def __init__(self, plan: PicassoPlan, world: int = 1, *, strategy: Any = "picasso",
+                 use_cache: bool = True, use_interleave: bool = True,
+                 lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
                  use_fused_kernels: Any = "auto"):
         if int(plan.world) != int(world):
             raise ValueError(
                 f"plan was compiled for world={plan.world} but the engine is "
                 f"built for world={world}")
         pe._require_single_rank(world)
+        if cache_update not in ("psum", "stale"):
+            raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
         self.plan = plan
         self.world = world
+        self.cache_update = cache_update
         self.use_fused = ops.resolve_fused(use_fused_kernels)
         self.assignment: Dict[int, str] = resolve_assignment(plan, strategy)
         names = sorted(set(self.assignment.values()))
         insts: Dict[str, LookupStrategy] = {
             name: get_strategy(name)(world=world, capacity=dict(plan.capacity),
+                                     lr=lr_emb, eps=eps, cache_update=cache_update,
                                      use_fused=self.use_fused)
             for name in names}
         self.strategies: Dict[int, LookupStrategy] = {
             gid: insts[name] for gid, name in self.assignment.items()}
         self.cache_on: Dict[int, bool] = {
-            g.gid: bool(self.strategies[g.gid].uses_cache
+            g.gid: bool(use_cache and self.strategies[g.gid].uses_cache
                         and plan.cache_rows.get(g.gid, 0) > 0)
             for g in plan.groups}
-        self.waves = plan.interleave
+        self.any_cache = any(self.cache_on.values())
+        self.waves = (plan.interleave if use_interleave
+                      else [[g.gid for g in plan.groups]])
+
+    @property
+    def metric_keys(self) -> Tuple[str, ...]:
+        """The metric keys ``backward`` emits. Assignments are broadcast
+        names, so there are no per-strategy-class breakdowns."""
+        return ("overflow", "cache_hits")
 
     # ------------------------------------------------------------- forward
     def _wave_lookups(self, emb: Dict[str, EmbeddingState],
@@ -124,17 +145,46 @@ class EmbeddingEngine:
             emb[str(gid)], gid, ids, cache_on=self.cache_on[gid])
         return rows_u[ctx.inv.long()]
 
+    # ------------------------------------------------------------ backward
+    def backward(self, emb: Dict[str, EmbeddingState], ctx: EngineContext,
+                 g_pooled: Dict[int, torch.Tensor]
+                 ) -> Tuple[Dict[str, EmbeddingState], Dict[str, torch.Tensor]]:
+        """Pooled grads -> sparse updates, in place. Returns (emb', metrics).
+
+        The SegmentReduction of ``forward`` is linear in the looked-up rows,
+        so its transpose is explicit: one ``ops.segment_grad`` pass gives the
+        ``[n_unique, D]`` row grads, which each group's strategy applies.
+        """
+        emb = dict(emb)
+        dev = next(iter(g_pooled.values())).device
+        ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        hits = torch.zeros((), dtype=torch.int32, device=dev)
+        for gid, g_p in g_pooled.items():
+            pb = ctx.packed[gid]
+            gctx = ctx.ctxs[gid]
+            g_flat = g_p.reshape(-1, g_p.shape[-1]).contiguous()
+            g_rows = ops.segment_grad(g_flat, pb.seg, pb.weights, gctx.inv,
+                                      pb.ids.shape[0], fused=self.use_fused)
+            st2, o, h = self.strategies[gid].apply_grads(
+                emb[str(gid)], gid, gctx, g_rows, cache_on=self.cache_on[gid])
+            emb[str(gid)] = st2
+            ovf = ovf + o
+            hits = hits + h
+        return emb, {"overflow": ovf, "cache_hits": hits}
+
     # --------------------------------------------------------------- flush
     def flush(self, emb: Dict[str, EmbeddingState]) -> Dict[str, EmbeddingState]:
         """HybridHash flush (Algorithm 1 L23-26) for every cached group. The
         master ``w``/``acc``/``counts`` are updated in place (see
-        ``pe.flush_cache``); the returned dict carries the new tiers."""
+        ``pe.flush_cache``); the returned dict carries the new tiers. The
+        tier is written back first only in ``'psum'`` mode."""
         out = dict(emb)
         for g in self.plan.groups:
             if not self.cache_on.get(g.gid, False):
                 continue
             st = out[str(g.gid)]
             w2, acc2, counts2, cache2 = pe.flush_cache(
-                st.w, st.acc, st.counts, st.cache, world=self.world)
+                st.w, st.acc, st.counts, st.cache, world=self.world,
+                write_back=self.cache_update == "psum")
             out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, st.l2)
         return out

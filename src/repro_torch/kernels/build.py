@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C entry point (``<name>_launch``) and is
 compiled for ``sm_90a`` into its own shared library, loaded with ``ctypes``:
 no PyTorch headers, so a build takes seconds. One ``nvcc`` runs per source,
-all started together. Libraries are named by a hash of their source and
-flags inside ``_build/`` (git-ignored), so a changed source is rebuilt and
-an unchanged one is reused within a checkout. A failed build raises; there
-is no fallback.
+all started together. Libraries are named by a hash of their source, the
+shared ``csrc/*.cuh`` headers and the flags inside ``_build/`` (git-ignored),
+so a changed source or header is rebuilt and an unchanged one is reused
+within a checkout. A failed build raises; there is no fallback.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-side build needs the CUDA toolkit.
@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # kernel name -> argtypes of its C entry point ``<name>_launch``
 SIGNATURES: Dict[str, List] = {
     # uniq, uvalid, keys, rows, hit, slot, rows_out, n, h, d, stream
@@ -36,6 +36,12 @@ SIGNATURES: Dict[str, List] = {
     "gather_pool": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     # x, out, b, f, d, stream
     "fm_interaction": [_P, _P, _I64, _I, _I, _P],
+    # g_bags, seg, w, order, sorted_inv, offsets (scratch), out, n, n_rows, d, stream
+    "segment_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # w, acc, sorted idx, order, g, m, rows, d, lr, eps, stream
+    "dedup_adagrad": [_P, _P, _P, _P, _P, _I64, _I64, _I, _F, _F, _P],
+    # x, g, out, b, f, d, stream
+    "fm_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
 }
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}
@@ -60,6 +66,8 @@ def nvcc() -> str:
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

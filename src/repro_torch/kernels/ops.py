@@ -13,9 +13,12 @@ Each wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
 kernels (``reset_launches`` before, read after).
 
-``gather_pool`` is a ``torch.autograd.Function`` like the reference's
-``jax.custom_vjp``; its backward (the ``segment_grad`` transpose) belongs to
-the training slice and raises until then. Serving needs no gradient.
+``gather_pool`` and ``fm_interaction`` are ``torch.autograd.Function``s like
+the reference's ``jax.custom_vjp``s: their backwards are the
+``segment_grad`` and ``fm_interaction_bwd`` kernels for CUDA tensors and the
+plain versions for CPU tensors. ``segment_grad`` and ``dedup_adagrad`` are
+also standalone ops for the engine's explicit backward; ``dedup_adagrad``
+updates the table and accumulator it is given in place.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0}
+launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
+                            "segment_grad": 0, "dedup_adagrad": 0,
+                            "fm_interaction_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -134,13 +139,22 @@ def _gather_pool_cuda(rows_u, inv, weights, seg, n_bags: int):
 class _GatherPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows_u, inv, weights, seg, n_bags: int, use_kernel: bool):
+        ctx.save_for_backward(inv, weights, seg)
+        ctx.n_rows, ctx.use_kernel = rows_u.shape[0], use_kernel
         if use_kernel:
             return _gather_pool_cuda(rows_u, inv, weights, seg, n_bags)
         return ref.gather_pool_ref(rows_u, inv, weights, seg, n_bags)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError("segment_grad: next slice")
+        inv, weights, seg = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.use_kernel:
+            g_rows = _segment_grad_cuda(g, seg, weights, inv, ctx.n_rows)
+        else:
+            g_rows = ref.segment_grad_ref(g, seg, weights, inv, ctx.n_rows)
+        # the weights are pooling constants (the reference's zero cotangent)
+        return g_rows, None, None, None, None, None
 
 
 def gather_pool(rows_u, inv, weights, seg, n_bags: int,
@@ -149,6 +163,85 @@ def gather_pool(rows_u, inv, weights, seg, n_bags: int,
     Requires ``seg`` sorted ascending; a bag no position maps to is 0."""
     return _GatherPool.apply(rows_u, inv, weights, seg, int(n_bags),
                              _use_kernel(fused, rows_u, "gather_pool"))
+
+
+# -------------------------------------------------------------- segment grad
+
+
+def _segment_grad_cuda(g_bags, seg, weights, inv, n_rows: int):
+    dev = g_bags.device
+    _expect(g_bags, "segment_grad g_bags", torch.float32, 2, dev)
+    _expect(seg, "segment_grad seg", torch.int32, 1, dev)
+    _expect(weights, "segment_grad weights", torch.float32, 1, dev)
+    _expect(inv, "segment_grad inv", torch.int32, 1, dev)
+    n = inv.shape[0]
+    if weights.shape[0] != n or seg.shape[0] != n:
+        raise ValueError(f"segment_grad: inv {n}, weights {weights.shape[0]}, "
+                         f"seg {seg.shape[0]} must match")
+    d = g_bags.shape[1]
+    if max(n, n_rows, g_bags.shape[0]) >= 2**31 - 1 or d > 1024:
+        raise ValueError(f"segment_grad: n={n}, n_rows={n_rows}, D={d} exceed the "
+                         "kernel's int32 offsets or its 1024-thread block")
+    out = torch.empty((n_rows, d), dtype=g_bags.dtype, device=dev)
+    if n_rows and d:
+        # stable: a slot's positions keep their original (segment_sum) order
+        sorted_inv, order = torch.sort(inv, stable=True)
+        offsets = torch.empty((n_rows + 1,), dtype=torch.int32, device=dev)
+        _launch("segment_grad", g_bags.data_ptr(), seg.data_ptr(), weights.data_ptr(),
+                order.data_ptr(), sorted_inv.data_ptr(), offsets.data_ptr(),
+                out.data_ptr(), n, n_rows, d)
+    return out
+
+
+def segment_grad(g_bags, seg, weights, inv, n_rows: int,
+                 fused: Optional[bool] = None):
+    """Transpose of ``gather_pool`` as a standalone op (the engine's explicit
+    backward): ``g_rows[u] = sum_{inv[i]=u} w[i] * g_bags[seg[i]]`` for
+    ``u < n_rows``; slots no position maps to are exactly 0."""
+    if _use_kernel(fused, g_bags, "segment_grad"):
+        return _segment_grad_cuda(g_bags, seg, weights, inv, int(n_rows))
+    return ref.segment_grad_ref(g_bags, seg, weights, inv, int(n_rows))
+
+
+# ------------------------------------------------------------- dedup adagrad
+
+
+def _dedup_adagrad_cuda(w, acc, idx, g, valid, lr: float, eps: float):
+    dev = w.device
+    _expect(w, "dedup_adagrad w", torch.float32, 2, dev)
+    _expect(acc, "dedup_adagrad acc", torch.float32, 2, dev)
+    _expect(idx, "dedup_adagrad idx", torch.int32, 1, dev)
+    _expect(g, "dedup_adagrad g", torch.float32, 2, dev)
+    _expect(valid, "dedup_adagrad valid", torch.bool, 1, dev)
+    rows, d = w.shape
+    m = idx.shape[0]
+    if tuple(acc.shape) != (rows, 1) or tuple(g.shape) != (m, d) or valid.shape[0] != m:
+        raise ValueError(f"dedup_adagrad: w {tuple(w.shape)}, acc {tuple(acc.shape)}, "
+                         f"idx {m}, g {tuple(g.shape)}, valid {valid.shape[0]}")
+    if rows >= 2**31 - 1 or not 0 < d <= 128:
+        raise ValueError(f"dedup_adagrad: rows={rows}, D={d}: the sentinel index "
+                         "`rows` must fit int32 and the warp covers D <= 128")
+    if m:
+        # invalid entries (and any index outside the table) take the sentinel
+        # `rows`, so they sort last and the kernel drops their run
+        keep = valid & (idx >= 0) & (idx < rows)
+        sidx = torch.where(keep, idx, torch.full_like(idx, rows))
+        si, order = torch.sort(sidx, stable=True)
+        _launch("dedup_adagrad", w.data_ptr(), acc.data_ptr(), si.data_ptr(),
+                order.data_ptr(), g.data_ptr(), m, rows, d, float(lr), float(eps))
+    return w, acc
+
+
+def dedup_adagrad(w, acc, idx, g, valid, lr: float, eps: float,
+                  fused: Optional[bool] = None):
+    """Sum duplicate row grads and apply row-wise adagrad to the touched rows
+    of ``(w, acc)``, in place on the tensors given; returns them. Duplicates
+    are summed in stable-sorted position order (the reference's order):
+    untouched rows stay bitwise unchanged, touched rows match the plain
+    version to about 1 ULP of the adagrad arithmetic."""
+    if _use_kernel(fused, w, "dedup_adagrad"):
+        return _dedup_adagrad_cuda(w, acc, idx, g, valid, lr, eps)
+    return ref.dedup_adagrad_ref(w, acc, idx, g, valid, lr, eps)
 
 
 # ------------------------------------------------------------ fm interaction
@@ -163,8 +256,46 @@ def _fm_interaction_cuda(fields):
     return out
 
 
+def _fm_interaction_bwd_cuda(fields, g):
+    dev = fields.device
+    _expect(fields, "fm_interaction_bwd fields", torch.float32, 3, dev)
+    _expect(g, "fm_interaction_bwd g", torch.float32, 2, dev)
+    b, f, d = fields.shape
+    if tuple(g.shape) != (b, 1):
+        raise ValueError(f"fm_interaction_bwd: g {tuple(g.shape)}, want {(b, 1)}")
+    out = torch.empty_like(fields)
+    if b:
+        _launch("fm_interaction_bwd", fields.data_ptr(), g.data_ptr(), out.data_ptr(),
+                b, f, d)
+    return out
+
+
+def fm_interaction_bwd(fields, g, fused: Optional[bool] = None):
+    """d/dfields of ``fm_interaction``: ``g[b] * (sum_f v - v)``."""
+    if _use_kernel(fused, fields, "fm_interaction_bwd"):
+        return _fm_interaction_bwd_cuda(fields, g)
+    return ref.fm_interaction_bwd_ref(fields, g)
+
+
+class _FMInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fields, use_kernel: bool):
+        ctx.save_for_backward(fields)
+        ctx.use_kernel = use_kernel
+        if use_kernel:
+            return _fm_interaction_cuda(fields)
+        return ref.fm_interaction_ref(fields)
+
+    @staticmethod
+    def backward(ctx, g):
+        (fields,) = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.use_kernel:
+            return _fm_interaction_bwd_cuda(fields, g), None
+        return ref.fm_interaction_bwd_ref(fields, g), None
+
+
 def fm_interaction(fields, fused: Optional[bool] = None):
-    """FM second order over field embeddings ``[B, F, D] -> [B, 1]``."""
-    if _use_kernel(fused, fields, "fm_interaction"):
-        return _fm_interaction_cuda(fields)
-    return ref.fm_interaction_ref(fields)
+    """FM second order over field embeddings ``[B, F, D] -> [B, 1]``,
+    differentiable through ``fm_interaction_bwd``."""
+    return _FMInteraction.apply(fields, _use_kernel(fused, fields, "fm_interaction"))

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serve-path kernels (``repro.kernels.ref`` in
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref`` in
 torch). The CPU runs these; ``chip_smoke.py`` holds each CUDA kernel against
 them on the card. They repeat the kernels' arithmetic and are no yardstick
 of speed."""
@@ -27,6 +27,44 @@ def gather_pool_ref(rows_u: torch.Tensor, inv: torch.Tensor, weights: torch.Tens
     return out.index_add_(0, seg.long(), per_id)
 
 
+def segment_grad_ref(g_bags: torch.Tensor, seg: torch.Tensor, weights: torch.Tensor,
+                     inv: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Transpose of ``gather_pool_ref``: per-position bag-grad gather scaled
+    by the pooling weight, scattered back onto the unique-row slots."""
+    per_id = g_bags[seg.long()] * weights[:, None].to(g_bags.dtype)
+    out = torch.zeros((n_rows, g_bags.shape[1]), dtype=g_bags.dtype,
+                      device=g_bags.device)
+    return out.index_add_(0, inv.long(), per_id)
+
+
+def dedup_adagrad_ref(w: torch.Tensor, acc: torch.Tensor, idx: torch.Tensor,
+                      g: torch.Tensor, valid: torch.Tensor, lr: float, eps: float):
+    """Sum duplicate row grads, then row-wise adagrad on touched rows only
+    (the reference's argsort/segment_sum/scatter chain). Updates ``w`` and
+    ``acc`` in place, as the kernel does, and returns them. Invalid entries
+    and indices outside ``[0, rows)`` are dropped."""
+    rows = w.shape[0]
+    m = idx.shape[0]
+    keep = valid & (idx >= 0) & (idx < rows)
+    sidx = torch.where(keep, idx, torch.full_like(idx, rows)).to(torch.int32)
+    si, order = torch.sort(sidx, stable=True)
+    sg = g[order]
+    first = torch.ones((m,), dtype=torch.bool, device=idx.device)
+    first[1:] = si[1:] != si[:-1]
+    slot = torch.cumsum(first, 0) - 1
+    uidx = torch.full((m,), rows, dtype=torch.int64, device=idx.device)
+    uidx[slot] = si.long()
+    gsum = torch.zeros_like(sg).index_add_(0, slot, sg)
+    gsq = (gsum * gsum).mean(dim=-1, keepdim=True)
+    live = uidx < rows
+    urow = uidx[live]
+    acc_new = acc[urow] + gsq[live]
+    upd = lr * gsum[live] / torch.sqrt(acc_new + eps)
+    w.index_add_(0, urow, -upd.to(w.dtype))
+    acc[urow] = acc_new.to(acc.dtype)
+    return w, acc
+
+
 def tier_probe_ref(uniq: torch.Tensor, uvalid: torch.Tensor, keys: torch.Tensor,
                    rows: torch.Tensor):
     """searchsorted + take + where chain of ``cache_probe`` plus the hit-row
@@ -44,3 +82,9 @@ def fm_interaction_ref(fields: torch.Tensor) -> torch.Tensor:
     s = fields.sum(dim=1)
     ss = (fields * fields).sum(dim=1)
     return 0.5 * (s * s - ss).sum(dim=-1, keepdim=True)
+
+
+def fm_interaction_bwd_ref(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d/dfields of ``fm_interaction_ref``: ``g[b] * (sum_f v - v)``."""
+    s = fields.sum(dim=1, keepdim=True)              # [B, 1, D]
+    return g[:, :, None] * (s - fields)              # g: [B, 1]

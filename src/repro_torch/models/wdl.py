@@ -1,7 +1,8 @@
 """Wide-and-Deep-Learning model (``repro.models.wdl`` in torch), for the
 ``linear`` + ``fm`` + MLP wiring deepfm uses.
 
-embedding layer (packed) -> feature-interaction modules -> MLP -> logits.
+embedding layer (packed) -> feature-interaction modules -> MLP -> logits
+(-> the BCE loss for training).
 The model consumes the engine's packed group outputs
 ``pooled[gid]: [B, n_bags_g, D_g]`` and produces ``logits [B, n_tasks]``.
 Dense parameters are a plain dict with the reference's layout, so
@@ -10,7 +11,7 @@ Any other interaction kind raises until its slice is ported.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,3 +78,16 @@ class WDLModel:
                         wide_logit = wide_logit + I.fm_interaction(torch.stack(es, dim=1),
                                                                    fused=fused)
         return mlp(params["top"], base, final_act=False) + wide_logit
+
+    def loss(self, params: Dict, pooled: Dict[int, torch.Tensor], batch: Dict,
+             fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Summed binary cross-entropy with logits, and the logits. ``batch``
+        carries ``labels`` as a tensor on the logits' device."""
+        logits = self.apply(params, pooled, fused=fused)
+        labels = batch["labels"]
+        if labels.dim() == 1:
+            labels = labels[:, None]
+        labels = labels.expand(logits.shape).to(logits.dtype)
+        ls = (torch.clamp(logits, min=0) - logits * labels
+              + torch.log1p(torch.exp(-logits.abs())))
+        return ls.sum(), logits

@@ -1,0 +1,106 @@
+"""Dense-parameter optimizers (``repro.optim.optimizers`` in torch): SGD,
+Adam and LAMB over the plain nested parameter dicts of ``WDLModel``.
+
+Sparse embedding rows use the row-wise Adagrad of the engine
+(``kernels.ops.dedup_adagrad``). The arithmetic is the reference's, term by
+term and in its order (``lr * (m / c1) / (sqrt(v / c2) + eps)`` with the
+step ``t`` an int32 and the bias corrections in float32), so a run matches
+the reference step for step; ``torch.optim.Adam`` orders it differently.
+The updates are functional: they return new tensors.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``jax.tree.map`` over nested dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
+    """Inverse of ``tree_leaves`` for a tree shaped like ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
+
+
+def adam_init(params: Any) -> Dict:
+    device = tree_leaves(params)[0].device
+    return {"m": tree_map(torch.zeros_like, params),
+            "v": tree_map(torch.zeros_like, params),
+            "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _adam_moments(opt, grads, b1, b2):
+    m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, opt["m"], grads)
+    v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, opt["v"], grads)
+    return m, v
+
+
+def _bias_corrections(t: torch.Tensor, b1: float, b2: float):
+    tf = t.to(torch.float32)
+    return 1 - b1 ** tf, 1 - b2 ** tf
+
+
+def adam_update(params: Any, grads: Any, opt: Dict, lr: float, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8, wd: float = 0.0
+                ) -> Tuple[Any, Dict]:
+    t = opt["t"] + 1
+    m, v = _adam_moments(opt, grads, b1, b2)
+    c1, c2 = _bias_corrections(t, b1, b2)
+
+    def upd(p, m, v):
+        if p.dtype not in _FLOAT:
+            return p
+        step = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+        if wd:
+            step = step + lr * wd * p
+        return (p - step).to(p.dtype)
+
+    return tree_map(upd, params, m, v), {"m": m, "v": v, "t": t}
+
+
+def lamb_update(params: Any, grads: Any, opt: Dict, lr: float, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-6, wd: float = 0.01
+                ) -> Tuple[Any, Dict]:
+    t = opt["t"] + 1
+    m, v = _adam_moments(opt, grads, b1, b2)
+    c1, c2 = _bias_corrections(t, b1, b2)
+
+    def upd(p, m, v):
+        if p.dtype not in _FLOAT:
+            return p
+        r = (m / c1) / (torch.sqrt(v / c2) + eps) + wd * p
+        pn = torch.linalg.norm(p.to(torch.float32))
+        rn = torch.linalg.norm(r.to(torch.float32))
+        trust = torch.where((pn > 0) & (rn > 0), pn / rn, torch.ones_like(pn))
+        return (p - lr * trust * r).to(p.dtype)
+
+    return tree_map(upd, params, m, v), {"m": m, "v": v, "t": t}
+
+
+def sgd_update(params: Any, grads: Any, opt: Dict, lr: float) -> Tuple[Any, Dict]:
+    return tree_map(lambda p, g: (p - lr * g).to(p.dtype), params, grads), opt
+
+
+OPTIMIZERS: Dict[str, Callable] = {"adam": adam_update, "lamb": lamb_update,
+                                   "sgd": sgd_update}

@@ -1,0 +1,262 @@
+"""Hybrid MP/DP train step for WDL models (``repro.train.train_step`` in
+torch), at world 1.
+
+  pack (D-Packing) -> EmbeddingEngine.forward (K-Packing + K-Interleaving)
+  -> micro-batch pipeline (D-Interleaving): chunk i+1's forward is issued
+     before chunk i's backward, so it reads the table before chunk i's
+     update, as in the reference
+  -> loss and gradients (dense parameters + pooled embeddings) -> Adam ;
+     EmbeddingEngine.backward (segment-grad transpose, dedup + row-wise
+     Adagrad, HybridHash hit grads into the hot tier) ; FCounter update
+  -> periodic HybridHash flush.
+
+The reference runs this under ``shard_map``; here the collectives are
+identities at world 1 and ``world > 1`` raises. The pooled embeddings enter
+the loss as detached leaves and ``torch.autograd.grad`` returns their
+gradients beside the dense ones (the reference's ``value_and_grad(...,
+argnums=(0, 1))``); the engine's explicit ``segment_grad`` backward does the
+rest. The embedding state is updated in place (the full-width table is
+7.5 GB), the dense parameters and Adam state functionally. The step counter
+is a host int, so the flush decision costs no device sync.
+
+A step runs named stages, ``pack`` -> ``sparse`` -> ``dense`` (loss and
+gradients) -> ``sparse_backward`` -> ``dense_update`` -> ``flush``; a
+per-layer timing sets ``on_stage`` to read the clock after each one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.features import PackedBatch, pack_group
+from repro_torch.core.interleaving import pipeline_handoff, resolve_overlap
+from repro_torch.core.packing import PicassoPlan
+from repro_torch.embedding.state import init_embedding_state
+from repro_torch.engine import EmbeddingEngine, EngineContext
+from repro_torch.models.wdl import WDLModel
+from repro_torch.optim.optimizers import (OPTIMIZERS, adam_init, tree_leaves, tree_map,
+                                          tree_unflatten)
+
+# fields of the reference's TrainConfig whose features come with later slices
+_UNPORTED = {"use_l2": True, "grad_compression": "none", "grad_compress": "none",
+             "pin_l2": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's ``TrainConfig``, field for field. ``use_l2``,
+    ``grad_compression``, ``grad_compress`` and ``pin_l2`` belong to later
+    slices and raise on any value but their default."""
+
+    lr_emb: float = 0.05
+    lr_dense: float = 1e-3
+    optimizer: str = "adam"        # 'adam' | 'lamb' | 'sgd'
+    strategy: Any = "picasso"      # a broadcast registry name
+    pipeline_micro: bool = True    # D-Interleaving pipeline order
+    overlap: Any = "auto"          # 'off' | 'on' | 'auto' (on when n_micro > 1)
+    use_cache: bool = True
+    use_l2: bool = True
+    use_interleave: bool = True    # K-Interleaving waves (False: one wave)
+    use_fused_kernels: Any = "auto"
+    cache_update: str = "psum"     # 'psum' (exact) | 'stale' (Algorithm 1)
+    flush_in_step: bool = True     # False: the caller runs make_flush_fn
+    grad_compression: str = "none"
+    grad_compress: str = "none"
+    pin_l2: bool = False
+    eps: float = 1e-8
+
+    def __post_init__(self):
+        for name, default in _UNPORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(self, name)!r}: only the default "
+                    f"{default!r} is ported; the feature comes with a later slice")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer must be one of {sorted(OPTIMIZERS)}, "
+                             f"got {self.optimizer!r}")
+
+
+class TrainStep:
+    """``step(state, batch) -> (state, metrics)``; the state is updated in
+    place and returned. Metrics are device tensors (``loss``, ``grad_norm``,
+    ``overflow``, ``cache_hits``) plus the host int ``step``."""
+
+    def __init__(self, model: WDLModel, plan: PicassoPlan, global_batch: int,
+                 tcfg: TrainConfig, device: torch.device):
+        world = int(plan.world)
+        if global_batch % world:
+            raise ValueError(f"global batch {global_batch} not divisible by world {world}")
+        self.model, self.plan, self.tcfg, self.device = model, plan, tcfg, device
+        self.global_batch = int(global_batch)
+        b_local = self.global_batch // world
+        self.micro = plan.microbatch if plan.microbatch <= b_local else b_local
+        self.n_micro = max(1, b_local // self.micro)
+        self.engine = EmbeddingEngine(
+            plan, world, strategy=tcfg.strategy, use_cache=tcfg.use_cache,
+            use_interleave=tcfg.use_interleave, lr_emb=tcfg.lr_emb, eps=tcfg.eps,
+            cache_update=tcfg.cache_update, use_fused_kernels=tcfg.use_fused_kernels)
+        self.use_overlap = resolve_overlap(tcfg.overlap, self.n_micro)
+        # with the software pipeline or the D-Interleaving order, chunk i+1's
+        # forward is issued before chunk i's backward
+        self.prefetch_early = self.use_overlap or tcfg.pipeline_micro
+        self.update = OPTIMIZERS[tcfg.optimizer]
+        self.on_stage: Optional[Callable[[str], None]] = None
+
+    def _mark(self, stage: str) -> None:
+        if self.on_stage is not None:
+            self.on_stage(stage)
+
+    # -------------------------------------------------------------- stages
+    def pack(self, batch: Dict) -> Tuple[Dict[int, PackedBatch], torch.Tensor]:
+        """Host batch -> one ``PackedBatch`` per group and the labels, on the
+        device."""
+        b = next(iter(batch["fields"].values()))["ids"].shape[0]
+        if b != self.global_batch:
+            raise ValueError(f"batch of {b} samples; this step trains on {self.global_batch}")
+        packed = {g.gid: pack_group(g, batch["fields"], self.device)
+                  for g in self.plan.groups}
+        labels = torch.as_tensor(np.asarray(batch["labels"], np.float32)).to(self.device)
+        return packed, labels
+
+    def micro_batch(self, packed: Dict[int, PackedBatch], labels: torch.Tensor,
+                    i: int) -> Tuple[Dict[int, PackedBatch], torch.Tensor]:
+        """Chunk ``i`` of the packed batch and of the labels."""
+        lo, hi = i * self.micro, (i + 1) * self.micro
+        out = {}
+        for gid, pb in packed.items():
+            ips = self.plan.group(gid).ids_per_sample
+            out[gid] = PackedBatch(
+                ids=pb.ids.reshape(-1, ips)[lo:hi].reshape(-1),
+                weights=pb.weights.reshape(-1, ips)[lo:hi].reshape(-1),
+                seg=pb.seg[: self.micro * ips],  # the per-sample pattern repeats
+                n_bags=pb.n_bags)
+        return out, labels[lo:hi]
+
+    @torch.no_grad()
+    def sparse(self, state: Dict[str, Any], packed: Dict[int, PackedBatch]
+               ) -> Tuple[Dict[int, torch.Tensor], EngineContext]:
+        """Packed lookups + pooling -> (pooled field vectors, engine context)."""
+        return self.engine.forward(state["emb"], packed)
+
+    def dense(self, state: Dict[str, Any], pooled: Dict[int, torch.Tensor],
+              labels: torch.Tensor) -> Tuple[torch.Tensor, Any, Dict[int, torch.Tensor]]:
+        """Loss of one chunk (summed BCE over the global batch) and its
+        gradients with respect to the dense parameters and the pooled
+        embeddings."""
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state["dense"])]
+        params = tree_unflatten(state["dense"], leaves)
+        gids = sorted(pooled)
+        pooled_in = {gid: pooled[gid].detach().requires_grad_(True) for gid in gids}
+        with torch.enable_grad():
+            loss_sum, _ = self.model.loss(params, pooled_in, {"labels": labels},
+                                          fused=self.engine.use_fused)
+            loss = loss_sum / self.global_batch
+            grads = torch.autograd.grad(loss, leaves + [pooled_in[g] for g in gids])
+        g_dense = tree_unflatten(state["dense"], list(grads[: len(leaves)]))
+        g_pooled = {gid: grads[len(leaves) + k] for k, gid in enumerate(gids)}
+        return loss.detach(), g_dense, g_pooled
+
+    @torch.no_grad()
+    def sparse_backward(self, state: Dict[str, Any], ectx: EngineContext,
+                        g_pooled: Dict[int, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Segment-grad transpose + sparse updates, in place on the state."""
+        state["emb"], metrics = self.engine.backward(state["emb"], ectx, g_pooled)
+        return metrics
+
+    @torch.no_grad()
+    def dense_update(self, state: Dict[str, Any], g_dense: Any) -> torch.Tensor:
+        """Optimizer step on the dense parameters; returns the gradient norm."""
+        state["dense"], state["opt"] = self.update(state["dense"], g_dense, state["opt"],
+                                                   self.tcfg.lr_dense)
+        return torch.sqrt(sum(torch.vdot(g.reshape(-1), g.reshape(-1))
+                              for g in tree_leaves(g_dense)))
+
+    @torch.no_grad()
+    def flush(self, state: Dict[str, Any]) -> None:
+        """HybridHash flush (Algorithm 1 L23-26) when the step counter says so."""
+        step, plan = state["step"], self.plan
+        if (self.engine.any_cache and self.tcfg.flush_in_step
+                and step >= plan.warmup_iters and step % plan.flush_iters == 0):
+            state["emb"] = self.engine.flush(state["emb"])
+
+    # ---------------------------------------------------------------- step
+    def __call__(self, state: Dict[str, Any], batch: Dict
+                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        packed_full, labels = self.pack(batch)
+        self._mark("pack")
+        loss_acc = torch.zeros((), device=self.device)
+        g_dense_acc = None
+        em_acc = {k: torch.zeros((), dtype=torch.int32, device=self.device)
+                  for k in self.engine.metric_keys}
+        pending = (self.sparse(state, self.micro_batch(packed_full, labels, 0)[0]), 0)
+        self._mark("sparse")
+        for i in range(self.n_micro):
+            (pooled, ectx), mi = pending
+            if self.prefetch_early and i + 1 < self.n_micro:
+                nxt = (self.sparse(state, self.micro_batch(packed_full, labels, i + 1)[0]),
+                       i + 1)
+                if self.use_overlap:
+                    (pooled, ectx), nxt = pipeline_handoff((pooled, ectx), nxt)
+                pending = nxt
+                self._mark("sparse")
+            loss, g_dense, g_pooled = self.dense(
+                state, pooled, self.micro_batch(packed_full, labels, mi)[1])
+            self._mark("dense")
+            loss_acc = loss_acc + loss
+            g_dense_acc = (g_dense if g_dense_acc is None
+                           else tree_map(torch.add, g_dense_acc, g_dense))
+            em = self.sparse_backward(state, ectx, g_pooled)
+            self._mark("sparse_backward")
+            em_acc = {k: em_acc[k] + em[k] for k in em_acc}
+            if not self.prefetch_early and i + 1 < self.n_micro:
+                pending = (self.sparse(state, self.micro_batch(packed_full, labels,
+                                                               i + 1)[0]), i + 1)
+                self._mark("sparse")
+        grad_norm = self.dense_update(state, g_dense_acc)
+        self._mark("dense_update")
+        state["step"] = int(state["step"]) + 1
+        self.flush(state)
+        self._mark("flush")
+        metrics = {"loss": loss_acc, "step": state["step"], "grad_norm": grad_norm,
+                   **em_acc}
+        return state, metrics
+
+
+def make_train_step(model: WDLModel, plan: PicassoPlan, global_batch: int,
+                    tcfg: TrainConfig = TrainConfig(),
+                    device: Union[str, torch.device] = "cuda") -> TrainStep:
+    """The train step on ``device`` (``cuda`` unless the caller asks for the
+    CPU): ``step(state, batch) -> (state, metrics)``."""
+    return TrainStep(model, plan, global_batch, tcfg, resolve_device(device))
+
+
+def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any = "picasso",
+                  use_cache: bool = True) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    """Host-scheduled HybridHash flush, ``state -> state`` (for
+    ``flush_in_step=False``). ``cache_update``, ``strategy`` and
+    ``use_cache`` must mirror the training engine's, or the flush would
+    write a tier training never updated back over the master."""
+    engine = EmbeddingEngine(plan, plan.world, strategy=strategy, use_cache=use_cache,
+                             cache_update=cache_update)
+
+    @torch.no_grad()
+    def flush(state: Dict[str, Any]) -> Dict[str, Any]:
+        return {**state, "emb": engine.flush(state["emb"])}
+
+    return flush
+
+
+def init_state(model: WDLModel, plan: PicassoPlan, generator: torch.Generator,
+               device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """Train state ``{"emb", "dense", "opt", "step"}`` made on ``device``
+    from ``generator`` (which must live on that device). ``step`` is a host
+    int."""
+    device = resolve_device(device)
+    emb = init_embedding_state(generator, plan, device)
+    dense = model.init_dense(generator, device)
+    return {"emb": {str(g): s for g, s in emb.items()}, "dense": dense,
+            "opt": adam_init(dense), "step": 0}

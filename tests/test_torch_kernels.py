@@ -5,19 +5,25 @@ Each plain PyTorch version in ``repro_torch.kernels.ref`` is held against
 the same numpy inputs. Integer outputs must match bitwise, copied rows
 exactly, and summed floats to 1e-5 (float32, different summation order).
 The CUDA kernels themselves run only on the card (``chip_smoke.py``); here
-the dispatch rules around them are pinned.
+the dispatch rules around them are pinned, and the autograd wiring of the
+kernel path is checked with each CUDA wrapper stood in for by its plain
+version.
 """
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag_pallas
 from repro.kernels.fm_interaction import fm_interaction_pallas
-from repro.kernels.fused_embedding import gather_pool_pallas, tier_probe_pallas
+from repro.kernels.fused_embedding import (dedup_adagrad_pallas, gather_pool_pallas,
+                                           segment_grad_pallas, tier_probe_pallas)
+from repro.kernels.interaction_bwd import fm_interaction_bwd_pallas
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
 
@@ -147,18 +153,187 @@ def test_kernels_forced_on_cpu_tensors_raise():
 def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
     ops.reset_launches()
     rows_u, inv, w, seg = _pool_args(np.random.default_rng(1), 12, 4, 3, 6)
-    ops.gather_pool(_t(rows_u), _t(inv), _t(w), _t(seg), 3)
-    ops.fm_interaction(torch.ones((2, 3, 4)))
-    assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0}
+    r = _t(rows_u).requires_grad_(True)
+    ops.gather_pool(r, _t(inv), _t(w), _t(seg), 3).sum().backward()
+    x = torch.ones((2, 3, 4), requires_grad=True)
+    ops.fm_interaction(x).sum().backward()
+    ops.segment_grad(torch.ones((3, 4)), _t(seg), _t(w), _t(inv), 12)
+    ops.dedup_adagrad(torch.zeros((5, 4)), torch.zeros((5, 1)),
+                      torch.tensor([1, 1, 3], dtype=torch.int32), torch.ones((3, 4)),
+                      torch.ones(3, dtype=torch.bool), 0.05, 1e-8)
+    ops.fm_interaction_bwd(torch.ones((2, 3, 4)), torch.ones((2, 1)))
+    assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
+                            "segment_grad": 0, "dedup_adagrad": 0,
+                            "fm_interaction_bwd": 0}
     assert not build._LAUNCHERS
 
 
 def test_gather_pool_backward_is_next_slice():
+    """The backward that the serving slice left raising is the segment-grad
+    transpose now: the gradient onto ``rows_u`` is ``segment_grad`` of the
+    output's cotangent, and the pooling weights get none."""
     rows_u = torch.ones((3, 2), requires_grad=True)
-    out = ops.gather_pool(rows_u, torch.tensor([0, 1, 2], dtype=torch.int32),
-                          torch.ones(3), torch.tensor([0, 0, 1], dtype=torch.int32), 2)
-    with pytest.raises(NotImplementedError, match="segment_grad: next slice"):
-        out.sum().backward()
+    w = torch.tensor([1.0, 2.0, 3.0], requires_grad=True)
+    out = ops.gather_pool(rows_u, torch.tensor([0, 1, 2], dtype=torch.int32), w,
+                          torch.tensor([0, 0, 1], dtype=torch.int32), 2)
+    out.sum().backward()
+    np.testing.assert_array_equal(rows_u.grad.numpy(), [[1, 1], [2, 2], [3, 3]])
+    assert w.grad is None
+
+
+# ------------------------------------------------------- training kernels
+
+
+@pytest.mark.parametrize("n,d,n_bags,n_uniq", [(48, 8, 12, 19), (24, 8, 6, 24),
+                                               (64, 10, 64, 30), (39, 16, 13, 5)])
+def test_segment_grad_plain_matches_reference_and_pallas(n, d, n_bags, n_uniq):
+    rng = np.random.default_rng(n * d)
+    _, inv, w, seg = _pool_args(rng, n, d, n_bags, n_uniq)
+    g_bags = rng.normal(size=(n_bags, d)).astype(np.float32)
+    got = ops.segment_grad(_t(g_bags), _t(seg), _t(w), _t(inv), n).numpy()
+    jargs = (jnp.asarray(g_bags), jnp.asarray(seg), jnp.asarray(w), jnp.asarray(inv))
+    exp = np.asarray(jref.segment_grad_ref(*jargs, n))
+    pal = np.asarray(segment_grad_pallas(*jargs, n, interpret=True))
+    assert got.shape == (n, d)
+    np.testing.assert_allclose(got, exp, **TOL)
+    np.testing.assert_allclose(got, pal, **TOL)
+    # slots no position maps to are exactly zero
+    assert (got[n_uniq:] == 0.0).all() and (pal[n_uniq:] == 0.0).all()
+
+
+def _dedup_case(rows, d, m, hot, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(rows, d)).astype(np.float32)
+    acc = np.abs(rng.normal(size=(rows, 1))).astype(np.float32)
+    idx = rng.integers(0, hot, m).astype(np.int32)
+    g = rng.normal(size=(m, d)).astype(np.float32)
+    valid = rng.random(m) < 0.8
+    idx[-3:] = rows  # a sentinel run, valid or not, is dropped
+    return w, acc, idx, g, valid
+
+
+@pytest.mark.parametrize("rows,d,m,hot", [(37, 8, 50, 37), (64, 16, 96, 5),
+                                          (16, 4, 64, 2), (40, 10, 30, 40)])
+def test_dedup_adagrad_plain_matches_reference_and_pallas(rows, d, m, hot):
+    """Duplicates, invalid entries and a sentinel run: untouched rows stay
+    bitwise, touched rows agree to 1e-6 (the adagrad arithmetic is fused
+    differently by XLA; duplicate sums are in the same order)."""
+    w, acc, idx, g, valid = _dedup_case(rows, d, m, hot, rows * m)
+    tw, tacc = torch.tensor(w), torch.tensor(acc)
+    w2, acc2 = ops.dedup_adagrad(tw, tacc, _t(idx), _t(g), _t(valid), 0.05, 1e-8)
+    assert w2 is tw and acc2 is tacc  # in place on the tensors given
+    jargs = tuple(map(jnp.asarray, (w, acc, idx, g, valid)))
+    untouched = np.ones(rows, bool)
+    touched = idx[valid]
+    untouched[touched[touched < rows]] = False
+    assert untouched.any() and (~untouched).any()
+    for jw, jacc in (jref.dedup_adagrad_ref(*jargs, 0.05, 1e-8),
+                     dedup_adagrad_pallas(*jargs, 0.05, 1e-8, interpret=True)):
+        np.testing.assert_allclose(w2.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(acc2.numpy(), np.asarray(jacc), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(w2.numpy()[untouched], w[untouched])
+    np.testing.assert_array_equal(acc2.numpy()[untouched], acc[untouched])
+
+
+def test_dedup_adagrad_all_invalid_is_identity():
+    w, acc, idx, g, _ = _dedup_case(8, 4, 12, 8, 9)
+    tw, tacc = torch.tensor(w), torch.tensor(acc)
+    ops.dedup_adagrad(tw, tacc, _t(idx), _t(g), torch.zeros(12, dtype=torch.bool),
+                      0.05, 1e-8)
+    np.testing.assert_array_equal(tw.numpy(), w)
+    np.testing.assert_array_equal(tacc.numpy(), acc)
+
+
+@pytest.mark.parametrize("b,f,d", [(8, 4, 8), (33, 7, 12), (65, 39, 10)])
+def test_fm_bwd_plain_matches_reference_pallas_and_vjp(b, f, d):
+    rng = np.random.default_rng(b + f)
+    x = rng.normal(size=(b, f, d)).astype(np.float32)
+    g = rng.normal(size=(b, 1)).astype(np.float32)
+    got = ops.fm_interaction_bwd(_t(x), _t(g)).numpy()
+    jx, jg = jnp.asarray(x), jnp.asarray(g)
+    _, vjp = jax.vjp(jref.fm_interaction_ref, jx)
+    for exp in (jref.fm_interaction_bwd_ref(jx, jg),
+                fm_interaction_bwd_pallas(jx, jg, block_b=16, interpret=True), vjp(jg)[0]):
+        exp = np.asarray(exp)
+        np.testing.assert_allclose(got, exp, atol=1e-5 * np.abs(exp).max(), rtol=1e-5)
+
+
+def _plain_kernels(monkeypatch):
+    """Take the kernel path on CPU tensors with each CUDA wrapper stood in
+    for by its plain version, so autograd runs the kernel path's wiring."""
+    monkeypatch.setattr(ops, "_use_kernel", lambda fused, t, op: True)
+    monkeypatch.setattr(ops, "_fm_interaction_cuda", tref.fm_interaction_ref)
+    monkeypatch.setattr(ops, "_fm_interaction_bwd_cuda", tref.fm_interaction_bwd_ref)
+    monkeypatch.setattr(ops, "_gather_pool_cuda", tref.gather_pool_ref)
+    monkeypatch.setattr(ops, "_segment_grad_cuda", tref.segment_grad_ref)
+
+
+def test_fm_kernel_path_is_differentiable(monkeypatch):
+    _plain_kernels(monkeypatch)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(9, 6, 10)).astype(np.float32)
+    g = rng.normal(size=(9, 1)).astype(np.float32)
+    tx = _t(x).requires_grad_(True)
+    out = ops.fm_interaction(tx)
+    assert out.grad_fn is not None
+    (gx,) = torch.autograd.grad(out, tx, _t(g))
+    _, vjp = jax.vjp(jref.fm_interaction_ref, jnp.asarray(x))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_gather_pool_kernel_path_is_differentiable(monkeypatch):
+    _plain_kernels(monkeypatch)
+    rng = np.random.default_rng(13)
+    n, d, n_bags, n_uniq = 40, 10, 10, 17
+    rows_u, inv, w, seg = _pool_args(rng, n, d, n_bags, n_uniq)
+    g = rng.normal(size=(n_bags, d)).astype(np.float32)
+    tr = _t(rows_u).requires_grad_(True)
+    out = ops.gather_pool(tr, _t(inv), _t(w), _t(seg), n_bags)
+    assert out.grad_fn is not None
+    # a non-contiguous cotangent: the backward makes it contiguous
+    gt = _t(np.ascontiguousarray(g.T)).T
+    assert not gt.is_contiguous()
+    (gr,) = torch.autograd.grad(out, tr, gt)
+    _, vjp = jax.vjp(lambda r: jops.gather_pool(r, jnp.asarray(inv), jnp.asarray(w),
+                                                jnp.asarray(seg), n_bags, fused=False),
+                     jnp.asarray(rows_u))
+    exp = np.asarray(vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(gr.numpy(), exp, atol=1e-5, rtol=1e-5)
+    assert (gr.numpy()[n_uniq:] == 0.0).all()
+
+
+def test_training_kernels_forced_on_cpu_tensors_raise():
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.segment_grad(torch.zeros((2, 2)), torch.zeros(2, dtype=torch.int32),
+                         torch.ones(2), torch.zeros(2, dtype=torch.int32), 2, fused=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.dedup_adagrad(torch.zeros((2, 2)), torch.zeros((2, 1)),
+                          torch.zeros(2, dtype=torch.int32), torch.zeros((2, 2)),
+                          torch.ones(2, dtype=torch.bool), 0.05, 1e-8, fused=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fm_interaction_bwd(torch.zeros((2, 3, 2)), torch.zeros((2, 1)), fused=True)
+
+
+def test_training_wrappers_check_shapes_before_launch(monkeypatch):
+    """The CUDA wrappers reject what their kernels do not take before any
+    launch (checked here with the device test bypassed)."""
+    monkeypatch.setattr(ops, "_launch", lambda *a: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="must match"):
+        ops._segment_grad_cuda(torch.zeros((2, 2)), torch.zeros(3, dtype=torch.int32),
+                               torch.ones(2), torch.zeros(2, dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="dedup_adagrad"):
+        ops._dedup_adagrad_cuda(torch.zeros((4, 2)), torch.zeros((3, 1)),
+                                torch.zeros(2, dtype=torch.int32), torch.zeros((2, 2)),
+                                torch.ones(2, dtype=torch.bool), 0.05, 1e-8)
+    with pytest.raises(ValueError, match="D <= 128"):
+        ops._dedup_adagrad_cuda(torch.zeros((4, 129)), torch.zeros((4, 1)),
+                                torch.zeros(2, dtype=torch.int32), torch.zeros((2, 129)),
+                                torch.ones(2, dtype=torch.bool), 0.05, 1e-8)
+    with pytest.raises(ValueError, match="want"):
+        ops._fm_interaction_bwd_cuda(torch.zeros((2, 3, 2)), torch.zeros((3, 1)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._fm_interaction_bwd_cuda(torch.zeros((2, 3, 2)), torch.zeros((2, 2))[:, :1])
 
 
 def test_every_kernel_has_a_c_entry_point_for_sm90a():

@@ -142,8 +142,10 @@ import importlib, importlib.util, json, pkgutil, sys
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 serve.main(["--smoke", "--device", "cpu", "--n-requests", "1", "--batch", "8"])
+train.main(["--smoke", "--device", "cpu", "--steps", "1", "--global-batch", "8",
+            "--log-every", "1"])
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)
@@ -158,15 +160,17 @@ print(json.dumps({"bad": bad, "chip_smoke_exit": code}))
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every port module, the launcher, and chip_smoke up to its first CUDA
-    call run without putting jax or repro into sys.modules; chip_smoke
-    exits non-zero and prints no result where there is no card."""
+    """Every port module, both launchers (one CPU request, one CPU training
+    step), and chip_smoke up to its first CUDA call run without putting jax
+    or repro into sys.modules; chip_smoke exits non-zero and prints no
+    result where there is no card."""
     out = subprocess.run([sys.executable, "-c", _GUARD, str(ROOT / "chip_smoke.py")],
                          capture_output=True, text=True, timeout=300,
                          env=_env(CUDA_VISIBLE_DEVICES=""), cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert "  step     1 loss=" in out.stdout and "[train] done" in out.stdout
     assert res["chip_smoke_exit"] not in (0, None)
     assert '"ok"' not in out.stdout
 

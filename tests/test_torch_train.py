@@ -1,0 +1,314 @@
+"""The port's training path against the reference on the CPU.
+
+Trajectory: deepfm-smoke at GB = 64 with a tiny hot tier that is flushed
+at step 3, so later steps take the hit-gradient path. The reference's
+``init_state`` on ``mesh1`` is carried over by ``train_state_from_jax``,
+both sides get the same batches, and the reference's
+``make_train_step(use_fused_kernels='off')`` is held against the port's
+step. Losses must agree to rtol 1e-4 / atol 1e-5 (float32 sums in another
+order, compounding over 8 steps; the reference's own fused-vs-plain bar),
+hits and overflow exactly, integer state (FCounter, tier keys) bitwise,
+float state to atol 1e-4.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import get_config as jget_config
+from repro.core import packed_embedding as jpe
+from repro.core.packing import make_plan as jmake_plan
+from repro.data.synthetic import batch_stream as jbatch_stream
+from repro.data.synthetic import make_batch as jmake_batch
+from repro.dist.compat import shard_map
+from repro.dist.sharding import batch_specs, to_named
+from repro.models.wdl import WDLModel as JWDLModel
+from repro.optim import optimizers as jopt
+from repro.train.train_step import TrainConfig as JTrainConfig
+from repro.train.train_step import init_state as jinit_state
+from repro.train.train_step import make_train_step as jmake_train_step
+from repro_torch.configs import get_config
+from repro_torch.convert import train_state_from_jax
+from repro_torch.core import packed_embedding as pe
+from repro_torch.core.packing import make_plan
+from repro_torch.data.pipeline import Prefetcher, ReplayableStream
+from repro_torch.data.synthetic import batch_stream, make_batch
+from repro_torch.engine import EmbeddingEngine
+from repro_torch.launch import train as train_launcher
+from repro_torch.models.wdl import WDLModel
+from repro_torch.optim import optimizers as topt
+from repro_torch.train.train_step import (TrainConfig, init_state, make_flush_fn,
+                                          make_train_step)
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+AXES = ("data", "model")
+GB = 64
+STEPS = 8
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _plans(n_micro):
+    kw = dict(hot_bytes=1 << 14, flush_iters=3, warmup_iters=2, n_micro=n_micro)
+    jplan = jmake_plan(jget_config("deepfm", smoke=True), 1, GB, **kw)
+    plan = make_plan(get_config("deepfm", smoke=True), 1, GB, **kw)
+    return jplan, plan
+
+
+@pytest.mark.parametrize("cache_update,n_micro", [("psum", 1), ("stale", 1), ("psum", 2)])
+def test_train_trajectory_matches_reference(mesh1, cache_update, n_micro):
+    jcfg = jget_config("deepfm", smoke=True)
+    jplan, plan = _plans(n_micro)
+    jmodel = JWDLModel(jcfg, jplan)
+    jstate = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)
+    state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
+    jstep, _ = jmake_train_step(
+        jmodel, jplan, mesh1, AXES, GB,
+        JTrainConfig(use_fused_kernels="off", cache_update=cache_update), donate=False)
+    step = make_train_step(WDLModel(get_config("deepfm", smoke=True), plan), plan, GB,
+                           TrainConfig(use_fused_kernels="off", cache_update=cache_update),
+                           "cpu")
+    assert step.n_micro == n_micro and step.use_overlap == (n_micro > 1)
+    rng = np.random.default_rng(0)
+    jl, tl, jm, tm = [], [], [], []
+    for _ in range(STEPS):
+        b = jmake_batch(jcfg, GB, rng)
+        jstate, jmet = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
+        state, met = step(state, b)
+        jl.append(float(jmet["loss"]))
+        tl.append(float(met["loss"]))
+        jm.append((int(jmet["cache_hits"]), int(jmet["overflow"]), int(jmet["step"])))
+        tm.append((int(met["cache_hits"]), int(met["overflow"]), met["step"]))
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-5)
+    assert tm == jm
+    assert all(h > 0 for h, _, _ in tm[3:]) and all(h == 0 for h, _, _ in tm[:3])
+
+    jfin = jax.device_get(jstate)
+    jst, st = jfin["emb"]["0"], state["emb"]["0"]
+    np.testing.assert_array_equal(st.counts.numpy(), np.asarray(jst.counts))
+    np.testing.assert_array_equal(st.cache.keys.numpy(), np.asarray(jst.cache.keys))
+    for got, exp in ((st.w, jst.w), (st.acc, jst.acc), (st.cache.rows, jst.cache.rows),
+                     (st.cache.acc, jst.cache.acc)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), atol=1e-4, rtol=0)
+    for tree, jtree in ((state["dense"], jfin["dense"]), (state["opt"]["m"], jfin["opt"]["m"]),
+                        (state["opt"]["v"], jfin["opt"]["v"])):
+        leaves = topt.tree_leaves(tree)
+        jleaves = jax.tree.leaves(jtree)
+        assert len(leaves) == len(jleaves)
+        for a, b in zip(leaves, jleaves):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
+    assert int(state["opt"]["t"]) == int(jfin["opt"]["t"]) == STEPS
+
+
+def test_host_scheduled_flush_matches_in_step_flush():
+    """``flush_in_step=False`` plus ``make_flush_fn`` after the flush steps
+    trains bit for bit like the in-step flush."""
+    _, plan = _plans(1)
+    cfg = get_config("deepfm", smoke=True)
+    model = WDLModel(cfg, plan)
+    runs = []
+    for in_step in (True, False):
+        state = init_state(model, plan, torch.Generator().manual_seed(0), "cpu")
+        step = make_train_step(model, plan, GB, TrainConfig(flush_in_step=in_step), "cpu")
+        flush = make_flush_fn(plan)
+        rng = np.random.default_rng(1)
+        losses = []
+        for _ in range(5):
+            state, m = step(state, make_batch(cfg, GB, rng))
+            if not in_step and m["step"] % plan.flush_iters == 0:
+                state = flush(state)
+            losses.append(float(m["loss"]))
+        runs.append((losses, state["emb"]["0"]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1].cache, runs[1][1].cache):
+        assert torch.equal(a, b)
+    assert (runs[0][1].cache.keys < plan.groups[0].rows).any()
+
+
+def test_engine_training_flags():
+    _, plan = _plans(1)
+    on = EmbeddingEngine(plan, 1)
+    off = EmbeddingEngine(plan, 1, use_cache=False, use_interleave=False,
+                          cache_update="stale", lr_emb=0.1, eps=1e-6)
+    assert on.any_cache and not off.any_cache and not any(off.cache_on.values())
+    assert off.waves == [[g.gid for g in plan.groups]]
+    st = off.strategies[0]
+    assert (st.lr, st.eps, st.cache_update) == (0.1, 1e-6, "stale")
+    assert on.metric_keys == ("overflow", "cache_hits")
+    with pytest.raises(ValueError, match="cache_update"):
+        EmbeddingEngine(plan, 1, cache_update="eager")
+
+
+def _sparse_case():
+    rng = np.random.default_rng(21)
+    rows, d, n, h = 300, 10, 96, 32
+    w = rng.normal(size=(rows, d)).astype(np.float32)
+    acc = np.abs(rng.normal(size=(rows, 1))).astype(np.float32)
+    ids = rng.integers(0, rows, n).astype(np.int32)
+    keys = np.sort(np.concatenate([rng.choice(np.unique(ids), h // 2, replace=False),
+                                   np.full(h // 2, rows)])).astype(np.int32)
+    hot = rng.normal(size=(h, d)).astype(np.float32)
+    hot_acc = np.abs(rng.normal(size=(h, 1))).astype(np.float32)
+    g_u = rng.normal(size=(n, d)).astype(np.float32)
+    return w, acc, ids, keys, hot, hot_acc, g_u
+
+
+@pytest.mark.parametrize("cache_update", ["psum", "stale"])
+def test_apply_sparse_grads_matches_reference(mesh1, cache_update):
+    """One lookup + one ``apply_sparse_grads`` call, with tier hits and a
+    bucket capacity small enough to overflow."""
+    w, acc, ids, keys, hot, hot_acc, g_u = _sparse_case()
+    cap = 40
+
+    def f(w, acc, ids, keys, hot, hot_acc, g_u):
+        _, ctx = jpe.mp_lookup(w, ids, axes=AXES, world=1, capacity=cap,
+                               hot_keys=keys, hot_rows=hot)
+        cache = jpe.CacheState(keys, hot, hot_acc)
+        w2, acc2, c2 = jpe.apply_sparse_grads(w, acc, cache, ctx, g_u, axes=AXES, world=1,
+                                              lr=0.05, cache_update=cache_update)
+        return w2, acc2, c2.rows, c2.acc, ctx.routing.overflow, jnp.sum(ctx.hit)
+
+    g = jax.jit(shard_map(f, mesh=mesh1, in_specs=(P(AXES, None), P(AXES, None)) + (P(),) * 5,
+                          out_specs=(P(AXES, None), P(AXES, None)) + (P(),) * 4,
+                          check_vma=False))
+    exp = [np.asarray(x) for x in g(*map(jnp.asarray, (w, acc, ids, keys, hot, hot_acc, g_u)))]
+
+    tw, tacc, thot, thot_acc = _t(w), _t(acc), _t(hot), _t(hot_acc)
+    _, ctx = pe.mp_lookup(tw, _t(ids), world=1, capacity=cap, hot_keys=_t(keys),
+                          hot_rows=thot)
+    w2, acc2, c2 = pe.apply_sparse_grads(tw, tacc, pe.CacheState(_t(keys), thot, thot_acc),
+                                         ctx, _t(g_u), world=1, lr=0.05,
+                                         cache_update=cache_update)
+    assert w2 is tw and acc2 is tacc and c2.rows is thot  # updated in place
+    for got, e in zip((w2, acc2, c2.rows, c2.acc), exp[:4]):
+        np.testing.assert_allclose(got.numpy(), e, atol=1e-6, rtol=1e-6)
+    assert int(ctx.routing.overflow) == int(exp[4]) > 0
+    assert int(ctx.hit.sum()) == int(exp[5]) > 0
+    touched = np.unique(ids)
+    untouched = np.setdiff1d(np.arange(w.shape[0]), touched)
+    np.testing.assert_array_equal(w2.numpy()[untouched], w[untouched])
+    if cache_update == "stale":  # the tier is read-only between flushes
+        np.testing.assert_array_equal(c2.rows.numpy(), hot)
+
+
+def test_apply_sparse_grads_rejects_unported_options():
+    w, acc, ids, keys, hot, hot_acc, g_u = _sparse_case()
+    _, ctx = pe.mp_lookup(_t(w), _t(ids), world=1, capacity=96)
+    with pytest.raises(NotImplementedError, match="compression"):
+        pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=1, lr=0.05,
+                              compress="fp16")
+    with pytest.raises(NotImplementedError, match="multi-rank"):
+        pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=2, lr=0.05)
+
+
+@pytest.mark.parametrize("name", ["adam", "lamb", "sgd"])
+def test_optimizers_match_reference(name):
+    rng = np.random.default_rng(4)
+    params = {"a": {"w": rng.normal(size=(5, 3)).astype(np.float32)},
+              "b": rng.normal(size=(3,)).astype(np.float32)}
+    tp, jp = topt.tree_map(_t, params), jax.tree.map(jnp.asarray, params)
+    topt_state, jopt_state = topt.adam_init(tp), jopt.adam_init(jp)
+    tupd, jupd = topt.OPTIMIZERS[name], getattr(jopt, f"{name}_update")
+    for _ in range(3):
+        grads = {"a": {"w": rng.normal(size=(5, 3)).astype(np.float32)},
+                 "b": rng.normal(size=(3,)).astype(np.float32)}
+        tp, topt_state = tupd(tp, topt.tree_map(_t, grads), topt_state, 1e-2)
+        jp, jopt_state = jupd(jp, jax.tree.map(jnp.asarray, grads), jopt_state, 1e-2)
+    for a, b in zip(topt.tree_leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=1e-6)
+    if name != "sgd":
+        assert topt_state["t"].dtype == torch.int32 and int(topt_state["t"]) == 3
+
+
+def test_loss_matches_reference():
+    jcfg, cfg = jget_config("deepfm", smoke=True), get_config("deepfm", smoke=True)
+    jplan, plan = jmake_plan(jcfg, 1, 16), make_plan(cfg, 1, 16)
+    jmodel, model = JWDLModel(jcfg, jplan), WDLModel(cfg, plan)
+    dense = jax.device_get(jmodel.init_dense(jax.random.PRNGKey(1)))
+    g = plan.groups[0]
+    rng = np.random.default_rng(2)
+    pooled = {g.gid: (rng.normal(size=(16, g.n_bags, g.dim)) * 3).astype(np.float32)}
+    labels = rng.integers(0, 2, 16).astype(np.float32)
+    jl, jlog = jmodel.loss(dense, {k: jnp.asarray(v) for k, v in pooled.items()},
+                           {"labels": jnp.asarray(labels)})
+    tl, tlog = model.loss(topt.tree_map(_t, dense), {k: _t(v) for k, v in pooled.items()},
+                          {"labels": _t(labels)})
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+
+
+def test_batch_stream_seeks_like_reference():
+    jcfg, cfg = jget_config("deepfm", smoke=True), get_config("deepfm", smoke=True)
+    jit_, it = jbatch_stream(jcfg, 8, seed=3, start=5), batch_stream(cfg, 8, seed=3, start=5)
+    for _ in range(2):
+        jb, b = next(jit_), next(it)
+        np.testing.assert_array_equal(b["labels"], jb["labels"])
+        for f in cfg.fields:
+            np.testing.assert_array_equal(b["fields"][f.name]["ids"],
+                                          jb["fields"][f.name]["ids"])
+    # a replayable prefetched stream rewinds to the exact batch
+    s = ReplayableStream(lambda start: Prefetcher(batch_stream(cfg, 8, seed=3, start=start),
+                                                  depth=2))
+    first = [next(s)["labels"] for _ in range(3)]
+    s.seek(1)
+    np.testing.assert_array_equal(next(s)["labels"], first[1])
+    assert s.pos == 2
+    s.close()
+
+
+@pytest.mark.parametrize("field,value", [("use_l2", False), ("grad_compression", "bf16"),
+                                         ("grad_compress", "fp16"), ("pin_l2", True)])
+def test_train_config_raises_on_unported_fields(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        TrainConfig(**{field: value})
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_train_launcher_runs_smoke_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "deepfm", "--smoke",
+         "--device", "cpu", "--steps", "3", "--global-batch", "32", "--log-every", "1"],
+        capture_output=True, text=True, timeout=300, env=_env(), cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    steps = re.findall(r"^  step +(\d+) loss=([\d.]+) hits=(\d+) ovf=(\d+)$", out.stdout,
+                       re.M)
+    assert [int(s[0]) for s in steps] == [1, 2, 3], out.stdout
+    assert all(np.isfinite(float(s[1])) for s in steps)
+    assert out.stdout.rstrip().endswith("[train] done")
+
+
+def test_train_launcher_help_lists_flags(capsys):
+    with pytest.raises(SystemExit) as exc:
+        train_launcher.main(["--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    for flag in ("--arch", "--smoke", "--steps", "--global-batch", "--strategy",
+                 "--fused-kernels", "--no-cache", "--no-interleave", "--n-micro",
+                 "--learnable", "--log-every", "--lr-emb", "--lr-dense", "--seed",
+                 "--device"):
+        assert flag in out
+
+
+def test_train_launcher_without_cuda_raises(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_launcher.main(["--smoke", "--steps", "1"])
+    out = capsys.readouterr().out
+    assert "step" not in out and "[train] done" not in out
