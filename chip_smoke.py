@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: builds its CUDA kernels, holds each one
-against its plain PyTorch version, serves full-width deepfm and trains it on
-one card.
+against its plain PyTorch version, serves and trains full-width deepfm and
+full-width dcn-v2 on one card.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
-1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (eight
+   kernels, one nvcc per source, all at once);
 2. run each kernel at its path's shape (serving B = 512, training B = 256)
    and at a bulk shape (B = 65,536) against its plain version on the same
-   inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows to
-   max-abs <= 1e-5 of the value scale, miss rows, empty bags, unused
-   gradient slots exactly 0, rows ``dedup_adagrad`` does not touch bitwise
-   unchanged; time kernel, plain version and, where one PyTorch call
-   computes the same function, that call (CUDA events, median of 30 after
-   warm-up) beside the byte/op bound;
+   inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows/
+   cross outputs and all four cross cotangents to max-abs <= 1e-5 of the
+   value scale, miss rows, empty bags, unused gradient slots exactly 0,
+   rows ``dedup_adagrad`` does not touch bitwise unchanged, the cross
+   backward repeating bit for bit; time kernel, plain version and, where
+   one PyTorch call computes the same function, that call (CUDA events,
+   median of 30 after warm-up) beside the byte/op bound. The embedding
+   kernels run again at dcn-v2's D = 16 and n = B x 26 on its table;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -25,13 +28,26 @@ Phases, in order (any failure raises and exits non-zero):
 4. train full-width deepfm on the train launcher's plan (B = 256, flush
    every 20 steps after 10) through ``make_train_step``: 30 steps from seed
    0 with the launch counters reset just before and read just after; every
-   loss finite, every kernel launched, tier hits on every step after the
-   step-20 flush; a second kernel run repeats the first bit for bit; the
-   same 30 steps on the plain versions (under deterministic algorithms)
-   give the same losses (rtol 1e-4 / atol 1e-5, the JAX package's
-   fused-vs-plain bar) and the same hits; then per-stage host clock, a
-   profiled window and peak memory; a deepfm-smoke training run on the card
-   must match the CPU.
+   loss finite, every kernel of the path launched, tier hits on every step
+   after the step-20 flush; a second kernel run repeats the first bit for
+   bit; the same 30 steps on the plain versions (under deterministic
+   algorithms) give the same losses (rtol 1e-4 / atol 1e-5, the JAX
+   package's fused-vs-plain bar) and the same hits; then per-stage host
+   clock, a profiled window and peak memory; a deepfm-smoke training run on
+   the card must match the CPU;
+5. free the deepfm states and serve full-width dcn-v2 (187,767,399 x 16
+   table, 13 dense features, three cross layers over the 429-wide base,
+   MLP 1024-1024-512) as in phase 3: ``cross_layer`` launched 3 times per
+   request, tier hits on every request, the plain path's probabilities
+   within 1e-5, a dcn-v2-smoke request on the card matching the CPU;
+6. train full-width dcn-v2 as in phase 4: ``cross_layer`` and
+   ``cross_layer_bwd`` 3 times per step, hits after the flush, the kernel
+   path repeating bit for bit, and at steps 1 and 21 one kernel step and
+   one plain step from copies of the same state agreeing in loss (rtol
+   1e-5) and in every dense gradient (1e-5 of the leaf's largest entry);
+   the 30-step kernel vs deterministic-plain loss difference is printed, not
+   held to a bar (past the flush it depends on the data, ``PERF.md`` §6);
+   a dcn-v2-smoke training run on the card must match the CPU.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -46,6 +62,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Dict, NamedTuple, Tuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -59,6 +76,7 @@ from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 
@@ -71,11 +89,41 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks: longer than any timed call's en
 SERVE_B = next(s["batch"] for s in get_shapes("deepfm") if s.name == "serve_p99")
 # the train launcher's default --global-batch and its full-width plan
 TRAIN_B, TRAIN_STEPS, FLUSH_ITERS, WARMUP_ITERS = 256, 30, 20, 10
-BULK_B, N_FIELDS, DIM = 65_536, 39, 10
+BULK_B = 65_536
 LR, EPS = 0.05, 1e-8  # TrainConfig's lr_emb and eps
 N_TIMED = 300  # timed requests: enough that p99 is not the maximum
-FULL_ROWS, HOT_ROWS = 187_780_711, 4_194_304
+CROSS_D = 26 * 16 + 13  # dcn-v2's base: 26 fields at dim 16 + 13 dense features
 DEV = torch.device("cuda", 0)
+
+
+class Arch(NamedTuple):
+    """A full-width arch's packed table, the kernel launches of its two
+    paths, and how its 30-step training run is held against the plain
+    path."""
+
+    name: str
+    n_fields: int
+    dim: int
+    rows: int
+    hot_rows: int
+    serve_launches: Dict[str, int]  # per request; every other kernel 0
+    train_launches: Dict[str, int]  # per step; every other kernel 0
+    trajectory_bar: bool            # hold the 30 losses to rtol 1e-4 / atol 1e-5
+    shared_state_at: Tuple[int, ...]  # steps preceded by the shared-state check
+
+
+_EMB = {"tier_probe": 1, "gather_pool": 1}
+ARCHS = {
+    "deepfm": Arch("deepfm", 39, 10, 187_780_711, 4_194_304,
+                   {**_EMB, "fm_interaction": 1},
+                   {**_EMB, "fm_interaction": 1, "segment_grad": 1, "dedup_adagrad": 1,
+                    "fm_interaction_bwd": 1}, True, ()),
+    # three cross layers: three forward and three backward launches
+    "dcn-v2": Arch("dcn-v2", 26, 16, 187_767_399, 4_194_304,
+                   {**_EMB, "cross_layer": 3},
+                   {**_EMB, "cross_layer": 3, "segment_grad": 1, "dedup_adagrad": 1,
+                    "cross_layer_bwd": 3}, False, (1, FLUSH_ITERS + 1)),
+}
 
 SOURCES = {
     "tier_probe": ("src/repro_torch/kernels/csrc/tier_probe.cu",
@@ -90,8 +138,17 @@ SOURCES = {
                       "src/repro/kernels/fused_embedding.py:194"),
     "fm_interaction_bwd": ("src/repro_torch/kernels/csrc/fm_interaction_bwd.cu",
                            "src/repro/kernels/interaction_bwd.py:43"),
+    "cross_layer": ("src/repro_torch/kernels/csrc/cross_layer.cu",
+                    "src/repro/kernels/cross_layer.py:30"),
+    "cross_layer_bwd": ("src/repro_torch/kernels/csrc/cross_layer_bwd.cu",
+                        "src/repro/kernels/interaction_bwd.py:147"),
 }
-TRAIN_KERNELS = ("segment_grad", "dedup_adagrad", "fm_interaction_bwd")
+# the arch whose serving or training path each kernel was ported for
+PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serve"),
+              "fm_interaction": ("deepfm", "serve"), "segment_grad": ("deepfm", "train"),
+              "dedup_adagrad": ("deepfm", "train"),
+              "fm_interaction_bwd": ("deepfm", "train"),
+              "cross_layer": ("dcn-v2", "serve"), "cross_layer_bwd": ("dcn-v2", "train")}
 
 
 def check(ok, what: str) -> None:
@@ -138,24 +195,25 @@ def scale_of(x: torch.Tensor) -> float:
 # ------------------------------------------------------------------ phase 2
 
 
-def probe_case(b: int, gen: torch.Generator):
+def probe_case(b: int, gen: torch.Generator, a: Arch):
     """Sorted unique queries of a B-sample request, about half of them tier
     keys, against a full 4,194,304-key tier over the full table's rows."""
-    n = b * N_FIELDS
-    stride = FULL_ROWS // HOT_ROWS
-    keys = (torch.arange(HOT_ROWS, device=DEV, dtype=torch.int64) * stride
-            + torch.randint(0, stride, (HOT_ROWS,), device=DEV, generator=gen)).to(torch.int32)
-    rows = torch.randn((HOT_ROWS, DIM), device=DEV, generator=gen)
+    n = b * a.n_fields
+    stride = a.rows // a.hot_rows
+    keys = (torch.arange(a.hot_rows, device=DEV, dtype=torch.int64) * stride
+            + torch.randint(0, stride, (a.hot_rows,), device=DEV, generator=gen)
+            ).to(torch.int32)
+    rows = torch.randn((a.hot_rows, a.dim), device=DEV, generator=gen)
     half = n // 2
-    ids = torch.cat([keys[torch.randint(0, HOT_ROWS, (half,), device=DEV, generator=gen)],
-                     torch.randint(0, FULL_ROWS, (n - half,), device=DEV, generator=gen,
+    ids = torch.cat([keys[torch.randint(0, a.hot_rows, (half,), device=DEV, generator=gen)],
+                     torch.randint(0, a.rows, (n - half,), device=DEV, generator=gen,
                                    dtype=torch.int32)])
-    u = pe.fixed_unique(ids.to(torch.int32), sentinel=FULL_ROWS)
+    u = pe.fixed_unique(ids.to(torch.int32), sentinel=a.rows)
     return u.uniq, u.uvalid, keys, rows
 
 
-def run_tier_probe(b: int, gen: torch.Generator) -> dict:
-    uniq, uvalid, keys, rows = probe_case(b, gen)
+def run_tier_probe(b: int, gen: torch.Generator, a: Arch) -> dict:
+    uniq, uvalid, keys, rows = probe_case(b, gen, a)
     hit, slot, out = ops.tier_probe(uniq, uvalid, keys, rows)
     rhit, rslot, rout = ref.tier_probe_ref(uniq, uvalid, keys, rows)
     torch.cuda.synchronize(DEV)
@@ -171,7 +229,7 @@ def run_tier_probe(b: int, gen: torch.Generator) -> dict:
     # the n searches must touch are about n * (log2(H/n) + 2), each read once.
     # The compares are integer work, outside the float32 peak: no ops term.
     keys_read = min(h, n * (math.ceil(math.log2(h / n)) + 2))
-    nbytes = n * (4 + 1) + keys_read * 4 + n_hit * DIM * 4 + n * (1 + 4 + DIM * 4)
+    nbytes = n * (4 + 1) + keys_read * 4 + n_hit * a.dim * 4 + n * (1 + 4 + a.dim * 4)
     b_ms, b_by = bound(nbytes, 0)
     return {"n": n, "hits": n_hit, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows)),
@@ -181,12 +239,13 @@ def run_tier_probe(b: int, gen: torch.Generator) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def run_gather_pool(b: int, gen: torch.Generator) -> dict:
-    """deepfm's packed layout: one bag per (sample, field), seg = arange."""
-    n = b * N_FIELDS
+def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
+    """The packed layout of deepfm and dcn-v2: one bag per (sample, field),
+    seg = arange."""
+    n = b * a.n_fields
     ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen, dtype=torch.int32)
     inv = pe.fixed_unique(ids, sentinel=n).inv
-    rows_u = torch.randn((n, DIM), device=DEV, generator=gen)
+    rows_u = torch.randn((n, a.dim), device=DEV, generator=gen)
     w = torch.rand((n,), device=DEV, generator=gen) + 0.5
     seg = torch.arange(n, device=DEV, dtype=torch.int32)
     out = ops.gather_pool(rows_u, inv, w, seg, n)
@@ -208,7 +267,7 @@ def run_gather_pool(b: int, gen: torch.Generator) -> dict:
     lib = F.embedding_bag(inv64, rows_u, offsets, mode="sum", per_sample_weights=w)
     check(max_err(lib, rout) <= TOL * scale_of(rout), "embedding_bag yardstick agrees")
     n_ref = int(torch.unique(inv).numel())
-    b_ms, b_by = bound(n_ref * DIM * 4 + n * 12 + n * DIM * 4, 2 * n * DIM)
+    b_ms, b_by = bound(n_ref * a.dim * 4 + n * 12 + n * a.dim * 4, 2 * n * a.dim)
     return {"n": n, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.gather_pool(rows_u, inv, w, seg, n)),
             "call_ms": cuda_ms(lambda: ops.gather_pool(rows_u, inv, w, seg, n),
@@ -219,13 +278,13 @@ def run_gather_pool(b: int, gen: torch.Generator) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def run_fm(b: int, gen: torch.Generator) -> dict:
-    x = torch.randn((b, N_FIELDS, DIM), device=DEV, generator=gen) * 0.3
+def run_fm(b: int, gen: torch.Generator, a: Arch) -> dict:
+    x = torch.randn((b, a.n_fields, a.dim), device=DEV, generator=gen) * 0.3
     out, rout = ops.fm_interaction(x), ref.fm_interaction_ref(x)
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"fm_interaction err {err}")
-    b_ms, b_by = bound(x.numel() * 4 + b * 4, b * DIM * (3 * N_FIELDS + 3))
+    b_ms, b_by = bound(x.numel() * 4 + b * 4, b * a.dim * (3 * a.n_fields + 3))
     return {"n": b, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fm_interaction(x)),
             "call_ms": cuda_ms(lambda: ops.fm_interaction(x), device_only=False),
@@ -233,14 +292,14 @@ def run_fm(b: int, gen: torch.Generator) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def run_segment_grad(b: int, gen: torch.Generator) -> dict:
-    """deepfm's packed layout (one bag per (sample, field), seg = arange):
-    the bag gradients back onto the unique-row slots of a fixed unique."""
-    n = b * N_FIELDS
+def run_segment_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
+    """The packed layout (one bag per (sample, field), seg = arange): the bag
+    gradients back onto the unique-row slots of a fixed unique."""
+    n = b * a.n_fields
     ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen, dtype=torch.int32)
     u = pe.fixed_unique(ids, sentinel=n)
     inv, n_uniq = u.inv, int(u.n_uniq)
-    g_bags = torch.randn((n, DIM), device=DEV, generator=gen)
+    g_bags = torch.randn((n, a.dim), device=DEV, generator=gen)
     w = torch.rand((n,), device=DEV, generator=gen) + 0.5
     seg = torch.arange(n, device=DEV, dtype=torch.int32)
     out = ops.segment_grad(g_bags, seg, w, inv, n)
@@ -251,7 +310,7 @@ def run_segment_grad(b: int, gen: torch.Generator) -> dict:
     check(n_uniq < n and bool((out[n_uniq:] == 0).all()),
           "segment_grad unused slots exactly 0")
     # the library yardstick: embedding_bag's backward onto its weight
-    rows_u = torch.randn((n, DIM), device=DEV, generator=gen).requires_grad_(True)
+    rows_u = torch.randn((n, a.dim), device=DEV, generator=gen).requires_grad_(True)
     offsets = torch.arange(n, device=DEV)
     lib_out = F.embedding_bag(inv.long(), rows_u, offsets, mode="sum", per_sample_weights=w)
 
@@ -259,7 +318,7 @@ def run_segment_grad(b: int, gen: torch.Generator) -> dict:
         return torch.autograd.grad(lib_out, rows_u, g_bags, retain_graph=True)[0]
 
     check(max_err(lib(), rout) <= TOL * scale_of(rout), "embedding_bag backward agrees")
-    b_ms, b_by = bound(n * DIM * 4 + n * 12 + n * DIM * 4, 2 * n * DIM)
+    b_ms, b_by = bound(n * a.dim * 4 + n * 12 + n * a.dim * 4, 2 * n * a.dim)
     return {"n": n, "n_uniq": n_uniq, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n)),
             "call_ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n),
@@ -271,30 +330,32 @@ def run_segment_grad(b: int, gen: torch.Generator) -> dict:
 _TABLES = {}
 
 
-def full_tables(gen: torch.Generator):
-    """Two identical full-width tables + accumulators (kernel and plain
-    version each update one in place), made once for both shapes."""
-    if not _TABLES:
-        w = torch.randn((FULL_ROWS, DIM), device=DEV, generator=gen)
-        acc = torch.rand((FULL_ROWS, 1), device=DEV, generator=gen)
-        _TABLES.update(w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
+def full_tables(gen: torch.Generator, a: Arch):
+    """Two identical full-width tables + accumulators of ``a`` (kernel and
+    plain version each update one in place), made once for both shapes."""
+    if _TABLES.get("arch") != a:
+        _TABLES.clear()
+        torch.cuda.empty_cache()
+        w = torch.randn((a.rows, a.dim), device=DEV, generator=gen)
+        acc = torch.rand((a.rows, 1), device=DEV, generator=gen)
+        _TABLES.update(arch=a, w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
     return _TABLES
 
 
-def run_dedup_adagrad(b: int, gen: torch.Generator) -> dict:
+def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
     """The miss-gradient update of a B-sample step: m = the plan's bucket
-    capacity gradient rows into the full 187,780,711-row table, a quarter of
-    them duplicates of other rows and a tenth invalid slots that point at
-    row 0 (the clamped ``recv_local`` of an empty bucket slot)."""
-    m = make_plan(get_config("deepfm"), world=1, per_device_batch=b).capacity[0]
-    t = full_tables(gen)
+    capacity gradient rows into the arch's full table, a quarter of them
+    duplicates of other rows and a tenth invalid slots that point at row 0
+    (the clamped ``recv_local`` of an empty bucket slot)."""
+    m = make_plan(get_config(a.name), world=1, per_device_batch=b).capacity[0]
+    t = full_tables(gen, a)
     w_k, acc_k, w_p, acc_p = t["w_k"], t["acc_k"], t["w_p"], t["acc_p"]
-    idx = torch.randint(0, FULL_ROWS, (m,), device=DEV, generator=gen, dtype=torch.int32)
+    idx = torch.randint(0, a.rows, (m,), device=DEV, generator=gen, dtype=torch.int32)
     dup = torch.randperm(m, device=DEV, generator=gen)[: m // 4]
     idx[dup] = idx[torch.randint(0, m, (dup.numel(),), device=DEV, generator=gen)]
     valid = torch.rand((m,), device=DEV, generator=gen) >= 0.1
     idx = torch.where(valid, idx, torch.zeros_like(idx))
-    g = torch.randn((m, DIM), device=DEV, generator=gen)
+    g = torch.randn((m, a.dim), device=DEV, generator=gen)
     touched = torch.unique(idx[valid]).long()
     u = touched.numel()
     w_p.copy_(w_k)  # the previous shape's timing moved the two apart
@@ -306,16 +367,16 @@ def run_dedup_adagrad(b: int, gen: torch.Generator) -> dict:
     err = max(max_err(w_k[touched], w_p[touched]), max_err(acc_k[touched], acc_p[touched]))
     check(err <= TOL * scale_of(w_p[touched]), f"dedup_adagrad touched rows err {err}")
     check(not torch.equal(w_k[touched], w0), "dedup_adagrad moved the touched rows")
-    # every other row of the 7.5 GB table: put the touched rows back, then
-    # the kernel's table must equal the plain version's bit for bit
+    # every other row of the full table: put the touched rows back, then the
+    # kernel's table must equal the plain version's bit for bit
     for tw, ta in ((w_k, acc_k), (w_p, acc_p)):
         tw[touched], ta[touched] = w0, acc0
     check(torch.equal(w_k, w_p) and torch.equal(acc_k, acc_p),
           "dedup_adagrad untouched rows bitwise unchanged")
     # inputs once (idx, valid, g), touched rows of w and acc read and written
-    nbytes = m * (4 + 1 + DIM * 4) + u * (DIM * 4 + 4) * 2
-    b_ms, b_by = bound(nbytes, m * DIM + u * (3 * DIM + 4))
-    return {"m": m, "rows": FULL_ROWS, "touched_rows": u, "max_abs_err": err,
+    nbytes = m * (4 + 1 + a.dim * 4) + u * (a.dim * 4 + 4) * 2
+    b_ms, b_by = bound(nbytes, m * a.dim + u * (3 * a.dim + 4))
+    return {"m": m, "rows": a.rows, "touched_rows": u, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)),
             "call_ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS),
                                device_only=False),
@@ -324,8 +385,8 @@ def run_dedup_adagrad(b: int, gen: torch.Generator) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def run_fm_bwd(b: int, gen: torch.Generator) -> dict:
-    x = torch.randn((b, N_FIELDS, DIM), device=DEV, generator=gen) * 0.3
+def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
+    x = torch.randn((b, a.n_fields, a.dim), device=DEV, generator=gen) * 0.3
     g = torch.randn((b, 1), device=DEV, generator=gen)
     out, rout = ops.fm_interaction_bwd(x, g), ref.fm_interaction_bwd_ref(x, g)
     torch.cuda.synchronize(DEV)
@@ -337,6 +398,69 @@ def run_fm_bwd(b: int, gen: torch.Generator) -> dict:
             "call_ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fm_interaction_bwd_ref(x, g)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def cross_case(b: int, gen: torch.Generator):
+    """dcn-v2's cross layer at batch b: x0, x [b, 429], W [429, 429] at the
+    reference's init scale, a bias and a cotangent."""
+    d = CROSS_D
+    x0 = torch.randn((b, d), device=DEV, generator=gen)
+    x = torch.randn((b, d), device=DEV, generator=gen)
+    w = torch.randn((d, d), device=DEV, generator=gen) / d ** 0.5
+    bias = torch.randn((d,), device=DEV, generator=gen) * 0.1
+    g = torch.randn((b, d), device=DEV, generator=gen)
+    return x0, x, w, bias, g
+
+
+def run_cross(b: int, gen: torch.Generator, a: Arch) -> dict:
+    x0, x, w, bias, _ = cross_case(b, gen)
+    d = CROSS_D
+    out, rout = ops.cross_layer(x0, x, w, bias), ref.cross_layer_ref(x0, x, w, bias)
+    lib = torch.addcmul(x, x0, torch.addmm(bias, x, w))
+    torch.cuda.synchronize(DEV)
+    err = max_err(out, rout)
+    check(err <= TOL * scale_of(rout), f"cross_layer err {err}")
+    check(max_err(lib, rout) <= TOL * scale_of(rout), "addmm + addcmul yardstick agrees")
+    b_ms, b_by = bound((3 * b * d + d * d + d) * 4, 2 * b * d * d + 3 * b * d)
+    return {"n": b, "d": d, "max_abs_err": err, "max_err_of_scale": err / scale_of(rout),
+            "ms": cuda_ms(lambda: ops.cross_layer(x0, x, w, bias)),
+            "call_ms": cuda_ms(lambda: ops.cross_layer(x0, x, w, bias), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.cross_layer_ref(x0, x, w, bias)),
+            # two calls, timed together: torch.addmm then torch.addcmul
+            "library_ms": cuda_ms(lambda: torch.addcmul(x, x0, torch.addmm(bias, x, w))),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_cross_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
+    x0, x, w, bias, g = cross_case(b, gen)
+    d = CROSS_D
+    got = ops.cross_layer_bwd(x0, x, w, bias, g)
+    again = ops.cross_layer_bwd(x0, x, w, bias, g)
+    exp = ref.cross_layer_bwd_ref(x0, x, w, bias, g)
+    # the library yardstick: autograd of addmm + addcmul (three cuBLAS GEMMs)
+    leaves = [t.clone().requires_grad_(True) for t in (x0, x, w, bias)]
+    lib_out = torch.addcmul(leaves[1], leaves[0], torch.addmm(leaves[3], leaves[1], leaves[2]))
+
+    def lib():
+        return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+
+    torch.cuda.synchronize(DEV)
+    errs = {}  # each cotangent's max-abs error, as a share of its scale
+    for name, k, e, lb in zip(("gx0", "gx", "gw", "gb"), got, exp, lib()):
+        errs[name] = max_err(k, e) / scale_of(e)
+        check(errs[name] <= TOL, f"cross_layer_bwd {name} err {errs[name]} of scale")
+        check(max_err(lb, e) <= TOL * scale_of(e), f"autograd yardstick {name} agrees")
+    check(all(torch.equal(p, q) for p, q in zip(got, again)),
+          "cross_layer_bwd repeats bit for bit")
+    b_ms, b_by = bound((5 * b * d + 2 * d * d + 2 * d) * 4, 6 * b * d * d + 5 * b * d)
+    return {"n": b, "d": d, "splits": ops.cross_bwd_split(b)[1],
+            "max_abs_err": max(max_err(k, e) for k, e in zip(got, exp)),
+            "max_err_of_scale": max(errs.values()), "errs_of_scale": errs,
+            "ms": cuda_ms(lambda: ops.cross_layer_bwd(x0, x, w, bias, g)),
+            "call_ms": cuda_ms(lambda: ops.cross_layer_bwd(x0, x, w, bias, g),
+                               device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.cross_layer_bwd_ref(x0, x, w, bias, g)),
+            "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -363,12 +487,14 @@ def hits_of(ctx) -> int:
     return int(sum(int(pe.cache_hit_count(c)) for c in ctx.ctxs.values()))
 
 
-def serve_full_width() -> dict:
-    cfg = get_config("deepfm")
+def serve_full_width(arch: str) -> dict:
+    a = ARCHS[arch]
+    cfg = get_config(arch)
     plan = make_plan(cfg, world=1, per_device_batch=SERVE_B)
     g = plan.groups[0]
-    check(len(plan.groups) == 1 and g.rows == FULL_ROWS and plan.cache_rows[0] == HOT_ROWS,
-          f"full deepfm plan: {[(x.rows, x.dim) for x in plan.groups]} {plan.cache_rows}")
+    check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
+          and plan.cache_rows[0] == a.hot_rows,
+          f"full {arch} plan: {[(x.rows, x.dim) for x in plan.groups]} {plan.cache_rows}")
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.perf_counter()
@@ -396,9 +522,8 @@ def serve_full_width() -> dict:
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
           "full-width probabilities finite [B, 1]")
-    check(all(v > 0 for n, v in launches.items() if n not in TRAIN_KERNELS)
-          and not any(launches[n] for n in TRAIN_KERNELS),
-          f"every serving kernel launched, no training kernel: {launches}")
+    check(launches == {n: a.serve_launches.get(n, 0) * N_TIMED for n in launches},
+          f"{arch} serving launches per request {a.serve_launches}: {launches}")
     check(min(hits) > 0, f"cache hits on every request: {hits}")
     plain = make_serve_step(model, plan, SERVE_B, ServeConfig(use_fused_kernels="off"), DEV)
     p_plain = plain(state, batches[-1])
@@ -406,17 +531,21 @@ def serve_full_width() -> dict:
     err = max_err(probs, p_plain)
     check(err <= TOL, f"kernel vs plain probabilities err {err}")
     breakdown = where_time_goes(serve, state, batches[:10])
-    return {"table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
-            "capacity": plan.capacity[0], "tier_keys_loaded": tier_keys,
-            "init_s": init_s, "warmup_and_flush_s": warm_s,
-            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
-            "mean_ms": float(np.mean(lat)), "max_ms": float(np.max(lat)),
-            "timed_requests": len(lat), "mean_prob": float(probs.mean()),
-            "cache_hits_per_request": float(np.mean(hits)),
-            "ids_per_request": SERVE_B * N_FIELDS, "launches": launches,
-            "plain_vs_kernel_max_abs_err": err,
-            "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
-            "where_time_goes": breakdown}
+    out = {"arch": arch, "table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
+           "capacity": plan.capacity[0], "tier_keys_loaded": tier_keys,
+           "init_s": init_s, "warmup_and_flush_s": warm_s,
+           "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+           "mean_ms": float(np.mean(lat)), "max_ms": float(np.max(lat)),
+           "timed_requests": len(lat), "mean_prob": float(probs.mean()),
+           "cache_hits_per_request": float(np.mean(hits)),
+           "ids_per_request": SERVE_B * a.n_fields, "launches": launches,
+           "launches_per_request": {n: v / N_TIMED for n, v in launches.items() if v},
+           "plain_vs_kernel_max_abs_err": err,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
+           "where_time_goes": breakdown}
+    del state, serve, plain
+    torch.cuda.empty_cache()
+    return out
 
 
 def where_time_goes(serve, state, batches) -> dict:
@@ -427,13 +556,13 @@ def where_time_goes(serve, state, batches) -> dict:
     layers = {"pack_ms": [], "sparse_ms": [], "dense_ms": []}
     for b in batches:
         t0 = time.perf_counter()
-        packed = serve.pack(b)
+        packed, dense_x = serve.pack(b)
         torch.cuda.synchronize(DEV)
         t1 = time.perf_counter()
         pooled, _ = serve.sparse(state, packed)
         torch.cuda.synchronize(DEV)
         t2 = time.perf_counter()
-        serve.dense(state, pooled)
+        serve.dense(state, pooled, dense_x)
         torch.cuda.synchronize(DEV)
         t3 = time.perf_counter()
         for k, v in zip(layers, (t1 - t0, t2 - t1, t3 - t2)):
@@ -460,10 +589,10 @@ def where_time_goes(serve, state, batches) -> dict:
     return out
 
 
-def smoke_against_cpu() -> dict:
-    """deepfm-smoke with a warm tier: the card's kernel path against the
-    CPU's plain path on the same state and request."""
-    cfg = get_config("deepfm", smoke=True)
+def smoke_against_cpu(arch: str) -> dict:
+    """The arch's smoke config with a warm tier: the card's kernel path
+    against the CPU's plain path on the same state and request."""
+    cfg = get_config(arch, smoke=True)
     b = 64
     plan = make_plan(cfg, world=1, per_device_batch=b)
     model = WDLModel(cfg, plan)
@@ -474,11 +603,14 @@ def smoke_against_cpu() -> dict:
     warm_tier(serve_cpu, state, cfg, rng, 4)
     batch = make_batch(cfg, b, rng)
     p_cpu, ctx_cpu = serve_cpu.score(state, batch)
+    ops.reset_launches()
     serve_gpu = make_serve_step(model, plan, b, ServeConfig(use_fused_kernels="on"), DEV)
     p_gpu, ctx_gpu = serve_gpu.score(to_device(state, DEV), batch)
     err = max_err(p_gpu.cpu(), p_cpu)
     check(err <= TOL, f"smoke card vs CPU probabilities err {err}")
     check(hits_of(ctx_gpu) == hits_of(ctx_cpu) > 0, "smoke cache hits equal and > 0")
+    check(all(ops.launches[n] > 0 for n in ARCHS[arch].serve_launches),
+          f"smoke request on the card went through the kernels: {ops.launches}")
     return {"max_abs_err": err, "cache_hits": hits_of(ctx_gpu)}
 
 
@@ -490,9 +622,67 @@ def train_plan(cfg):
                      flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS)
 
 
-def train_run(fused: str, batches, breakdown: bool = False) -> dict:
-    """30 full-width training steps from seed 0; the state is freed after."""
-    cfg = get_config("deepfm")
+def clone(tree):
+    """A copy of a train state whose tensors share no storage with it."""
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # EmbeddingState / CacheState
+        return type(tree)(*(clone(v) for v in tree))
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def shared_state_check(model, plan, step, state, batch) -> dict:
+    """One step on the kernel path and one on the plain path, each from its
+    own copy of ``state`` on the same batch: the loss to rtol 1e-5, every
+    dense gradient to 1e-5 of its leaf's largest entry. The dense stage's
+    outputs are read through a wrapper around ``TrainStep.dense``."""
+    plain = ts.make_train_step(model, plan, TRAIN_B,
+                               ts.TrainConfig(use_fused_kernels="off"), DEV)
+    seen = {}
+    for name, st in (("kernel", step), ("plain", plain)):
+        def dense(*args, _orig=st.dense, _name=name):
+            seen[_name] = _orig(*args)
+            return seen[_name]
+
+        st.dense = dense
+        try:
+            copy = clone(state)
+            st(copy, batch)
+            del copy
+        finally:
+            del st.dense
+    torch.cuda.synchronize(DEV)
+    (lk, gk, pk), (lp, gp, pp) = seen["kernel"], seen["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    check(loss_rel <= 1e-5, f"shared-state loss kernel {float(lk)} vs plain {float(lp)}")
+    leaf_err = {}
+    for path, a, b in zip(leaf_names(gp), tree_leaves(gk), tree_leaves(gp)):
+        top = float(b.abs().max())
+        leaf_err[path] = max_err(a, b) / top if top > 0 else max_err(a, b)
+        check(leaf_err[path] <= TOL, f"shared-state dense gradient {path}: "
+              f"{leaf_err[path]} of its largest entry")
+    pooled_err = max(max_err(pk[k], pp[k]) / max(float(pp[k].abs().max()), 1e-30)
+                     for k in pp)
+    torch.cuda.empty_cache()
+    return {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel_diff": loss_rel,
+            "max_dense_grad_rel_err": max(leaf_err.values()),
+            "worst_leaf": max(leaf_err, key=leaf_err.get),
+            "pooled_grad_rel_err": pooled_err}
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in tree for p in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def train_run(arch: str, fused: str, batches, breakdown: bool = False,
+              check_at: Tuple[int, ...] = ()) -> dict:
+    """30 full-width training steps from seed 0; the state is freed after.
+    Before each step in ``check_at`` (1-based) the shared-state check runs on
+    copies, outside the timed step, and leaves this run's state alone."""
+    cfg = get_config(arch)
     plan = train_plan(cfg)
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
@@ -501,8 +691,10 @@ def train_run(fused: str, batches, breakdown: bool = False) -> dict:
                               ts.TrainConfig(use_fused_kernels=fused), DEV)
     torch.cuda.synchronize(DEV)
     ops.reset_launches()
-    lat, losses, hits, ovf = [], [], [], []
-    for b in batches[:TRAIN_STEPS]:
+    lat, losses, hits, ovf, checks = [], [], [], [], {}
+    for i, b in enumerate(batches[:TRAIN_STEPS], start=1):
+        if i in check_at:
+            checks[i] = shared_state_check(model, plan, step, state, b)
         t0 = time.perf_counter()
         state, m = step(state, b)
         torch.cuda.synchronize(DEV)
@@ -511,7 +703,7 @@ def train_run(fused: str, batches, breakdown: bool = False) -> dict:
         hits.append(int(m["cache_hits"]))
         ovf.append(int(m["overflow"]))
     out = {"launches": dict(ops.launches), "lat": lat, "losses": losses, "hits": hits,
-           "overflow": ovf}
+           "overflow": ovf, "shared_state_checks": checks}
     if breakdown:
         out["stages"] = train_breakdown(step, state, batches[TRAIN_STEPS:])
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
@@ -562,26 +754,30 @@ def train_breakdown(step, state, batches) -> dict:
     return out
 
 
-def train_full_width() -> dict:
-    cfg = get_config("deepfm")
+def train_full_width(arch: str) -> dict:
+    a = ARCHS[arch]
+    cfg = get_config(arch)
     plan = train_plan(cfg)
     g = plan.groups[0]
-    check(len(plan.groups) == 1 and g.rows == FULL_ROWS and plan.cache_rows[0] == HOT_ROWS
+    check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
+          and plan.cache_rows[0] == a.hot_rows
           and plan.microbatch == TRAIN_B and len(plan.interleave) == 1,
-          f"full deepfm train plan: {g.rows} {plan.cache_rows} {plan.microbatch} "
+          f"full {arch} train plan: {g.rows} {plan.cache_rows} {plan.microbatch} "
           f"{plan.interleave}")
     stream = batch_stream(cfg, TRAIN_B, seed=SEED)
     batches = [next(stream) for _ in range(TRAIN_STEPS + 9)]
-    k = train_run("auto", batches, breakdown=True)
+    k = train_run(arch, "auto", batches, breakdown=True)
     launches = k["launches"]
     check(all(np.isfinite(k["losses"])), f"finite losses: {k['losses']}")
-    check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
-    check(all(launches[n] == TRAIN_STEPS for n in TRAIN_KERNELS),
-          f"training kernels once per step: {launches}")
+    check(launches == {n: a.train_launches.get(n, 0) * TRAIN_STEPS for n in launches},
+          f"{arch} training launches per step {a.train_launches}: {launches}")
     check(min(k["hits"][FLUSH_ITERS:]) > 0 and max(k["hits"][:FLUSH_ITERS]) == 0,
           f"tier hits exactly on the steps after the step-{FLUSH_ITERS} flush: {k['hits']}")
-    # the kernels sum in a fixed order, so the kernel path repeats itself
-    k2 = train_run("auto", batches)
+    # the kernels sum in a fixed order, so the kernel path repeats itself;
+    # the second run also holds one kernel step against one plain step from
+    # a shared state where the arch asks (dcn-v2: before step 1 and before
+    # the first step after the flush)
+    k2 = train_run(arch, "auto", batches, check_at=a.shared_state_at)
     check(k2["losses"] == k["losses"] and k2["hits"] == k["hits"],
           "a second kernel run repeats the first bit for bit")
     # The plain versions' index_add_ sums with atomics, in an order that can
@@ -592,19 +788,20 @@ def train_full_width() -> dict:
     # the kernels against one reproducible plain trajectory.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        p = train_run("off", batches)
+        p = train_run(arch, "off", batches)
     finally:
         torch.use_deterministic_algorithms(False)
     check(all(v == 0 for v in p["launches"].values()), f"plain run launched: {p['launches']}")
     diff = np.abs(np.array(k["losses"]) - np.array(p["losses"]))
-    check(np.allclose(k["losses"], p["losses"], rtol=1e-4, atol=1e-5),
-          f"kernel vs plain loss trajectory: {k['losses']} vs {p['losses']}")
+    if a.trajectory_bar:
+        check(np.allclose(k["losses"], p["losses"], rtol=1e-4, atol=1e-5),
+              f"kernel vs plain loss trajectory: {k['losses']} vs {p['losses']}")
     check(k["hits"] == p["hits"] and k["overflow"] == p["overflow"],
           "kernel vs plain hits and overflow equal")
     lat = np.array(k["lat"])
     steady = np.array([t for i, t in enumerate(lat, start=1)
                        if i > WARMUP_ITERS and i != FLUSH_ITERS])
-    return {"table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
+    return {"arch": arch, "table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
             "capacity": plan.capacity[0], "batch": TRAIN_B, "steps": TRAIN_STEPS,
             "step_p50_ms": float(np.percentile(steady, 50)),
             "step_p99_ms": float(np.percentile(steady, 99)),
@@ -614,16 +811,20 @@ def train_full_width() -> dict:
             "plain_step_p50_ms": float(np.percentile(
                 [t for i, t in enumerate(p["lat"], start=1)
                  if i > WARMUP_ITERS and i != FLUSH_ITERS], 50)),
-            "losses": k["losses"], "plain_losses": p["losses"],
-            "max_abs_loss_diff": float(diff.max()), "hits": k["hits"],
+            "step_ms": k["lat"], "losses": k["losses"], "plain_losses": p["losses"],
+            "max_abs_loss_diff": float(diff.max()),
+            "max_rel_loss_diff": float((diff / np.abs(p["losses"])).max()),
+            "shared_state_checks": k2["shared_state_checks"], "hits": k["hits"],
             "overflow": k["overflow"], "launches": launches,
+            "launches_per_step": {n: v / TRAIN_STEPS for n, v in launches.items() if v},
             "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"]}
 
 
-def train_smoke_against_cpu() -> dict:
-    """deepfm-smoke with a tiny tier flushed at step 3: 8 steps on the card's
-    kernels against 8 on the CPU's plain versions, same state and batches."""
-    cfg = get_config("deepfm", smoke=True)
+def train_smoke_against_cpu(arch: str) -> dict:
+    """The arch's smoke config with a tiny tier flushed at step 3: 8 steps on
+    the card's kernels against 8 on the CPU's plain versions, same state and
+    batches."""
+    cfg = get_config(arch, smoke=True)
     b = 64
     plan = make_plan(cfg, world=1, per_device_batch=b, hot_bytes=1 << 14, flush_iters=3,
                      warmup_iters=2)
@@ -677,44 +878,58 @@ def main() -> None:
     print(f"[build] {len(SOURCES)} kernels in {secs:.2f}s", flush=True)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    runners = {"tier_probe": (run_tier_probe, "serve", SERVE_B),
-               "gather_pool": (run_gather_pool, "serve", SERVE_B),
-               "fm_interaction": (run_fm, "serve", SERVE_B),
-               "segment_grad": (run_segment_grad, "train", TRAIN_B),
-               "dedup_adagrad": (run_dedup_adagrad, "train", TRAIN_B),
-               "fm_interaction_bwd": (run_fm_bwd, "train", TRAIN_B)}
+    # name -> (runner, arch, path, the path's batch); each also runs at bulk
+    runners = {"tier_probe": (run_tier_probe, "deepfm", "serve", SERVE_B),
+               "gather_pool": (run_gather_pool, "deepfm", "serve", SERVE_B),
+               "fm_interaction": (run_fm, "deepfm", "serve", SERVE_B),
+               "segment_grad": (run_segment_grad, "deepfm", "train", TRAIN_B),
+               "dedup_adagrad": (run_dedup_adagrad, "deepfm", "train", TRAIN_B),
+               "fm_interaction_bwd": (run_fm_bwd, "deepfm", "train", TRAIN_B),
+               "cross_layer": (run_cross, "dcn-v2", "serve", SERVE_B),
+               "cross_layer_bwd": (run_cross_bwd, "dcn-v2", "train", TRAIN_B)}
     main_shape = {}
-    for name, (run, path, main_b) in runners.items():
+    for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
-            r = run(b, gen)
+            r = run(b, gen, ARCHS[arch])
             print(f"[kernel] {name} {label} " + json.dumps(r), flush=True)
             if label != "bulk":
                 main_shape[name] = r
+    # the embedding kernels again at dcn-v2's D = 16, n = B x 26, its table
+    for name in ("tier_probe", "gather_pool", "segment_grad", "dedup_adagrad"):
+        run, _, path, main_b = runners[name]
+        r = run(main_b, gen, ARCHS["dcn-v2"])
+        print(f"[kernel] {name} dcn-v2 {path} " + json.dumps(r), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
 
-    full = serve_full_width()
-    print("[serve] deepfm full width " + json.dumps(full), flush=True)
-    print(f"[serve] deepfm B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
-          f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
-          f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
-    print("[serve] deepfm-smoke card vs CPU " + json.dumps(smoke_against_cpu()), flush=True)
+    runs = {}
+    for arch in ARCHS:
+        full = runs[arch, "serve"] = serve_full_width(arch)
+        print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
+        print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
+              f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
+              f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
+        print(f"[serve] {arch}-smoke card vs CPU " + json.dumps(smoke_against_cpu(arch)),
+              flush=True)
 
-    train = train_full_width()
-    print("[train] deepfm full width " + json.dumps(train), flush=True)
-    print(f"[train] deepfm B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
-          f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
-          f"flush step={train['flush_step_ms']:.1f}ms", flush=True)
-    print("[train] deepfm-smoke card vs CPU " + json.dumps(train_smoke_against_cpu()),
-          flush=True)
+        train = runs[arch, "train"] = train_full_width(arch)
+        print(f"[train] {arch} full width " + json.dumps(train), flush=True)
+        print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
+              f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
+              f"flush step={train['flush_step_ms']:.1f}ms "
+              f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
+              flush=True)
+        print(f"[train] {arch}-smoke card vs CPU "
+              + json.dumps(train_smoke_against_cpu(arch)), flush=True)
+        # free this arch's memory before the next arch's state
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = main_shape[name]
         # each kernel's launches on the main path it was ported for
-        main_run = train if name in TRAIN_KERNELS else full
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": main_run["launches"][name],
+                        "launches": runs[PORTED_FOR[name]]["launches"][name],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's full-width deepfm training trajectory parts from
-its plain-PyTorch twin on the card.
+"""Where the PyTorch port's full-width training trajectory parts from its
+plain-PyTorch twin on the card.
 
-    python3 scripts/torch_train_divergence.py [HASH_SEED]
+    python3 scripts/torch_train_divergence.py [HASH_SEED] [ARCH]
 
 Runs ``chip_smoke.py``'s training phase (30 steps from seed 0, B = 256, tier
 flush at step 20) several times: on the kernels twice, on the plain
@@ -12,7 +12,8 @@ Prints each run's per-step absolute loss difference from the first kernel
 run. The process re-runs itself under ``PYTHONHASHSEED=HASH_SEED`` (default
 0, ``chip_smoke.py``'s): the seed fixes the packing salt, and with it which
 rows the batches touch, so another seed is another realization of the data.
-Needs one CUDA card; each run builds and frees a 9 GB state.
+ARCH is ``deepfm`` (default) or ``dcn-v2``. Needs one CUDA card; each run
+builds and frees a full-width state (9 GB for deepfm, 13.8 GB for dcn-v2).
 """
 import os
 import sys
@@ -31,33 +32,38 @@ SWAPS = {"_gather_pool_cuda": ref.gather_pool_ref,
          "_fm_interaction_cuda": ref.fm_interaction_ref,
          "_segment_grad_cuda": ref.segment_grad_ref,
          "_dedup_adagrad_cuda": ref.dedup_adagrad_ref,
-         "_fm_interaction_bwd_cuda": ref.fm_interaction_bwd_ref}
+         "_fm_interaction_bwd_cuda": ref.fm_interaction_bwd_ref,
+         "_cross_layer_cuda": ref.cross_layer_ref,
+         "_cross_layer_bwd_cuda": ref.cross_layer_bwd_ref}
 
 
-def main() -> None:
+def main(arch: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_train_divergence: needs a CUDA card")
     torch.zeros(1, device=cs.DEV)  # the CUDA context, before the memory stats
-    stream = cs.batch_stream(cs.get_config("deepfm"), cs.TRAIN_B, seed=cs.SEED)
+    a = cs.ARCHS[arch]
+    swaps = {k: v for k, v in SWAPS.items() if k[1:-5] in a.train_launches}
+    stream = cs.batch_stream(cs.get_config(arch), cs.TRAIN_B, seed=cs.SEED)
     batches = [next(stream) for _ in range(cs.TRAIN_STEPS)]
     runs = {}
     for tag, fused in (("kernels", "auto"), ("kernels again", "auto"),
                        ("plain", "off"), ("plain again", "off")):
-        runs[tag] = cs.train_run(fused, batches)["losses"]
+        runs[tag] = cs.train_run(arch, fused, batches)["losses"]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for tag in ("plain deterministic", "plain deterministic again"):
-            runs[tag] = cs.train_run("off", batches)["losses"]
+            runs[tag] = cs.train_run(arch, "off", batches)["losses"]
     finally:
         torch.use_deterministic_algorithms(False)
-    for name, plain in SWAPS.items():
+    for name, plain in swaps.items():
         kernel = getattr(ops, name)
         setattr(ops, name, plain)
         try:
-            runs[f"kernels, plain {name[1:-5]}"] = cs.train_run("auto", batches)["losses"]
+            runs[f"kernels, plain {name[1:-5]}"] = cs.train_run(arch, "auto",
+                                                                batches)["losses"]
         finally:
             setattr(ops, name, kernel)
-    print(cs.card_stamp(), f"PYTHONHASHSEED={os.environ['PYTHONHASHSEED']}")
+    print(cs.card_stamp(), arch, f"PYTHONHASHSEED={os.environ['PYTHONHASHSEED']}")
     base = np.array(runs["kernels"])
     flush = cs.FLUSH_ITERS
     for tag, losses in runs.items():
@@ -71,4 +77,4 @@ if __name__ == "__main__":
     if os.environ.get("PYTHONHASHSEED") != hash_seed:
         os.execve(sys.executable, [sys.executable, *sys.argv],
                   {**os.environ, "PYTHONHASHSEED": hash_seed})
-    main()
+    main(sys.argv[2] if len(sys.argv) > 2 else "deepfm")

@@ -33,7 +33,7 @@ class FeatureField:
 class InteractionSpec:
     """One feature-interaction submodule (paper Fig. 2)."""
 
-    kind: str  # this slice of the port runs 'fm' and 'linear'
+    kind: str  # the port runs 'fm', 'linear' and 'cross' so far
     fields: Tuple[str, ...] = ()  # field names it consumes ('' = all)
     kwargs: Dict[str, Any] = field(default_factory=dict)
 
@@ -103,4 +103,4 @@ def list_archs() -> List[str]:
 
 def _ensure_loaded() -> None:
     # importing an arch module runs its register_arch call
-    from repro_torch.configs import deepfm  # noqa: F401
+    from repro_torch.configs import dcn_v2, deepfm  # noqa: F401

@@ -6,11 +6,12 @@ into one packed (ids, weights, seg) triple per PackedGroup on the device.
 Scrambling + table offsets map raw per-table IDs into the packed global row
 space. All of a group's fields are scrambled in one pass over a ``[B, L]``
 matrix with per-column constants, so a group costs three host-to-device
-copies whatever its field count.
+copies whatever its field count. ``dense_features`` moves the batch's
+numeric features to the device beside them.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -74,3 +75,12 @@ def pack_group(group: PackedGroup, batch: Dict[str, Dict[str, np.ndarray]],
            + c[4][None, :]).to(torch.int32)
     return PackedBatch(ids=ids.reshape(-1), weights=weights.reshape(-1),
                        seg=seg.reshape(-1), n_bags=group.n_bags)
+
+
+def dense_features(cfg: Any, batch: Dict, device: Union[str, torch.device]
+                   ) -> Optional[torch.Tensor]:
+    """The batch's ``dense [B, n_dense]`` float32 features on ``device``, or
+    ``None`` when the config has none."""
+    if cfg.n_dense <= 0:
+        return None
+    return torch.as_tensor(np.asarray(batch["dense"], np.float32)).to(device)

@@ -13,16 +13,17 @@ Each wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
 kernels (``reset_launches`` before, read after).
 
-``gather_pool`` and ``fm_interaction`` are ``torch.autograd.Function``s like
-the reference's ``jax.custom_vjp``s: their backwards are the
-``segment_grad`` and ``fm_interaction_bwd`` kernels for CUDA tensors and the
-plain versions for CPU tensors. ``segment_grad`` and ``dedup_adagrad`` are
+``gather_pool``, ``fm_interaction`` and ``cross_layer`` are
+``torch.autograd.Function``s like the reference's ``jax.custom_vjp``s: their
+backwards are the ``segment_grad``, ``fm_interaction_bwd`` and
+``cross_layer_bwd`` kernels for CUDA tensors and the plain versions for CPU
+tensors. ``segment_grad`` and ``dedup_adagrad`` are
 also standalone ops for the engine's explicit backward; ``dedup_adagrad``
 updates the table and accumulator it is given in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -30,7 +31,8 @@ from repro_torch.kernels import build, ref
 
 launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
-                            "fm_interaction_bwd": 0}
+                            "fm_interaction_bwd": 0, "cross_layer": 0,
+                            "cross_layer_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -299,3 +301,96 @@ def fm_interaction(fields, fused: Optional[bool] = None):
     """FM second order over field embeddings ``[B, F, D] -> [B, 1]``,
     differentiable through ``fm_interaction_bwd``."""
     return _FMInteraction.apply(fields, _use_kernel(fused, fields, "fm_interaction"))
+
+
+# --------------------------------------------------------------- cross layer
+
+
+def _expect_cross(what: str, x0, x, w, b, g=None) -> None:
+    dev = x.device
+    _expect(x0, f"{what} x0", torch.float32, 2, dev)
+    _expect(x, f"{what} x", torch.float32, 2, dev)
+    _expect(w, f"{what} w", torch.float32, 2, dev)
+    _expect(b, f"{what} b", torch.float32, 1, dev)
+    bsz, d = x.shape
+    shapes = [tuple(x0.shape), tuple(w.shape), tuple(b.shape)]
+    want = [(bsz, d), (d, d), (d,)]
+    if g is not None:
+        _expect(g, f"{what} g", torch.float32, 2, dev)
+        shapes.append(tuple(g.shape))
+        want.append((bsz, d))
+    if shapes != want:
+        raise ValueError(f"{what}: x {(bsz, d)}, x0/w/b{'/g' if g is not None else ''} "
+                         f"{shapes}, want {want}")
+
+
+def _cross_layer_cuda(x0, x, w, b):
+    _expect_cross("cross_layer", x0, x, w, b)
+    bsz, d = x.shape
+    out = torch.empty_like(x)
+    if bsz and d:
+        _launch("cross_layer", x0.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                out.data_ptr(), bsz, d)
+    return out
+
+
+def cross_bwd_split(bsz: int) -> Tuple[int, int]:
+    """``(chunk, splits)`` of the backward's split-K over the batch: about
+    one chunk per 64 rows, at most 64 chunks, each a multiple of the
+    kernel's 32-row slab and none empty. Fixed by B alone, so a shape always
+    sums in the same order."""
+    splits = min(64, max(1, -(-bsz // 64)))
+    per = -(-bsz // splits)
+    chunk = -(-per // 32) * 32
+    return chunk, -(-bsz // chunk)
+
+
+def _cross_layer_bwd_cuda(x0, x, w, b, g):
+    _expect_cross("cross_layer_bwd", x0, x, w, b, g)
+    bsz, d = x.shape
+    gx0, gx = torch.empty_like(x), torch.empty_like(x)
+    if not (bsz and d):
+        return gx0, gx, torch.zeros_like(w), torch.zeros_like(b)
+    gw, gb = torch.empty_like(w), torch.empty_like(b)
+    chunk, splits = cross_bwd_split(bsz)
+    part = torch.empty((splits, d * d + d), dtype=torch.float32, device=x.device)
+    _launch("cross_layer_bwd", x0.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            g.data_ptr(), gx0.data_ptr(), gx.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+            part.data_ptr(), bsz, d, chunk, splits)
+    return gx0, gx, gw, gb
+
+
+def cross_layer_bwd(x0, x, w, b, g, fused: Optional[bool] = None):
+    """d/d(x0, x, w, b) of ``cross_layer`` for the cotangent ``g``:
+    ``(g*z, (g*x0) @ w.T + g, x.T @ (g*x0), sum_B g*x0)`` with
+    ``z = x @ w + b`` recomputed."""
+    if _use_kernel(fused, x, "cross_layer_bwd"):
+        return _cross_layer_bwd_cuda(x0, x, w, b, g)
+    return ref.cross_layer_bwd_ref(x0, x, w, b, g)
+
+
+class _CrossLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, x, w, b, use_kernel: bool):
+        ctx.save_for_backward(x0, x, w, b)
+        ctx.use_kernel = use_kernel
+        if use_kernel:
+            return _cross_layer_cuda(x0, x, w, b)
+        return ref.cross_layer_ref(x0, x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, x, w, b = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.use_kernel:
+            grads = _cross_layer_bwd_cuda(x0, x, w, b, g)
+        else:
+            grads = ref.cross_layer_bwd_ref(x0, x, w, b, g)
+        # at layer 0 x is x0: autograd sums the two cotangents it gets
+        return (*grads, None)
+
+
+def cross_layer(x0, x, w, b, fused: Optional[bool] = None):
+    """DCN-v2 cross layer ``x0 * (x @ w + b) + x`` for ``x0, x [B, d]``,
+    ``w [d, d]``, ``b [d]``, differentiable through ``cross_layer_bwd``."""
+    return _CrossLayer.apply(x0, x, w, b, _use_kernel(fused, x, "cross_layer"))

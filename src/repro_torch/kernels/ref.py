@@ -88,3 +88,21 @@ def fm_interaction_bwd_ref(fields: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     """d/dfields of ``fm_interaction_ref``: ``g[b] * (sum_f v - v)``."""
     s = fields.sum(dim=1, keepdim=True)              # [B, 1, D]
     return g[:, :, None] * (s - fields)              # g: [B, 1]
+
+
+def cross_layer_ref(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """DCN-v2: x0 * (x @ w + b) + x."""
+    return x0 * (x @ w + b) + x
+
+
+def cross_layer_bwd_ref(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor, g: torch.Tensor):
+    """d/d(x0, x, w, b) of ``cross_layer_ref`` (recomputes z = x@w + b)."""
+    z = x @ w + b
+    gz = g * x0
+    gx0 = g * z
+    gx = gz @ w.T + g
+    gw = x.T @ gz
+    gb = gz.sum(dim=0)
+    return gx0, gx, gw, gb

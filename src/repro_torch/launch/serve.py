@@ -1,8 +1,11 @@
-"""Serving launcher of the PyTorch port: batched scoring on one card.
+"""Serving launcher of the PyTorch port: batched scoring of deepfm or
+dcn-v2 on one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
       --batch 512 --n-requests 10
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dcn-v2 \\
+      --batch 512 --n-requests 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dcn-v2 --smoke \\
       --device cpu --n-requests 3
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
@@ -15,7 +18,7 @@ def main(argv=None):
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepfm")
+    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--batch", type=int, default=256)

@@ -1,9 +1,11 @@
 """Training launcher of the PyTorch port: PICASSO hybrid training of deepfm
-on one card (world 1).
+or dcn-v2 on one card (world 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --steps 50 --global-batch 256
-  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 \\
+      --steps 50 --global-batch 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
       --device cpu --steps 3 --global-batch 32 --log-every 1
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
@@ -19,7 +21,7 @@ def main(argv=None):
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepfm")
+    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--steps", type=int, default=50)

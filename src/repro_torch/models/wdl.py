@@ -1,13 +1,16 @@
 """Wide-and-Deep-Learning model (``repro.models.wdl`` in torch), for the
-``linear`` + ``fm`` + MLP wiring deepfm uses.
+``linear`` + ``fm`` + MLP wiring deepfm uses and the cross network + MLP
+wiring of dcn-v2.
 
 embedding layer (packed) -> feature-interaction modules -> MLP -> logits
 (-> the BCE loss for training).
 The model consumes the engine's packed group outputs
-``pooled[gid]: [B, n_bags_g, D_g]`` and produces ``logits [B, n_tasks]``.
-Dense parameters are a plain dict with the reference's layout, so
-``repro_torch.convert`` can carry the reference's values over one to one.
-Any other interaction kind raises until its slice is ported.
+``pooled[gid]: [B, n_bags_g, D_g]`` plus the batch's dense features, and
+produces ``logits [B, n_tasks]``. Dense parameters are a plain dict with
+the reference's layout, so ``repro_torch.convert`` can carry the
+reference's values over one to one. Any other interaction kind, a bottom
+MLP over the dense features (``dense_arch``) and sequence fields raise
+until their slices are ported.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.core.packing import PicassoPlan
 from repro_torch.layers import interactions as I
 from repro_torch.layers.mlp import init_mlp, mlp
 
-_PORTED = ("linear", "fm")
+_PORTED = ("linear", "fm", "cross")
 
 
 class WDLModel:
@@ -29,16 +32,23 @@ class WDLModel:
         for it in cfg.interactions:
             if it.kind not in _PORTED:
                 raise NotImplementedError(
-                    f"interaction {it.kind!r} is not ported yet (this slice runs "
+                    f"interaction {it.kind!r} is not ported yet (the port runs "
                     f"{', '.join(_PORTED)})")
-        if cfg.n_dense or cfg.dense_arch or any(f.pooling == "none" for f in cfg.fields):
+        if cfg.dense_arch or any(f.pooling == "none" for f in cfg.fields):
             raise NotImplementedError(
-                "dense features and sequence fields are not ported yet")
+                "a bottom MLP over dense features and sequence fields are not "
+                "ported yet")
         self.cfg = cfg
         self.plan = plan
         self.fidx: Dict[str, FieldView] = field_index(plan)
         self.pooled_fields = list(cfg.fields)
-        self.deep_dim = sum(f.dim for f in self.pooled_fields)
+        # the reference's wiring for the ported kinds: linear and fm add to
+        # the wide logit; cross consumes ``base`` (fields + dense features),
+        # otherwise ``base`` itself feeds the MLP
+        self.base_dim = sum(f.dim for f in self.pooled_fields) + cfg.n_dense
+        self.consumed_base = any(it.kind == "cross" for it in cfg.interactions)
+        self.deep_dim = (sum(self.base_dim for it in cfg.interactions if it.kind == "cross")
+                         + (0 if self.consumed_base else self.base_dim))
 
     def field_emb(self, pooled: Dict[int, torch.Tensor], name: str) -> torch.Tensor:
         v = self.fidx[name]
@@ -53,22 +63,31 @@ class WDLModel:
                     f.name: torch.randn((f.dim, 1), generator=generator,
                                         device=device) * 0.01
                     for f in self.pooled_fields}
+            elif it.kind == "cross":
+                params[f"i{n}_cross"] = I.init_cross(generator, self.base_dim,
+                                                     it.kwargs.get("n_layers", 3), device)
         params["top"] = init_mlp(generator, self.deep_dim,
                                  tuple(cfg.mlp_dims) + (cfg.n_tasks,), device)
         return params
 
     def apply(self, params: Dict, pooled: Dict[int, torch.Tensor],
-              fused: Optional[bool] = None) -> torch.Tensor:
-        """Logits ``[B, n_tasks]``; ``fused`` is the ``kernels.ops`` override
-        for the FM kernel (the engine's resolved ``use_fused``)."""
+              batch: Optional[Dict] = None, fused: Optional[bool] = None) -> torch.Tensor:
+        """Logits ``[B, n_tasks]``. ``batch["dense"]`` carries the dense
+        features ``[B, n_dense]`` as a tensor on the logits' device when the
+        config has any; ``fused`` is the ``kernels.ops`` override for the FM
+        and cross kernels (the engine's resolved ``use_fused``)."""
+        cfg = self.cfg
         embs = [self.field_emb(pooled, f.name) for f in self.pooled_fields]
-        base = torch.cat(embs, dim=-1)
+        fields_cat = torch.cat(embs, dim=-1)
+        base = (torch.cat([fields_cat, batch["dense"]], dim=-1) if cfg.n_dense > 0
+                else fields_cat)
         wide_logit = torch.zeros((base.shape[0], 1), dtype=base.dtype, device=base.device)
-        for n, it in enumerate(self.cfg.interactions):
+        deep_parts: List[torch.Tensor] = []
+        for n, it in enumerate(cfg.interactions):
             if it.kind == "linear":
                 # sum_f e_f @ w_f as one product over the concatenated fields
                 w = torch.cat([params[f"i{n}_linear"][f.name] for f in self.pooled_fields])
-                wide_logit = wide_logit + base @ w
+                wide_logit = wide_logit + fields_cat @ w
             elif it.kind == "fm":
                 by_dim: Dict[int, List[torch.Tensor]] = {}
                 for f, e in zip(self.pooled_fields, embs):
@@ -77,13 +96,19 @@ class WDLModel:
                     if len(es) > 1:
                         wide_logit = wide_logit + I.fm_interaction(torch.stack(es, dim=1),
                                                                    fused=fused)
-        return mlp(params["top"], base, final_act=False) + wide_logit
+            elif it.kind == "cross":
+                deep_parts.append(I.cross_net(params[f"i{n}_cross"], base, fused=fused))
+        if not self.consumed_base:
+            deep_parts = [base] + deep_parts
+        deep_in = deep_parts[0] if len(deep_parts) == 1 else torch.cat(deep_parts, dim=-1)
+        return mlp(params["top"], deep_in, final_act=False) + wide_logit
 
     def loss(self, params: Dict, pooled: Dict[int, torch.Tensor], batch: Dict,
              fused: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Summed binary cross-entropy with logits, and the logits. ``batch``
-        carries ``labels`` as a tensor on the logits' device."""
-        logits = self.apply(params, pooled, fused=fused)
+        carries ``labels`` (and ``dense`` when the config has dense
+        features) as tensors on the logits' device."""
+        logits = self.apply(params, pooled, batch, fused=fused)
         labels = batch["labels"]
         if labels.dim() == 1:
             labels = labels[:, None]

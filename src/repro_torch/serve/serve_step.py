@@ -8,12 +8,12 @@ with a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.features import pack_group
+from repro_torch.core.features import dense_features, pack_group
 from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import init_embedding_state
 from repro_torch.engine import EmbeddingEngine, EngineContext
@@ -25,7 +25,7 @@ class ServeConfig:
     """Serving-side engine knobs."""
 
     strategy: Any = "picasso"  # a broadcast registry name
-    # CUDA sparse + FM kernels: 'auto' (for tensors on the card) | 'on' | 'off'
+    # CUDA sparse, FM and cross kernels: 'auto' (for tensors on the card) | 'on' | 'off'
     use_fused_kernels: Any = "auto"
 
 
@@ -57,12 +57,14 @@ class ServeStep:
         self.engine = EmbeddingEngine(plan, plan.world, strategy=scfg.strategy,
                                       use_fused_kernels=scfg.use_fused_kernels)
 
-    def pack(self, batch: Dict) -> Dict[int, Any]:
-        """Host batch -> one ``PackedBatch`` per group, on the device."""
+    def pack(self, batch: Dict) -> Tuple[Dict[int, Any], Optional[torch.Tensor]]:
+        """Host batch -> one ``PackedBatch`` per group and the dense
+        features (``None`` when the config has none), on the device."""
         b = next(iter(batch["fields"].values()))["ids"].shape[0]
         if b != self.global_batch:
             raise ValueError(f"batch of {b} samples; this step serves {self.global_batch}")
-        return {g.gid: pack_group(g, batch["fields"], self.device) for g in self.plan.groups}
+        packed = {g.gid: pack_group(g, batch["fields"], self.device) for g in self.plan.groups}
+        return packed, dense_features(self.model.cfg, batch, self.device)
 
     @torch.no_grad()
     def sparse(self, state: Dict[str, Any], packed: Dict[int, Any]):
@@ -70,14 +72,17 @@ class ServeStep:
         return self.engine.forward(state["emb"], packed)
 
     @torch.no_grad()
-    def dense(self, state: Dict[str, Any], pooled) -> torch.Tensor:
+    def dense(self, state: Dict[str, Any], pooled,
+              dense_x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Interactions + MLP -> sigmoid probabilities."""
-        logits = self.model.apply(state["dense"], pooled, fused=self.engine.use_fused)
+        logits = self.model.apply(state["dense"], pooled, {"dense": dense_x},
+                                  fused=self.engine.use_fused)
         return torch.sigmoid(logits)
 
     def score(self, state: Dict[str, Any], batch: Dict) -> Tuple[torch.Tensor, EngineContext]:
-        pooled, ctx = self.sparse(state, self.pack(batch))
-        return self.dense(state, pooled), ctx
+        packed, dense_x = self.pack(batch)
+        pooled, ctx = self.sparse(state, packed)
+        return self.dense(state, pooled, dense_x), ctx
 
     def __call__(self, state: Dict[str, Any], batch: Dict) -> torch.Tensor:
         return self.score(state, batch)[0]

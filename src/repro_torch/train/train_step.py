@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.features import PackedBatch, pack_group
+from repro_torch.core.features import PackedBatch, dense_features, pack_group
 from repro_torch.core.interleaving import pipeline_handoff, resolve_overlap
 from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import init_embedding_state
@@ -111,20 +111,25 @@ class TrainStep:
             self.on_stage(stage)
 
     # -------------------------------------------------------------- stages
-    def pack(self, batch: Dict) -> Tuple[Dict[int, PackedBatch], torch.Tensor]:
-        """Host batch -> one ``PackedBatch`` per group and the labels, on the
-        device."""
+    def pack(self, batch: Dict) -> Tuple[Dict[int, PackedBatch], Dict[str, torch.Tensor]]:
+        """Host batch -> one ``PackedBatch`` per group and the dense-side
+        batch (``labels``, plus ``dense`` features when the config has
+        them), on the device."""
         b = next(iter(batch["fields"].values()))["ids"].shape[0]
         if b != self.global_batch:
             raise ValueError(f"batch of {b} samples; this step trains on {self.global_batch}")
         packed = {g.gid: pack_group(g, batch["fields"], self.device)
                   for g in self.plan.groups}
-        labels = torch.as_tensor(np.asarray(batch["labels"], np.float32)).to(self.device)
-        return packed, labels
+        side = {"labels": torch.as_tensor(np.asarray(batch["labels"], np.float32)
+                                          ).to(self.device)}
+        dense_x = dense_features(self.model.cfg, batch, self.device)
+        if dense_x is not None:
+            side["dense"] = dense_x
+        return packed, side
 
-    def micro_batch(self, packed: Dict[int, PackedBatch], labels: torch.Tensor,
-                    i: int) -> Tuple[Dict[int, PackedBatch], torch.Tensor]:
-        """Chunk ``i`` of the packed batch and of the labels."""
+    def micro_batch(self, packed: Dict[int, PackedBatch], side: Dict[str, torch.Tensor],
+                    i: int) -> Tuple[Dict[int, PackedBatch], Dict[str, torch.Tensor]]:
+        """Chunk ``i`` of the packed batch and of the dense-side batch."""
         lo, hi = i * self.micro, (i + 1) * self.micro
         out = {}
         for gid, pb in packed.items():
@@ -134,7 +139,7 @@ class TrainStep:
                 weights=pb.weights.reshape(-1, ips)[lo:hi].reshape(-1),
                 seg=pb.seg[: self.micro * ips],  # the per-sample pattern repeats
                 n_bags=pb.n_bags)
-        return out, labels[lo:hi]
+        return out, {k: v[lo:hi] for k, v in side.items()}
 
     @torch.no_grad()
     def sparse(self, state: Dict[str, Any], packed: Dict[int, PackedBatch]
@@ -143,16 +148,18 @@ class TrainStep:
         return self.engine.forward(state["emb"], packed)
 
     def dense(self, state: Dict[str, Any], pooled: Dict[int, torch.Tensor],
-              labels: torch.Tensor) -> Tuple[torch.Tensor, Any, Dict[int, torch.Tensor]]:
+              side: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Any, Dict[int, torch.Tensor]]:
         """Loss of one chunk (summed BCE over the global batch) and its
         gradients with respect to the dense parameters and the pooled
-        embeddings."""
+        embeddings. ``side`` holds the chunk's labels and dense features;
+        the features carry no gradient."""
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state["dense"])]
         params = tree_unflatten(state["dense"], leaves)
         gids = sorted(pooled)
         pooled_in = {gid: pooled[gid].detach().requires_grad_(True) for gid in gids}
         with torch.enable_grad():
-            loss_sum, _ = self.model.loss(params, pooled_in, {"labels": labels},
+            loss_sum, _ = self.model.loss(params, pooled_in, side,
                                           fused=self.engine.use_fused)
             loss = loss_sum / self.global_batch
             grads = torch.autograd.grad(loss, leaves + [pooled_in[g] for g in gids])
@@ -186,25 +193,25 @@ class TrainStep:
     # ---------------------------------------------------------------- step
     def __call__(self, state: Dict[str, Any], batch: Dict
                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        packed_full, labels = self.pack(batch)
+        packed_full, side = self.pack(batch)
         self._mark("pack")
         loss_acc = torch.zeros((), device=self.device)
         g_dense_acc = None
         em_acc = {k: torch.zeros((), dtype=torch.int32, device=self.device)
                   for k in self.engine.metric_keys}
-        pending = (self.sparse(state, self.micro_batch(packed_full, labels, 0)[0]), 0)
+        pending = (self.sparse(state, self.micro_batch(packed_full, side, 0)[0]), 0)
         self._mark("sparse")
         for i in range(self.n_micro):
             (pooled, ectx), mi = pending
             if self.prefetch_early and i + 1 < self.n_micro:
-                nxt = (self.sparse(state, self.micro_batch(packed_full, labels, i + 1)[0]),
+                nxt = (self.sparse(state, self.micro_batch(packed_full, side, i + 1)[0]),
                        i + 1)
                 if self.use_overlap:
                     (pooled, ectx), nxt = pipeline_handoff((pooled, ectx), nxt)
                 pending = nxt
                 self._mark("sparse")
             loss, g_dense, g_pooled = self.dense(
-                state, pooled, self.micro_batch(packed_full, labels, mi)[1])
+                state, pooled, self.micro_batch(packed_full, side, mi)[1])
             self._mark("dense")
             loss_acc = loss_acc + loss
             g_dense_acc = (g_dense if g_dense_acc is None
@@ -213,7 +220,7 @@ class TrainStep:
             self._mark("sparse_backward")
             em_acc = {k: em_acc[k] + em[k] for k in em_acc}
             if not self.prefetch_early and i + 1 < self.n_micro:
-                pending = (self.sparse(state, self.micro_batch(packed_full, labels,
+                pending = (self.sparse(state, self.micro_batch(packed_full, side,
                                                                i + 1)[0]), i + 1)
                 self._mark("sparse")
         grad_norm = self.dense_update(state, g_dense_acc)

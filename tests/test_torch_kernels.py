@@ -162,9 +162,13 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
                       torch.tensor([1, 1, 3], dtype=torch.int32), torch.ones((3, 4)),
                       torch.ones(3, dtype=torch.bool), 0.05, 1e-8)
     ops.fm_interaction_bwd(torch.ones((2, 3, 4)), torch.ones((2, 1)))
+    xc = torch.ones((3, 5), requires_grad=True)
+    ops.cross_layer(xc, xc, torch.ones((5, 5)), torch.ones(5)).sum().backward()
+    ops.cross_layer_bwd(xc, xc, torch.ones((5, 5)), torch.ones(5), torch.ones((3, 5)))
     assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
-                            "fm_interaction_bwd": 0}
+                            "fm_interaction_bwd": 0, "cross_layer": 0,
+                            "cross_layer_bwd": 0}
     assert not build._LAUNCHERS
 
 

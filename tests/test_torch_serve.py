@@ -1,8 +1,9 @@
 """The port's serving path end to end against the reference on the CPU, its
 launcher, and the guards that keep the port free of JAX and of ``repro``.
 
-End to end: deepfm-smoke, the reference's state on ``mesh1`` with a warm
-(flushed) hot tier, carried over by ``state_from_jax``; the port's
+End to end: deepfm-smoke (and dcn-v2-smoke, from ``test_torch_dcn.py``),
+the reference's state on ``mesh1`` with a warm (flushed) hot tier, carried
+over by ``state_from_jax``; the port's
 probabilities must match the reference's ``make_serve_step`` to 1e-5 with
 the reference's fused kernels off and on (interpret mode), and the number
 of tier hits must be equal and non-zero.
@@ -70,7 +71,13 @@ def _jax_hits(mesh, jplan, emb, fields):
 
 
 def test_deepfm_smoke_serve_matches_reference(mesh1):
-    jcfg, cfg = jget_config("deepfm", smoke=True), get_config("deepfm", smoke=True)
+    check_smoke_serve(mesh1, "deepfm")
+
+
+def check_smoke_serve(mesh1, arch):
+    """The end-to-end serving check for one smoke arch
+    (``tests/test_torch_dcn.py`` runs it for dcn-v2)."""
+    jcfg, cfg = jget_config(arch, smoke=True), get_config(arch, smoke=True)
     jplan, plan = jmake_plan(jcfg, 1, B), make_plan(cfg, 1, B)
     jmodel, model = JWDLModel(jcfg, jplan), WDLModel(cfg, plan)
     state = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)

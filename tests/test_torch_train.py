@@ -1,7 +1,8 @@
 """The port's training path against the reference on the CPU.
 
-Trajectory: deepfm-smoke at GB = 64 with a tiny hot tier that is flushed
-at step 3, so later steps take the hit-gradient path. The reference's
+Trajectory: deepfm-smoke (and dcn-v2-smoke, from ``test_torch_dcn.py``) at
+GB = 64 with a tiny hot tier that is flushed at step 3, so later steps take
+the hit-gradient path. The reference's
 ``init_state`` on ``mesh1`` is carried over by ``train_state_from_jax``,
 both sides get the same batches, and the reference's
 ``make_train_step(use_fused_kernels='off')`` is held against the port's
@@ -60,24 +61,30 @@ def _t(x):
     return torch.as_tensor(np.array(x))
 
 
-def _plans(n_micro):
+def _plans(n_micro, arch="deepfm"):
     kw = dict(hot_bytes=1 << 14, flush_iters=3, warmup_iters=2, n_micro=n_micro)
-    jplan = jmake_plan(jget_config("deepfm", smoke=True), 1, GB, **kw)
-    plan = make_plan(get_config("deepfm", smoke=True), 1, GB, **kw)
+    jplan = jmake_plan(jget_config(arch, smoke=True), 1, GB, **kw)
+    plan = make_plan(get_config(arch, smoke=True), 1, GB, **kw)
     return jplan, plan
 
 
 @pytest.mark.parametrize("cache_update,n_micro", [("psum", 1), ("stale", 1), ("psum", 2)])
 def test_train_trajectory_matches_reference(mesh1, cache_update, n_micro):
-    jcfg = jget_config("deepfm", smoke=True)
-    jplan, plan = _plans(n_micro)
+    check_train_trajectory(mesh1, "deepfm", cache_update, n_micro)
+
+
+def check_train_trajectory(mesh1, arch, cache_update, n_micro):
+    """The trajectory check for one smoke arch (``tests/test_torch_dcn.py``
+    runs it for dcn-v2)."""
+    jcfg = jget_config(arch, smoke=True)
+    jplan, plan = _plans(n_micro, arch)
     jmodel = JWDLModel(jcfg, jplan)
     jstate = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)
     state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
     jstep, _ = jmake_train_step(
         jmodel, jplan, mesh1, AXES, GB,
         JTrainConfig(use_fused_kernels="off", cache_update=cache_update), donate=False)
-    step = make_train_step(WDLModel(get_config("deepfm", smoke=True), plan), plan, GB,
+    step = make_train_step(WDLModel(get_config(arch, smoke=True), plan), plan, GB,
                            TrainConfig(use_fused_kernels="off", cache_update=cache_update),
                            "cpu")
     assert step.n_micro == n_micro and step.use_overlap == (n_micro > 1)
