@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port: builds its CUDA kernels, holds each one
-against its plain PyTorch version, serves and trains full-width deepfm and
-full-width dcn-v2 on one card.
+against its plain PyTorch version, serves and trains full-width deepfm,
+full-width dcn-v2 and full-width deepfm with ``picasso_narrow`` and its L2
+tier on one card.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
-1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (eight
+1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (ten
    kernels, one nvcc per source, all at once);
 2. run each kernel at its path's shape (serving B = 512, training B = 256)
    and at a bulk shape (B = 65,536) against its plain version on the same
@@ -18,7 +19,14 @@ Phases, in order (any failure raises and exits non-zero):
    backward repeating bit for bit; time kernel, plain version and, where
    one PyTorch call computes the same function, that call (CUDA events,
    median of 30 after warm-up) beside the byte/op bound. The embedding
-   kernels run again at dcn-v2's D = 16 and n = B x 26 on its table;
+   kernels run again at dcn-v2's D = 16 and n = B x 26 on its table.
+   ``gather_project`` and ``gather_project_grad`` run at the narrow plan's
+   serving and training shapes (d = 4, D = 10, m = the bucket capacity)
+   and at bulk: outputs within 1e-5 of scale, not-kept positions and
+   empty slots exactly 0, the gradient repeating bit for bit and reached
+   both standalone and through the autograd of ``ops.gather_project``.
+   ``dedup_adagrad`` runs again on the 187,780,711 x 4 narrow master and
+   ``tier_probe`` on a 48,806,440-key L2 tier;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -47,7 +55,26 @@ Phases, in order (any failure raises and exits non-zero):
    1e-5) and in every dense gradient (1e-5 of the leaf's largest entry);
    the 30-step kernel vs deterministic-plain loss difference is printed, not
    held to a bar (past the flush it depends on the data, ``PERF.md`` §6);
-   a dcn-v2-smoke training run on the card must match the CPU.
+   a dcn-v2-smoke training run on the card must match the CPU;
+7. free the dcn-v2 states and serve full-width deepfm with
+   ``picasso_narrow --narrow-dim 4 --l2-budget 2147483648`` (a
+   187,780,711 x 4 master, a 4,194,304-row L1 and a 48,806,440-row L2 tier,
+   both at D = 10) as in phase 3: per request 2 ``tier_probe``, 1
+   ``gather_project``, 1 ``gather_pool`` and 1 ``fm_interaction`` launch,
+   tier hits on every request, the plain path within 1e-5; then a flush
+   from an FCounter that counts every row fills both tiers (the warm-up's
+   ids fit in L1) and five requests take L2 hits, held against the plain
+   path; a narrow deepfm-smoke request (both tiers warm) on the card
+   matching the CPU;
+8. train it on the train launcher's plan with the same flags as in phase
+   6: per step 2 ``tier_probe``, 1 ``gather_project``, 2 ``dedup_adagrad``
+   (the narrow master at d = 4 and the L2 tier at D = 10) and no
+   ``gather_project_grad`` (the engine's backward folds the cotangent
+   through the projection itself); the shared-state check also holds the
+   trained projection to 1e-5 of its scale; after the profiled steps both
+   tiers are filled as in phase 7 and steps 40-42 take L2 hits, step 40's
+   flush writing the full tiers back; a narrow deepfm-smoke training run on
+   the card matching the CPU.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -55,6 +82,7 @@ Needs one CUDA card and nvcc; it fails without either. It re-runs itself
 under ``PYTHONHASHSEED=0``: the packing salt hashes table names, so a fixed
 seed makes the served rows, and so the probabilities, repeat run to run.
 """
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +102,7 @@ from repro_torch.configs import get_config, get_shapes  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
+from repro_torch.engine import resolve_assignment  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
@@ -97,11 +126,12 @@ DEV = torch.device("cuda", 0)
 
 
 class Arch(NamedTuple):
-    """A full-width arch's packed table, the kernel launches of its two
-    paths, and how its 30-step training run is held against the plain
-    path."""
+    """A full-width configuration: its registry config, packed table and
+    tiers, strategy, the kernel launches of its two paths, and how its
+    30-step training run is held against the plain path."""
 
     name: str
+    config: str                     # the registry config it runs
     n_fields: int
     dim: int
     rows: int
@@ -110,20 +140,39 @@ class Arch(NamedTuple):
     train_launches: Dict[str, int]  # per step; every other kernel 0
     trajectory_bar: bool            # hold the 30 losses to rtol 1e-4 / atol 1e-5
     shared_state_at: Tuple[int, ...]  # steps preceded by the shared-state check
+    strategy: str = "picasso"
+    narrow_dim: int = 0             # the launchers' --narrow-dim (0: none)
+    l2_bytes: int = 0               # the launchers' --l2-budget
+    l2_rows: int = 0                # the L2 tier that budget plans
+
+    @property
+    def master_dim(self) -> int:
+        return self.narrow_dim or self.dim
 
 
 _EMB = {"tier_probe": 1, "gather_pool": 1}
 ARCHS = {
-    "deepfm": Arch("deepfm", 39, 10, 187_780_711, 4_194_304,
+    "deepfm": Arch("deepfm", "deepfm", 39, 10, 187_780_711, 4_194_304,
                    {**_EMB, "fm_interaction": 1},
                    {**_EMB, "fm_interaction": 1, "segment_grad": 1, "dedup_adagrad": 1,
                     "fm_interaction_bwd": 1}, True, ()),
     # three cross layers: three forward and three backward launches
-    "dcn-v2": Arch("dcn-v2", 26, 16, 187_767_399, 4_194_304,
+    "dcn-v2": Arch("dcn-v2", "dcn-v2", 26, 16, 187_767_399, 4_194_304,
                    {**_EMB, "cross_layer": 3},
                    {**_EMB, "cross_layer": 3, "segment_grad": 1, "dedup_adagrad": 1,
                     "cross_layer_bwd": 3}, False, (1, FLUSH_ITERS + 1)),
+    # README's frequency-adaptive command at full width: two tier probes (L1,
+    # then L2 for the L1 misses), the narrow stitch, and dedup_adagrad on the
+    # narrow master and on the L2 tier; the engine's backward folds the wide
+    # cotangent through proj^T itself, so gather_project_grad is not launched
+    "deepfm-narrow": Arch(
+        "deepfm-narrow", "deepfm", 39, 10, 187_780_711, 4_194_304,
+        {"tier_probe": 2, "gather_project": 1, "gather_pool": 1, "fm_interaction": 1},
+        {"tier_probe": 2, "gather_project": 1, "gather_pool": 1, "fm_interaction": 1,
+         "segment_grad": 1, "dedup_adagrad": 2, "fm_interaction_bwd": 1}, False,
+        (1, FLUSH_ITERS + 1), "picasso_narrow", 4, 2_147_483_648, 48_806_440),
 }
+SMOKE_L2_BYTES = 1 << 16  # tests/test_narrow.py's L2 budget at smoke size
 
 SOURCES = {
     "tier_probe": ("src/repro_torch/kernels/csrc/tier_probe.cu",
@@ -142,13 +191,19 @@ SOURCES = {
                     "src/repro/kernels/cross_layer.py:30"),
     "cross_layer_bwd": ("src/repro_torch/kernels/csrc/cross_layer_bwd.cu",
                         "src/repro/kernels/interaction_bwd.py:147"),
+    "gather_project": ("src/repro_torch/kernels/csrc/gather_project.cu",
+                       "src/repro/kernels/fused_embedding.py:351"),
+    "gather_project_grad": ("src/repro_torch/kernels/csrc/gather_project_grad.cu",
+                            "src/repro/kernels/fused_embedding.py:412"),
 }
 # the arch whose serving or training path each kernel was ported for
 PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serve"),
               "fm_interaction": ("deepfm", "serve"), "segment_grad": ("deepfm", "train"),
               "dedup_adagrad": ("deepfm", "train"),
               "fm_interaction_bwd": ("deepfm", "train"),
-              "cross_layer": ("dcn-v2", "serve"), "cross_layer_bwd": ("dcn-v2", "train")}
+              "cross_layer": ("dcn-v2", "serve"), "cross_layer_bwd": ("dcn-v2", "train"),
+              "gather_project": ("deepfm-narrow", "serve"),
+              "gather_project_grad": ("deepfm-narrow", "train")}
 
 
 def check(ok, what: str) -> None:
@@ -192,28 +247,50 @@ def scale_of(x: torch.Tensor) -> float:
     return max(float(x.abs().max()), 1.0) if x.numel() else 1.0
 
 
+def arch_plan(a: Arch, b: int, *, smoke: bool = False, train: bool = False):
+    """``(cfg, plan)`` of ``a`` at batch ``b`` as its launcher builds it, the
+    strategy recorded before any state is sized: serving takes the default
+    hot budget, training the train launcher's (``hot_bytes=1<<30``, a flush
+    every 20 steps after 10). At smoke size training flushes at step 3 after
+    2 with a 1<<14-byte tier, and the L2 configuration also serves with that
+    tier and a 1<<16-byte L2, so both tiers take hits."""
+    cfg = get_config(a.config, smoke=smoke)
+    kw = {}
+    if train:
+        kw = (dict(hot_bytes=1 << 14, flush_iters=3, warmup_iters=2) if smoke else
+              dict(hot_bytes=1 << 30, flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS))
+    if a.l2_bytes:
+        kw.update(l2_bytes=SMOKE_L2_BYTES if smoke else a.l2_bytes,
+                  narrow_dim=a.narrow_dim or None)
+        if smoke:
+            kw["hot_bytes"] = 1 << 14
+    plan = make_plan(cfg, world=1, per_device_batch=b, **kw)
+    resolve_assignment(plan, a.strategy)
+    return cfg, plan
+
+
 # ------------------------------------------------------------------ phase 2
 
 
-def probe_case(b: int, gen: torch.Generator, a: Arch):
+def probe_case(b: int, gen: torch.Generator, a: Arch, h: int):
     """Sorted unique queries of a B-sample request, about half of them tier
-    keys, against a full 4,194,304-key tier over the full table's rows."""
+    keys, against a full ``h``-key tier over the full table's rows."""
     n = b * a.n_fields
-    stride = a.rows // a.hot_rows
-    keys = (torch.arange(a.hot_rows, device=DEV, dtype=torch.int64) * stride
-            + torch.randint(0, stride, (a.hot_rows,), device=DEV, generator=gen)
-            ).to(torch.int32)
-    rows = torch.randn((a.hot_rows, a.dim), device=DEV, generator=gen)
+    stride = a.rows // h
+    keys = (torch.arange(h, device=DEV, dtype=torch.int64) * stride
+            + torch.randint(0, stride, (h,), device=DEV, generator=gen)).to(torch.int32)
+    rows = torch.randn((h, a.dim), device=DEV, generator=gen)
     half = n // 2
-    ids = torch.cat([keys[torch.randint(0, a.hot_rows, (half,), device=DEV, generator=gen)],
+    ids = torch.cat([keys[torch.randint(0, h, (half,), device=DEV, generator=gen)],
                      torch.randint(0, a.rows, (n - half,), device=DEV, generator=gen,
                                    dtype=torch.int32)])
     u = pe.fixed_unique(ids.to(torch.int32), sentinel=a.rows)
     return u.uniq, u.uvalid, keys, rows
 
 
-def run_tier_probe(b: int, gen: torch.Generator, a: Arch) -> dict:
-    uniq, uvalid, keys, rows = probe_case(b, gen, a)
+def run_tier_probe(b: int, gen: torch.Generator, a: Arch, l2: bool = False) -> dict:
+    """The L1 probe, or with ``l2`` the probe of the arch's L2 tier."""
+    uniq, uvalid, keys, rows = probe_case(b, gen, a, a.l2_rows if l2 else a.hot_rows)
     hit, slot, out = ops.tier_probe(uniq, uvalid, keys, rows)
     rhit, rslot, rout = ref.tier_probe_ref(uniq, uvalid, keys, rows)
     torch.cuda.synchronize(DEV)
@@ -231,7 +308,7 @@ def run_tier_probe(b: int, gen: torch.Generator, a: Arch) -> dict:
     keys_read = min(h, n * (math.ceil(math.log2(h / n)) + 2))
     nbytes = n * (4 + 1) + keys_read * 4 + n_hit * a.dim * 4 + n * (1 + 4 + a.dim * 4)
     b_ms, b_by = bound(nbytes, 0)
-    return {"n": n, "hits": n_hit, "max_abs_err": err,
+    return {"n": n, "tier_keys": h, "hits": n_hit, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows)),
             "call_ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows),
                                device_only=False),
@@ -331,12 +408,12 @@ _TABLES = {}
 
 
 def full_tables(gen: torch.Generator, a: Arch):
-    """Two identical full-width tables + accumulators of ``a`` (kernel and
+    """Two identical full-size masters + accumulators of ``a`` (kernel and
     plain version each update one in place), made once for both shapes."""
     if _TABLES.get("arch") != a:
         _TABLES.clear()
         torch.cuda.empty_cache()
-        w = torch.randn((a.rows, a.dim), device=DEV, generator=gen)
+        w = torch.randn((a.rows, a.master_dim), device=DEV, generator=gen)
         acc = torch.rand((a.rows, 1), device=DEV, generator=gen)
         _TABLES.update(arch=a, w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
     return _TABLES
@@ -344,10 +421,12 @@ def full_tables(gen: torch.Generator, a: Arch):
 
 def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
     """The miss-gradient update of a B-sample step: m = the plan's bucket
-    capacity gradient rows into the arch's full table, a quarter of them
-    duplicates of other rows and a tenth invalid slots that point at row 0
-    (the clamped ``recv_local`` of an empty bucket slot)."""
-    m = make_plan(get_config(a.name), world=1, per_device_batch=b).capacity[0]
+    capacity gradient rows into the arch's full master (the narrow one at
+    d = 4 for ``picasso_narrow``), a quarter of them duplicates of other rows
+    and a tenth invalid slots that point at row 0 (the clamped
+    ``recv_local`` of an empty bucket slot)."""
+    m = arch_plan(a, b)[1].capacity[0]
+    d = a.master_dim
     t = full_tables(gen, a)
     w_k, acc_k, w_p, acc_p = t["w_k"], t["acc_k"], t["w_p"], t["acc_p"]
     idx = torch.randint(0, a.rows, (m,), device=DEV, generator=gen, dtype=torch.int32)
@@ -355,7 +434,7 @@ def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
     idx[dup] = idx[torch.randint(0, m, (dup.numel(),), device=DEV, generator=gen)]
     valid = torch.rand((m,), device=DEV, generator=gen) >= 0.1
     idx = torch.where(valid, idx, torch.zeros_like(idx))
-    g = torch.randn((m, a.dim), device=DEV, generator=gen)
+    g = torch.randn((m, d), device=DEV, generator=gen)
     touched = torch.unique(idx[valid]).long()
     u = touched.numel()
     w_p.copy_(w_k)  # the previous shape's timing moved the two apart
@@ -374,9 +453,9 @@ def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
     check(torch.equal(w_k, w_p) and torch.equal(acc_k, acc_p),
           "dedup_adagrad untouched rows bitwise unchanged")
     # inputs once (idx, valid, g), touched rows of w and acc read and written
-    nbytes = m * (4 + 1 + a.dim * 4) + u * (a.dim * 4 + 4) * 2
-    b_ms, b_by = bound(nbytes, m * a.dim + u * (3 * a.dim + 4))
-    return {"m": m, "rows": a.rows, "touched_rows": u, "max_abs_err": err,
+    nbytes = m * (4 + 1 + d * 4) + u * (d * 4 + 4) * 2
+    b_ms, b_by = bound(nbytes, m * d + u * (3 * d + 4))
+    return {"m": m, "rows": a.rows, "d": d, "touched_rows": u, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)),
             "call_ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS),
                                device_only=False),
@@ -463,6 +542,114 @@ def run_cross_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
             "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
 
 
+def project_case(b: int, gen: torch.Generator, a: Arch):
+    """The narrow stitch of a B-sample request: n = B x 39 unique positions
+    into the routed-back buffer of m = the plan's bucket capacity slots.
+    About 60 % of the positions are kept (the misses); they take distinct
+    slots as routing gives them, but an eighth of them then share another
+    kept position's slot, so the gradient's runs are exercised. The rest
+    point at the clamped drop slot m - 1, as ``mp_lookup_narrow`` passes
+    them. Slots no kept position takes stay empty."""
+    m = arch_plan(a, b)[1].capacity[0]
+    n, nd, d = b * a.n_fields, a.narrow_dim, a.dim
+    slots = (torch.randperm(m, device=DEV, generator=gen)[:n] if m >= n else
+             torch.randint(0, m, (n,), device=DEV, generator=gen)).to(torch.int32)
+    kept = torch.rand((n,), device=DEV, generator=gen) < 0.6
+    kept_pos = torch.nonzero(kept).squeeze(1)
+    n_dup = kept_pos.numel() // 8
+    dup = kept_pos[torch.randperm(kept_pos.numel(), device=DEV, generator=gen)[:n_dup]]
+    slots[dup] = slots[kept_pos[torch.randint(0, kept_pos.numel(), (n_dup,), device=DEV,
+                                              generator=gen)]]
+    idx = torch.where(kept, slots, torch.full_like(slots, m - 1))
+    back = torch.randn((m, nd), device=DEV, generator=gen)
+    proj = torch.randn((nd, d), device=DEV, generator=gen) / nd ** 0.5
+    g_wide = torch.randn((n, d), device=DEV, generator=gen)
+    g_narrow = torch.randn((n, nd), device=DEV, generator=gen)
+    return back, idx, kept, proj, g_wide, g_narrow
+
+
+def run_gather_project(b: int, gen: torch.Generator, a: Arch) -> dict:
+    back, idx, kept, proj, _, _ = project_case(b, gen, a)
+    (m, nd), n, d = back.shape, idx.shape[0], a.dim
+    wide, narrow = ops.gather_project(back, idx, kept, proj)
+    rwide, rnarrow = ref.gather_project_ref(back, idx, kept, proj)
+
+    def lib():  # two calls, timed together
+        return (F.embedding(idx.long(), back) * kept[:, None]) @ proj
+
+    torch.cuda.synchronize(DEV)
+    err = max(max_err(wide, rwide) / scale_of(rwide), max_err(narrow, rnarrow) / scale_of(rnarrow))
+    check(err <= TOL, f"gather_project err {err} of scale")
+    check(bool((wide[~kept] == 0).all() and (narrow[~kept] == 0).all()),
+          "gather_project not-kept positions exactly 0")
+    check(max_err(lib(), rwide) <= TOL * scale_of(rwide), "embedding @ proj yardstick agrees")
+    n_kept = int(kept.sum())
+    b_ms, b_by = bound(n * (4 + 1) + n_kept * nd * 4 + nd * d * 4 + n * (d + nd) * 4,
+                       2 * n_kept * nd * d)
+    return {"n": n, "m": m, "kept": n_kept, "max_abs_err": max(max_err(wide, rwide),
+                                                                max_err(narrow, rnarrow)),
+            "max_err_of_scale": err,
+            "ms": cuda_ms(lambda: ops.gather_project(back, idx, kept, proj)),
+            "call_ms": cuda_ms(lambda: ops.gather_project(back, idx, kept, proj),
+                               device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.gather_project_ref(back, idx, kept, proj)),
+            "library_ms": cuda_ms(lib), "library_call": "F.embedding * kept, then @ proj",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_gather_project_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
+    """The transpose, standalone and through the autograd of
+    ``ops.gather_project`` (the same kernel on the same inputs: bitwise
+    equal), against its plain version; the projection's cotangent against
+    the plain product."""
+    back, idx, kept, proj, g_wide, g_narrow = project_case(b, gen, a)
+    (m, nd), n, d = back.shape, idx.shape[0], a.dim
+    got = ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj, m)
+    again = ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj, m)
+    exp = ref.gather_project_grad_ref(g_wide, g_narrow, idx, kept, proj, m)
+    leaves = [back.clone().requires_grad_(True), proj.clone().requires_grad_(True)]
+    before = ops.launches["gather_project_grad"]
+    g_back, g_proj = torch.autograd.grad(ops.gather_project(leaves[0], idx, kept, leaves[1]),
+                                         leaves, (g_wide, g_narrow))
+    via_autograd = ops.launches["gather_project_grad"] - before
+    torch.cuda.synchronize(DEV)
+    err = max_err(got, exp) / scale_of(exp)
+    check(err <= TOL, f"gather_project_grad err {err} of scale")
+    check(torch.equal(got, again), "gather_project_grad repeats bit for bit")
+    check(via_autograd == 1 and torch.equal(g_back, got),
+          "the autograd backward of gather_project launches the same kernel")
+    rnarrow = ref.gather_project_ref(back, idx, kept, proj)[1]
+    p_exp = rnarrow.T @ g_wide
+    check(max_err(g_proj, p_exp) <= TOL * scale_of(p_exp), "projection cotangent agrees")
+    touched = torch.zeros((m,), dtype=torch.bool, device=DEV)
+    touched[idx[kept].long()] = True
+    check(bool((~touched).any()) and bool((got[~touched] == 0).all()),
+          "gather_project_grad empty slots exactly 0")
+    # the library yardstick: autograd of the two-call chain onto the buffer
+    lib_back = back.clone().requires_grad_(True)
+    lib_out = (F.embedding(idx.long(), lib_back) * kept[:, None]) @ proj
+
+    def lib():
+        return torch.autograd.grad(lib_out, lib_back, g_wide, retain_graph=True)[0]
+
+    p_only = ref.gather_project_grad_ref(g_wide, torch.zeros_like(g_narrow), idx, kept, proj, m)
+    check(max_err(lib(), p_only) <= TOL * scale_of(p_only), "embedding backward agrees")
+    n_kept = int(kept.sum())
+    b_ms, b_by = bound(n * (4 + 1) + n_kept * (d + nd) * 4 + nd * d * 4 + m * nd * 4,
+                       n_kept * nd * (2 * d + 2))
+    return {"n": n, "m": m, "kept": n_kept, "empty_slots": int((~touched).sum()),
+            "max_abs_err": max_err(got, exp), "max_err_of_scale": err,
+            "ms": cuda_ms(lambda: ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj,
+                                                          m)),
+            "call_ms": cuda_ms(lambda: ops.gather_project_grad(g_wide, g_narrow, idx, kept,
+                                                               proj, m), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.gather_project_grad_ref(g_wide, g_narrow, idx,
+                                                                    kept, proj, m)),
+            "library_ms": cuda_ms(lib),
+            "library_call": "autograd of F.embedding * kept @ proj (g_wide only)",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -484,40 +671,62 @@ def warm_tier(serve, state, cfg, rng, n_requests: int):
 
 
 def hits_of(ctx) -> int:
-    return int(sum(int(pe.cache_hit_count(c)) for c in ctx.ctxs.values()))
+    """Ids served by any tier (L1 + L2)."""
+    return int(sum(int(pe.cache_hit_count(c)) + int(pe.l2_hit_count(c))
+                   for c in ctx.ctxs.values()))
+
+
+def l2_hits_of(ctx) -> int:
+    return int(sum(int(pe.l2_hit_count(c)) for c in ctx.ctxs.values()))
+
+
+def check_full_plan(a: Arch, plan) -> None:
+    """One packed group with the arch's table, tiers and master width."""
+    g = plan.groups[0]
+    check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
+          and plan.cache_rows[0] == a.hot_rows and plan.l2_rows.get(0, 0) == a.l2_rows
+          and plan.narrow_width(0) == a.master_dim,
+          f"full {a.name} plan: {[(x.rows, x.dim) for x in plan.groups]} {plan.cache_rows} "
+          f"{plan.l2_rows} width {plan.narrow_width(0)}")
+
+
+def tier_keys_of(st, rows: int) -> Dict[str, int]:
+    out = {"l1": int((st.cache.keys < rows).sum())}
+    if st.l2 is not None:
+        out["l2"] = int((st.l2.keys < rows).sum())
+    return out
 
 
 def serve_full_width(arch: str) -> dict:
     a = ARCHS[arch]
-    cfg = get_config(arch)
-    plan = make_plan(cfg, world=1, per_device_batch=SERVE_B)
+    cfg, plan = arch_plan(a, SERVE_B)
+    check_full_plan(a, plan)
     g = plan.groups[0]
-    check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
-          and plan.cache_rows[0] == a.hot_rows,
-          f"full {arch} plan: {[(x.rows, x.dim) for x in plan.groups]} {plan.cache_rows}")
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.perf_counter()
     state = init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     torch.cuda.synchronize(DEV)
     init_s = time.perf_counter() - t0
-    serve = make_serve_step(model, plan, SERVE_B, ServeConfig(use_fused_kernels="auto"), DEV)
+    serve = make_serve_step(model, plan, SERVE_B,
+                            ServeConfig(strategy=a.strategy, use_fused_kernels="auto"), DEV)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     warm_tier(serve, state, cfg, rng, 8)
     torch.cuda.synchronize(DEV)
     warm_s = time.perf_counter() - t0
-    tier_keys = int((state["emb"]["0"].cache.keys < g.rows).sum())
+    tier_keys = tier_keys_of(state["emb"]["0"], g.rows)
     batches = [make_batch(cfg, SERVE_B, rng) for _ in range(N_TIMED)]
 
     ops.reset_launches()
-    lat, hits, probs = [], [], None
+    lat, hits, l2_hits, probs = [], [], [], None
     for b in batches:
         t0 = time.perf_counter()
         probs, ctx = serve.score(state, b)
         torch.cuda.synchronize(DEV)
         lat.append((time.perf_counter() - t0) * 1e3)
         hits.append(hits_of(ctx))
+        l2_hits.append(l2_hits_of(ctx))
     launches = dict(ops.launches)
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
@@ -525,27 +734,63 @@ def serve_full_width(arch: str) -> dict:
     check(launches == {n: a.serve_launches.get(n, 0) * N_TIMED for n in launches},
           f"{arch} serving launches per request {a.serve_launches}: {launches}")
     check(min(hits) > 0, f"cache hits on every request: {hits}")
-    plain = make_serve_step(model, plan, SERVE_B, ServeConfig(use_fused_kernels="off"), DEV)
+    plain = make_serve_step(model, plan, SERVE_B,
+                            ServeConfig(strategy=a.strategy, use_fused_kernels="off"), DEV)
     p_plain = plain(state, batches[-1])
     torch.cuda.synchronize(DEV)
     err = max_err(probs, p_plain)
     check(err <= TOL, f"kernel vs plain probabilities err {err}")
     breakdown = where_time_goes(serve, state, batches[:10])
-    out = {"arch": arch, "table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
+    out = {"arch": arch, "strategy": a.strategy, "table": [g.rows, a.master_dim],
+           "hot_rows": plan.cache_rows[0], "l2_rows": plan.l2_rows.get(0, 0),
            "capacity": plan.capacity[0], "tier_keys_loaded": tier_keys,
            "init_s": init_s, "warmup_and_flush_s": warm_s,
            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
            "mean_ms": float(np.mean(lat)), "max_ms": float(np.max(lat)),
            "timed_requests": len(lat), "mean_prob": float(probs.mean()),
            "cache_hits_per_request": float(np.mean(hits)),
+           "l2_hits_per_request": float(np.mean(l2_hits)),
            "ids_per_request": SERVE_B * a.n_fields, "launches": launches,
            "launches_per_request": {n: v / N_TIMED for n, v in launches.items() if v},
            "plain_vs_kernel_max_abs_err": err,
            "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
            "where_time_goes": breakdown}
+    if a.l2_rows:
+        out["full_tiers"] = serve_full_tiers(serve, plain, state, batches[:5], a)
     del state, serve, plain
     torch.cuda.empty_cache()
     return out
+
+
+def fill_counts(state, seed: int) -> None:
+    """An FCounter count of 1-3 on every row (ties by row id), so the next
+    flush fills both tiers: all 4,194,304 L1 and 48,806,440 L2 keys. The
+    8 warm-up requests or 20 steps cannot: their distinct ids fit in L1."""
+    counts = state["emb"]["0"].counts
+    counts.copy_(torch.randint(1, 4, counts.shape, dtype=counts.dtype, device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(seed)))
+
+
+def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
+    """The L2 tier at its full size: a flush from a full FCounter (timed),
+    then requests that take L2 hits, each held against the plain path."""
+    fill_counts(state, SEED + 3)
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    state["emb"] = serve.engine.flush(state["emb"])
+    torch.cuda.synchronize(DEV)
+    flush_s = time.perf_counter() - t0
+    keys = tier_keys_of(state["emb"]["0"], a.rows)
+    check(keys == {"l1": a.hot_rows, "l2": a.l2_rows}, f"both tiers full: {keys}")
+    l2, err = [], 0.0
+    for b in batches:
+        probs, ctx = serve.score(state, b)
+        l2.append(l2_hits_of(ctx))
+        err = max(err, max_err(probs, plain(state, b)))
+    torch.cuda.synchronize(DEV)
+    check(min(l2) > 0 and err <= TOL, f"full tiers: L2 hits {l2}, plain err {err}")
+    return {"flush_s": flush_s, "tier_keys": keys, "l2_hits": l2,
+            "plain_vs_kernel_max_abs_err": err}
 
 
 def where_time_goes(serve, state, batches) -> dict:
@@ -590,36 +835,36 @@ def where_time_goes(serve, state, batches) -> dict:
 
 
 def smoke_against_cpu(arch: str) -> dict:
-    """The arch's smoke config with a warm tier: the card's kernel path
+    """The arch's smoke config with warm tiers: the card's kernel path
     against the CPU's plain path on the same state and request."""
-    cfg = get_config(arch, smoke=True)
+    a = ARCHS[arch]
     b = 64
-    plan = make_plan(cfg, world=1, per_device_batch=b)
+    cfg, plan = arch_plan(a, b, smoke=True)
     model = WDLModel(cfg, plan)
     cpu = torch.device("cpu")
     state = init_state(model, plan, torch.Generator().manual_seed(SEED), cpu)
-    serve_cpu = make_serve_step(model, plan, b, ServeConfig(), cpu)
+    serve_cpu = make_serve_step(model, plan, b, ServeConfig(strategy=a.strategy), cpu)
     rng = np.random.default_rng(SEED + 1)
     warm_tier(serve_cpu, state, cfg, rng, 4)
     batch = make_batch(cfg, b, rng)
     p_cpu, ctx_cpu = serve_cpu.score(state, batch)
     ops.reset_launches()
-    serve_gpu = make_serve_step(model, plan, b, ServeConfig(use_fused_kernels="on"), DEV)
+    serve_gpu = make_serve_step(model, plan, b,
+                                ServeConfig(strategy=a.strategy, use_fused_kernels="on"), DEV)
     p_gpu, ctx_gpu = serve_gpu.score(to_device(state, DEV), batch)
     err = max_err(p_gpu.cpu(), p_cpu)
     check(err <= TOL, f"smoke card vs CPU probabilities err {err}")
-    check(hits_of(ctx_gpu) == hits_of(ctx_cpu) > 0, "smoke cache hits equal and > 0")
-    check(all(ops.launches[n] > 0 for n in ARCHS[arch].serve_launches),
+    check(hits_of(ctx_gpu) == hits_of(ctx_cpu) > 0
+          and l2_hits_of(ctx_gpu) == l2_hits_of(ctx_cpu) and (l2_hits_of(ctx_gpu) > 0
+                                                              or not a.l2_bytes),
+          "smoke cache hits (L1 + L2, and L2) equal and > 0")
+    check(all(ops.launches[n] > 0 for n in a.serve_launches),
           f"smoke request on the card went through the kernels: {ops.launches}")
-    return {"max_abs_err": err, "cache_hits": hits_of(ctx_gpu)}
+    return {"max_abs_err": err, "cache_hits": hits_of(ctx_gpu),
+            "l2_hits": l2_hits_of(ctx_gpu)}
 
 
 # ------------------------------------------------------------------ phase 4
-
-
-def train_plan(cfg):
-    return make_plan(cfg, world=1, per_device_batch=TRAIN_B, hot_bytes=1 << 30,
-                     flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS)
 
 
 def clone(tree):
@@ -634,11 +879,13 @@ def clone(tree):
 def shared_state_check(model, plan, step, state, batch) -> dict:
     """One step on the kernel path and one on the plain path, each from its
     own copy of ``state`` on the same batch: the loss to rtol 1e-5, every
-    dense gradient to 1e-5 of its leaf's largest entry. The dense stage's
-    outputs are read through a wrapper around ``TrainStep.dense``."""
+    dense gradient to 1e-5 of its leaf's largest entry and, for a narrow
+    master, the projection after the sparse backward to 1e-5 of its scale.
+    The dense stage's outputs are read through a wrapper around
+    ``TrainStep.dense``."""
     plain = ts.make_train_step(model, plan, TRAIN_B,
-                               ts.TrainConfig(use_fused_kernels="off"), DEV)
-    seen = {}
+                               dataclasses.replace(step.tcfg, use_fused_kernels="off"), DEV)
+    seen, projs = {}, {}
     for name, st in (("kernel", step), ("plain", plain)):
         def dense(*args, _orig=st.dense, _name=name):
             seen[_name] = _orig(*args)
@@ -648,6 +895,7 @@ def shared_state_check(model, plan, step, state, batch) -> dict:
         try:
             copy = clone(state)
             st(copy, batch)
+            projs[name] = [e.proj.kernel for e in copy["emb"].values() if e.proj is not None]
             del copy
         finally:
             del st.dense
@@ -663,11 +911,17 @@ def shared_state_check(model, plan, step, state, batch) -> dict:
               f"{leaf_err[path]} of its largest entry")
     pooled_err = max(max_err(pk[k], pp[k]) / max(float(pp[k].abs().max()), 1e-30)
                      for k in pp)
+    proj_err = None
+    if projs["plain"]:
+        proj_err = max(max_err(a, b) / scale_of(b)
+                       for a, b in zip(projs["kernel"], projs["plain"]))
+        check(proj_err <= TOL, f"shared-state projection {proj_err} of its scale")
+    del projs
     torch.cuda.empty_cache()
     return {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel_diff": loss_rel,
             "max_dense_grad_rel_err": max(leaf_err.values()),
             "worst_leaf": max(leaf_err, key=leaf_err.get),
-            "pooled_grad_rel_err": pooled_err}
+            "pooled_grad_rel_err": pooled_err, "proj_err_of_scale": proj_err}
 
 
 def leaf_names(tree, prefix=""):
@@ -682,16 +936,17 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
     """30 full-width training steps from seed 0; the state is freed after.
     Before each step in ``check_at`` (1-based) the shared-state check runs on
     copies, outside the timed step, and leaves this run's state alone."""
-    cfg = get_config(arch)
-    plan = train_plan(cfg)
+    a = ARCHS[arch]
+    cfg, plan = arch_plan(a, TRAIN_B, train=True)
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
     state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     step = ts.make_train_step(model, plan, TRAIN_B,
-                              ts.TrainConfig(use_fused_kernels=fused), DEV)
+                              ts.TrainConfig(strategy=a.strategy, use_fused_kernels=fused),
+                              DEV)
     torch.cuda.synchronize(DEV)
     ops.reset_launches()
-    lat, losses, hits, ovf, checks = [], [], [], [], {}
+    lat, losses, hits, l2_hits, ovf, checks = [], [], [], [], [], {}
     for i, b in enumerate(batches[:TRAIN_STEPS], start=1):
         if i in check_at:
             checks[i] = shared_state_check(model, plan, step, state, b)
@@ -701,15 +956,47 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
         lat.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         hits.append(int(m["cache_hits"]))
+        l2_hits.append(int(m.get("cache_hits/l2", 0)))
         ovf.append(int(m["overflow"]))
     out = {"launches": dict(ops.launches), "lat": lat, "losses": losses, "hits": hits,
-           "overflow": ovf, "shared_state_checks": checks}
+           "l2_hits": l2_hits, "overflow": ovf, "shared_state_checks": checks}
     if breakdown:
         out["stages"] = train_breakdown(step, state, batches[TRAIN_STEPS:])
+        if a.l2_rows:
+            out["full_tiers"] = train_full_tiers(step, state, batches[TRAIN_STEPS + 9:], a)
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
     del state, step
     torch.cuda.empty_cache()
     return out
+
+
+def train_full_tiers(step, state, batches, a: Arch) -> dict:
+    """After step 39: a flush from a full FCounter fills both tiers (timed),
+    then steps 40-42 take L2 hits (``dedup_adagrad`` on real L2 rows); step
+    40's in-step flush writes the full tiers back through the projection's
+    pseudo-inverse and carries the resident ids (timed with its step)."""
+    check(state["step"] == TRAIN_STEPS + 9, f"full tiers start after step 39: {state['step']}")
+    fill_counts(state, SEED + 4)
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    state["emb"] = step.engine.flush(state["emb"])
+    torch.cuda.synchronize(DEV)
+    fill_s = time.perf_counter() - t0
+    keys = tier_keys_of(state["emb"]["0"], a.rows)
+    check(keys == {"l1": a.hot_rows, "l2": a.l2_rows}, f"both tiers full: {keys}")
+    lat, losses, l2 = [], [], []
+    for b in batches[:3]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        l2.append(int(m["cache_hits/l2"]))
+    check(all(np.isfinite(losses)) and min(l2) > 0,
+          f"full tiers: losses {losses}, L2 hits {l2}")
+    return {"fill_flush_s": fill_s, "tier_keys": keys, "step_ms": lat,
+            "flush_step": TRAIN_STEPS + 10, "losses": losses, "l2_hits": l2,
+            "tier_keys_after_flush": tier_keys_of(state["emb"]["0"], a.rows)}
 
 
 def train_breakdown(step, state, batches) -> dict:
@@ -756,16 +1043,13 @@ def train_breakdown(step, state, batches) -> dict:
 
 def train_full_width(arch: str) -> dict:
     a = ARCHS[arch]
-    cfg = get_config(arch)
-    plan = train_plan(cfg)
+    cfg, plan = arch_plan(a, TRAIN_B, train=True)
+    check_full_plan(a, plan)
     g = plan.groups[0]
-    check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
-          and plan.cache_rows[0] == a.hot_rows
-          and plan.microbatch == TRAIN_B and len(plan.interleave) == 1,
-          f"full {arch} train plan: {g.rows} {plan.cache_rows} {plan.microbatch} "
-          f"{plan.interleave}")
+    check(plan.microbatch == TRAIN_B and len(plan.interleave) == 1,
+          f"full {arch} train plan: {plan.microbatch} {plan.interleave}")
     stream = batch_stream(cfg, TRAIN_B, seed=SEED)
-    batches = [next(stream) for _ in range(TRAIN_STEPS + 9)]
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 12)]
     k = train_run(arch, "auto", batches, breakdown=True)
     launches = k["launches"]
     check(all(np.isfinite(k["losses"])), f"finite losses: {k['losses']}")
@@ -801,7 +1085,8 @@ def train_full_width(arch: str) -> dict:
     lat = np.array(k["lat"])
     steady = np.array([t for i, t in enumerate(lat, start=1)
                        if i > WARMUP_ITERS and i != FLUSH_ITERS])
-    return {"arch": arch, "table": [g.rows, g.dim], "hot_rows": plan.cache_rows[0],
+    return {"arch": arch, "strategy": a.strategy, "table": [g.rows, a.master_dim],
+            "hot_rows": plan.cache_rows[0], "l2_rows": plan.l2_rows.get(0, 0),
             "capacity": plan.capacity[0], "batch": TRAIN_B, "steps": TRAIN_STEPS,
             "step_p50_ms": float(np.percentile(steady, 50)),
             "step_p99_ms": float(np.percentile(steady, 99)),
@@ -815,26 +1100,27 @@ def train_full_width(arch: str) -> dict:
             "max_abs_loss_diff": float(diff.max()),
             "max_rel_loss_diff": float((diff / np.abs(p["losses"])).max()),
             "shared_state_checks": k2["shared_state_checks"], "hits": k["hits"],
-            "overflow": k["overflow"], "launches": launches,
+            "l2_hits": k["l2_hits"], "overflow": k["overflow"], "launches": launches,
             "launches_per_step": {n: v / TRAIN_STEPS for n, v in launches.items() if v},
-            "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"]}
+            "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"],
+            "full_tiers": k.get("full_tiers")}
 
 
 def train_smoke_against_cpu(arch: str) -> dict:
     """The arch's smoke config with a tiny tier flushed at step 3: 8 steps on
     the card's kernels against 8 on the CPU's plain versions, same state and
     batches."""
-    cfg = get_config(arch, smoke=True)
+    a = ARCHS[arch]
     b = 64
-    plan = make_plan(cfg, world=1, per_device_batch=b, hot_bytes=1 << 14, flush_iters=3,
-                     warmup_iters=2)
+    cfg, plan = arch_plan(a, b, smoke=True, train=True)
     model = WDLModel(cfg, plan)
     cpu = torch.device("cpu")
     state_cpu, state_gpu = (
         ts.init_state(model, plan, torch.Generator().manual_seed(SEED), cpu) for _ in "ab")
     state_gpu = to_device(state_gpu, DEV)
-    step_cpu = ts.make_train_step(model, plan, b, ts.TrainConfig(), cpu)
-    step_gpu = ts.make_train_step(model, plan, b, ts.TrainConfig(use_fused_kernels="on"), DEV)
+    step_cpu = ts.make_train_step(model, plan, b, ts.TrainConfig(strategy=a.strategy), cpu)
+    step_gpu = ts.make_train_step(
+        model, plan, b, ts.TrainConfig(strategy=a.strategy, use_fused_kernels="on"), DEV)
     rng = np.random.default_rng(SEED + 2)
     lc, lg, hc, hg = [], [], [], []
     for _ in range(8):
@@ -843,15 +1129,22 @@ def train_smoke_against_cpu(arch: str) -> dict:
         state_cpu, mc = step_cpu(state_cpu, batch)
         lg.append(float(mg["loss"]))
         lc.append(float(mc["loss"]))
-        hg.append(int(mg["cache_hits"]))
-        hc.append(int(mc["cache_hits"]))
+        hg.append((int(mg["cache_hits"]), int(mg.get("cache_hits/l2", 0))))
+        hc.append((int(mc["cache_hits"]), int(mc.get("cache_hits/l2", 0))))
     check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"smoke train card vs CPU: {lg} vs {lc}")
-    check(hg == hc and min(hg[3:]) > 0, f"smoke train hits equal and > 0 after flush: {hg} {hc}")
-    err = max_err(state_gpu["emb"]["0"].w.cpu(), state_cpu["emb"]["0"].w)
+    check(hg == hc and min(h for h, _ in hg[3:]) > 0
+          and (min(h2 for _, h2 in hg[3:]) > 0 or not a.l2_bytes),
+          f"smoke train hits (L1 + L2, L2) equal and > 0 after flush: {hg} {hc}")
+    sg, sc = state_gpu["emb"]["0"], state_cpu["emb"]["0"]
+    err = max_err(sg.w.cpu(), sc.w)
     check(err <= 1e-4, f"smoke train table card vs CPU err {err}")
-    return {"losses_card": lg, "losses_cpu": lc,
-            "max_abs_loss_diff": float(np.max(np.abs(np.array(lg) - np.array(lc)))),
-            "table_max_abs_err": err, "hits": hg}
+    out = {"losses_card": lg, "losses_cpu": lc,
+           "max_abs_loss_diff": float(np.max(np.abs(np.array(lg) - np.array(lc)))),
+           "table_max_abs_err": err, "hits_and_l2_hits": hg}
+    if sc.proj is not None:
+        out["proj_max_abs_err"] = max_err(sg.proj.kernel.cpu(), sc.proj.kernel)
+        check(out["proj_max_abs_err"] <= 1e-4, f"smoke projection card vs CPU {out}")
+    return out
 
 
 def card_stamp() -> str:
@@ -886,7 +1179,10 @@ def main() -> None:
                "dedup_adagrad": (run_dedup_adagrad, "deepfm", "train", TRAIN_B),
                "fm_interaction_bwd": (run_fm_bwd, "deepfm", "train", TRAIN_B),
                "cross_layer": (run_cross, "dcn-v2", "serve", SERVE_B),
-               "cross_layer_bwd": (run_cross_bwd, "dcn-v2", "train", TRAIN_B)}
+               "cross_layer_bwd": (run_cross_bwd, "dcn-v2", "train", TRAIN_B),
+               "gather_project": (run_gather_project, "deepfm-narrow", "serve", SERVE_B),
+               "gather_project_grad": (run_gather_project_grad, "deepfm-narrow", "train",
+                                       TRAIN_B)}
     main_shape = {}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
@@ -899,6 +1195,17 @@ def main() -> None:
         run, _, path, main_b = runners[name]
         r = run(main_b, gen, ARCHS["dcn-v2"])
         print(f"[kernel] {name} dcn-v2 {path} " + json.dumps(r), flush=True)
+    # the narrow configuration: the stitch and its transpose at the other
+    # path's batch too, dedup_adagrad on the d = 4 master, the L2 probe
+    narrow = ARCHS["deepfm-narrow"]
+    extra = {"gather_project train": lambda: run_gather_project(TRAIN_B, gen, narrow),
+             "gather_project_grad serve": lambda: run_gather_project_grad(SERVE_B, gen,
+                                                                          narrow),
+             "dedup_adagrad narrow-master train": lambda: run_dedup_adagrad(TRAIN_B, gen,
+                                                                            narrow),
+             "tier_probe L2 serve": lambda: run_tier_probe(SERVE_B, gen, narrow, l2=True)}
+    for label, run in extra.items():
+        print(f"[kernel] {label} " + json.dumps(run()), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
 
@@ -928,11 +1235,18 @@ def main() -> None:
     for name, (src, replaces) in SOURCES.items():
         r = main_shape[name]
         # each kernel's launches on the main path it was ported for
+        arch, path = PORTED_FOR[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": runs[PORTED_FOR[name]]["launches"][name],
+                        "launches": runs[arch, path]["launches"][name],
+                        "path": f"{arch} {path}",
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "gather_project_grad":
+            # the engine's backward folds the cotangent through proj^T itself,
+            # as the reference's does; the kernel is reached through the
+            # autograd of ops.gather_project and standalone (phase 2)
+            kernels[-1]["launches_note"] = "0 per step; autograd and standalone only"
     print(card_stamp(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

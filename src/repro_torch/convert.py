@@ -2,9 +2,11 @@
 
 The caller fetches the reference state to the host as numpy arrays (for
 example with ``jax.device_get``); nothing here imports JAX. The embedding
-part is read by attribute (``w``, ``acc``, ``counts``, ``cache.keys``,
-``cache.rows``, ``cache.acc``), the dense part and the Adam moments are
-nested dicts of arrays with the same layout as ``WDLModel.init_dense``.
+part is read by attribute (``w``, ``acc``, ``counts``, the tiers ``cache``
+and ``l2`` as ``keys``/``rows``/``acc``, the projection ``proj`` as
+``kernel``/``acc``; ``l2`` and ``proj`` may be ``None``), the dense part and
+the Adam moments are nested dicts of arrays with the same layout as
+``WDLModel.init_dense``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.packed_embedding import CacheState
+from repro_torch.core.packed_embedding import CacheState, ProjState
 from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import EmbeddingState
 
@@ -38,16 +40,20 @@ def state_from_jax(emb_np: Dict[str, Any], dense_np: Dict[str, Any], plan: Picas
     emb = {}
     for g in plan.groups:
         st = emb_np[str(g.gid)]
-        if getattr(st, "l2", None) is not None or getattr(st, "proj", None) is not None:
-            raise NotImplementedError(
-                f"g{g.gid}: L2 and narrow tiers belong to a later slice of the port")
         w = _tensor(st.w, device)
-        if tuple(w.shape) != (g.rows, g.dim):
+        width = plan.narrow_width(g.gid)
+        if tuple(w.shape) != (g.rows, width):
             raise ValueError(f"g{g.gid}: table {tuple(w.shape)} does not match the "
-                             f"plan's {(g.rows, g.dim)}")
+                             f"plan's {(g.rows, width)}")
+        l2, proj = getattr(st, "l2", None), getattr(st, "proj", None)
+        if (proj is not None) != (width < g.dim):
+            raise ValueError(f"g{g.gid}: a projection is carried exactly when the plan "
+                             f"narrows the master ({width} of {g.dim})")
         emb[str(g.gid)] = EmbeddingState(
             w=w, acc=_tensor(st.acc, device), counts=_tensor(st.counts, device),
-            cache=CacheState(*(_tensor(x, device) for x in st.cache)))
+            cache=CacheState(*(_tensor(x, device) for x in st.cache)),
+            l2=None if l2 is None else CacheState(*(_tensor(x, device) for x in l2)),
+            proj=None if proj is None else ProjState(*(_tensor(x, device) for x in proj)))
     return emb, _tree(dense_np, device)
 
 

@@ -1,16 +1,20 @@
 """PICASSO packed-embedding primitives (``repro.core.packed_embedding`` in
-torch), for the ``picasso`` strategy's L1 path.
+torch), for the ``picasso``, ``picasso_l2`` and ``picasso_narrow`` paths.
 
 The kernel layer beneath ``repro_torch.engine.EmbeddingEngine``: stateless,
 fixed-shape building blocks for one *packed* lookup per D-packed group:
 
-    ids -> [Unique&Partition] -> Shuffle -> local Gather -> Shuffle back
-        -> Stitch (+ hot-tier merge) -> unique rows -> pool
+    ids -> [Unique&Partition] -> L1 probe -> L2 probe -> Shuffle
+        -> local Gather -> Shuffle back -> Stitch (+ tier merges)
+        -> unique rows -> pool
 
-and the transposed path for the sparse gradients (``apply_sparse_grads``):
-miss grads ride the transposed Shuffle to their owner rows and a fused
-dedup + row-wise Adagrad; hit grads go into the hot tier (``'psum'``) or to
-their owner rows (``'stale'``).
+and the transposed path for the sparse gradients (``apply_sparse_grads``,
+``_l2``, ``_narrow``): miss grads ride the transposed Shuffle to their owner
+rows and a fused dedup + row-wise Adagrad; hit grads go into their tier
+(``'psum'``) or to their owner rows (``'stale'``). ``picasso_narrow`` keeps
+the cold master at a narrow width ``d`` and widens the routed rows through a
+learned ``[d, D]`` projection (``ops.gather_project``); its tiers stay at
+the full width ``D``.
 
 The reference keeps static shapes for its TPU collectives (sort-based fixed
 unique, fixed-capacity per-peer buckets, sentinel slots); the port keeps
@@ -101,8 +105,9 @@ def partition(uniq: torch.Tensor, miss: torch.Tensor, rows_per_shard: int,
 
 
 class LookupCtx(NamedTuple):
-    """Everything the statistics passes need (all static shapes). The
-    reference's L2 and narrow leaves come with their strategies."""
+    """Everything the backward and statistics passes need (all static
+    shapes). ``l2_hit``/``l2_slot`` are ``None`` unless the lookup probed an
+    L2 tier; ``narrow_rows`` is set by ``mp_lookup_narrow`` only."""
 
     uniq: torch.Tensor
     inv: torch.Tensor
@@ -113,6 +118,11 @@ class LookupCtx(NamedTuple):
     recv_ids: torch.Tensor    # [world, cap] ids this shard served (owner side)
     recv_local: torch.Tensor  # [world, cap] local row idx (clamped)
     recv_valid: torch.Tensor  # [world, cap]
+    l2_hit: Optional[torch.Tensor] = None    # [n] served by the L2 tier
+    l2_slot: Optional[torch.Tensor] = None   # [n] clamped position in l2_keys
+    narrow_rows: Optional[torch.Tensor] = None  # [n, d] routed narrow rows
+    #   (the gather_project residual, zero at tier hits and padding, from
+    #   which the projection's gradient is one ``narrow^T @ g_u`` product)
 
 
 def cache_probe(uniq: torch.Tensor, uvalid: torch.Tensor,
@@ -126,6 +136,67 @@ def cache_probe(uniq: torch.Tensor, uvalid: torch.Tensor,
     return hit, p_c.to(torch.int32)
 
 
+class _Probe(NamedTuple):
+    """The two tier probes of one lookup (L2 fields ``None`` without L2)."""
+
+    hit: torch.Tensor
+    cache_slot: torch.Tensor
+    l1_rows: Optional[torch.Tensor]  # [n, D] hit rows, exact zeros elsewhere
+    l2_hit: Optional[torch.Tensor]
+    l2_slot: Optional[torch.Tensor]
+    l2_rows: Optional[torch.Tensor]
+    miss: torch.Tensor               # valid and in neither tier
+
+
+def _probe_tiers(u: UniqueResult, hot_keys, hot_rows, l2_keys, l2_rows,
+                 fused: Optional[bool]) -> _Probe:
+    """Strictly tiered: L1 first, then the L2 tier for the L1 misses only
+    (the mask keeps an overlapping user-built tier from serving an id
+    twice). Each probe is one ``ops.tier_probe`` pass."""
+    if hot_keys is not None and hot_keys.shape[0] > 0 and hot_rows is not None:
+        hit, cache_slot, l1_rows = ops.tier_probe(u.uniq, u.uvalid, hot_keys, hot_rows,
+                                                  fused=fused)
+    else:
+        (hit, cache_slot), l1_rows = cache_probe(u.uniq, u.uvalid, hot_keys), None
+    if l2_keys is not None and l2_keys.shape[0] > 0:
+        l2_hit, l2_slot, l2v = ops.tier_probe(u.uniq, u.uvalid & ~hit, l2_keys, l2_rows,
+                                              fused=fused)
+        miss = u.uvalid & ~hit & ~l2_hit
+    else:
+        l2_hit = l2_slot = l2v = None
+        miss = u.uvalid & ~hit
+    return _Probe(hit, cache_slot, l1_rows, l2_hit, l2_slot, l2v, miss)
+
+
+def _shuffle_gather(table_shard: torch.Tensor, u: UniqueResult, r: Routing, world: int,
+                    capacity: int):
+    """Route the misses to their owners (an identity all_to_all at world 1),
+    gather the owner rows and route them back: ``(recv_ids, recv_local,
+    recv_valid, back [world*cap, width])``."""
+    rps, width = table_shard.shape
+    send_ids = torch.full((world * capacity + 1,), -1, dtype=torch.int32,
+                          device=table_shard.device)
+    send_ids[r.send_slot.long()] = u.uniq.to(torch.int32)  # last slot = drop
+    recv_ids = send_ids[:-1].reshape(world, capacity)
+    base = 0  # this rank's first row
+    recv_valid = recv_ids >= 0
+    recv_local = torch.clamp(recv_ids - base, 0, rps - 1)
+    served = table_shard[recv_local.reshape(-1).long()]
+    served = served * recv_valid.reshape(-1, 1).to(served.dtype)
+    return recv_ids, recv_local, recv_valid, served.reshape(world * capacity, width)
+
+
+def _stitch(miss_rows: torch.Tensor, pr: _Probe) -> torch.Tensor:
+    """Tier rows over the routed rows, L2 first, then L1 (the reference's
+    order); each probe's rows are already zero where it missed."""
+    if pr.l2_hit is not None:
+        miss_rows = torch.where(pr.l2_hit[:, None], pr.l2_rows.to(miss_rows.dtype),
+                                miss_rows)
+    if pr.l1_rows is not None:
+        return torch.where(pr.hit[:, None], pr.l1_rows.to(miss_rows.dtype), miss_rows)
+    return miss_rows
+
+
 def mp_lookup(
     table_shard: torch.Tensor,     # [rows_per_shard, D]
     ids: torch.Tensor,             # [n] packed global row ids (int32)
@@ -134,54 +205,69 @@ def mp_lookup(
     capacity: int,
     hot_keys: Optional[torch.Tensor] = None,   # [H] replicated, sorted
     hot_rows: Optional[torch.Tensor] = None,   # [H, D] replicated
+    l2_keys: Optional[torch.Tensor] = None,    # [H2] L2 tier, sorted
+    l2_rows: Optional[torch.Tensor] = None,    # [H2, D]
     fused: Optional[bool] = None,              # see kernels.ops
 ) -> Tuple[torch.Tensor, LookupCtx]:
     """Forward packed lookup. Returns unique rows [n, D] + routing context.
 
-    The L1 probe is one ``ops.tier_probe`` pass (binary search + hit-masked
-    row gather, miss rows exactly zero), so the Stitch is a single ``where``;
-    its plain version computes the reference's searchsorted/take/where chain
-    with identical hit values. Only the misses ride the Shuffle.
+    Each tier probe is one ``ops.tier_probe`` pass (binary search + hit-masked
+    row gather, miss rows exactly zero), so the Stitch is one ``where`` per
+    tier; its plain version computes the reference's searchsorted/take/where
+    chain with identical hit values. Only ids in neither tier ride the
+    Shuffle. Without ``l2_keys`` every intermediate is the L1-only path's
+    and ``ctx.l2_hit`` stays ``None``.
     """
     _require_single_rank(world)
-    rps, d = table_shard.shape
-    rows_padded = rps * world
-
-    u = fixed_unique(ids, sentinel=rows_padded)
-    tier = hot_keys is not None and hot_keys.shape[0] > 0 and hot_rows is not None
-    if tier:
-        hit, cache_slot, hot = ops.tier_probe(u.uniq, u.uvalid, hot_keys, hot_rows,
-                                              fused=fused)
-    else:
-        hit, cache_slot = cache_probe(u.uniq, u.uvalid, hot_keys)
-    miss = u.uvalid & ~hit
-    r = partition(u.uniq, miss, rps, world, capacity)
-
-    # ---- Shuffle: route miss ids to owners (identity at world 1) ----------
-    send_ids = torch.full((world * capacity + 1,), -1, dtype=torch.int32,
-                          device=ids.device)
-    send_ids[r.send_slot.long()] = u.uniq.to(torch.int32)  # last slot = drop
-    recv_ids = send_ids[:-1].reshape(world, capacity)
-
-    base = 0  # this rank's first row
-    recv_valid = recv_ids >= 0
-    recv_local = torch.clamp(recv_ids - base, 0, rps - 1)
-
-    # ---- local Gather ------------------------------------------------------
-    served = table_shard[recv_local.reshape(-1).long()]
-    served = served * recv_valid.reshape(-1, 1).to(served.dtype)
-
-    # ---- Shuffle back + Stitch ---------------------------------------------
-    back = served.reshape(world * capacity, d)
+    rps = table_shard.shape[0]
+    u = fixed_unique(ids, sentinel=rps * world)
+    pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
+    r = partition(u.uniq, pr.miss, rps, world, capacity)
+    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u, r, world,
+                                                             capacity)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
-    miss_rows = back[take_idx] * r.kept[:, None].to(served.dtype)
-    rows_u = torch.where(hit[:, None], hot.to(miss_rows.dtype), miss_rows) if tier else miss_rows
-
+    miss_rows = back[take_idx] * r.kept[:, None].to(back.dtype)
     ctx = LookupCtx(
-        uniq=u.uniq, inv=u.inv, uvalid=u.uvalid, hit=hit, cache_slot=cache_slot,
+        uniq=u.uniq, inv=u.inv, uvalid=u.uvalid, hit=pr.hit, cache_slot=pr.cache_slot,
         routing=r, recv_ids=recv_ids, recv_local=recv_local, recv_valid=recv_valid,
-    )
-    return rows_u, ctx
+        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot)
+    return _stitch(miss_rows, pr), ctx
+
+
+def mp_lookup_narrow(
+    table_shard: torch.Tensor,     # [rows_per_shard, d] NARROW master
+    ids: torch.Tensor,             # [n] packed global row ids (int32)
+    *,
+    proj: torch.Tensor,            # [d, D] learned up-projection
+    world: int,
+    capacity: int,
+    hot_keys: Optional[torch.Tensor] = None,   # [H1] sorted; tier rows are WIDE
+    hot_rows: Optional[torch.Tensor] = None,   # [H1, D]
+    l2_keys: Optional[torch.Tensor] = None,    # [H2] sorted
+    l2_rows: Optional[torch.Tensor] = None,    # [H2, D]
+    fused: Optional[bool] = None,
+) -> Tuple[torch.Tensor, LookupCtx]:
+    """``mp_lookup`` with hot/cold widths: tier hits are served full-width
+    ``D`` rows as in the L2 path, while the misses ride the Shuffle at the
+    narrow width ``d`` and the Stitch is one ``ops.gather_project`` pass
+    that widens the routed-back narrow rows through ``proj``. The narrow
+    rows land in ``ctx.narrow_rows`` (zeros at tier hits and padding) as the
+    residual of the projection's gradient. Probes, overflow and routing are
+    ``mp_lookup``'s."""
+    _require_single_rank(world)
+    rps = table_shard.shape[0]
+    u = fixed_unique(ids, sentinel=rps * world)
+    pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
+    r = partition(u.uniq, pr.miss, rps, world, capacity)
+    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u, r, world,
+                                                             capacity)
+    take_idx = torch.clamp(r.send_slot, max=world * capacity - 1)
+    miss_rows, narrow = ops.gather_project(back, take_idx, r.kept, proj, fused=fused)
+    ctx = LookupCtx(
+        uniq=u.uniq, inv=u.inv, uvalid=u.uvalid, hit=pr.hit, cache_slot=pr.cache_slot,
+        routing=r, recv_ids=recv_ids, recv_local=recv_local, recv_valid=recv_valid,
+        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot, narrow_rows=narrow)
+    return _stitch(miss_rows, pr), ctx
 
 
 def pool(
@@ -235,12 +321,7 @@ def apply_sparse_grads(
     returned tuple names them. Routed-gradient compression belongs to a
     later slice and raises.
     """
-    _require_single_rank(world)
-    if compress != "none":
-        raise NotImplementedError(
-            f"grad compression {compress!r} comes with a later slice of the port")
-    if cache_update not in ("psum", "stale"):
-        raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
+    _check_update(world, compress, cache_update)
     _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused)
 
     if cache is None or cache.keys.shape[0] == 0:
@@ -250,6 +331,15 @@ def apply_sparse_grads(
         return w_shard, acc_shard, cache
     return w_shard, acc_shard, _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u,
                                                lr, eps)
+
+
+def _check_update(world: int, compress: str, cache_update: str) -> None:
+    _require_single_rank(world)
+    if compress != "none":
+        raise NotImplementedError(
+            f"grad compression {compress!r} comes with a later slice of the port")
+    if cache_update not in ("psum", "stale"):
+        raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
 
 
 def _scatter_rows(send_slot: torch.Tensor, values: torch.Tensor, n_slots: int,
@@ -321,6 +411,127 @@ def _psum_into_tier(tier: "CacheState", hit_mask: torch.Tensor, slot: torch.Tens
     return _tier_adagrad(tier, g_hot[:h], lr, eps)
 
 
+def _allgather_into_tier(tier: "CacheState", hit_mask: torch.Tensor, slot: torch.Tensor,
+                         g_u: torch.Tensor, lr: float, eps: float,
+                         fused: Optional[bool] = None) -> "CacheState":
+    """Exact tier update whose cost follows the batch, not the tier: the
+    hit grads and their slots (an identity all_gather at world 1) feed
+    ``ops.dedup_adagrad`` in place on the tier, so no dense ``[H2, D]``
+    buffer exists. Positions that missed the tier take the sentinel slot and
+    are dropped; duplicate slots sum in stable-sorted position order."""
+    h = tier.keys.shape[0]
+    slots = torch.where(hit_mask, slot, torch.full_like(slot, h))
+    ops.dedup_adagrad(tier.rows, tier.acc, slots, g_u, hit_mask, lr, eps, fused=fused)
+    return tier
+
+
+def _tier_hit_grads(cache: Optional["CacheState"], l2: Optional["CacheState"],
+                    ctx: LookupCtx, g_u: torch.Tensor, lr: float, eps: float,
+                    fused: Optional[bool]):
+    """'psum' mode for both tiers: L1 hit grads through the dense tier
+    Adagrad, L2 hit grads through ``_allgather_into_tier``. The reference
+    picks the L2 reduction by ``(world - 1) * n * (D + 1) < H2 * D``, which
+    at world 1 always chooses the gather."""
+    if cache is not None and cache.keys.shape[0] > 0:
+        cache = _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u, lr, eps)
+    if l2 is not None and l2.keys.shape[0] > 0 and ctx.l2_hit is not None:
+        l2 = _allgather_into_tier(l2, ctx.l2_hit, ctx.l2_slot, g_u, lr, eps, fused)
+    return cache, l2
+
+
+def apply_sparse_grads_l2(
+    w_shard: torch.Tensor,
+    acc_shard: torch.Tensor,
+    cache: Optional["CacheState"],
+    l2: "CacheState",
+    ctx: LookupCtx,
+    g_u: torch.Tensor,
+    *,
+    world: int,
+    lr: float,
+    eps: float = 1e-8,
+    cache_update: str = "psum",
+    fused: Optional[bool] = None,
+    compress: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"], "CacheState"]:
+    """Two-tier transposed path (L1 hot tier + L2 tier), in place.
+
+    Misses ride the transposed Shuffle as in ``apply_sparse_grads``. In
+    ``'psum'`` mode both tiers stay authoritative between flushes: L1 hit
+    grads through the dense tier Adagrad, L2 hit grads through
+    ``_allgather_into_tier``. In ``'stale'`` mode the union of the two
+    tiers' hits rides a second Shuffle to the owner rows and both tiers stay
+    read-only. ``ctx`` must come from an L2-probing lookup."""
+    _check_update(world, compress, cache_update)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused)
+    if cache_update == "stale":
+        _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit | ctx.l2_hit, g_u, world, lr,
+                         eps, fused)
+        return w_shard, acc_shard, cache, l2
+    cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
+    return w_shard, acc_shard, cache, l2
+
+
+class ProjState(NamedTuple):
+    """The learned per-group up-projection of ``picasso_narrow``: cold ids
+    live as ``[d]``-narrow master rows and are widened to ``D`` at lookup.
+    Replicated like the tiers; updated in place."""
+
+    kernel: torch.Tensor  # [d, D]
+    acc: torch.Tensor     # [d, 1] row-wise adagrad accumulator
+
+
+def _proj_adagrad(proj: ProjState, g_proj: torch.Tensor, lr: float,
+                  eps: float) -> ProjState:
+    """Row-wise adagrad on the projection, in place: the tiers' update rule,
+    so the projection trains in step with the rows it serves."""
+    gsq = (g_proj * g_proj).mean(dim=-1, keepdim=True)
+    acc_new = proj.acc + gsq
+    upd = lr * g_proj / torch.sqrt(acc_new + eps)
+    proj.kernel.sub_(upd.to(proj.kernel.dtype))
+    proj.acc.copy_(acc_new)
+    return proj
+
+
+def apply_sparse_grads_narrow(
+    w_shard: torch.Tensor,          # [rps, d] narrow master
+    acc_shard: torch.Tensor,
+    cache: Optional["CacheState"],  # L1 (wide rows)
+    l2: Optional["CacheState"],     # L2 (wide rows); None = no L2 tier
+    proj: ProjState,
+    ctx: LookupCtx,                 # from mp_lookup_narrow
+    g_u: torch.Tensor,              # [n, D] grad wrt the wide unique rows
+    *,
+    world: int,
+    lr: float,
+    eps: float = 1e-8,
+    cache_update: str = "psum",
+    fused: Optional[bool] = None,
+    compress: str = "none",
+) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"], Optional["CacheState"],
+           ProjState]:
+    """Two-tier transposed path at hot/cold widths, in place.
+
+    The wide cotangent is folded through ``proj^T`` once (``g_n = g_u @
+    proj.kernel.T``, a plain product as in the reference); the routed hops
+    carry the narrow gradient into the narrow master through the usual
+    dedup + Adagrad. Tier-hit grads update the WIDE tiers as in
+    ``apply_sparse_grads_l2``. The projection's gradient is one
+    ``narrow_rows^T @ g_u`` product off the lookup's residual (tier hits
+    never passed through ``proj``), then its row-wise Adagrad."""
+    _check_update(world, compress, cache_update)
+    g_n = g_u @ proj.kernel.T   # [n, d]
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_n, world, lr, eps, fused)
+    if cache_update == "stale":
+        both = ctx.hit if ctx.l2_hit is None else ctx.hit | ctx.l2_hit
+        _route_hit_grads(w_shard, acc_shard, ctx, both, g_n, world, lr, eps, fused)
+    else:
+        cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
+    g_proj = ctx.narrow_rows.T @ g_u   # [d, D]; the psum is the identity at world 1
+    proj = _proj_adagrad(proj, g_proj, lr, eps)
+    return w_shard, acc_shard, cache, l2, proj
+
+
 # ---------------------------------------------------------------------------
 # HybridHash tier state, frequency statistics + flush (Algorithm 1)
 # ---------------------------------------------------------------------------
@@ -349,8 +560,30 @@ def count_frequencies(counts_shard: torch.Tensor, ctx: LookupCtx) -> torch.Tenso
         ctx.recv_valid.reshape(-1).to(counts_shard.dtype))
 
 
+def count_hit_frequencies(counts_shard: torch.Tensor, ctx: LookupCtx,
+                          hit_mask: torch.Tensor, *, world: int) -> torch.Tensor:
+    """FCounter update for tier-served lookups, in place. Tier hits never
+    ride the Shuffle, so the owner never sees them; each rank adds the hits
+    it issued to its own rows, weighted by ``world`` (the reference's
+    unbiased estimate, exact at world 1). Positions that are not counted
+    add 0 to row 0, so the update needs no host sync."""
+    _require_single_rank(world)
+    rps = counts_shard.shape[0]
+    base = 0  # this rank's first row
+    local = ctx.uniq.to(torch.int32) - base
+    ok = hit_mask & (local >= 0) & (local < rps)
+    safe = torch.where(ok, local, torch.zeros_like(local)).long()
+    return counts_shard.index_add_(0, safe, ok.to(counts_shard.dtype) * world)
+
+
 def cache_hit_count(ctx: LookupCtx) -> torch.Tensor:
     return ctx.hit.sum()
+
+
+def l2_hit_count(ctx: LookupCtx) -> torch.Tensor:
+    if ctx.l2_hit is None:
+        return torch.zeros((), dtype=torch.int32, device=ctx.hit.device)
+    return ctx.l2_hit.sum()
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,6 +592,28 @@ def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     common, so this is a stable descending sort instead."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k]
+
+
+def _rank_tiers(counts_shard: torch.Tensor, h1: int, h2: int, world: int,
+                rows_padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frequency ranking for both tiers: the top-(H1+H2) rows by FCounter
+    count, split hottest-H1 / next-H2, each sorted; rows counted 0 never
+    enter a tier (sentinel keys instead). The reference keeps the per-shard
+    top-(4H/world) and merges them after an all_gather; at world 1 the merge
+    is a second top-k of the first."""
+    rps = counts_shard.shape[0]
+    h = h1 + h2
+    base = 0  # this rank's first row
+    k_local = min(rps, max(32, (4 * h + world - 1) // world))
+    lvals, lidx = _top_k_stable(counts_shard, k_local)
+    gids = base + lidx.to(torch.int32)
+    tvals, tidx = _top_k_stable(lvals, h)
+    ranked = torch.where(tvals > 0, gids[tidx], torch.full_like(gids[tidx], rows_padded))
+    return torch.sort(ranked[:h1]).values, torch.sort(ranked[h1:]).values
+
+
+def _decay(counts_shard: torch.Tensor, decay: float) -> None:
+    counts_shard.copy_((counts_shard.to(torch.float32) * decay).to(counts_shard.dtype))
 
 
 def flush_cache(
@@ -381,26 +636,45 @@ def flush_cache(
     ``w``/``acc``/``counts`` tensors and a fresh tier.
     """
     _require_single_rank(world)
-    rps, _ = w_shard.shape
-    h = cache.keys.shape[0]
+    rps = w_shard.shape[0]
     rows_padded = rps * world
     base = 0
-
     if write_back:
         _write_back_tier(w_shard, acc_shard, cache, base, rps, rows_padded)
-
-    # the reference keeps the per-shard top-(4H/world) and merges them after
-    # an all_gather; at world 1 the merge is a second top-k of the first
-    k_local = min(rps, max(32, (4 * h + world - 1) // world))
-    lvals, lidx = _top_k_stable(counts_shard, k_local)
-    gids = base + lidx.to(torch.int32)
-    tvals, tidx = _top_k_stable(lvals, h)
-    new_keys = torch.sort(torch.where(tvals > 0, gids[tidx],
-                                      torch.full_like(gids[tidx], rows_padded))).values
-
-    new_cache = _load_tier(w_shard, acc_shard, new_keys, base, rps, rows_padded)
-    counts_shard.copy_((counts_shard.to(torch.float32) * decay).to(counts_shard.dtype))
+    keys, _ = _rank_tiers(counts_shard, cache.keys.shape[0], 0, world, rows_padded)
+    new_cache = _load_tier(w_shard, acc_shard, keys, base, rps, rows_padded)
+    _decay(counts_shard, decay)
     return w_shard, acc_shard, counts_shard, new_cache
+
+
+def flush_cache_l2(
+    w_shard: torch.Tensor,
+    acc_shard: torch.Tensor,
+    counts_shard: torch.Tensor,
+    cache: CacheState,
+    l2: CacheState,
+    *,
+    world: int,
+    decay: float = 0.5,
+    write_back: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CacheState, CacheState]:
+    """Two-tier HybridHash flush: write both tiers back (``'psum'`` mode),
+    rank the top-(H1+H2) rows once and split them hottest-H1 -> L1, next-H2
+    -> L2 (disjoint by construction), and reload both from the master. An
+    empty tier makes this the single-tier flush of the other."""
+    _require_single_rank(world)
+    rps = w_shard.shape[0]
+    rows_padded = rps * world
+    base = 0
+    if write_back:
+        _write_back_tier(w_shard, acc_shard, cache, base, rps, rows_padded)
+        _write_back_tier(w_shard, acc_shard, l2, base, rps, rows_padded)
+    keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
+                               world, rows_padded)
+    new_l1 = _load_tier(w_shard, acc_shard, keys1, base, rps, rows_padded)
+    new_l2 = _load_tier(w_shard, acc_shard, keys2, base, rps, rows_padded)
+    _decay(counts_shard, decay)
+    return w_shard, acc_shard, counts_shard, new_l1, new_l2
 
 
 def _write_back_tier(w_shard, acc_shard, tier: CacheState, base: int, rps: int,
@@ -423,3 +697,107 @@ def _load_tier(w_shard, acc_shard, keys, base: int, rps: int,
     contrib_w = w_shard[nclip] * nmine[:, None].to(w_shard.dtype)
     contrib_a = acc_shard[nclip] * nmine[:, None].to(acc_shard.dtype)
     return CacheState(keys, contrib_w, contrib_a)
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous widths (picasso_narrow): the re-widening flush
+# ---------------------------------------------------------------------------
+
+
+def proj_pinv(proj_kernel: torch.Tensor, ridge: float = 1e-6) -> torch.Tensor:
+    """Regularised right pseudo-inverse of the ``[d, D]`` up-projection,
+    ``P^T (P P^T + ridge I)^{-1}``: a ``[D, d]`` map with ``narrow @ P @ pinv
+    ~= narrow``, used to narrow wide tier rows. The ``[d, d]`` solve runs in
+    another order than XLA's, so rows narrowed through it match the
+    reference to about 1e-6, not bitwise."""
+    nd = proj_kernel.shape[0]
+    gram = proj_kernel @ proj_kernel.T
+    eye = torch.eye(nd, dtype=proj_kernel.dtype, device=proj_kernel.device)
+    return proj_kernel.T @ torch.linalg.solve(gram + ridge * eye, eye)
+
+
+def _write_back_tier_narrow(w_shard, acc_shard, tier: CacheState, pinv: torch.Tensor,
+                            base: int, rps: int, rows_padded: int) -> None:
+    """The owner takes its slice of a WIDE tier, narrowed through the
+    projection's pseudo-inverse into the narrow master, in place."""
+    local = tier.keys - base
+    mine = (local >= 0) & (local < rps) & (tier.keys < rows_padded)
+    idx = local[mine].long()
+    nrows = tier.rows @ pinv   # [H, d]
+    w_shard[idx] = nrows[mine].to(w_shard.dtype)
+    acc_shard[idx] = tier.acc[mine].to(acc_shard.dtype)
+
+
+def _load_tier_widened(w_shard, acc_shard, keys: torch.Tensor, proj_kernel: torch.Tensor,
+                       base: int, rps: int, rows_padded: int) -> CacheState:
+    """Narrow master rows -> a fresh WIDE tier: the rows are gathered at the
+    narrow width and widened by one product over the whole tier."""
+    nlocal = keys - base
+    nmine = (nlocal >= 0) & (nlocal < rps) & (keys < rows_padded)
+    nclip = torch.clamp(nlocal, 0, rps - 1).long()
+    narrow = w_shard[nclip] * nmine[:, None].to(w_shard.dtype)
+    contrib_a = acc_shard[nclip] * nmine[:, None].to(acc_shard.dtype)
+    return CacheState(keys, (narrow @ proj_kernel).to(w_shard.dtype), contrib_a)
+
+
+def _carry_exact_rows(tier: CacheState, old1: CacheState, old2: CacheState,
+                      rows_padded: int) -> CacheState:
+    """Ids that stay tier-resident keep their EXACT wide rows (and adagrad
+    slots) instead of a round trip through the rank-``d`` projection; freshly
+    promoted ids keep their widened reload. In place on the fresh tier; the
+    L2 pass overwrites the L1 one where both held a key, as in the
+    reference."""
+    for old in (old1, old2):
+        if old.keys.shape[0] == 0:
+            continue
+        p = torch.searchsorted(old.keys, tier.keys)   # side='left', as jnp's
+        pc = torch.clamp(p, 0, old.keys.shape[0] - 1)
+        found = (old.keys[pc] == tier.keys) & (tier.keys < rows_padded)
+        at = found.nonzero().squeeze(1)
+        tier.rows[at] = old.rows[pc[at]]
+        tier.acc[at] = old.acc[pc[at]]
+    return tier
+
+
+def flush_cache_narrow(
+    w_shard: torch.Tensor,        # [rps, d] narrow master
+    acc_shard: torch.Tensor,
+    counts_shard: torch.Tensor,
+    cache: CacheState,            # L1 (wide)
+    l2: CacheState,               # L2 (wide; may have 0 rows)
+    proj_kernel: torch.Tensor,    # [d, D]
+    *,
+    world: int,
+    decay: float = 0.5,
+    write_back: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CacheState, CacheState]:
+    """Two-tier flush at hot/cold widths, the re-widening lifecycle:
+
+    1. write both WIDE tiers back into the narrow master through the
+       projection's pseudo-inverse (``'psum'`` mode; adagrad slots exactly);
+    2. one top-(H1+H2) ranking split hottest-H1 / next-H2 (as
+       ``flush_cache_l2``);
+    3. reload both tiers widened (``narrow @ P``, one product per tier), but
+       ids that stayed tier-resident keep their exact wide rows
+       (``_carry_exact_rows``; ``'psum'`` mode only: in ``'stale'`` mode the
+       master is the single source of truth).
+    """
+    _require_single_rank(world)
+    rps = w_shard.shape[0]
+    rows_padded = rps * world
+    base = 0
+    if write_back:
+        pinv = proj_pinv(proj_kernel)
+        _write_back_tier_narrow(w_shard, acc_shard, cache, pinv, base, rps, rows_padded)
+        _write_back_tier_narrow(w_shard, acc_shard, l2, pinv, base, rps, rows_padded)
+    keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
+                               world, rows_padded)
+    new_l1 = _load_tier_widened(w_shard, acc_shard, keys1, proj_kernel, base, rps,
+                                rows_padded)
+    new_l2 = _load_tier_widened(w_shard, acc_shard, keys2, proj_kernel, base, rps,
+                                rows_padded)
+    if write_back:
+        new_l1 = _carry_exact_rows(new_l1, cache, l2, rows_padded)
+        new_l2 = _carry_exact_rows(new_l2, cache, l2, rows_padded)
+    _decay(counts_shard, decay)
+    return w_shard, acc_shard, counts_shard, new_l1, new_l2

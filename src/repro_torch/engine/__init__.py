@@ -1,6 +1,7 @@
 from repro_torch.engine.engine import (AUTO_NAMES, EmbeddingEngine, EngineContext,
                                       resolve_assignment)
-from repro_torch.engine.strategies import (LookupStrategy, PicassoStrategy,
+from repro_torch.engine.strategies import (LookupStrategy, PicassoL2Strategy,
+                                           PicassoNarrowStrategy, PicassoStrategy,
                                            available_strategies, get_strategy,
                                            register_strategy)
 
@@ -9,6 +10,8 @@ __all__ = [
     "EmbeddingEngine",
     "EngineContext",
     "LookupStrategy",
+    "PicassoL2Strategy",
+    "PicassoNarrowStrategy",
     "PicassoStrategy",
     "available_strategies",
     "get_strategy",

@@ -12,10 +12,14 @@ group into ``pooled[gid]: [B, n_bags, D]``. Strategy is a per-group
 property: the engine owns a ``Dict[gid, LookupStrategy]``. The HybridHash
 hot tier participates only where ``use_cache`` is on, the strategy has
 ``uses_cache`` AND the plan budgets ``cache_rows`` for that gid
-(``make_plan(enable_cache=False)`` budgets none), and ``flush`` skips every
-other group. In ``'psum'`` mode the flush writes the tier back to the master
-first; in ``'stale'`` mode the master is already exact and is not
-overwritten. ``backward`` and ``flush`` update the state's tensors in place.
+(``make_plan(enable_cache=False)`` budgets none). The L2 tier sits strictly
+behind it: on only where ``use_l2`` is on, L1 is active, the strategy has
+``uses_l2`` and the plan budgets ``l2_rows``. ``flush`` skips every group
+without an active L1 tier. In ``'psum'`` mode the flush writes the tiers
+back to the master first; in ``'stale'`` mode the master is already exact
+and is not overwritten. ``backward`` and ``flush`` update the state's
+tensors in place. A plan that narrows a group's master (a recorded
+``'picasso_narrow'`` assignment) can only be driven by ``'picasso_narrow'``.
 """
 from __future__ import annotations
 
@@ -36,14 +40,20 @@ AUTO_NAMES = ("mixed", "auto")
 
 def resolve_assignment(plan: PicassoPlan, spec: Any) -> Dict[int, str]:
     """gid -> strategy name for a broadcast registry name, validated against
-    the port's registry. The reference's per-group cost-model assignment
-    (``'mixed'``/``'auto'``, explicit dicts) comes with a later slice."""
+    the port's registry. A ``'picasso_narrow'`` broadcast is also recorded
+    on ``plan.strategy``, as the reference does, because the narrow master
+    widths (``PicassoPlan.narrow_width``) gate on it. The reference's
+    per-group cost-model assignment (``'mixed'``/``'auto'``, explicit dicts)
+    comes with a later slice."""
     if not isinstance(spec, str) or spec in AUTO_NAMES:
         raise NotImplementedError(
             f"strategy {spec!r}: only broadcast registry names are ported; "
             "'mixed'/'auto' and per-group assignments come with a later slice")
     get_strategy(spec)
-    return {g.gid: spec for g in plan.groups}
+    mapping = {g.gid: spec for g in plan.groups}
+    if spec == "picasso_narrow":
+        plan.strategy = dict(mapping)
+    return mapping
 
 
 class EngineContext(NamedTuple):
@@ -57,8 +67,9 @@ class EmbeddingEngine:
     """Owns the sparse path for one PicassoPlan on one rank.
 
     strategy: a registry name, broadcast to every group.
-    use_cache / use_interleave: the HybridHash tier and K-Interleaving
-        waves (False: no tier; one wave of every group).
+    use_cache / use_l2 / use_interleave: the HybridHash tier, the L2 tier
+        behind it and K-Interleaving waves (False: no tier; one wave of
+        every group).
     lr_emb / eps: the row-wise Adagrad of the sparse update.
     cache_update: ``'psum'`` (tier authoritative) or ``'stale'``.
     use_fused_kernels: ``'auto'`` (CUDA kernels for tensors on the card,
@@ -67,7 +78,7 @@ class EmbeddingEngine:
     """
 
     def __init__(self, plan: PicassoPlan, world: int = 1, *, strategy: Any = "picasso",
-                 use_cache: bool = True, use_interleave: bool = True,
+                 use_cache: bool = True, use_l2: bool = True, use_interleave: bool = True,
                  lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
                  use_fused_kernels: Any = "auto"):
         if int(plan.world) != int(world):
@@ -82,6 +93,15 @@ class EmbeddingEngine:
         self.cache_update = cache_update
         self.use_fused = ops.resolve_fused(use_fused_kernels)
         self.assignment: Dict[int, str] = resolve_assignment(plan, strategy)
+        # a narrow master is [rows, d]; every other strategy reads [rows, D]
+        for g in plan.groups:
+            if (plan.narrow_width(g.gid) < g.dim
+                    and self.assignment.get(g.gid) != "picasso_narrow"):
+                raise ValueError(
+                    f"g{g.gid}: the plan narrows this group's master to width "
+                    f"{plan.narrow_width(g.gid)} (< dim {g.dim}), but this engine "
+                    f"assigns {self.assignment.get(g.gid)!r}; narrow state is only "
+                    "readable through 'picasso_narrow'")
         names = sorted(set(self.assignment.values()))
         insts: Dict[str, LookupStrategy] = {
             name: get_strategy(name)(world=world, capacity=dict(plan.capacity),
@@ -94,15 +114,24 @@ class EmbeddingEngine:
             g.gid: bool(use_cache and self.strategies[g.gid].uses_cache
                         and plan.cache_rows.get(g.gid, 0) > 0)
             for g in plan.groups}
+        # L2 sits strictly behind L1: an inactive hot tier turns it off too
+        self.l2_on: Dict[int, bool] = {
+            g.gid: bool(use_l2 and self.cache_on[g.gid]
+                        and self.strategies[g.gid].uses_l2
+                        and plan.l2_rows.get(g.gid, 0) > 0)
+            for g in plan.groups}
         self.any_cache = any(self.cache_on.values())
+        self._extra_keys = tuple(sorted(
+            {k for n in names for k in get_strategy(n).extra_metric_keys}))
         self.waves = (plan.interleave if use_interleave
                       else [[g.gid for g in plan.groups]])
 
     @property
     def metric_keys(self) -> Tuple[str, ...]:
-        """The metric keys ``backward`` emits. Assignments are broadcast
-        names, so there are no per-strategy-class breakdowns."""
-        return ("overflow", "cache_hits")
+        """The metric keys ``backward`` emits: totals plus the strategies'
+        per-tier keys (``cache_hits/l1``, ``cache_hits/l2``). Assignments are
+        broadcast names, so there are no per-strategy-class breakdowns."""
+        return ("overflow", "cache_hits") + self._extra_keys
 
     # ------------------------------------------------------------- forward
     def _wave_lookups(self, emb: Dict[str, EmbeddingState],
@@ -122,7 +151,8 @@ class EmbeddingEngine:
                     ids_in[g] = flat[len(prev) + j]
             for gid in wave:
                 rows[gid], ctxs[gid] = self.strategies[gid].lookup(
-                    emb[str(gid)], gid, ids_in[gid], cache_on=self.cache_on[gid])
+                    emb[str(gid)], gid, ids_in[gid], cache_on=self.cache_on[gid],
+                    l2_on=self.l2_on[gid])
         return rows, ctxs
 
     def forward(self, emb: Dict[str, EmbeddingState], packed: Dict[int, PackedBatch]
@@ -142,7 +172,7 @@ class EmbeddingEngine:
                     ids: torch.Tensor) -> torch.Tensor:
         """Raw per-id rows ``[n, D]`` for one group (retrieval towers)."""
         rows_u, ctx = self.strategies[gid].lookup(
-            emb[str(gid)], gid, ids, cache_on=self.cache_on[gid])
+            emb[str(gid)], gid, ids, cache_on=self.cache_on[gid], l2_on=self.l2_on[gid])
         return rows_u[ctx.inv.long()]
 
     # ------------------------------------------------------------ backward
@@ -159,6 +189,7 @@ class EmbeddingEngine:
         dev = next(iter(g_pooled.values())).device
         ovf = torch.zeros((), dtype=torch.int32, device=dev)
         hits = torch.zeros((), dtype=torch.int32, device=dev)
+        extra = {k: torch.zeros((), dtype=torch.int32, device=dev) for k in self._extra_keys}
         for gid, g_p in g_pooled.items():
             pb = ctx.packed[gid]
             gctx = ctx.ctxs[gid]
@@ -166,25 +197,46 @@ class EmbeddingEngine:
             g_rows = ops.segment_grad(g_flat, pb.seg, pb.weights, gctx.inv,
                                       pb.ids.shape[0], fused=self.use_fused)
             st2, o, h = self.strategies[gid].apply_grads(
-                emb[str(gid)], gid, gctx, g_rows, cache_on=self.cache_on[gid])
+                emb[str(gid)], gid, gctx, g_rows, cache_on=self.cache_on[gid],
+                l2_on=self.l2_on[gid])
             emb[str(gid)] = st2
             ovf = ovf + o
             hits = hits + h
-        return emb, {"overflow": ovf, "cache_hits": hits}
+            for k, v in self.strategies[gid].tier_metrics(gctx).items():
+                extra[k] = extra[k] + v
+        return emb, {"overflow": ovf, "cache_hits": hits, **extra}
 
     # --------------------------------------------------------------- flush
     def flush(self, emb: Dict[str, EmbeddingState]) -> Dict[str, EmbeddingState]:
-        """HybridHash flush (Algorithm 1 L23-26) for every cached group. The
-        master ``w``/``acc``/``counts`` are updated in place (see
-        ``pe.flush_cache``); the returned dict carries the new tiers. The
-        tier is written back first only in ``'psum'`` mode."""
+        """HybridHash flush (Algorithm 1 L23-26) for every group with an
+        active L1 tier. The master ``w``/``acc``/``counts`` are updated in
+        place; the returned dict carries the new tiers. Narrow masters take
+        the re-widening flush (``pe.flush_cache_narrow``; a missing L2 tier
+        flushes as an empty one and stays absent), groups with an active L2
+        the two-tier flush, the rest the L1 flush. The tiers are written
+        back first only in ``'psum'`` mode."""
         out = dict(emb)
+        wb = self.cache_update == "psum"
         for g in self.plan.groups:
             if not self.cache_on.get(g.gid, False):
                 continue
             st = out[str(g.gid)]
-            w2, acc2, counts2, cache2 = pe.flush_cache(
-                st.w, st.acc, st.counts, st.cache, world=self.world,
-                write_back=self.cache_update == "psum")
-            out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, st.l2)
+            if st.proj is not None:
+                l2t = st.l2 if st.l2 is not None else pe.init_cache(
+                    0, g.dim, g.rows, st.cache.rows.dtype, device=st.cache.rows.device)
+                w2, acc2, counts2, cache2, l22 = pe.flush_cache_narrow(
+                    st.w, st.acc, st.counts, st.cache, l2t, st.proj.kernel,
+                    world=self.world, write_back=wb)
+                out[str(g.gid)] = EmbeddingState(
+                    w2, acc2, counts2, cache2, l22 if st.l2 is not None else None,
+                    st.proj)
+            elif self.l2_on.get(g.gid, False) and st.l2 is not None:
+                w2, acc2, counts2, cache2, l22 = pe.flush_cache_l2(
+                    st.w, st.acc, st.counts, st.cache, st.l2, world=self.world,
+                    write_back=wb)
+                out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, l22)
+            else:
+                w2, acc2, counts2, cache2 = pe.flush_cache(
+                    st.w, st.acc, st.counts, st.cache, world=self.world, write_back=wb)
+                out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, st.l2)
         return out

@@ -47,6 +47,11 @@ SIGNATURES: Dict[str, List] = {
     # x0, x, w, b, g, gx0, gx, gw, gb, partials (scratch), b_rows, d, chunk,
     # splits, stream
     "cross_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _P],
+    # back, idx, kept, proj, wide, narrow, m, n, nd, d, stream
+    "gather_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
+    # g_wide, g_narrow, proj, order, sorted idx, offsets (scratch), out, n, m,
+    # nd, d, stream
+    "gather_project_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
 }
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}

@@ -13,13 +13,15 @@ Each wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
 kernels (``reset_launches`` before, read after).
 
-``gather_pool``, ``fm_interaction`` and ``cross_layer`` are
-``torch.autograd.Function``s like the reference's ``jax.custom_vjp``s: their
-backwards are the ``segment_grad``, ``fm_interaction_bwd`` and
-``cross_layer_bwd`` kernels for CUDA tensors and the plain versions for CPU
-tensors. ``segment_grad`` and ``dedup_adagrad`` are
-also standalone ops for the engine's explicit backward; ``dedup_adagrad``
-updates the table and accumulator it is given in place.
+``gather_pool``, ``fm_interaction``, ``cross_layer`` and ``gather_project``
+are ``torch.autograd.Function``s like the reference's ``jax.custom_vjp``s:
+their backwards are the ``segment_grad``, ``fm_interaction_bwd``,
+``cross_layer_bwd`` and ``gather_project_grad`` kernels for CUDA tensors and
+the plain versions for CPU tensors. ``segment_grad`` and ``dedup_adagrad``
+are also standalone ops for the engine's explicit backward, and
+``gather_project_grad`` a standalone op as in the reference (the engine
+folds the narrow cotangent itself); ``dedup_adagrad`` updates the table and
+accumulator it is given in place.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from repro_torch.kernels import build, ref
 launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
-                            "cross_layer_bwd": 0}
+                            "cross_layer_bwd": 0, "gather_project": 0,
+                            "gather_project_grad": 0}
 
 
 def reset_launches() -> None:
@@ -394,3 +397,115 @@ def cross_layer(x0, x, w, b, fused: Optional[bool] = None):
     """DCN-v2 cross layer ``x0 * (x @ w + b) + x`` for ``x0, x [B, d]``,
     ``w [d, d]``, ``b [d]``, differentiable through ``cross_layer_bwd``."""
     return _CrossLayer.apply(x0, x, w, b, _use_kernel(fused, x, "cross_layer"))
+
+
+# ------------------------------------------------------------ gather project
+
+# the kernels stage proj (and, in gather_project, a block's 128 narrow rows)
+# in at most 48 KB of shared memory
+_SMEM_FLOATS = 12288
+_GP_ROWS = 128
+
+
+def _expect_project(what: str, idx, kept, proj, dev) -> None:
+    _expect(idx, f"{what} idx", torch.int32, 1, dev)
+    _expect(kept, f"{what} kept", torch.bool, 1, dev)
+    _expect(proj, f"{what} proj", torch.float32, 2, dev)
+    if kept.shape[0] != idx.shape[0]:
+        raise ValueError(f"{what}: idx {idx.shape[0]} and kept {kept.shape[0]} must match")
+
+
+def _gather_project_cuda(back, idx, kept, proj):
+    dev = back.device
+    _expect(back, "gather_project back", torch.float32, 2, dev)
+    _expect_project("gather_project", idx, kept, proj, dev)
+    m, nd = back.shape
+    n = idx.shape[0]
+    d = proj.shape[1]
+    if proj.shape[0] != nd:
+        raise ValueError(f"gather_project: back {(m, nd)} and proj {tuple(proj.shape)}")
+    if not (0 < nd and 0 < d and nd * d + _GP_ROWS * nd <= _SMEM_FLOATS) or n >= 2**31 - 1:
+        raise ValueError(f"gather_project: n={n}, d={nd}, D={d} exceed the kernel's "
+                         "int32 positions or its 48 KB of shared memory")
+    wide = torch.empty((n, d), dtype=back.dtype, device=dev)
+    narrow = torch.empty((n, nd), dtype=back.dtype, device=dev)
+    if n:
+        _launch("gather_project", back.data_ptr(), idx.data_ptr(), kept.data_ptr(),
+                proj.data_ptr(), wide.data_ptr(), narrow.data_ptr(), m, n, nd, d)
+    return wide, narrow
+
+
+def _gather_project_grad_cuda(g_wide, g_narrow, idx, kept, proj, m: int):
+    dev = g_wide.device
+    _expect(g_wide, "gather_project_grad g_wide", torch.float32, 2, dev)
+    _expect(g_narrow, "gather_project_grad g_narrow", torch.float32, 2, dev)
+    _expect_project("gather_project_grad", idx, kept, proj, dev)
+    n = idx.shape[0]
+    nd, d = proj.shape
+    if tuple(g_wide.shape) != (n, d) or tuple(g_narrow.shape) != (n, nd):
+        raise ValueError(f"gather_project_grad: g_wide {tuple(g_wide.shape)}, g_narrow "
+                         f"{tuple(g_narrow.shape)}, want {(n, d)} and {(n, nd)}")
+    if (max(n, m) >= 2**31 - 1 or not 0 < nd <= 256 or d <= 0
+            or nd * d > _SMEM_FLOATS):
+        raise ValueError(f"gather_project_grad: n={n}, m={m}, d={nd}, D={d} exceed the "
+                         "kernel's int32 offsets, its 256-thread rows or 48 KB")
+    out = torch.empty((m, nd), dtype=g_wide.dtype, device=dev)
+    if m:
+        # not-kept positions and slots outside [0, m) take the sentinel m:
+        # they sort last and the kernel drops their run; stable, so a slot's
+        # positions keep their original order (the reference's segment_sum)
+        ok = kept & (idx >= 0) & (idx < m)
+        sidx = torch.where(ok, idx, torch.full_like(idx, m))
+        si, order = torch.sort(sidx, stable=True)
+        offsets = torch.empty((m + 1,), dtype=torch.int32, device=dev)
+        _launch("gather_project_grad", g_wide.data_ptr(), g_narrow.data_ptr(),
+                proj.data_ptr(), order.data_ptr(), si.data_ptr(), offsets.data_ptr(),
+                out.data_ptr(), n, m, nd, d)
+    return out
+
+
+def gather_project_grad(g_wide, g_narrow, idx, kept, proj, m: int,
+                        fused: Optional[bool] = None):
+    """Transpose of ``gather_project`` w.r.t. the routed buffer, standalone:
+    ``g_back[j] = sum_{idx[i]=j, kept[i]} (g_wide[i] @ proj^T + g_narrow[i])``
+    for ``j < m``; slots no kept position maps to are exactly 0."""
+    if _use_kernel(fused, g_wide, "gather_project_grad"):
+        return _gather_project_grad_cuda(g_wide, g_narrow, idx, kept, proj, int(m))
+    return ref.gather_project_grad_ref(g_wide, g_narrow, idx, kept, proj, int(m))
+
+
+class _GatherProject(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, back, idx, kept, proj, use_kernel: bool):
+        if use_kernel:
+            wide, narrow = _gather_project_cuda(back, idx, kept, proj)
+        else:
+            wide, narrow = ref.gather_project_ref(back, idx, kept, proj)
+        # the narrow residual is already masked, so the projection's
+        # cotangent below needs no mask
+        ctx.save_for_backward(idx, kept, narrow, proj)
+        ctx.m, ctx.use_kernel = back.shape[0], use_kernel
+        return wide, narrow
+
+    @staticmethod
+    def backward(ctx, g_wide, g_narrow):
+        idx, kept, narrow, proj = ctx.saved_tensors
+        g_wide, g_narrow = g_wide.contiguous(), g_narrow.contiguous()
+        if ctx.use_kernel:
+            g_back = _gather_project_grad_cuda(g_wide, g_narrow, idx, kept, proj, ctx.m)
+        else:
+            g_back = ref.gather_project_grad_ref(g_wide, g_narrow, idx, kept, proj, ctx.m)
+        # a plain product outside any kernel, as in the reference
+        g_proj = narrow.T @ g_wide
+        return g_back, None, None, g_proj, None
+
+
+def gather_project(back, idx, kept, proj, fused: Optional[bool] = None):
+    """Narrow-row stitch of ``picasso_narrow``: gather ``[d]``-narrow rows
+    out of the routed-back buffer ``back [m, d]`` at ``idx`` and project them
+    up through ``proj [d, D]`` in one pass. Returns ``(wide [n, D], narrow
+    [n, d])``, exact zeros where ``kept`` is false or ``idx`` falls outside
+    ``[0, m)``. Differentiable: ``back`` through ``gather_project_grad``,
+    ``proj`` as ``narrow^T @ g_wide``."""
+    return _GatherProject.apply(back, idx, kept, proj,
+                                _use_kernel(fused, back, "gather_project"))

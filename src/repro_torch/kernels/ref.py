@@ -1,12 +1,20 @@
 """Plain PyTorch versions of the port's kernels (``repro.kernels.ref`` in
 torch). The CPU runs these; ``chip_smoke.py`` holds each CUDA kernel against
 them on the card. They repeat the kernels' arithmetic and are no yardstick
-of speed."""
+of speed.
+
+TF32 is switched off here as in ``layers/mlp``: the plain projection
+products (``gather_project_ref``) run on the card in the kernels' checks,
+and TF32's three decimal digits would miss their 1e-5 bar by about 1e-3.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor, seg: torch.Tensor,
@@ -75,6 +83,37 @@ def tier_probe_ref(uniq: torch.Tensor, uvalid: torch.Tensor, keys: torch.Tensor,
     out = torch.where(hit[:, None], rows[slot],
                       torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=rows.device))
     return hit, slot.to(torch.int32), out
+
+
+def _routed(idx: torch.Tensor, kept: torch.Tensor, m: int) -> torch.Tensor:
+    """The kernels' ``ok`` condition: kept and a slot inside ``[0, m)``."""
+    return kept & (idx >= 0) & (idx < m)
+
+
+def gather_project_ref(back: torch.Tensor, idx: torch.Tensor, kept: torch.Tensor,
+                       proj: torch.Tensor):
+    """Unfused narrow-row stitch: gather ``[n, d]`` narrow rows out of the
+    routed-back buffer, zero the positions that are not kept (or point
+    outside it), and project up through the ``[d, D]`` map. Returns ``(wide
+    [n, D], narrow [n, d])``; ``narrow`` is the residual of the projection's
+    gradient."""
+    m = back.shape[0]
+    ok = _routed(idx, kept, m)
+    narrow = back[idx.long().clamp(0, max(m - 1, 0))] * ok[:, None].to(back.dtype)
+    return narrow @ proj, narrow
+
+
+def gather_project_grad_ref(g_wide: torch.Tensor, g_narrow: torch.Tensor,
+                            idx: torch.Tensor, kept: torch.Tensor, proj: torch.Tensor,
+                            m: int) -> torch.Tensor:
+    """Transpose of ``gather_project_ref`` w.r.t. ``back``: fold the wide
+    cotangent back through ``proj`` and sum onto the routed-buffer slots.
+    Positions that are not kept add into a drop row past the buffer."""
+    ok = _routed(idx, kept, m)
+    per = g_wide @ proj.T + g_narrow
+    dst = torch.where(ok, idx.long(), torch.full_like(idx, m, dtype=torch.long))
+    out = torch.zeros((m + 1, proj.shape[0]), dtype=g_wide.dtype, device=g_wide.device)
+    return out.index_add_(0, dst, per)[:m]
 
 
 def fm_interaction_ref(fields: torch.Tensor) -> torch.Tensor:

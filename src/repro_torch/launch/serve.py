@@ -7,6 +7,8 @@ dcn-v2 on one card.
       --batch 512 --n-requests 10
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dcn-v2 --smoke \\
       --device cpu --n-requests 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
+      --strategy picasso_narrow --narrow-dim 4 --l2-budget 2147483648
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 """
@@ -26,6 +28,14 @@ def main(argv=None):
     ap.add_argument("--strategy", default="picasso", choices=names,
                     help="EmbeddingEngine lookup strategy, broadcast to every "
                          f"packed group: one of {', '.join(names)}")
+    ap.add_argument("--l2-budget", type=int, default=0, metavar="BYTES",
+                    help="L2 cache tier budget in bytes (0 disables; >0 budgets "
+                         "an L2 tier behind the hot tier, used by picasso_l2 and "
+                         "picasso_narrow; the port keeps it in device memory)")
+    ap.add_argument("--narrow-dim", type=int, default=0, metavar="D",
+                    help="narrow master width for picasso_narrow (0 disables): "
+                         "cold ids are stored at D columns and up-projected at "
+                         "lookup, hot ids stay full-width in the tiers")
     ap.add_argument("--fused-kernels", default="auto", choices=("auto", "on", "off"),
                     help="CUDA kernels: 'auto' for tensors on the card, 'on' "
                          "forces them (raises on the CPU), 'off' forces the "
@@ -46,12 +56,17 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core.packing import make_plan
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.engine import resolve_assignment
     from repro_torch.models.wdl import WDLModel
     from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    plan = make_plan(cfg, world=1, per_device_batch=args.batch)
+    plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
+                     narrow_dim=args.narrow_dim or None)
+    # record the assignment before init_state: a 'picasso_narrow' broadcast
+    # gates the master widths the state is sized by
+    resolve_assignment(plan, args.strategy)
     model = WDLModel(cfg, plan)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_state(model, plan, gen, device)

@@ -7,6 +7,9 @@ or dcn-v2 on one card (world 1).
       --steps 50 --global-batch 256
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
       --device cpu --steps 3 --global-batch 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+      --global-batch 256 --strategy picasso_narrow --narrow-dim 4 \\
+      --l2-budget 2147483648
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
@@ -33,6 +36,15 @@ def main(argv=None):
                     help="CUDA kernels: 'auto' for tensors on the card, 'on' "
                          "forces them (raises on the CPU), 'off' forces the "
                          "plain PyTorch versions")
+    ap.add_argument("--l2-budget", type=int, default=0, metavar="BYTES",
+                    help="L2 cache tier budget in bytes (0 disables; >0 budgets "
+                         "an L2 tier behind the hot tier, used by picasso_l2 and "
+                         "picasso_narrow; the port keeps it in device memory)")
+    ap.add_argument("--narrow-dim", type=int, default=0, metavar="D",
+                    help="narrow master width for picasso_narrow (0 disables): "
+                         "cold ids are stored and routed at this width and "
+                         "projected up at lookup, hot ids stay full-width in "
+                         "the tiers")
     ap.add_argument("--no-cache", action="store_true",
                     help="no HybridHash hot tier (the plan budgets none)")
     ap.add_argument("--no-interleave", action="store_true",
@@ -59,6 +71,7 @@ def main(argv=None):
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
+    from repro_torch.engine import resolve_assignment
     from repro_torch.models.wdl import WDLModel
     from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
 
@@ -67,7 +80,11 @@ def main(argv=None):
     plan = make_plan(cfg, world=1, per_device_batch=args.global_batch,
                      enable_cache=not args.no_cache, n_micro=args.n_micro,
                      hot_bytes=1 << 24 if args.smoke else 1 << 30,
+                     l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
                      flush_iters=20, warmup_iters=10)
+    # record the assignment before init_state: a 'picasso_narrow' broadcast
+    # gates the master widths the state is sized by
+    resolve_assignment(plan, args.strategy)
     model = WDLModel(cfg, plan)
     tcfg = TrainConfig(strategy=args.strategy, use_cache=not args.no_cache,
                        use_interleave=not args.no_interleave,
@@ -91,8 +108,11 @@ def main(argv=None):
                 break
             state, m = step_fn(state, batch)
             if i % args.log_every == 0:
+                tiers = "".join(f" {k.split('/')[1]}={int(m[k])}" for k in
+                                ("cache_hits/l1", "cache_hits/l2") if k in m)
                 print(f"  step {i:5d} loss={float(m['loss']):.4f} "
-                      f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}", flush=True)
+                      f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}{tiers}",
+                      flush=True)
     finally:
         stream.close()
     print("[train] done")

@@ -25,6 +25,8 @@ class ServeConfig:
     """Serving-side engine knobs."""
 
     strategy: Any = "picasso"  # a broadcast registry name
+    use_cache: bool = True
+    use_l2: bool = True   # the L2 tier (plan-budgeted, behind L1)
     # CUDA sparse, FM and cross kernels: 'auto' (for tensors on the card) | 'on' | 'off'
     use_fused_kernels: Any = "auto"
 
@@ -55,6 +57,7 @@ class ServeStep:
         self.global_batch = int(global_batch)
         self.device = device
         self.engine = EmbeddingEngine(plan, plan.world, strategy=scfg.strategy,
+                                      use_cache=scfg.use_cache, use_l2=scfg.use_l2,
                                       use_fused_kernels=scfg.use_fused_kernels)
 
     def pack(self, batch: Dict) -> Tuple[Dict[int, Any], Optional[torch.Tensor]]:

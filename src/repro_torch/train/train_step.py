@@ -42,15 +42,14 @@ from repro_torch.optim.optimizers import (OPTIMIZERS, adam_init, tree_leaves, tr
                                           tree_unflatten)
 
 # fields of the reference's TrainConfig whose features come with later slices
-_UNPORTED = {"use_l2": True, "grad_compression": "none", "grad_compress": "none",
-             "pin_l2": False}
+_UNPORTED = {"grad_compression": "none", "grad_compress": "none", "pin_l2": False}
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig``, field for field. ``use_l2``,
-    ``grad_compression``, ``grad_compress`` and ``pin_l2`` belong to later
-    slices and raise on any value but their default."""
+    """The reference's ``TrainConfig``, field for field. ``grad_compression``,
+    ``grad_compress`` and ``pin_l2`` (the L2 tier in pinned host memory)
+    belong to later slices and raise on any value but their default."""
 
     lr_emb: float = 0.05
     lr_dense: float = 1e-3
@@ -59,7 +58,7 @@ class TrainConfig:
     pipeline_micro: bool = True    # D-Interleaving pipeline order
     overlap: Any = "auto"          # 'off' | 'on' | 'auto' (on when n_micro > 1)
     use_cache: bool = True
-    use_l2: bool = True
+    use_l2: bool = True            # the L2 tier (where the plan budgets one)
     use_interleave: bool = True    # K-Interleaving waves (False: one wave)
     use_fused_kernels: Any = "auto"
     cache_update: str = "psum"     # 'psum' (exact) | 'stale' (Algorithm 1)
@@ -83,7 +82,8 @@ class TrainConfig:
 class TrainStep:
     """``step(state, batch) -> (state, metrics)``; the state is updated in
     place and returned. Metrics are device tensors (``loss``, ``grad_norm``,
-    ``overflow``, ``cache_hits``) plus the host int ``step``."""
+    ``overflow``, ``cache_hits`` and, for two-tier strategies,
+    ``cache_hits/l1`` and ``cache_hits/l2``) plus the host int ``step``."""
 
     def __init__(self, model: WDLModel, plan: PicassoPlan, global_batch: int,
                  tcfg: TrainConfig, device: torch.device):
@@ -97,8 +97,9 @@ class TrainStep:
         self.n_micro = max(1, b_local // self.micro)
         self.engine = EmbeddingEngine(
             plan, world, strategy=tcfg.strategy, use_cache=tcfg.use_cache,
-            use_interleave=tcfg.use_interleave, lr_emb=tcfg.lr_emb, eps=tcfg.eps,
-            cache_update=tcfg.cache_update, use_fused_kernels=tcfg.use_fused_kernels)
+            use_l2=tcfg.use_l2, use_interleave=tcfg.use_interleave, lr_emb=tcfg.lr_emb,
+            eps=tcfg.eps, cache_update=tcfg.cache_update,
+            use_fused_kernels=tcfg.use_fused_kernels)
         self.use_overlap = resolve_overlap(tcfg.overlap, self.n_micro)
         # with the software pipeline or the D-Interleaving order, chunk i+1's
         # forward is issued before chunk i's backward
@@ -241,14 +242,20 @@ def make_train_step(model: WDLModel, plan: PicassoPlan, global_batch: int,
     return TrainStep(model, plan, global_batch, tcfg, resolve_device(device))
 
 
-def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any = "picasso",
-                  use_cache: bool = True) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any = None,
+                  use_cache: bool = True, use_l2: bool = True
+                  ) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
     """Host-scheduled HybridHash flush, ``state -> state`` (for
-    ``flush_in_step=False``). ``cache_update``, ``strategy`` and
-    ``use_cache`` must mirror the training engine's, or the flush would
-    write a tier training never updated back over the master."""
+    ``flush_in_step=False``). ``strategy=None`` follows the assignment
+    recorded on the plan (a ``'picasso_narrow'`` broadcast), else
+    ``'picasso'``. ``cache_update``, ``strategy``, ``use_cache`` and
+    ``use_l2`` must mirror the training engine's, or the flush would write a
+    tier training never updated back over the master."""
+    if strategy is None:
+        names = set(plan.strategy.values())
+        strategy = names.pop() if len(names) == 1 else "mixed" if names else "picasso"
     engine = EmbeddingEngine(plan, plan.world, strategy=strategy, use_cache=use_cache,
-                             cache_update=cache_update)
+                             use_l2=use_l2, cache_update=cache_update)
 
     @torch.no_grad()
     def flush(state: Dict[str, Any]) -> Dict[str, Any]:

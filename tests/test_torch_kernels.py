@@ -165,10 +165,17 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
     xc = torch.ones((3, 5), requires_grad=True)
     ops.cross_layer(xc, xc, torch.ones((5, 5)), torch.ones(5)).sum().backward()
     ops.cross_layer_bwd(xc, xc, torch.ones((5, 5)), torch.ones(5), torch.ones((3, 5)))
+    back = torch.ones((4, 2), requires_grad=True)
+    idx, kept = torch.tensor([0, 3, 3], dtype=torch.int32), torch.ones(3, dtype=torch.bool)
+    wide, _ = ops.gather_project(back, idx, kept, torch.ones((2, 5)))
+    wide.sum().backward()
+    ops.gather_project_grad(torch.ones((3, 5)), torch.ones((3, 2)), idx, kept,
+                            torch.ones((2, 5)), 4)
     assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
-                            "cross_layer_bwd": 0}
+                            "cross_layer_bwd": 0, "gather_project": 0,
+                            "gather_project_grad": 0}
     assert not build._LAUNCHERS
 
 

@@ -275,7 +275,7 @@ def test_batch_stream_seeks_like_reference():
     s.close()
 
 
-@pytest.mark.parametrize("field,value", [("use_l2", False), ("grad_compression", "bf16"),
+@pytest.mark.parametrize("field,value", [("grad_compression", "bf16"),
                                          ("grad_compress", "fp16"), ("pin_l2", True)])
 def test_train_config_raises_on_unported_fields(field, value):
     with pytest.raises(NotImplementedError, match=field):
