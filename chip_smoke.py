@@ -2,14 +2,15 @@
 """On-card check of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version, serves and trains full-width deepfm,
 full-width dcn-v2 and full-width deepfm with ``picasso_narrow`` and its L2
-tier on one card.
+tier on one card, and trains full-width deepfm under ``--grad-compress fp16``
+and ``topk``.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
-1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (ten
-   kernels, one nvcc per source, all at once);
+1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+   (fourteen kernels, one nvcc per source, all at once);
 2. run each kernel at its path's shape (serving B = 512, training B = 256)
    and at a bulk shape (B = 65,536) against its plain version on the same
    inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows/
@@ -26,7 +27,13 @@ Phases, in order (any failure raises and exits non-zero):
    empty slots exactly 0, the gradient repeating bit for bit and reached
    both standalone and through the autograd of ``ops.gather_project``.
    ``dedup_adagrad`` runs again on the 187,780,711 x 4 narrow master and
-   ``tier_probe`` on a 48,806,440-key L2 tier;
+   ``tier_probe`` on a 48,806,440-key L2 tier. The four gradient-compression
+   kernels run on the routed rows of a training step (m = the bucket
+   capacity, 37.5 % of the rows exactly zero, some with tied magnitudes) at
+   deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and the narrow d = 4
+   (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN, infinities,
+   subnormals, signed zeros): payloads and rows bitwise the plain versions',
+   zero rows exactly 0 out, each kernel repeating bit for bit;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -74,7 +81,15 @@ Phases, in order (any failure raises and exits non-zero):
    trained projection to 1e-5 of its scale; after the profiled steps both
    tiers are filled as in phase 7 and steps 40-42 take L2 hits, step 40's
    flush writing the full tiers back; a narrow deepfm-smoke training run on
-   the card matching the CPU.
+   the card matching the CPU;
+9. train full-width deepfm as in phase 4 with ``grad_compress='fp16'``, then
+   ``'topk'``: per step deepfm's launches plus 1 compress and 1 decompress
+   of the mode (0 of the other pair), hits after the flush, the kernel path
+   repeating bit for bit, and at steps 1 and 21 the shared-state check of
+   phase 6, which also holds the step's compressed payloads and rows bitwise
+   to the plain versions on the same rows and the master rows each update
+   touched to the plain update within 1e-6 of scale; the 30-step kernel vs
+   plain trajectory is printed, and the step times beside phase 4's.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -105,6 +120,7 @@ from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.engine import resolve_assignment  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
+from repro_torch.optim import grad_compression as gcomp  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
@@ -144,6 +160,7 @@ class Arch(NamedTuple):
     narrow_dim: int = 0             # the launchers' --narrow-dim (0: none)
     l2_bytes: int = 0               # the launchers' --l2-budget
     l2_rows: int = 0                # the L2 tier that budget plans
+    grad_compress: str = "none"     # the train launcher's --grad-compress
 
     @property
     def master_dim(self) -> int:
@@ -172,6 +189,16 @@ ARCHS = {
          "segment_grad": 1, "dedup_adagrad": 2, "fm_interaction_bwd": 1}, False,
         (1, FLUSH_ITERS + 1), "picasso_narrow", 4, 2_147_483_648, 48_806_440),
 }
+# the train launcher's --grad-compress on full-width deepfm: under 'psum' the
+# miss grads' routed hop compresses and decompresses once a step; the plain
+# trajectory is printed, not held (a compressed coordinate can flip on a
+# last-bit difference of its row)
+COMPRESSED = ("deepfm-fp16", "deepfm-topk")
+ARCHS.update({name: ARCHS["deepfm"]._replace(
+    name=name, trajectory_bar=False, shared_state_at=(1, FLUSH_ITERS + 1),
+    train_launches={**ARCHS["deepfm"].train_launches, f"{mode}_compress": 1,
+                    f"{mode}_decompress": 1}, grad_compress=mode)
+    for name, mode in zip(COMPRESSED, ("fp16", "topk"))})
 SMOKE_L2_BYTES = 1 << 16  # tests/test_narrow.py's L2 budget at smoke size
 
 SOURCES = {
@@ -195,6 +222,14 @@ SOURCES = {
                        "src/repro/kernels/fused_embedding.py:351"),
     "gather_project_grad": ("src/repro_torch/kernels/csrc/gather_project_grad.cu",
                             "src/repro/kernels/fused_embedding.py:412"),
+    "fp16_compress": ("src/repro_torch/kernels/csrc/fp16_compress.cu",
+                      "src/repro/kernels/grad_compress.py:39"),
+    "fp16_decompress": ("src/repro_torch/kernels/csrc/fp16_decompress.cu",
+                        "src/repro/kernels/grad_compress.py:65"),
+    "topk_compress": ("src/repro_torch/kernels/csrc/topk_compress.cu",
+                      "src/repro/kernels/grad_compress.py:108"),
+    "topk_decompress": ("src/repro_torch/kernels/csrc/topk_decompress.cu",
+                        "src/repro/kernels/grad_compress.py:143"),
 }
 # the arch whose serving or training path each kernel was ported for
 PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serve"),
@@ -203,7 +238,11 @@ PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serv
               "fm_interaction_bwd": ("deepfm", "train"),
               "cross_layer": ("dcn-v2", "serve"), "cross_layer_bwd": ("dcn-v2", "train"),
               "gather_project": ("deepfm-narrow", "serve"),
-              "gather_project_grad": ("deepfm-narrow", "train")}
+              "gather_project_grad": ("deepfm-narrow", "train"),
+              "fp16_compress": ("deepfm-fp16", "train"),
+              "fp16_decompress": ("deepfm-fp16", "train"),
+              "topk_compress": ("deepfm-topk", "train"),
+              "topk_decompress": ("deepfm-topk", "train")}
 
 
 def check(ok, what: str) -> None:
@@ -245,6 +284,18 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def scale_of(x: torch.Tensor) -> float:
     return max(float(x.abs().max()), 1.0) if x.numel() else 1.0
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit: -0.0 apart from 0.0, any NaN equal to any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (torch.equal(nan_a, nan_b)
+            and torch.equal(a[~nan_a].view(bits), b[~nan_b].view(bits)))
 
 
 def arch_plan(a: Arch, b: int, *, smoke: bool = False, train: bool = False):
@@ -650,6 +701,166 @@ def run_gather_project_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def grad_rows(b: int, gen: torch.Generator, a: Arch) -> torch.Tensor:
+    """The routed gradient rows of a B-sample step as the compression hop
+    sees them: m = the plan's bucket capacity slots at the master width, of
+    which the B x fields ids fill at most B x fields (37.5 % of the rows stay
+    exactly zero at every path shape); an eighth of the filled rows repeat
+    their largest magnitude in three columns with mixed signs (ties)."""
+    m, d = arch_plan(a, b)[1].capacity[0], a.master_dim
+    g = torch.zeros((m, d), device=DEV)
+    filled = torch.randperm(m, device=DEV, generator=gen)[: min(b * a.n_fields, m)]
+    g[filled] = torch.randn((filled.numel(), d), device=DEV, generator=gen)
+    tie = filled[: filled.numel() // 8]
+    cols = torch.randint(0, d, (tie.numel(), 3), device=DEV, generator=gen)
+    signs = torch.randint(0, 2, (tie.numel(), 3), device=DEV, generator=gen) * 2.0 - 1.0
+    g[tie[:, None], cols] = g[tie].abs().amax(1, keepdim=True) * signs
+    return g
+
+
+def zero_rows_of(g: torch.Tensor) -> torch.Tensor:
+    zero = (g == 0).all(1)
+    check(int(zero.sum()) >= 0.37 * g.shape[0], f"{int(zero.sum())} zero rows of {g.shape[0]}")
+    return zero
+
+
+def run_fp16_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
+    g = grad_rows(b, gen, a)
+    (m, d), zero = g.shape, zero_rows_of(g)
+    q, s = ops.compress_fp16(g)
+    again = ops.compress_fp16(g)
+    rq, rs = ref.fp16_compress_ref(g)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(q, rq) and same_bits(s, rs), "fp16_compress payload bitwise")
+    check(same_bits(q, again[0]) and same_bits(s, again[1]), "fp16_compress repeats")
+    check(not q[zero].any() and not s[zero].any(), "fp16_compress zero rows exactly 0")
+
+    def lib():  # amax, clamp_min, div, half: four calls, timed together
+        return (g / g.abs().amax(1, keepdim=True).clamp_min(1e-30)).half()
+
+    check(same_bits(lib(), rq), "amax/div/half chain agrees")
+    b_ms, b_by = bound(m * d * (4 + 2) + m * 4, 3 * m * d)
+    return {"m": m, "d": d, "zero_rows": int(zero.sum()),
+            "max_abs_err": max(max_err(q.float(), rq.float()), max_err(s, rs)),
+            "ms": cuda_ms(lambda: ops.compress_fp16(g)),
+            "call_ms": cuda_ms(lambda: ops.compress_fp16(g), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.fp16_compress_ref(g)),
+            "library_ms": cuda_ms(lib), "library_call": "amax, clamp_min, div, half",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_fp16_decompress(b: int, gen: torch.Generator, a: Arch) -> dict:
+    g = grad_rows(b, gen, a)
+    (m, d), zero = g.shape, zero_rows_of(g)
+    q, s = ref.fp16_compress_ref(g)
+    out, again = ops.decompress_fp16(q, s), ops.decompress_fp16(q, s)
+    rout = ref.fp16_decompress_ref(q, s)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(out, rout), "fp16_decompress rows bitwise")
+    check(same_bits(out, again), "fp16_decompress repeats")
+    check(not out[zero].any(), "fp16 roundtrip of a zero row exactly 0")
+    err = max_err(out, g) / scale_of(g)
+    check(err <= 2.0 ** -11, f"fp16 roundtrip within a half ulp of the row max: {err}")
+    check(same_bits(torch.mul(q, s), rout), "mul yardstick agrees")
+    b_ms, b_by = bound(m * d * (2 + 4) + m * 4, m * d)
+    return {"m": m, "d": d, "zero_rows": int(zero.sum()), "max_abs_err": max_err(out, rout),
+            "roundtrip_err_of_scale": err,
+            "ms": cuda_ms(lambda: ops.decompress_fp16(q, s)),
+            "call_ms": cuda_ms(lambda: ops.decompress_fp16(q, s), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.fp16_decompress_ref(q, s)),
+            "library_ms": cuda_ms(lambda: torch.mul(q, s)), "library_call": "mul",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_topk_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
+    g = grad_rows(b, gen, a)
+    (m, d), zero = g.shape, zero_rows_of(g)
+    k = gcomp.topk_k(d)
+    vals, idx = ops.compress_topk(g, k)
+    again = ops.compress_topk(g, k)
+    rvals, ridx = ref.topk_compress_ref(g, k)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(vals, rvals) and same_bits(idx, ridx), "topk_compress payload bitwise")
+    check(same_bits(vals, again[0]) and same_bits(idx, again[1]), "topk_compress repeats")
+    first = torch.arange(k, device=DEV, dtype=torch.int32).expand(int(zero.sum()), k)
+    check(not vals[zero].any() and torch.equal(idx[zero], first),
+          "topk_compress zero rows: value 0 at the first k columns")
+    mag = g.abs()
+
+    def lib():  # topk then gather: two calls, timed together (ties in any order)
+        return torch.gather(g, 1, torch.topk(mag, k, dim=1).indices)
+
+    check(torch.equal(lib().abs(), vals.abs()), "topk + gather yardstick magnitudes agree")
+    b_ms, b_by = bound(m * d * 4 + m * k * 8, m * k * d)
+    return {"m": m, "d": d, "k": k, "zero_rows": int(zero.sum()),
+            "max_abs_err": max_err(vals, rvals),
+            "ms": cuda_ms(lambda: ops.compress_topk(g, k)),
+            "call_ms": cuda_ms(lambda: ops.compress_topk(g, k), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.topk_compress_ref(g, k)),
+            "library_ms": cuda_ms(lib), "library_call": "topk of |g|, then gather",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_topk_decompress(b: int, gen: torch.Generator, a: Arch) -> dict:
+    g = grad_rows(b, gen, a)
+    (m, d), zero = g.shape, zero_rows_of(g)
+    k = gcomp.topk_k(d)
+    vals, idx = ref.topk_compress_ref(g, k)
+    out, again = ops.decompress_topk(vals, idx, d), ops.decompress_topk(vals, idx, d)
+    rout = ref.topk_decompress_ref(vals, idx, d)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(out, rout), "topk_decompress rows bitwise")
+    check(same_bits(out, again), "topk_decompress repeats")
+    check(not out[zero].any(), "topk roundtrip of a zero row exactly 0")
+    kept = torch.gather(g, 1, idx.long())
+    check(same_bits(torch.gather(out, 1, idx.long()), kept)
+          and int((out != 0).sum()) == int((kept != 0).sum()), "topk roundtrip keeps k")
+    idx64 = idx.long()
+
+    def lib():  # zeros, then scatter: two calls, timed together
+        return torch.zeros((m, d), device=DEV).scatter_(1, idx64, vals)
+
+    check(same_bits(lib(), rout), "scatter yardstick agrees")
+    b_ms, b_by = bound(m * k * 8 + m * d * 4, m * k)
+    return {"m": m, "d": d, "k": k, "zero_rows": int(zero.sum()),
+            "max_abs_err": max_err(out, rout),
+            "ms": cuda_ms(lambda: ops.decompress_topk(vals, idx, d)),
+            "call_ms": cuda_ms(lambda: ops.decompress_topk(vals, idx, d),
+                               device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.topk_decompress_ref(vals, idx, d)),
+            "library_ms": cuda_ms(lib), "library_call": "zeros, then scatter_",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_compress_edges() -> dict:
+    """The four kernels on edge rows against their plain versions: NaN (whole
+    fp16 row NaN; topk ranks NaN first), infinities, float32 subnormals
+    (kept: no flush to zero), entries that scale to float16 subnormals,
+    signed zeros and all-tied rows, at D = 10."""
+    g = torch.tensor([[1.0, float("nan"), -3.0, 2.0, 0.5, 0.25, 4.0, -1.0, 0.0, 2.0],
+                      [float("inf"), 1.0, -float("inf"), 0.0, 0.0, 5.0, 0.0, 0.0, 0.0, 0.0],
+                      [1e-39, -3e-40, 2e-41, 0.0, 1e-45, 0.0, 0.0, 0.0, 0.0, 0.0],
+                      [1.0, 1e-6, -3e-7, 1e-8, 6e-8, -2e-5, 0.0, 0.0, 0.0, 0.0],
+                      [-0.0, 0.0, -0.0, 0.0, -0.0, 0.0, -0.0, 0.0, -0.0, 0.0],
+                      [-2.0, 2.0, 2.0, -2.0, 2.0, 2.0, -2.0, 2.0, 2.0, 2.0]], device=DEV)
+    d, k = g.shape[1], 3
+    q, s = ops.compress_fp16(g)
+    rq, rs = ref.fp16_compress_ref(g)
+    vals, idx = ops.compress_topk(g, k)
+    rvals, ridx = ref.topk_compress_ref(g, k)
+    out16 = ops.decompress_fp16(rq, rs)
+    outk = ops.decompress_topk(rvals, ridx, d)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(q, rq) and same_bits(s, rs), "fp16_compress edge rows bitwise")
+    check(same_bits(vals, rvals) and same_bits(idx, ridx), "topk_compress edge rows bitwise")
+    check(same_bits(out16, ref.fp16_decompress_ref(rq, rs)), "fp16_decompress edge rows")
+    check(same_bits(outk, ref.topk_decompress_ref(rvals, ridx, d)), "topk_decompress edges")
+    check(bool(torch.isnan(q[0]).all()) and idx[0].tolist() == [1, 6, 2]
+          and float(s[2, 0]) > 0, f"edge semantics: {idx[0].tolist()} {float(s[2, 0])}")
+    return {"rows": g.shape[0], "scale": [str(x) for x in s[:, 0].tolist()],
+            "topk_idx": idx.tolist()}
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -876,16 +1087,89 @@ def clone(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
+class HopRecorder:
+    """Records, during one train step, each compressed routed hop (the rows
+    going in, the payload, the rows coming out) by wrapping
+    ``grad_compression.compress_rows``/``decompress_rows``, and with
+    ``check_rows`` each master update by wrapping ``pe._dedup_apply``: the
+    touched rows it wrote against the plain dedup + Adagrad of the same rows
+    from the same state and gradient, as a share of their scale."""
+
+    def __init__(self, check_rows: bool):
+        self.hops, self.row_errs, self.check_rows = [], [], check_rows
+        self.orig = (gcomp.compress_rows, gcomp.decompress_rows, pe._dedup_apply)
+
+    def compress(self, g, mode, fused=None):
+        payload = self.orig[0](g, mode, fused=fused)
+        self.hops.append([mode, g, payload])
+        return payload
+
+    def decompress(self, payload, d, mode, fused=None):
+        out = self.orig[1](payload, d, mode, fused=fused)
+        self.hops[-1].append(out)
+        return out
+
+    def dedup_apply(self, w, acc, idx, g, valid, lr, eps, fused=None):
+        keep = valid & (idx >= 0) & (idx < w.shape[0])
+        touched = torch.unique(idx[keep].long())
+        w_p, acc_p = w[touched], acc[touched]  # copies of the rows before
+        out = self.orig[2](w, acc, idx, g, valid, lr, eps, fused)
+        if touched.numel():
+            local = torch.searchsorted(touched, idx.long()).clamp(max=touched.numel() - 1)
+            ref.dedup_adagrad_ref(w_p, acc_p, local.to(torch.int32), g, keep, lr, eps)
+            self.row_errs.append(max(max_err(w[touched], w_p) / scale_of(w_p),
+                                     max_err(acc[touched], acc_p) / scale_of(acc_p)))
+        return out
+
+    def __enter__(self):
+        gcomp.compress_rows, gcomp.decompress_rows = self.compress, self.decompress
+        if self.check_rows:
+            pe._dedup_apply = self.dedup_apply
+        return self
+
+    def __exit__(self, *exc):
+        gcomp.compress_rows, gcomp.decompress_rows, pe._dedup_apply = self.orig
+
+
+def check_hops(kernel: HopRecorder, plain: HopRecorder) -> dict:
+    """The kernel step's payloads and rows against the plain versions on
+    the same rows, bitwise, zero rows exactly 0 out, every master update
+    within 1e-6 of scale; beside them, whether the plain step's own hops
+    (from its own, last-bit different, gradients) came out the same."""
+    check(kernel.hops and len(kernel.hops) == len(plain.hops),
+          f"compressed hops: {len(kernel.hops)} kernel, {len(plain.hops)} plain")
+    for mode, g, payload, out in kernel.hops:
+        ref_payload = kernel.orig[0](g, mode, fused=False)
+        check(all(same_bits(a, b) for a, b in zip(payload, ref_payload)),
+              f"{mode} payload of the step bitwise the plain version's")
+        check(same_bits(out, kernel.orig[1](ref_payload, g.shape[1], mode, fused=False)),
+              f"{mode} rows of the step bitwise the plain roundtrip")
+        zero = (g == 0).all(1)
+        check(bool(zero.any()) and not out[zero].any(), f"{mode} zero rows exactly 0")
+    err = max(kernel.row_errs)
+    check(err <= 1e-6, f"touched master rows, kernel vs plain update: {err} of scale")
+    same = [all(same_bits(a, b) for a, b in zip(k[2], p[2]))
+            for k, p in zip(kernel.hops, plain.hops)]
+    return {"hops": len(kernel.hops), "rows": [h[1].shape[0] for h in kernel.hops],
+            "zero_rows": [int((h[1] == 0).all(1).sum()) for h in kernel.hops],
+            "touched_rows_err_of_scale": err,
+            "plain_step_payload_bitwise": same,
+            "plain_step_rows_max_abs_diff": [max_err(k[3], p[3])
+                                             for k, p in zip(kernel.hops, plain.hops)]}
+
+
 def shared_state_check(model, plan, step, state, batch) -> dict:
     """One step on the kernel path and one on the plain path, each from its
     own copy of ``state`` on the same batch: the loss to rtol 1e-5, every
     dense gradient to 1e-5 of its leaf's largest entry and, for a narrow
     master, the projection after the sparse backward to 1e-5 of its scale.
-    The dense stage's outputs are read through a wrapper around
-    ``TrainStep.dense``."""
+    Under ``grad_compress`` the kernel step's compressed hops must equal the
+    plain versions on the same rows bit for bit and its master updates the
+    plain update to 1e-6 of scale (``check_hops``). The dense stage's
+    outputs are read through a wrapper around ``TrainStep.dense``."""
     plain = ts.make_train_step(model, plan, TRAIN_B,
                                dataclasses.replace(step.tcfg, use_fused_kernels="off"), DEV)
-    seen, projs = {}, {}
+    seen, projs, hops = {}, {}, {}
     for name, st in (("kernel", step), ("plain", plain)):
         def dense(*args, _orig=st.dense, _name=name):
             seen[_name] = _orig(*args)
@@ -894,7 +1178,8 @@ def shared_state_check(model, plan, step, state, batch) -> dict:
         st.dense = dense
         try:
             copy = clone(state)
-            st(copy, batch)
+            with HopRecorder(check_rows=name == "kernel") as hops[name]:
+                st(copy, batch)
             projs[name] = [e.proj.kernel for e in copy["emb"].values() if e.proj is not None]
             del copy
         finally:
@@ -916,12 +1201,15 @@ def shared_state_check(model, plan, step, state, batch) -> dict:
         proj_err = max(max_err(a, b) / scale_of(b)
                        for a, b in zip(projs["kernel"], projs["plain"]))
         check(proj_err <= TOL, f"shared-state projection {proj_err} of its scale")
-    del projs
+    compressed = (check_hops(hops["kernel"], hops["plain"])
+                  if step.tcfg.grad_compress != "none" else None)
+    del projs, hops
     torch.cuda.empty_cache()
     return {"loss_kernel": float(lk), "loss_plain": float(lp), "loss_rel_diff": loss_rel,
             "max_dense_grad_rel_err": max(leaf_err.values()),
             "worst_leaf": max(leaf_err, key=leaf_err.get),
-            "pooled_grad_rel_err": pooled_err, "proj_err_of_scale": proj_err}
+            "pooled_grad_rel_err": pooled_err, "proj_err_of_scale": proj_err,
+            "compressed_hops": compressed}
 
 
 def leaf_names(tree, prefix=""):
@@ -942,8 +1230,8 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
     torch.cuda.reset_peak_memory_stats(DEV)
     state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     step = ts.make_train_step(model, plan, TRAIN_B,
-                              ts.TrainConfig(strategy=a.strategy, use_fused_kernels=fused),
-                              DEV)
+                              ts.TrainConfig(strategy=a.strategy, use_fused_kernels=fused,
+                                             grad_compress=a.grad_compress), DEV)
     torch.cuda.synchronize(DEV)
     ops.reset_launches()
     lat, losses, hits, l2_hits, ovf, checks = [], [], [], [], [], {}
@@ -1162,6 +1450,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    t_start = time.perf_counter()
     secs = build.build_all()
     for name in SOURCES:
         build.launcher(name)
@@ -1182,7 +1471,11 @@ def main() -> None:
                "cross_layer_bwd": (run_cross_bwd, "dcn-v2", "train", TRAIN_B),
                "gather_project": (run_gather_project, "deepfm-narrow", "serve", SERVE_B),
                "gather_project_grad": (run_gather_project_grad, "deepfm-narrow", "train",
-                                       TRAIN_B)}
+                                       TRAIN_B),
+               "fp16_compress": (run_fp16_compress, "deepfm-fp16", "train", TRAIN_B),
+               "fp16_decompress": (run_fp16_decompress, "deepfm-fp16", "train", TRAIN_B),
+               "topk_compress": (run_topk_compress, "deepfm-topk", "train", TRAIN_B),
+               "topk_decompress": (run_topk_decompress, "deepfm-topk", "train", TRAIN_B)}
     main_shape = {}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
@@ -1206,11 +1499,21 @@ def main() -> None:
              "tier_probe L2 serve": lambda: run_tier_probe(SERVE_B, gen, narrow, l2=True)}
     for label, run in extra.items():
         print(f"[kernel] {label} " + json.dumps(run()), flush=True)
+    # the compression kernels at the other masters' widths: dcn-v2's D = 16
+    # (k = 4) and the narrow d = 4 (k = 1), and on edge rows
+    for name in ("fp16_compress", "fp16_decompress", "topk_compress", "topk_decompress"):
+        for other in ("dcn-v2", "deepfm-narrow"):
+            r = runners[name][0](TRAIN_B, gen, ARCHS[other])
+            print(f"[kernel] {name} {other} train " + json.dumps(r), flush=True)
+    print("[kernel] compression edge rows " + json.dumps(run_compress_edges()), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
+    print(f"[wall] kernels checked at {time.perf_counter() - t_start:.1f}s", flush=True)
 
     runs = {}
     for arch in ARCHS:
+        if arch in COMPRESSED:
+            continue  # phase 9
         full = runs[arch, "serve"] = serve_full_width(arch)
         print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
         print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
@@ -1230,15 +1533,31 @@ def main() -> None:
               + json.dumps(train_smoke_against_cpu(arch)), flush=True)
         # free this arch's memory before the next arch's state
         torch.cuda.empty_cache()
+        print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
+    base = runs["deepfm", "train"]
+    for arch in COMPRESSED:
+        train = runs[arch, "train"] = train_full_width(arch)
+        print(f"[train] {arch} full width " + json.dumps(train), flush=True)
+        print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
+              f"p99={train['step_p99_ms']:.3f}ms flush step={train['flush_step_ms']:.1f}ms; "
+              f"uncompressed deepfm p50={base['step_p50_ms']:.3f}ms "
+              f"p99={base['step_p99_ms']:.3f}ms flush step={base['flush_step_ms']:.1f}ms; "
+              f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
+              flush=True)
+        torch.cuda.empty_cache()
+        print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = main_shape[name]
         # each kernel's launches on the main path it was ported for
         arch, path = PORTED_FOR[name]
+        a = ARCHS[arch]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": runs[arch, path]["launches"][name],
-                        "path": f"{arch} {path}",
+                        "path": (f"{a.config} {path} (grad_compress={a.grad_compress})"
+                                 if arch in COMPRESSED else f"{arch} {path}"),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -1247,6 +1566,8 @@ def main() -> None:
             # as the reference's does; the kernel is reached through the
             # autograd of ops.gather_project and standalone (phase 2)
             kernels[-1]["launches_note"] = "0 per step; autograd and standalone only"
+    print(f"[wall] chip_smoke {time.perf_counter() - t_start:.1f}s, builds included",
+          flush=True)
     print(card_stamp(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,3 +26,10 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def require_single_rank(world: int) -> None:
+    """The port runs one rank (its collectives are identities) until the
+    multi-rank (NCCL) slice: ``world > 1`` raises."""
+    if world != 1:
+        raise NotImplementedError("world > 1 needs the multi-rank (NCCL) slice of the port")

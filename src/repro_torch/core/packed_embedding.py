@@ -31,14 +31,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import require_single_rank as _require_single_rank
 from repro_torch.kernels import ops
-
-_MULTI_RANK = "world > 1 needs the multi-rank (NCCL) slice of the port"
-
-
-def _require_single_rank(world: int) -> None:
-    if world != 1:
-        raise NotImplementedError(_MULTI_RANK)
+from repro_torch.optim import grad_compression as gcomp
 
 
 # ---------------------------------------------------------------------------
@@ -317,17 +312,19 @@ def apply_sparse_grads(
     'stale' -- hit grads are routed to the owner rows and the tier stays
                read-only between flushes (Algorithm 1's bounded staleness).
 
+    ``compress`` (``'none' | 'fp16' | 'topk'``, ``optim.grad_compression``)
+    shrinks the routed hops' payload; the tier update stays exact.
     ``w_shard``, ``acc_shard`` and the tier are updated in place; the
-    returned tuple names them. Routed-gradient compression belongs to a
-    later slice and raises.
+    returned tuple names them.
     """
     _check_update(world, compress, cache_update)
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress)
 
     if cache is None or cache.keys.shape[0] == 0:
         return w_shard, acc_shard, cache
     if cache_update == "stale":
-        _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit, g_u, world, lr, eps, fused)
+        _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit, g_u, world, lr, eps, fused,
+                         compress)
         return w_shard, acc_shard, cache
     return w_shard, acc_shard, _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u,
                                                lr, eps)
@@ -335,9 +332,7 @@ def apply_sparse_grads(
 
 def _check_update(world: int, compress: str, cache_update: str) -> None:
     _require_single_rank(world)
-    if compress != "none":
-        raise NotImplementedError(
-            f"grad compression {compress!r} comes with a later slice of the port")
+    gcomp.validate_routed_mode(compress)
     if cache_update not in ("psum", "stale"):
         raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
 
@@ -353,19 +348,35 @@ def _scatter_rows(send_slot: torch.Tensor, values: torch.Tensor, n_slots: int,
     return buf[:-1]
 
 
+def _compressed_a2a_rows(send_g: torch.Tensor, compress: str = "none",
+                         fused: Optional[bool] = None) -> torch.Tensor:
+    """all_to_all ``[world*cap, D]`` gradient rows, compressed on the wire.
+
+    ``'none'`` is the exact hop. Otherwise the rows are compressed before the
+    collective and decompressed after it, as in the reference: at world 1
+    the all_to_all of each payload tensor is the identity, but the lossy
+    roundtrip runs all the same. Zero rows (empty bucket slots) survive
+    every mode bitwise."""
+    if compress == "none":
+        return send_g
+    payload = gcomp.compress_rows(send_g, compress, fused=fused)
+    return gcomp.decompress_rows(payload, send_g.shape[-1], compress, fused=fused)
+
+
 def _apply_miss_grads(w_shard, acc_shard, ctx: LookupCtx, g_u, world: int, lr: float,
-                      eps: float, fused: Optional[bool] = None):
+                      eps: float, fused: Optional[bool] = None, compress: str = "none"):
     """Transposed Shuffle: route miss grads to owner rows and apply. Kept
     positions have distinct slots; the rest all land in the drop slot."""
     cap = ctx.recv_ids.shape[1]
     send_g = _scatter_rows(ctx.routing.send_slot, g_u, world * cap)
-    recv_g = send_g  # the transposed all_to_all is the identity at world 1
+    recv_g = _compressed_a2a_rows(send_g, compress, fused)
     return _dedup_apply(w_shard, acc_shard, ctx.recv_local.reshape(-1), recv_g,
                         ctx.recv_valid.reshape(-1), lr, eps, fused)
 
 
 def _route_hit_grads(w_shard, acc_shard, ctx: LookupCtx, hit_mask, g_u, world: int,
-                     lr: float, eps: float, fused: Optional[bool] = None):
+                     lr: float, eps: float, fused: Optional[bool] = None,
+                     compress: str = "none"):
     """'stale' mode: grads of tier-served ids ride a second small Shuffle to
     their owner rows; the tier itself stays read-only between flushes."""
     rps = w_shard.shape[0]
@@ -373,7 +384,8 @@ def _route_hit_grads(w_shard, acc_shard, ctx: LookupCtx, hit_mask, g_u, world: i
     r = partition(ctx.uniq, hit_mask, rps, world, cap)
     send_ids = _scatter_rows(r.send_slot, ctx.uniq.to(torch.int32), world * cap, -1)
     send_hg = _scatter_rows(r.send_slot, g_u, world * cap)
-    recv_ids, recv_hg = send_ids, send_hg  # identity all_to_all at world 1
+    recv_ids = send_ids  # identity all_to_all at world 1
+    recv_hg = _compressed_a2a_rows(send_hg, compress, fused)
     base = 0  # this rank's first row
     local = torch.clamp(recv_ids - base, 0, rps - 1)
     return _dedup_apply(w_shard, acc_shard, local, recv_hg, recv_ids >= 0, lr, eps,
@@ -463,10 +475,10 @@ def apply_sparse_grads_l2(
     tiers' hits rides a second Shuffle to the owner rows and both tiers stay
     read-only. ``ctx`` must come from an L2-probing lookup."""
     _check_update(world, compress, cache_update)
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress)
     if cache_update == "stale":
         _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit | ctx.l2_hit, g_u, world, lr,
-                         eps, fused)
+                         eps, fused, compress)
         return w_shard, acc_shard, cache, l2
     cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
     return w_shard, acc_shard, cache, l2
@@ -521,10 +533,11 @@ def apply_sparse_grads_narrow(
     never passed through ``proj``), then its row-wise Adagrad."""
     _check_update(world, compress, cache_update)
     g_n = g_u @ proj.kernel.T   # [n, d]
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_n, world, lr, eps, fused)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_n, world, lr, eps, fused, compress)
     if cache_update == "stale":
         both = ctx.hit if ctx.l2_hit is None else ctx.hit | ctx.l2_hit
-        _route_hit_grads(w_shard, acc_shard, ctx, both, g_n, world, lr, eps, fused)
+        _route_hit_grads(w_shard, acc_shard, ctx, both, g_n, world, lr, eps, fused,
+                         compress)
     else:
         cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
     g_proj = ctx.narrow_rows.T @ g_u   # [d, D]; the psum is the identity at world 1

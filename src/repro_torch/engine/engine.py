@@ -34,6 +34,7 @@ from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine.strategies import LookupStrategy, get_strategy
 from repro_torch.kernels import ops
+from repro_torch.optim import grad_compression as gcomp
 
 AUTO_NAMES = ("mixed", "auto")
 
@@ -75,12 +76,15 @@ class EmbeddingEngine:
     use_fused_kernels: ``'auto'`` (CUDA kernels for tensors on the card,
         plain versions on the CPU), ``'on'``/``True``, ``'off'``/``False``;
         resolved once here by ``kernels.ops.resolve_fused``.
+    grad_compress: wire compression of the routed sparse-gradient payload
+        (``'none' | 'fp16' | 'topk'``, see ``optim.grad_compression``),
+        validated here and handed to every strategy.
     """
 
     def __init__(self, plan: PicassoPlan, world: int = 1, *, strategy: Any = "picasso",
                  use_cache: bool = True, use_l2: bool = True, use_interleave: bool = True,
                  lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
-                 use_fused_kernels: Any = "auto"):
+                 use_fused_kernels: Any = "auto", grad_compress: str = "none"):
         if int(plan.world) != int(world):
             raise ValueError(
                 f"plan was compiled for world={plan.world} but the engine is "
@@ -92,6 +96,7 @@ class EmbeddingEngine:
         self.world = world
         self.cache_update = cache_update
         self.use_fused = ops.resolve_fused(use_fused_kernels)
+        self.grad_compress = gcomp.validate_routed_mode(grad_compress)
         self.assignment: Dict[int, str] = resolve_assignment(plan, strategy)
         # a narrow master is [rows, d]; every other strategy reads [rows, D]
         for g in plan.groups:
@@ -106,7 +111,8 @@ class EmbeddingEngine:
         insts: Dict[str, LookupStrategy] = {
             name: get_strategy(name)(world=world, capacity=dict(plan.capacity),
                                      lr=lr_emb, eps=eps, cache_update=cache_update,
-                                     use_fused=self.use_fused)
+                                     use_fused=self.use_fused,
+                                     grad_compress=self.grad_compress)
             for name in names}
         self.strategies: Dict[int, LookupStrategy] = {
             gid: insts[name] for gid, name in self.assignment.items()}

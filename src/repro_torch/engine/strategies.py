@@ -24,7 +24,9 @@ A strategy advertises its tiers through class attributes the engine gates
 on per group: ``uses_cache`` (L1 where the plan budgets ``cache_rows``),
 ``uses_l2`` (L2 where the plan budgets ``l2_rows`` *and* L1 is active) and
 ``extra_metric_keys`` (the per-tier counters ``tier_metrics`` reports).
-The other strategies come with later slices.
+Every strategy's routed gradient hops honour ``grad_compress`` (``'none' |
+'fp16' | 'topk'``, ``optim.grad_compression``). The other strategies come
+with later slices.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ class LookupStrategy:
 
     def __init__(self, *, world: int, capacity: Dict[int, int], lr: float = 0.05,
                  eps: float = 1e-8, cache_update: str = "psum",
-                 use_fused: Optional[bool] = None):
+                 use_fused: Optional[bool] = None, grad_compress: str = "none"):
         self.world = world
         self.capacity = capacity
         self.lr = lr
@@ -81,6 +83,8 @@ class LookupStrategy:
         self.cache_update = cache_update
         # resolved kernels.ops override: None = kernel where tensors are on CUDA
         self.use_fused = use_fused
+        # wire compression of the routed sparse-gradient payload
+        self.grad_compress = grad_compress
 
     def lookup(self, st: EmbeddingState, gid: int, ids: torch.Tensor,
                *, cache_on: bool = False, l2_on: bool = False
@@ -124,7 +128,8 @@ class PicassoStrategy(LookupStrategy):
         w2, acc2, cache2 = pe.apply_sparse_grads(
             st.w, st.acc, st.cache if cache_on else None, ctx, g_rows,
             world=self.world, lr=self.lr, eps=self.eps,
-            cache_update=self.cache_update, fused=self.use_fused)
+            cache_update=self.cache_update, fused=self.use_fused,
+            compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
         # an unused L2 tier is kept as it is
         st2 = st._replace(w=w2, acc=acc2, counts=counts2,
@@ -166,7 +171,8 @@ class PicassoL2Strategy(PicassoStrategy):
         w2, acc2, cache2, l22 = pe.apply_sparse_grads_l2(
             st.w, st.acc, st.cache if cache_on else None, st.l2, ctx, g_rows,
             world=self.world, lr=self.lr, eps=self.eps,
-            cache_update=self.cache_update, fused=self.use_fused)
+            cache_update=self.cache_update, fused=self.use_fused,
+            compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
         # tier-served ids never route, so they are counted here, or the flush
         # ranking would evict the resident (hottest) rows
@@ -217,7 +223,8 @@ class PicassoNarrowStrategy(PicassoL2Strategy):
         w2, acc2, cache2, l22, proj2 = pe.apply_sparse_grads_narrow(
             st.w, st.acc, st.cache if cache_on else None, st.l2 if with_l2 else None,
             st.proj, ctx, g_rows, world=self.world, lr=self.lr, eps=self.eps,
-            cache_update=self.cache_update, fused=self.use_fused)
+            cache_update=self.cache_update, fused=self.use_fused,
+            compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
         if cache_on or with_l2:
             both = ctx.hit if ctx.l2_hit is None else ctx.hit | ctx.l2_hit

@@ -35,7 +35,9 @@ launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction":
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
                             "cross_layer_bwd": 0, "gather_project": 0,
-                            "gather_project_grad": 0}
+                            "gather_project_grad": 0, "fp16_compress": 0,
+                            "fp16_decompress": 0, "topk_compress": 0,
+                            "topk_decompress": 0}
 
 
 def reset_launches() -> None:
@@ -509,3 +511,96 @@ def gather_project(back, idx, kept, proj, fused: Optional[bool] = None):
     ``proj`` as ``narrow^T @ g_wide``."""
     return _GatherProject.apply(back, idx, kept, proj,
                                 _use_kernel(fused, back, "gather_project"))
+
+
+# ---------------------------------------------------------------------------
+# routed-gradient wire compression (grad_compress modes; the collective
+# wrappers live in repro_torch.optim.grad_compression). No autograd: the
+# payload is built from a gradient after the backward.
+# ---------------------------------------------------------------------------
+
+
+def _fp16_compress_cuda(g):
+    dev = g.device
+    _expect(g, "fp16_compress g", torch.float32, 2, dev)
+    m, d = g.shape
+    if d == 0:
+        raise ValueError("fp16_compress: rows of width 0")
+    q = torch.empty((m, d), dtype=torch.float16, device=dev)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    if m:
+        _launch("fp16_compress", g.data_ptr(), q.data_ptr(), scale.data_ptr(), m, d)
+    return q, scale
+
+
+def compress_fp16(g, fused: Optional[bool] = None):
+    """Per-row amax scale + float16 cast: ``(q [m, D] f16, scale [m, 1] f32)``.
+    All-zero rows compress to exact zeros (padded bucket slots roundtrip
+    bitwise); a row holding a NaN compresses to NaN."""
+    if _use_kernel(fused, g, "fp16_compress"):
+        return _fp16_compress_cuda(g)
+    return ref.fp16_compress_ref(g)
+
+
+def _fp16_decompress_cuda(q, scale):
+    dev = q.device
+    _expect(q, "fp16_decompress q", torch.float16, 2, dev)
+    _expect(scale, "fp16_decompress scale", torch.float32, 2, dev)
+    m, d = q.shape
+    if tuple(scale.shape) != (m, 1):
+        raise ValueError(f"fp16_decompress: q {(m, d)}, scale {tuple(scale.shape)}")
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if m and d:
+        _launch("fp16_decompress", q.data_ptr(), scale.data_ptr(), out.data_ptr(), m * d, d)
+    return out
+
+
+def decompress_fp16(q, scale, fused: Optional[bool] = None):
+    """``float32(q) * scale``: the rows ``compress_fp16`` encoded."""
+    if _use_kernel(fused, q, "fp16_decompress"):
+        return _fp16_decompress_cuda(q, scale)
+    return ref.fp16_decompress_ref(q, scale)
+
+
+def _topk_compress_cuda(g, k: int):
+    dev = g.device
+    _expect(g, "topk_compress g", torch.float32, 2, dev)
+    m, d = g.shape
+    if not 0 < k <= d:
+        raise ValueError(f"topk_compress: k={k} must lie in [1, D={d}]")
+    vals = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    if m:
+        _launch("topk_compress", g.data_ptr(), vals.data_ptr(), idx.data_ptr(), m, d, k)
+    return vals, idx
+
+
+def compress_topk(g, k: int, fused: Optional[bool] = None):
+    """Per-row magnitude top-k sparsification: ``(vals [m, k], idx [m, k]
+    int32)``, descending magnitude, ties toward the lower column, a NaN
+    above every number."""
+    if _use_kernel(fused, g, "topk_compress"):
+        return _topk_compress_cuda(g, int(k))
+    return ref.topk_compress_ref(g, int(k))
+
+
+def _topk_decompress_cuda(vals, idx, d: int):
+    dev = vals.device
+    _expect(vals, "topk_decompress vals", torch.float32, 2, dev)
+    _expect(idx, "topk_decompress idx", torch.int32, 2, dev)
+    m, k = vals.shape
+    if tuple(idx.shape) != (m, k) or d <= 0:
+        raise ValueError(f"topk_decompress: vals {(m, k)}, idx {tuple(idx.shape)}, D={d}")
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if m:
+        _launch("topk_decompress", vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m * d,
+                d, k)
+    return out
+
+
+def decompress_topk(vals, idx, d: int, fused: Optional[bool] = None):
+    """A zero ``[m, d]`` block with ``vals`` set at ``idx``; columns outside
+    ``[0, d)`` are dropped."""
+    if _use_kernel(fused, vals, "topk_decompress"):
+        return _topk_decompress_cuda(vals, idx, int(d))
+    return ref.topk_decompress_ref(vals, idx, int(d))

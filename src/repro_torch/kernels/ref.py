@@ -129,6 +129,49 @@ def fm_interaction_bwd_ref(fields: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     return g[:, :, None] * (s - fields)              # g: [B, 1]
 
 
+# ---------------------------------------------------------------------------
+# routed-gradient wire compression (grad_compress modes; the collective
+# wrappers live in repro_torch.optim.grad_compression)
+# ---------------------------------------------------------------------------
+
+
+def fp16_compress_ref(g: torch.Tensor):
+    """Per-row amax scaling + cast: ``(q float16 in [-1, 1], scale float32)``.
+
+    All-zero rows compress to exact zeros (scale 0), so padded bucket slots
+    survive the roundtrip bitwise. ``amax`` and ``clamp_min`` propagate NaN:
+    a row holding a NaN compresses to an all-NaN row and scale NaN. The
+    division is a true division and the cast rounds to nearest even."""
+    scale = g.abs().amax(dim=-1, keepdim=True).to(torch.float32)
+    q = (g / scale.clamp_min(1e-30)).to(torch.float16)
+    return q, scale
+
+
+def fp16_decompress_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def topk_compress_ref(g: torch.Tensor, k: int):
+    """Keep the k largest-magnitude entries per row: ``(vals, idx int32)``,
+    descending, ties toward the lower column (``lax.top_k``'s order; a
+    stable descending sort, since ``torch.topk`` promises no tie order). A
+    NaN counts as larger than any number, as in ``lax.top_k``."""
+    _, idx = torch.sort(g.abs(), dim=-1, descending=True, stable=True)
+    idx = idx[:, :k]
+    return torch.gather(g, 1, idx), idx.to(torch.int32)
+
+
+def topk_decompress_ref(vals: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
+    """Set ``vals`` at ``idx`` in a zero ``[m, d]`` block (the reference's
+    ``.at[].set``); columns outside ``[0, d)`` are dropped, as its scatter
+    drops them. The columns of a row are distinct, as compress gives them."""
+    m = vals.shape[0]
+    col = idx.long()
+    col = torch.where((col >= 0) & (col < d), col, torch.full_like(col, d))
+    out = torch.zeros((m, d + 1), dtype=vals.dtype, device=vals.device)
+    return out.scatter_(1, col, vals)[:, :d].contiguous()
+
+
 def cross_layer_ref(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """DCN-v2: x0 * (x @ w + b) + x."""

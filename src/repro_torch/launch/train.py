@@ -10,6 +10,8 @@ or dcn-v2 on one card (world 1).
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --strategy picasso_narrow --narrow-dim 4 \\
       --l2-budget 2147483648
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+      --global-batch 256 --grad-compress topk
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
@@ -45,6 +47,13 @@ def main(argv=None):
                          "cold ids are stored and routed at this width and "
                          "projected up at lookup, hot ids stay full-width in "
                          "the tiers")
+    ap.add_argument("--grad-compress", default="none", choices=("none", "fp16", "topk"),
+                    help="wire compression of the routed sparse-gradient "
+                         "payload (the transposed-Shuffle all_to_all and the "
+                         "PS/allgather_rows gradient all_gather): 'fp16' = "
+                         "per-row amax-scaled float16 cast, 'topk' = per-row "
+                         "magnitude top-(D/4) sparsification, 'none' keeps "
+                         "training bitwise-exact")
     ap.add_argument("--no-cache", action="store_true",
                     help="no HybridHash hot tier (the plan budgets none)")
     ap.add_argument("--no-interleave", action="store_true",
@@ -89,6 +98,7 @@ def main(argv=None):
     tcfg = TrainConfig(strategy=args.strategy, use_cache=not args.no_cache,
                        use_interleave=not args.no_interleave,
                        use_fused_kernels=args.fused_kernels,
+                       grad_compress=args.grad_compress,
                        lr_emb=args.lr_emb, lr_dense=args.lr_dense)
     step_fn = make_train_step(model, plan, args.global_batch, tcfg, device)
     state = init_state(model, plan, torch.Generator(device=device).manual_seed(args.seed),

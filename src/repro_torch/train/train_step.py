@@ -5,9 +5,11 @@ torch), at world 1.
   -> micro-batch pipeline (D-Interleaving): chunk i+1's forward is issued
      before chunk i's backward, so it reads the table before chunk i's
      update, as in the reference
-  -> loss and gradients (dense parameters + pooled embeddings) -> Adam ;
-     EmbeddingEngine.backward (segment-grad transpose, dedup + row-wise
-     Adagrad, HybridHash hit grads into the hot tier) ; FCounter update
+  -> loss and gradients (dense parameters + pooled embeddings) -> Adam
+     (after the dense psum's narrow rounding, ``grad_compression``) ;
+     EmbeddingEngine.backward (segment-grad transpose, the routed hop
+     compressed under ``grad_compress``, dedup + row-wise Adagrad,
+     HybridHash hit grads into the hot tier) ; FCounter update
   -> periodic HybridHash flush.
 
 The reference runs this under ``shard_map``; here the collectives are
@@ -38,18 +40,20 @@ from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import init_embedding_state
 from repro_torch.engine import EmbeddingEngine, EngineContext
 from repro_torch.models.wdl import WDLModel
+from repro_torch.optim import grad_compression as gcomp
 from repro_torch.optim.optimizers import (OPTIMIZERS, adam_init, tree_leaves, tree_map,
                                           tree_unflatten)
 
 # fields of the reference's TrainConfig whose features come with later slices
-_UNPORTED = {"grad_compression": "none", "grad_compress": "none", "pin_l2": False}
+_UNPORTED = {"pin_l2": False}
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig``, field for field. ``grad_compression``,
-    ``grad_compress`` and ``pin_l2`` (the L2 tier in pinned host memory)
-    belong to later slices and raise on any value but their default."""
+    """The reference's ``TrainConfig``, field for field. ``pin_l2`` (the L2
+    tier in pinned host memory) belongs to a later slice and raises on any
+    value but its default; an unknown ``grad_compression`` or
+    ``grad_compress`` mode raises ``ValueError``."""
 
     lr_emb: float = 0.05
     lr_dense: float = 1e-3
@@ -63,7 +67,9 @@ class TrainConfig:
     use_fused_kernels: Any = "auto"
     cache_update: str = "psum"     # 'psum' (exact) | 'stale' (Algorithm 1)
     flush_in_step: bool = True     # False: the caller runs make_flush_fn
-    grad_compression: str = "none"
+    grad_compression: str = "none"  # 'none' | 'bf16' | 'fp16' | 'f8' (dense psum)
+    # wire compression of the ROUTED sparse-gradient payload ('none' | 'fp16'
+    # | 'topk'), applied inside every strategy's backward hop
     grad_compress: str = "none"
     pin_l2: bool = False
     eps: float = 1e-8
@@ -74,6 +80,8 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"TrainConfig.{name}={getattr(self, name)!r}: only the default "
                     f"{default!r} is ported; the feature comes with a later slice")
+        gcomp.validate_dense_mode(self.grad_compression)
+        gcomp.validate_routed_mode(self.grad_compress)
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer must be one of {sorted(OPTIMIZERS)}, "
                              f"got {self.optimizer!r}")
@@ -99,7 +107,7 @@ class TrainStep:
             plan, world, strategy=tcfg.strategy, use_cache=tcfg.use_cache,
             use_l2=tcfg.use_l2, use_interleave=tcfg.use_interleave, lr_emb=tcfg.lr_emb,
             eps=tcfg.eps, cache_update=tcfg.cache_update,
-            use_fused_kernels=tcfg.use_fused_kernels)
+            use_fused_kernels=tcfg.use_fused_kernels, grad_compress=tcfg.grad_compress)
         self.use_overlap = resolve_overlap(tcfg.overlap, self.n_micro)
         # with the software pipeline or the D-Interleaving order, chunk i+1's
         # forward is issued before chunk i's backward
@@ -224,6 +232,11 @@ class TrainStep:
                 pending = (self.sparse(state, self.micro_batch(packed_full, side,
                                                                i + 1)[0]), i + 1)
                 self._mark("sparse")
+        if self.tcfg.grad_compression != "none":
+            # the dense psum's narrow payload; as in the reference the
+            # error-feedback residual is dropped, so none carries across steps
+            g_dense_acc, _ = gcomp.compressed_psum(g_dense_acc, int(self.plan.world),
+                                                   self.tcfg.grad_compression)
         grad_norm = self.dense_update(state, g_dense_acc)
         self._mark("dense_update")
         state["step"] = int(state["step"]) + 1

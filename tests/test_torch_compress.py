@@ -1,0 +1,438 @@
+"""The port's gradient compression (``--grad-compress fp16|topk`` and the
+dense ``grad_compression`` modes) against the reference on the CPU.
+
+Kernels: the plain versions in ``repro_torch.kernels.ref`` against
+``repro.kernels.ref`` and the Pallas kernels in interpret mode, bit for bit
+(payloads and roundtrips), at D = 4, 10, 16 over m = 300 rows (not a
+multiple of the Pallas block) with zero rows, tied magnitudes and rows whose
+scaled values are float16 subnormals. Where the reference's branches part
+(NaN rows, float32-subnormal rows) the test pins what each does. Wrappers:
+``optim.grad_compression`` against ``repro.optim.grad_compression`` under
+``mesh1``, bitwise. Sparse path: one ``apply_sparse_grads{,_l2,_narrow}``
+call per mode, from the same ``g_u``, to 1e-6 of the value scale with the
+integer outputs bitwise. End to end: the 8-step deepfm-smoke trajectory of
+``tests/test_torch_train.py`` under each routed mode and under the dense
+``bf16`` psum, at that file's bars.
+"""
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+from test_torch_narrow import ND, _close, _port_lookup, _tier_case
+from test_torch_serve import ROOT, _env
+from test_torch_train import _sparse_case, check_train_trajectory
+
+from repro.core import packed_embedding as jpe
+from repro.dist.compat import shard_map
+from repro.kernels import ref as jref
+from repro.kernels.grad_compress import (fp16_compress_pallas, fp16_decompress_pallas,
+                                         topk_compress_pallas, topk_decompress_pallas)
+from repro.optim import grad_compression as jgc
+from repro_torch.configs import get_config
+from repro_torch.core import packed_embedding as pe
+from repro_torch.core.packing import make_plan
+from repro_torch.engine import EmbeddingEngine
+from repro_torch.kernels import ops
+from repro_torch.optim import grad_compression as gc
+
+torch.set_num_threads(1)
+
+AXES = ("data", "model")
+M = 300  # rows: not a multiple of the Pallas kernels' 256-row block
+DIMS = [4, 10, 16]
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _bits(x):
+    """Bit patterns with every NaN made the same one: -0.0 and 0.0 differ,
+    NaN equals NaN."""
+    a = np.array(x)
+    if a.dtype.kind == "f":
+        a[np.isnan(a)] = np.nan
+        a = a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+    return a
+
+
+def _same_bits(got, exp, what=""):
+    np.testing.assert_array_equal(_bits(got), _bits(exp), err_msg=what)
+
+
+def _rows(m, d, seed):
+    """Gradient rows as the routed hop sees them: 40 % exactly zero (empty
+    bucket slots), a tenth with their largest magnitude repeated (tied,
+    mixed signs), a tenth all one magnitude, and a tenth with entries down
+    to 1e-8 of the row max (float16 subnormals once scaled) at row scales
+    from 1e-6 to 1e3."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(m, d)).astype(np.float32)
+    kind = rng.integers(0, 10, m)
+    g[kind < 4] = 0.0
+    for r in np.nonzero(kind == 4)[0]:
+        top = np.abs(g[r]).max()
+        cols = rng.choice(d, min(3, d), replace=False)
+        g[r, cols] = top * rng.choice([-1.0, 1.0], cols.size)
+    g[kind == 5] = rng.choice([-1.5, 1.5], (int((kind == 5).sum()), d))
+    tiny = np.nonzero(kind == 6)[0]
+    g[tiny] *= 10.0 ** rng.uniform(-8, 0, (tiny.size, d))
+    g[tiny] *= 10.0 ** rng.uniform(-6, 3, (tiny.size, 1))
+    return g.astype(np.float32), kind
+
+
+# ------------------------------------------------------------------ kernels
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_fp16_compress_plain_matches_reference_and_pallas(d):
+    g, kind = _rows(M, d, d)
+    q, s = ops.compress_fp16(_t(g))
+    assert q.dtype == torch.float16 and s.dtype == torch.float32 and s.shape == (M, 1)
+    for name, (eq, es) in (("ref", jref.fp16_compress_ref(jnp.asarray(g))),
+                           ("pallas", fp16_compress_pallas(jnp.asarray(g), interpret=True))):
+        _same_bits(q.numpy(), eq, f"q vs {name}")
+        _same_bits(s.numpy(), es, f"scale vs {name}")
+    qn = q.numpy()
+    assert (np.abs(qn[kind == 6]) < 2.0 ** -14).any() and (qn[kind == 6] != 0).any()
+    assert not qn[kind < 4].any() and not s.numpy()[kind < 4].any()
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_fp16_decompress_plain_matches_reference_and_pallas(d):
+    g, kind = _rows(M, d, d + 1)
+    jq, js = jref.fp16_compress_ref(jnp.asarray(g))
+    out = ops.decompress_fp16(_t(jq), _t(js))
+    _same_bits(out.numpy(), jref.fp16_decompress_ref(jq, js), "vs ref")
+    _same_bits(out.numpy(), fp16_decompress_pallas(jq, js, interpret=True), "vs pallas")
+    _same_bits(out.numpy()[kind < 4], np.zeros((int((kind < 4).sum()), d), np.float32))
+    _close(out, g, 2.0 ** -11)  # a float16 ulp of the row max, at most
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_topk_compress_plain_matches_reference_and_pallas(d):
+    g, kind = _rows(M, d, 2 * d)
+    k = gc.topk_k(d)
+    vals, idx = ops.compress_topk(_t(g), k)
+    assert vals.shape == idx.shape == (M, k) and idx.dtype == torch.int32
+    for name, (ev, ei) in (("ref", jref.topk_compress_ref(jnp.asarray(g), k)),
+                           ("pallas", topk_compress_pallas(jnp.asarray(g), k,
+                                                           interpret=True))):
+        _same_bits(vals.numpy(), ev, f"vals vs {name}")
+        _same_bits(idx.numpy(), ei, f"idx vs {name}")
+    # all-tied and zero rows keep the lowest columns
+    for rows in (kind == 5, kind < 4):
+        np.testing.assert_array_equal(idx.numpy()[rows], np.tile(np.arange(k), (rows.sum(), 1)))
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_topk_decompress_plain_matches_reference_and_pallas(d):
+    g, kind = _rows(M, d, 2 * d + 1)
+    k = gc.topk_k(d)
+    jv, ji = jref.topk_compress_ref(jnp.asarray(g), k)
+    out = ops.decompress_topk(_t(jv), _t(ji), d)
+    _same_bits(out.numpy(), jref.topk_decompress_ref(jv, ji, d), "vs ref")
+    _same_bits(out.numpy(), topk_decompress_pallas(jv, ji, d, interpret=True), "vs pallas")
+    assert not out.numpy()[kind < 4].any()
+    assert ((out.numpy() != 0).sum(axis=1)[kind >= 4] == k).all()
+    # a column outside [0, d) is dropped, as the reference's scatter drops it
+    bad = np.array(ji)
+    bad[:, -1] = d
+    dropped = ops.decompress_topk(_t(jv), _t(bad), d)
+    _same_bits(dropped.numpy(), jref.topk_decompress_ref(jv, jnp.asarray(bad), d))
+
+
+def test_nan_rows_follow_the_reference_not_the_pallas_topk():
+    """A NaN in a row: fp16 turns the whole row NaN (scale NaN) in the
+    reference, its Pallas kernel and the port alike. topk: the reference's
+    ``lax.top_k`` ranks NaN first and decompresses it; its Pallas kernel
+    finds no maximum, emits column D and value 0, and decompresses a zero
+    row. The port follows ``lax.top_k`` (its kernel ranks NaN first too)."""
+    g = np.array([[1.0, np.nan, -3.0, 2.0, 0.5, 0.25, 4.0, -1.0],
+                  [np.nan, 1.0, np.nan, -2.0, 0.0, 0.0, 0.0, 0.0]], np.float32)
+    q, s = ops.compress_fp16(_t(g))
+    jq, js = jref.fp16_compress_ref(jnp.asarray(g))
+    pq, ps = fp16_compress_pallas(jnp.asarray(g), interpret=True)
+    assert np.isnan(q.numpy()).all() and np.isnan(s.numpy()).all()
+    for a, b in ((q.numpy(), jq), (q.numpy(), pq), (s.numpy(), js), (s.numpy(), ps)):
+        _same_bits(a, b)
+    vals, idx = ops.compress_topk(_t(g), 2)
+    jv, ji = jref.topk_compress_ref(jnp.asarray(g), 2)
+    _same_bits(vals.numpy(), jv)
+    _same_bits(idx.numpy(), ji)
+    np.testing.assert_array_equal(idx.numpy(), [[1, 6], [0, 2]])
+    pv, pi = topk_compress_pallas(jnp.asarray(g), 2, interpret=True)
+    np.testing.assert_array_equal(np.asarray(pi), [[8, 8], [8, 8]])
+    assert not np.asarray(pv).any()
+    assert not np.asarray(topk_decompress_pallas(pv, pi, 8, interpret=True)).any()
+    out = ops.decompress_topk(vals, idx, 8).numpy()
+    assert np.isnan(out[0, 1]) and out[0, 6] == 4.0 and np.isnan(out[1, [0, 2]]).all()
+
+
+def test_f32_subnormal_rows_keep_their_scale_where_xla_cpu_flushes():
+    """XLA on the CPU flushes float32 subnormals: a row of them gets scale 0
+    from the reference and vals 0 from its Pallas topk, where the port
+    (and its CUDA kernels, built without flush-to-zero) keeps them. The
+    decompressed fp16 rows agree (the scaled values are far below float16's
+    range), the topk columns agree."""
+    g = np.array([[1e-39, -3e-40, 2e-41, 0.0], [1.0, -2.0, 0.5, 0.0]], np.float32)
+    q, s = ops.compress_fp16(_t(g))
+    jq, js = jref.fp16_compress_ref(jnp.asarray(g))
+    _same_bits(q.numpy(), jq)
+    assert s.numpy()[0, 0] == np.float32(1e-39) and np.asarray(js)[0, 0] == 0.0
+    _same_bits(s.numpy()[1], np.asarray(js)[1])
+    _same_bits(ops.decompress_fp16(q, s).numpy(), jref.fp16_decompress_ref(jq, js))
+    vals, idx = ops.compress_topk(_t(g), 2)
+    pv, pi = topk_compress_pallas(jnp.asarray(g), 2, interpret=True)
+    _same_bits(idx.numpy(), pi)
+    _same_bits(vals.numpy(), jref.topk_compress_ref(jnp.asarray(g), 2)[0])
+    assert vals.numpy()[0, 0] == np.float32(1e-39) and np.asarray(pv)[0, 0] == 0.0
+
+
+@pytest.mark.parametrize("op", ["compress_fp16", "decompress_fp16", "compress_topk",
+                                "decompress_topk"])
+def test_compression_forced_on_cpu_tensors_raises(op):
+    g = torch.ones((3, 8))
+    args = {"compress_fp16": (g,), "decompress_fp16": (g.half(), torch.ones((3, 1))),
+            "compress_topk": (g, 2),
+            "decompress_topk": (torch.ones((3, 2)), torch.zeros((3, 2), dtype=torch.int32),
+                                8)}[op]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(ops, op)(*args, fused=True)
+    getattr(ops, op)(*args, fused=False)  # the plain version on request
+
+
+def test_compression_wrappers_check_shapes_before_launch(monkeypatch):
+    monkeypatch.setattr(ops, "_launch", lambda *a: pytest.fail("launched"))
+    g = torch.ones((3, 8))
+    with pytest.raises(ValueError, match="float32"):
+        ops._fp16_compress_cuda(g.double())
+    with pytest.raises(ValueError, match="width 0"):
+        ops._fp16_compress_cuda(torch.ones((3, 0)))
+    with pytest.raises(ValueError, match="scale"):
+        ops._fp16_decompress_cuda(g.half(), torch.ones((3, 2)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._topk_compress_cuda(torch.ones((8, 3)).T, 2)
+    with pytest.raises(ValueError, match="k=9"):
+        ops._topk_compress_cuda(g, 9)
+    with pytest.raises(ValueError, match="idx"):
+        ops._topk_decompress_cuda(torch.ones((3, 2)), torch.zeros((3, 1), dtype=torch.int32),
+                                  8)
+    with pytest.raises(ValueError, match="int32"):
+        ops._topk_decompress_cuda(torch.ones((3, 2)), torch.zeros((3, 2)), 8)
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def _jax_gather(mesh, g, mode, fused):
+    f = shard_map(lambda x: jgc.compressed_all_gather(x, AXES, mode=mode, fused=fused),
+                  mesh=mesh, in_specs=(P(),), out_specs=P(), check_vma=False)
+    return np.asarray(jax.jit(f)(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("mode", gc.ROUTED_MODES)
+def test_routed_roundtrip_matches_reference(mesh1, mode):
+    g, _ = _rows(M, 10, 7)
+    payload = gc.compress_rows(_t(g), mode)
+    jpayload = jgc.compress_rows(jnp.asarray(g), mode, fused=False)
+    if mode == "none":  # the rows themselves travel
+        _same_bits(payload.numpy(), jpayload)
+    else:
+        assert type(payload).__name__ == type(jpayload).__name__
+        assert payload._fields == jpayload._fields
+        for a, b in zip(payload, jpayload):
+            _same_bits(a.numpy(), b)
+    out = gc.decompress_rows(payload, 10, mode)
+    _same_bits(out.numpy(), jgc.decompress_rows(jpayload, 10, mode, fused=False))
+    for fused in (False, True):  # the Pallas branch in interpret mode
+        _same_bits(gc.compressed_all_gather(_t(g), 1, mode).numpy(),
+                   _jax_gather(mesh1, g, mode, fused), f"all_gather fused={fused}")
+    with pytest.raises(NotImplementedError, match="multi-rank"):
+        gc.compressed_all_gather(_t(g), 2, mode)
+
+
+def test_routed_modes_and_budget_match_reference():
+    assert gc.ROUTED_MODES == jgc.ROUTED_MODES and gc.TOPK_FRACTION == jgc.TOPK_FRACTION
+    assert [gc.topk_k(d) for d in range(1, 40)] == [jgc.topk_k(d) for d in range(1, 40)]
+    for mode in ("none", "fp16", "topk", "bf16", "f8", "int4", ""):
+        accepted = mode in jgc.ROUTED_MODES
+        if accepted:
+            assert gc.validate_routed_mode(mode) == jgc.validate_routed_mode(mode)
+        else:
+            for fn in (gc.validate_routed_mode, jgc.validate_routed_mode):
+                with pytest.raises(ValueError, match="grad_compress"):
+                    fn(mode)
+            with pytest.raises(ValueError):
+                gc.compress_rows(torch.ones((2, 4)), mode)
+
+
+def _jax_psum(mesh, grads, mode):
+    def f(g):
+        return jgc.compressed_psum(g, AXES, mode=mode)
+
+    out = jax.jit(shard_map(f, mesh=mesh, in_specs=(P(),), out_specs=(P(), P()),
+                            check_vma=False))(jax.tree.map(jnp.asarray, grads))
+    return jax.device_get(out)
+
+
+@pytest.mark.parametrize("mode", ["none", "bf16", "fp16", "f8"])
+def test_compressed_psum_matches_reference(mesh1, mode):
+    """The dense psum's narrow payload and residual, bit for bit; for f8 the
+    values past float8_e4m3fn's range (448) come back NaN as in the
+    reference's cast (464 itself rounds to 448)."""
+    rng = np.random.default_rng(3)
+    sweep = np.concatenate([rng.normal(size=200) * 10.0 ** rng.uniform(-12, 3, 200),
+                            [447.0, 448.0, 455.0, 464.0, 464.1, 470.0, 480.0, 500.0,
+                             -500.0, 1e6, np.inf, -np.inf, 2.0 ** -9, 2.0 ** -10, 0.0,
+                             -0.0, 6e4, 7e4, 1e-8]]).astype(np.float32)
+    grads = {"a": {"w": sweep.reshape(-1, 1)}, "b": rng.normal(size=(7,)).astype(np.float32)}
+    tgrads = {"a": {"w": _t(grads["a"]["w"])}, "b": _t(grads["b"])}
+    summed, res = gc.compressed_psum(tgrads, 1, mode)
+    jsum, jres = _jax_psum(mesh1, grads, mode)
+    for got, exp in ((summed["a"]["w"], jsum["a"]["w"]), (summed["b"], jsum["b"])):
+        assert got.dtype == torch.float32
+        _same_bits(got.numpy(), exp)
+    if mode == "none":
+        assert res is None
+        return
+    for got, exp in ((res["a"]["w"], jres["a"]["w"]), (res["b"], jres["b"])):
+        _same_bits(got.numpy(), exp)
+    if mode == "f8":
+        nan_at = np.isnan(summed["a"]["w"].numpy()[:, 0])
+        assert nan_at[np.abs(sweep) > 464].all() and not nan_at[np.abs(sweep) <= 464].any()
+    with pytest.raises(ValueError, match="grad_compression"):
+        gc.compressed_psum(tgrads, 1, "int4")
+    with pytest.raises(NotImplementedError, match="multi-rank"):
+        gc.compressed_psum(tgrads, 2, mode)
+
+
+# --------------------------------------------------------------- sparse path
+
+
+def _jax_apply(mesh, c, variant, cache_update, compress, capacity):
+    def f(w, acc, ids, k1, r1, a1, k2, r2, a2, proj, g_u):
+        kw = dict(axes=AXES, world=1, lr=0.05, cache_update=cache_update,
+                  compress=compress)
+        cache, l2 = jpe.CacheState(k1, r1, a1), jpe.CacheState(k2, r2, a2)
+        lk = dict(axes=AXES, world=1, capacity=capacity, hot_keys=k1, hot_rows=r1)
+        pk = pa = l2r = l2a = jnp.zeros((1,))
+        if variant == "narrow":
+            _, ctx = jpe.mp_lookup_narrow(w, ids, proj=proj, l2_keys=k2, l2_rows=r2, **lk)
+            pstate = jpe.ProjState(proj, jnp.zeros((proj.shape[0], 1), jnp.float32) + 0.5)
+            w2, acc2, c2, l22, (pk, pa) = jpe.apply_sparse_grads_narrow(
+                w, acc, cache, l2, pstate, ctx, g_u, **kw)
+            l2r, l2a = l22.rows, l22.acc
+        elif variant == "l2":
+            _, ctx = jpe.mp_lookup(w, ids, l2_keys=k2, l2_rows=r2, **lk)
+            w2, acc2, c2, l22 = jpe.apply_sparse_grads_l2(w, acc, cache, l2, ctx, g_u, **kw)
+            l2r, l2a = l22.rows, l22.acc
+        else:
+            _, ctx = jpe.mp_lookup(w, ids, **lk)
+            w2, acc2, c2 = jpe.apply_sparse_grads(w, acc, cache, ctx, g_u, **kw)
+        return (w2, acc2, c2.rows, c2.acc, l2r, l2a, pk, pa, ctx.routing.overflow,
+                jnp.sum(ctx.hit))
+
+    g = jax.jit(shard_map(
+        f, mesh=mesh, in_specs=(P(AXES, None), P(AXES, None)) + (P(),) * 9,
+        out_specs=(P(AXES, None), P(AXES, None)) + (P(),) * 8, check_vma=False))
+    w = c["wn"] if variant == "narrow" else c["w"]
+    return [np.asarray(x) for x in g(*map(jnp.asarray, (
+        w, c["acc"], c["ids"], c["keys1"], c["rows1"], c["acc1"], c["keys2"], c["rows2"],
+        c["acc2"], c["proj"], c["g_u"])))]
+
+
+def _single_tier_case():
+    """``test_torch_train``'s sparse case in the two-tier case's layout (its
+    L2 arrays are not read by ``apply_sparse_grads``)."""
+    w, acc, ids, keys, hot, hot_acc, g_u = _sparse_case()
+    c = _tier_case(seed=7)
+    c.update(w=w, acc=acc, ids=ids, keys1=keys, rows1=hot, acc1=hot_acc, g_u=g_u)
+    return c
+
+
+@pytest.mark.parametrize("variant", ["single", "l2", "narrow"])
+@pytest.mark.parametrize("cache_update", ["psum", "stale"])
+@pytest.mark.parametrize("compress", ["fp16", "topk"])
+def test_apply_sparse_grads_compressed_matches_reference(mesh1, variant, cache_update,
+                                                         compress):
+    """One lookup and one sparse update under each routed mode, with tier
+    hits and a bucket small enough to overflow, from the same ``g_u``."""
+    c = _single_tier_case() if variant == "single" else _tier_case(seed=7)
+    cap = 40 if variant == "single" else 20
+    exp = _jax_apply(mesh1, c, variant, cache_update, compress, cap)
+    w = _t(c["wn"] if variant == "narrow" else c["w"])
+    acc = _t(c["acc"])
+    w0 = w.clone()
+    cache = pe.CacheState(_t(c["keys1"]), _t(c["rows1"]), _t(c["acc1"]))
+    l2 = pe.CacheState(_t(c["keys2"]), _t(c["rows2"]), _t(c["acc2"]))
+    kw = dict(world=1, lr=0.05, cache_update=cache_update, compress=compress)
+    if variant == "single":
+        _, ctx = pe.mp_lookup(w, _t(c["ids"]), world=1, capacity=cap,
+                              hot_keys=cache.keys, hot_rows=cache.rows)
+        got = pe.apply_sparse_grads(w, acc, cache, ctx, _t(c["g_u"]), **kw)
+    else:
+        _, ctx = _port_lookup(c, cap, variant == "narrow")
+        assert int(ctx.l2_hit.sum()) > 0
+        if variant == "narrow":
+            proj = pe.ProjState(_t(c["proj"]), torch.full((ND, 1), 0.5))
+            got = pe.apply_sparse_grads_narrow(w, acc, cache, l2, proj, ctx, _t(c["g_u"]),
+                                               **kw)
+            _close(got[4].kernel, exp[6], 1e-6)
+            _close(got[4].acc, exp[7], 1e-6)
+        else:
+            got = pe.apply_sparse_grads_l2(w, acc, cache, l2, ctx, _t(c["g_u"]), **kw)
+        _close(got[3].rows, exp[4], 1e-6)
+        _close(got[3].acc, exp[5], 1e-6)
+    assert int(ctx.routing.overflow) == int(exp[8]) > 0
+    assert int(ctx.hit.sum()) == int(exp[9]) > 0
+    for t, e in zip((got[0], got[1], got[2].rows, got[2].acc), exp[:4]):
+        _close(t, e, 1e-6)
+    # the compression is lossy: the update is not the uncompressed one
+    plain = _jax_apply(mesh1, c, variant, cache_update, "none", cap)
+    moved = ~np.all(w.numpy() == w0.numpy(), axis=1)
+    assert np.abs(w.numpy()[moved] - plain[0][moved]).max() > 1e-6
+
+
+def test_engine_validates_and_hands_grad_compress_to_strategies():
+    plan = make_plan(get_config("deepfm", smoke=True), 1, 64, l2_bytes=1 << 16,
+                     narrow_dim=ND)
+    for name in ("picasso", "picasso_l2", "picasso_narrow"):
+        eng = EmbeddingEngine(plan, 1, strategy=name, grad_compress="topk")
+        assert eng.grad_compress == "topk"
+        assert {s.grad_compress for s in eng.strategies.values()} == {"topk"}
+    with pytest.raises(ValueError, match="grad_compress"):
+        EmbeddingEngine(plan, 1, grad_compress="bf16")
+
+
+# ----------------------------------------------------------------- end to end
+
+
+@pytest.mark.parametrize("cache_update", ["psum", "stale"])
+@pytest.mark.parametrize("mode", ["fp16", "topk"])
+def test_train_trajectory_compressed_matches_reference(mesh1, mode, cache_update):
+    check_train_trajectory(mesh1, "deepfm", cache_update, 1, grad_compress=mode)
+
+
+def test_train_trajectory_dense_bf16_psum_matches_reference(mesh1):
+    check_train_trajectory(mesh1, "deepfm", "psum", 1, grad_compression="bf16")
+
+
+def test_train_launcher_runs_grad_compress_topk_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "deepfm", "--smoke",
+         "--device", "cpu", "--steps", "3", "--global-batch", "32", "--log-every", "1",
+         "--grad-compress", "topk"],
+        capture_output=True, text=True, timeout=300, env=_env(), cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    steps = re.findall(r"^  step +(\d+) loss=([\d.]+) hits=(\d+) ovf=(\d+)$", out.stdout,
+                       re.M)
+    assert [int(s[0]) for s in steps] == [1, 2, 3], out.stdout
+    assert all(np.isfinite(float(s[1])) for s in steps)
+    assert out.stdout.rstrip().endswith("[train] done")

@@ -171,11 +171,16 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
     wide.sum().backward()
     ops.gather_project_grad(torch.ones((3, 5)), torch.ones((3, 2)), idx, kept,
                             torch.ones((2, 5)), 4)
+    ops.decompress_fp16(*ops.compress_fp16(torch.ones((3, 8))))
+    vals, top = ops.compress_topk(torch.ones((3, 8)), 2)
+    ops.decompress_topk(vals, top, 8)
     assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
                             "cross_layer_bwd": 0, "gather_project": 0,
-                            "gather_project_grad": 0}
+                            "gather_project_grad": 0, "fp16_compress": 0,
+                            "fp16_decompress": 0, "topk_compress": 0,
+                            "topk_decompress": 0}
     assert not build._LAUNCHERS
 
 

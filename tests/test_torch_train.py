@@ -73,9 +73,10 @@ def test_train_trajectory_matches_reference(mesh1, cache_update, n_micro):
     check_train_trajectory(mesh1, "deepfm", cache_update, n_micro)
 
 
-def check_train_trajectory(mesh1, arch, cache_update, n_micro):
+def check_train_trajectory(mesh1, arch, cache_update, n_micro, **tkw):
     """The trajectory check for one smoke arch (``tests/test_torch_dcn.py``
-    runs it for dcn-v2)."""
+    runs it for dcn-v2); ``tkw`` are further ``TrainConfig`` fields for both
+    sides (``tests/test_torch_compress.py`` passes the compression modes)."""
     jcfg = jget_config(arch, smoke=True)
     jplan, plan = _plans(n_micro, arch)
     jmodel = JWDLModel(jcfg, jplan)
@@ -83,10 +84,10 @@ def check_train_trajectory(mesh1, arch, cache_update, n_micro):
     state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
     jstep, _ = jmake_train_step(
         jmodel, jplan, mesh1, AXES, GB,
-        JTrainConfig(use_fused_kernels="off", cache_update=cache_update), donate=False)
+        JTrainConfig(use_fused_kernels="off", cache_update=cache_update, **tkw), donate=False)
     step = make_train_step(WDLModel(get_config(arch, smoke=True), plan), plan, GB,
-                           TrainConfig(use_fused_kernels="off", cache_update=cache_update),
-                           "cpu")
+                           TrainConfig(use_fused_kernels="off", cache_update=cache_update,
+                                       **tkw), "cpu")
     assert step.n_micro == n_micro and step.use_overlap == (n_micro > 1)
     rng = np.random.default_rng(0)
     jl, tl, jm, tm = [], [], [], []
@@ -211,13 +212,25 @@ def test_apply_sparse_grads_matches_reference(mesh1, cache_update):
 
 
 def test_apply_sparse_grads_rejects_unported_options():
+    """World > 1 raises; an unknown routed compression mode raises
+    ``ValueError`` and the ported ones are taken (``'none'`` bitwise as the
+    default)."""
     w, acc, ids, keys, hot, hot_acc, g_u = _sparse_case()
     _, ctx = pe.mp_lookup(_t(w), _t(ids), world=1, capacity=96)
-    with pytest.raises(NotImplementedError, match="compression"):
+    with pytest.raises(ValueError, match="grad_compress"):
         pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=1, lr=0.05,
-                              compress="fp16")
+                              compress="bf16")
     with pytest.raises(NotImplementedError, match="multi-rank"):
         pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=2, lr=0.05)
+    ws = {}
+    for mode in ("none", "fp16", "topk"):
+        ws[mode] = _t(w)
+        pe.apply_sparse_grads(ws[mode], _t(acc), None, ctx, _t(g_u), world=1, lr=0.05,
+                              compress=mode)
+    default = _t(w)
+    pe.apply_sparse_grads(default, _t(acc), None, ctx, _t(g_u), world=1, lr=0.05)
+    assert torch.equal(ws["none"], default)
+    assert not torch.equal(ws["fp16"], default) and not torch.equal(ws["topk"], default)
 
 
 @pytest.mark.parametrize("name", ["adam", "lamb", "sgd"])
@@ -278,8 +291,20 @@ def test_batch_stream_seeks_like_reference():
 @pytest.mark.parametrize("field,value", [("grad_compression", "bf16"),
                                          ("grad_compress", "fp16"), ("pin_l2", True)])
 def test_train_config_raises_on_unported_fields(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        TrainConfig(**{field: value})
+    """``pin_l2`` is not ported and raises; the compression fields are: each
+    of their modes is taken and an unknown one raises ``ValueError``."""
+    if field == "pin_l2":
+        with pytest.raises(NotImplementedError, match=field):
+            TrainConfig(**{field: value})
+        return
+    modes = {"grad_compression": ("none", "bf16", "fp16", "f8"),
+             "grad_compress": ("none", "fp16", "topk")}[field]
+    assert value in modes
+    for mode in modes:
+        assert getattr(TrainConfig(**{field: mode}), field) == mode
+    for bad in ("int4", "topk" if field == "grad_compression" else "bf16"):
+        with pytest.raises(ValueError, match=field):
+            TrainConfig(**{field: bad})
 
 
 def _env():
@@ -309,7 +334,7 @@ def test_train_launcher_help_lists_flags(capsys):
     for flag in ("--arch", "--smoke", "--steps", "--global-batch", "--strategy",
                  "--fused-kernels", "--no-cache", "--no-interleave", "--n-micro",
                  "--learnable", "--log-every", "--lr-emb", "--lr-dense", "--seed",
-                 "--device"):
+                 "--device", "--grad-compress"):
         assert flag in out
 
 
