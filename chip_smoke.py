@@ -2,15 +2,16 @@
 """On-card check of the PyTorch port: builds its CUDA kernels, holds each one
 against its plain PyTorch version, serves and trains full-width deepfm,
 full-width dcn-v2 and full-width deepfm with ``picasso_narrow`` and its L2
-tier on one card, and trains full-width deepfm under ``--grad-compress fp16``
-and ``topk``.
+tier on one card, trains full-width deepfm under ``--grad-compress fp16``
+and ``topk``, and serves and trains full Criteo DLRM under
+``picasso_narrow``.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-   (fourteen kernels, one nvcc per source, all at once);
+   (sixteen kernels, one nvcc per source, all at once);
 2. run each kernel at its path's shape (serving B = 512, training B = 256)
    and at a bulk shape (B = 65,536) against its plain version on the same
    inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows/
@@ -33,7 +34,12 @@ Phases, in order (any failure raises and exits non-zero):
    deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and the narrow d = 4
    (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN, infinities,
    subnormals, signed zeros): payloads and rows bitwise the plain versions',
-   zero rows exactly 0 out, each kernel repeating bit for bit;
+   zero rows exactly 0 out, each kernel repeating bit for bit. The two DLRM
+   dot kernels run at F = 27, D = 128 at both path batches, at the bench
+   config's D = 16, at bulk and on edge shapes (F = 2 with a B that is no
+   multiple of the block, odd D, D = 1, F = 1): within 1e-5 of scale,
+   repeating bit for bit, the backward reached both standalone and through
+   the autograd of ``ops.dot_interaction``;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -89,7 +95,22 @@ Phases, in order (any failure raises and exits non-zero):
    phase 6, which also holds the step's compressed payloads and rows bitwise
    to the plain versions on the same rows and the master rows each update
    touched to the plain update within 1e-6 of scale; the 30-step kernel vs
-   plain trajectory is printed, and the step times beside phase 4's.
+   plain trajectory is printed, and the step times beside phase 4's;
+10. free every earlier state and serve full Criteo DLRM (``paper_models.dlrm()``:
+   26 fields at D = 128 in one 187,767,399-row group, a 512-256-128 bottom
+   MLP whose output joins the 27-vector dots, MLP 1024-1024-512-256) under
+   ``picasso_narrow`` with narrow dim 32 and a 2 GiB L2 budget (a
+   187,767,399 x 32 master, 2,080,896-row L1 and 4,161,784-row L2 tiers at
+   D = 128): after the warm-up a flush from a full FCounter fills both
+   tiers, then 300 timed requests, each with L1 and L2 hits and per request
+   2 ``tier_probe``, 1 ``gather_project``, 1 ``gather_pool`` and 1
+   ``dot_interaction`` launch; the plain path within 1e-5; a
+   ``dlrm(criteo=False)`` smoke request on the card matching the CPU;
+11. train it as phase 8: per step those launches plus 1 ``segment_grad``, 2
+   ``dedup_adagrad`` (the d = 32 master and the L2 tier at D = 128) and 1
+   ``dot_interaction_bwd``; the kernel path repeating bit for bit, the
+   shared-state check at steps 1 and 21, both tiers filled after step 39;
+   a smoke training run on the card matching the CPU.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -114,6 +135,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_shapes  # noqa: E402
+from repro_torch.configs.paper_models import dlrm  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
@@ -147,7 +169,7 @@ class Arch(NamedTuple):
     30-step training run is held against the plain path."""
 
     name: str
-    config: str                     # the registry config it runs
+    config: str                     # the registry config it runs ('dlrm': paper_models)
     n_fields: int
     dim: int
     rows: int
@@ -161,6 +183,7 @@ class Arch(NamedTuple):
     l2_bytes: int = 0               # the launchers' --l2-budget
     l2_rows: int = 0                # the L2 tier that budget plans
     grad_compress: str = "none"     # the train launcher's --grad-compress
+    full_tiers_first: bool = False  # serve the timed requests from full tiers
 
     @property
     def master_dim(self) -> int:
@@ -199,7 +222,22 @@ ARCHS.update({name: ARCHS["deepfm"]._replace(
     train_launches={**ARCHS["deepfm"].train_launches, f"{mode}_compress": 1,
                     f"{mode}_decompress": 1}, grad_compress=mode)
     for name, mode in zip(COMPRESSED, ("fp16", "topk"))})
+# full Criteo DLRM (configs/paper_models.dlrm(): 26 fields at D = 128, a
+# 512-256-128 bottom MLP whose output joins the 27-vector dots, MLP
+# 1024-1024-512-256) under the reference's frequency-adaptive configuration:
+# a 96.1 GB wide master does not fit one card, a narrow d = 32 master does
+# (24.0 GB), beside the 1 GiB L1 and 2 GiB L2 tiers at D = 128. Phase 10
+# serves its timed requests from both tiers filled; phase 11 trains as phase 8
+ARCHS["dlrm-narrow"] = Arch(
+    "dlrm-narrow", "dlrm", 26, 128, 187_767_399, 2_080_896,
+    {"tier_probe": 2, "gather_project": 1, "gather_pool": 1, "dot_interaction": 1},
+    {"tier_probe": 2, "gather_project": 1, "gather_pool": 1, "dot_interaction": 1,
+     "segment_grad": 1, "dedup_adagrad": 2, "dot_interaction_bwd": 1}, False,
+    (1, FLUSH_ITERS + 1), "picasso_narrow", 32, 2_147_483_648, 4_161_784,
+    full_tiers_first=True)
+MAIN = ("deepfm", "dcn-v2", "deepfm-narrow")  # phases 3-8; dlrm-narrow is 10-11
 SMOKE_L2_BYTES = 1 << 16  # tests/test_narrow.py's L2 budget at smoke size
+SMOKE_NARROW_DIM = 4      # tests/test_narrow.py's, and the bench's D // 4 for dlrm
 
 SOURCES = {
     "tier_probe": ("src/repro_torch/kernels/csrc/tier_probe.cu",
@@ -230,6 +268,10 @@ SOURCES = {
                       "src/repro/kernels/grad_compress.py:108"),
     "topk_decompress": ("src/repro_torch/kernels/csrc/topk_decompress.cu",
                         "src/repro/kernels/grad_compress.py:143"),
+    "dot_interaction": ("src/repro_torch/kernels/csrc/dot_interaction.cu",
+                        "src/repro/kernels/dot_interaction.py:37"),
+    "dot_interaction_bwd": ("src/repro_torch/kernels/csrc/dot_interaction_bwd.cu",
+                            "src/repro/kernels/interaction_bwd.py:89"),
 }
 # the arch whose serving or training path each kernel was ported for
 PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serve"),
@@ -242,7 +284,9 @@ PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serv
               "fp16_compress": ("deepfm-fp16", "train"),
               "fp16_decompress": ("deepfm-fp16", "train"),
               "topk_compress": ("deepfm-topk", "train"),
-              "topk_decompress": ("deepfm-topk", "train")}
+              "topk_decompress": ("deepfm-topk", "train"),
+              "dot_interaction": ("dlrm-narrow", "serve"),
+              "dot_interaction_bwd": ("dlrm-narrow", "train")}
 
 
 def check(ok, what: str) -> None:
@@ -304,15 +348,17 @@ def arch_plan(a: Arch, b: int, *, smoke: bool = False, train: bool = False):
     hot budget, training the train launcher's (``hot_bytes=1<<30``, a flush
     every 20 steps after 10). At smoke size training flushes at step 3 after
     2 with a 1<<14-byte tier, and the L2 configuration also serves with that
-    tier and a 1<<16-byte L2, so both tiers take hits."""
-    cfg = get_config(a.config, smoke=smoke)
+    tier and a 1<<16-byte L2 (narrow dim 4), so both tiers take hits. The
+    smoke DLRM is ``dlrm(criteo=False)`` (26 fields at D = 16)."""
+    cfg = (dlrm(criteo=not smoke) if a.config == "dlrm"
+           else get_config(a.config, smoke=smoke))
     kw = {}
     if train:
         kw = (dict(hot_bytes=1 << 14, flush_iters=3, warmup_iters=2) if smoke else
               dict(hot_bytes=1 << 30, flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS))
     if a.l2_bytes:
         kw.update(l2_bytes=SMOKE_L2_BYTES if smoke else a.l2_bytes,
-                  narrow_dim=a.narrow_dim or None)
+                  narrow_dim=(SMOKE_NARROW_DIM if smoke else a.narrow_dim) or None)
         if smoke:
             kw["hot_bytes"] = 1 << 14
     plan = make_plan(cfg, world=1, per_device_batch=b, **kw)
@@ -861,6 +907,98 @@ def run_compress_edges() -> dict:
             "topk_idx": idx.tolist()}
 
 
+def dot_case(b: int, gen: torch.Generator, f: int, d: int):
+    """DLRM's interaction input at batch b: F vectors of width D a sample (26
+    fields and the bottom MLP's output at full width) at the scale of
+    embedding rows, and a cotangent for each of the P = F(F-1)/2 dots."""
+    x = torch.randn((b, f, d), device=DEV, generator=gen) / d ** 0.5
+    g = torch.randn((b, f * (f - 1) // 2), device=DEV, generator=gen)
+    return x, g
+
+
+def run_dot(b: int, gen: torch.Generator, a: Arch, f: int = 0, d: int = 0) -> dict:
+    f, d = f or a.n_fields + 1, d or a.dim
+    x, _ = dot_case(b, gen, f, d)
+    p = f * (f - 1) // 2
+    out, again = ops.dot_interaction(x), ops.dot_interaction(x)
+    rout = ref.dot_interaction_ref(x)
+    iu, ju = torch.triu_indices(f, f, 1, device=DEV)
+
+    def lib():  # bmm, then the triangle gather: two calls, timed together
+        return torch.bmm(x, x.transpose(1, 2))[:, iu, ju]
+
+    torch.cuda.synchronize(DEV)
+    err = max_err(out, rout)
+    check(err <= TOL * scale_of(rout), f"dot_interaction err {err} at {(b, f, d)}")
+    check(torch.equal(out, again), "dot_interaction repeats bit for bit")
+    check(max_err(lib(), rout) <= TOL * scale_of(rout), "bmm + gather yardstick agrees")
+    b_ms, b_by = bound((b * f * d + b * p) * 4, 2 * b * p * d)
+    return {"n": b, "f": f, "d": d, "p": p, "max_abs_err": err,
+            "max_err_of_scale": err / scale_of(rout),
+            "ms": cuda_ms(lambda: ops.dot_interaction(x)),
+            "call_ms": cuda_ms(lambda: ops.dot_interaction(x), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.dot_interaction_ref(x)),
+            "library_ms": cuda_ms(lib), "library_call": "bmm, then triangle gather",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def run_dot_bwd(b: int, gen: torch.Generator, a: Arch, f: int = 0, d: int = 0) -> dict:
+    """The backward standalone and through the autograd of
+    ``ops.dot_interaction`` (the same kernel on the same inputs: bitwise
+    equal), against its plain version."""
+    f, d = f or a.n_fields + 1, d or a.dim
+    x, g = dot_case(b, gen, f, d)
+    got, again = ops.dot_interaction_bwd(x, g), ops.dot_interaction_bwd(x, g)
+    exp = ref.dot_interaction_bwd_ref(x, g)
+    leaf = x.clone().requires_grad_(True)
+    before = ops.launches["dot_interaction_bwd"]
+    (g_auto,) = torch.autograd.grad(ops.dot_interaction(leaf), leaf, g)
+    via_autograd = ops.launches["dot_interaction_bwd"] - before
+    iu, ju = torch.triu_indices(f, f, 1, device=DEV)
+
+    def lib():  # zeros, the triangle scatter, add the transpose, bmm
+        gz = torch.zeros((b, f, f), device=DEV)
+        gz[:, iu, ju] = g
+        return torch.bmm(gz + gz.transpose(1, 2), x)
+
+    torch.cuda.synchronize(DEV)
+    err = max_err(got, exp)
+    check(err <= TOL * scale_of(exp), f"dot_interaction_bwd err {err} at {(b, f, d)}")
+    check(torch.equal(got, again), "dot_interaction_bwd repeats bit for bit")
+    check(via_autograd == 1 and torch.equal(g_auto, got),
+          "the autograd backward of dot_interaction launches the same kernel")
+    check(max_err(lib(), exp) <= TOL * scale_of(exp), "scatter + bmm yardstick agrees")
+    p = f * (f - 1) // 2
+    b_ms, b_by = bound((2 * b * f * d + b * p) * 4, 2 * b * f * (f - 1) * d)
+    return {"n": b, "f": f, "d": d, "p": p, "max_abs_err": err,
+            "max_err_of_scale": err / scale_of(exp),
+            "ms": cuda_ms(lambda: ops.dot_interaction_bwd(x, g)),
+            "call_ms": cuda_ms(lambda: ops.dot_interaction_bwd(x, g), device_only=False),
+            "plain_ms": cuda_ms(lambda: ref.dot_interaction_bwd_ref(x, g)),
+            "library_ms": cuda_ms(lib),
+            "library_call": "zeros, triangle scatter, add transpose, bmm",
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+# (B, F, D) edge shapes of the two dot kernels: a single pair with a block
+# of many samples and a B that is no multiple of it, an odd D, one field
+DOT_EDGES = ((1000, 2, 3), (333, 27, 127), (77, 5, 1), (9, 1, 8))
+
+
+def run_dot_edges(gen: torch.Generator) -> dict:
+    out = {}
+    for b, f, d in DOT_EDGES:
+        x, g = dot_case(b, gen, f, d)
+        fwd, rfwd = ops.dot_interaction(x), ref.dot_interaction_ref(x)
+        bwd, rbwd = ops.dot_interaction_bwd(x, g), ref.dot_interaction_bwd_ref(x, g)
+        torch.cuda.synchronize(DEV)
+        errs = (max_err(fwd, rfwd) / scale_of(rfwd), max_err(bwd, rbwd) / scale_of(rbwd))
+        check(fwd.shape == rfwd.shape and max(errs) <= TOL, f"dot edge {(b, f, d)}: {errs}")
+        check(torch.equal(bwd, ops.dot_interaction_bwd(x, g)), f"dot_bwd repeats {(b, f, d)}")
+        out[f"{b}x{f}x{d}"] = errs
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -927,6 +1065,7 @@ def serve_full_width(arch: str) -> dict:
     torch.cuda.synchronize(DEV)
     warm_s = time.perf_counter() - t0
     tier_keys = tier_keys_of(state["emb"]["0"], g.rows)
+    full_tiers = fill_tiers(serve.engine, state, a, SEED + 3) if a.full_tiers_first else None
     batches = [make_batch(cfg, SERVE_B, rng) for _ in range(N_TIMED)]
 
     ops.reset_launches()
@@ -945,6 +1084,7 @@ def serve_full_width(arch: str) -> dict:
     check(launches == {n: a.serve_launches.get(n, 0) * N_TIMED for n in launches},
           f"{arch} serving launches per request {a.serve_launches}: {launches}")
     check(min(hits) > 0, f"cache hits on every request: {hits}")
+    check(not a.full_tiers_first or min(l2_hits) > 0, f"L2 hits on every request: {l2_hits}")
     plain = make_serve_step(model, plan, SERVE_B,
                             ServeConfig(strategy=a.strategy, use_fused_kernels="off"), DEV)
     p_plain = plain(state, batches[-1])
@@ -966,7 +1106,9 @@ def serve_full_width(arch: str) -> dict:
            "plain_vs_kernel_max_abs_err": err,
            "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
            "where_time_goes": breakdown}
-    if a.l2_rows:
+    if full_tiers:
+        out["full_tiers"] = full_tiers
+    elif a.l2_rows:
         out["full_tiers"] = serve_full_tiers(serve, plain, state, batches[:5], a)
     del state, serve, plain
     torch.cuda.empty_cache()
@@ -982,17 +1124,23 @@ def fill_counts(state, seed: int) -> None:
                                generator=torch.Generator(device=DEV).manual_seed(seed)))
 
 
-def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
-    """The L2 tier at its full size: a flush from a full FCounter (timed),
-    then requests that take L2 hits, each held against the plain path."""
-    fill_counts(state, SEED + 3)
+def fill_tiers(engine, state, a: Arch, seed: int) -> dict:
+    """A flush from a full FCounter (timed) fills both tiers to the plan."""
+    fill_counts(state, seed)
     torch.cuda.synchronize(DEV)
     t0 = time.perf_counter()
-    state["emb"] = serve.engine.flush(state["emb"])
+    state["emb"] = engine.flush(state["emb"])
     torch.cuda.synchronize(DEV)
     flush_s = time.perf_counter() - t0
     keys = tier_keys_of(state["emb"]["0"], a.rows)
     check(keys == {"l1": a.hot_rows, "l2": a.l2_rows}, f"both tiers full: {keys}")
+    return {"flush_s": flush_s, "tier_keys": keys}
+
+
+def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
+    """The L2 tier at its full size: a flush from a full FCounter (timed),
+    then requests that take L2 hits, each held against the plain path."""
+    out = fill_tiers(serve.engine, state, a, SEED + 3)
     l2, err = [], 0.0
     for b in batches:
         probs, ctx = serve.score(state, b)
@@ -1000,8 +1148,7 @@ def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
         err = max(err, max_err(probs, plain(state, b)))
     torch.cuda.synchronize(DEV)
     check(min(l2) > 0 and err <= TOL, f"full tiers: L2 hits {l2}, plain err {err}")
-    return {"flush_s": flush_s, "tier_keys": keys, "l2_hits": l2,
-            "plain_vs_kernel_max_abs_err": err}
+    return {**out, "l2_hits": l2, "plain_vs_kernel_max_abs_err": err}
 
 
 def where_time_goes(serve, state, batches) -> dict:
@@ -1264,14 +1411,7 @@ def train_full_tiers(step, state, batches, a: Arch) -> dict:
     40's in-step flush writes the full tiers back through the projection's
     pseudo-inverse and carries the resident ids (timed with its step)."""
     check(state["step"] == TRAIN_STEPS + 9, f"full tiers start after step 39: {state['step']}")
-    fill_counts(state, SEED + 4)
-    torch.cuda.synchronize(DEV)
-    t0 = time.perf_counter()
-    state["emb"] = step.engine.flush(state["emb"])
-    torch.cuda.synchronize(DEV)
-    fill_s = time.perf_counter() - t0
-    keys = tier_keys_of(state["emb"]["0"], a.rows)
-    check(keys == {"l1": a.hot_rows, "l2": a.l2_rows}, f"both tiers full: {keys}")
+    full = fill_tiers(step.engine, state, a, SEED + 4)
     lat, losses, l2 = [], [], []
     for b in batches[:3]:
         t0 = time.perf_counter()
@@ -1282,7 +1422,7 @@ def train_full_tiers(step, state, batches, a: Arch) -> dict:
         l2.append(int(m["cache_hits/l2"]))
     check(all(np.isfinite(losses)) and min(l2) > 0,
           f"full tiers: losses {losses}, L2 hits {l2}")
-    return {"fill_flush_s": fill_s, "tier_keys": keys, "step_ms": lat,
+    return {"fill_flush_s": full["flush_s"], "tier_keys": full["tier_keys"], "step_ms": lat,
             "flush_step": TRAIN_STEPS + 10, "losses": losses, "l2_hits": l2,
             "tier_keys_after_flush": tier_keys_of(state["emb"]["0"], a.rows)}
 
@@ -1435,6 +1575,31 @@ def train_smoke_against_cpu(arch: str) -> dict:
     return out
 
 
+def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
+    """Serve then train one configuration at full width, each followed by
+    its smoke config on the card against the CPU; its states are freed
+    before the next configuration's."""
+    full = runs[arch, "serve"] = serve_full_width(arch)
+    print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
+    print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
+          f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
+          f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
+    print(f"[serve] {arch}-smoke card vs CPU " + json.dumps(smoke_against_cpu(arch)),
+          flush=True)
+
+    train = runs[arch, "train"] = train_full_width(arch)
+    print(f"[train] {arch} full width " + json.dumps(train), flush=True)
+    print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
+          f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
+          f"flush step={train['flush_step_ms']:.1f}ms "
+          f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
+          flush=True)
+    print(f"[train] {arch}-smoke card vs CPU "
+          + json.dumps(train_smoke_against_cpu(arch)), flush=True)
+    torch.cuda.empty_cache()
+    print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1475,7 +1640,9 @@ def main() -> None:
                "fp16_compress": (run_fp16_compress, "deepfm-fp16", "train", TRAIN_B),
                "fp16_decompress": (run_fp16_decompress, "deepfm-fp16", "train", TRAIN_B),
                "topk_compress": (run_topk_compress, "deepfm-topk", "train", TRAIN_B),
-               "topk_decompress": (run_topk_decompress, "deepfm-topk", "train", TRAIN_B)}
+               "topk_decompress": (run_topk_decompress, "deepfm-topk", "train", TRAIN_B),
+               "dot_interaction": (run_dot, "dlrm-narrow", "serve", SERVE_B),
+               "dot_interaction_bwd": (run_dot_bwd, "dlrm-narrow", "train", TRAIN_B)}
     main_shape = {}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
@@ -1506,34 +1673,23 @@ def main() -> None:
             r = runners[name][0](TRAIN_B, gen, ARCHS[other])
             print(f"[kernel] {name} {other} train " + json.dumps(r), flush=True)
     print("[kernel] compression edge rows " + json.dumps(run_compress_edges()), flush=True)
+    # the dot kernels at the other path's batch, at the bench config's D = 16
+    # (B = 256), and on edge shapes
+    dl = ARCHS["dlrm-narrow"]
+    extra = {"dot_interaction train": lambda: run_dot(TRAIN_B, gen, dl),
+             "dot_interaction_bwd serve": lambda: run_dot_bwd(SERVE_B, gen, dl),
+             "dot_interaction bench D=16": lambda: run_dot(TRAIN_B, gen, dl, d=16),
+             "dot_interaction_bwd bench D=16": lambda: run_dot_bwd(TRAIN_B, gen, dl, d=16),
+             "dot edge shapes (err of scale: fwd, bwd)": lambda: run_dot_edges(gen)}
+    for label, run in extra.items():
+        print(f"[kernel] {label} " + json.dumps(run()), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
     print(f"[wall] kernels checked at {time.perf_counter() - t_start:.1f}s", flush=True)
 
     runs = {}
-    for arch in ARCHS:
-        if arch in COMPRESSED:
-            continue  # phase 9
-        full = runs[arch, "serve"] = serve_full_width(arch)
-        print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
-        print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
-              f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
-              f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
-        print(f"[serve] {arch}-smoke card vs CPU " + json.dumps(smoke_against_cpu(arch)),
-              flush=True)
-
-        train = runs[arch, "train"] = train_full_width(arch)
-        print(f"[train] {arch} full width " + json.dumps(train), flush=True)
-        print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
-              f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
-              f"flush step={train['flush_step_ms']:.1f}ms "
-              f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
-              flush=True)
-        print(f"[train] {arch}-smoke card vs CPU "
-              + json.dumps(train_smoke_against_cpu(arch)), flush=True)
-        # free this arch's memory before the next arch's state
-        torch.cuda.empty_cache()
-        print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    for arch in MAIN:  # phases 3-8
+        serve_and_train(arch, runs, t_start)
 
     base = runs["deepfm", "train"]
     for arch in COMPRESSED:
@@ -1547,6 +1703,7 @@ def main() -> None:
               flush=True)
         torch.cuda.empty_cache()
         print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    serve_and_train("dlrm-narrow", runs, t_start)  # phases 10-11
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -217,9 +217,10 @@ class EmbeddingEngine:
         """HybridHash flush (Algorithm 1 L23-26) for every group with an
         active L1 tier. The master ``w``/``acc``/``counts`` are updated in
         place; the returned dict carries the new tiers. Narrow masters take
-        the re-widening flush (``pe.flush_cache_narrow``; a missing L2 tier
-        flushes as an empty one and stays absent), groups with an active L2
-        the two-tier flush, the rest the L1 flush. The tiers are written
+        the re-widening flush (``pe.flush_cache_narrow``; a missing L2 tier,
+        or one switched off by ``use_l2``, flushes as an empty one and is
+        carried on unchanged), groups with an active L2 the two-tier flush,
+        the rest the L1 flush. The tiers are written
         back first only in ``'psum'`` mode."""
         out = dict(emb)
         wb = self.cache_update == "psum"
@@ -228,14 +229,17 @@ class EmbeddingEngine:
                 continue
             st = out[str(g.gid)]
             if st.proj is not None:
-                l2t = st.l2 if st.l2 is not None else pe.init_cache(
+                # a tier training never maintained (switched off, or absent)
+                # flushes as an empty tier and is carried on unchanged: its
+                # stale rows must not overwrite the master rows trained since
+                l2_live = st.l2 is not None and self.l2_on.get(g.gid, False)
+                l2t = st.l2 if l2_live else pe.init_cache(
                     0, g.dim, g.rows, st.cache.rows.dtype, device=st.cache.rows.device)
                 w2, acc2, counts2, cache2, l22 = pe.flush_cache_narrow(
                     st.w, st.acc, st.counts, st.cache, l2t, st.proj.kernel,
                     world=self.world, write_back=wb)
                 out[str(g.gid)] = EmbeddingState(
-                    w2, acc2, counts2, cache2, l22 if st.l2 is not None else None,
-                    st.proj)
+                    w2, acc2, counts2, cache2, l22 if l2_live else st.l2, st.proj)
             elif self.l2_on.get(g.gid, False) and st.l2 is not None:
                 w2, acc2, counts2, cache2, l22 = pe.flush_cache_l2(
                     st.w, st.acc, st.counts, st.cache, st.l2, world=self.world,

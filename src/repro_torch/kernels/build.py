@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, List] = {
     "topk_compress": [_P, _P, _P, _I64, _I, _I, _P],
     # vals, idx, out, m * d, d, k, stream
     "topk_decompress": [_P, _P, _P, _I64, _I, _I, _P],
+    # x, out, b, f, d, stream
+    "dot_interaction": [_P, _P, _I64, _I, _I, _P],
+    # x, g, out, b, f, d, stream
+    "dot_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
 }
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}

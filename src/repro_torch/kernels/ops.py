@@ -13,11 +13,12 @@ Each wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
 kernels (``reset_launches`` before, read after).
 
-``gather_pool``, ``fm_interaction``, ``cross_layer`` and ``gather_project``
-are ``torch.autograd.Function``s like the reference's ``jax.custom_vjp``s:
-their backwards are the ``segment_grad``, ``fm_interaction_bwd``,
-``cross_layer_bwd`` and ``gather_project_grad`` kernels for CUDA tensors and
-the plain versions for CPU tensors. ``segment_grad`` and ``dedup_adagrad``
+``gather_pool``, ``fm_interaction``, ``dot_interaction``, ``cross_layer``
+and ``gather_project`` are ``torch.autograd.Function``s like the reference's
+``jax.custom_vjp``s: their backwards are the ``segment_grad``,
+``fm_interaction_bwd``, ``dot_interaction_bwd``, ``cross_layer_bwd`` and
+``gather_project_grad`` kernels for CUDA tensors and the plain versions for
+CPU tensors. ``segment_grad`` and ``dedup_adagrad``
 are also standalone ops for the engine's explicit backward, and
 ``gather_project_grad`` a standalone op as in the reference (the engine
 folds the narrow cotangent itself); ``dedup_adagrad`` updates the table and
@@ -37,7 +38,8 @@ launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction":
                             "cross_layer_bwd": 0, "gather_project": 0,
                             "gather_project_grad": 0, "fp16_compress": 0,
                             "fp16_decompress": 0, "topk_compress": 0,
-                            "topk_decompress": 0}
+                            "topk_decompress": 0, "dot_interaction": 0,
+                            "dot_interaction_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -306,6 +308,79 @@ def fm_interaction(fields, fused: Optional[bool] = None):
     """FM second order over field embeddings ``[B, F, D] -> [B, 1]``,
     differentiable through ``fm_interaction_bwd``."""
     return _FMInteraction.apply(fields, _use_kernel(fused, fields, "fm_interaction"))
+
+
+# ----------------------------------------------------------- dot interaction
+
+# both kernels stage a block's samples in at most 48 KB of shared memory
+_SMEM_BYTES = 48 * 1024
+
+
+def _dot_interaction_cuda(fields):
+    _expect(fields, "dot_interaction fields", torch.float32, 3, fields.device)
+    b, f, d = fields.shape
+    p = f * (f - 1) // 2
+    # the pair table, then one sample's rows padded to an odd stride
+    if d == 0 or p * 4 + f * (d | 1) * 4 > _SMEM_BYTES:
+        raise ValueError(f"dot_interaction: F={f}, D={d}: the kernel takes D > 0 and "
+                         "one sample in 48 KB of shared memory")
+    out = torch.empty((b, p), dtype=fields.dtype, device=fields.device)
+    if b and p:
+        _launch("dot_interaction", fields.data_ptr(), out.data_ptr(), b, f, d)
+    return out
+
+
+def _dot_interaction_bwd_cuda(fields, g):
+    dev = fields.device
+    _expect(fields, "dot_interaction_bwd fields", torch.float32, 3, dev)
+    _expect(g, "dot_interaction_bwd g", torch.float32, 2, dev)
+    b, f, d = fields.shape
+    p = f * (f - 1) // 2
+    if tuple(g.shape) != (b, p):
+        raise ValueError(f"dot_interaction_bwd: g {tuple(g.shape)}, want {(b, p)}")
+    # one sample's rows and its symmetric [F, F] cotangent
+    if d == 0 or (f * d + f * f) * 4 > _SMEM_BYTES:
+        raise ValueError(f"dot_interaction_bwd: F={f}, D={d}: the kernel takes D > 0 "
+                         "and one sample in 48 KB of shared memory")
+    out = torch.empty_like(fields)
+    if b and f:
+        _launch("dot_interaction_bwd", fields.data_ptr(), g.data_ptr(), out.data_ptr(),
+                b, f, d)
+    return out
+
+
+def dot_interaction_bwd(fields, g, fused: Optional[bool] = None):
+    """d/dfields of ``dot_interaction``: ``(gZ + gZ^T) @ x`` with the
+    ``[B, P]`` cotangent ``g`` scattered into the strict upper triangle."""
+    if _use_kernel(fused, fields, "dot_interaction_bwd"):
+        return _dot_interaction_bwd_cuda(fields, g)
+    return ref.dot_interaction_bwd_ref(fields, g)
+
+
+class _DotInteraction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fields, use_kernel: bool):
+        ctx.save_for_backward(fields)
+        ctx.use_kernel = use_kernel
+        if use_kernel:
+            return _dot_interaction_cuda(fields)
+        return ref.dot_interaction_ref(fields)
+
+    @staticmethod
+    def backward(ctx, g):
+        (fields,) = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.use_kernel:
+            return _dot_interaction_bwd_cuda(fields, g), None
+        return ref.dot_interaction_bwd_ref(fields, g), None
+
+
+def dot_interaction(fields, fused: Optional[bool] = None):
+    """DLRM pairwise dots over field embeddings ``[B, F, D] -> [B,
+    F(F-1)/2]``, the strict upper triangle of ``X X^T`` in
+    ``np.triu_indices`` order, differentiable through
+    ``dot_interaction_bwd``."""
+    return _DotInteraction.apply(fields, _use_kernel(fused, fields, "dot_interaction"))
 
 
 # --------------------------------------------------------------- cross layer

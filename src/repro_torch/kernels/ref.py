@@ -129,6 +129,25 @@ def fm_interaction_bwd_ref(fields: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     return g[:, :, None] * (s - fields)              # g: [B, 1]
 
 
+def dot_interaction_ref(fields: torch.Tensor) -> torch.Tensor:
+    """[B, F, D] -> [B, F*(F-1)/2] upper-triangle pairwise dots, in
+    ``np.triu_indices(F, k=1)`` order (row-major, as ``torch.triu_indices``)."""
+    f = fields.shape[1]
+    z = torch.bmm(fields, fields.transpose(1, 2))
+    iu, ju = torch.triu_indices(f, f, 1, device=fields.device)
+    return z[:, iu, ju]
+
+
+def dot_interaction_bwd_ref(fields: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d/dfields of ``dot_interaction_ref``: scatter the upper-triangle
+    cotangent into gZ and apply ``(gZ + gZ^T) @ x``."""
+    b, f, _ = fields.shape
+    iu, ju = torch.triu_indices(f, f, 1, device=fields.device)
+    gz = torch.zeros((b, f, f), dtype=g.dtype, device=g.device)
+    gz[:, iu, ju] = g
+    return torch.bmm(gz + gz.transpose(1, 2), fields)
+
+
 # ---------------------------------------------------------------------------
 # routed-gradient wire compression (grad_compress modes; the collective
 # wrappers live in repro_torch.optim.grad_compression)

@@ -1,6 +1,6 @@
 """Feature-interaction modules (``repro.layers.interactions`` in torch): the
-FM interaction deepfm uses and the DCN-v2 cross network. The other
-interactions come with later slices.
+FM interaction deepfm uses, DLRM's pairwise dots and the DCN-v2 cross
+network. The other interactions come with later slices.
 """
 from __future__ import annotations
 
@@ -15,6 +15,12 @@ def fm_interaction(fields: torch.Tensor, fused: Optional[bool] = None) -> torch.
     """FM 2nd order over field embeddings [B, F, D] -> [B, 1]:
     0.5 * sum_d ((sum_f v)^2 - sum_f v^2), through ``ops.fm_interaction``."""
     return ops.fm_interaction(fields, fused=fused)
+
+
+def dot_interaction(fields: torch.Tensor, fused: Optional[bool] = None) -> torch.Tensor:
+    """DLRM pairwise dots [B, F, D] -> [B, F*(F-1)/2], through
+    ``ops.dot_interaction``."""
+    return ops.dot_interaction(fields, fused=fused)
 
 
 # ---------------------------------------------------------------------------

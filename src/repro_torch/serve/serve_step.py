@@ -27,7 +27,7 @@ class ServeConfig:
     strategy: Any = "picasso"  # a broadcast registry name
     use_cache: bool = True
     use_l2: bool = True   # the L2 tier (plan-budgeted, behind L1)
-    # CUDA sparse, FM and cross kernels: 'auto' (for tensors on the card) | 'on' | 'off'
+    # CUDA sparse and interaction kernels: 'auto' (for tensors on the card) | 'on' | 'off'
     use_fused_kernels: Any = "auto"
 
 

@@ -269,10 +269,12 @@ def test_convert_carries_cross_params_unchanged(mesh1):
 
 
 def test_unported_dense_side_still_raises():
+    """Sequence fields still raise; a bottom MLP (``dense_arch``) is ported
+    with dlrm and widens the base by its last width, not ``n_dense``."""
     cfg = get_config("dcn-v2", smoke=True)
     plan = make_plan(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="bottom MLP"):
-        WDLModel(dataclasses.replace(cfg, dense_arch=(16,)), plan)
+    bottom = WDLModel(dataclasses.replace(cfg, dense_arch=(16,)), plan)
+    assert bottom.base_dim == 26 * 16 + 16
     f = dataclasses.replace(cfg.fields[0], pooling="none")
     with pytest.raises(NotImplementedError, match="sequence"):
         WDLModel(dataclasses.replace(cfg, fields=(f,) + cfg.fields[1:]), plan)

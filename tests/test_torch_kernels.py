@@ -174,13 +174,17 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
     ops.decompress_fp16(*ops.compress_fp16(torch.ones((3, 8))))
     vals, top = ops.compress_topk(torch.ones((3, 8)), 2)
     ops.decompress_topk(vals, top, 8)
+    xd = torch.ones((2, 4, 3), requires_grad=True)
+    ops.dot_interaction(xd).sum().backward()
+    ops.dot_interaction_bwd(torch.ones((2, 4, 3)), torch.ones((2, 6)))
     assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
                             "cross_layer_bwd": 0, "gather_project": 0,
                             "gather_project_grad": 0, "fp16_compress": 0,
                             "fp16_decompress": 0, "topk_compress": 0,
-                            "topk_decompress": 0}
+                            "topk_decompress": 0, "dot_interaction": 0,
+                            "dot_interaction_bwd": 0}
     assert not build._LAUNCHERS
 
 

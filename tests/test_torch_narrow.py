@@ -656,6 +656,70 @@ def test_serve_config_use_l2_false_serves_as_picasso():
     assert nocache.engine.cache_on == {0: False} and nocache.engine.l2_on == {0: False}
 
 
+def test_switched_off_l2_is_not_flushed_over_trained_master_rows(mesh1):
+    """ROADMAP Queue 3's setup: deepfm-smoke at GB = 32 with a tiny L1 and
+    an L2 budget, ``TrainConfig(use_l2=False)`` and a host flush every 5
+    steps through ``make_flush_fn(use_l2=False)``. Between the flushes at
+    steps 5 and 10 the ids the reference's step-5 flush loaded into its L2
+    tier skip the tier and train as routed misses, in the master, on both
+    sides alike. The reference's step-10 flush then writes its never-updated
+    tier back over those master rows (each becomes the stale tier row
+    narrowed through ``proj_pinv``); the port flushes a switched-off tier as
+    the empty tier, so the trained rows stay bit for bit, and carries the
+    tier on unchanged."""
+    gb = 32
+    kw = dict(hot_bytes=1 << 12, l2_bytes=1 << 16, narrow_dim=ND, flush_iters=5,
+              warmup_iters=0)
+    jcfg, cfg = jget_config("deepfm", smoke=True), get_config("deepfm", smoke=True)
+    jplan, plan = jmake_plan(jcfg, 1, gb, **kw), make_plan(cfg, 1, gb, **kw)
+    japply_assignment(jplan, jresolve_assignment(jplan, "picasso_narrow"))
+    resolve_assignment(plan, "picasso_narrow")
+    assert (plan.cache_rows[0], plan.l2_rows[0]) == (jplan.cache_rows[0],
+                                                     jplan.l2_rows[0]) == (416, 1488)
+    jmodel = JWDLModel(jcfg, jplan)
+    jstate = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)
+    state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
+    tc = dict(strategy="picasso_narrow", use_l2=False, flush_in_step=False,
+              use_fused_kernels="off")
+    jstep, _ = jmake_train_step(jmodel, jplan, mesh1, AXES, gb, JTrainConfig(**tc),
+                                donate=False)
+    step = make_train_step(WDLModel(cfg, plan), plan, gb, TrainConfig(**tc), "cpu")
+    jflush = jmake_flush_fn(jplan, mesh1, AXES, use_l2=False)
+    flush = make_flush_fn(plan, use_l2=False)
+    rows = plan.groups[0].rows
+    empty_l2 = state["emb"]["0"].l2
+    rng = np.random.default_rng(0)
+    for i in range(1, 11):
+        b = jmake_batch(jcfg, gb, rng)
+        jstate, _ = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
+        state, _ = step(state, b)
+        if i == 5:
+            jstate, state = jflush(jstate), flush(state)
+            jst5 = jax.device_get(jstate["emb"]["0"])
+    jpre = jax.device_get(jstate["emb"]["0"])
+    pre = state["emb"]["0"].w.clone()
+    # the same L1 tier, and the same master rows trained since step 5
+    np.testing.assert_array_equal(state["emb"]["0"].cache.keys.numpy(),
+                                  np.asarray(jpre.cache.keys))
+    np.testing.assert_allclose(pre.numpy(), np.asarray(jpre.w), atol=1e-4, rtol=0)
+    jstate, state = jflush(jstate), flush(state)
+    jpost, post = jax.device_get(jstate["emb"]["0"]), state["emb"]["0"]
+
+    keys = np.asarray(jst5.l2.keys)
+    slot = np.nonzero(keys < rows)[0]
+    trained = (np.asarray(jpre.w)[keys[slot]] != np.asarray(jst5.w)[keys[slot]]).any(1)
+    slot, ids = slot[trained], keys[slot[trained]]
+    assert ids.size > 100
+    # the reference: each trained row is now its stale tier row, narrowed
+    stale = np.asarray(jst5.l2.rows)[slot] @ np.asarray(jpe.proj_pinv(jpre.proj.kernel))
+    np.testing.assert_allclose(np.asarray(jpost.w)[ids], stale, atol=1e-5, rtol=0)
+    assert np.abs(np.asarray(jpost.w)[ids] - np.asarray(jpre.w)[ids]).max() > 1e-2
+    # the port: the flush kept every one of them, and the tier stayed as it was
+    assert torch.equal(post.w[torch.as_tensor(ids).long()], pre[torch.as_tensor(ids).long()])
+    assert all(torch.equal(a, b) for a, b in zip(post.l2, empty_l2))
+    assert bool((post.l2.keys == rows).all())
+
+
 def test_train_config_accepts_use_l2_false():
     assert not TrainConfig(use_l2=False).use_l2
     with pytest.raises(NotImplementedError, match="pin_l2"):
