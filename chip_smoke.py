@@ -17,10 +17,14 @@ Phases, in order (any failure raises and exits non-zero):
    inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows/
    cross outputs and all four cross cotangents to max-abs <= 1e-5 of the
    value scale, miss rows, empty bags, unused gradient slots exactly 0,
-   rows ``dedup_adagrad`` does not touch bitwise unchanged, the cross
-   backward repeating bit for bit; time kernel, plain version and, where
+   rows ``dedup_adagrad`` does not touch bitwise unchanged, both cross
+   kernels repeating bit for bit; time kernel, plain version and, where
    one PyTorch call computes the same function, that call (CUDA events,
-   median of 30 after warm-up) beside the byte/op bound. The embedding
+   median of 30 after warm-up) beside the byte/op bound (for the cross
+   kernels the 3xTF32 tensor-core bound, the float32-FMA bound beside it).
+   ``cross_layer`` is timed again at the training path's B = 256, and both
+   cross kernels run on edge shapes (B in 1, 37, 65,537 by d in 16, 29,
+   67, 429: within 1e-5 of scale, repeating bit for bit). The embedding
    kernels run again at dcn-v2's D = 16 and n = B x 26 on its table.
    ``gather_project`` and ``gather_project_grad`` run at the narrow plan's
    serving and training shapes (d = 4, D = 10, m = the bucket capacity)
@@ -122,6 +126,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -149,6 +154,7 @@ from repro_torch.train import train_step as ts  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
 TOL = 1e-5
 SEED = 0
 SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks: longer than any timed call's enqueue
@@ -317,9 +323,10 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5, device_only: bool = True) -> f
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S,
+          ops_name: str = "operations"):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else ops_name)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -576,10 +583,10 @@ def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def cross_case(b: int, gen: torch.Generator):
-    """dcn-v2's cross layer at batch b: x0, x [b, 429], W [429, 429] at the
-    reference's init scale, a bias and a cotangent."""
-    d = CROSS_D
+def cross_case(b: int, gen: torch.Generator, d: int = CROSS_D):
+    """dcn-v2's cross layer at batch b: x0, x [b, d], W [d, d] at the
+    reference's init scale, a bias and a cotangent (d = the 429-wide base
+    unless an edge shape asks for another)."""
     x0 = torch.randn((b, d), device=DEV, generator=gen)
     x = torch.randn((b, d), device=DEV, generator=gen)
     w = torch.randn((d, d), device=DEV, generator=gen) / d ** 0.5
@@ -588,23 +595,34 @@ def cross_case(b: int, gen: torch.Generator):
     return x0, x, w, bias, g
 
 
+def cross_bounds(b: int, d: int, gemms: int, nbytes: float, fp32_ops: float):
+    """The cross kernels' bound for the arithmetic they do, 3xTF32: three
+    tf32 products of 2·B·d² operations for each of ``gemms`` GEMMs at the
+    tensor cores' rate; beside it the float32-FMA bound of earlier rows."""
+    b_ms, b_by = bound(nbytes, 3 * gemms * 2 * b * d * d, TF32_OPS_PER_S,
+                       "operations (3xTF32)")
+    return {"bound_ms": b_ms, "bound_by": b_by, "fp32_bound_ms": bound(nbytes, fp32_ops)[0]}
+
+
 def run_cross(b: int, gen: torch.Generator, a: Arch) -> dict:
     x0, x, w, bias, _ = cross_case(b, gen)
     d = CROSS_D
-    out, rout = ops.cross_layer(x0, x, w, bias), ref.cross_layer_ref(x0, x, w, bias)
+    out, again = ops.cross_layer(x0, x, w, bias), ops.cross_layer(x0, x, w, bias)
+    rout = ref.cross_layer_ref(x0, x, w, bias)
     lib = torch.addcmul(x, x0, torch.addmm(bias, x, w))
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"cross_layer err {err}")
+    check(same_bits(out, again), "cross_layer repeats bit for bit")
     check(max_err(lib, rout) <= TOL * scale_of(rout), "addmm + addcmul yardstick agrees")
-    b_ms, b_by = bound((3 * b * d + d * d + d) * 4, 2 * b * d * d + 3 * b * d)
-    return {"n": b, "d": d, "max_abs_err": err, "max_err_of_scale": err / scale_of(rout),
+    return {"n": b, "d": d, "cluster": ops.cross_plan(b, d)[0], "tile": "64x64",
+            "max_abs_err": err, "max_err_of_scale": err / scale_of(rout),
             "ms": cuda_ms(lambda: ops.cross_layer(x0, x, w, bias)),
             "call_ms": cuda_ms(lambda: ops.cross_layer(x0, x, w, bias), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.cross_layer_ref(x0, x, w, bias)),
             # two calls, timed together: torch.addmm then torch.addcmul
             "library_ms": cuda_ms(lambda: torch.addcmul(x, x0, torch.addmm(bias, x, w))),
-            "bound_ms": b_ms, "bound_by": b_by}
+            **cross_bounds(b, d, 1, (3 * b * d + d * d + d) * 4, 2 * b * d * d + 3 * b * d)}
 
 
 def run_cross_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -626,17 +644,43 @@ def run_cross_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
         errs[name] = max_err(k, e) / scale_of(e)
         check(errs[name] <= TOL, f"cross_layer_bwd {name} err {errs[name]} of scale")
         check(max_err(lb, e) <= TOL * scale_of(e), f"autograd yardstick {name} agrees")
-    check(all(torch.equal(p, q) for p, q in zip(got, again)),
+    check(all(same_bits(p, q) for p, q in zip(got, again)),
           "cross_layer_bwd repeats bit for bit")
-    b_ms, b_by = bound((5 * b * d + 2 * d * d + 2 * d) * 4, 6 * b * d * d + 5 * b * d)
-    return {"n": b, "d": d, "splits": ops.cross_bwd_split(b)[1],
+    _, c_dx, c_dw = ops.cross_plan(b, d)
+    return {"n": b, "d": d, "cluster": f"dx {c_dx}, dW {c_dw}", "tile": "64x64",
             "max_abs_err": max(max_err(k, e) for k, e in zip(got, exp)),
             "max_err_of_scale": max(errs.values()), "errs_of_scale": errs,
             "ms": cuda_ms(lambda: ops.cross_layer_bwd(x0, x, w, bias, g)),
             "call_ms": cuda_ms(lambda: ops.cross_layer_bwd(x0, x, w, bias, g),
                                device_only=False),
             "plain_ms": cuda_ms(lambda: ref.cross_layer_bwd_ref(x0, x, w, bias, g)),
-            "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": cuda_ms(lib),
+            **cross_bounds(b, d, 3, (5 * b * d + 2 * d * d + 2 * d) * 4,
+                           6 * b * d * d + 5 * b * d)}
+
+
+# (B, d) edge shapes of the two cross kernels: one row, a B that is no
+# multiple of the 64-row tile or the 32-row slab, widths that are no
+# multiple of the 8-deep mma step or the 64-wide tile
+CROSS_EDGES = tuple((b, d) for b in (1, 37, 65_537) for d in (16, 29, 67, CROSS_D))
+
+
+def run_cross_edges(gen: torch.Generator) -> dict:
+    out = {}
+    for b, d in CROSS_EDGES:
+        x0, x, w, bias, g = cross_case(b, gen, d)
+        fwd, rfwd = ops.cross_layer(x0, x, w, bias), ref.cross_layer_ref(x0, x, w, bias)
+        bwd, rbwd = ops.cross_layer_bwd(x0, x, w, bias, g), ref.cross_layer_bwd_ref(
+            x0, x, w, bias, g)
+        fwd2, bwd2 = ops.cross_layer(x0, x, w, bias), ops.cross_layer_bwd(x0, x, w, bias, g)
+        torch.cuda.synchronize(DEV)
+        errs = [max_err(fwd, rfwd) / scale_of(rfwd)]
+        errs += [max_err(k, e) / scale_of(e) for k, e in zip(bwd, rbwd)]
+        check(max(errs) <= TOL, f"cross edge {(b, d)}: errs of scale {errs}")
+        check(same_bits(fwd, fwd2) and all(same_bits(p, q) for p, q in zip(bwd, bwd2)),
+              f"cross kernels repeat bit for bit at {(b, d)}")
+        out[f"{b}x{d}"] = max(errs)
+    return out
 
 
 def project_case(b: int, gen: torch.Generator, a: Arch):
@@ -1151,6 +1195,17 @@ def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
     return {**out, "l2_hits": l2, "plain_vs_kernel_max_abs_err": err}
 
 
+def port_kernels(per_kernel: Dict[str, float]) -> Dict[str, float]:
+    """The profiled device ms of the port's own kernels (``csrc``'s, in
+    anonymous namespaces or ``segment_pool``), by kernel name."""
+    out = {}
+    for key, ms in per_kernel.items():
+        m = re.search(r"(?:\(anonymous namespace\)|segment_pool)::(\w+_kernel(?:<\d+>)?)", key)
+        if m and "at::" not in key:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + ms
+    return out
+
+
 def where_time_goes(serve, state, batches) -> dict:
     """Per-layer host clock (pack -> sparse lookup + pool -> dense), each
     ended by a synchronize, and one profiled window for device time by op."""
@@ -1189,6 +1244,7 @@ def where_time_goes(serve, state, batches) -> dict:
                                 if dev_ms else None)
     out["top_kernels_ms_per_request"] = sorted(
         ((k[:70], v) for k, v in per_kernel.items()), key=lambda kv: -kv[1])[:8]
+    out["port_kernels_ms_per_request"] = port_kernels(per_kernel)
     return out
 
 
@@ -1466,6 +1522,7 @@ def train_breakdown(step, state, batches) -> dict:
     out["device_busy_share"] = dev_ms / host_ms if dev_ms else None
     out["top_kernels_ms_per_step"] = sorted(
         ((k[:70], v) for k, v in per_kernel.items()), key=lambda kv: -kv[1])[:10]
+    out["port_kernels_ms_per_step"] = port_kernels(per_kernel)
     return out
 
 
@@ -1600,6 +1657,34 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
     print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
+def kernel_name(mangled: str) -> str:
+    """The last name of a mangled ``_ZN...`` kernel symbol, with its cluster
+    size as <C> where it is a template."""
+    i, name = mangled.find("_ZN") + 3, mangled
+    while 3 <= i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    m = re.match(r"ILi(\d+)EE", mangled[i:])
+    return name + (f"<{m.group(1)}>" if m else "")
+
+
+def ptxas_usage(log: str):
+    """``-Xptxas=-v``'s register lines, each after the kernel it is for and
+    with its spills where there are any."""
+    out, kernel, spill = [], "", ""
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif "spill stores" in ln:
+            spill = "" if ln.strip().startswith("0 bytes stack") else f" ({ln.strip()})"
+        elif "registers" in ln:
+            out.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}{spill}")
+    return out
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1619,9 +1704,8 @@ def main() -> None:
     secs = build.build_all()
     for name in SOURCES:
         build.launcher(name)
-        regs = [ln.strip() for ln in build.BUILD_LOG.get(name, "").splitlines()
-                if "registers" in ln]
-        print(f"[build] {name}: {'; '.join(regs) or 'cached'}", flush=True)
+        print(f"[build] {name}: {'; '.join(ptxas_usage(build.BUILD_LOG.get(name, ''))) or 'cached'}",
+              flush=True)
     print(f"[build] {len(SOURCES)} kernels in {secs:.2f}s", flush=True)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -1676,6 +1760,13 @@ def main() -> None:
     # the dot kernels at the other path's batch, at the bench config's D = 16
     # (B = 256), and on edge shapes
     dl = ARCHS["dlrm-narrow"]
+    # the cross forward at the training path's B = 256 (3 launches a step),
+    # and both cross kernels on edge shapes
+    dcn = ARCHS["dcn-v2"]
+    second_shape = {"cross_layer": run_cross(TRAIN_B, gen, dcn)}
+    print("[kernel] cross_layer train " + json.dumps(second_shape["cross_layer"]), flush=True)
+    print("[kernel] cross edge shapes (largest err of scale) "
+          + json.dumps(run_cross_edges(gen)), flush=True)
     extra = {"dot_interaction train": lambda: run_dot(TRAIN_B, gen, dl),
              "dot_interaction_bwd serve": lambda: run_dot_bwd(SERVE_B, gen, dl),
              "dot_interaction bench D=16": lambda: run_dot(TRAIN_B, gen, dl, d=16),
@@ -1718,6 +1809,14 @@ def main() -> None:
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name.startswith("cross_layer"):
+            kernels[-1].update({"cluster": r["cluster"], "tile": r["tile"],
+                                "fp32_bound_ms": r["fp32_bound_ms"]})
+        if name in second_shape:  # the same kernel at its other path's shape
+            r2 = second_shape[name]
+            kernels[-1]["shapes"] = [{k: r2[k] for k in (
+                "n", "cluster", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "fp32_bound_ms", "library_ms")}]
         if name == "gather_project_grad":
             # the engine's backward folds the cotangent through proj^T itself,
             # as the reference's does; the kernel is reached through the

@@ -42,11 +42,10 @@ SIGNATURES: Dict[str, List] = {
     "dedup_adagrad": [_P, _P, _P, _P, _P, _I64, _I64, _I, _F, _F, _P],
     # x, g, out, b, f, d, stream
     "fm_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
-    # x0, x, w, b, out, b_rows, d, stream
-    "cross_layer": [_P, _P, _P, _P, _P, _I64, _I, _P],
-    # x0, x, w, b, g, gx0, gx, gw, gb, partials (scratch), b_rows, d, chunk,
-    # splits, stream
-    "cross_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _P],
+    # x0, x, w, b, out, b_rows, d, cluster, stream
+    "cross_layer": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    # x0, x, w, b, g, gx0, gx, gw, gb, b_rows, d, cluster_dx, cluster_dw, stream
+    "cross_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # back, idx, kept, proj, wide, narrow, m, n, nd, d, stream
     "gather_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     # g_wide, g_narrow, proj, order, sorted idx, offsets (scratch), out, n, m,

@@ -26,7 +26,7 @@ accumulator it is given in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -404,25 +404,53 @@ def _expect_cross(what: str, x0, x, w, b, g=None) -> None:
                          f"{shapes}, want {want}")
 
 
+# the cross kernels' output tile, contraction slab and largest (portable)
+# cluster; a grid of CROSS_MIN_BLOCKS blocks puts three quarters of the
+# H100's 132 SMs to work
+CROSS_TILE, CROSS_SLAB, CROSS_MAX_CLUSTER, CROSS_MIN_BLOCKS = 64, 32, 8, 99
+
+
+def cross_cluster(n: int, tiles: int) -> int:
+    """Blocks of a cluster that split a contraction of ``n`` for each of
+    ``tiles`` output tiles: the smallest of 1, 2, 4, 8 (the sizes the
+    kernels are built for) that puts CROSS_MIN_BLOCKS blocks to work, and
+    no more than gives every block a 32-wide slab. Larger clusters only add
+    cross-block sums (``scripts/torch_cross_bench.py --sweep`` on the
+    H100); 1 where the tiles alone fill the card."""
+    slabs, c = -(-n // CROSS_SLAB), 1
+    while tiles * c < CROSS_MIN_BLOCKS and 2 * c <= min(CROSS_MAX_CLUSTER, slabs):
+        c *= 2
+    return c
+
+
+def cross_plan(bsz: int, d: int) -> Tuple[int, int, int]:
+    """``(c_fwd, c_dx, c_dw)``: the cluster sizes of the forward
+    (contraction d over ceil(B/64) x ceil(d/64) output tiles), of the
+    backward's dx pass (contraction d, twice those tiles: gx0's and gx's)
+    and of its dW pass (contraction B, ceil(d/64)^2 tiles). Fixed by (B, d)
+    alone, so a shape always sums in the same order."""
+    tiles_b, tiles_d = -(-bsz // CROSS_TILE), -(-d // CROSS_TILE)
+    return (cross_cluster(d, tiles_b * tiles_d), cross_cluster(d, 2 * tiles_b * tiles_d),
+            cross_cluster(bsz, tiles_d * tiles_d))
+
+
+def cross_ranges(n: int, c: int) -> List[Tuple[int, int]]:
+    """Rank r's part ``[lo, hi)`` of a contraction of ``n`` split over a
+    cluster of ``c`` in whole 32-wide slabs, for r in rank order (the
+    kernels' ``range_lo``)."""
+    slabs = -(-n // CROSS_SLAB)
+    cuts = [min(n, slabs * r // c * CROSS_SLAB) for r in range(c + 1)]
+    return list(zip(cuts, cuts[1:]))
+
+
 def _cross_layer_cuda(x0, x, w, b):
     _expect_cross("cross_layer", x0, x, w, b)
     bsz, d = x.shape
     out = torch.empty_like(x)
     if bsz and d:
         _launch("cross_layer", x0.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                out.data_ptr(), bsz, d)
+                out.data_ptr(), bsz, d, cross_plan(bsz, d)[0])
     return out
-
-
-def cross_bwd_split(bsz: int) -> Tuple[int, int]:
-    """``(chunk, splits)`` of the backward's split-K over the batch: about
-    one chunk per 64 rows, at most 64 chunks, each a multiple of the
-    kernel's 32-row slab and none empty. Fixed by B alone, so a shape always
-    sums in the same order."""
-    splits = min(64, max(1, -(-bsz // 64)))
-    per = -(-bsz // splits)
-    chunk = -(-per // 32) * 32
-    return chunk, -(-bsz // chunk)
 
 
 def _cross_layer_bwd_cuda(x0, x, w, b, g):
@@ -432,11 +460,9 @@ def _cross_layer_bwd_cuda(x0, x, w, b, g):
     if not (bsz and d):
         return gx0, gx, torch.zeros_like(w), torch.zeros_like(b)
     gw, gb = torch.empty_like(w), torch.empty_like(b)
-    chunk, splits = cross_bwd_split(bsz)
-    part = torch.empty((splits, d * d + d), dtype=torch.float32, device=x.device)
     _launch("cross_layer_bwd", x0.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
             g.data_ptr(), gx0.data_ptr(), gx.data_ptr(), gw.data_ptr(), gb.data_ptr(),
-            part.data_ptr(), bsz, d, chunk, splits)
+            bsz, d, *cross_plan(bsz, d)[1:])
     return gx0, gx, gw, gb
 
 

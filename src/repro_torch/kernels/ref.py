@@ -207,3 +207,34 @@ def cross_layer_bwd_ref(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     gw = x.T @ gz
     gb = gz.sum(dim=0)
     return gx0, gx, gw, gb
+
+
+# ---- the cross kernels' 3xTF32 arithmetic, emulated for the CPU tests ----
+
+
+def tf32_split(a: torch.Tensor):
+    """``(big, small)`` as the cross kernels feed them to the tensor cores:
+    ``big`` is ``a`` rounded to nearest, ties away from zero, to tf32's
+    10-bit mantissa (``cvt.rna.tf32.f32``'s rounding), ``small`` is ``a -
+    big`` as the tensor core reads it, truncated to tf32. Integer operations
+    on the float32 bit pattern: add half the unit of the 13 dropped bits,
+    then clear them (for ``small`` only clear them)."""
+    mask = ~0x1FFF
+    big = ((a.contiguous().view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    small = ((a - big).contiguous().view(torch.int32) & mask).view(torch.float32)
+    return big, small
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, ranges) -> torch.Tensor:
+    """``a @ b`` as the cross kernels compute it: the contraction cut into
+    ``ranges`` (a cluster's ranks, ``ops.cross_ranges``), each part in
+    3xTF32 (small_a·big_b + big_a·small_b + big_a·big_b, float32), the parts
+    summed in rank order. Tensor cores sum a k-step in their own order, so
+    this emulates the precision, not the bits."""
+    out = None
+    for lo, hi in ranges:
+        ab, as_ = tf32_split(a[:, lo:hi])
+        bb, bs = tf32_split(b[lo:hi])
+        part = as_ @ bb + ab @ bs + ab @ bb
+        out = part if out is None else out + part
+    return out

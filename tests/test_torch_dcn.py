@@ -66,10 +66,13 @@ def _cross_case(b, d, seed):
     return x0, x, w, bias, g
 
 
+def _scale(exp):
+    return max(float(np.abs(np.asarray(exp)).max()), 1.0)
+
+
 def _close(got, exp):
     exp = np.asarray(exp)
-    np.testing.assert_allclose(np.asarray(got), exp, rtol=0,
-                               atol=1e-5 * max(float(np.abs(exp).max()), 1.0))
+    np.testing.assert_allclose(np.asarray(got), exp, rtol=0, atol=1e-5 * _scale(exp))
 
 
 # (B, d): d = 429 is dcn-v2's width; 37, 67 and 130 are no multiple of 4,
@@ -193,12 +196,59 @@ def test_cross_wrappers_check_shapes_before_launch(monkeypatch):
         ops._cross_layer_bwd_cuda(x0, x, w, bias.double(), g)
 
 
-@pytest.mark.parametrize("b", [1, 16, 65, 256, 512, 65_536, 65_537])
-def test_cross_bwd_split_covers_the_batch(b):
-    """The split-K chunks tile the batch with none empty, in 32-row slabs."""
-    chunk, splits = ops.cross_bwd_split(b)
-    assert chunk % 32 == 0 and 1 <= splits <= 64
-    assert (splits - 1) * chunk < b <= splits * chunk
+@pytest.mark.parametrize("b,d", [(1, 16), (16, 29), (65, 67), (256, 429), (512, 429),
+                                 (65_536, 429), (65_537, 429), (37, 1)])
+def test_cross_plan_tiles_the_contractions(b, d):
+    """Each pass's cluster splits its contraction (d for the forward and dx,
+    B for dW) into whole 32-wide slabs in rank order, none empty, fixed by
+    (B, d) alone."""
+    plan = ops.cross_plan(b, d)
+    assert plan == ops.cross_plan(b, d)
+    for n, c in zip((d, d, b), plan):
+        assert c in (1, 2, 4, 8)
+        ranges = ops.cross_ranges(n, c)
+        assert len(ranges) == c and ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(lo < hi and lo % 32 == 0 for lo, hi in ranges)
+        assert all(p[1] == q[0] for p, q in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("b,d", CROSS_SHAPES + [(65, 429)])
+def test_cross_3xtf32_arithmetic_matches_reference_and_pallas(b, d):
+    """The precision argument of the cross kernels, checked on the CPU: the
+    forward and all four cotangents computed in 3xTF32 (``tref``'s
+    emulation) in the kernels' split-K order (``ops.cross_plan``) stay
+    within 1e-5 of scale of the reference and the Pallas kernels. Largest
+    error seen: printed (``-s``)."""
+    x0, x, w, bias, g = _cross_case(b, d, 7 * b + d)
+    tx0, tx, tw, tb, tg = map(_t, (x0, x, w, bias, g))
+    plan = ops.cross_plan(b, d)
+    kf, kd, kb = (ops.cross_ranges(n, c) for n, c in zip((d, d, b), plan))
+    out = tx0 * (tref.matmul_3xtf32(tx, tw, kf) + tb) + tx
+    z = tref.matmul_3xtf32(tx, tw, kd)  # the dx pass recomputes z in its own split
+    gz = tg * tx0
+    gb = None
+    for lo, hi in kb:  # each rank's column sums, then the ranks in order
+        part = gz[lo:hi].sum(dim=0)
+        gb = part if gb is None else gb + part
+    grads = (tg * (z + tb), tref.matmul_3xtf32(gz, tw.T.contiguous(), kd) + tg,
+             tref.matmul_3xtf32(tx.T.contiguous(), gz, kb), gb)
+    jargs = tuple(map(jnp.asarray, (x0, x, w, bias)))
+    worst = 0.0
+    for exp in (jref.cross_layer_ref(*jargs), cross_layer_pallas(*jargs, interpret=True)):
+        _close(out.numpy(), exp)
+        worst = max(worst, float(np.abs(out.numpy() - exp).max()) / _scale(exp))
+    for exp in (jref.cross_layer_bwd_ref(*jargs, jnp.asarray(g)),
+                cross_layer_bwd_pallas(*jargs, jnp.asarray(g), interpret=True)):
+        for a, e in zip(grads, exp):
+            _close(a.numpy(), e)
+            worst = max(worst, float(np.abs(a.numpy() - np.asarray(e)).max()) / _scale(e))
+    if d == 429:  # one tf32 product alone (big_a @ big_b) misses the bar
+        big_x, big_w = tref.tf32_split(tx)[0], tref.tf32_split(tw)[0]
+        one = tx0 * (big_x @ big_w + tb) + tx
+        exp = np.asarray(jref.cross_layer_ref(*jargs))
+        assert float(np.abs(one.numpy() - exp).max()) > 1e-5 * _scale(exp)
+    print(f"3xTF32 cross (B={b}, d={d}, clusters {plan}): "
+          f"largest error {worst:.3g} of scale")
 
 
 def _smoke_model_pair(b):
