@@ -31,19 +31,25 @@ Phases, in order (any failure raises and exits non-zero):
    and at bulk: outputs within 1e-5 of scale, not-kept positions and
    empty slots exactly 0, the gradient repeating bit for bit and reached
    both standalone and through the autograd of ``ops.gather_project``.
-   ``dedup_adagrad`` runs again on the 187,780,711 x 4 narrow master and
-   ``tier_probe`` on a 48,806,440-key L2 tier. The four gradient-compression
-   kernels run on the routed rows of a training step (m = the bucket
-   capacity, 37.5 % of the rows exactly zero, some with tied magnitudes) at
-   deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and the narrow d = 4
-   (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN, infinities,
-   subnormals, signed zeros): payloads and rows bitwise the plain versions',
-   zero rows exactly 0 out, each kernel repeating bit for bit. The two DLRM
-   dot kernels run at F = 27, D = 128 at both path batches, at the bench
-   config's D = 16, at bulk and on edge shapes (F = 2 with a B that is no
-   multiple of the block, odd D, D = 1, F = 1): within 1e-5 of scale,
-   repeating bit for bit, the backward reached both standalone and through
-   the autograd of ``ops.dot_interaction``;
+   ``dedup_adagrad`` (a memset and two hash-grouping kernels, no sort) runs
+   again on the 187,780,711 x 4 narrow master and its 48,806,440-row L2 tier
+   at D = 10, on DLRM's 187,767,399 x 32 master and its 4,161,784-row L2
+   tier at D = 128, and with rows repeated 1,000, 33 and 2 times: touched
+   rows within 1e-5 of scale, the rest bitwise unchanged, a second call
+   bitwise the first; ``tier_probe`` runs on a 48,806,440-key L2 tier, and
+   ``searchsorted`` with the masked row gather is its yardstick. The four
+   gradient-compression kernels run on the routed rows of a training step
+   (m = the bucket capacity, 37.5 % of the rows exactly zero, some with
+   tied magnitudes) at deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and
+   the narrow d = 4 (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN,
+   infinities, subnormals, signed zeros): payloads and rows bitwise the
+   plain versions', zero rows exactly 0 out, each kernel repeating bit for
+   bit. The two DLRM dot kernels run at F = 27, D = 128 at both path
+   batches, at the bench config's D = 16, at bulk and on edge shapes (F = 2
+   with a B that is no multiple of a ring buffer's samples, odd D, D = 1,
+   F = 1): within 1e-5 of scale, repeating bit for bit, the backward (a
+   persistent ``cp.async`` ring feeding 4 x 4 register tiles) reached both
+   standalone and through the autograd of ``ops.dot_interaction``;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -412,12 +418,22 @@ def run_tier_probe(b: int, gen: torch.Generator, a: Arch, l2: bool = False) -> d
     keys_read = min(h, n * (math.ceil(math.log2(h / n)) + 2))
     nbytes = n * (4 + 1) + keys_read * 4 + n_hit * a.dim * 4 + n * (1 + 4 + a.dim * 4)
     b_ms, b_by = bound(nbytes, 0)
+
+    def lib():  # searchsorted, then the masked row gather: a chain
+        slot = torch.searchsorted(keys, uniq).clamp_(max=h - 1)
+        found = (keys[slot] == uniq) & uvalid
+        return found, slot, rows[slot].masked_fill_(~found[:, None], 0.0)
+
+    lhit, lslot, lout = lib()
+    check(torch.equal(lhit, rhit) and torch.equal(lout, rout),
+          "searchsorted + gather yardstick agrees")
     return {"n": n, "tier_keys": h, "hits": n_hit, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows)),
             "call_ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows),
                                device_only=False),
             "plain_ms": cuda_ms(lambda: ref.tier_probe_ref(uniq, uvalid, keys, rows)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": cuda_ms(lib), "library_call": "searchsorted, then masked gather",
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -511,34 +527,70 @@ def run_segment_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
 _TABLES = {}
 
 
-def full_tables(gen: torch.Generator, a: Arch):
-    """Two identical full-size masters + accumulators of ``a`` (kernel and
-    plain version each update one in place), made once for both shapes."""
-    if _TABLES.get("arch") != a:
+def full_tables(gen: torch.Generator, key: str, rows: int, d: int):
+    """Two identical full-size tables + accumulators (kernel and plain
+    version each update one in place), made once for all the shapes of
+    ``key`` (an arch's master, or one of its tiers)."""
+    if _TABLES.get("key") != key:
         _TABLES.clear()
         torch.cuda.empty_cache()
-        w = torch.randn((a.rows, a.master_dim), device=DEV, generator=gen)
-        acc = torch.rand((a.rows, 1), device=DEV, generator=gen)
-        _TABLES.update(arch=a, w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
+        w = torch.randn((rows, d), device=DEV, generator=gen)
+        acc = torch.rand((rows, 1), device=DEV, generator=gen)
+        _TABLES.update(key=key, w_k=w, acc_k=acc, w_p=w.clone(), acc_p=acc.clone())
     return _TABLES
 
 
-def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
-    """The miss-gradient update of a B-sample step: m = the plan's bucket
-    capacity gradient rows into the arch's full master (the narrow one at
-    d = 4 for ``picasso_narrow``), a quarter of them duplicates of other rows
-    and a tenth invalid slots that point at row 0 (the clamped
-    ``recv_local`` of an empty bucket slot)."""
-    m = arch_plan(a, b)[1].capacity[0]
-    d = a.master_dim
-    t = full_tables(gen, a)
-    w_k, acc_k, w_p, acc_p = t["w_k"], t["acc_k"], t["w_p"], t["acc_p"]
-    idx = torch.randint(0, a.rows, (m,), device=DEV, generator=gen, dtype=torch.int32)
-    dup = torch.randperm(m, device=DEV, generator=gen)[: m // 4]
-    idx[dup] = idx[torch.randint(0, m, (dup.numel(),), device=DEV, generator=gen)]
+# positions of the skewed dedup case's three rows: one far past the 32
+# positions a list sorts, one just past, one pair
+DEDUP_SKEW = (1000, 33, 2)
+
+
+def dedup_case(m: int, rows: int, d: int, gen: torch.Generator, skew: bool = False):
+    """``(idx, g, valid)`` of m gradient rows into a ``rows``-row table: a
+    quarter of them duplicates of other rows, or with ``skew`` the rows of
+    DEDUP_SKEW (spread over random rows) repeated at random positions; a
+    tenth invalid slots that point at row 0 (the clamped ``recv_local`` of
+    an empty bucket slot)."""
+    idx = torch.randint(0, rows, (m,), device=DEV, generator=gen, dtype=torch.int32)
+    perm = torch.randperm(m, device=DEV, generator=gen)
+    if skew:
+        heavy = torch.randint(0, rows, (len(DEDUP_SKEW),), device=DEV, generator=gen,
+                              dtype=torch.int32)
+        at = 0
+        for row, k in zip(heavy, DEDUP_SKEW):
+            idx[perm[at:at + k]] = row
+            at += k
+    else:
+        dup = perm[: m // 4]
+        idx[dup] = idx[torch.randint(0, m, (dup.numel(),), device=DEV, generator=gen)]
     valid = torch.rand((m,), device=DEV, generator=gen) >= 0.1
+    if skew:
+        valid[perm[:sum(DEDUP_SKEW)]] = True
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     g = torch.randn((m, d), device=DEV, generator=gen)
+    return idx, g, valid
+
+
+def dedup_shape(b: int, a: Arch, tier: bool = False) -> Tuple[int, int, int]:
+    """``(m, rows, d)`` of a B-sample step's ``dedup_adagrad`` on ``a``: the
+    miss gradients (m = the plan's bucket capacity) into the master (the
+    narrow one for ``picasso_narrow``), or with ``tier`` the hit gradients
+    of the step's B x fields unique ids into the L2 tier at full width."""
+    if tier:
+        return b * a.n_fields, a.l2_rows, a.dim
+    return arch_plan(a, b)[1].capacity[0], a.rows, a.master_dim
+
+
+def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch, tier: bool = False,
+                      skew: bool = False) -> dict:
+    """``dedup_adagrad`` at a step's shape (``dedup_shape``) on a full table
+    against its plain version: touched rows within 1e-5 of scale, every
+    other row bitwise unchanged, and a second call from the same state
+    bitwise the first."""
+    m, rows, d = dedup_shape(b, a, tier)
+    t = full_tables(gen, f"{a.name} {'L2' if tier else 'master'}", rows, d)
+    w_k, acc_k, w_p, acc_p = t["w_k"], t["acc_k"], t["w_p"], t["acc_p"]
+    idx, g, valid = dedup_case(m, rows, d, gen, skew)
     touched = torch.unique(idx[valid]).long()
     u = touched.numel()
     w_p.copy_(w_k)  # the previous shape's timing moved the two apart
@@ -547,19 +599,32 @@ def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch) -> dict:
     ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)
     ref.dedup_adagrad_ref(w_p, acc_p, idx, g, valid, LR, EPS)
     torch.cuda.synchronize(DEV)
-    err = max(max_err(w_k[touched], w_p[touched]), max_err(acc_k[touched], acc_p[touched]))
-    check(err <= TOL * scale_of(w_p[touched]), f"dedup_adagrad touched rows err {err}")
+    err_w = max_err(w_k[touched], w_p[touched])
+    err_acc = max_err(acc_k[touched], acc_p[touched])
+    err = max(err_w, err_acc)
+    # acc grows by mean(gsum^2): a row summed from 1,000 positions takes it
+    # to about 1,000, where the plain version's atomic sums, in another
+    # order, part by an ulp; it is held to its own scale there
+    acc_scale = scale_of(acc_p[touched]) if skew else scale_of(w_p[touched])
+    check(err_w <= TOL * scale_of(w_p[touched]) and err_acc <= TOL * acc_scale,
+          f"dedup_adagrad touched rows err w {err_w}, acc {err_acc}")
     check(not torch.equal(w_k[touched], w0), "dedup_adagrad moved the touched rows")
+    first = (w_k[touched].clone(), acc_k[touched].clone())
     # every other row of the full table: put the touched rows back, then the
     # kernel's table must equal the plain version's bit for bit
     for tw, ta in ((w_k, acc_k), (w_p, acc_p)):
         tw[touched], ta[touched] = w0, acc0
     check(torch.equal(w_k, w_p) and torch.equal(acc_k, acc_p),
           "dedup_adagrad untouched rows bitwise unchanged")
+    ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)
+    check(same_bits(w_k[touched], first[0]) and same_bits(acc_k[touched], first[1]),
+          f"dedup_adagrad repeats bit for bit at {(m, rows, d)}, skew={skew}")
+    w_k[touched], acc_k[touched] = w0, acc0
     # inputs once (idx, valid, g), touched rows of w and acc read and written
     nbytes = m * (4 + 1 + d * 4) + u * (d * 4 + 4) * 2
     b_ms, b_by = bound(nbytes, m * d + u * (3 * d + 4))
-    return {"m": m, "rows": a.rows, "d": d, "touched_rows": u, "max_abs_err": err,
+    return {"m": m, "rows": rows, "d": d, "touched_rows": u, "skew": skew,
+            "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS)),
             "call_ms": cuda_ms(lambda: ops.dedup_adagrad(w_k, acc_k, idx, g, valid, LR, EPS),
                                device_only=False),
@@ -1747,6 +1812,8 @@ def main() -> None:
                                                                           narrow),
              "dedup_adagrad narrow-master train": lambda: run_dedup_adagrad(TRAIN_B, gen,
                                                                             narrow),
+             "dedup_adagrad narrow L2 tier train": lambda: run_dedup_adagrad(
+                 TRAIN_B, gen, narrow, tier=True),
              "tier_probe L2 serve": lambda: run_tier_probe(SERVE_B, gen, narrow, l2=True)}
     for label, run in extra.items():
         print(f"[kernel] {label} " + json.dumps(run()), flush=True)
@@ -1767,6 +1834,18 @@ def main() -> None:
     print("[kernel] cross_layer train " + json.dumps(second_shape["cross_layer"]), flush=True)
     print("[kernel] cross edge shapes (largest err of scale) "
           + json.dumps(run_cross_edges(gen)), flush=True)
+    # dedup_adagrad on DLRM's d = 32 master and its D = 128 L2 tier, then
+    # on deepfm's master with rows repeated 1,000, 33 and 2 times
+    for label, run in {
+            "dedup_adagrad dlrm-narrow master train": lambda: run_dedup_adagrad(TRAIN_B,
+                                                                              gen, dl),
+            "dedup_adagrad dlrm-narrow L2 tier train": lambda: run_dedup_adagrad(
+                TRAIN_B, gen, dl, tier=True),
+            "dedup_adagrad skewed rows (1000, 33, 2) train": lambda: run_dedup_adagrad(
+                TRAIN_B, gen, ARCHS["deepfm"], skew=True)}.items():
+        print(f"[kernel] {label} " + json.dumps(run()), flush=True)
+    _TABLES.clear()
+    torch.cuda.empty_cache()
     extra = {"dot_interaction train": lambda: run_dot(TRAIN_B, gen, dl),
              "dot_interaction_bwd serve": lambda: run_dot_bwd(SERVE_B, gen, dl),
              "dot_interaction bench D=16": lambda: run_dot(TRAIN_B, gen, dl, d=16),

@@ -38,8 +38,8 @@ SIGNATURES: Dict[str, List] = {
     "fm_interaction": [_P, _P, _I64, _I, _I, _P],
     # g_bags, seg, w, order, sorted_inv, offsets (scratch), out, n, n_rows, d, stream
     "segment_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
-    # w, acc, sorted idx, order, g, m, rows, d, lr, eps, stream
-    "dedup_adagrad": [_P, _P, _P, _P, _P, _I64, _I64, _I, _F, _F, _P],
+    # w, acc, idx, valid, g, scratch, scratch ints, m, rows, d, cap, lr, eps, stream
+    "dedup_adagrad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P],
     # x, g, out, b, f, d, stream
     "fm_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
     # x0, x, w, b, out, b_rows, d, cluster, stream
@@ -61,8 +61,8 @@ SIGNATURES: Dict[str, List] = {
     "topk_decompress": [_P, _P, _P, _I64, _I, _I, _P],
     # x, out, b, f, d, stream
     "dot_interaction": [_P, _P, _I64, _I, _I, _P],
-    # x, g, out, b, f, d, stream
-    "dot_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
+    # x, g, out, b, f, d, samples a group, stages, threads, smem bytes, stream
+    "dot_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P],
 }
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}

@@ -1,6 +1,6 @@
 // DLRM pairwise dot interaction backward: d/dfields of dot_interaction,
-//   out[b, i, :] = sum_{j != i} G[i, j] * x[b, j, :],
-//   G[i, j] = g[b, p(min(i, j), max(i, j))],
+//   out[b, i, :] = sum_j S[i, j] * x[b, j, :],
+//   S[i, j] = S[j, i] = g[b, p(min(i, j), max(i, j))], S[i, i] = 0,
 // from fields [B, F, D] and the cotangent g [B, P] to [B, F, D]; p(i, j) is
 // the np.triu_indices(F, k=1) position of the pair. This is the reference's
 // (gZ + gZ^T) @ x with gZ the cotangent scattered into the strict upper
@@ -8,89 +8,226 @@
 //
 // Replaces dot_interaction_bwd_pallas (src/repro/kernels/interaction_bwd.py:89).
 //
-// Bound: bytes (B*F*D floats read and written once, B*P read once; the
-// 2*B*F*F*D flops sit below at float32 rates). The TPU kernel scatters g
-// into a [F, F] block with the transpose of a [P, F*F] 0/1 selection matmul
-// and then multiplies on the MXU. Here a block stages its samples' [F, D]
-// rows and the symmetric [F, F] G (zero diagonal) in shared memory, and one
-// thread owns one output element (i, d), summing over j in increasing order
-// (j = i skipped) with fused multiply-adds: no selection matrix, nothing
-// [F, F] in device memory, no atomics, so the result repeats bit for bit.
-// Consecutive threads take consecutive d of a row, so both the shared reads
-// of x and the output writes are contiguous, and G[i, j] is a broadcast. A
-// block takes several samples when one sample has fewer elements than the
-// block has threads.
+// Bound: bytes. At DLRM's F = 27, D = 128 it moves 2*B*F*D + B*P floats
+// (1.90 GB at B = 65,536: 0.568 ms at 3.35 TB/s), while its 2*B*F*(F-1)*D
+// flops take a third of that at float32 FMA rates, so tensor cores (wgmma,
+// mma.sync) would buy nothing; what matters is how the FMAs are fed and
+// that device memory never waits. The TPU kernel scatters g into a [F, F]
+// block with a 0/1 selection matmul and multiplies on the MXU. Here:
+//  - persistent blocks (the grid is what fits on the card at once) walk
+//    their groups of `spb` samples through a ring of `stages` buffers in
+//    shared memory filled by cp.async (16-byte copies where the rows are
+//    16-byte aligned, else 4-byte), so the next samples load while this
+//    one computes;
+//  - the block builds the pair table p -> (i, j) once, and each sample's P
+//    cotangents, copied in coalesced, are written to S[i][j] and S[j][i]
+//    of a zero-diagonal S whose rows are padded to a multiple of 4: no
+//    integer division per entry;
+//  - a thread owns a 4 x 4 register tile (rows i of a row tile, 4
+//    consecutive d). At each j it reads x[j, d:d+4] and S[j, i:i+4] as two
+//    16-byte shared loads and does 16 independent FMAs (two loads per 16
+//    FMAs). The 32 threads of a warp take 32 consecutive column groups, so
+//    x's loads and the output's 16-byte stores are contiguous and S's
+//    load is a broadcast.
+// Each output element sums j in ascending order from +0.0f with fmaf,
+// multiplying the diagonal by its exact zero: for finite inputs that is
+// bit for bit the skip of j == i, and so the previous kernel's result. No
+// atomics and a fixed order: the result repeats bit for bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;  // no opt-in needed below this
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-__global__ void dot_interaction_bwd_kernel(const float* __restrict__ x,
-                                           const float* __restrict__ g,
-                                           float* __restrict__ out, int64_t b,
-                                           int f, int d, int p_count,
-                                           int per_block) {
-  extern __shared__ float smem[];
-  const int fd = f * d, ff = f * f;
-  float* xs = smem;                   // [per_block, F, D]
-  float* gs = smem + per_block * fd;  // [per_block, F, F]
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int ns = static_cast<int>(b - b0 < per_block ? b - b0 : per_block);
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-  const float* xb = x + b0 * fd;
-  for (int e = threadIdx.x; e < ns * fd; e += blockDim.x) xs[e] = xb[e];
-  const float* gb = g + b0 * p_count;
-  for (int e = threadIdx.x; e < ns * ff; e += blockDim.x) {
-    const int s = e / ff;
-    const int r = e - s * ff;
-    const int i = r / f;
-    const int j = r - i * f;
-    const int lo = i < j ? i : j, hi = i < j ? j : i;
-    // row lo of the triangle starts at lo*F - lo*(lo+1)/2
-    gs[e] = lo == hi ? 0.0f
-                     : gb[static_cast<int64_t>(s) * p_count + lo * f - lo * (lo + 1) / 2 +
-                          (hi - lo - 1)];
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ constexpr int up4(int v) { return (v + 3) & ~3; }
+
+// The shared-memory layout, in floats: the pair table, S [spb, F, Fp], then
+// `stages` buffers of (rows [spb, F, Dp], cotangents [spb * P]).
+struct Layout {
+  int f, d, fp, dp, p, spb;
+  __host__ __device__ Layout(int f_, int d_, int spb_)
+      : f(f_), d(d_), fp(up4(f_)), dp(up4(d_)), p(f_ * (f_ - 1) / 2), spb(spb_) {}
+  __host__ __device__ int s_off() const { return up4(p); }
+  __host__ __device__ int rows_len() const { return spb * f * dp; }
+  __host__ __device__ int stage_off() const { return s_off() + spb * f * fp; }
+  __host__ __device__ int stage_len() const { return rows_len() + up4(spb * p); }
+  __host__ __device__ size_t bytes(int stages) const {
+    return 4 * (static_cast<size_t>(stage_off()) + static_cast<size_t>(stages) * stage_len());
   }
-  __syncthreads();
+};
 
-  float* ob = out + b0 * fd;
-  for (int t = threadIdx.x; t < ns * fd; t += blockDim.x) {
-    const int s = t / fd;
-    const int r = t - s * fd;
-    const int i = r / d;
-    const int k = r - i * d;
-    const float* gi = gs + s * ff + i * f;
-    const float* xk = xs + s * fd + k;
-    float acc = 0.0f;
-    for (int j = 0; j < f; ++j) {
-      if (j != i) acc = fmaf(gi[j], xk[j * d], acc);
+template <int kStages>
+__global__ void __launch_bounds__(256) dot_interaction_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ g, float* __restrict__ out,
+    int64_t b, Layout L, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int f = L.f, d = L.d, fp = L.fp, dp = L.dp, p = L.p, spb = L.spb;
+  const int col_groups = dp / 4, items = (fp / 4) * col_groups;
+  int* pairs = reinterpret_cast<int*>(smem);  // [P]: i << 16 | j
+  float* S = smem + L.s_off();
+  float* ring = smem + L.stage_off();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t groups = (b + spb - 1) / spb;
+  const int64_t n_it = blockIdx.x < groups ? (groups - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+
+  // row i of the triangle starts at i*F - i*(i+1)/2; built once a block
+  for (int i = tid; i < f; i += nt) {
+    const int base = i * f - i * (i + 1) / 2 - i - 1;
+    for (int j = i + 1; j < f; ++j) pairs[base + j] = (i << 16) | j;
+  }
+  for (int e = tid; e < spb * f * fp; e += nt) S[e] = 0.0f;  // diagonal and padding stay 0
+
+  auto first_sample = [&](int64_t it) { return (blockIdx.x + it * gridDim.x) * spb; };
+  auto load = [&](int64_t it) {
+    if (it >= n_it) return;  // an empty group keeps the wait count uniform
+    const int64_t b0 = first_sample(it);
+    const int ns = static_cast<int>(b - b0 < spb ? b - b0 : spb);
+    float* xs = ring + static_cast<int>(it % kStages) * L.stage_len();
+    float* gs = xs + L.rows_len();
+    const float* xg = x + b0 * f * d;
+    if (vec) {  // the group's rows are contiguous, and so is their copy (dp == d)
+      const int n4 = ns * f * d / 4;
+      for (int v = tid; v < n4; v += nt) cp16(xs + 4 * v, xg + 4 * v);
+    } else {  // a warp a row, its lanes along d; pad columns are never stored
+      for (int r = tid / 32; r < ns * f; r += nt / 32)
+        for (int c = tid % 32; c < d; c += 32) cp4(xs + r * dp + c, xg + r * d + c);
     }
-    ob[t] = acc;
+    const float* gg = g + b0 * p;
+    for (int e = tid; e < ns * p; e += nt) cp4(gs + e, gg + e);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load(s);
+    commit();
   }
+  for (int64_t it = 0; it < n_it; ++it) {
+    wait_groups<kStages - 2>();
+    // this group's copies are visible, and every thread is done with the
+    // previous group: S and the previous group's buffer are free
+    __syncthreads();
+    load(it + kStages - 1);
+    commit();
+    const int64_t b0 = first_sample(it);
+    const int ns = static_cast<int>(b - b0 < spb ? b - b0 : spb);
+    const float* xs = ring + static_cast<int>(it % kStages) * L.stage_len();
+    const float* gs = xs + L.rows_len();
+    for (int s = 0; s < ns; ++s) {
+      float* Ss = S + s * f * fp;
+      for (int q = tid; q < p; q += nt) {
+        const float v = gs[s * p + q];
+        const int ij = pairs[q], i = ij >> 16, j = ij & 0xffff;
+        Ss[i * fp + j] = v;
+        Ss[j * fp + i] = v;
+      }
+    }
+    __syncthreads();
+    for (int t = tid; t < ns * items; t += nt) {
+      const int s = t / items, r = t - s * items;
+      const int rt = r / col_groups, cg = r - rt * col_groups;
+      const float* xr = xs + s * f * dp + 4 * cg;
+      const float* sr = S + s * f * fp + 4 * rt;
+      float a[4][4] = {};
+#pragma unroll 3
+      for (int j = 0; j < f; ++j) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + j * dp);
+        const float4 sv = *reinterpret_cast<const float4*>(sr + j * fp);
+        const float xc[4] = {xv.x, xv.y, xv.z, xv.w}, sc[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a[u][c] = fmaf(sc[u], xc[c], a[u][c]);
+      }
+      float* ob = out + ((b0 + s) * f + 4 * rt) * d + 4 * cg;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (4 * rt + u >= f) break;
+        if (vec) {
+          __stcs(reinterpret_cast<float4*>(ob + u * d),
+                 make_float4(a[u][0], a[u][1], a[u][2], a[u][3]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (4 * cg + c < d) ob[u * d + c] = a[u][c];
+        }
+      }
+    }
+  }
+}
+
+template <int kStages>
+cudaError_t launch(const float* x, const float* g, float* out, int64_t b, Layout L,
+                   int threads, size_t smem, cudaStream_t stream) {
+  auto kern = dot_interaction_bwd_kernel<kStages>;
+  // the opt-in and the occupancy of the last (device, threads, smem), so a
+  // step's launch repeats no host-side query
+  static int last_dev = -1, last_threads = 0, sms = 0, per_sm = 0;
+  static size_t last_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != last_dev || threads != last_threads || smem != last_smem) {
+    last_dev = -1;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
+            cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    last_dev = dev;
+    last_threads = threads;
+    last_smem = smem;
+  }
+  const int64_t groups = (b + L.spb - 1) / L.spb;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const int64_t grid = groups < resident ? groups : resident;
+  const bool vec = L.d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kern<<<static_cast<unsigned int>(grid), threads, smem, stream>>>(x, g, out, b, L, vec);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() so the caller can raise.
-// The wrapper has checked that one sample's rows and G fit in 48 KB, and
-// launches only for B > 0, F > 0 and D > 0.
+// Launches on `stream`; returns the first CUDA error of the launch (so the
+// caller can raise). `spb` samples a group, `stages` (2 or 3) ring buffers,
+// `threads` (a multiple of 32, at most 256) and `smem` come from the
+// wrapper's plan (ops.dot_bwd_plan); `smem` must be the layout's size, and
+// the wrapper launches only for B > 0, F > 0 and D > 0.
 extern "C" int dot_interaction_bwd_launch(const void* x, const void* g, void* out,
-                                          int64_t b, int f, int d, void* stream) {
-  if (b <= 0 || f <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int p_count = f * (f - 1) / 2;
-  const int sample_bytes = (f * d + f * f) * 4;
-  int per_block = (kThreads + f * d - 1) / (f * d);
-  const int fit = kSmemBytes / sample_bytes;
-  if (per_block > fit) per_block = fit;
-  if (per_block < 1) per_block = 1;
-  const int64_t blocks = (b + per_block - 1) / per_block;
-  const size_t smem = static_cast<size_t>(per_block) * sample_bytes;
-  dot_interaction_bwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<float*>(out), b, f, d, p_count, per_block);
-  return static_cast<int>(cudaGetLastError());
+                                          int64_t b, int f, int d, int spb, int stages,
+                                          int threads, int64_t smem, void* stream) {
+  if (b <= 0 || f <= 0 || d <= 0 || spb <= 0 || threads <= 0 || threads > 256 ||
+      threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(f, d, spb);
+  if (smem != static_cast<int64_t>(L.bytes(stages)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xp = static_cast<const float*>(x);
+  const float* gp = static_cast<const float*>(g);
+  float* op = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = stages == 3   ? launch<3>(xp, gp, op, b, L, threads, smem, st)
+                    : stages == 2 ? launch<2>(xp, gp, op, b, L, threads, smem, st)
+                                  : cudaErrorInvalidValue;
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }

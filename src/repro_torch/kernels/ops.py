@@ -215,6 +215,15 @@ def segment_grad(g_bags, seg, weights, inv, n_rows: int,
 # ------------------------------------------------------------- dedup adagrad
 
 
+def dedup_scratch(m: int) -> Tuple[int, int]:
+    """``(cap, ints)`` of the dedup kernels' int32 scratch for ``m``
+    gradient rows: a hash table of ``cap`` two-int slots (``cap`` the least
+    power of two >= 2m, so linear probing always finds a free slot), then
+    the per-position ``next`` and ``slot_of`` lists."""
+    cap = 1 << max(2 * m - 1, 1).bit_length()
+    return cap, 2 * cap + 2 * m
+
+
 def _dedup_adagrad_cuda(w, acc, idx, g, valid, lr: float, eps: float):
     dev = w.device
     _expect(w, "dedup_adagrad w", torch.float32, 2, dev)
@@ -227,17 +236,16 @@ def _dedup_adagrad_cuda(w, acc, idx, g, valid, lr: float, eps: float):
     if tuple(acc.shape) != (rows, 1) or tuple(g.shape) != (m, d) or valid.shape[0] != m:
         raise ValueError(f"dedup_adagrad: w {tuple(w.shape)}, acc {tuple(acc.shape)}, "
                          f"idx {m}, g {tuple(g.shape)}, valid {valid.shape[0]}")
-    if rows >= 2**31 - 1 or not 0 < d <= 128:
-        raise ValueError(f"dedup_adagrad: rows={rows}, D={d}: the sentinel index "
-                         "`rows` must fit int32 and the warp covers D <= 128")
+    if rows >= 2**31 - 1 or m >= 2**30 or not 0 < d <= 128:
+        raise ValueError(f"dedup_adagrad: rows={rows}, m={m}, D={d}: row + 1 must fit "
+                         "int32, the hash table 2^31 slots, and the warp covers D <= 128")
     if m:
-        # invalid entries (and any index outside the table) take the sentinel
-        # `rows`, so they sort last and the kernel drops their run
-        keep = valid & (idx >= 0) & (idx < rows)
-        sidx = torch.where(keep, idx, torch.full_like(idx, rows))
-        si, order = torch.sort(sidx, stable=True)
-        _launch("dedup_adagrad", w.data_ptr(), acc.data_ptr(), si.data_ptr(),
-                order.data_ptr(), g.data_ptr(), m, rows, d, float(lr), float(eps))
+        # a memset and two kernels: the table is cleared, filled, then read
+        cap, ints = dedup_scratch(m)
+        scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
+        _launch("dedup_adagrad", w.data_ptr(), acc.data_ptr(), idx.data_ptr(),
+                valid.data_ptr(), g.data_ptr(), scratch.data_ptr(), scratch.numel(), m,
+                rows, d, cap, float(lr), float(eps))
     return w, acc
 
 
@@ -245,7 +253,8 @@ def dedup_adagrad(w, acc, idx, g, valid, lr: float, eps: float,
                   fused: Optional[bool] = None):
     """Sum duplicate row grads and apply row-wise adagrad to the touched rows
     of ``(w, acc)``, in place on the tensors given; returns them. Duplicates
-    are summed in stable-sorted position order (the reference's order):
+    are summed in ascending position order from +0.0 (the reference's
+    stable-sorted order; the kernel groups them by hashing, without a sort):
     untouched rows stay bitwise unchanged, touched rows match the plain
     version to about 1 ULP of the adagrad arithmetic."""
     if _use_kernel(fused, w, "dedup_adagrad"):
@@ -312,8 +321,47 @@ def fm_interaction(fields, fused: Optional[bool] = None):
 
 # ----------------------------------------------------------- dot interaction
 
-# both kernels stage a block's samples in at most 48 KB of shared memory
+# the forward stages a block's samples in at most 48 KB of shared memory
 _SMEM_BYTES = 48 * 1024
+# the backward opts in to what one block may hold on the H100 (227 KB); its
+# buffers take fewer samples where a batch would not give two groups to each
+# of the card's 132 SMs
+DOT_BWD_SMEM_BYTES, DOT_BWD_THREADS, DOT_BWD_MIN_GROUPS = 232_448, 256, 264
+
+
+def _up4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def dot_bwd_smem(f: int, d: int, spb: int, stages: int) -> int:
+    """Bytes of the backward kernel's shared memory: the pair table, the
+    symmetric cotangent S ``[spb, F, up4(F)]``, then ``stages`` buffers of
+    rows ``[spb, F, up4(D)]`` and raw cotangents ``[spb * P]`` (the C
+    ``Layout``)."""
+    p = f * (f - 1) // 2
+    stage = spb * f * _up4(d) + _up4(spb * p)
+    return 4 * (_up4(p) + spb * f * _up4(f) + stages * stage)
+
+
+def dot_bwd_plan(b: int, f: int, d: int) -> Tuple[int, int, int, int]:
+    """``(spb, stages, threads, smem)`` of the backward kernel at ``[B, F,
+    D]``: ``spb`` samples a ring buffer, enough for one 4 x 4 tile a thread
+    where a sample has fewer tiles than DOT_BWD_THREADS, but no more than
+    leaves DOT_BWD_MIN_GROUPS groups of the batch; three buffers where they
+    fit, else two. Raises where not even one sample in two buffers fits."""
+    tiles = (_up4(f) // 4) * (_up4(d) // 4)
+    fill = max(1, b // DOT_BWD_MIN_GROUPS)
+    for stages in (3, 2):
+        spb = max(1, min(DOT_BWD_THREADS // tiles, fill))
+        while spb > 1 and dot_bwd_smem(f, d, spb, stages) > DOT_BWD_SMEM_BYTES:
+            spb = max(1, spb // 2)
+        smem = dot_bwd_smem(f, d, spb, stages)
+        if smem <= DOT_BWD_SMEM_BYTES:
+            threads = min(DOT_BWD_THREADS, -(-spb * tiles // 32) * 32)
+            return spb, stages, threads, smem
+    raise ValueError(f"dot_interaction_bwd: F={f}, D={d}: one sample in two ring buffers "
+                     f"takes {dot_bwd_smem(f, d, 1, 2)} bytes, more than the "
+                     f"{DOT_BWD_SMEM_BYTES} of shared memory a block may hold")
 
 
 def _dot_interaction_cuda(fields):
@@ -338,14 +386,13 @@ def _dot_interaction_bwd_cuda(fields, g):
     p = f * (f - 1) // 2
     if tuple(g.shape) != (b, p):
         raise ValueError(f"dot_interaction_bwd: g {tuple(g.shape)}, want {(b, p)}")
-    # one sample's rows and its symmetric [F, F] cotangent
-    if d == 0 or (f * d + f * f) * 4 > _SMEM_BYTES:
-        raise ValueError(f"dot_interaction_bwd: F={f}, D={d}: the kernel takes D > 0 "
-                         "and one sample in 48 KB of shared memory")
+    if d == 0:
+        raise ValueError(f"dot_interaction_bwd: F={f}, D={d}: the kernel takes D > 0")
+    plan = dot_bwd_plan(b, f, d) if f else None  # raises for a sample too large
     out = torch.empty_like(fields)
-    if b and f:
+    if b and plan:
         _launch("dot_interaction_bwd", fields.data_ptr(), g.data_ptr(), out.data_ptr(),
-                b, f, d)
+                b, f, d, *plan)
     return out
 
 

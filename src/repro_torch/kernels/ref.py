@@ -238,3 +238,63 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, ranges) -> torch.Tensor:
         part = as_ @ bb + ab @ bs + ab @ bb
         out = part if out is None else out + part
     return out
+
+
+# ---- the dedup kernels' grouping, emulated for the CPU tests ----
+
+
+def dedup_adagrad_hashed(w: torch.Tensor, acc: torch.Tensor, idx: torch.Tensor,
+                         g: torch.Tensor, valid: torch.Tensor, lr: float, eps: float,
+                         cap: Optional[int] = None, seed: int = 0):
+    """``dedup_adagrad_ref`` with its duplicates grouped the way the CUDA
+    kernels group them (``csrc/dedup_adagrad.cu``), for the tests: each kept
+    position, in the order its atomics land (a shuffle from ``seed``),
+    inserts its row into a linear-probing table of ``cap`` slots (default
+    the kernel's, the least power of two >= 2m; a tiny power of two makes
+    probes collide) from the same multiplicative hash, and pushes itself
+    onto its slot's list; the position that filled the slot owns the row.
+    Each owner's list, if it holds at most 32 positions, is sorted
+    ascending, else its row's positions are found by an ascending scan of
+    ``idx``; the rows are summed in that order from +0.0. The Adagrad step
+    is ``dedup_adagrad_ref``'s. Updates ``w`` and ``acc`` in place."""
+    rows, m = w.shape[0], idx.shape[0]
+    cap = cap or 1 << max(2 * m - 1, 1).bit_length()
+    shift = 33 - cap.bit_length()
+    ids, ok = idx.tolist(), valid.tolist()
+    kept = [ok[j] and 0 <= ids[j] < rows for j in range(m)]
+    if cap & (cap - 1) or cap <= len({ids[j] for j in range(m) if kept[j]}):
+        raise ValueError(f"cap {cap}: a power of two above the distinct kept rows")
+    key, head, nxt, owner = [0] * cap, [0] * cap, [0] * m, {}
+    arrival = torch.randperm(m, generator=torch.Generator().manual_seed(seed)).tolist()
+    for j in arrival:
+        if not kept[j]:
+            continue
+        s = ((ids[j] * 2654435769) & 0xFFFFFFFF) >> shift
+        while key[s] not in (0, ids[j] + 1):
+            s = (s + 1) & (cap - 1)
+        if key[s] == 0:
+            key[s], owner[j] = ids[j] + 1, s
+        nxt[j], head[s] = head[s], j + 1
+    urow, gsum = [], []
+    for s in sorted(owner.values(), key=lambda s: key[s]):
+        row, pos, p = key[s] - 1, [], head[s]
+        while p:
+            pos.append(p - 1)
+            p = nxt[p - 1]
+        if len(pos) > 32:
+            pos = [q for q in range(m) if kept[q] and ids[q] == row]
+        total = torch.zeros_like(g[0])
+        for q in sorted(pos):
+            total = total + g[q]
+        urow.append(row)
+        gsum.append(total)
+    if not urow:
+        return w, acc
+    urow = torch.tensor(urow, dtype=torch.int64, device=w.device)
+    gsum = torch.stack(gsum)
+    gsq = (gsum * gsum).mean(dim=-1, keepdim=True)
+    acc_new = acc[urow] + gsq
+    upd = lr * gsum / torch.sqrt(acc_new + eps)
+    w.index_add_(0, urow, -upd.to(w.dtype))
+    acc[urow] = acc_new.to(acc.dtype)
+    return w, acc

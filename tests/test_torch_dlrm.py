@@ -170,17 +170,57 @@ def test_dot_wrappers_check_shapes_before_launch(monkeypatch):
         ops._dot_interaction_cuda(x.transpose(1, 2))
     with pytest.raises(ValueError, match="float32"):
         ops._dot_interaction_bwd_cuda(x, g.double())
-    # one sample past the 48 KB of shared memory, and rows of width 0
+    # forward: one sample past the 48 KB of shared memory, and rows of width 0
     for shape in ((2, 27, 512), (2, 3, 0)):
-        big = torch.zeros(shape)
         with pytest.raises(ValueError, match="48 KB"):
-            ops._dot_interaction_cuda(big)
-        with pytest.raises(ValueError, match="48 KB"):
-            ops._dot_interaction_bwd_cuda(big, torch.zeros((2, 27 * 26 // 2 if
-                                                            shape[1] == 27 else 3)))
-    # full width (F = 27, D = 128) fits both kernels
+            ops._dot_interaction_cuda(torch.zeros(shape))
+    # backward: rows of width 0, and one sample in two ring buffers past the
+    # 227 KB one block may hold (F = 27, D = 1,100)
+    for f, d, what in ((3, 0, "D > 0"), (27, 1100, "shared memory")):
+        with pytest.raises(ValueError, match=what):
+            ops._dot_interaction_bwd_cuda(torch.zeros((2, f, d)),
+                                          torch.zeros((2, f * (f - 1) // 2)))
+    # full width (F = 27, D = 128) fits both kernels, the backward in three
+    # ring buffers
     assert (27 * 26 // 2 + 27 * 129) * 4 <= ops._SMEM_BYTES
-    assert (27 * 128 + 27 * 27) * 4 <= ops._SMEM_BYTES
+    assert ops.dot_bwd_plan(256, 27, 128)[1] == 3
+
+
+@pytest.mark.parametrize("b,f,d", [(256, 27, 128), (2_000, 27, 16), (256, 27, 16),
+                                   (1000, 2, 3), (333, 27, 127), (77, 5, 1), (9, 1, 8),
+                                   (3, 27, 1000)])
+def test_dot_bwd_wrapper_hands_the_launcher_its_plan(monkeypatch, b, f, d):
+    """The backward's launch arguments on the path shape, at the bench width
+    (at B = 2,000 a buffer takes 7 samples), and on chip_smoke's edge
+    shapes: a ring of two or three buffers of ``spb`` samples whose shared
+    memory is the C layout's and fits one block, enough 4 x 4 tiles for the
+    threads, enough groups of the batch for the card, and one launch."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    x, g = torch.zeros((b, f, d)), torch.zeros((b, f * (f - 1) // 2))
+    assert tuple(ops._dot_interaction_bwd_cuda(x, g).shape) == (b, f, d)
+    ((name, args),) = seen
+    assert name == "dot_interaction_bwd" and args[3:6] == (b, f, d)
+    spb, stages, threads, smem = args[6:]
+    assert (spb, stages, threads, smem) == ops.dot_bwd_plan(b, f, d)
+    assert stages in (2, 3) and threads % 32 == 0 and 32 <= threads <= 256
+    assert smem == ops.dot_bwd_smem(f, d, spb, stages) <= ops.DOT_BWD_SMEM_BYTES
+    tiles = -(-f // 4) * -(-d // 4)
+    assert spb == 1 or spb * tiles <= threads
+    # three buffers unless only two fit (D = 1,000); no more samples a
+    # buffer than tiles the threads can take, nor than leave 264 groups
+    assert stages == (2 if d == 1000 else 3)
+    assert spb == max(1, min(256 // tiles, b // 264))
+    assert spb == 1 or -(-b // spb) >= 264
+
+
+def test_dot_bwd_plan_at_bulk():
+    """At B = 65,536 (allocating nothing): full width keeps one sample and
+    three buffers a block; D = 16 takes 9 samples a buffer, all the
+    threads' tiles."""
+    assert ops.dot_bwd_plan(65_536, 27, 128) == ops.dot_bwd_plan(256, 27, 128)
+    assert ops.dot_bwd_plan(65_536, 27, 128)[:3] == (1, 3, 224)
+    assert ops.dot_bwd_plan(65_536, 27, 16)[:3] == (9, 3, 256)
 
 
 # -------------------------------------------------------------------- model

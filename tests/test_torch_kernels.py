@@ -255,6 +255,92 @@ def test_dedup_adagrad_plain_matches_reference_and_pallas(rows, d, m, hot):
     np.testing.assert_array_equal(acc2.numpy()[untouched], acc[untouched])
 
 
+def _skewed_idx(rng, rows, m):
+    """Row 3 at 33 positions and row 5 at m - 73 (both past the 32 a list
+    sorts, so scanned), the other 40 positions on random rows."""
+    idx = rng.integers(0, rows, m).astype(np.int32)
+    perm = rng.permutation(m)
+    idx[perm[:33]] = 3
+    idx[perm[33:m - 40]] = 5
+    return idx
+
+
+# name -> (rows, d, m, hash table slots or None for the kernel's)
+HASHED_CASES = {
+    "distinct rows (k = 1)": (64, 4, 40, None),
+    "k = 1, tiny table": (64, 10, 40, 64),
+    "k = 33 and a long run": (48, 16, 120, None),
+    "k = 33, tiny table": (48, 16, 120, 64),
+    "all m positions on one row": (16, 10, 50, 2),
+    "invalid, sentinel and outside [0, rows)": (30, 8, 64, 32),
+}
+
+
+@pytest.mark.parametrize("case", list(HASHED_CASES))
+def test_dedup_hashed_grouping_matches_reference_and_pallas(case):
+    """The CUDA kernels' grouping, emulated (``ref.dedup_adagrad_hashed``:
+    hash insertion with probe collisions in a table forced tiny, lists in a
+    shuffled arrival order, a per-row ascending sort or scan, ordered sums)
+    is bitwise the plain version on the CPU, and within 1e-6 of the
+    reference and of the Pallas kernel; untouched rows stay bitwise."""
+    rows, d, m, cap = HASHED_CASES[case]
+    rng = np.random.default_rng(len(case))
+    w = rng.normal(size=(rows, d)).astype(np.float32)
+    acc = np.abs(rng.normal(size=(rows, 1))).astype(np.float32)
+    g = rng.normal(size=(m, d)).astype(np.float32)
+    valid = np.ones(m, bool)
+    if case.startswith("distinct") or case.startswith("k = 1,"):
+        idx = rng.permutation(rows)[:m].astype(np.int32)
+    elif case.startswith("k = 33"):
+        idx = _skewed_idx(rng, rows, m)
+    elif case.startswith("all"):
+        idx = np.full(m, 9, np.int32)
+    else:
+        idx = rng.integers(0, 8, m).astype(np.int32)
+        valid = rng.random(m) < 0.7
+        idx[:6] = [rows, rows, -1, rows + 5, -7, 2**31 - 1]  # sentinel, outside
+        valid[:6] = True
+    args = (_t(idx), _t(g), _t(valid), 0.05, 1e-8)
+    exp_w, exp_acc = tref.dedup_adagrad_ref(torch.tensor(w), torch.tensor(acc), *args)
+    for seed in range(3):  # three arrival orders of the atomics
+        got_w, got_acc = tref.dedup_adagrad_hashed(torch.tensor(w), torch.tensor(acc),
+                                                   *args, cap=cap, seed=seed)
+        assert torch.equal(got_w, exp_w) and torch.equal(got_acc, exp_acc)
+    # the reference wraps a negative index as numpy does and drops only those
+    # past the table; the port drops both, so it gets the negatives invalid
+    jargs = tuple(map(jnp.asarray, (w, acc, idx, g, valid & (idx >= 0))))
+    for jw, jacc in (jref.dedup_adagrad_ref(*jargs, 0.05, 1e-8),
+                     dedup_adagrad_pallas(*jargs, 0.05, 1e-8, interpret=True)):
+        np.testing.assert_allclose(got_w.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got_acc.numpy(), np.asarray(jacc), rtol=1e-6, atol=1e-6)
+    kept = valid & (idx >= 0) & (idx < rows)
+    untouched = np.ones(rows, bool)
+    untouched[idx[kept]] = False
+    assert untouched.any() and (~untouched).any()
+    np.testing.assert_array_equal(got_w.numpy()[untouched], w[untouched])
+    np.testing.assert_array_equal(got_acc.numpy()[untouched], acc[untouched])
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 15_976, 16_384, 16_385])
+def test_dedup_wrapper_hands_the_launcher_its_scratch(monkeypatch, m):
+    """The hash table covers cap >= 2m slots, cap a power of two (so linear
+    probing finds a free slot at load <= 1/2), and the scratch the launcher
+    is handed holds it and the two per-position lists."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    rows, d = 7, 4
+    w, acc = torch.zeros((rows, d)), torch.zeros((rows, 1))
+    idx = torch.zeros(m, dtype=torch.int32)
+    ops._dedup_adagrad_cuda(w, acc, idx, torch.zeros((m, d)), torch.ones(m, dtype=torch.bool),
+                            0.05, 1e-8)
+    ((name, args),) = seen
+    assert name == "dedup_adagrad"
+    ints, m_, rows_, d_, cap = args[6:11]
+    assert (m_, rows_, d_) == (m, rows, d)
+    assert cap >= 2 * m and cap & (cap - 1) == 0 and cap < 4 * m
+    assert ints >= 2 * cap + 2 * m and (cap, ints) == ops.dedup_scratch(m)
+
+
 def test_dedup_adagrad_all_invalid_is_identity():
     w, acc, idx, g, _ = _dedup_case(8, 4, 12, 8, 9)
     tw, tacc = torch.tensor(w), torch.tensor(acc)
