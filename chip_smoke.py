@@ -36,11 +36,25 @@ Phases, in order (any failure raises and exits non-zero):
    at D = 10, on DLRM's 187,767,399 x 32 master and its 4,161,784-row L2
    tier at D = 128, and with rows repeated 1,000, 33 and 2 times: touched
    rows within 1e-5 of scale, the rest bitwise unchanged, a second call
-   bitwise the first; ``tier_probe`` runs on a 48,806,440-key L2 tier, and
-   ``searchsorted`` with the masked row gather is its yardstick. The four
-   gradient-compression kernels run on the routed rows of a training step
-   (m = the bucket capacity, 37.5 % of the rows exactly zero, some with
-   tied magnitudes) at deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and
+   bitwise the first. ``tier_probe`` (a k-ary search, lanes a query from
+   ``ops.tier_probe_plan``; a ranged search at bulk) runs again at the
+   training path's n = 9,984, on the 48,806,440-key narrow L2 tier, on
+   DLRM's 2,080,896-key L1 (serving and training) and 4,161,784-key L2 at
+   D = 128, and on edge cases (H = 1, all hits, all misses, queries above
+   every key, a sentinel tail, unsorted queries) at n = 1,037, 40,000,
+   70,001 and 150,001 (32, 4, 2 lanes and the ranged search): hit, slot
+   and rows bitwise the plain version's, a second call bitwise the first;
+   ``searchsorted`` with the masked row gather is its yardstick.
+   ``segment_grad`` (one launch along the forward unique's stable sort,
+   which must equal ``torch.sort(inv, stable=True)``) runs again at DLRM's
+   n = 6,656, D = 128, and on each training path's own zipf (a = 1.2)
+   batch packed as the path packs it (runs of up to 200 positions; at bulk
+   52,393): bitwise alike with the carried sort and standalone (where the
+   wrapper sorts once, counted in ``ops.sorts``), repeating bit for bit,
+   within 1e-5 of scale of the plain version, unused slots exactly 0.
+   The four gradient-compression kernels run on the routed rows of a
+   training step (m = the bucket capacity, 37.5 % of the rows exactly
+   zero, some with tied magnitudes) at deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and
    the narrow d = 4 (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN,
    infinities, subnormals, signed zeros): payloads and rows bitwise the
    plain versions', zero rows exactly 0 out, each kernel repeating bit for
@@ -59,10 +73,11 @@ Phases, in order (any failure raises and exits non-zero):
 4. train full-width deepfm on the train launcher's plan (B = 256, flush
    every 20 steps after 10) through ``make_train_step``: 30 steps from seed
    0 with the launch counters reset just before and read just after; every
-   loss finite, every kernel of the path launched, tier hits on every step
-   after the step-20 flush; a second kernel run repeats the first bit for
-   bit; the same 30 steps on the plain versions (under deterministic
-   algorithms) give the same losses (rtol 1e-4 / atol 1e-5, the JAX
+   loss finite, every kernel of the path launched, no sort for
+   ``segment_grad`` (``ops.sorts``; so on every training path), tier hits
+   on every step after the step-20 flush; a second kernel run repeats the
+   first bit for bit; the same 30 steps on the plain versions (under
+   deterministic algorithms) give the same losses (rtol 1e-4 / atol 1e-5, the JAX
    package's fused-vs-plain bar) and the same hits; then per-stage host
    clock, a profiled window and peak memory; a deepfm-smoke training run on
    the card must match the CPU;
@@ -148,6 +163,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_shapes  # noqa: E402
 from repro_torch.configs.paper_models import dlrm  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
+from repro_torch.core.features import pack_group  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.engine import resolve_assignment  # noqa: E402
@@ -402,12 +418,15 @@ def run_tier_probe(b: int, gen: torch.Generator, a: Arch, l2: bool = False) -> d
     """The L1 probe, or with ``l2`` the probe of the arch's L2 tier."""
     uniq, uvalid, keys, rows = probe_case(b, gen, a, a.l2_rows if l2 else a.hot_rows)
     hit, slot, out = ops.tier_probe(uniq, uvalid, keys, rows)
+    again = ops.tier_probe(uniq, uvalid, keys, rows)
     rhit, rslot, rout = ref.tier_probe_ref(uniq, uvalid, keys, rows)
     torch.cuda.synchronize(DEV)
     check(torch.equal(hit, rhit) and torch.equal(slot, rslot), "tier_probe hit/slot bitwise")
     err = max_err(out, rout)
-    check(err <= TOL * scale_of(rout), f"tier_probe rows err {err}")
+    check(same_bits(out, rout), f"tier_probe rows bitwise the plain version's (err {err})")
     check(bool((out[~hit] == 0).all()), "tier_probe miss rows exactly 0")
+    check(all(same_bits(x, y) for x, y in zip((hit, slot, out), again)),
+          "tier_probe repeats bit for bit")
     n, h = uniq.shape[0], keys.shape[0]
     n_hit = int(hit.sum())
     check(n_hit > 0 and n_hit < n, "tier_probe case has hits and misses")
@@ -427,13 +446,62 @@ def run_tier_probe(b: int, gen: torch.Generator, a: Arch, l2: bool = False) -> d
     lhit, lslot, lout = lib()
     check(torch.equal(lhit, rhit) and torch.equal(lout, rout),
           "searchsorted + gather yardstick agrees")
-    return {"n": n, "tier_keys": h, "hits": n_hit, "max_abs_err": err,
+    return {"n": n, "d": a.dim, "tier_keys": h, "hits": n_hit,
+            "lanes": ops.tier_probe_plan(n, ops.sm_count(DEV)), "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows)),
             "call_ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys, rows),
                                device_only=False),
             "plain_ms": cuda_ms(lambda: ref.tier_probe_ref(uniq, uvalid, keys, rows)),
             "library_ms": cuda_ms(lib), "library_call": "searchsorted, then masked gather",
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+# query counts that take 32, 4 and 2 lanes a query and the ranged search,
+# none a multiple of a 256-thread block
+PROBE_EDGE_N = (1_037, 40_000, 70_001, 150_001)
+PROBE_EDGES = ("H=1", "all hits", "all misses", "above every key", "sentinel tail",
+               "unsorted")
+PROBE_SENTINEL = 1 << 26  # above every key; the flush pads a tier with such
+
+
+def probe_edge_case(kind: str, n: int, gen: torch.Generator, d: int = 10):
+    """``n`` queries of one edge case against a tier of 50,000 keys (one
+    for 'H=1'), multiples of 8, ``d`` wide; a tenth of them not valid."""
+    h = 1 if kind == "H=1" else 50_000
+    keys = (torch.sort(torch.randperm(1 << 22, device=DEV, generator=gen)[:h]).values
+            * 8).to(torch.int32)
+    if kind == "sentinel tail":
+        keys[-(h // 4):] = PROBE_SENTINEL
+    rows = torch.randn((h, d), device=DEV, generator=gen)
+    pick = keys[torch.randint(0, h, (n,), device=DEV, generator=gen)]
+    spread = torch.randint(-1_000, 1_000, (n,), device=DEV, generator=gen, dtype=torch.int32)
+    q = {"H=1": pick + spread // 100, "all hits": pick, "all misses": pick + 1,
+         "above every key": torch.where(spread > 900, torch.full_like(pick, 2**31 - 1),
+                                        keys[-1] + 1 + spread.abs()),
+         "sentinel tail": torch.where(spread > 0, pick, torch.full_like(pick, PROBE_SENTINEL)),
+         "unsorted": torch.where(spread > 0, pick, pick + spread)}[kind]
+    if kind != "unsorted":
+        q = torch.sort(q).values
+    uvalid = torch.rand((n,), device=DEV, generator=gen) < 0.9
+    return q.to(torch.int32).contiguous(), uvalid, keys, rows
+
+
+def run_probe_edges(gen: torch.Generator) -> dict:
+    """Each edge case at each of PROBE_EDGE_N: hit, slot and rows bitwise the
+    plain version's (a miss row exactly 0) and a second call bitwise the
+    first. Returns the lanes each n took."""
+    for kind in PROBE_EDGES:
+        for n in PROBE_EDGE_N:
+            args = probe_edge_case(kind, n, gen)
+            got, again = ops.tier_probe(*args), ops.tier_probe(*args)
+            exp = ref.tier_probe_ref(*args)
+            torch.cuda.synchronize(DEV)
+            check(all(same_bits(x, y) for x, y in zip(got, exp)),
+                  f"tier_probe {kind} n={n}: hit, slot and rows bitwise the plain version's")
+            check(all(same_bits(x, y) for x, y in zip(got, again)),
+                  f"tier_probe {kind} n={n} repeats")
+    return {"cases": list(PROBE_EDGES),
+            "lanes": {n: ops.tier_probe_plan(n, ops.sm_count(DEV)) for n in PROBE_EDGE_N}}
 
 
 def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -481,31 +549,71 @@ def run_fm(b: int, gen: torch.Generator, a: Arch) -> dict:
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"fm_interaction err {err}")
+    check(max_err(fm_chain(x), rout) <= TOL * scale_of(rout), "FM chain yardstick agrees")
     b_ms, b_by = bound(x.numel() * 4 + b * 4, b * a.dim * (3 * a.n_fields + 3))
     return {"n": b, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fm_interaction(x)),
             "call_ms": cuda_ms(lambda: ops.fm_interaction(x), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fm_interaction_ref(x)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": cuda_ms(lambda: fm_chain(x)),
+            "library_call": "sum, square, subtract, sum (a chain)",
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
-def run_segment_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
-    """The packed layout (one bag per (sample, field), seg = arange): the bag
-    gradients back onto the unique-row slots of a fixed unique."""
+def fm_chain(x: torch.Tensor) -> torch.Tensor:
+    """FM's second order as a PyTorch user writes it: its yardstick."""
+    return 0.5 * (x.sum(dim=1).square() - x.square().sum(dim=1)).sum(dim=-1, keepdim=True)
+
+
+def segment_case(b: int, gen: torch.Generator, a: Arch, zipf: bool = False):
+    """The packed layout (one bag per (sample, field), seg = arange), its
+    bag gradients and the fixed unique of its ids: uniform ids in
+    [0, n/2) (runs of about 2), or with ``zipf`` a training batch of the
+    arch's own data (zipf a = 1.2) packed as the path packs it (runs of up
+    to 200 positions at B = 256, 52,393 at bulk). Returns ``(g_bags, seg,
+    w, u)``."""
     n = b * a.n_fields
-    ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen, dtype=torch.int32)
-    u = pe.fixed_unique(ids, sentinel=n)
-    inv, n_uniq = u.inv, int(u.n_uniq)
+    if zipf:
+        cfg, plan = arch_plan(a, b, train=True)
+        batch = make_batch(cfg, b, np.random.default_rng(SEED))
+        ids = pack_group(plan.groups[0], batch["fields"], DEV).ids
+        sentinel = plan.groups[0].rows
+    else:
+        ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen,
+                            dtype=torch.int32)
+        sentinel = n
+    u = pe.fixed_unique(ids, sentinel=sentinel)
     g_bags = torch.randn((n, a.dim), device=DEV, generator=gen)
     w = torch.rand((n,), device=DEV, generator=gen) + 0.5
-    seg = torch.arange(n, device=DEV, dtype=torch.int32)
-    out = ops.segment_grad(g_bags, seg, w, inv, n)
+    return g_bags, torch.arange(n, device=DEV, dtype=torch.int32), w, u
+
+
+def run_segment_grad(b: int, gen: torch.Generator, a: Arch, zipf: bool = False) -> dict:
+    """The bag gradients back onto the unique-row slots, along the forward
+    unique's stable sort as the engine calls it (no sort), and standalone
+    (the wrapper sorts): both bitwise alike and repeating, within 1e-5 of
+    scale of the plain version, unused slots exactly 0."""
+    g_bags, seg, w, u = segment_case(b, gen, a, zipf)
+    n, inv, n_uniq = seg.shape[0], u.inv, int(u.n_uniq)
+    sorted_inv, order = torch.sort(inv, stable=True)
+    check(torch.equal(u.order, order) and torch.equal(u.slot_sorted, sorted_inv),
+          "the forward unique's order and slot_sorted are inv's stable sort")
+    ops.reset_launches()
+    out = ops.segment_grad(g_bags, seg, w, inv, n, order=u.order, sorted_inv=u.slot_sorted)
+    again = ops.segment_grad(g_bags, seg, w, inv, n, order=u.order, sorted_inv=u.slot_sorted)
+    check(ops.sorts["segment_grad"] == 0, "segment_grad along the carried sort sorts nothing")
+    alone = ops.segment_grad(g_bags, seg, w, inv, n)
+    check(ops.sorts["segment_grad"] == 1 and ops.launches["segment_grad"] == 3,
+          f"standalone segment_grad sorts once: {ops.sorts}, {ops.launches}")
     rout = ref.segment_grad_ref(g_bags, seg, w, inv, n)
     torch.cuda.synchronize(DEV)
+    check(same_bits(out, again) and same_bits(out, alone),
+          "segment_grad repeats bit for bit, with or without the carried sort")
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"segment_grad err {err}")
     check(n_uniq < n and bool((out[n_uniq:] == 0).all()),
           "segment_grad unused slots exactly 0")
+    runs = torch.bincount(inv.long(), minlength=1)
     # the library yardstick: embedding_bag's backward onto its weight
     rows_u = torch.randn((n, a.dim), device=DEV, generator=gen).requires_grad_(True)
     offsets = torch.arange(n, device=DEV)
@@ -515,11 +623,18 @@ def run_segment_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
         return torch.autograd.grad(lib_out, rows_u, g_bags, retain_graph=True)[0]
 
     check(max_err(lib(), rout) <= TOL * scale_of(rout), "embedding_bag backward agrees")
-    b_ms, b_by = bound(n * a.dim * 4 + n * 12 + n * a.dim * 4, 2 * n * a.dim)
-    return {"n": n, "n_uniq": n_uniq, "max_abs_err": err,
-            "ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n)),
-            "call_ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n),
+    # each input the function needs read once (g_bags, seg, w, inv), the
+    # output written once; not the kernel's own int64 order
+    b_ms, b_by = bound(g_bags.numel() * 4 + n * (4 + 4 + 4) + n * a.dim * 4,
+                       2 * n * a.dim)
+    kw = dict(order=u.order, sorted_inv=u.slot_sorted)
+    return {"n": n, "d": a.dim, "case": "zipf" if zipf else "uniform", "n_uniq": n_uniq,
+            "longest_run": int(runs.max()), "tile_chunk": ops.segment_grad_plan(n, a.dim, ops.sm_count(DEV)),
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n, **kw)),
+            "call_ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n, **kw),
                                device_only=False),
+            "sorting_ms": cuda_ms(lambda: ops.segment_grad(g_bags, seg, w, inv, n)),
             "plain_ms": cuda_ms(lambda: ref.segment_grad_ref(g_bags, seg, w, inv, n)),
             "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
 
@@ -640,12 +755,20 @@ def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"fm_interaction_bwd err {err}")
+    leaf = x.clone().requires_grad_(True)
+    chain_out = fm_chain(leaf)
+
+    def lib():  # the chain's autograd
+        return torch.autograd.grad(chain_out, leaf, g, retain_graph=True)[0]
+
+    check(max_err(lib(), rout) <= TOL * scale_of(rout), "FM chain's autograd agrees")
     b_ms, b_by = bound(2 * x.numel() * 4 + b * 4, 3 * x.numel())
     return {"n": b, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g)),
             "call_ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fm_interaction_bwd_ref(x, g)),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": cuda_ms(lib), "library_call": "autograd of the FM chain",
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def cross_case(b: int, gen: torch.Generator, d: int = CROSS_D):
@@ -1514,7 +1637,8 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
         hits.append(int(m["cache_hits"]))
         l2_hits.append(int(m.get("cache_hits/l2", 0)))
         ovf.append(int(m["overflow"]))
-    out = {"launches": dict(ops.launches), "lat": lat, "losses": losses, "hits": hits,
+    out = {"launches": dict(ops.launches), "sorts": dict(ops.sorts), "lat": lat,
+           "losses": losses, "hits": hits,
            "l2_hits": l2_hits, "overflow": ovf, "shared_state_checks": checks}
     if breakdown:
         out["stages"] = train_breakdown(step, state, batches[TRAIN_STEPS:])
@@ -1605,6 +1729,9 @@ def train_full_width(arch: str) -> dict:
     check(all(np.isfinite(k["losses"])), f"finite losses: {k['losses']}")
     check(launches == {n: a.train_launches.get(n, 0) * TRAIN_STEPS for n in launches},
           f"{arch} training launches per step {a.train_launches}: {launches}")
+    # segment_grad runs along the forward unique's sort: no sort of its own
+    check(k["sorts"]["segment_grad"] == 0, f"{arch} training sorted for segment_grad: "
+          f"{k['sorts']}")
     check(min(k["hits"][FLUSH_ITERS:]) > 0 and max(k["hits"][:FLUSH_ITERS]) == 0,
           f"tier hits exactly on the steps after the step-{FLUSH_ITERS} flush: {k['hits']}")
     # the kernels sum in a fixed order, so the kernel path repeats itself;
@@ -1614,6 +1741,7 @@ def train_full_width(arch: str) -> dict:
     k2 = train_run(arch, "auto", batches, check_at=a.shared_state_at)
     check(k2["losses"] == k["losses"] and k2["hits"] == k["hits"],
           "a second kernel run repeats the first bit for bit")
+    check(k2["sorts"]["segment_grad"] == 0, f"{arch} second run sorted: {k2['sorts']}")
     # The plain versions' index_add_ sums with atomics, in an order that can
     # change from run to run, and past the flush this model amplifies any
     # last-bit difference by orders of magnitude within a few steps
@@ -1651,6 +1779,7 @@ def train_full_width(arch: str) -> dict:
             "max_rel_loss_diff": float((diff / np.abs(p["losses"])).max()),
             "shared_state_checks": k2["shared_state_checks"], "hits": k["hits"],
             "l2_hits": k["l2_hits"], "overflow": k["overflow"], "launches": launches,
+            "segment_grad_sorts": k["sorts"]["segment_grad"],
             "launches_per_step": {n: v / TRAIN_STEPS for n, v in launches.items() if v},
             "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"],
             "full_tiers": k.get("full_tiers")}
@@ -1723,16 +1852,17 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """The last name of a mangled ``_ZN...`` kernel symbol, with its cluster
-    size as <C> where it is a template."""
+    """The last name of a mangled ``_ZN...`` kernel symbol, with its integer
+    template arguments (a cluster size, lanes, a vector width) as <...>."""
     i, name = mangled.find("_ZN") + 3, mangled
     while 3 <= i < len(mangled) and mangled[i].isdigit():
         j = i
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    m = re.match(r"ILi(\d+)EE", mangled[i:])
-    return name + (f"<{m.group(1)}>" if m else "")
+    m = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    args = re.findall(r"Li(\d+)E", m.group(1)) if m else []
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_usage(log: str):
@@ -1793,17 +1923,44 @@ def main() -> None:
                "dot_interaction": (run_dot, "dlrm-narrow", "serve", SERVE_B),
                "dot_interaction_bwd": (run_dot_bwd, "dlrm-narrow", "train", TRAIN_B)}
     main_shape = {}
+    other_shapes = {"segment_grad": [], "tier_probe": []}  # the redesigned kernels'
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])
             print(f"[kernel] {name} {label} " + json.dumps(r), flush=True)
             if label != "bulk":
                 main_shape[name] = r
+            elif name in other_shapes:
+                other_shapes[name].append({"label": "bulk", **r})
     # the embedding kernels again at dcn-v2's D = 16, n = B x 26, its table
     for name in ("tier_probe", "gather_pool", "segment_grad", "dedup_adagrad"):
         run, _, path, main_b = runners[name]
         r = run(main_b, gen, ARCHS["dcn-v2"])
         print(f"[kernel] {name} dcn-v2 {path} " + json.dumps(r), flush=True)
+        if name in other_shapes:
+            other_shapes[name].append({"label": f"dcn-v2 {path}", **r})
+    # segment_grad at DLRM's D = 128, and on the path's own zipf data at
+    # every training shape and at bulk (runs of hundreds of positions);
+    # tier_probe at the training path's n, on DLRM's two tiers at D = 128,
+    # and on edge cases
+    dl = ARCHS["dlrm-narrow"]
+    extra = {"segment_grad dlrm-narrow train": lambda: run_segment_grad(TRAIN_B, gen, dl)}
+    for arch in ("deepfm", "dcn-v2", "dlrm-narrow"):
+        extra[f"segment_grad {arch} train zipf"] = (
+            lambda a=ARCHS[arch]: run_segment_grad(TRAIN_B, gen, a, zipf=True))
+    extra.update({
+        "segment_grad bulk zipf": lambda: run_segment_grad(BULK_B, gen, ARCHS["deepfm"],
+                                                           zipf=True),
+        "tier_probe deepfm train": lambda: run_tier_probe(TRAIN_B, gen, ARCHS["deepfm"]),
+        "tier_probe dlrm-narrow L1 serve": lambda: run_tier_probe(SERVE_B, gen, dl),
+        "tier_probe dlrm-narrow L2 serve": lambda: run_tier_probe(SERVE_B, gen, dl, l2=True),
+        "tier_probe dlrm-narrow L1 train": lambda: run_tier_probe(TRAIN_B, gen, dl)})
+    for label, run in extra.items():
+        r = run()
+        print(f"[kernel] {label} " + json.dumps(r), flush=True)
+        name, shape = label.split(" ", 1)
+        other_shapes[name].append({"label": shape, **r})
+    print("[kernel] tier_probe edge cases " + json.dumps(run_probe_edges(gen)), flush=True)
     # the narrow configuration: the stitch and its transpose at the other
     # path's batch too, dedup_adagrad on the d = 4 master, the L2 probe
     narrow = ARCHS["deepfm-narrow"]
@@ -1816,7 +1973,10 @@ def main() -> None:
                  TRAIN_B, gen, narrow, tier=True),
              "tier_probe L2 serve": lambda: run_tier_probe(SERVE_B, gen, narrow, l2=True)}
     for label, run in extra.items():
-        print(f"[kernel] {label} " + json.dumps(run()), flush=True)
+        r = run()
+        print(f"[kernel] {label} " + json.dumps(r), flush=True)
+        if label.startswith("tier_probe"):
+            other_shapes["tier_probe"].append({"label": "deepfm-narrow L2 serve", **r})
     # the compression kernels at the other masters' widths: dcn-v2's D = 16
     # (k = 4) and the narrow d = 4 (k = 1), and on edge rows
     for name in ("fp16_compress", "fp16_decompress", "topk_compress", "topk_decompress"):
@@ -1826,7 +1986,6 @@ def main() -> None:
     print("[kernel] compression edge rows " + json.dumps(run_compress_edges()), flush=True)
     # the dot kernels at the other path's batch, at the bench config's D = 16
     # (B = 256), and on edge shapes
-    dl = ARCHS["dlrm-narrow"]
     # the cross forward at the training path's B = 256 (3 launches a step),
     # and both cross kernels on edge shapes
     dcn = ARCHS["dcn-v2"]
@@ -1896,6 +2055,11 @@ def main() -> None:
             kernels[-1]["shapes"] = [{k: r2[k] for k in (
                 "n", "cluster", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "fp32_bound_ms", "library_ms")}]
+        if name in other_shapes:  # the redesigned kernels at every other shape
+            kernels[-1]["shapes"] = [{k: r2.get(k) for k in (
+                "label", "n", "d", "case", "tier_keys", "lanes", "longest_run",
+                "max_abs_err", "ms", "plain_ms", "library_ms", "sorting_ms", "bound_ms",
+                "bound_by")} for r2 in other_shapes[name]]
         if name == "gather_project_grad":
             # the engine's backward folds the cotangent through proj^T itself,
             # as the reference's does; the kernel is reached through the

@@ -46,12 +46,17 @@ class UniqueResult(NamedTuple):
     inv: torch.Tensor       # [n] original position -> unique slot
     n_uniq: torch.Tensor    # scalar
     uvalid: torch.Tensor    # [n] bool, slot validity
+    order: torch.Tensor     # [n] int64 stable argsort of ids (and so of inv)
+    slot_sorted: torch.Tensor  # [n] int32 ``inv[order]``, ascending
 
 
 def fixed_unique(ids: torch.Tensor, sentinel: int) -> UniqueResult:
-    """Sort-based unique with static output size == input size."""
+    """Sort-based unique with static output size == input size. The sort is
+    stable, so ``order`` (equal ids in original position order) and
+    ``slot_sorted`` are also the permutation the backward's
+    ``ops.segment_grad`` sums along: slots ascend with ids."""
     n = ids.shape[0]
-    order = torch.argsort(ids)
+    order = torch.argsort(ids, stable=True)
     s = ids[order]
     is_first = torch.ones((n,), dtype=torch.bool, device=ids.device)
     is_first[1:] = s[1:] != s[:-1]
@@ -62,7 +67,7 @@ def fixed_unique(ids: torch.Tensor, sentinel: int) -> UniqueResult:
     uniq[slot_sorted.long()] = s
     n_uniq = is_first.sum().to(torch.int32)
     uvalid = torch.arange(n, dtype=torch.int32, device=ids.device) < n_uniq
-    return UniqueResult(uniq, inv, n_uniq, uvalid)
+    return UniqueResult(uniq, inv, n_uniq, uvalid, order, slot_sorted)
 
 
 class Routing(NamedTuple):
@@ -118,6 +123,9 @@ class LookupCtx(NamedTuple):
     narrow_rows: Optional[torch.Tensor] = None  # [n, d] routed narrow rows
     #   (the gather_project residual, zero at tier hits and padding, from
     #   which the projection's gradient is one ``narrow^T @ g_u`` product)
+    order: Optional[torch.Tensor] = None        # [n] the unique's stable sort,
+    slot_sorted: Optional[torch.Tensor] = None  # and ``inv`` in its order: the
+    #   backward's ``segment_grad`` runs along them without a sort of its own
 
 
 def cache_probe(uniq: torch.Tensor, uvalid: torch.Tensor,
@@ -225,7 +233,8 @@ def mp_lookup(
     ctx = LookupCtx(
         uniq=u.uniq, inv=u.inv, uvalid=u.uvalid, hit=pr.hit, cache_slot=pr.cache_slot,
         routing=r, recv_ids=recv_ids, recv_local=recv_local, recv_valid=recv_valid,
-        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot)
+        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot,
+        order=u.order, slot_sorted=u.slot_sorted)
     return _stitch(miss_rows, pr), ctx
 
 
@@ -261,7 +270,8 @@ def mp_lookup_narrow(
     ctx = LookupCtx(
         uniq=u.uniq, inv=u.inv, uvalid=u.uvalid, hit=pr.hit, cache_slot=pr.cache_slot,
         routing=r, recv_ids=recv_ids, recv_local=recv_local, recv_valid=recv_valid,
-        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot, narrow_rows=narrow)
+        l2_hit=pr.l2_hit, l2_slot=pr.l2_slot, narrow_rows=narrow,
+        order=u.order, slot_sorted=u.slot_sorted)
     return _stitch(miss_rows, pr), ctx
 
 

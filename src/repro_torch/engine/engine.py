@@ -188,7 +188,8 @@ class EmbeddingEngine:
         """Pooled grads -> sparse updates, in place. Returns (emb', metrics).
 
         The SegmentReduction of ``forward`` is linear in the looked-up rows,
-        so its transpose is explicit: one ``ops.segment_grad`` pass gives the
+        so its transpose is explicit: one ``ops.segment_grad`` pass, along
+        the forward unique's sort (no sort of its own), gives the
         ``[n_unique, D]`` row grads, which each group's strategy applies.
         """
         emb = dict(emb)
@@ -201,7 +202,8 @@ class EmbeddingEngine:
             gctx = ctx.ctxs[gid]
             g_flat = g_p.reshape(-1, g_p.shape[-1]).contiguous()
             g_rows = ops.segment_grad(g_flat, pb.seg, pb.weights, gctx.inv,
-                                      pb.ids.shape[0], fused=self.use_fused)
+                                      pb.ids.shape[0], fused=self.use_fused,
+                                      order=gctx.order, sorted_inv=gctx.slot_sorted)
             st2, o, h = self.strategies[gid].apply_grads(
                 emb[str(gid)], gid, gctx, g_rows, cache_on=self.cache_on[gid],
                 l2_on=self.l2_on[gid])

@@ -30,14 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # kernel name -> argtypes of its C entry point ``<name>_launch``
 SIGNATURES: Dict[str, List] = {
-    # uniq, uvalid, keys, rows, hit, slot, rows_out, n, h, d, stream
-    "tier_probe": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # uniq, uvalid, keys, rows, hit, slot, rows_out, n, h, d, lanes, stream
+    "tier_probe": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     # rows_u, inv, w, seg, offsets (scratch), out, n, n_bags, d, stream
     "gather_pool": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     # x, out, b, f, d, stream
     "fm_interaction": [_P, _P, _I64, _I, _I, _P],
-    # g_bags, seg, w, order, sorted_inv, offsets (scratch), out, n, n_rows, d, stream
-    "segment_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # g_bags, seg, w, order, sorted_inv, out, n, n_rows, d, tile, chunk, stream
+    "segment_grad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
     # w, acc, idx, valid, g, scratch, scratch ints, m, rows, d, cap, lr, eps, stream
     "dedup_adagrad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P],
     # x, g, out, b, f, d, stream

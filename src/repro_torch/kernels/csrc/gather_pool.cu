@@ -10,7 +10,7 @@
 // segment lasts, with one zero-weight ghost position per bag merged in (an
 // extra argsort) so that an uncovered bag is written at all. Hopper blocks
 // run in parallel and in no order, so the work is split in two passes, a
-// CSR pass and a pool pass (segment_pool.cuh, shared with segment_grad.cu):
+// CSR pass and a pool pass (segment_pool.cuh):
 // every bag is written, so a bag with no position comes out exactly 0
 // without ghosts, the [n, D] per-id array never exists, and there are no
 // atomics.
@@ -23,9 +23,9 @@ extern "C" int gather_pool_launch(const void* rows_u, const void* inv,
                                   const void* w, const void* seg, void* offsets,
                                   void* out, int64_t n, int64_t n_bags, int d,
                                   void* stream) {
-  return segment_pool::launch<false>(
+  return segment_pool::launch(
       static_cast<const float*>(rows_u), static_cast<const int32_t*>(inv),
-      static_cast<const float*>(w), nullptr, static_cast<const int32_t*>(seg),
+      static_cast<const float*>(w), static_cast<const int32_t*>(seg),
       static_cast<int32_t*>(offsets), static_cast<float*>(out), n, n_bags, d,
       static_cast<cudaStream_t>(stream));
 }

@@ -1,14 +1,13 @@
-// Shared device code of the two SegmentReduction kernels: gather_pool.cu
-// (forward pool) and segment_grad.cu (its transpose), as the TPU shares
-// embedding_bag_pallas (src/repro/kernels/embedding_bag.py:41) between
-// gather_pool_pallas and segment_grad_pallas.
+// Device code of the forward SegmentReduction, gather_pool.cu, whose CSR
+// pass gather_project_grad.cu also runs (the TPU's embedding_bag_pallas,
+// src/repro/kernels/embedding_bag.py:41, beneath gather_pool_pallas).
 //
-// Both compute out[o] = sum over positions p of segment o, in ascending
+// It computes out[o] = sum over positions p of segment o, in ascending
 // order, of w[p] * src[gather[p]], with the segment ids `seg` sorted:
 //   1. csr_offsets: one thread per position writes the CSR start of every
 //      output segment that begins there, and one thread per output segment
-//      past the last position's writes n there (offsets[n_out] = n). The
-//      transpose's slots >= n_uniq are such a tail, n - n_uniq long: a
+//      past the last position's writes n there (offsets[n_out] = n). A
+//      transpose's unused slots are such a tail, n - n_uniq long: a
 //      single thread walking it was 5.9 ms of a 2.6 M-position call;
 //   2. pool: one thread per (output row, d) element adds its segment's
 //      positions in order in a register and writes the element once.
@@ -17,9 +16,7 @@
 //      contiguous, and no thread divides to find its row.
 // Every output row is written, so a row with no position comes out exactly
 // 0 without ghost positions, and no [n, D] per-position array exists. No
-// atomics: the sum order is fixed. `order` (optional) maps a sorted
-// position to the original one, so the transpose reads its positions
-// through the stable sort without gathering them into new arrays first.
+// atomics: the sum order is fixed.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,11 +47,9 @@ __global__ void csr_offsets_kernel(const int32_t* __restrict__ seg,
   if (t <= n_out && t > last) offsets[t] = n;
 }
 
-template <bool kPermuted>
 __global__ void pool_kernel(const float* __restrict__ src,
                             const int32_t* __restrict__ gather,
                             const float* __restrict__ w,
-                            const int64_t* __restrict__ order,
                             const int32_t* __restrict__ offsets,
                             float* __restrict__ out, int32_t n_out, int32_t d) {
   const int32_t o = blockIdx.x * blockDim.y + threadIdx.y;
@@ -63,10 +58,9 @@ __global__ void pool_kernel(const float* __restrict__ src,
   const int32_t end = offsets[o + 1];
   float acc = 0.0f;
   for (int32_t i = offsets[o]; i < end; ++i) {
-    const int64_t p = kPermuted ? order[i] : i;
     // __fmul_rn keeps the product rounded on its own (no FMA contraction),
     // as in the reference's multiply-then-sum.
-    acc += __fmul_rn(w[p], src[static_cast<int64_t>(gather[p]) * d + c]);
+    acc += __fmul_rn(w[i], src[static_cast<int64_t>(gather[i]) * d + c]);
   }
   out[static_cast<int64_t>(o) * d + c] = acc;
 }
@@ -74,10 +68,9 @@ __global__ void pool_kernel(const float* __restrict__ src,
 // Launches both passes on `stream`; `offsets` is int32 scratch of n_out + 1.
 // Needs n, n_out < 2^31 and 0 < d <= 1024 (the wrappers check). Returns
 // cudaGetLastError() so the caller can raise.
-template <bool kPermuted>
-int launch(const float* src, const int32_t* gather, const float* w,
-           const int64_t* order, const int32_t* seg, int32_t* offsets,
-           float* out, int64_t n, int64_t n_out, int d, cudaStream_t s) {
+inline int launch(const float* src, const int32_t* gather, const float* w,
+                  const int32_t* seg, int32_t* offsets, float* out, int64_t n,
+                  int64_t n_out, int d, cudaStream_t s) {
   const int32_t n32 = static_cast<int32_t>(n), no32 = static_cast<int32_t>(n_out);
   const int64_t threads = n > n_out + 1 ? n : n_out + 1;
   csr_offsets_kernel<<<static_cast<unsigned int>((threads + kThreads - 1) / kThreads),
@@ -88,8 +81,7 @@ int launch(const float* src, const int32_t* gather, const float* w,
   const dim3 block(d, rows_per_block);
   const unsigned int blocks =
       static_cast<unsigned int>((n_out + rows_per_block - 1) / rows_per_block);
-  pool_kernel<kPermuted><<<blocks, block, 0, s>>>(src, gather, w, order, offsets,
-                                                  out, no32, d);
+  pool_kernel<<<blocks, block, 0, s>>>(src, gather, w, offsets, out, no32, d);
   return static_cast<int>(cudaGetLastError());
 }
 

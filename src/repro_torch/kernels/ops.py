@@ -11,7 +11,9 @@ kernel that does not build or launch raises.
 
 Each wrapper adds one to ``launches[name]`` where it launches its kernel and
 nowhere else, so a run can show that its main path went through the
-kernels (``reset_launches`` before, read after).
+kernels (``reset_launches`` before, read after); ``sorts`` counts the sorts
+a wrapper runs on the card before its kernel (``segment_grad`` called
+without the forward's permutation).
 
 ``gather_pool``, ``fm_interaction``, ``dot_interaction``, ``cross_layer``
 and ``gather_project`` are ``torch.autograd.Function``s like the reference's
@@ -42,9 +44,15 @@ launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction":
                             "dot_interaction_bwd": 0}
 
 
+# sorts a wrapper ran on the card before its kernel: ``segment_grad`` sorts
+# only when it is called without the forward's permutation
+sorts: Dict[str, int] = {"segment_grad": 0}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, sorts):
+        for name in counts:
+            counts[name] = 0
 
 
 def resolve_fused(spec: Union[str, bool, None]) -> Optional[bool]:
@@ -91,6 +99,36 @@ def _launch(name: str, *args) -> None:
 # ---------------------------------------------------------------- tier probe
 
 
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """SMs of the card ``device`` lies on (132 on an H100 SXM), which the
+    launch plans below fill."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+# threads an SM of tier_probe's k-ary search keeps busy: 40 of its 64 warps
+# (more lanes a query past that were slower at every path shape the bench
+# script's --sweep timed on the H100)
+PROBE_SM_THREADS = 1280
+
+
+def tier_probe_plan(n: int, sms: int) -> int:
+    """Lanes a query of the ``tier_probe`` kernel for ``n`` queries on a
+    card of ``sms`` SMs: the most (a power of two up to a warp) for which
+    all ``n * lanes`` threads fit in ``PROBE_SM_THREADS`` on each SM.
+    ``1`` is the ranged search (bulk)."""
+    lanes = 32
+    while lanes > 1 and n * lanes > sms * PROBE_SM_THREADS:
+        lanes //= 2
+    return lanes
+
+
 def _tier_probe_cuda(uniq, uvalid, keys, rows):
     dev = rows.device
     _expect(uniq, "tier_probe uniq", torch.int32, 1, dev)
@@ -108,7 +146,7 @@ def _tier_probe_cuda(uniq, uvalid, keys, rows):
     if n:
         _launch("tier_probe", uniq.data_ptr(), uvalid.data_ptr(), keys.data_ptr(),
                 rows.data_ptr(), hit.data_ptr(), slot.data_ptr(), out.data_ptr(),
-                n, h, d)
+                n, h, d, tier_probe_plan(n, sm_count(dev)))
     return hit, slot, out
 
 
@@ -177,7 +215,27 @@ def gather_pool(rows_u, inv, weights, seg, n_bags: int,
 # -------------------------------------------------------------- segment grad
 
 
-def _segment_grad_cuda(g_bags, seg, weights, inv, n_rows: int):
+SEGMENT_GRAD_BUF_FLOATS, SEGMENT_GRAD_MAX_CHUNK = 8192, 512
+
+
+def segment_grad_plan(n: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(tile, chunk)`` of the ``segment_grad`` kernel for ``n`` positions
+    of width ``d`` on a card of ``sms`` SMs: ``tile`` sorted positions a
+    block owns (the largest power of two <= 256 that still gives each SM a
+    block, at least 16, and no more than a buffer holds) and ``chunk``
+    positions a staging buffer of 8,192 products holds (at most 512), so
+    that the block's shared memory, which the launcher sizes from both,
+    stays under the 48 KB a block gets unasked. The bench script's
+    ``--sweep`` times the other tiles and chunks."""
+    chunk = max(1, min(SEGMENT_GRAD_MAX_CHUNK, SEGMENT_GRAD_BUF_FLOATS // d))
+    tile = 256
+    while tile > 16 and -(-n // tile) < sms:
+        tile //= 2
+    return min(tile, chunk), chunk
+
+
+def _segment_grad_cuda(g_bags, seg, weights, inv, n_rows: int, order=None,
+                       sorted_inv=None):
     dev = g_bags.device
     _expect(g_bags, "segment_grad g_bags", torch.float32, 2, dev)
     _expect(seg, "segment_grad seg", torch.int32, 1, dev)
@@ -187,29 +245,42 @@ def _segment_grad_cuda(g_bags, seg, weights, inv, n_rows: int):
     if weights.shape[0] != n or seg.shape[0] != n:
         raise ValueError(f"segment_grad: inv {n}, weights {weights.shape[0]}, "
                          f"seg {seg.shape[0]} must match")
+    if (order is None) != (sorted_inv is None):
+        raise ValueError("segment_grad: pass both order and sorted_inv, or neither")
+    if order is not None:
+        _expect(order, "segment_grad order", torch.int64, 1, dev)
+        _expect(sorted_inv, "segment_grad sorted_inv", torch.int32, 1, dev)
+        if order.shape[0] != n or sorted_inv.shape[0] != n:
+            raise ValueError(f"segment_grad: order {order.shape[0]} and sorted_inv "
+                             f"{sorted_inv.shape[0]} must match inv {n}")
     d = g_bags.shape[1]
     if max(n, n_rows, g_bags.shape[0]) >= 2**31 - 1 or d > 1024:
         raise ValueError(f"segment_grad: n={n}, n_rows={n_rows}, D={d} exceed the "
-                         "kernel's int32 offsets or its 1024-thread block")
+                         "kernel's int32 positions or its 1024 columns")
     out = torch.empty((n_rows, d), dtype=g_bags.dtype, device=dev)
     if n_rows and d:
-        # stable: a slot's positions keep their original (segment_sum) order
-        sorted_inv, order = torch.sort(inv, stable=True)
-        offsets = torch.empty((n_rows + 1,), dtype=torch.int32, device=dev)
+        if order is None:
+            # stable: a slot's positions keep their original (segment_sum) order
+            sorted_inv, order = torch.sort(inv, stable=True)
+            sorts["segment_grad"] += 1
         _launch("segment_grad", g_bags.data_ptr(), seg.data_ptr(), weights.data_ptr(),
-                order.data_ptr(), sorted_inv.data_ptr(), offsets.data_ptr(),
-                out.data_ptr(), n, n_rows, d)
+                order.data_ptr(), sorted_inv.data_ptr(), out.data_ptr(), n, n_rows, d,
+                *segment_grad_plan(n, d, sm_count(dev)))
     return out
 
 
 def segment_grad(g_bags, seg, weights, inv, n_rows: int,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, order=None, sorted_inv=None):
     """Transpose of ``gather_pool`` as a standalone op (the engine's explicit
     backward): ``g_rows[u] = sum_{inv[i]=u} w[i] * g_bags[seg[i]]`` for
-    ``u < n_rows``; slots no position maps to are exactly 0."""
+    ``u < n_rows``; slots no position maps to are exactly 0. ``order`` (a
+    stable argsort of ``inv``, int64) and ``sorted_inv`` (``inv[order]``,
+    int32) are the forward unique's permutation; given them, the kernel
+    runs without a sort. Without them it sorts first (``sorts``)."""
     if _use_kernel(fused, g_bags, "segment_grad"):
-        return _segment_grad_cuda(g_bags, seg, weights, inv, int(n_rows))
-    return ref.segment_grad_ref(g_bags, seg, weights, inv, int(n_rows))
+        return _segment_grad_cuda(g_bags, seg, weights, inv, int(n_rows), order,
+                                  sorted_inv)
+    return ref.segment_grad_ref(g_bags, seg, weights, inv, int(n_rows), order, sorted_inv)
 
 
 # ------------------------------------------------------------- dedup adagrad

@@ -36,9 +36,15 @@ def gather_pool_ref(rows_u: torch.Tensor, inv: torch.Tensor, weights: torch.Tens
 
 
 def segment_grad_ref(g_bags: torch.Tensor, seg: torch.Tensor, weights: torch.Tensor,
-                     inv: torch.Tensor, n_rows: int) -> torch.Tensor:
+                     inv: torch.Tensor, n_rows: int, order: Optional[torch.Tensor] = None,
+                     sorted_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Transpose of ``gather_pool_ref``: per-position bag-grad gather scaled
-    by the pooling weight, scattered back onto the unique-row slots."""
+    by the pooling weight, scattered back onto the unique-row slots. With
+    the forward's permutation (``order``, ``sorted_inv = inv[order]``) the
+    positions are taken in sorted order, each slot's in ascending original
+    position, as the kernel adds them."""
+    if order is not None:
+        seg, weights, inv = seg[order], weights[order], sorted_inv
     per_id = g_bags[seg.long()] * weights[:, None].to(g_bags.dtype)
     out = torch.zeros((n_rows, g_bags.shape[1]), dtype=g_bags.dtype,
                       device=g_bags.device)

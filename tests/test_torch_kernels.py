@@ -24,6 +24,7 @@ from repro.kernels.fm_interaction import fm_interaction_pallas
 from repro.kernels.fused_embedding import (dedup_adagrad_pallas, gather_pool_pallas,
                                            segment_grad_pallas, tier_probe_pallas)
 from repro.kernels.interaction_bwd import fm_interaction_bwd_pallas
+from repro_torch.core import packed_embedding as pe
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
 
@@ -450,3 +451,103 @@ def test_every_kernel_has_a_c_entry_point_for_sm90a():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
         assert "cudaGetLastError()" in src and "Replaces" in src
+
+
+# ------------------------------------------- the carried sort and the plans
+
+
+@pytest.mark.parametrize("n,d,hi", [(48, 8, 12), (64, 10, 64), (39, 16, 1), (300, 4, 40)])
+def test_segment_grad_along_carried_sort_matches_pallas(n, d, hi):
+    """The plain ``segment_grad`` along the forward unique's stable sort
+    (as the engine calls it) within 1e-6 of scale of the Pallas kernel in
+    interpret mode; slots no position maps to are exactly 0 on both."""
+    rng = np.random.default_rng(n + hi)
+    ids = rng.integers(0, hi, n).astype(np.int32)
+    u = pe.fixed_unique(_t(ids), sentinel=hi)
+    seg = np.sort(rng.integers(0, n // 2, n)).astype(np.int32)
+    w = rng.normal(size=n).astype(np.float32)
+    g_bags = rng.normal(size=(n // 2, d)).astype(np.float32)
+    got = ops.segment_grad(_t(g_bags), _t(seg), _t(w), u.inv, n, order=u.order,
+                           sorted_inv=u.slot_sorted).numpy()
+    pal = np.asarray(segment_grad_pallas(jnp.asarray(g_bags), jnp.asarray(seg),
+                                         jnp.asarray(w), jnp.asarray(u.inv.numpy()), n,
+                                         interpret=True))
+    np.testing.assert_allclose(got, pal, atol=1e-6 * max(np.abs(pal).max(), 1.0), rtol=0)
+    n_uniq = int(u.n_uniq)
+    assert n_uniq < n and (got[n_uniq:] == 0.0).all() and (pal[n_uniq:] == 0.0).all()
+
+
+def _recorded_launch(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(ops, "sm_count", lambda device: 132)  # an H100's, off the card
+    return seen
+
+
+def test_segment_grad_wrapper_sorts_only_without_the_carried_sort(monkeypatch):
+    """Along the carried sort the wrapper hands the launcher the forward's
+    permutation and sorts nothing; standalone it sorts (stable) once and
+    counts it; half a permutation is refused."""
+    seen = _recorded_launch(monkeypatch)
+    rng = np.random.default_rng(7)
+    n, d = 40, 10
+    ids = rng.integers(0, 9, n).astype(np.int32)
+    u = pe.fixed_unique(_t(ids), sentinel=9)
+    g_bags, seg, w = torch.ones((n, d)), torch.arange(n, dtype=torch.int32), torch.ones(n)
+    ops.reset_launches()
+    ops._segment_grad_cuda(g_bags, seg, w, u.inv, n, u.order, u.slot_sorted)
+    assert ops.sorts["segment_grad"] == 0
+    ops._segment_grad_cuda(g_bags, seg, w, u.inv, n)
+    assert ops.sorts["segment_grad"] == 1
+    (_, carried), (_, alone) = seen
+    sorted_inv, order = torch.sort(u.inv, stable=True)
+    assert carried[3] == u.order.data_ptr() and carried[4] == u.slot_sorted.data_ptr()
+    assert carried[6:] == (n, n, d, *ops.segment_grad_plan(n, d, 132)) == alone[6:]
+    with pytest.raises(ValueError, match="both"):
+        ops._segment_grad_cuda(g_bags, seg, w, u.inv, n, u.order, None)
+    with pytest.raises(ValueError, match="order"):
+        ops._segment_grad_cuda(g_bags, seg, w, u.inv, n, u.order.to(torch.int32),
+                               u.slot_sorted)
+    ops.reset_launches()
+    assert ops.sorts["segment_grad"] == 0
+
+
+@pytest.mark.parametrize("n,d,plan", [
+    (9_984, 10, (64, 512)),       # deepfm
+    (6_656, 16, (32, 512)),       # dcn-v2
+    (6_656, 128, (32, 64)),       # DLRM
+    (2_555_904, 10, (256, 512)),  # bulk
+    (100, 1024, (8, 8)),          # widest
+    (5, 1, (16, 512))])           # D = 1
+def test_segment_grad_plan_by_hand(n, d, plan):
+    """Tiles: the largest power of two <= 256 with ceil(n / tile) >= 132
+    blocks (one an SM of an H100), at least 16; 9,984 / 64 = 156 blocks
+    (/ 128 = 78), 6,656 / 32 = 208. Chunks: 8,192 products, at most 512
+    positions. The shared memory the launcher sizes from them (products
+    over the int64 order, so at least two floats a position; weights, bag
+    ids, chunk + 2 slots, tile + 1 run starts) stays under the 48 KB a
+    block gets unasked."""
+    assert ops.segment_grad_plan(n, d, 132) == plan
+    tile, chunk = plan
+    assert tile <= chunk
+    assert chunk * max(d, 2) * 4 + chunk * 8 + (chunk + 2) * 4 + (tile + 1) * 4 <= 48 * 1024
+
+
+@pytest.mark.parametrize("n,lanes", [(19_968, 8), (9_984, 16), (13_312, 8), (6_656, 16),
+                                     (1_037, 32), (40_000, 4), (70_001, 2), (150_001, 1),
+                                     (2_555_904, 1), (1, 32)])
+def test_tier_probe_plan_by_hand(n, lanes):
+    """Lanes: the most (a power of two up to 32) with n * lanes <= 132 SMs x
+    1,280 threads = 168,960 on an H100, e.g. 19,968 x 8 = 159,744 while x 16
+    = 319,488; 1 is the ranged search."""
+    assert ops.tier_probe_plan(n, 132) == lanes
+    assert lanes == 1 or n * lanes <= 168_960 < n * lanes * 2 or lanes == 32
+
+
+def test_tier_probe_wrapper_hands_the_launcher_its_lanes(monkeypatch):
+    seen = _recorded_launch(monkeypatch)
+    n, h, d = 19_968, 64, 10
+    ops._tier_probe_cuda(torch.zeros(n, dtype=torch.int32), torch.ones(n, dtype=torch.bool),
+                         torch.arange(h, dtype=torch.int32), torch.zeros((h, d)))
+    ((name, args),) = seen
+    assert name == "tier_probe" and args[7:] == (n, h, d, 8)

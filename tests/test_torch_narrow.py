@@ -457,10 +457,23 @@ def test_narrow_train_trajectory_matches_reference(mesh1, cache_update, n_micro)
 
 
 def _warm_counts(plan, ids):
-    counts = np.zeros(plan.groups[0].rows, np.int32)
-    counts[ids[::3]] = 5
-    counts[ids[1::3]] = 2
-    counts[np.random.default_rng(4).integers(0, len(counts), 4096)] += 1
+    """An FCounter whose flush puts some of the batch's distinct ids in L1
+    and some in L2, whatever the packing salt: ``k`` batch ids and
+    ``H1 - k`` rows outside the batch share the top count, so they are the
+    top H1 exactly; ``k`` more batch ids take the second count, which ranks
+    them between H1 and H1 + H2; noise adds 1 to random rows, which moves
+    neither group across its boundary."""
+    h1, h2 = plan.cache_rows[0], plan.l2_rows[0]
+    rows = plan.groups[0].rows
+    rng = np.random.default_rng(4)
+    batch = rng.permutation(np.unique(ids))
+    k = min(8, len(batch) // 4, h1, h2)
+    others = rng.choice(np.setdiff1d(np.arange(rows), batch), h1 - k, replace=False)
+    counts = np.zeros(rows, np.int32)
+    counts[batch[:k]] = 5
+    counts[others] = 5
+    counts[batch[k:2 * k]] = 2
+    counts[rng.integers(0, rows, 4096)] += 1
     return counts
 
 

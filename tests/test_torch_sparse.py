@@ -114,6 +114,37 @@ def test_fixed_unique_bitwise(n, hi):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def _unique_case(kind, rng):
+    if kind == "duplicates":
+        return rng.integers(0, 700, 3_000).astype(np.int32), 700
+    if kind == "distinct":
+        return rng.permutation(2_000).astype(np.int32), 2_000
+    if kind == "one id":
+        return np.full(257, 41, np.int32), 100
+    return rng.integers(0, 3_000, 5_000).astype(np.int32), 3_000   # past 4,096
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "distinct", "one id", "large"])
+def test_fixed_unique_carries_the_stable_sort(kind):
+    """``uniq``, ``inv``, ``n_uniq`` and ``uvalid`` bitwise the reference's;
+    ``order`` and ``slot_sorted`` are ``inv``'s stable sort, and ``order``
+    is the permutation ``segment_grad_pallas`` builds (``argsort`` of the
+    slots with one ghost per slot appended, stable), restricted to the real
+    positions."""
+    ids, hi = _unique_case(kind, np.random.default_rng(len(kind)))
+    n = ids.shape[0]
+    u = pe.fixed_unique(_t(ids), sentinel=hi)
+    ju = jpe.fixed_unique(jnp.asarray(ids), sentinel=hi)
+    for a, b in zip(u[:4], ju):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    sorted_inv, order = torch.sort(u.inv, stable=True)
+    assert u.order.dtype == torch.int64 and u.slot_sorted.dtype == torch.int32
+    assert torch.equal(u.order, order) and torch.equal(u.slot_sorted, sorted_inv)
+    slots = jnp.concatenate([jnp.asarray(u.inv.numpy()), jnp.arange(n, dtype=jnp.int32)])
+    jorder = np.asarray(jnp.argsort(slots, stable=True))
+    np.testing.assert_array_equal(u.order.numpy(), jorder[jorder < n])
+
+
 @pytest.mark.parametrize("world,capacity", [(1, 64), (1, 5), (4, 3), (4, 40)])
 def test_partition_bitwise(world, capacity):
     rng = np.random.default_rng(world * 100 + capacity)

@@ -43,6 +43,7 @@ from repro_torch.core.packing import make_plan
 from repro_torch.data.pipeline import Prefetcher, ReplayableStream
 from repro_torch.data.synthetic import batch_stream, make_batch
 from repro_torch.engine import EmbeddingEngine
+from repro_torch.kernels import ops
 from repro_torch.launch import train as train_launcher
 from repro_torch.models.wdl import WDLModel
 from repro_torch.optim import optimizers as topt
@@ -143,6 +144,32 @@ def test_host_scheduled_flush_matches_in_step_flush():
     for a, b in zip(runs[0][1].cache, runs[1][1].cache):
         assert torch.equal(a, b)
     assert (runs[0][1].cache.keys < plan.groups[0].rows).any()
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_engine_backward_runs_segment_grad_along_the_forward_sort(monkeypatch, n_micro):
+    """Every ``segment_grad`` of a training step, through the flush at step
+    3, gets the forward unique's permutation: ``inv``'s stable sort and
+    ``inv`` in its order, so the kernel path needs no sort of its own."""
+    calls, real = [], ops.segment_grad
+
+    def spy(g_bags, seg, weights, inv, n_rows, fused=None, order=None, sorted_inv=None):
+        calls.append((inv, order, sorted_inv))
+        return real(g_bags, seg, weights, inv, n_rows, fused, order, sorted_inv)
+
+    monkeypatch.setattr(ops, "segment_grad", spy)
+    _, plan = _plans(n_micro)
+    cfg = get_config("deepfm", smoke=True)
+    model = WDLModel(cfg, plan)
+    state = init_state(model, plan, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(model, plan, GB, TrainConfig(), "cpu")
+    rng = np.random.default_rng(2)
+    for _ in range(4):
+        state, _ = step(state, make_batch(cfg, GB, rng))
+    assert len(calls) == 4 * n_micro * len(plan.groups)
+    for inv, order, sorted_inv in calls:
+        expect_sorted, expect_order = torch.sort(inv, stable=True)
+        assert torch.equal(order, expect_order) and torch.equal(sorted_inv, expect_sorted)
 
 
 def test_engine_training_flags():
