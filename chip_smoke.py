@@ -52,18 +52,28 @@ Phases, in order (any failure raises and exits non-zero):
    52,393): bitwise alike with the carried sort and standalone (where the
    wrapper sorts once, counted in ``ops.sorts``), repeating bit for bit,
    within 1e-5 of scale of the plain version, unused slots exactly 0.
+   ``gather_pool`` (one launch, no scratch) runs again at the training
+   path's n = 9,984 and at DLRM's D = 128 (n = 13,312 and 6,656), on
+   multi-position layouts (runs of 1-200 positions with empty bags among
+   them and at the tail, a 1,000-position run across tiles, a seg past
+   n_bags, n = 1) at D = 1, 3, 10, 128, 129 and 1,024, and with seg =
+   arange at D = 1, 3, 129 and 1,024: within 1e-5 of scale of the plain
+   version, uncovered bags exactly 0, a second call bitwise the first.
    The four gradient-compression kernels run on the routed rows of a
    training step (m = the bucket capacity, 37.5 % of the rows exactly
    zero, some with tied magnitudes) at deepfm's D = 10 (k = 2), dcn-v2's D = 16 (k = 4) and
    the narrow d = 4 (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN,
    infinities, subnormals, signed zeros): payloads and rows bitwise the
    plain versions', zero rows exactly 0 out, each kernel repeating bit for
-   bit. The two DLRM dot kernels run at F = 27, D = 128 at both path
-   batches, at the bench config's D = 16, at bulk and on edge shapes (F = 2
-   with a B that is no multiple of a ring buffer's samples, odd D, D = 1,
-   F = 1): within 1e-5 of scale, repeating bit for bit, the backward (a
-   persistent ``cp.async`` ring feeding 4 x 4 register tiles) reached both
-   standalone and through the autograd of ``ops.dot_interaction``;
+   bit. The two DLRM dot kernels (persistent ``cp.async`` rings feeding
+   register tiles, 4 x 4 or the forward's 2 x 2 at B <= 264) run at F =
+   27, D = 128 at both path batches, at
+   the bench config's D = 16, at bulk and on edge shapes (F = 2 with a B
+   that is no multiple of a ring buffer's samples, odd D, D = 1, F = 1),
+   and the forward at its plan's boundaries (F = 2 and 27 by D = 1, 3, 16,
+   128 and 129 by B = 1, 37 and 65,537): within 1e-5 of scale, repeating
+   bit for bit, the backward reached both standalone and through the
+   autograd of ``ops.dot_interaction``;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -504,15 +514,27 @@ def run_probe_edges(gen: torch.Generator) -> dict:
             "lanes": {n: ops.tier_probe_plan(n, ops.sm_count(DEV)) for n in PROBE_EDGE_N}}
 
 
-def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
-    """The packed layout of deepfm and dcn-v2: one bag per (sample, field),
-    seg = arange."""
+def pool_case(b: int, gen: torch.Generator, a: Arch):
+    """``(rows_u, inv, w, seg, n)`` of a B-sample batch in the packed layout
+    of every path: one bag per (sample, field), seg = arange."""
     n = b * a.n_fields
     ids = torch.randint(0, max(n // 2, 1), (n,), device=DEV, generator=gen, dtype=torch.int32)
     inv = pe.fixed_unique(ids, sentinel=n).inv
     rows_u = torch.randn((n, a.dim), device=DEV, generator=gen)
     w = torch.rand((n,), device=DEV, generator=gen) + 0.5
-    seg = torch.arange(n, device=DEV, dtype=torch.int32)
+    return rows_u, inv, w, torch.arange(n, device=DEV, dtype=torch.int32), n
+
+
+def pool_bound(rows_u, inv, n: int, n_bags: int):
+    """Each distinct row read once, inv, w and seg once, the bags written
+    once; two flops an element."""
+    d = rows_u.shape[1]
+    n_ref = int(torch.unique(inv).numel())
+    return bound(n_ref * d * 4 + n * 12 + n_bags * d * 4, 2 * n * d)
+
+
+def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
+    rows_u, inv, w, seg, n = pool_case(b, gen, a)
     out = ops.gather_pool(rows_u, inv, w, seg, n)
     rout = ref.gather_pool_ref(rows_u, inv, w, seg, n)
     # an uncovered bag: bag 3's positions move to bag 2
@@ -531,9 +553,8 @@ def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
     inv64 = inv.long()
     lib = F.embedding_bag(inv64, rows_u, offsets, mode="sum", per_sample_weights=w)
     check(max_err(lib, rout) <= TOL * scale_of(rout), "embedding_bag yardstick agrees")
-    n_ref = int(torch.unique(inv).numel())
-    b_ms, b_by = bound(n_ref * a.dim * 4 + n * 12 + n * a.dim * 4, 2 * n * a.dim)
-    return {"n": n, "max_abs_err": err,
+    b_ms, b_by = pool_bound(rows_u, inv, n, n)
+    return {"n": n, "d": a.dim, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.gather_pool(rows_u, inv, w, seg, n)),
             "call_ms": cuda_ms(lambda: ops.gather_pool(rows_u, inv, w, seg, n),
                                device_only=False),
@@ -541,6 +562,73 @@ def run_gather_pool(b: int, gen: torch.Generator, a: Arch) -> dict:
             "library_ms": cuda_ms(lambda: F.embedding_bag(
                 inv64, rows_u, offsets, mode="sum", per_sample_weights=w)),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+# multi-position layouts of the pool: runs of 1-200 positions with empty
+# bags among them and at the tail, a 1,000-position run across tiles, a seg
+# past n_bags (dropped), a single position
+POOL_LAYOUTS = ("runs 1-200", "tile-crossing run", "seg past n_bags", "n=1")
+POOL_EDGE_D = (1, 3, 10, 128, 129, 1024)
+
+
+def pool_layout(kind: str, gen: torch.Generator, d: int):
+    """``(rows_u, inv, w, seg, n_bags)`` of one pool layout at width ``d``,
+    with ``seg`` sorted."""
+    if kind == "runs 1-200":
+        runs = torch.randint(1, 201, (60,), device=DEV, generator=gen)
+        bags = torch.arange(60, device=DEV) * 7 // 6  # every seventh bag empty
+        seg = torch.repeat_interleave(bags, runs).to(torch.int32)
+        n_bags = int(bags[-1]) + 6  # and five empty at the tail
+    elif kind == "tile-crossing run":
+        seg = torch.arange(3_000, device=DEV, dtype=torch.int32)
+        seg[1_100:2_100] = 1_100
+        n_bags = 3_000
+    elif kind == "seg past n_bags":
+        seg = torch.arange(2_000, device=DEV, dtype=torch.int32)
+        seg[1_990:] = 2_500
+        n_bags = 1_995
+    else:
+        seg, n_bags = torch.ones((1,), device=DEV, dtype=torch.int32), 3
+    n = seg.shape[0]
+    rows_u = torch.randn((n, d), device=DEV, generator=gen)
+    inv = torch.randint(0, n, (n,), device=DEV, generator=gen, dtype=torch.int32)
+    w = torch.rand((n,), device=DEV, generator=gen) + 0.5
+    return rows_u, inv, w, seg, n_bags
+
+
+def pool_plain(rows_u, inv, w, seg, n_bags: int):
+    """The plain version on the positions whose bag exists (it takes no
+    seg outside [0, n_bags); the kernel drops those positions)."""
+    keep = (seg >= 0) & (seg < n_bags)
+    return ref.gather_pool_ref(rows_u, inv[keep], w[keep], seg[keep], n_bags)
+
+
+def run_pool_edges(gen: torch.Generator) -> dict:
+    """Every layout at each of POOL_EDGE_D, and seg = arange at the widths
+    past the paths': within 1e-5 of scale of the plain version, uncovered
+    bags exactly 0, a second call bitwise the first."""
+    out = {}
+    cases = [(k, d) for k in POOL_LAYOUTS for d in POOL_EDGE_D]
+    for kind, d in cases + [("arange", d) for d in (1, 3, 129, 1024)]:
+        if kind == "arange":
+            n = 4_099
+            rows_u = torch.randn((n, d), device=DEV, generator=gen)
+            inv = torch.randint(0, n, (n,), device=DEV, generator=gen, dtype=torch.int32)
+            w = torch.rand((n,), device=DEV, generator=gen) + 0.5
+            seg, n_bags = torch.arange(n, device=DEV, dtype=torch.int32), n
+        else:
+            rows_u, inv, w, seg, n_bags = pool_layout(kind, gen, d)
+        got, again = (ops.gather_pool(rows_u, inv, w, seg, n_bags) for _ in range(2))
+        exp = pool_plain(rows_u, inv, w, seg, n_bags)
+        torch.cuda.synchronize(DEV)
+        err = max_err(got, exp) / scale_of(exp)
+        covered = torch.zeros((n_bags,), dtype=torch.bool, device=DEV)
+        covered[seg[(seg >= 0) & (seg < n_bags)].long()] = True
+        check(err <= TOL, f"gather_pool {kind} D={d}: err of scale {err}")
+        check(bool((got[~covered] == 0).all()), f"gather_pool {kind} D={d}: empty bags 0")
+        check(same_bits(got, again), f"gather_pool {kind} D={d} repeats")
+        out[f"{kind} D={d}"] = err
+    return out
 
 
 def run_fm(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -1231,6 +1319,33 @@ def run_dot_edges(gen: torch.Generator) -> dict:
     return out
 
 
+# the forward's plan boundaries: a single pair and full width, rows of one,
+# three (4-byte copies, a padded column group), 16, 128 and 129 floats, one
+# sample, a B that is no multiple of a ring buffer's samples, and B just
+# past 65,536 (the most samples a buffer takes)
+DOT_FWD_F, DOT_FWD_D, DOT_FWD_B = (2, 27), (1, 3, 16, 128, 129), (1, 37, 65_537)
+
+
+def run_dot_fwd_plans(gen: torch.Generator) -> dict:
+    """``dot_interaction`` at every (B, F, D) of the three sets: within 1e-5
+    of scale of the plain version, a second call bitwise the first.
+    Returns each shape's plan and error."""
+    out = {}
+    for f in DOT_FWD_F:
+        for d in DOT_FWD_D:
+            for b in DOT_FWD_B:
+                x, _ = dot_case(b, gen, f, d)
+                got, again = ops.dot_interaction(x), ops.dot_interaction(x)
+                exp = ref.dot_interaction_ref(x)
+                torch.cuda.synchronize(DEV)
+                err = max_err(got, exp) / scale_of(exp)
+                check(got.shape == exp.shape and err <= TOL, f"dot fwd {(b, f, d)}: {err}")
+                check(same_bits(got, again), f"dot fwd repeats {(b, f, d)}")
+                out[f"{b}x{f}x{d}"] = {"plan": ops.dot_fwd_plan(b, f, d), "err": err}
+                del x, got, again, exp
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1385,7 +1500,8 @@ def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
 
 def port_kernels(per_kernel: Dict[str, float]) -> Dict[str, float]:
     """The profiled device ms of the port's own kernels (``csrc``'s, in
-    anonymous namespaces or ``segment_pool``), by kernel name."""
+    anonymous namespaces, or an earlier version's ``segment_pool``), by
+    kernel name."""
     out = {}
     for key, ms in per_kernel.items():
         m = re.search(r"(?:\(anonymous namespace\)|segment_pool)::(\w+_kernel(?:<\d+>)?)", key)
@@ -1923,7 +2039,9 @@ def main() -> None:
                "dot_interaction": (run_dot, "dlrm-narrow", "serve", SERVE_B),
                "dot_interaction_bwd": (run_dot_bwd, "dlrm-narrow", "train", TRAIN_B)}
     main_shape = {}
-    other_shapes = {"segment_grad": [], "tier_probe": []}  # the redesigned kernels'
+    # the redesigned kernels'
+    other_shapes = {"segment_grad": [], "tier_probe": [], "gather_pool": [],
+                    "dot_interaction": []}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])
@@ -1954,13 +2072,18 @@ def main() -> None:
         "tier_probe deepfm train": lambda: run_tier_probe(TRAIN_B, gen, ARCHS["deepfm"]),
         "tier_probe dlrm-narrow L1 serve": lambda: run_tier_probe(SERVE_B, gen, dl),
         "tier_probe dlrm-narrow L2 serve": lambda: run_tier_probe(SERVE_B, gen, dl, l2=True),
-        "tier_probe dlrm-narrow L1 train": lambda: run_tier_probe(TRAIN_B, gen, dl)})
+        "tier_probe dlrm-narrow L1 train": lambda: run_tier_probe(TRAIN_B, gen, dl),
+        "gather_pool deepfm train": lambda: run_gather_pool(TRAIN_B, gen, ARCHS["deepfm"]),
+        "gather_pool dlrm-narrow serve": lambda: run_gather_pool(SERVE_B, gen, dl),
+        "gather_pool dlrm-narrow train": lambda: run_gather_pool(TRAIN_B, gen, dl)})
     for label, run in extra.items():
         r = run()
         print(f"[kernel] {label} " + json.dumps(r), flush=True)
         name, shape = label.split(" ", 1)
         other_shapes[name].append({"label": shape, **r})
     print("[kernel] tier_probe edge cases " + json.dumps(run_probe_edges(gen)), flush=True)
+    print("[kernel] gather_pool layouts and widths (err of scale) "
+          + json.dumps(run_pool_edges(gen)), flush=True)
     # the narrow configuration: the stitch and its transpose at the other
     # path's batch too, dedup_adagrad on the d = 4 master, the L2 probe
     narrow = ARCHS["deepfm-narrow"]
@@ -2005,13 +2128,18 @@ def main() -> None:
         print(f"[kernel] {label} " + json.dumps(run()), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
+    print("[kernel] dot_interaction plan boundaries "
+          + json.dumps(run_dot_fwd_plans(gen)), flush=True)
     extra = {"dot_interaction train": lambda: run_dot(TRAIN_B, gen, dl),
              "dot_interaction_bwd serve": lambda: run_dot_bwd(SERVE_B, gen, dl),
              "dot_interaction bench D=16": lambda: run_dot(TRAIN_B, gen, dl, d=16),
              "dot_interaction_bwd bench D=16": lambda: run_dot_bwd(TRAIN_B, gen, dl, d=16),
              "dot edge shapes (err of scale: fwd, bwd)": lambda: run_dot_edges(gen)}
     for label, run in extra.items():
-        print(f"[kernel] {label} " + json.dumps(run()), flush=True)
+        r = run()
+        print(f"[kernel] {label} " + json.dumps(r), flush=True)
+        if label.startswith("dot_interaction "):
+            other_shapes["dot_interaction"].append({"label": label.split(" ", 1)[1], **r})
     _TABLES.clear()
     torch.cuda.empty_cache()
     print(f"[wall] kernels checked at {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -2040,10 +2168,14 @@ def main() -> None:
         # each kernel's launches on the main path it was ported for
         arch, path = PORTED_FOR[name]
         a = ARCHS[arch]
+        launches = runs[arch, path]["launches"][name]
+        where = (f"{a.config} {path} (grad_compress={a.grad_compress})"
+                 if arch in COMPRESSED else f"{arch} {path}")
+        if name == "gather_pool":  # once a request and once a step
+            launches += runs[arch, "train"]["launches"][name]
+            where = f"{arch} serve + train"
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": runs[arch, path]["launches"][name],
-                        "path": (f"{a.config} {path} (grad_compress={a.grad_compress})"
-                                 if arch in COMPRESSED else f"{arch} {path}"),
+                        "launches": launches, "path": where,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

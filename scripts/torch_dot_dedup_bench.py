@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Times the port's ``dot_interaction_bwd`` and ``dedup_adagrad`` on the card
-at their training paths' shapes and at bulk, beside their plain versions
-and, for the dot backward, the PyTorch chain that computes the same
-function; checks each against its plain version and records digests of
-its outputs, so two versions can be held bit for bit against each other.
+"""Times the port's ``dot_interaction``, its backward ``dot_interaction_bwd``
+and ``dedup_adagrad`` on the card at their paths' shapes and at bulk,
+beside their plain versions and, for the dot kernels, the PyTorch chain
+that computes the same function; checks each against its plain version and
+records digests of its outputs, so two versions can be held bit for bit
+against each other.
 
     python3 scripts/torch_dot_dedup_bench.py [--src DIR] [--tag NAME] [--against TAG]
-                                             [--max-dedup-ops N]
+                                             [--max-dedup-ops N] [--sweep]
 
-Shapes: ``dot_interaction_bwd`` at F = 27, D = 128 (DLRM) with B = 256
-(training), 512 and 65,536 (bulk), at the bench config's D = 16 and on
-``chip_smoke.DOT_EDGES``; ``dedup_adagrad`` at each call a training step
-makes (``chip_smoke.dedup_shape``): deepfm's master (m = 15,976, d = 10),
-the narrow d = 4 master and its D = 10 L2 tier, DLRM's d = 32 master and
-its D = 128 L2 tier, and deepfm's at bulk (m = 4,089,448), each on a
-full-size table with chip_smoke's case (a quarter duplicates, a tenth
-invalid) and with distinct rows (the path's case at world 1), plus the
-skewed case (rows repeated 1,000, 33 and 2 times). Each result is first
-held to its plain version (1e-5 of scale) and to a bitwise repeat, then
-timed with ``chip_smoke.cuda_ms`` (CUDA events, device only, median of 30).
-One ``dedup_adagrad`` call at deepfm's shape, and one at bulk, is traced
-with ``torch.profiler``: every device operation of the call, with its time, is
+Shapes: both dot kernels at F = 27, D = 128 (DLRM) with B = 256
+(training), 512 (serving) and 65,536 (bulk) and at the bench config's
+D = 16, each timed beside its chain (``bmm``, then the triangle gather;
+zeros, the triangle scatter, the transpose added, ``bmm``); the forward
+also at its plan's boundaries (``chip_smoke.DOT_FWD_F`` x ``DOT_FWD_D`` x
+``DOT_FWD_B``) and the backward on ``chip_smoke.DOT_EDGES``;
+``dedup_adagrad`` at each call a training step makes
+(``chip_smoke.dedup_shape``): deepfm's master (m = 15,976, d = 10), the
+narrow d = 4 master and its D = 10 L2 tier, DLRM's d = 32 master and its
+D = 128 L2 tier, and deepfm's at bulk (m = 4,089,448), each on a full-size
+table with chip_smoke's case (a quarter duplicates, a tenth invalid) and
+with distinct rows (the path's case at world 1), plus the skewed case
+(rows repeated 1,000, 33 and 2 times). Each result is first held to its
+plain version (1e-5 of scale) and to a bitwise repeat, then timed with
+``chip_smoke.cuda_ms`` (CUDA events, device only, median of 30). One
+``dedup_adagrad`` call at deepfm's shape, and one at bulk, is traced with
+``torch.profiler``: every device operation of the call, with its time, is
 printed, and the count and the absence of a sort are recorded
 (``--max-dedup-ops N`` fails the run if a call makes more than N, or a
-sort).
+sort). ``--sweep`` also times the forward at the three full-width batches
+under other plans than ``ops.dot_fwd_plan``'s (tile side, samples a
+buffer, buffers, threads), each bitwise the plan's output.
 
 ``--src DIR`` takes ``repro_torch`` from another checkout's ``src`` (an
 earlier version of the kernels), so two versions can be timed in turns in
@@ -48,6 +55,7 @@ def main() -> None:
     ap.add_argument("--tag", default="this")
     ap.add_argument("--against", default=None)
     ap.add_argument("--max-dedup-ops", type=int, default=None)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     # repro_torch from --src first: chip_smoke's own imports then find it
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -79,9 +87,43 @@ def main() -> None:
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
-    # ------------------------------------------------------ dot backward
+    # ------------------------------------------------------- dot forward
     dl = cs.ARCHS["dlrm-narrow"]
     f_full = dl.n_fields + 1
+    fwd = {"train": (cs.TRAIN_B, f_full, dl.dim), "serve": (cs.SERVE_B, f_full, dl.dim),
+           "bulk": (cs.BULK_B, f_full, dl.dim), "bench D=16": (cs.TRAIN_B, f_full, 16)}
+    fwd.update({f"plan {b}x{f}x{d}": (b, f, d) for f in cs.DOT_FWD_F for d in cs.DOT_FWD_D
+                for b in cs.DOT_FWD_B})
+    for label, (b, f, d) in fwd.items():
+        x, _ = cs.dot_case(b, gen, f, d)
+        got, again = ops.dot_interaction(x), ops.dot_interaction(x)
+        exp = ref.dot_interaction_ref(x)
+        torch.cuda.synchronize(cs.DEV)
+        err = cs.max_err(got, exp) / cs.scale_of(exp)
+        key = f"dot_interaction {label}"
+        held(err <= cs.TOL, f"{key} err {err}")
+        held(cs.same_bits(got, again), f"{key} repeats")
+        digests[key] = digest(got)
+        p = f * (f - 1) // 2
+        iu, ju = torch.triu_indices(f, f, 1, device=cs.DEV)
+        b_ms, b_by = cs.bound((b * f * d + b * p) * 4, 2 * b * p * d)
+        row = {"kernel": "dot_interaction", "shape": label, "b": b, "f": f, "d": d,
+               "err_of_scale": err, "digest": digests[key], "bound_ms": b_ms,
+               "bound_by": b_by}
+        if hasattr(ops, "dot_fwd_plan"):
+            row["plan"] = ops.dot_fwd_plan(b, f, d)
+        if not label.startswith("plan"):
+            row.update({"ms": cs.cuda_ms(lambda: ops.dot_interaction(x)),
+                        "plain_ms": cs.cuda_ms(lambda: ref.dot_interaction_ref(x)),
+                        "library_ms": cs.cuda_ms(
+                            lambda: torch.bmm(x, x.transpose(1, 2))[:, iu, ju])})
+            if args.sweep and label != "bench D=16":
+                row["plan_ms"] = sweep_fwd(torch, ops, build, cs, x, got)
+        emit(row)
+        del x, got, again, exp
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ dot backward
     shapes = {"train": (cs.TRAIN_B, f_full, dl.dim), "serve": (cs.SERVE_B, f_full, dl.dim),
               "bulk": (cs.BULK_B, f_full, dl.dim), "bench D=16": (cs.TRAIN_B, f_full, 16)}
     shapes.update({f"edge {b}x{f}x{d}": (b, f, d) for b, f, d in cs.DOT_EDGES})
@@ -188,6 +230,35 @@ def main() -> None:
         emit({"against": args.against, "compared": len(digests), "differ": differ})
         held(not differ, f"outputs differ from {args.against}'s: {differ}")
     cs.check(not failed, "; ".join(failed))
+
+
+def sweep_fwd(torch, ops, build, cs, x, want) -> dict:
+    """Device ms of the forward kernel alone under other plans than its
+    own: tile side 2 and 4, one or several samples a ring buffer, two or
+    three buffers, 32-256 threads; each output first held bitwise to the
+    plan's. Keys are ``spb/stages/threads/tile``."""
+    b, f, d = x.shape
+    out = torch.empty_like(want)
+    launch = build.launcher("dot_interaction")
+    times = {}
+    for spb, stages in ((1, 3), (1, 2), (7, 2)):
+        smem = ops.dot_fwd_smem(f, d, spb, stages)
+        if smem > ops.DOT_SMEM_BYTES or spb > max(1, b // ops.DOT_MIN_GROUPS):
+            continue
+        for tile in (2, 4):
+            for threads in (32, 64, 128, 256):
+                plan = (spb, stages, threads, smem, tile)
+
+                def run(plan=plan):
+                    rc = launch(x.data_ptr(), out.data_ptr(), b, f, d, *plan,
+                                torch.cuda.current_stream().cuda_stream)
+                    cs.check(rc == 0, f"dot_interaction plan {plan}: cudaError {rc}")
+
+                run()
+                torch.cuda.synchronize(cs.DEV)
+                cs.check(cs.same_bits(out, want), f"dot_interaction plan {plan} bitwise")
+                times[f"{spb}/{stages}/{threads}/{tile}"] = cs.cuda_ms(run)
+    return times
 
 
 def trace_dedup(torch, ops, w, acc, idx, g, valid, cs) -> dict:

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Times the port's ``tier_probe`` and ``segment_grad`` on the card at every
-path shape and at bulk, beside their plain versions and PyTorch yardsticks;
-checks each against its plain version and records digests of its outputs,
-so two versions can be held bit for bit against each other. Also times
-``gather_pool`` and ``gather_project_grad`` (the other users of
-``segment_pool.cuh``), traces one call of each redesigned kernel, and traces
-full-width deepfm training steps.
+"""Times the port's ``tier_probe``, ``segment_grad`` and ``gather_pool`` on
+the card at every path shape and at bulk, beside their plain versions and
+PyTorch yardsticks; checks each against its plain version and records
+digests of its outputs, so two versions can be held bit for bit against
+each other. Also records ``gather_project_grad``'s digests and times, traces
+one call of each redesigned kernel, and traces full-width deepfm training
+steps.
 
     python3 scripts/torch_probe_segment_bench.py [--src DIR] [--tag NAME]
-        [--against TAG] [--max-segment-ops N] [--sweep]
+        [--against TAG] [--max-segment-ops N] [--max-pool-ops N] [--sweep]
 
 Shapes: ``segment_grad`` at deepfm's training shape (n = 9,984, D = 10),
 dcn-v2's (n = 6,656, D = 16), DLRM's (n = 6,656, D = 128) and at bulk
@@ -16,20 +16,27 @@ dcn-v2's (n = 6,656, D = 16), DLRM's (n = 6,656, D = 128) and at bulk
 runs of about 2) and with the arch's own zipf (a = 1.2) batch packed as the
 path packs it (runs of up to 200 positions, 52,393 at bulk); it is called
 as the engine calls it, along the forward unique's stable sort, where the
-version takes one (an earlier version sorts in every call). ``tier_probe``
-at deepfm's 4.19 M-key L1 (serving n = 19,968 and training n = 9,984),
-dcn-v2's L1 (D = 16), the narrow 48.8 M-key L2 (D = 10), DLRM's 2.08 M-key
-L1 (serving and training) and 4.16 M-key L2 (D = 128), at bulk, and on
-``chip_smoke``'s edge cases. Each result is first held to its plain version
-(``tier_probe`` bitwise; ``segment_grad`` to 1e-5 of scale, its unused
-slots exactly 0) and to a bitwise repeat, then timed with
-``chip_smoke.cuda_ms`` (CUDA events, device only, median of 30).
-A one-element fill is timed the same way, as the floor of such a timing.
-``torch.profiler`` traces one ``segment_grad`` call at deepfm's zipf shape
-and one ``tier_probe`` call at deepfm's serving shape, each operation with
-its device time (``--max-segment-ops N`` fails the run if that
-``segment_grad`` call makes more than N device operations or a sort), and
-five full-width deepfm training steps (device operations a step, sorts
+version takes one (an earlier version sorts in every call). ``gather_pool``
+at every path's serving and training shape (deepfm D = 10, n = 19,968 and
+9,984; dcn-v2 D = 16 and DLRM D = 128, n = 13,312 and 6,656; one position
+a bag) and at bulk, each timed, and on ``chip_smoke.POOL_LAYOUTS`` (runs of
+1-200 positions with empty bags among them and at the tail, a run across
+tiles, a seg past n_bags, n = 1) at each of ``chip_smoke.POOL_EDGE_D``.
+``tier_probe`` at deepfm's 4.19 M-key L1 (serving n = 19,968 and training
+n = 9,984), dcn-v2's L1 (D = 16), the narrow 48.8 M-key L2 (D = 10), DLRM's
+2.08 M-key L1 (serving and training) and 4.16 M-key L2 (D = 128), at bulk,
+and on ``chip_smoke``'s edge cases. Each result is first held to its plain
+version (``tier_probe`` bitwise; ``segment_grad`` and ``gather_pool`` to
+1e-5 of scale, their unused slots and bags exactly 0) and to a bitwise
+repeat, then timed with ``chip_smoke.cuda_ms`` (CUDA events, device only,
+median of 30). A one-element fill is timed the same way, as the floor of
+such a timing. ``torch.profiler`` traces one ``segment_grad`` call at
+deepfm's zipf shape, one ``gather_pool`` and one ``tier_probe`` call at
+deepfm's serving shape, each operation with its device time
+(``--max-segment-ops N`` fails the run if that ``segment_grad`` call makes
+more than N device operations or a sort, ``--max-pool-ops N`` if the
+``gather_pool`` call makes more than N or allocates more than its output),
+and five full-width deepfm training steps (device operations a step, sorts
 among them, device ms a step). ``--sweep`` also times every tile of
 ``segment_grad`` and every lane count of ``tier_probe`` at each shape.
 
@@ -58,6 +65,7 @@ def main() -> None:
     ap.add_argument("--tag", default="this")
     ap.add_argument("--against", default=None)
     ap.add_argument("--max-segment-ops", type=int, default=None)
+    ap.add_argument("--max-pool-ops", type=int, default=None)
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     # repro_torch from --src first: chip_smoke's own imports then find it
@@ -85,12 +93,6 @@ def main() -> None:
         row = {"tag": args.tag, "card": stamp, **row}
         rows.append(row)
         print(json.dumps(row), flush=True)
-
-    def digest(*ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.detach().contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
 
     # the least a timed call can measure: one single-element fill kernel
     one = torch.zeros((1,), device=cs.DEV)
@@ -147,20 +149,23 @@ def main() -> None:
             del g_bags, seg, w, u, got, again, exp
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------- the header's users
-    for label, b in (("deepfm serve", cs.SERVE_B), ("bulk", cs.BULK_B)):
-        n = b * deepfm.n_fields
-        ids = torch.randint(0, max(n // 2, 1), (n,), device=cs.DEV, generator=gen,
-                            dtype=torch.int32)
-        inv = cs.pe.fixed_unique(ids, sentinel=n).inv
-        rows_u = torch.randn((n, deepfm.dim), device=cs.DEV, generator=gen)
-        w = torch.rand((n,), device=cs.DEV, generator=gen) + 0.5
-        seg = torch.arange(n, device=cs.DEV, dtype=torch.int32)
-        got = ops.gather_pool(rows_u, inv, w, seg, n)
-        key = f"gather_pool {label}"
-        digests[key] = digest(got)
-        emit({"kernel": "gather_pool", "shape": label, "n": n, "digest": digests[key],
-              "ms": cs.cuda_ms(lambda: ops.gather_pool(rows_u, inv, w, seg, n))})
+    # --------------------------------------------------------- gather pool
+    for label, a, b in (("deepfm serve", deepfm, cs.SERVE_B), ("deepfm train", deepfm, cs.TRAIN_B),
+                        ("dcn-v2 serve", dcn, cs.SERVE_B), ("dcn-v2 train", dcn, cs.TRAIN_B),
+                        ("dlrm serve", dl, cs.SERVE_B), ("dlrm train", dl, cs.TRAIN_B),
+                        ("bulk", deepfm, cs.BULK_B)):
+        rows_u, inv, w, seg, n = cs.pool_case(b, gen, a)
+        emit(pool_row(torch, ops, ref, cs, digests, held, f"gather_pool {label}",
+                      rows_u, inv, w, seg, n, timed=True, trace=label == "deepfm serve",
+                      max_ops=args.max_pool_ops))
+        del rows_u, inv, w, seg
+    for kind in cs.POOL_LAYOUTS:
+        for d in cs.POOL_EDGE_D:
+            case = cs.pool_layout(kind, gen, d)
+            emit(pool_row(torch, ops, ref, cs, digests, held, f"gather_pool {kind} D={d}",
+                          *case, timed=kind == "runs 1-200" and d in (10, 128)))
+    torch.cuda.empty_cache()
+
     narrow = cs.ARCHS["deepfm-narrow"]
     for label, b in (("narrow train", cs.TRAIN_B), ("narrow serve", cs.SERVE_B)):
         back, idx, kept, proj, g_wide, g_narrow = cs.project_case(b, gen, narrow)
@@ -241,6 +246,58 @@ def main() -> None:
         emit({"against": args.against, "compared": len(digests), "differ": differ})
         held(not differ, f"outputs differ from {args.against}'s: {differ}")
     cs.check(not failed, "; ".join(failed))
+
+
+def pool_row(torch, ops, ref, cs, digests, held, key, rows_u, inv, w, seg, n_bags,
+             timed=False, trace=False, max_ops=None) -> dict:
+    """One ``gather_pool`` case: held to the plain version (1e-5 of scale,
+    uncovered bags exactly 0) and to a bitwise repeat, its digest recorded;
+    with ``timed`` the kernel, the plain version and ``embedding_bag`` (where
+    seg = arange) timed beside the bound; with ``trace`` one call's device
+    operations and the tensors it allocates (``max_ops`` fails the run past
+    that many operations, or past the one output tensor)."""
+    import torch.nn.functional as F
+    call = lambda: ops.gather_pool(rows_u, inv, w, seg, n_bags)  # noqa: E731
+    got, again = call(), call()
+    exp = cs.pool_plain(rows_u, inv, w, seg, n_bags)
+    torch.cuda.synchronize(cs.DEV)
+    n, d = seg.shape[0], rows_u.shape[1]
+    covered = torch.zeros((n_bags,), dtype=torch.bool, device=cs.DEV)
+    covered[seg[(seg >= 0) & (seg < n_bags)].long()] = True
+    err = cs.max_err(got, exp) / cs.scale_of(exp)
+    held(err <= cs.TOL and bool((got[~covered] == 0).all()), f"{key} err {err}")
+    held(cs.same_bits(got, again), f"{key} repeats")
+    digests[key] = digest(got)
+    row = {"kernel": "gather_pool", "shape": key.split(" ", 1)[1], "n": n, "d": d,
+           "n_bags": n_bags, "err_of_scale": err, "digest": digests[key]}
+    if timed:  # on layouts whose every seg names a bag, as the plain version takes
+        b_ms, b_by = cs.pool_bound(rows_u, inv, n, n_bags)
+        row.update({"ms": cs.cuda_ms(call),
+                    "plain_ms": cs.cuda_ms(lambda: ref.gather_pool_ref(rows_u, inv, w, seg,
+                                                                       n_bags)),
+                    "bound_ms": b_ms, "bound_by": b_by})
+        if n == n_bags and torch.equal(seg, torch.arange(n, device=cs.DEV, dtype=seg.dtype)):
+            offsets, inv64 = seg.long(), inv.long()
+            row["library_ms"] = cs.cuda_ms(lambda: F.embedding_bag(
+                inv64, rows_u, offsets, mode="sum", per_sample_weights=w))
+    if trace:
+        row["device_ops"] = ops_ = trace_call(torch, cs, call)
+        stats = torch.cuda.memory_stats(cs.DEV)["allocation.all.allocated"]
+        call()
+        row["tensors_allocated"] = allocated = (
+            torch.cuda.memory_stats(cs.DEV)["allocation.all.allocated"] - stats)
+        if max_ops is not None:
+            held(ops_["per_call"] <= max_ops and allocated <= 1,
+                 f"gather_pool makes {ops_['per_call']} device operations a call and "
+                 f"allocates {allocated} tensors")
+    return row
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def sweep_segment(ops, build, cs, g_bags, seg, w, order, sorted_inv, n, d) -> dict:

@@ -32,8 +32,8 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, List] = {
     # uniq, uvalid, keys, rows, hit, slot, rows_out, n, h, d, lanes, stream
     "tier_probe": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
-    # rows_u, inv, w, seg, offsets (scratch), out, n, n_bags, d, stream
-    "gather_pool": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    # rows_u, inv, w, seg, out, n, n_bags, d, stream
+    "gather_pool": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     # x, out, b, f, d, stream
     "fm_interaction": [_P, _P, _I64, _I, _I, _P],
     # g_bags, seg, w, order, sorted_inv, out, n, n_rows, d, tile, chunk, stream
@@ -59,8 +59,8 @@ SIGNATURES: Dict[str, List] = {
     "topk_compress": [_P, _P, _P, _I64, _I, _I, _P],
     # vals, idx, out, m * d, d, k, stream
     "topk_decompress": [_P, _P, _P, _I64, _I, _I, _P],
-    # x, out, b, f, d, stream
-    "dot_interaction": [_P, _P, _I64, _I, _I, _P],
+    # x, out, b, f, d, samples a group, stages, threads, smem bytes, tile, stream
+    "dot_interaction": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I, _P],
     # x, g, out, b, f, d, samples a group, stages, threads, smem bytes, stream
     "dot_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P],
 }

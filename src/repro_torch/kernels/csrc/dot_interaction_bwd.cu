@@ -14,9 +14,8 @@
 // mma.sync) would buy nothing; what matters is how the FMAs are fed and
 // that device memory never waits. The TPU kernel scatters g into a [F, F]
 // block with a 0/1 selection matmul and multiplies on the MXU. Here:
-//  - persistent blocks (the grid is what fits on the card at once) walk
-//    their groups of `spb` samples through a ring of `stages` buffers in
-//    shared memory filled by cp.async (16-byte copies where the rows are
+//  - persistent blocks walk their groups of `spb` samples through the
+//    cp.async ring of dot_ring.cuh (16-byte copies where the rows are
 //    16-byte aligned, else 4-byte), so the next samples load while this
 //    one computes;
 //  - the block builds the pair table p -> (i, j) once, and each sample's P
@@ -33,29 +32,13 @@
 // multiplying the diagonal by its exact zero: for finite inputs that is
 // bit for bit the skip of j == i, and so the previous kernel's result. No
 // atomics and a fixed order: the result repeats bit for bit.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "dot_ring.cuh"
 
 namespace {
 
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__host__ __device__ constexpr int up4(int v) { return (v + 3) & ~3; }
+using dot_ring::cp16;
+using dot_ring::cp4;
+using dot_ring::up4;
 
 // The shared-memory layout, in floats: the pair table, S [spb, F, Fp], then
 // `stages` buffers of (rows [spb, F, Dp], cotangents [spb * P]).
@@ -83,8 +66,7 @@ __global__ void __launch_bounds__(256) dot_interaction_bwd_kernel(
   float* S = smem + L.s_off();
   float* ring = smem + L.stage_off();
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int64_t groups = (b + spb - 1) / spb;
-  const int64_t n_it = blockIdx.x < groups ? (groups - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const int64_t n_it = dot_ring::block_iters(b, spb);
 
   // row i of the triangle starts at i*F - i*(i+1)/2; built once a block
   for (int i = tid; i < f; i += nt) {
@@ -93,10 +75,9 @@ __global__ void __launch_bounds__(256) dot_interaction_bwd_kernel(
   }
   for (int e = tid; e < spb * f * fp; e += nt) S[e] = 0.0f;  // diagonal and padding stay 0
 
-  auto first_sample = [&](int64_t it) { return (blockIdx.x + it * gridDim.x) * spb; };
   auto load = [&](int64_t it) {
-    if (it >= n_it) return;  // an empty group keeps the wait count uniform
-    const int64_t b0 = first_sample(it);
+    if (it >= n_it) return;
+    const int64_t b0 = dot_ring::first_sample(it, spb);
     const int ns = static_cast<int>(b - b0 < spb ? b - b0 : spb);
     float* xs = ring + static_cast<int>(it % kStages) * L.stage_len();
     float* gs = xs + L.rows_len();
@@ -112,19 +93,9 @@ __global__ void __launch_bounds__(256) dot_interaction_bwd_kernel(
     for (int e = tid; e < ns * p; e += nt) cp4(gs + e, gg + e);
   };
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    load(s);
-    commit();
-  }
-  for (int64_t it = 0; it < n_it; ++it) {
-    wait_groups<kStages - 2>();
-    // this group's copies are visible, and every thread is done with the
-    // previous group: S and the previous group's buffer are free
-    __syncthreads();
-    load(it + kStages - 1);
-    commit();
-    const int64_t b0 = first_sample(it);
+  // on entry S and the previous group's buffer are free
+  dot_ring::walk<kStages>(n_it, load, [&](int64_t it) {
+    const int64_t b0 = dot_ring::first_sample(it, spb);
     const int ns = static_cast<int>(b - b0 < spb ? b - b0 : spb);
     const float* xs = ring + static_cast<int>(it % kStages) * L.stage_len();
     const float* gs = xs + L.rows_len();
@@ -168,37 +139,18 @@ __global__ void __launch_bounds__(256) dot_interaction_bwd_kernel(
         }
       }
     }
-  }
+  });
 }
 
 template <int kStages>
 cudaError_t launch(const float* x, const float* g, float* out, int64_t b, Layout L,
                    int threads, size_t smem, cudaStream_t stream) {
   auto kern = dot_interaction_bwd_kernel<kStages>;
-  // the opt-in and the occupancy of the last (device, threads, smem), so a
-  // step's launch repeats no host-side query
-  static int last_dev = -1, last_threads = 0, sms = 0, per_sm = 0;
-  static size_t last_smem = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static dot_ring::LaunchCache cache;
+  int64_t grid = 0;
+  const cudaError_t err =
+      dot_ring::persistent_grid(kern, threads, smem, (b + L.spb - 1) / L.spb, cache, &grid);
   if (err != cudaSuccess) return err;
-  if (dev != last_dev || threads != last_threads || smem != last_smem) {
-    last_dev = -1;
-    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(smem))) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
-            cudaSuccess)
-      return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    last_dev = dev;
-    last_threads = threads;
-    last_smem = smem;
-  }
-  const int64_t groups = (b + L.spb - 1) / L.spb;
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
-  const int64_t grid = groups < resident ? groups : resident;
   const bool vec = L.d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   kern<<<static_cast<unsigned int>(grid), threads, smem, stream>>>(x, g, out, b, L, vec);

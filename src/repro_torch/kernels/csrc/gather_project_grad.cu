@@ -8,7 +8,7 @@
 // run-accumulates into the sequential grid's output block, so every slot is
 // written. Here the wrapper stable-sorts the slots once (not-kept positions
 // and slots outside [0, m) take the sentinel m, which sorts last and is
-// dropped); the CSR pass of segment_pool.cuh finds each slot's run, and one
+// dropped); a CSR pass finds each slot's run, and one
 // thread per (slot, k) walks its run in sorted (= original position) order
 // with proj in shared memory, folding each position's wide cotangent
 // through proj^T over c = 0..D-1 in order. A slot with an empty run comes
@@ -18,9 +18,30 @@
 // Bound: bytes. Per kept position it reads D + d floats of cotangent and
 // the sort's order and slot, and per slot it writes d floats; 2*d*D + d
 // flops a position, far below the float32 rate.
-#include "segment_pool.cuh"
+#include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;
+
+// The CSR pass: slots in (idx[i-1], idx[i]] start at sorted position i
+// (idx[-1] = -1); slots in (idx[n-1], m] start at n. Thread t does both
+// jobs for position t and slot t, so the grid covers max(n, m + 1)
+// threads. Slots outside [0, m) are clamped away: such positions fall
+// outside every run.
+__global__ void csr_offsets_kernel(const int32_t* __restrict__ idx,
+                                   int32_t* __restrict__ offsets, int32_t n, int32_t m) {
+  const int32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t < n) {
+    const int32_t prev = t == 0 ? -1 : idx[t - 1];
+    const int32_t cur = idx[t];
+    const int32_t hi = cur < m ? cur : m;
+    for (int32_t b = prev + 1 > 0 ? prev + 1 : 0; b <= hi; ++b) offsets[b] = t;
+  }
+  const int32_t last = n > 0 ? idx[n - 1] : -1;
+  if (t <= m && t > last) offsets[t] = n;
+}
 
 __global__ void gather_project_grad_kernel(const float* __restrict__ g_wide,
                                            const float* __restrict__ g_narrow,
@@ -65,8 +86,7 @@ extern "C" int gather_project_grad_launch(const void* g_wide, const void* g_narr
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t n32 = static_cast<int32_t>(n), m32 = static_cast<int32_t>(m);
   const int64_t threads = n > m + 1 ? n : m + 1;
-  constexpr int kThreads = segment_pool::kThreads;
-  segment_pool::csr_offsets_kernel<<<
+  csr_offsets_kernel<<<
       static_cast<unsigned int>((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       static_cast<const int32_t*>(sorted_idx), static_cast<int32_t*>(offsets), n32,
       m32);

@@ -172,14 +172,13 @@ def _gather_pool_cuda(rows_u, inv, weights, seg, n_bags: int):
         raise ValueError(f"gather_pool: inv {n}, weights {weights.shape[0]}, "
                          f"seg {seg.shape[0]} must match")
     d = rows_u.shape[1]
-    if max(n, n_bags) >= 2**31 - 1 or d > 1024:
-        raise ValueError(f"gather_pool: n={n}, n_bags={n_bags}, D={d} exceed the "
-                         "kernel's int32 offsets or its 1024-thread block")
+    if max(n, n_bags) >= 2**31 - 1:
+        raise ValueError(f"gather_pool: n={n}, n_bags={n_bags} exceed the kernel's "
+                         "int32 positions and bags")
     out = torch.empty((n_bags, d), dtype=rows_u.dtype, device=dev)
-    if n_bags and d:
-        offsets = torch.empty((n_bags + 1,), dtype=torch.int32, device=dev)
+    if n_bags and d:  # one launch, no scratch
         _launch("gather_pool", rows_u.data_ptr(), inv.data_ptr(), weights.data_ptr(),
-                seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, n_bags, d)
+                seg.data_ptr(), out.data_ptr(), n, n_bags, d)
     return out
 
 
@@ -392,16 +391,61 @@ def fm_interaction(fields, fused: Optional[bool] = None):
 
 # ----------------------------------------------------------- dot interaction
 
-# the forward stages a block's samples in at most 48 KB of shared memory
-_SMEM_BYTES = 48 * 1024
-# the backward opts in to what one block may hold on the H100 (227 KB); its
-# buffers take fewer samples where a batch would not give two groups to each
-# of the card's 132 SMs
-DOT_BWD_SMEM_BYTES, DOT_BWD_THREADS, DOT_BWD_MIN_GROUPS = 232_448, 256, 264
+# both dot kernels opt in to what one block may hold on the H100 (227 KB);
+# their ring buffers take fewer samples where a batch would not give two
+# groups to each of the card's 132 SMs
+DOT_SMEM_BYTES, DOT_THREADS, DOT_MIN_GROUPS = 232_448, 256, 264
+# the forward's ring buffers hold up to 16 KB of samples (one of full
+# DLRM's 14.3 KB; several of narrower ones), and its blocks have at least
+# 128 threads with 4 x 4 tiles, 256 with 2 x 2 (the fastest of 32-256 on
+# the H100 at B = 256, 512 and 65,536, F = 27, D = 128:
+# scripts/torch_dot_dedup_bench.py --sweep, PERF.md)
+DOT_FWD_STAGE_BYTES, DOT_FWD_MIN_THREADS = 16 * 1024, {4: 128, 2: 256}
 
 
 def _up4(v: int) -> int:
     return (v + 3) & ~3
+
+
+def dot_fwd_tiles(f: int, tile: int = 4) -> int:
+    """``tile x tile`` register tiles of the forward's ``F x F`` triangle
+    (rows padded to ``up4(F)``), diagonal tiles included."""
+    t = _up4(f) // tile
+    return t * (t + 1) // 2
+
+
+def dot_fwd_smem(f: int, d: int, spb: int, stages: int) -> int:
+    """Bytes of the forward kernel's shared memory: ``stages`` buffers of
+    rows ``[spb, up4(F), up4(D)]``, then the output stage ``[spb * P]``
+    (the C ``Layout``)."""
+    p = f * (f - 1) // 2
+    return 4 * (stages * spb * _up4(f) * _up4(d) + _up4(spb * p))
+
+
+def dot_fwd_plan(b: int, f: int, d: int) -> Tuple[int, int, int, int, int]:
+    """``(spb, stages, threads, smem, tile)`` of the forward kernel at ``[B,
+    F, D]``. ``tile``: 2 x 2 register tiles where the batch gives each SM
+    at most two samples (B <= DOT_MIN_GROUPS: a block's latency is its
+    threads' fmaf chains, four times shorter), else 4 x 4 (a quarter of the
+    shared-memory reads a dot). ``spb`` samples in each of two ring buffers
+    (three were slower at every full-width batch): as many as fit
+    DOT_FWD_STAGE_BYTES, but no more than one tile a thread takes, nor than
+    leave DOT_MIN_GROUPS groups of the batch, nor than fit DOT_SMEM_BYTES.
+    ``threads``: one a tile, and at least DOT_FWD_MIN_THREADS (they share
+    the copies in and out). Raises where not even one sample in two
+    buffers fits."""
+    tile = 2 if b <= DOT_MIN_GROUPS else 4
+    tiles = dot_fwd_tiles(f, tile)
+    spb = max(1, min(DOT_THREADS // tiles, b // DOT_MIN_GROUPS,
+                     DOT_FWD_STAGE_BYTES // (4 * _up4(f) * _up4(d))))
+    while spb > 1 and dot_fwd_smem(f, d, spb, 2) > DOT_SMEM_BYTES:
+        spb -= 1
+    if dot_fwd_smem(f, d, spb, 2) > DOT_SMEM_BYTES:
+        raise ValueError(f"dot_interaction: F={f}, D={d}: one sample in two ring buffers "
+                         f"takes {dot_fwd_smem(f, d, 1, 2)} bytes, more than the "
+                         f"{DOT_SMEM_BYTES} of shared memory a block may hold")
+    threads = min(DOT_THREADS, max(-(-spb * tiles // 32) * 32, DOT_FWD_MIN_THREADS[tile]))
+    return spb, 2, threads, dot_fwd_smem(f, d, spb, 2), tile
 
 
 def dot_bwd_smem(f: int, d: int, spb: int, stages: int) -> int:
@@ -417,35 +461,34 @@ def dot_bwd_smem(f: int, d: int, spb: int, stages: int) -> int:
 def dot_bwd_plan(b: int, f: int, d: int) -> Tuple[int, int, int, int]:
     """``(spb, stages, threads, smem)`` of the backward kernel at ``[B, F,
     D]``: ``spb`` samples a ring buffer, enough for one 4 x 4 tile a thread
-    where a sample has fewer tiles than DOT_BWD_THREADS, but no more than
-    leaves DOT_BWD_MIN_GROUPS groups of the batch; three buffers where they
+    where a sample has fewer tiles than DOT_THREADS, but no more than
+    leaves DOT_MIN_GROUPS groups of the batch; three buffers where they
     fit, else two. Raises where not even one sample in two buffers fits."""
     tiles = (_up4(f) // 4) * (_up4(d) // 4)
-    fill = max(1, b // DOT_BWD_MIN_GROUPS)
+    fill = max(1, b // DOT_MIN_GROUPS)
     for stages in (3, 2):
-        spb = max(1, min(DOT_BWD_THREADS // tiles, fill))
-        while spb > 1 and dot_bwd_smem(f, d, spb, stages) > DOT_BWD_SMEM_BYTES:
+        spb = max(1, min(DOT_THREADS // tiles, fill))
+        while spb > 1 and dot_bwd_smem(f, d, spb, stages) > DOT_SMEM_BYTES:
             spb = max(1, spb // 2)
         smem = dot_bwd_smem(f, d, spb, stages)
-        if smem <= DOT_BWD_SMEM_BYTES:
-            threads = min(DOT_BWD_THREADS, -(-spb * tiles // 32) * 32)
+        if smem <= DOT_SMEM_BYTES:
+            threads = min(DOT_THREADS, -(-spb * tiles // 32) * 32)
             return spb, stages, threads, smem
     raise ValueError(f"dot_interaction_bwd: F={f}, D={d}: one sample in two ring buffers "
                      f"takes {dot_bwd_smem(f, d, 1, 2)} bytes, more than the "
-                     f"{DOT_BWD_SMEM_BYTES} of shared memory a block may hold")
+                     f"{DOT_SMEM_BYTES} of shared memory a block may hold")
 
 
 def _dot_interaction_cuda(fields):
     _expect(fields, "dot_interaction fields", torch.float32, 3, fields.device)
     b, f, d = fields.shape
     p = f * (f - 1) // 2
-    # the pair table, then one sample's rows padded to an odd stride
-    if d == 0 or p * 4 + f * (d | 1) * 4 > _SMEM_BYTES:
-        raise ValueError(f"dot_interaction: F={f}, D={d}: the kernel takes D > 0 and "
-                         "one sample in 48 KB of shared memory")
+    if d == 0:
+        raise ValueError(f"dot_interaction: F={f}, D={d}: the kernel takes D > 0")
+    plan = dot_fwd_plan(b, f, d) if p else None  # raises for a sample too large
     out = torch.empty((b, p), dtype=fields.dtype, device=fields.device)
-    if b and p:
-        _launch("dot_interaction", fields.data_ptr(), out.data_ptr(), b, f, d)
+    if b and plan:
+        _launch("dot_interaction", fields.data_ptr(), out.data_ptr(), b, f, d, *plan)
     return out
 
 

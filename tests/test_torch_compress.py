@@ -417,7 +417,11 @@ def test_engine_validates_and_hands_grad_compress_to_strategies():
 @pytest.mark.parametrize("cache_update", ["psum", "stale"])
 @pytest.mark.parametrize("mode", ["fp16", "topk"])
 def test_train_trajectory_compressed_matches_reference(mesh1, mode, cache_update):
-    check_train_trajectory(mesh1, "deepfm", cache_update, 1, grad_compress=mode)
+    # fp16 is held from a shared state each step: its rounding puts the two
+    # sides' rows 5e-5 apart, which a ReLU kink can amplify past the state
+    # bar over 8 steps under some packing salts (PYTHONHASHSEED 29, 36)
+    check_train_trajectory(mesh1, "deepfm", cache_update, 1, shared_state=mode == "fp16",
+                           grad_compress=mode)
 
 
 def test_train_trajectory_dense_bf16_psum_matches_reference(mesh1):

@@ -170,20 +170,17 @@ def test_dot_wrappers_check_shapes_before_launch(monkeypatch):
         ops._dot_interaction_cuda(x.transpose(1, 2))
     with pytest.raises(ValueError, match="float32"):
         ops._dot_interaction_bwd_cuda(x, g.double())
-    # forward: one sample past the 48 KB of shared memory, and rows of width 0
-    for shape in ((2, 27, 512), (2, 3, 0)):
-        with pytest.raises(ValueError, match="48 KB"):
-            ops._dot_interaction_cuda(torch.zeros(shape))
-    # backward: rows of width 0, and one sample in two ring buffers past the
-    # 227 KB one block may hold (F = 27, D = 1,100)
+    # both kernels: rows of width 0, and one sample in two ring buffers past
+    # the 227 KB one block may hold (F = 27, D = 1,100)
     for f, d, what in ((3, 0, "D > 0"), (27, 1100, "shared memory")):
+        with pytest.raises(ValueError, match=what):
+            ops._dot_interaction_cuda(torch.zeros((2, f, d)))
         with pytest.raises(ValueError, match=what):
             ops._dot_interaction_bwd_cuda(torch.zeros((2, f, d)),
                                           torch.zeros((2, f * (f - 1) // 2)))
-    # full width (F = 27, D = 128) fits both kernels, the backward in three
-    # ring buffers
-    assert (27 * 26 // 2 + 27 * 129) * 4 <= ops._SMEM_BYTES
-    assert ops.dot_bwd_plan(256, 27, 128)[1] == 3
+    # full width (F = 27, D = 128) fits the forward in two ring buffers and
+    # the backward in three
+    assert ops.dot_fwd_plan(512, 27, 128)[1] == 2 and ops.dot_bwd_plan(256, 27, 128)[1] == 3
 
 
 @pytest.mark.parametrize("b,f,d", [(256, 27, 128), (2_000, 27, 16), (256, 27, 16),
@@ -204,7 +201,7 @@ def test_dot_bwd_wrapper_hands_the_launcher_its_plan(monkeypatch, b, f, d):
     spb, stages, threads, smem = args[6:]
     assert (spb, stages, threads, smem) == ops.dot_bwd_plan(b, f, d)
     assert stages in (2, 3) and threads % 32 == 0 and 32 <= threads <= 256
-    assert smem == ops.dot_bwd_smem(f, d, spb, stages) <= ops.DOT_BWD_SMEM_BYTES
+    assert smem == ops.dot_bwd_smem(f, d, spb, stages) <= ops.DOT_SMEM_BYTES
     tiles = -(-f // 4) * -(-d // 4)
     assert spb == 1 or spb * tiles <= threads
     # three buffers unless only two fit (D = 1,000); no more samples a
@@ -221,6 +218,90 @@ def test_dot_bwd_plan_at_bulk():
     assert ops.dot_bwd_plan(65_536, 27, 128) == ops.dot_bwd_plan(256, 27, 128)
     assert ops.dot_bwd_plan(65_536, 27, 128)[:3] == (1, 3, 224)
     assert ops.dot_bwd_plan(65_536, 27, 16)[:3] == (9, 3, 256)
+
+
+# the forward's plan boundaries (chip_smoke.DOT_FWD_*) and the path shapes
+DOT_FWD_PLANS = [(b, f, d) for f in (2, 27) for d in (1, 3, 16, 128, 129)
+                 for b in (1, 37, 65_537)] + [(512, 27, 128), (256, 27, 128), (65_536, 27, 128),
+                                              (3, 27, 1000), (600, 5, 8)]
+
+
+@pytest.mark.parametrize("b,f,d", DOT_FWD_PLANS)
+def test_dot_fwd_plan_fits_and_covers_every_sample(b, f, d):
+    """The forward's plan: its shared memory is the C layout's and fits the
+    227 KB a block may hold; 2 x 2 tiles where the batch gives each SM at
+    most two samples, else 4 x 4; the threads take every register tile of a
+    ring buffer's samples (looping where a sample has more tiles than 256
+    threads), at least 128 (4 x 4) or 256 (2 x 2), and the groups of
+    ``spb`` samples cover the batch; no more samples a buffer than fit 16
+    KB or leave 264 groups; two buffers."""
+    spb, stages, threads, smem, tile = ops.dot_fwd_plan(b, f, d)
+    assert tile == (2 if b <= ops.DOT_MIN_GROUPS else 4)
+    tiles = ops.dot_fwd_tiles(f, tile)
+    assert tiles == (-(-f // 4) * 4 // tile) * (-(-f // 4) * 4 // tile + 1) // 2
+    assert stages == 2 and smem == ops.dot_fwd_smem(f, d, spb, 2) <= ops.DOT_SMEM_BYTES
+    assert threads % 32 == 0 and threads <= ops.DOT_THREADS
+    assert threads >= min(max(spb * tiles, ops.DOT_FWD_MIN_THREADS[tile]), ops.DOT_THREADS)
+    assert spb * tiles <= max(threads, tiles)
+    assert -(-b // spb) * spb >= b and (spb == 1 or -(-b // spb) >= ops.DOT_MIN_GROUPS)
+    sample = 4 * (-(-f // 4) * 4) * (-(-d // 4) * 4)
+    assert spb == 1 or spb * sample <= ops.DOT_FWD_STAGE_BYTES
+    cap = min(ops.DOT_THREADS // tiles, b // ops.DOT_MIN_GROUPS,
+              ops.DOT_FWD_STAGE_BYTES // sample)
+    # no sample more within the limits
+    assert spb + 1 > cap or ops.dot_fwd_smem(f, d, spb + 1, 2) > ops.DOT_SMEM_BYTES
+
+
+def test_dot_fwd_plan_at_the_paths_and_past_the_limit():
+    """Full DLRM: one sample a buffer in two buffers at every batch;
+    training's B = 256 in 2 x 2 tiles (105 of them) on 256 threads,
+    serving's B = 512 and bulk in 4 x 4 tiles (28) on 128; the bench width
+    9 samples a buffer; one sample past 227 KB in two buffers raises."""
+    smem = ops.dot_fwd_smem(27, 128, 1, 2)
+    assert ops.dot_fwd_plan(256, 27, 128) == (1, 2, 256, smem, 2)
+    assert ops.dot_fwd_plan(512, 27, 128) == ops.dot_fwd_plan(65_536, 27, 128) == (
+        1, 2, 128, smem, 4)
+    assert ops.dot_fwd_tiles(27, 2) == 105 and ops.dot_fwd_tiles(27) == 28
+    assert ops.dot_fwd_plan(65_536, 27, 16)[:3] == (9, 2, 256)
+    assert ops.dot_fwd_smem(27, 1000, 1, 2) <= ops.DOT_SMEM_BYTES
+    for d in (1100, 4096):
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.dot_fwd_plan(4, 27, d)
+
+
+@pytest.mark.parametrize("b,f,d", [(512, 27, 128), (256, 27, 128), (2_000, 27, 16), (37, 2, 3),
+                                   (1, 2, 1), (65_537, 2, 129), (9, 1, 8), (5, 0, 4)])
+def test_dot_fwd_wrapper_hands_the_launcher_its_plan(monkeypatch, b, f, d):
+    """The forward's launch arguments (checked with the device test
+    bypassed): the fields and the output, B, F, D, then its plan; no launch
+    where there is no pair."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    x = torch.zeros((b, f, d))
+    out = ops._dot_interaction_cuda(x)
+    p = f * (f - 1) // 2
+    assert tuple(out.shape) == (b, p)
+    if not p:
+        assert seen == []
+        return
+    ((name, args),) = seen
+    assert name == "dot_interaction"
+    assert args == (x.data_ptr(), out.data_ptr(), b, f, d, *ops.dot_fwd_plan(b, f, d))
+
+
+@pytest.mark.parametrize("f", [2, 27])
+@pytest.mark.parametrize("d", [1, 3, 129])
+def test_dot_interaction_plain_matches_pallas_at_plan_edges(f, d):
+    """The plain forward against the Pallas kernel in interpret mode and the
+    reference at the widths the kernel's plan treats apart (a single float,
+    a padded column group, one past 128), for a single pair and full F."""
+    b = 7
+    x, _ = _dot_case(b, f, d, 11 * f + d)
+    got = ops.dot_interaction(_t(x))
+    jx = jnp.asarray(x)
+    for exp in (jref.dot_interaction_ref(jx),
+                dot_interaction_pallas(jx, block_b=4, interpret=True)):
+        _close(got.numpy(), exp)
 
 
 # -------------------------------------------------------------------- model

@@ -66,6 +66,67 @@ def test_gather_pool_plain_matches_reference_and_pallas(n, d, n_bags, n_uniq, em
         assert (got[empty_bag] == 0.0).all() and (pal[empty_bag] == 0.0).all()
 
 
+def _pool_layout(rng, kind, d):
+    """Multi-position layouts of the pool (``chip_smoke.POOL_LAYOUTS`` at
+    CPU size): runs of 1 to 200 positions with empty bags among them and
+    at the tail; one long run among single positions; a single position."""
+    if kind == "runs":
+        runs = np.array([1, 200, 3, 17, 1, 64, 2])
+        bags = np.array([0, 2, 3, 7, 8, 9, 12])  # 1, 4-6, 10-11 and 13-15 empty
+        seg, n_bags = np.repeat(bags, runs), 16
+    elif kind == "long run":
+        seg = np.arange(300)
+        seg[40:260] = 40
+        n_bags = 300
+    else:
+        seg, n_bags = np.array([1]), 3
+    n = seg.size
+    rows_u = rng.normal(size=(n, d)).astype(np.float32)
+    inv = rng.integers(0, n, n).astype(np.int32)
+    w = rng.normal(size=n).astype(np.float32)
+    return rows_u, inv, w, seg.astype(np.int32), n_bags
+
+
+@pytest.mark.parametrize("kind,d", [("runs", 10), ("runs", 3), ("long run", 16), ("one", 1)])
+def test_gather_pool_plain_matches_pallas_on_multi_position_layouts(kind, d):
+    rows_u, inv, w, seg, n_bags = _pool_layout(np.random.default_rng(d), kind, d)
+    got = ops.gather_pool(_t(rows_u), _t(inv), _t(w), _t(seg), n_bags).numpy()
+    pal = np.asarray(gather_pool_pallas(jnp.asarray(rows_u), jnp.asarray(inv),
+                                        jnp.asarray(w), jnp.asarray(seg), n_bags,
+                                        interpret=True))
+    exp = np.asarray(jref.gather_pool_ref(jnp.asarray(rows_u), jnp.asarray(inv),
+                                          jnp.asarray(w), jnp.asarray(seg), n_bags))
+    scale = max(float(np.abs(exp).max()), 1.0)
+    np.testing.assert_allclose(got, pal, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(got, exp, rtol=0, atol=1e-5 * scale)
+    empty = np.setdiff1d(np.arange(n_bags), seg)
+    assert (got[empty] == 0.0).all() and (pal[empty] == 0.0).all()
+
+
+@pytest.mark.parametrize("d", [1, 3, 10, 16, 128, 129, 1024])
+def test_gather_pool_wrapper_launches_once_without_scratch(monkeypatch, d):
+    """The CUDA wrapper's one launch (checked with the device test
+    bypassed): the rows, inv, w, seg and the output it allocates, then n,
+    n_bags and D; no scratch tensor beside the output, any width."""
+    seen, empties = [], []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        out = real_empty(*a, **k)
+        empties.append(out)
+        return out
+
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(torch, "empty", empty)
+    rows_u, inv, w, seg, n_bags = _pool_layout(np.random.default_rng(d), "runs", d)
+    args = tuple(map(_t, (rows_u, inv, w, seg)))
+    out = ops._gather_pool_cuda(*args, n_bags)
+    assert tuple(out.shape) == (n_bags, d) and len(empties) == 1 and empties[0] is out
+    ((name, launch),) = seen
+    assert name == "gather_pool"
+    assert launch == (*(t.data_ptr() for t in args), out.data_ptr(), seg.size, n_bags, d)
+
+
 def test_embedding_bag_plain_matches_reference_and_pallas():
     rng = np.random.default_rng(5)
     v, d, n, nb = 64, 10, 40, 8

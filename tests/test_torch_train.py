@@ -74,10 +74,16 @@ def test_train_trajectory_matches_reference(mesh1, cache_update, n_micro):
     check_train_trajectory(mesh1, "deepfm", cache_update, n_micro)
 
 
-def check_train_trajectory(mesh1, arch, cache_update, n_micro, **tkw):
+def check_train_trajectory(mesh1, arch, cache_update, n_micro, shared_state=False, **tkw):
     """The trajectory check for one smoke arch (``tests/test_torch_dcn.py``
     runs it for dcn-v2); ``tkw`` are further ``TrainConfig`` fields for both
-    sides (``tests/test_torch_compress.py`` passes the compression modes)."""
+    sides (``tests/test_torch_compress.py`` passes the compression modes).
+
+    With ``shared_state`` the port's state is rebuilt from the reference's
+    (``train_state_from_jax``) before every step and held to it after every
+    step, at the same bars: each step starts from one state, so a last-bit
+    difference cannot compound across steps (fp16 rounding puts the two
+    sides' rows 5e-5 apart, and a ReLU kink can amplify that past 1e-4)."""
     jcfg = jget_config(arch, smoke=True)
     jplan, plan = _plans(n_micro, arch)
     jmodel = JWDLModel(jcfg, jplan)
@@ -94,17 +100,28 @@ def check_train_trajectory(mesh1, arch, cache_update, n_micro, **tkw):
     jl, tl, jm, tm = [], [], [], []
     for _ in range(STEPS):
         b = jmake_batch(jcfg, GB, rng)
+        if shared_state:
+            state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
         jstate, jmet = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
         state, met = step(state, b)
         jl.append(float(jmet["loss"]))
         tl.append(float(met["loss"]))
         jm.append((int(jmet["cache_hits"]), int(jmet["overflow"]), int(jmet["step"])))
         tm.append((int(met["cache_hits"]), int(met["overflow"]), met["step"]))
+        if shared_state:
+            np.testing.assert_allclose(tl[-1], jl[-1], rtol=1e-4, atol=1e-5)
+            assert tm[-1] == jm[-1]
+            _check_state(state, jax.device_get(jstate))
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-5)
     assert tm == jm
     assert all(h > 0 for h, _, _ in tm[3:]) and all(h == 0 for h, _, _ in tm[:3])
+    _check_state(state, jax.device_get(jstate))
+    assert int(state["opt"]["t"]) == STEPS
 
-    jfin = jax.device_get(jstate)
+
+def _check_state(state, jfin):
+    """The port's train state against the reference's (host numpy): integer
+    state bitwise, float state to atol 1e-4."""
     jst, st = jfin["emb"]["0"], state["emb"]["0"]
     np.testing.assert_array_equal(st.counts.numpy(), np.asarray(jst.counts))
     np.testing.assert_array_equal(st.cache.keys.numpy(), np.asarray(jst.cache.keys))
@@ -118,7 +135,7 @@ def check_train_trajectory(mesh1, arch, cache_update, n_micro, **tkw):
         assert len(leaves) == len(jleaves)
         for a, b in zip(leaves, jleaves):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
-    assert int(state["opt"]["t"]) == int(jfin["opt"]["t"]) == STEPS
+    assert int(state["opt"]["t"]) == int(jfin["opt"]["t"])
 
 
 def test_host_scheduled_flush_matches_in_step_flush():
