@@ -28,9 +28,14 @@ Phases, in order (any failure raises and exits non-zero):
    kernels run again at dcn-v2's D = 16 and n = B x 26 on its table.
    ``gather_project`` and ``gather_project_grad`` run at the narrow plan's
    serving and training shapes (d = 4, D = 10, m = the bucket capacity)
-   and at bulk: outputs within 1e-5 of scale, not-kept positions and
-   empty slots exactly 0, the gradient repeating bit for bit and reached
+   and at bulk, ``gather_project`` (one launch from
+   ``ops.gather_project_plan``) also at DLRM's (d = 32, D = 128, n =
+   13,312 and 6,656): outputs within 1e-5 of scale, not-kept positions and
+   empty slots exactly 0, both repeating bit for bit, the gradient reached
    both standalone and through the autograd of ``ops.gather_project``.
+   ``fm_interaction`` (samples staged in shared memory by ``cp.async``,
+   ``ops.fm_plan``) runs at deepfm's serving and training batches and at
+   bulk: within 1e-5 of scale, repeating bit for bit.
    ``dedup_adagrad`` (a memset and two hash-grouping kernels, no sort) runs
    again on the 187,780,711 x 4 narrow master and its 48,806,440-row L2 tier
    at D = 10, on DLRM's 187,767,399 x 32 master and its 4,161,784-row L2
@@ -633,13 +638,16 @@ def run_pool_edges(gen: torch.Generator) -> dict:
 
 def run_fm(b: int, gen: torch.Generator, a: Arch) -> dict:
     x = torch.randn((b, a.n_fields, a.dim), device=DEV, generator=gen) * 0.3
-    out, rout = ops.fm_interaction(x), ref.fm_interaction_ref(x)
+    out, again = ops.fm_interaction(x), ops.fm_interaction(x)
+    rout = ref.fm_interaction_ref(x)
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"fm_interaction err {err}")
+    check(same_bits(out, again), f"fm_interaction repeats bit for bit at B={b}")
     check(max_err(fm_chain(x), rout) <= TOL * scale_of(rout), "FM chain yardstick agrees")
     b_ms, b_by = bound(x.numel() * 4 + b * 4, b * a.dim * (3 * a.n_fields + 3))
-    return {"n": b, "max_abs_err": err,
+    return {"n": b, "plan": list(ops.fm_plan(b, a.n_fields, a.dim, ops.sm_count(DEV))),
+            "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fm_interaction(x)),
             "call_ms": cuda_ms(lambda: ops.fm_interaction(x), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fm_interaction_ref(x)),
@@ -989,7 +997,10 @@ def run_gather_project(b: int, gen: torch.Generator, a: Arch) -> dict:
     back, idx, kept, proj, _, _ = project_case(b, gen, a)
     (m, nd), n, d = back.shape, idx.shape[0], a.dim
     wide, narrow = ops.gather_project(back, idx, kept, proj)
+    again = ops.gather_project(back, idx, kept, proj)
     rwide, rnarrow = ref.gather_project_ref(back, idx, kept, proj)
+    check(same_bits(wide, again[0]) and same_bits(narrow, again[1]),
+          f"gather_project repeats bit for bit at n={n}, d={nd}, D={d}")
 
     def lib():  # two calls, timed together
         return (F.embedding(idx.long(), back) * kept[:, None]) @ proj
@@ -1003,8 +1014,9 @@ def run_gather_project(b: int, gen: torch.Generator, a: Arch) -> dict:
     n_kept = int(kept.sum())
     b_ms, b_by = bound(n * (4 + 1) + n_kept * nd * 4 + nd * d * 4 + n * (d + nd) * 4,
                        2 * n_kept * nd * d)
-    return {"n": n, "m": m, "kept": n_kept, "max_abs_err": max(max_err(wide, rwide),
-                                                                max_err(narrow, rnarrow)),
+    return {"n": n, "m": m, "d": d, "narrow_d": nd, "kept": n_kept,
+            "plan": list(ops.gather_project_plan(n, nd, d, ops.sm_count(DEV))),
+            "max_abs_err": max(max_err(wide, rwide), max_err(narrow, rnarrow)),
             "max_err_of_scale": err,
             "ms": cuda_ms(lambda: ops.gather_project(back, idx, kept, proj)),
             "call_ms": cuda_ms(lambda: ops.gather_project(back, idx, kept, proj),
@@ -2041,7 +2053,7 @@ def main() -> None:
     main_shape = {}
     # the redesigned kernels'
     other_shapes = {"segment_grad": [], "tier_probe": [], "gather_pool": [],
-                    "dot_interaction": []}
+                    "dot_interaction": [], "fm_interaction": [], "gather_project": []}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])
@@ -2075,7 +2087,12 @@ def main() -> None:
         "tier_probe dlrm-narrow L1 train": lambda: run_tier_probe(TRAIN_B, gen, dl),
         "gather_pool deepfm train": lambda: run_gather_pool(TRAIN_B, gen, ARCHS["deepfm"]),
         "gather_pool dlrm-narrow serve": lambda: run_gather_pool(SERVE_B, gen, dl),
-        "gather_pool dlrm-narrow train": lambda: run_gather_pool(TRAIN_B, gen, dl)})
+        "gather_pool dlrm-narrow train": lambda: run_gather_pool(TRAIN_B, gen, dl),
+        "fm_interaction deepfm train": lambda: run_fm(TRAIN_B, gen, ARCHS["deepfm"]),
+        "gather_project deepfm-narrow train": lambda: run_gather_project(
+            TRAIN_B, gen, ARCHS["deepfm-narrow"]),
+        "gather_project dlrm-narrow serve": lambda: run_gather_project(SERVE_B, gen, dl),
+        "gather_project dlrm-narrow train": lambda: run_gather_project(TRAIN_B, gen, dl)})
     for label, run in extra.items():
         r = run()
         print(f"[kernel] {label} " + json.dumps(r), flush=True)
@@ -2087,8 +2104,7 @@ def main() -> None:
     # the narrow configuration: the stitch and its transpose at the other
     # path's batch too, dedup_adagrad on the d = 4 master, the L2 probe
     narrow = ARCHS["deepfm-narrow"]
-    extra = {"gather_project train": lambda: run_gather_project(TRAIN_B, gen, narrow),
-             "gather_project_grad serve": lambda: run_gather_project_grad(SERVE_B, gen,
+    extra = {"gather_project_grad serve": lambda: run_gather_project_grad(SERVE_B, gen,
                                                                           narrow),
              "dedup_adagrad narrow-master train": lambda: run_dedup_adagrad(TRAIN_B, gen,
                                                                             narrow),
@@ -2189,9 +2205,9 @@ def main() -> None:
                 "fp32_bound_ms", "library_ms")}]
         if name in other_shapes:  # the redesigned kernels at every other shape
             kernels[-1]["shapes"] = [{k: r2.get(k) for k in (
-                "label", "n", "d", "case", "tier_keys", "lanes", "longest_run",
-                "max_abs_err", "ms", "plain_ms", "library_ms", "sorting_ms", "bound_ms",
-                "bound_by")} for r2 in other_shapes[name]]
+                "label", "n", "d", "narrow_d", "plan", "case", "tier_keys", "lanes",
+                "longest_run", "max_abs_err", "ms", "plain_ms", "library_ms", "sorting_ms",
+                "bound_ms", "bound_by")} for r2 in other_shapes[name]]
         if name == "gather_project_grad":
             # the engine's backward folds the cotangent through proj^T itself,
             # as the reference's does; the kernel is reached through the

@@ -34,8 +34,8 @@ SIGNATURES: Dict[str, List] = {
     "tier_probe": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     # rows_u, inv, w, seg, out, n, n_bags, d, stream
     "gather_pool": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P],
-    # x, out, b, f, d, stream
-    "fm_interaction": [_P, _P, _I64, _I, _I, _P],
+    # x, out, b, f, d, samples a block, threads, staged, stream
+    "fm_interaction": [_P, _P, _I64, _I, _I, _I, _I, _I, _P],
     # g_bags, seg, w, order, sorted_inv, out, n, n_rows, d, tile, chunk, stream
     "segment_grad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
     # w, acc, idx, valid, g, scratch, scratch ints, m, rows, d, cap, lr, eps, stream
@@ -46,8 +46,9 @@ SIGNATURES: Dict[str, List] = {
     "cross_layer": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # x0, x, w, b, g, gx0, gx, gw, gb, b_rows, d, cluster_dx, cluster_dw, stream
     "cross_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    # back, idx, kept, proj, wide, narrow, m, n, nd, d, stream
-    "gather_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
+    # back, idx, kept, proj, wide, narrow, m, n, nd, d, w, cw, rows, threads,
+    # tile, stream
+    "gather_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _I, _P],
     # g_wide, g_narrow, proj, order, sorted idx, offsets (scratch), out, n, m,
     # nd, d, stream
     "gather_project_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],

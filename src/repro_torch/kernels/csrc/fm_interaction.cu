@@ -5,48 +5,121 @@
 //
 // Bound: bytes. Each sample's F*D floats are read once for about 3 flops
 // each. The TPU kernel reduces a padded batch tile of [block_b, F, D] in
-// VMEM. Here one warp owns one sample: lane c keeps sum_f v and sum_f v^2
-// for embedding column c in registers (columns c, c+32, ... when D > 32),
-// reading the sample's rows as contiguous 4*D-byte runs; a warp shuffle
-// then reduces over d. Rows past B are never touched: no padding.
+// VMEM. At the paths' shapes (B = 256 or 512 samples of 39 x 10) a call is
+// a few microseconds of latency, far from the byte bound, so the design
+// cuts round trips and fills the card:
+//  - a block owns `spb` consecutive samples, a warp each (ops.fm_plan: at
+//    least one block an SM where the batch allows; at most eight samples
+//    and 16 KB a block) and copies their contiguous spb*F*D floats into shared memory with
+//    cp.async: 16-byte copies over the 16-byte-aligned middle, 4-byte ones
+//    for the head and tail (a deepfm sample is 1,560 bytes, so every other
+//    one starts off a 16-byte boundary). Every copy is in flight before any
+//    is waited for: one round trip to device memory;
+//  - then one warp reduces one sample at a time as the kernel this replaced
+//    did straight from device memory: lane c keeps sum_f v and sum_f v^2 of
+//    column c (c, c + 32, ... when D > 32), ascending f from +0.0f with
+//    v * v fused into the sum (fmaf, the contraction that -O3 made of
+//    `sq += v * v`), adds fmaf(sum, sum, -sq), and a shuffle tree reduces
+//    over the lanes, so the output is bit for bit the earlier kernel's.
+// Where one sample alone exceeds the 48 KB of shared memory a block gets
+// unasked, the plan sets `staged` to 0: each warp reads its sample from
+// device memory directly, through the read-only cache, as the earlier
+// kernel did.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-__global__ void fm_interaction_kernel(const float* __restrict__ x,
-                                      float* __restrict__ out, int64_t b,
-                                      int f, int d) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (s >= b) return;  // the whole warp leaves together
-  const float* xs = x + s * f * d;
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// One sample's FM term by one warp, from shared memory (kStaged) or
+// through the read-only cache; the result is whole on lane 0.
+template <bool kStaged>
+__device__ __forceinline__ float fm_sample(const float* xs, int f, int d, int lane) {
   float acc = 0.0f;
   for (int c = lane; c < d; c += 32) {
     float sum = 0.0f, sq = 0.0f;
+#pragma unroll (kStaged ? 4 : 8)
     for (int k = 0; k < f; ++k) {
-      const float v = xs[static_cast<int64_t>(k) * d + c];
+      const float* at = xs + static_cast<int64_t>(k) * d + c;
+      const float v = kStaged ? *at : __ldg(at);
       sum += v;
-      sq += v * v;
+      sq = fmaf(v, v, sq);
     }
-    acc += sum * sum - sq;
+    acc += fmaf(sum, sum, -sq);
   }
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   }
-  if (lane == 0) out[s] = 0.5f * acc;
+  return acc;
+}
+
+template <bool kStaged>
+__global__ void fm_interaction_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                      int64_t b, int f, int d, int spb) {
+  extern __shared__ float4 smem4[];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * spb;
+  const int cnt = static_cast<int>(b - s0 < spb ? b - s0 : spb);
+  const int64_t fd = static_cast<int64_t>(f) * d;
+  const float* xs = x + s0 * fd;
+  if (kStaged) {
+    // the block's samples are one contiguous range of `total` floats (the
+    // plan keeps it within 48 KB); `sm` is shifted so that the range's
+    // first 16-byte-aligned float lands on a 16-byte boundary too
+    const int total = static_cast<int>(cnt * fd);
+    const int lead = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(xs) & 15u)) & 15u) >> 2);
+    const int head = lead < total ? lead : total;
+    float* sm = reinterpret_cast<float*>(smem4) + ((4 - head) & 3);
+    const int n4 = (total - head) >> 2;
+    const int tail = head + 4 * n4;
+    for (int e = threadIdx.x; e < n4; e += blockDim.x) {
+      cp16(sm + head + 4 * e, xs + head + 4 * e);
+    }
+    if (static_cast<int>(threadIdx.x) < head) cp4(sm + threadIdx.x, xs + threadIdx.x);
+    if (static_cast<int>(threadIdx.x) < total - tail) {
+      cp4(sm + tail + threadIdx.x, xs + tail + threadIdx.x);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    xs = sm;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int s = warp; s < cnt; s += blockDim.x >> 5) {  // whole warps
+    const float acc = fm_sample<kStaged>(xs + s * fd, f, d, lane);
+    if (lane == 0) out[s0 + s] = 0.5f * acc;
+  }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() so the caller can raise.
-extern "C" int fm_interaction_launch(const void* x, void* out, int64_t b, int f,
-                                     int d, void* stream) {
-  const int64_t blocks = (b + kWarps - 1) / kWarps;
-  fm_interaction_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), b, f, d);
+// Launches on `stream` with ops.fm_plan's (spb, threads, staged); staged
+// blocks take (spb*F*D + 3) floats of shared memory, at most 48 KB.
+// Returns cudaGetLastError() so the caller can raise.
+extern "C" int fm_interaction_launch(const void* x, void* out, int64_t b, int f, int d,
+                                     int spb, int threads, int staged, void* stream) {
+  if (b <= 0 || f < 0 || d < 0 || spb <= 0 || threads <= 0 || threads > 1024 ||
+      threads % 32 != 0 || (staged && static_cast<int64_t>(spb) * f * d + 3 > 12 * 1024))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (b + spb - 1) / spb;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  if (staged) {
+    const size_t smem = (static_cast<size_t>(spb) * f * d + 3) * sizeof(float);
+    fm_interaction_kernel<true><<<static_cast<unsigned int>(blocks), threads, smem, st>>>(
+        xp, op, b, f, d, spb);
+  } else {
+    fm_interaction_kernel<false><<<static_cast<unsigned int>(blocks), threads, 0, st>>>(
+        xp, op, b, f, d, spb);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -335,12 +335,37 @@ def dedup_adagrad(w, acc, idx, g, valid, lr: float, eps: float,
 # ------------------------------------------------------------ fm interaction
 
 
+# the forward stages a block's samples in shared memory: at most 16 KB of
+# them (several blocks an SM at bulk), at most the 48 KB a block gets
+# unasked, at most FM_MAX_WARPS samples a block, a warp each (eight were the
+# fastest at bulk on the H100: scripts/torch_fm_project_bench.py --sweep)
+FM_STAGE_BYTES, FM_SMEM_BYTES, FM_MAX_WARPS = 16 * 1024, 48 * 1024, 8
+
+
+def fm_plan(b: int, f: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """``(spb, threads, staged)`` of the forward kernel at ``[B, F, D]`` on a
+    card of ``sms`` SMs. ``spb`` consecutive samples a block and a warp a
+    sample: ``B // sms`` (so that each SM gets a block where the batch
+    allows), but no more than fit FM_STAGE_BYTES nor FM_MAX_WARPS, and at
+    least one. ``staged`` is 0 where one sample (plus the 12 bytes of
+    alignment slack) exceeds FM_SMEM_BYTES: then each warp reads its sample
+    from device memory directly, FM_MAX_WARPS samples a block as the first
+    kernel took them."""
+    sample = 4 * f * d
+    if sample + 12 > FM_SMEM_BYTES:
+        spb = max(1, min(b // sms, FM_MAX_WARPS))
+        return spb, 32 * spb, 0
+    spb = max(1, min(b // sms, FM_STAGE_BYTES // max(sample, 4), FM_MAX_WARPS))
+    return spb, 32 * spb, 1
+
+
 def _fm_interaction_cuda(fields):
     _expect(fields, "fm_interaction fields", torch.float32, 3, fields.device)
     b, f, d = fields.shape
     out = torch.empty((b, 1), dtype=fields.dtype, device=fields.device)
     if b:
-        _launch("fm_interaction", fields.data_ptr(), out.data_ptr(), b, f, d)
+        _launch("fm_interaction", fields.data_ptr(), out.data_ptr(), b, f, d,
+                *fm_plan(b, f, d, sm_count(fields.device)))
     return out
 
 
@@ -665,10 +690,74 @@ def cross_layer(x0, x, w, b, fused: Optional[bool] = None):
 
 # ------------------------------------------------------------ gather project
 
-# the kernels stage proj (and, in gather_project, a block's 128 narrow rows)
-# in at most 48 KB of shared memory
+# gather_project_grad stages proj in at most 48 KB of shared memory
 _SMEM_FLOATS = 12288
-_GP_ROWS = 128
+# gather_project: GP_THREADS threads a block over a tile of at most
+# GP_MAX_TILE positions (no fewer than GP_MIN_TILE just to fill the card),
+# each lane gathering at most GP_GATHER_BATCH of them; proj and the tile's
+# narrow rows in the 48 KB of shared memory a block gets unasked
+GP_THREADS, GP_MAX_TILE, GP_MIN_TILE, GP_GATHER_BATCH = 256, 256, 16, 4
+GP_SMEM_BYTES = 48 * 1024
+GP_SMALL_PRODUCT, GP_SMALL_ROWS = 64, 4
+
+
+def _vec_width(v: int, align: int = 16) -> int:
+    """The widest of 4, 2 and 1 floats that divides ``v`` and whose bytes
+    divide ``align``."""
+    return next(w for w in (4, 2, 1) if v % w == 0 and align % (4 * w) == 0)
+
+
+def gather_project_smem(nd: int, d: int, tile: int) -> int:
+    """Bytes of the kernel's shared memory: proj ``[d, D]`` and the tile's
+    narrow rows ``[tile, d]`` (each padded to 4 floats), then its ``ok``
+    bytes."""
+    return 4 * (_up4(nd * d) + _up4(tile * nd)) + tile
+
+
+def gather_project_limits(nd: int, d: int, align: int = 16) -> Tuple[int, int]:
+    """``(w, cw)``: the floats a lane gathers of a narrow row and owns of a
+    wide row. Raises where the kernel cannot take ``d = nd``, ``D = d``:
+    more than GP_THREADS lanes for a row, or proj and one row past
+    GP_SMEM_BYTES."""
+    w, cw = _vec_width(nd, align), _vec_width(d) if d > 0 else 1
+    if (nd <= 0 or d <= 0 or nd // w > GP_THREADS or d // cw > GP_THREADS
+            or gather_project_smem(nd, d, 1) > GP_SMEM_BYTES):
+        raise ValueError(f"gather_project: d={nd}, D={d} exceed the kernel's {GP_THREADS} "
+                         f"lanes a row or its {GP_SMEM_BYTES} bytes of shared memory")
+    return w, cw
+
+
+def gather_project_plan(n: int, nd: int, d: int, sms: int,
+                        align: int = 16) -> Tuple[int, int, int, int, int]:
+    """``(w, cw, rows, threads, tile)`` of the ``gather_project`` kernel for
+    ``n`` positions, ``back [m, d=nd]`` aligned to ``align`` bytes and
+    ``proj [nd, D=d]``, on a card of ``sms`` SMs. ``w`` and ``cw`` from
+    ``gather_project_limits``. ``tile`` positions a block: the largest power
+    of two up to GP_MAX_TILE that still gives each SM a block (not below
+    GP_MIN_TILE for that), that the block's lanes gather in one batch of
+    GP_GATHER_BATCH, and whose shared memory fits. ``rows``: the positions
+    a product slot (``D / cw`` lanes; ``threads // (D / cw)`` slots) takes
+    at once, the least of 1, 2, 4, 8 that covers the tile in one round, but
+    at most GP_SMALL_ROWS where a position's product is at most
+    GP_SMALL_PRODUCT multiply-adds: there a proj vector serves little, and
+    eight rows' registers cost blocks an SM at bulk (the bench's
+    ``--sweep`` on the H100); the slots then take the tile in rounds."""
+    w, cw = gather_project_limits(nd, d, align)
+    g, slots = nd // w, GP_THREADS // (d // cw)
+    tile = GP_MAX_TILE
+    while tile > 1 and (tile > GP_GATHER_BATCH * (GP_THREADS // g)
+                        or gather_project_smem(nd, d, tile) > GP_SMEM_BYTES
+                        or (tile > GP_MIN_TILE and -(-n // tile) < sms)):
+        tile //= 2
+    most = GP_SMALL_ROWS if nd * d <= GP_SMALL_PRODUCT else 8
+    rows = next((r for r in (1, 2, 4, 8) if r <= most and slots * r >= tile), most)
+    return w, cw, rows, GP_THREADS, tile
+
+
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides ``t``'s address."""
+    ptr = t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
 
 
 def _expect_project(what: str, idx, kept, proj, dev) -> None:
@@ -688,14 +777,16 @@ def _gather_project_cuda(back, idx, kept, proj):
     d = proj.shape[1]
     if proj.shape[0] != nd:
         raise ValueError(f"gather_project: back {(m, nd)} and proj {tuple(proj.shape)}")
-    if not (0 < nd and 0 < d and nd * d + _GP_ROWS * nd <= _SMEM_FLOATS) or n >= 2**31 - 1:
-        raise ValueError(f"gather_project: n={n}, d={nd}, D={d} exceed the kernel's "
-                         "int32 positions or its 48 KB of shared memory")
+    if n >= 2**31 - 1:
+        raise ValueError(f"gather_project: n={n} exceeds the kernel's int32 positions")
+    align = _alignment(back)
+    gather_project_limits(nd, d, align)  # raises before any card query
     wide = torch.empty((n, d), dtype=back.dtype, device=dev)
     narrow = torch.empty((n, nd), dtype=back.dtype, device=dev)
     if n:
         _launch("gather_project", back.data_ptr(), idx.data_ptr(), kept.data_ptr(),
-                proj.data_ptr(), wide.data_ptr(), narrow.data_ptr(), m, n, nd, d)
+                proj.data_ptr(), wide.data_ptr(), narrow.data_ptr(), m, n, nd, d,
+                *gather_project_plan(n, nd, d, sm_count(dev), align))
     return wide, narrow
 
 

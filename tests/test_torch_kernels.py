@@ -177,7 +177,9 @@ def test_tier_probe_plain_matches_reference_and_pallas(kind):
         assert (slot.numpy()[-8:] == len(keys) - 1).all()
 
 
-@pytest.mark.parametrize("b,f,d", [(8, 4, 8), (33, 7, 12), (65, 39, 10)])
+# the last two: D past a warp's 32 lanes (a lane sums columns c, c + 32, ...)
+@pytest.mark.parametrize("b,f,d", [(8, 4, 8), (33, 7, 12), (65, 39, 10), (9, 5, 33),
+                                   (5, 3, 129)])
 def test_fm_plain_matches_reference_and_pallas(b, f, d):
     x = np.random.default_rng(b).normal(size=(b, f, d)).astype(np.float32)
     got = ops.fm_interaction(_t(x)).numpy()
@@ -612,3 +614,74 @@ def test_tier_probe_wrapper_hands_the_launcher_its_lanes(monkeypatch):
                          torch.arange(h, dtype=torch.int32), torch.zeros((h, d)))
     ((name, args),) = seen
     assert name == "tier_probe" and args[7:] == (n, h, d, 8)
+
+
+# ------------------------------------------------------------- the FM plan
+
+
+@pytest.mark.parametrize("b,f,d,plan", [
+    (512, 39, 10, (3, 96, 1)),       # deepfm serving: 171 blocks
+    (256, 39, 10, (1, 32, 1)),       # deepfm training: 256 blocks
+    (65_536, 39, 10, (8, 256, 1)),   # bulk: eight warps, 12,480 bytes
+    (1, 39, 10, (1, 32, 1)),         # B = 1
+    (512, 1, 1, (3, 96, 1)),         # F = D = 1
+    (65_536, 1, 1, (8, 256, 1)),     # tiny samples: eight warps
+    (512, 39, 33, (3, 96, 1)),       # D = 33: 5,148 bytes a sample
+    (512, 39, 129, (1, 32, 1)),      # D = 129: 20,124 bytes, one a block
+    (4, 100, 200, (1, 32, 0)),       # 80,000 bytes: read unstaged
+    (2_000, 100, 200, (8, 256, 0))])  # unstaged, eight warps a block
+def test_fm_plan_by_hand(b, f, d, plan):
+    """Samples a block, a warp each: B // 132 (one block an SM of an H100
+    where the batch allows), no more than 16 KB of them nor eight, at least
+    one; staged unless one sample passes 48 KB."""
+    assert ops.fm_plan(b, f, d, 132) == plan
+    spb, threads, staged = plan
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert -(-b // spb) >= min(b, 132) or spb == 1
+    assert not staged or 4 * (spb * f * d + 3) <= 48 * 1024
+
+
+def _fm_blocks(b, f, d, spb, base):
+    """What each block of the forward kernel copies into shared memory, as
+    its index arithmetic does, for ``x`` at byte address ``base``: per
+    block (head floats, 16-byte copies, tail floats, shift, floats)."""
+    fd = f * d
+    for blk in range(-(-b // spb)):
+        s0 = blk * spb
+        total = min(spb, b - s0) * fd
+        addr = base + 4 * s0 * fd
+        head = min(((16 - addr % 16) % 16) // 4, total)
+        n4 = (total - head) // 4
+        yield head, n4, total - head - 4 * n4, (4 - head) & 3, total, addr
+
+
+@pytest.mark.parametrize("b,f,d", [(512, 39, 10), (256, 39, 10), (37, 39, 10), (9, 5, 33),
+                                   (7, 3, 129), (65, 1, 1), (33, 7, 3)])
+@pytest.mark.parametrize("base", [0, 4, 8, 12])
+def test_fm_staging_copies_each_float_once(b, f, d, base):
+    """Each block's head, 16-byte and tail copies cover its samples' floats
+    exactly once, every 16-byte copy is aligned on both sides, and the
+    shifted range stays inside the (spb * F * D + 3)-float buffer, whatever
+    the alignment of ``x`` (a 1,560-byte deepfm sample puts every other
+    block off a 16-byte boundary)."""
+    spb, threads, staged = ops.fm_plan(b, f, d, 132)
+    assert staged
+    covered = 0
+    for head, n4, tail, shift, total, addr in _fm_blocks(b, f, d, spb, base):
+        assert head < 4 and tail < 4 and head <= threads and tail <= threads
+        assert head + 4 * n4 + tail == total
+        assert (addr + 4 * head) % 16 == 0 or n4 == 0
+        assert (shift + head) % 4 == 0
+        assert shift + total <= spb * f * d + 3
+        covered += total
+    assert covered == b * f * d
+
+
+def test_fm_wrapper_hands_the_launcher_its_plan(monkeypatch):
+    seen = _recorded_launch(monkeypatch)
+    for b, f, d in ((512, 39, 10), (256, 39, 10), (3, 100, 200)):
+        ops._fm_interaction_cuda(torch.zeros((b, f, d)))
+        name, args = seen[-1]
+        assert name == "fm_interaction" and args[2:] == (b, f, d, *ops.fm_plan(b, f, d, 132))
+    ops._fm_interaction_cuda(torch.zeros((0, 39, 10)))
+    assert len(seen) == 3  # an empty batch launches nothing

@@ -72,7 +72,8 @@ ND = 4
 # tests/test_narrow.py's plan: tiny L1, an L2 four times its bytes, a flush
 # every 5 steps after 2
 PLAN_KW = dict(hot_bytes=1 << 14, l2_bytes=1 << 16, flush_iters=5, warmup_iters=2)
-GRID = [(24, 16, 4, 8), (40, 64, 8, 16), (7, 5, 3, 10), (13, 40, 8, 16)]
+# the last: full DLRM's narrow d = 32 under its D = 128
+GRID = [(24, 16, 4, 8), (40, 64, 8, 16), (7, 5, 3, 10), (13, 40, 8, 16), (50, 40, 32, 128)]
 
 
 def _t(x):
@@ -168,12 +169,122 @@ def test_gather_project_wrappers_check_shapes_before_launch(monkeypatch):
         ops._gather_project_cuda(back, idx, kept[:3].clone(), proj)
     with pytest.raises(ValueError, match="kept"):
         ops._gather_project_cuda(back, idx, kept.to(torch.int32), proj)
+    # the kernel's limits: proj and one narrow row within 48 KB, at most
+    # 256 lanes a narrow row (d / w) and a wide row (D / cw)
     with pytest.raises(ValueError, match="shared memory"):
-        ops._gather_project_cuda(torch.zeros((6, 96)), idx, kept, torch.zeros((96, 8)))
+        ops._gather_project_cuda(torch.zeros((6, 8)), idx, kept, torch.zeros((8, 1600)))
+    with pytest.raises(ValueError, match="lanes"):
+        ops._gather_project_cuda(back, idx, kept, torch.zeros((2, 1030)))
+    with pytest.raises(ValueError, match="lanes"):
+        ops._gather_project_cuda(torch.zeros((6, 1028)), idx, kept, torch.zeros((1028, 4)))
     with pytest.raises(ValueError, match="want"):
         ops._gather_project_grad_cuda(gw[:, :2].contiguous(), gn, idx, kept, proj, 6)
     with pytest.raises(ValueError, match="contiguous"):
         ops._gather_project_grad_cuda(gw, torch.zeros((2, 4)).T, idx, kept, proj, 6)
+
+
+@pytest.mark.parametrize("n,nd,d,plan", [
+    (19_968, 4, 10, (4, 2, 4, 256, 128)),    # narrow deepfm serving: 156 blocks
+    (9_984, 4, 10, (4, 2, 2, 256, 64)),      # narrow deepfm training: 156 blocks
+    (13_312, 32, 128, (4, 4, 8, 256, 64)),   # DLRM serving: 208 blocks
+    (6_656, 32, 128, (4, 4, 4, 256, 32)),    # DLRM training: 208 blocks
+    (2_555_904, 4, 10, (4, 2, 4, 256, 256)),  # bulk: 51 slots x 4 rows, two rounds
+    (1, 4, 10, (4, 2, 1, 256, 16)),          # n = 1
+    (1_001, 3, 7, (1, 1, 1, 256, 16)),       # odd widths: scalar lanes
+    (40, 32, 1, (4, 1, 1, 256, 16)),         # D = 1
+    (5_000, 96, 8, (4, 4, 1, 256, 32)),      # refused by the earlier kernel's 48 KB
+    (100, 8, 1024, (4, 4, 8, 256, 16))])     # D = 1,024: one product slot
+def test_gather_project_plan_by_hand(n, nd, d, plan):
+    """Vectors: 4, 2 or 1 floats a lane, dividing d (gather) and D
+    (product). Tiles: the largest power of two <= 256 that gives each of
+    an H100's 132 SMs a block (19,968 / 128 = 156; / 256 = 78), at least
+    16 for that; one gather batch of four positions a lane (DLRM: 8 lanes
+    a row, 32 rows a pass); product slots of 256 // (D / cw) lanes, rows
+    of them the least power of two that covers the tile, up to 8, or up to
+    4 where a position's product is at most 64 multiply-adds."""
+    assert ops.gather_project_plan(n, nd, d, 132) == plan
+    assert ops.gather_project_smem(nd, d, plan[4]) <= 48 * 1024
+
+
+def _gp_mapping(n, nd, d, plan):
+    """The kernel's two thread mappings, as its index arithmetic does, over
+    the first and last block: per block, how often each (position, lane)
+    is gathered, the gather batches a lane runs, how often each (position,
+    column vector) is computed, the product rounds a lane runs, and each
+    warp's wide-store offsets for each of its rows."""
+    w, cw, rows, threads, tile = plan
+    g, nc = nd // w, d // cw
+    per_pass, slots = threads // g, threads // nc
+    blocks = -(-n // tile)
+    for blk in sorted({0, blocks - 1}):
+        cnt = min(tile, n - blk * tile)
+        gathered, computed, batches, rounds, stores = {}, {}, 0, 0, {}
+        for t in range(threads):
+            gp, j = divmod(t, g)
+            if gp < per_pass:
+                starts = range(gp, cnt, 4 * per_pass)
+                batches = max(batches, len(starts))
+                for base in starts:
+                    for u in range(4):
+                        if base + u * per_pass < cnt:
+                            key = (base + u * per_pass, j)
+                            gathered[key] = gathered.get(key, 0) + 1
+            q, jj = divmod(t, nc)
+            if q < slots:
+                starts = range(q, cnt, rows * slots)
+                rounds = max(rounds, len(starts))
+                for base in starts:
+                    for r in range(rows):
+                        p = base + r * slots
+                        if p < cnt:
+                            computed[(p, jj)] = computed.get((p, jj), 0) + 1
+                            stores.setdefault((t // 32, base - q, r), []).append(
+                                p * d + jj * cw)
+        yield cnt, gathered, batches, computed, rounds, stores
+
+
+@pytest.mark.parametrize("n,nd,d", [(19_968, 4, 10), (9_984, 4, 10), (13_312, 32, 128),
+                                    (6_656, 32, 128), (2_555_904, 4, 10), (1, 4, 10),
+                                    (1_001, 3, 7), (333, 32, 128), (40, 32, 1),
+                                    (100, 8, 1024), (77, 10, 33)])
+def test_gather_project_plan_covers_each_output_once(n, nd, d):
+    """Every narrow vector of the first and last block is gathered once in
+    one batch (one dependent chain a position) and every wide vector
+    computed once, in the rounds the plan's rows leave (one wherever rows
+    cover the tile); the lanes of a warp store a row of positions as one
+    contiguous run of ``cw``-float vectors (coalesced without staging),
+    also where ``n`` is no multiple of the tile."""
+    plan = ops.gather_project_plan(n, nd, d, 132)
+    w, cw, rows, threads, tile = plan
+    slots = threads // (d // cw)
+    for cnt, gathered, batches, computed, rounds, stores in _gp_mapping(n, nd, d, plan):
+        assert gathered == {(p, j): 1 for p in range(cnt) for j in range(nd // w)}
+        assert computed == {(p, j): 1 for p in range(cnt) for j in range(d // cw)}
+        assert batches == 1 and rounds == -(-cnt // (rows * slots))
+        assert rounds == 1 or rows == (4 if nd * d <= 64 else 8)
+        for offsets in stores.values():
+            assert offsets == list(range(offsets[0], offsets[0] + cw * len(offsets), cw))
+
+
+def test_gather_project_wrapper_hands_the_launcher_its_plan(monkeypatch):
+    """The launcher gets the plan at the buffer's own alignment: a view of
+    ``back`` 4 bytes off a 16-byte boundary takes scalar narrow lanes; the
+    (6, 96) x (96, 8) case the earlier kernel's 48 KB refused launches."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(ops, "sm_count", lambda device: 132)
+    idx, kept = torch.zeros(40, dtype=torch.int32), torch.ones(40, dtype=torch.bool)
+    back = torch.zeros((6, 4))
+    offset = torch.zeros(6 * 4 + 4)[1:25].view(6, 4)
+    for b, proj in ((back, torch.zeros((4, 10))), (offset, torch.zeros((4, 10))),
+                    (torch.zeros((6, 96)), torch.zeros((96, 8)))):
+        align = 16 if b.data_ptr() % 16 == 0 else 4
+        ops._gather_project_cuda(b, idx, kept, proj)
+        name, args = seen[-1]
+        nd, d = proj.shape
+        assert name == "gather_project"
+        assert args[6:] == (6, 40, nd, d, *ops.gather_project_plan(40, nd, d, 132, align))
+    assert seen[1][1][10] == 1  # scalar lanes for the offset view
 
 
 # -------------------------------------------------------------------- state

@@ -102,8 +102,10 @@ def check_train_trajectory(mesh1, arch, cache_update, n_micro, shared_state=Fals
         b = jmake_batch(jcfg, GB, rng)
         if shared_state:
             state = train_state_from_jax(jax.device_get(jstate), plan, "cpu")
-        jstate, jmet = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
+        # the port's step first: a tie-aware topk check
+        # (tests/test_torch_compress.py) hands its selection to the reference
         state, met = step(state, b)
+        jstate, jmet = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
         jl.append(float(jmet["loss"]))
         tl.append(float(met["loss"]))
         jm.append((int(jmet["cache_hits"]), int(jmet["overflow"]), int(jmet["step"])))
