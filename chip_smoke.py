@@ -33,9 +33,10 @@ Phases, in order (any failure raises and exits non-zero):
    13,312 and 6,656): outputs within 1e-5 of scale, not-kept positions and
    empty slots exactly 0, both repeating bit for bit, the gradient reached
    both standalone and through the autograd of ``ops.gather_project``.
-   ``fm_interaction`` (samples staged in shared memory by ``cp.async``,
-   ``ops.fm_plan``) runs at deepfm's serving and training batches and at
-   bulk: within 1e-5 of scale, repeating bit for bit.
+   ``fm_interaction`` and ``fm_interaction_bwd`` (samples staged in shared
+   memory by ``cp.async``, ``ops.fm_plan`` and ``ops.fm_bwd_plan``) run at
+   deepfm's serving and training batches and at bulk: within 1e-5 of
+   scale, repeating bit for bit.
    ``dedup_adagrad`` (a memset and two hash-grouping kernels, no sort) runs
    again on the 187,780,711 x 4 narrow master and its 48,806,440-row L2 tier
    at D = 10, on DLRM's 187,767,399 x 32 master and its 4,161,784-row L2
@@ -70,9 +71,11 @@ Phases, in order (any failure raises and exits non-zero):
    the narrow d = 4 (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN,
    infinities, subnormals, signed zeros): payloads and rows bitwise the
    plain versions', zero rows exactly 0 out, each kernel repeating bit for
-   bit. The two DLRM dot kernels (persistent ``cp.async`` rings feeding
-   register tiles, 4 x 4 or the forward's 2 x 2 at B <= 264) run at F =
-   27, D = 128 at both path batches, at
+   bit (``topk_decompress`` builds tiles of rows from
+   ``ops.topk_decompress_plan`` in shared memory). The two DLRM dot
+   kernels (persistent ``cp.async`` rings feeding register tiles, 4 x 4 or
+   the forward's 2 x 2 at B <= 264) run at F = 27, D = 128 at both path
+   batches, at
    the bench config's D = 16, at bulk and on edge shapes (F = 2 with a B
    that is no multiple of a ring buffer's samples, odd D, D = 1, F = 1),
    and the forward at its plan's boundaries (F = 2 and 27 by D = 1, 3, 16,
@@ -94,8 +97,10 @@ Phases, in order (any failure raises and exits non-zero):
    first bit for bit; the same 30 steps on the plain versions (under
    deterministic algorithms) give the same losses (rtol 1e-4 / atol 1e-5, the JAX
    package's fused-vs-plain bar) and the same hits; then per-stage host
-   clock, a profiled window and peak memory; a deepfm-smoke training run on
-   the card must match the CPU;
+   clock, a profiled window (each port kernel's device us a step printed,
+   ``fm_interaction_bwd``'s among them; so on every training path) and
+   peak memory; a deepfm-smoke training run on the card must match the
+   CPU;
 5. free the deepfm states and serve full-width dcn-v2 (187,767,399 x 16
    table, 13 dense features, three cross layers over the 429-wide base,
    MLP 1024-1024-512) as in phase 3: ``cross_layer`` launched 3 times per
@@ -847,10 +852,12 @@ def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch, tier: bool = False,
 def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
     x = torch.randn((b, a.n_fields, a.dim), device=DEV, generator=gen) * 0.3
     g = torch.randn((b, 1), device=DEV, generator=gen)
-    out, rout = ops.fm_interaction_bwd(x, g), ref.fm_interaction_bwd_ref(x, g)
+    out, again = ops.fm_interaction_bwd(x, g), ops.fm_interaction_bwd(x, g)
+    rout = ref.fm_interaction_bwd_ref(x, g)
     torch.cuda.synchronize(DEV)
     err = max_err(out, rout)
     check(err <= TOL * scale_of(rout), f"fm_interaction_bwd err {err}")
+    check(same_bits(out, again), f"fm_interaction_bwd repeats bit for bit at B={b}")
     leaf = x.clone().requires_grad_(True)
     chain_out = fm_chain(leaf)
 
@@ -859,7 +866,8 @@ def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
 
     check(max_err(lib(), rout) <= TOL * scale_of(rout), "FM chain's autograd agrees")
     b_ms, b_by = bound(2 * x.numel() * 4 + b * 4, 3 * x.numel())
-    return {"n": b, "max_abs_err": err,
+    return {"n": b, "plan": list(ops.fm_bwd_plan(b, a.n_fields, a.dim, ops.sm_count(DEV))),
+            "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g)),
             "call_ms": cuda_ms(lambda: ops.fm_interaction_bwd(x, g), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fm_interaction_bwd_ref(x, g)),
@@ -1200,8 +1208,9 @@ def run_topk_decompress(b: int, gen: torch.Generator, a: Arch) -> dict:
 
     check(same_bits(lib(), rout), "scatter yardstick agrees")
     b_ms, b_by = bound(m * k * 8 + m * d * 4, m * k)
-    return {"m": m, "d": d, "k": k, "zero_rows": int(zero.sum()),
-            "max_abs_err": max_err(out, rout),
+    return {"m": m, "d": d, "k": k,
+            "plan": list(ops.topk_decompress_plan(m, d, ops.sm_count(DEV))),
+            "zero_rows": int(zero.sum()), "max_abs_err": max_err(out, rout),
             "ms": cuda_ms(lambda: ops.decompress_topk(vals, idx, d)),
             "call_ms": cuda_ms(lambda: ops.decompress_topk(vals, idx, d),
                                device_only=False),
@@ -1973,10 +1982,20 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
           f"flush step={train['flush_step_ms']:.1f}ms "
           f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
           flush=True)
+    print_step_kernels(arch, train)
     print(f"[train] {arch}-smoke card vs CPU "
           + json.dumps(train_smoke_against_cpu(arch)), flush=True)
     torch.cuda.empty_cache()
     print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
+
+def print_step_kernels(arch: str, train: dict) -> None:
+    """The device us a training step of each of the port's kernels, from
+    the profiled steps of ``train_breakdown`` (phase 4 reads
+    fm_interaction_bwd's here)."""
+    per = train["where_time_goes"].get("port_kernels_ms_per_step") or {}
+    print(f"[trace] {arch} train device us a step: "
+          + json.dumps({k: v * 1e3 for k, v in sorted(per.items())}), flush=True)
 
 
 def kernel_name(mangled: str) -> str:
@@ -2053,7 +2072,8 @@ def main() -> None:
     main_shape = {}
     # the redesigned kernels'
     other_shapes = {"segment_grad": [], "tier_probe": [], "gather_pool": [],
-                    "dot_interaction": [], "fm_interaction": [], "gather_project": []}
+                    "dot_interaction": [], "fm_interaction": [], "gather_project": [],
+                    "fm_interaction_bwd": [], "topk_decompress": []}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])
@@ -2089,6 +2109,7 @@ def main() -> None:
         "gather_pool dlrm-narrow serve": lambda: run_gather_pool(SERVE_B, gen, dl),
         "gather_pool dlrm-narrow train": lambda: run_gather_pool(TRAIN_B, gen, dl),
         "fm_interaction deepfm train": lambda: run_fm(TRAIN_B, gen, ARCHS["deepfm"]),
+        "fm_interaction_bwd deepfm serve": lambda: run_fm_bwd(SERVE_B, gen, ARCHS["deepfm"]),
         "gather_project deepfm-narrow train": lambda: run_gather_project(
             TRAIN_B, gen, ARCHS["deepfm-narrow"]),
         "gather_project dlrm-narrow serve": lambda: run_gather_project(SERVE_B, gen, dl),
@@ -2122,6 +2143,8 @@ def main() -> None:
         for other in ("dcn-v2", "deepfm-narrow"):
             r = runners[name][0](TRAIN_B, gen, ARCHS[other])
             print(f"[kernel] {name} {other} train " + json.dumps(r), flush=True)
+            if name in other_shapes:
+                other_shapes[name].append({"label": f"{other} train", **r})
     print("[kernel] compression edge rows " + json.dumps(run_compress_edges()), flush=True)
     # the dot kernels at the other path's batch, at the bench config's D = 16
     # (B = 256), and on edge shapes
@@ -2168,6 +2191,7 @@ def main() -> None:
     for arch in COMPRESSED:
         train = runs[arch, "train"] = train_full_width(arch)
         print(f"[train] {arch} full width " + json.dumps(train), flush=True)
+        print_step_kernels(arch, train)
         print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
               f"p99={train['step_p99_ms']:.3f}ms flush step={train['flush_step_ms']:.1f}ms; "
               f"uncompressed deepfm p50={base['step_p50_ms']:.3f}ms "
@@ -2205,7 +2229,7 @@ def main() -> None:
                 "fp32_bound_ms", "library_ms")}]
         if name in other_shapes:  # the redesigned kernels at every other shape
             kernels[-1]["shapes"] = [{k: r2.get(k) for k in (
-                "label", "n", "d", "narrow_d", "plan", "case", "tier_keys", "lanes",
+                "label", "n", "m", "d", "k", "narrow_d", "plan", "case", "tier_keys", "lanes",
                 "longest_run", "max_abs_err", "ms", "plain_ms", "library_ms", "sorting_ms",
                 "bound_ms", "bound_by")} for r2 in other_shapes[name]]
         if name == "gather_project_grad":

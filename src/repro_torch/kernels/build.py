@@ -40,8 +40,8 @@ SIGNATURES: Dict[str, List] = {
     "segment_grad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
     # w, acc, idx, valid, g, scratch, scratch ints, m, rows, d, cap, lr, eps, stream
     "dedup_adagrad": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I64, _F, _F, _P],
-    # x, g, out, b, f, d, stream
-    "fm_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _P],
+    # x, g, out, b, f, d, samples a block, threads, staged, stream
+    "fm_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     # x0, x, w, b, out, b_rows, d, cluster, stream
     "cross_layer": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     # x0, x, w, b, g, gx0, gx, gw, gb, b_rows, d, cluster_dx, cluster_dw, stream
@@ -58,8 +58,8 @@ SIGNATURES: Dict[str, List] = {
     "fp16_decompress": [_P, _P, _P, _I64, _I, _P],
     # g, vals, idx, m, d, k, stream
     "topk_compress": [_P, _P, _P, _I64, _I, _I, _P],
-    # vals, idx, out, m * d, d, k, stream
-    "topk_decompress": [_P, _P, _P, _I64, _I, _I, _P],
+    # vals, idx, out, m, d, k, rows a block, threads, stream
+    "topk_decompress": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     # x, out, b, f, d, samples a group, stages, threads, smem bytes, tile, stream
     "dot_interaction": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I, _P],
     # x, g, out, b, f, d, samples a group, stages, threads, smem bytes, stream

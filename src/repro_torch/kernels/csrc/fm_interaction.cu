@@ -10,11 +10,8 @@
 // cuts round trips and fills the card:
 //  - a block owns `spb` consecutive samples, a warp each (ops.fm_plan: at
 //    least one block an SM where the batch allows; at most eight samples
-//    and 16 KB a block) and copies their contiguous spb*F*D floats into shared memory with
-//    cp.async: 16-byte copies over the 16-byte-aligned middle, 4-byte ones
-//    for the head and tail (a deepfm sample is 1,560 bytes, so every other
-//    one starts off a 16-byte boundary). Every copy is in flight before any
-//    is waited for: one round trip to device memory;
+//    and 16 KB a block) and copies their contiguous spb*F*D floats into
+//    shared memory with cp.async in one round trip (fm_stage.cuh);
 //  - then one warp reduces one sample at a time as the kernel this replaced
 //    did straight from device memory: lane c keeps sum_f v and sum_f v^2 of
 //    column c (c, c + 32, ... when D > 32), ascending f from +0.0f with
@@ -28,17 +25,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fm_stage.cuh"
+
 namespace {
-
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
 
 // One sample's FM term by one warp, from shared memory (kStaged) or
 // through the read-only cache; the result is whole on lane 0.
@@ -71,25 +60,10 @@ __global__ void fm_interaction_kernel(const float* __restrict__ x, float* __rest
   const int64_t fd = static_cast<int64_t>(f) * d;
   const float* xs = x + s0 * fd;
   if (kStaged) {
-    // the block's samples are one contiguous range of `total` floats (the
-    // plan keeps it within 48 KB); `sm` is shifted so that the range's
-    // first 16-byte-aligned float lands on a 16-byte boundary too
-    const int total = static_cast<int>(cnt * fd);
-    const int lead = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(xs) & 15u)) & 15u) >> 2);
-    const int head = lead < total ? lead : total;
-    float* sm = reinterpret_cast<float*>(smem4) + ((4 - head) & 3);
-    const int n4 = (total - head) >> 2;
-    const int tail = head + 4 * n4;
-    for (int e = threadIdx.x; e < n4; e += blockDim.x) {
-      cp16(sm + head + 4 * e, xs + head + 4 * e);
-    }
-    if (static_cast<int>(threadIdx.x) < head) cp4(sm + threadIdx.x, xs + threadIdx.x);
-    if (static_cast<int>(threadIdx.x) < total - tail) {
-      cp4(sm + tail + threadIdx.x, xs + tail + threadIdx.x);
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // the plan keeps the block's spb*F*D floats (+ 3 of shift) within 48 KB
+    xs = fm_stage_issue(reinterpret_cast<float*>(smem4), xs, static_cast<int>(cnt * fd));
+    fm_stage_wait();
     __syncthreads();
-    xs = sm;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int s = warp; s < cnt; s += blockDim.x >> 5) {  // whole warps

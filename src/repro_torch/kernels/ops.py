@@ -369,6 +369,45 @@ def _fm_interaction_cuda(fields):
     return out
 
 
+# the backward stages a block's samples as the forward does (at most
+# FM_STAGE_BYTES of them), beside their column sums and cotangents: at
+# least FMB_MIN_FLOATS floats of samples a block (tiny samples were slower
+# one block an SM), at most FMB_MAX_SAMPLES, and a 16-byte store a thread,
+# at most FMB_MAX_THREADS threads (scripts/torch_fmbwd_topk_bench.py --sweep
+# on the H100)
+FMB_MIN_FLOATS, FMB_MAX_SAMPLES, FMB_MAX_THREADS = 64, 8, 256
+
+
+def _threads_for(n: int, most: int) -> int:
+    """``n`` threads rounded up to whole warps, one warp to ``most``."""
+    return max(32, min(most, -(-n // 32) * 32))
+
+
+def fm_bwd_plan(b: int, f: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """``(spb, threads, staged)`` of the backward kernel at ``[B, F, D]`` on
+    a card of ``sms`` SMs. ``spb`` consecutive samples a block: ``B // sms``
+    (so that each SM gets a block where the batch allows), but no more than
+    fit FM_STAGE_BYTES nor FMB_MAX_SAMPLES, and at least FMB_MIN_FLOATS of
+    floats' worth (small samples share a block); then the largest no more
+    than that for which a block's ``spb * F * D`` outputs are whole 16-byte
+    stores (every block's output range aligned like the first's), else 1.
+    ``staged`` is 0 where one sample with its D column sums, its cotangent
+    and 12 bytes of alignment slack passes FM_SMEM_BYTES, or where a sample
+    is under 16 bytes: then a thread owns a (sample, column) and reads
+    device memory directly, so the threads cover the block's ``spb * D``
+    columns. Staged, every thread writes: one a 16-byte store, and at least
+    one a sample (each loads a cotangent)."""
+    fd = f * d
+    least = -(-FMB_MIN_FLOATS // fd)
+    if fd < 4 or 4 * (fd + d + 1 + 3) > FM_SMEM_BYTES:
+        spb = max(1, least, min(b // sms, FMB_MAX_SAMPLES))
+        return spb, _threads_for(spb * d, FMB_MAX_THREADS), 0
+    spb = max(1, min(max(b // sms, least), max(FMB_MAX_SAMPLES, least),
+                     FM_STAGE_BYTES // (4 * fd)))
+    spb = next((n for n in range(spb, 0, -1) if n * fd % 4 == 0), 1)
+    return spb, _threads_for(max(spb, -(-spb * fd // 4)), FMB_MAX_THREADS), 1
+
+
 def _fm_interaction_bwd_cuda(fields, g):
     dev = fields.device
     _expect(fields, "fm_interaction_bwd fields", torch.float32, 3, dev)
@@ -377,9 +416,9 @@ def _fm_interaction_bwd_cuda(fields, g):
     if tuple(g.shape) != (b, 1):
         raise ValueError(f"fm_interaction_bwd: g {tuple(g.shape)}, want {(b, 1)}")
     out = torch.empty_like(fields)
-    if b:
+    if out.numel():
         _launch("fm_interaction_bwd", fields.data_ptr(), g.data_ptr(), out.data_ptr(),
-                b, f, d)
+                b, f, d, *fm_bwd_plan(b, f, d, sm_count(dev)))
     return out
 
 
@@ -937,6 +976,30 @@ def compress_topk(g, k: int, fused: Optional[bool] = None):
     return ref.topk_compress_ref(g, int(k))
 
 
+# topk_decompress builds a tile of rows in shared memory and writes it
+# whole: at most TD_MAX_ROWS rows a block and TD_MAX_THREADS threads, each
+# thread at most TD_VECS 16-byte stores (scripts/torch_fmbwd_topk_bench.py
+# --sweep on the H100)
+TD_SMEM_BYTES, TD_MAX_ROWS, TD_VECS, TD_MAX_THREADS = 48 * 1024, 256, 4, 256
+
+
+def topk_decompress_plan(m: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(rows, threads)`` of the decompression kernel for ``m`` rows of
+    width ``d`` on a card of ``sms`` SMs. ``rows`` a tile: the largest power
+    of two from 4 to TD_MAX_ROWS (a multiple of 4, so every tile starts on
+    a 16-byte boundary of the output) that gives each SM a block where
+    ``m`` allows and whose ``rows * d`` floats fit TD_SMEM_BYTES; 4 where
+    none fits (the kernel then builds the tile in the output itself).
+    ``threads``: one a row, and enough for at most TD_VECS 16-byte stores
+    each, at most TD_MAX_THREADS. ``k`` changes neither: a row's entries
+    are one thread's."""
+    rows = TD_MAX_ROWS
+    while rows > 4 and (rows * d * 4 > TD_SMEM_BYTES or -(-m // rows) < sms):
+        rows //= 2
+    want = max(rows, -(-rows * d // (4 * TD_VECS)))
+    return rows, _threads_for(want, TD_MAX_THREADS)
+
+
 def _topk_decompress_cuda(vals, idx, d: int):
     dev = vals.device
     _expect(vals, "topk_decompress vals", torch.float32, 2, dev)
@@ -946,8 +1009,8 @@ def _topk_decompress_cuda(vals, idx, d: int):
         raise ValueError(f"topk_decompress: vals {(m, k)}, idx {tuple(idx.shape)}, D={d}")
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
     if m:
-        _launch("topk_decompress", vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m * d,
-                d, k)
+        _launch("topk_decompress", vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m, d, k,
+                *topk_decompress_plan(m, d, sm_count(dev)))
     return out
 
 

@@ -502,7 +502,11 @@ class _TieAwareTopk:
 
 def _flip_untied_row(g, payload, call):
     """The port's second topk call keeps, in one row with no tie, its
-    smallest column in place of its k-th largest: a wrong selection."""
+    smallest column in place of its k-th largest: a wrong selection. The
+    row is the untied one with the largest k-th magnitude, so the wrong
+    update moves the state past the check's bars whatever the packing salt
+    (under PYTHONHASHSEED=17 the first untied row's wrong update stayed
+    within them)."""
     if call != 1:
         return payload
     vals, idx = payload.vals.clone(), payload.idx.clone()
@@ -510,7 +514,7 @@ def _flip_untied_row(g, payload, call):
     srt = mag.sort(dim=1, descending=True).values
     k = idx.shape[1]
     clear = (srt[:, k - 1] > 0) & (srt[:, k] < srt[:, k - 1] * 0.5)
-    r = int(torch.nonzero(clear)[0])
+    r = int(torch.where(clear, srt[:, k - 1], torch.zeros_like(srt[:, 0])).argmax())
     col = int(mag[r].argmin())
     idx[r, k - 1] = col
     vals[r, k - 1] = g[r, col]
@@ -602,3 +606,128 @@ def test_train_launcher_runs_grad_compress_topk_on_cpu():
     assert [int(s[0]) for s in steps] == [1, 2, 3], out.stdout
     assert all(np.isfinite(float(s[1])) for s in steps)
     assert out.stdout.rstrip().endswith("[train] done")
+
+
+# ------------------------------------------------- the decompression kernel
+
+
+@pytest.mark.parametrize("m,d,plan", [
+    (15_976, 10, (64, 64)),        # deepfm-topk training: 250 blocks (128 rows: 125)
+    (13_312, 16, (64, 64)),        # a dcn-v2-sized bucket at D = 16
+    (15_976, 4, (64, 64)),         # the narrow d = 4
+    (4_089_448, 10, (256, 256)),   # bulk: 15,975 tiles of 10 KB
+    (1, 10, (4, 32)),              # one row
+    (3, 129, (4, 64)),             # three rows at D = 129: 387 floats, a scalar tail
+    (100_000, 129, (64, 256)),     # D = 129: 128 rows would pass 48 KB
+    (100_000, 1, (256, 256)),      # D = 1
+    (50, 3_072, (4, 256)),         # four rows fill 48 KB exactly
+    (50, 3_073, (4, 256))])        # not even four rows fit: built in the output
+def test_topk_decompress_plan_by_hand(m, d, plan):
+    """Rows a tile: the largest power of two from 4 to 256 that gives each
+    of an H100's 132 SMs a block where m allows and whose rows * D floats
+    fit 48 KB, else 4. Threads: one a row and enough for at most four
+    16-byte stores each (64 rows x 129 floats: 516 -> 256), 32 to 256."""
+    assert ops.topk_decompress_plan(m, d, 132) == plan
+    rows, threads = plan
+    assert rows % 4 == 0 and threads % 32 == 0 and 32 <= threads <= 256
+    assert -(-m // rows) >= 132 or rows == 4
+    assert rows * d * 4 <= 48 * 1024 or rows == 4
+
+
+def _topk_kernel(vals, idx, d, rows, threads, offsets=(0, 0)):
+    """The decompression kernel's index arithmetic and stores, in numpy:
+    per tile of ``rows`` rows, zero the tile (whole float4s), set each
+    row's in-range columns in ascending j (the column taken as unsigned),
+    then write the tile with 16-byte stores and a scalar tail; where four
+    rows pass 48 KB, the same steps on the output itself. ``vals`` and
+    ``idx`` lie at byte offsets ``offsets`` off 16 (a view). Asserts that
+    every 16-byte access is aligned on both sides, every entry lands in its
+    own row's slice of the tile, and each output float is written once
+    after its tile is built; returns the output."""
+    m, k = vals.shape
+    staged = rows * d * 4 <= 48 * 1024
+    out = np.full(m * d, np.float32(7.0))
+    writes = np.zeros(m * d, np.int64)
+    for blk in range(-(-m // rows)):
+        r0 = blk * rows
+        cnt = min(rows, m - r0)
+        n = cnt * d
+        assert (4 * r0 * d) % 16 == 0  # the tile's base in the output
+        tile = np.zeros(4 * (-(-n // 4)) if staged else n, np.float32)
+        assert not staged or tile.size <= rows * d
+        for r in range(cnt):  # a thread a row, its entries in order
+            for j in range(k):
+                e = (r0 + r) * k + j
+                assert (offsets[0] + 4 * e) % 4 == 0 and (offsets[1] + 4 * e) % 4 == 0
+                c = int(np.uint32(idx[r0 + r, j]))
+                if c < d:
+                    assert r * d <= r * d + c < (r + 1) * d
+                    tile[r * d + c] = vals[r0 + r, j]
+        if staged:
+            for i in range(n // 4):  # shared float4 i to the output's
+                assert (16 * i) % 16 == 0 and (4 * (r0 * d + 4 * i)) % 16 == 0
+        out[r0 * d: r0 * d + n] = tile[:n]
+        writes[r0 * d: r0 * d + n] += 1
+    assert (writes == 1).all()
+    return out.reshape(m, d)
+
+
+def _topk_edge_case(m, d, k, seed):
+    """Compressed rows with the decompression edges: columns -1, D and
+    2^31 - 1, a column repeated in a row, NaN and -0.0 values."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, (m, k)).astype(np.int32)
+    vals = rng.normal(size=(m, k)).astype(np.float32)
+    kind = rng.integers(0, 8, m)
+    bad = np.array([-1, d, 2 ** 31 - 1], np.int32)
+    idx[kind == 0, 0] = bad[rng.integers(0, 3, int((kind == 0).sum()))]
+    if k > 1:
+        idx[kind == 1, 1] = idx[kind == 1, 0]
+    vals[kind == 2, 0] = np.nan
+    vals[kind == 3, k - 1] = -0.0
+    return vals, idx
+
+
+@pytest.mark.parametrize("m,d,k", [(1, 10, 2), (3, 129, 8), (37, 3, 3), (300, 10, 2),
+                                   (300, 16, 4), (300, 4, 1), (70, 1, 1), (9, 3_100, 8)])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_topk_decompress_tiles_write_each_float_once(m, d, k, offset):
+    """The kernel's tiles, emulated, write each output float exactly once
+    with every 16-byte access aligned, whatever the alignment of the
+    ``vals`` and ``idx`` views (read a float at a time), and give bitwise
+    the plain version's output on rows with out-of-range columns, repeated
+    columns, NaN and -0.0; at the plan's tiles and at smaller ones."""
+    vals, idx = _topk_edge_case(m, d, k, m + d + k)
+    want = ops.decompress_topk(_t(vals), _t(idx), d).numpy()
+    rows, threads = ops.topk_decompress_plan(m, d, 132)
+    for r in {rows, 4}:
+        _same_bits(_topk_kernel(vals, idx, d, r, threads, (offset, 12 - offset)), want)
+
+
+def test_topk_decompress_plain_takes_the_later_entry_and_drops_negatives():
+    """A column repeated in a row: the later entry wins (the kernel's
+    ascending j and the plain version's scatter alike); a negative column,
+    or one at or past D, is dropped."""
+    vals = np.array([[1.0, 2.0, 3.0], [4.0, -0.0, 5.0], [6.0, 7.0, 8.0]], np.float32)
+    idx = np.array([[1, 1, -1], [2, 2, 4], [-2147483648, 3, 0]], np.int32)
+    out = ops.decompress_topk(_t(vals), _t(idx), 4).numpy()
+    want = np.array([[0.0, 2.0, 0.0, 0.0], [0.0, 0.0, -0.0, 0.0], [8.0, 0.0, 0.0, 7.0]],
+                    np.float32)
+    _same_bits(out, want)
+    _same_bits(_topk_kernel(vals, idx, 4, 4, 32), want)
+
+
+def test_topk_decompress_wrapper_hands_the_launcher_its_plan(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(ops, "sm_count", lambda device: 132)
+    for m, d, k in ((15_976, 10, 2), (300, 16, 4), (3, 129, 8)):
+        vals, idx = torch.zeros((m, k)), torch.zeros((m, k), dtype=torch.int32)
+        out = ops._topk_decompress_cuda(vals, idx, d)
+        name, args = seen[-1]
+        assert name == "topk_decompress" and args[:3] == (vals.data_ptr(), idx.data_ptr(),
+                                                          out.data_ptr())
+        assert args[3:] == (m, d, k, *ops.topk_decompress_plan(m, d, 132))
+        assert out.shape == (m, d) and out.data_ptr() % 16 == 0
+    ops._topk_decompress_cuda(torch.zeros((0, 2)), torch.zeros((0, 2), dtype=torch.int32), 10)
+    assert len(seen) == 3  # no rows launch nothing

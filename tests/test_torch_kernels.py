@@ -685,3 +685,158 @@ def test_fm_wrapper_hands_the_launcher_its_plan(monkeypatch):
         assert name == "fm_interaction" and args[2:] == (b, f, d, *ops.fm_plan(b, f, d, 132))
     ops._fm_interaction_cuda(torch.zeros((0, 39, 10)))
     assert len(seen) == 3  # an empty batch launches nothing
+
+
+# ---------------------------------------------------------- the FM backward
+
+
+@pytest.mark.parametrize("b,f,d,plan", [
+    (256, 39, 10, (1, 128, 1)),       # deepfm training: 256 blocks, 390 floats each
+    (512, 39, 10, (2, 224, 1)),       # B = 512: 3 a block would not be whole float4s
+    (65_536, 39, 10, (8, 256, 1)),    # bulk: eight samples, 12,480 bytes
+    (1, 39, 10, (1, 128, 1)),         # B = 1
+    (37, 39, 10, (1, 128, 1)),        # fewer samples than SMs
+    (333, 7, 3, (4, 32, 1)),          # D = 3: 21-float samples, at least 64 floats a block
+    (512, 2, 3, (10, 32, 1)),         # 11 samples for 64 floats; 10 for whole float4s
+    (512, 39, 33, (1, 256, 1)),       # D = 33: no count of 5,148-byte samples but 1 fits
+    (512, 39, 129, (1, 256, 1)),      # D = 129: 20,124 bytes, one a block
+    (512, 1, 1, (64, 64, 0)),         # 4-byte samples: direct, 64 a block
+    (64, 100, 200, (1, 224, 0)),      # 80,000 bytes: direct, a thread a column
+    (2_000, 100, 200, (8, 256, 0)),   # direct, eight samples a block
+    (512, 1, 12_000, (3, 256, 0))])   # the column sums alone pass 48 KB
+def test_fm_bwd_plan_by_hand(b, f, d, plan):
+    """Samples a block: B // 132 (one block an SM of an H100 where the batch
+    allows), no more than 16 KB of them nor eight, at least 64 floats'
+    worth; then the most no more than that whose outputs are whole 16-byte
+    stores, else one. Staged, threads for at most one 16-byte store each
+    (390 floats: 98 -> 128), 32 to 256; direct (one sample with its sums
+    past 48 KB, or under 16 bytes), a thread a (sample, column). Staged
+    blocks fit their samples (+ 3 floats of shift), column sums and
+    cotangents in the 48 KB a block gets unasked."""
+    assert ops.fm_bwd_plan(b, f, d, 132) == plan
+    spb, threads, staged = plan
+    fd = f * d
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert spb <= max(b // 132, -(-64 // fd), 1)
+    assert not staged or spb == 1 or spb * fd % 4 == 0
+    assert not staged or spb <= threads  # a thread a cotangent
+    assert not staged or 4 * (spb * (fd + d + 1) + 3) <= 48 * 1024
+    assert staged or fd < 4 or 4 * (fd + d + 1 + 3) > 48 * 1024
+
+
+def _fm_bwd_writes(b, f, d, spb, threads, base):
+    """The outputs the staged backward kernel writes, as its index
+    arithmetic computes them, for ``out`` at byte address ``base``: each
+    block's column sums, a (sample, column) pair a thread stepped by the
+    block's threads; its scalar head and tail; then its 16-byte stores with
+    (sample, float in sample, column) advanced by 32-bit steps. Asserts
+    that each pair is summed once, each store's alignment and each
+    element's (sample, column); returns how often each output was
+    written."""
+    fd = f * d
+    hits = np.zeros(b * fd, np.int64)
+    for blk in range(-(-b // spb)):
+        s0 = blk * spb
+        total = min(spb, b - s0) * fd
+        addr = base + 4 * s0 * fd
+        summed = np.zeros(spb * d, np.int64)  # the column sums' pairs, stepped
+        pds, pdc = divmod(threads, d)
+        for t in range(threads):
+            ps, pc = divmod(t, d)
+            for p in range(t, min(spb, b - s0) * d, threads):
+                assert (ps, pc) == divmod(p, d)
+                summed[p] += 1
+                ps, pc = ps + pds, pc + pdc
+                if pc >= d:
+                    ps, pc = ps + 1, pc - d
+        assert (summed[: min(spb, b - s0) * d] == 1).all()
+        head = min(((16 - addr % 16) % 16) // 4, total)
+        n4 = (total - head) // 4
+        tail = head + 4 * n4
+        for t in range(min(threads, head + total - tail)):
+            e = t if t < head else tail + t - head
+            hits[s0 * fd + e] += 1
+        step = 4 * threads
+        ds, dr = divmod(step, fd)
+        dc = dr % d
+        for t in range(min(threads, n4)):
+            e = head + 4 * t
+            s, r = divmod(e, fd)
+            c = r % d
+            for _ in range(t, n4, threads):
+                assert (addr + 4 * e) % 16 == 0
+                ss, rr, cc = s, r, c
+                for i in range(4):
+                    assert (ss, cc) == ((e + i) // fd, (e + i) % fd % d)
+                    hits[s0 * fd + e + i] += 1
+                    cc = 0 if cc + 1 == d else cc + 1
+                    rr += 1
+                    if rr == fd:
+                        rr, ss = 0, ss + 1
+                e, s, r, c = e + step, s + ds, r + dr, c + dc
+                if c >= d:
+                    c -= d
+                if r >= fd:
+                    r, s = r - fd, s + 1
+    return hits
+
+
+@pytest.mark.parametrize("b,f,d", [(256, 39, 10), (512, 39, 10), (37, 39, 10), (9, 5, 33),
+                                   (7, 3, 129), (65, 1, 4), (333, 7, 3), (512, 2, 3)])
+@pytest.mark.parametrize("base", [0, 4, 8, 12])
+def test_fm_bwd_writes_each_float_once(b, f, d, base):
+    """The staged backward's copies cover each input float once with every
+    16-byte copy aligned on both sides, its shared memory holds the shifted
+    samples, the column sums and the cotangents within the launcher's size,
+    and its writes cover each output float once with every 16-byte store
+    aligned and each element given its own (sample, column), whatever the
+    alignment of ``x`` and of ``out`` (0, 4, 8, 12 bytes off 16): the two
+    ranges are aligned independently."""
+    spb, threads, staged = ops.fm_bwd_plan(b, f, d, 132)
+    assert staged
+    smem = spb * (f * d + d + 1) + 3
+    for x_base in (0, 4, 8, 12):
+        covered = 0
+        for head, n4, tail, shift, total, addr in _fm_blocks(b, f, d, spb, x_base):
+            assert head + 4 * n4 + tail == total and head <= threads and tail <= threads
+            assert (addr + 4 * head) % 16 == 0 or n4 == 0
+            assert (shift + head) % 4 == 0 and shift + total <= spb * f * d + 3
+            covered += total
+        assert covered == b * f * d
+    assert (spb * f * d + 3) + spb * d + spb == smem <= 12 * 1024
+    hits = _fm_bwd_writes(b, f, d, spb, threads, base)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("b,f,d", [(64, 100, 200), (5, 1, 12_000), (9, 120, 110),
+                                   (512, 1, 1), (100, 3, 1)])
+def test_fm_bwd_direct_writes_each_float_once(b, f, d):
+    """The direct backward (a sample with its sums past 48 KB, or under 16
+    bytes): a thread a (sample, column) of the block's ``spb * D``, stepped
+    by the block's threads, writing its F outputs at k * D + c, covers each
+    output once."""
+    spb, threads, staged = ops.fm_bwd_plan(b, f, d, 132)
+    assert not staged
+    hits = np.zeros(b * f * d, np.int64)
+    for blk in range(-(-b // spb)):
+        s0 = blk * spb
+        for t in range(threads):
+            for p in range(t, min(spb, b - s0) * d, threads):
+                s, c = divmod(p, d)
+                hits[(s0 + s) * f * d + np.arange(f) * d + c] += 1
+    assert (hits == 1).all()
+
+
+def test_fm_bwd_wrapper_hands_the_launcher_its_plan(monkeypatch):
+    seen = _recorded_launch(monkeypatch)
+    for b, f, d in ((256, 39, 10), (512, 39, 10), (3, 100, 200)):
+        x, g = torch.zeros((b, f, d)), torch.zeros((b, 1))
+        out = ops._fm_interaction_bwd_cuda(x, g)
+        name, args = seen[-1]
+        assert name == "fm_interaction_bwd" and args[:3] == (x.data_ptr(), g.data_ptr(),
+                                                             out.data_ptr())
+        assert args[3:] == (b, f, d, *ops.fm_bwd_plan(b, f, d, 132))
+        assert out.shape == (b, f, d)
+    ops._fm_interaction_bwd_cuda(torch.zeros((0, 39, 10)), torch.zeros((0, 1)))
+    ops._fm_interaction_bwd_cuda(torch.zeros((4, 0, 10)), torch.zeros((4, 1)))
+    assert len(seen) == 3  # an empty input launches nothing
