@@ -71,8 +71,12 @@ Phases, in order (any failure raises and exits non-zero):
    the narrow d = 4 (k = 1), at bulk (m = 4,089,448) and on edge rows (NaN,
    infinities, subnormals, signed zeros): payloads and rows bitwise the
    plain versions', zero rows exactly 0 out, each kernel repeating bit for
-   bit (``topk_decompress`` builds tiles of rows from
-   ``ops.topk_decompress_plan`` in shared memory). The two DLRM dot
+   bit, and both compression kernels also bitwise on a view of the rows 4
+   bytes off 16 (each kernel launches from its ``ops`` plan:
+   ``fp16_compress_plan`` stages tiles of rows in shared memory from D = 9
+   on, ``topk_compress_plan`` reads rows directly for k <= 8 and stages
+   them for the k passes past 8, ``topk_decompress_plan`` builds tiles).
+   The two DLRM dot
    kernels (persistent ``cp.async`` rings feeding register tiles, 4 x 4 or
    the forward's 2 x 2 at B <= 264) run at F = 27, D = 128 at both path
    batches, at
@@ -1110,6 +1114,13 @@ def zero_rows_of(g: torch.Tensor) -> torch.Tensor:
     return zero
 
 
+def view_off_16(g: torch.Tensor) -> torch.Tensor:
+    """A copy of ``g`` in a view 4 bytes past a 16-byte boundary."""
+    view = torch.empty((g.numel() + 1,), dtype=g.dtype, device=g.device)[1:].view(g.shape)
+    check(view.data_ptr() % 16 == 4, f"view at {view.data_ptr() % 16} bytes off 16")
+    return view.copy_(g)
+
+
 def run_fp16_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
     g = grad_rows(b, gen, a)
     (m, d), zero = g.shape, zero_rows_of(g)
@@ -1120,13 +1131,18 @@ def run_fp16_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
     check(same_bits(q, rq) and same_bits(s, rs), "fp16_compress payload bitwise")
     check(same_bits(q, again[0]) and same_bits(s, again[1]), "fp16_compress repeats")
     check(not q[zero].any() and not s[zero].any(), "fp16_compress zero rows exactly 0")
+    view = view_off_16(g)
+    vq, vs = ops.compress_fp16(view)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(vq, rq) and same_bits(vs, rs), "fp16_compress on a view 4 bytes off 16")
 
     def lib():  # amax, clamp_min, div, half: four calls, timed together
         return (g / g.abs().amax(1, keepdim=True).clamp_min(1e-30)).half()
 
     check(same_bits(lib(), rq), "amax/div/half chain agrees")
     b_ms, b_by = bound(m * d * (4 + 2) + m * 4, 3 * m * d)
-    return {"m": m, "d": d, "zero_rows": int(zero.sum()),
+    return {"m": m, "d": d, "plan": list(ops.fp16_compress_plan(m, d, ops.sm_count(DEV))),
+            "zero_rows": int(zero.sum()),
             "max_abs_err": max(max_err(q.float(), rq.float()), max_err(s, rs)),
             "ms": cuda_ms(lambda: ops.compress_fp16(g)),
             "call_ms": cuda_ms(lambda: ops.compress_fp16(g), device_only=False),
@@ -1171,6 +1187,9 @@ def run_topk_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
     first = torch.arange(k, device=DEV, dtype=torch.int32).expand(int(zero.sum()), k)
     check(not vals[zero].any() and torch.equal(idx[zero], first),
           "topk_compress zero rows: value 0 at the first k columns")
+    vv, vi = ops.compress_topk(view_off_16(g), k)
+    torch.cuda.synchronize(DEV)
+    check(same_bits(vv, rvals) and same_bits(vi, ridx), "topk_compress on a view 4 bytes off 16")
     mag = g.abs()
 
     def lib():  # topk then gather: two calls, timed together (ties in any order)
@@ -1178,8 +1197,9 @@ def run_topk_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
 
     check(torch.equal(lib().abs(), vals.abs()), "topk + gather yardstick magnitudes agree")
     b_ms, b_by = bound(m * d * 4 + m * k * 8, m * k * d)
-    return {"m": m, "d": d, "k": k, "zero_rows": int(zero.sum()),
-            "max_abs_err": max_err(vals, rvals),
+    return {"m": m, "d": d, "k": k,
+            "plan": list(ops.topk_compress_plan(m, d, k, ops.sm_count(DEV))),
+            "zero_rows": int(zero.sum()), "max_abs_err": max_err(vals, rvals),
             "ms": cuda_ms(lambda: ops.compress_topk(g, k)),
             "call_ms": cuda_ms(lambda: ops.compress_topk(g, k), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.topk_compress_ref(g, k)),
@@ -2073,7 +2093,8 @@ def main() -> None:
     # the redesigned kernels'
     other_shapes = {"segment_grad": [], "tier_probe": [], "gather_pool": [],
                     "dot_interaction": [], "fm_interaction": [], "gather_project": [],
-                    "fm_interaction_bwd": [], "topk_decompress": []}
+                    "fm_interaction_bwd": [], "topk_decompress": [], "fp16_compress": [],
+                    "topk_compress": []}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])

@@ -52,12 +52,12 @@ SIGNATURES: Dict[str, List] = {
     # g_wide, g_narrow, proj, order, sorted idx, offsets (scratch), out, n, m,
     # nd, d, stream
     "gather_project_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
-    # g, q, scale, m, d, stream
-    "fp16_compress": [_P, _P, _P, _I64, _I, _P],
+    # g, q, scale, m, d, rows a block, threads, staged, stream
+    "fp16_compress": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     # q, scale, out, m * d, d, stream
     "fp16_decompress": [_P, _P, _P, _I64, _I, _P],
-    # g, vals, idx, m, d, k, stream
-    "topk_compress": [_P, _P, _P, _I64, _I, _I, _P],
+    # g, vals, idx, m, d, k, rows a block, threads, staged, stream
+    "topk_compress": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     # vals, idx, out, m, d, k, rows a block, threads, stream
     "topk_decompress": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     # x, out, b, f, d, samples a group, stages, threads, smem bytes, tile, stream

@@ -921,7 +921,8 @@ def _fp16_compress_cuda(g):
     q = torch.empty((m, d), dtype=torch.float16, device=dev)
     scale = torch.empty((m, 1), dtype=torch.float32, device=dev)
     if m:
-        _launch("fp16_compress", g.data_ptr(), q.data_ptr(), scale.data_ptr(), m, d)
+        _launch("fp16_compress", g.data_ptr(), q.data_ptr(), scale.data_ptr(), m, d,
+                *fp16_compress_plan(m, d, sm_count(dev)))
     return q, scale
 
 
@@ -963,7 +964,8 @@ def _topk_compress_cuda(g, k: int):
     vals = torch.empty((m, k), dtype=torch.float32, device=dev)
     idx = torch.empty((m, k), dtype=torch.int32, device=dev)
     if m:
-        _launch("topk_compress", g.data_ptr(), vals.data_ptr(), idx.data_ptr(), m, d, k)
+        _launch("topk_compress", g.data_ptr(), vals.data_ptr(), idx.data_ptr(), m, d, k,
+                *topk_compress_plan(m, d, k, sm_count(dev)))
     return vals, idx
 
 
@@ -974,6 +976,61 @@ def compress_topk(g, k: int, fused: Optional[bool] = None):
     if _use_kernel(fused, g, "topk_compress"):
         return _topk_compress_cuda(g, int(k))
     return ref.topk_compress_ref(g, int(k))
+
+
+# the compression kernels either stage a tile of consecutive rows of g in
+# shared memory (row_stage.cuh: a multiple of ROW_TILE rows keeps every
+# tile of g at g's alignment and every output tile on 16 bytes), the tile
+# with its other buffers at most ROW_SMEM_BYTES, or go direct: one thread a
+# row reads g, ROW_DIRECT_THREADS rows a block. fp16_compress stages rows
+# of at least FC_STAGE_MIN_D floats, at most FC_MAX_ROWS rows and
+# FC_MAX_THREADS threads a block, a thread a group of 8 outputs (a 16-byte
+# store); topk_compress stages only where it makes k passes (k >=
+# TK_STAGE_MIN_K), at most TK_MAX_ROWS rows a block, a thread a row: its
+# one-scan selection ran faster direct at every width
+# (scripts/torch_compress_bench.py --sweep on the H100)
+ROW_SMEM_BYTES, ROW_TILE, ROW_DIRECT_THREADS = 48 * 1024, 8, 128
+FC_STAGE_MIN_D, FC_MAX_ROWS, FC_MAX_THREADS = 9, 256, 256
+TK_STAGE_MIN_K, TK_MAX_ROWS = 9, 256
+
+
+def _row_tile(m: int, sms: int, most: int, row_bytes: int) -> int:
+    """Rows a staged tile: ``m // sms`` rounded down to a multiple of
+    ROW_TILE (so that each SM gets a block where ``m`` allows), at least
+    ROW_TILE and at most ``most``, and no more than fit ROW_SMEM_BYTES at
+    ``row_bytes`` a row plus 12 bytes of alignment slack; 0 where ROW_TILE
+    rows do not fit."""
+    fit = (ROW_SMEM_BYTES - 12) // row_bytes // ROW_TILE * ROW_TILE
+    return min(fit, max(ROW_TILE, min(most, m // sms // ROW_TILE * ROW_TILE)))
+
+
+def fp16_compress_plan(m: int, d: int, sms: int) -> Tuple[int, int, int]:
+    """``(rows, threads, staged)`` of the fp16 compression kernel for ``m``
+    rows of width ``d`` on a card of ``sms`` SMs. Staged where ``d`` is at
+    least FC_STAGE_MIN_D: ``rows`` from ``_row_tile`` at ``4 * d`` bytes of
+    floats and 4 of divisor a row; ``threads`` one a row and one a group of
+    8 outputs, at most FC_MAX_THREADS. Direct (``staged`` 0) for narrower
+    rows or where eight rows do not fit (D > 1,534): ROW_DIRECT_THREADS
+    rows a block, a thread each."""
+    rows = _row_tile(m, sms, FC_MAX_ROWS, 4 * d + 4)
+    if d < FC_STAGE_MIN_D or rows == 0:
+        return ROW_DIRECT_THREADS, ROW_DIRECT_THREADS, 0
+    return rows, _threads_for(max(rows, -(-rows * d // 8)), FC_MAX_THREADS), 1
+
+
+def topk_compress_plan(m: int, d: int, k: int, sms: int) -> Tuple[int, int, int]:
+    """``(rows, threads, staged)`` of the top-k compression kernel for ``m``
+    rows of width ``d`` keeping ``k`` on a card of ``sms`` SMs. Staged
+    where the kernel makes k passes (``k`` at least TK_STAGE_MIN_K):
+    ``rows`` from ``_row_tile`` at ``4 * d`` bytes of floats and ``8 * k``
+    of outputs a row, a thread a row. Direct
+    (``staged`` 0) for the one-scan selection of ``k <= 8`` and where eight
+    rows do not fit (D > 1,023 at k = D // 4): ROW_DIRECT_THREADS rows a
+    block, a thread each."""
+    rows = _row_tile(m, sms, TK_MAX_ROWS, 4 * d + 8 * k)
+    if k < TK_STAGE_MIN_K or rows == 0:
+        return ROW_DIRECT_THREADS, ROW_DIRECT_THREADS, 0
+    return rows, _threads_for(rows, TK_MAX_ROWS), 1
 
 
 # topk_decompress builds a tile of rows in shared memory and writes it

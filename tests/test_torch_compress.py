@@ -731,3 +731,452 @@ def test_topk_decompress_wrapper_hands_the_launcher_its_plan(monkeypatch):
         assert out.shape == (m, d) and out.data_ptr() % 16 == 0
     ops._topk_decompress_cuda(torch.zeros((0, 2)), torch.zeros((0, 2), dtype=torch.int32), 10)
     assert len(seen) == 3  # no rows launch nothing
+
+
+# --------------------------------------------------- the compression kernels
+
+
+@pytest.mark.parametrize("m,d,plan", [
+    (15_976, 10, (120, 160, 1)),       # deepfm-fp16 training: 134 tiles of 120 rows
+    (10_652, 16, (80, 160, 1)),        # dcn-v2's bucket at D = 16: 160 groups of 8
+    (15_976, 4, (128, 128, 0)),        # the narrow d = 4: direct
+    (10_652, 32, (80, 256, 1)),        # DLRM's narrow d = 32: 320 groups of 8
+    (4_089_448, 10, (256, 256, 1)),    # bulk: 320 groups
+    (1, 10, (8, 32, 1)),               # one row
+    (9, 9, (8, 32, 1)),                # two tiles, the second of one row
+    (9, 8, (128, 128, 0)),             # under 9 floats a row: direct
+    (3, 129, (8, 160, 1)),             # 8 x 129 outputs: 129 groups
+    (100_000, 1_534, (8, 256, 1)),     # eight rows of 1,534 fill 48 KB
+    (100_000, 1_535, (128, 128, 0))])  # past 48 KB: direct
+def test_fp16_compress_plan_by_hand(m, d, plan):
+    """Staged from D = 9: rows a tile m // 132 rounded down to a multiple of
+    8 (each of an H100's 132 SMs gets a block where m allows), 8 to 256,
+    and no more than fit 48 KB at 4 * D + 4 bytes a row (12 of slack);
+    threads one a row and one a group of 8 halves (a 16-byte store), 32 to
+    256. Narrower rows, or eight rows past 48 KB: direct, 128 rows of a
+    thread each."""
+    assert ops.fp16_compress_plan(m, d, 132) == plan
+    rows, threads, staged = plan
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    if staged:
+        assert rows % 8 == 0 and (-(-m // rows) >= 132 or rows == 8)
+        assert 4 * (rows * (d + 1) + 3) <= 48 * 1024
+        assert threads >= min(rows, 256)
+        assert threads >= -(-rows * d // 8) or threads == 256
+    else:
+        assert rows == threads == 128
+
+
+@pytest.mark.parametrize("m,d,k,plan", [
+    (15_976, 10, 2, (128, 128, 0)),     # deepfm-topk training: one scan, direct
+    (10_652, 16, 4, (128, 128, 0)),     # dcn-v2 at k = 4
+    (15_976, 4, 1, (128, 128, 0)),      # the narrow d = 4, k = 1
+    (10_652, 32, 8, (128, 128, 0)),     # DLRM's d = 32, k = 8
+    (4_089_448, 10, 2, (128, 128, 0)),  # bulk
+    (7, 10, 10, (8, 32, 1)),            # k = D = 10: ten passes, staged
+    (30, 12, 9, (8, 32, 1)),            # the first k of the passes
+    (3, 129, 32, (8, 32, 1)),           # D = 129, k = 32
+    (100_000, 129, 32, (56, 64, 1)),    # 56 rows of 772 bytes fit 48 KB
+    (4_089_448, 40, 10, (200, 224, 1)),  # bulk at D = 40: 200 rows of 240 bytes fit
+    (100_000, 1_023, 255, (8, 32, 1)),  # eight rows of 6,132 bytes: 49,068 with slack
+    (100_000, 1_024, 256, (128, 128, 0))])  # past 48 KB: direct
+def test_topk_compress_plan_by_hand(m, d, k, plan):
+    """Staged only where the kernel makes k passes (k > 8): rows a tile as
+    for fp16 at 4 * D + 8 * k bytes a row (the staged floats and the tile's
+    vals and idx), a thread a row (32 to 256). The one-scan selection of
+    k <= 8, and eight rows past 48 KB: direct, 128 rows of a thread each."""
+    assert ops.topk_compress_plan(m, d, k, 132) == plan
+    rows, threads, staged = plan
+    if staged:
+        assert k > 8 and rows % 8 == 0 and (-(-m // rows) >= 132 or rows == 8)
+        assert 4 * (rows * (d + 2 * k) + 3) <= 48 * 1024
+        assert threads == min(256, max(32, -(-rows // 32) * 32))
+    else:
+        assert rows == threads == 128
+
+
+def _scan_start(d, r):
+    """``row_scan_start``: the column at which row r of a tile starts."""
+    p = min(d & -d, 32)
+    return ((r & 31) * p) >> 5
+
+
+@pytest.mark.parametrize("d", list(range(1, 41)) + [64, 96, 128, 129, 1_024])
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_row_scan_spreads_a_warp_over_the_banks(d, shift):
+    """At every step of the rotated scan the 32 rows of a warp, d floats
+    apart in shared memory from a staging buffer shifted by 0-3 floats,
+    load from 32 distinct banks; each row visits each column once."""
+    for i in range(d):
+        banks = {(shift + r * d + (_scan_start(d, r) + i) % d) % 32 for r in range(32)}
+        assert len(banks) == 32, (d, i)
+    for r in range(32):
+        assert sorted((_scan_start(d, r) + i) % d for i in range(d)) == list(range(d))
+
+
+def _stage(g, r0, cnt, d, goff, buf_bytes, writes):
+    """``row_stage_issue`` in numpy: rows [r0, r0 + cnt) of g as the tile's
+    one contiguous range of floats, g a view ``goff`` bytes off 16. Returns
+    ``(staged floats, byte address in shared memory of the first)``. Asserts
+    that every 16-byte copy is aligned on both sides, 4-byte ones are used
+    only for the head and the tail, and every float lands once inside the
+    buffer of total + 3 floats at ``buf_bytes``."""
+    total = cnt * d
+    src = goff + 4 * r0 * d
+    lead = ((16 - (src & 15)) & 15) >> 2
+    head = min(lead, total)
+    sm = buf_bytes + 4 * ((4 - head) & 3)
+    n4 = (total - head) >> 2
+    tail = head + 4 * n4
+    flat = g.reshape(-1)[r0 * d: r0 * d + total]
+    staged = np.full(total, np.float32(np.nan))
+    copied = np.zeros(total, np.int64)
+    for e in range(n4):
+        at = head + 4 * e
+        assert (sm + 4 * at) % 16 == 0 and (src + 4 * at) % 16 == 0
+        staged[at: at + 4] = flat[at: at + 4]
+        copied[at: at + 4] += 1
+    for at in list(range(head)) + list(range(tail, total)):
+        staged[at] = flat[at]
+        copied[at] += 1
+    assert (copied == 1).all() and total - tail < 4 and head < 4
+    assert buf_bytes <= sm and sm + 4 * total <= buf_bytes + 4 * (total + 3)
+    writes.append(total)
+    return staged, sm
+
+
+def _nan_max(a, b):
+    return a if (np.isnan(a) or a > b) else b
+
+
+def _scan(d, c0):
+    """The columns of a scan from c0: c0 .. D-1, then 0 .. c0-1."""
+    return list(range(c0, d)) + list(range(c0))
+
+
+def _row_amax(row, d, c0):
+    """``row_amax``: the rotated scan keeping the NaN of the highest
+    column."""
+    amax, nan, nan_col = np.float32(0.0), np.float32(0.0), -1
+    for c in _scan(d, c0):
+        a = np.abs(row[c])
+        if np.isnan(a):
+            if c > nan_col:
+                nan_col, nan = c, a
+        elif a > amax:
+            amax = a
+    return nan if nan_col >= 0 else amax
+
+
+def _scaled(x, den):
+    """``scaled``: x / den, a zero over a number returned as it is."""
+    if x == 0 and not np.isnan(den):
+        return x
+    with np.errstate(invalid="ignore"):  # inf / inf, NaN, as the card
+        return x / den
+
+
+def _fp16_compress_kernel(g, rows, threads, goff=0):
+    """The staged fp16 compression kernel's index arithmetic, loads and
+    stores, in numpy: per tile the staging, a thread a row for the amax and
+    divisor (s stored per row), then each thread's groups of 8 outputs with
+    row and column stepped (checked against a division each), float4 reads
+    of the staged copy where g is aligned, one 16-byte store a group and
+    the last tile's scalar tail. Asserts every 16-byte access aligned and
+    each output written once; returns ``(q, s)``."""
+    m, d = g.shape
+    q = np.zeros(m * d, np.float16)
+    s = np.zeros(m, np.float32)
+    q_writes = np.zeros(m * d, np.int64)
+    s_writes = np.zeros(m, np.int64)
+    staged_counts = []
+    assert rows % 8 == 0
+    for blk in range(-(-m // rows)):
+        r0 = blk * rows
+        cnt = min(rows, m - r0)
+        n = cnt * d
+        x, x_at = _stage(g, r0, cnt, d, goff, 4 * rows, staged_counts)
+        vec = x_at % 16 == 0
+        assert vec == (goff == 0)
+        den = np.zeros(rows, np.float32)
+        for r in range(cnt):
+            amax = _row_amax(x[r * d:(r + 1) * d], d, _scan_start(d, r))
+            den[r] = _nan_max(amax, np.float32(1e-30))
+            s[r0 + r] = amax
+            s_writes[r0 + r] += 1
+        qt = r0 * d  # the tile's first half
+        step = 8 * threads
+        drow, dcol = divmod(step, d)
+        for t in range(threads):
+            e = 8 * t
+            row, col = divmod(e, d)
+            for _ in range(t, n >> 3, threads):
+                if vec:
+                    assert (x_at + 4 * e) % 16 == 0 and (x_at + 4 * e + 16) % 16 == 0
+                rr, cc = row, col
+                out = np.zeros(8, np.float16)
+                for i in range(8):
+                    assert (rr, cc) == divmod(e + i, d)
+                    out[i] = _scaled(x[e + i], den[rr]).astype(np.float16)
+                    cc += 1
+                    if cc == d:
+                        cc, rr = 0, rr + 1
+                assert (2 * (qt + e)) % 16 == 0
+                q[qt + e: qt + e + 8] = out
+                q_writes[qt + e: qt + e + 8] += 1
+                e += step
+                row += drow
+                col += dcol
+                if col >= d:
+                    col, row = col - d, row + 1
+        assert blk == -(-m // rows) - 1 or n % 8 == 0  # only the last tile has a tail
+        for t in range(n & 7):
+            et = (n & ~7) + t
+            q[qt + et] = _scaled(x[et], den[et // d]).astype(np.float16)
+            q_writes[qt + et] += 1
+    assert (q_writes == 1).all() and (s_writes == 1).all() and sum(staged_counts) == m * d
+    return q.reshape(m, d), s.reshape(m, 1)
+
+
+def _rank_key(x, c):
+    """``rank_key``: |x|'s bits (every NaN one value above +inf) above the
+    column's 32-bit complement; the larger key ranks first."""
+    a = np.abs(np.float32(x))
+    hi = 0x7FC00000 if np.isnan(a) else int(np.array(a).view(np.uint32))
+    return (hi << 32) | (~c & 0xFFFFFFFF)
+
+
+def _key_col(key):
+    return int(np.array(~key & 0xFFFFFFFF, np.uint32).view(np.int32))
+
+
+def _topk_select(row, d, k, c0):
+    """``topk_row``: for k <= 8 the one-scan insertion of keys into K = 1,
+    2, 4 or 8 slots (k rounded up), past 8 the k passes, both from c0."""
+    if k <= 8:
+        K = 1 if k == 1 else 2 if k == 2 else 4 if k <= 4 else 8
+        key = [0] * K
+        for c in _scan(d, c0):
+            x = _rank_key(row[c], c)
+            b = [x > key[j] for j in range(K)]
+            for j in range(K - 1, 0, -1):
+                key[j] = key[j - 1] if b[j - 1] else (x if b[j] else key[j])
+            if b[0]:
+                key[0] = x
+        cols = [_key_col(key[j]) for j in range(k)]
+    else:
+        cols, prev = [], (1 << 64) - 1
+        for _ in range(k):
+            best = 0
+            for c in _scan(d, c0):
+                x = _rank_key(row[c], c)
+                if prev > x > best:
+                    best = x
+            cols.append(_key_col(best))
+            prev = best
+    return np.array([row[j] for j in cols], np.float32), np.array(cols, np.int32)
+
+
+def _topk_compress_kernel(g, k, rows, goff=0):
+    """The staged top-k compression kernel in numpy: per tile the staging,
+    a thread a row selecting into the tile's [rows, k] vals and idx in
+    shared memory, then both written whole with 16-byte stores and the
+    last tile's scalar tail. Asserts every 16-byte access
+    aligned and each output written once; returns ``(vals, idx)``."""
+    m, d = g.shape
+    vals = np.zeros(m * k, np.float32)
+    idx = np.zeros(m * k, np.int32)
+    writes = np.zeros((2, m * k), np.int64)
+    staged_counts = []
+    assert rows % 8 == 0
+    for blk in range(-(-m // rows)):
+        r0 = blk * rows
+        cnt = min(rows, m - r0)
+        x, _ = _stage(g, r0, cnt, d, goff, 8 * rows * k, staged_counts)
+        sv = np.zeros(rows * k, np.float32)
+        si = np.zeros(rows * k, np.int32)
+        for r in range(cnt):
+            sv[r * k:(r + 1) * k], si[r * k:(r + 1) * k] = _topk_select(
+                x[r * d:(r + 1) * d], d, k, _scan_start(d, r))
+        for out, tile, w, sm_at in ((vals, sv, writes[0], 0), (idx, si, writes[1], 4 * rows * k)):
+            n = cnt * k
+            for i in range(n >> 2):  # shared uint4 i to the output's
+                assert (sm_at + 16 * i) % 16 == 0 and (4 * (r0 * k + 4 * i)) % 16 == 0
+                out[r0 * k + 4 * i: r0 * k + 4 * i + 4] = tile[4 * i: 4 * i + 4]
+                w[r0 * k + 4 * i: r0 * k + 4 * i + 4] += 1
+            assert blk == -(-m // rows) - 1 or n % 4 == 0
+            for t in range(n & 3):
+                out[r0 * k + (n & ~3) + t] = tile[(n & ~3) + t]
+                w[r0 * k + (n & ~3) + t] += 1
+    assert (writes == 1).all() and sum(staged_counts) == m * d
+    return vals.reshape(m, k), idx.reshape(m, k)
+
+
+def _edge_rows(m, d, seed):
+    """``_rows`` plus the edges: NaN rows (one of them with two NaNs of
+    different payloads), +-inf, -0.0 entries, all -0.0 rows."""
+    g, kind = _rows(m, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    bits = g.view(np.uint32)
+    for r in range(m):
+        e = rng.integers(0, 16)
+        c = rng.integers(0, d, 2)
+        if e == 0:
+            bits[r, c[0]] = 0x7FC00001
+            bits[r, c[1]] = 0xFFC12345  # when the columns differ, two payloads
+        elif e == 1:
+            g[r, c[0]] = np.inf
+            g[r, c[1]] = -np.inf
+        elif e == 2:
+            g[r, c] = -0.0
+        elif e == 3:
+            g[r] = -0.0
+    return g, kind
+
+
+# (m, D): the path widths at small m, D = 1, 3, 129, odd m, one tile short of 8 rows
+KERNEL_SHAPES = [(300, 10), (37, 16), (300, 4), (41, 32), (1, 10), (9, 3), (19, 1), (7, 129)]
+
+
+def _fp16_direct(g):
+    """The direct fp16 kernel: a thread a row, its amax scanned from column
+    0, its halves divided in place."""
+    m, d = g.shape
+    q = np.zeros((m, d), np.float16)
+    s = np.zeros((m, 1), np.float32)
+    for r in range(m):
+        s[r, 0] = amax = _row_amax(g[r], d, 0)
+        den = _nan_max(amax, np.float32(1e-30))
+        for c in range(d):
+            q[r, c] = _scaled(g[r, c], den).astype(np.float16)
+    return q, s
+
+
+@pytest.mark.parametrize("m,d", KERNEL_SHAPES)
+@pytest.mark.parametrize("goff", [0, 4, 8, 12])
+def test_fp16_compress_tiles_write_each_half_once(m, d, goff):
+    """The fp16 kernel's staged tiles, emulated, stage g with aligned
+    16-byte copies whatever the view's offset, write each half and each
+    scale once with aligned 16-byte stores, and give bitwise
+    ``ops.compress_fp16`` on the CPU (zero rows, ties, float16-subnormal
+    ratios, NaN, +-inf, -0.0), at the plan's tile where it stages and at
+    the smallest; the direct route (narrow rows) gives the same bits."""
+    g, _ = _edge_rows(m, d, 7 * m + d)
+    q, s = ops.compress_fp16(_t(g))
+    rows, threads, staged = ops.fp16_compress_plan(m, d, 132)
+    assert staged == (d >= 9)
+    for r, th in {(rows, threads) if staged else (8, 32), (8, 32)}:
+        eq, es = _fp16_compress_kernel(g, r, th, goff)
+        _same_bits(eq, q.numpy(), f"q rows={r}")
+        _same_bits(es, s.numpy(), f"s rows={r}")
+    eq, es = _fp16_direct(g)
+    _same_bits(eq, q.numpy(), "q direct")
+    _same_bits(es, s.numpy(), "s direct")
+
+
+@pytest.mark.parametrize("d", [3, 10, 16])
+def test_fp16_rotated_amax_keeps_the_last_nan_payload(d):
+    """The rotated amax scan keeps the bits the ascending nan_max scan of
+    the earlier kernel kept: the largest magnitude, or |NaN| of the highest
+    column, payload and all, from every start column."""
+    rng = np.random.default_rng(d)
+    for _ in range(200):
+        row = rng.normal(size=d).astype(np.float32)
+        bits = row.view(np.uint32)
+        for c in rng.choice(d, rng.integers(0, min(d, 3) + 1), replace=False):
+            bits[c] = rng.choice([0x7FC00000, 0xFFC00000]) | rng.integers(1, 1 << 22)
+        want = np.float32(0.0)
+        for c in range(d):
+            want = _nan_max(np.abs(row[c]), want)
+        for c0 in range(d):
+            got = _row_amax(row, d, c0)
+            assert np.array(got).view(np.uint32) == np.array(want).view(np.uint32)
+
+
+@pytest.mark.parametrize("m,d,k", [(300, 10, 2), (37, 16, 4), (300, 4, 1), (41, 32, 8),
+                                   (1, 10, 2), (9, 3, 3), (19, 1, 1), (7, 129, 32),
+                                   (30, 10, 10), (30, 8, 8), (30, 12, 5), (30, 12, 9)])
+@pytest.mark.parametrize("goff", [0, 4, 8, 12])
+def test_topk_compress_tiles_write_each_entry_once(m, d, k, goff):
+    """The top-k kernel's staged tiles, emulated (insertion for k <= 8 with
+    k = 3 and 5 rounded up to 4 and 8 slots, the passes past 8), stage g
+    with aligned copies whatever the view's offset, write each entry once
+    with aligned 16-byte stores, and give bitwise ``ops.compress_topk`` on
+    the CPU, ties, NaN, +-inf and -0.0 included, at the plan's tile where
+    it stages and at the smallest; the direct route (a thread a row from
+    column 0) gives the same bits."""
+    g, _ = _edge_rows(m, d, 5 * m + d + k)
+    vals, idx = ops.compress_topk(_t(g), k)
+    rows, _, staged = ops.topk_compress_plan(m, d, k, 132)
+    assert staged == (k > 8)
+    for r in {rows if staged else 8, 8}:
+        ev, ei = _topk_compress_kernel(g, k, r, goff)
+        _same_bits(ev, vals.numpy(), f"vals rows={r}")
+        _same_bits(ei, idx.numpy(), f"idx rows={r}")
+    direct = [_topk_select(g[r], d, k, 0) for r in range(m)]
+    _same_bits(np.stack([v for v, _ in direct]), vals.numpy(), "vals direct")
+    _same_bits(np.stack([i for _, i in direct]), idx.numpy(), "idx direct")
+
+
+@pytest.mark.parametrize("d", [4, 10, 16])
+def test_topk_emulation_matches_pallas_on_tied_and_nan_rows(d):
+    """The emulated kernel against ``topk_compress_pallas`` in interpret
+    mode, bitwise, on rows tied at their maximum with mixed signs, all-tied
+    rows and zero rows; on NaN rows against ``lax.top_k`` (the reference's
+    plain version), where the Pallas kernel finds no maximum and emits
+    column D (pinned in ``test_nan_rows_follow_the_reference_not_the_pallas_topk``)."""
+    g, kind = _rows(M, d, 3 * d)
+    k = gc.topk_k(d)
+    tied = (kind == 4) | (kind == 5) | (kind < 4)
+    ev, ei = _topk_compress_kernel(g, k, 8)
+    pv, pi = topk_compress_pallas(jnp.asarray(g), k, interpret=True)
+    _same_bits(ev[tied], np.asarray(pv)[tied], "vals vs pallas on tied rows")
+    _same_bits(ei[tied], np.asarray(pi)[tied], "idx vs pallas on tied rows")
+    _same_bits(ev, np.asarray(pv), "vals vs pallas")
+    _same_bits(ei, np.asarray(pi), "idx vs pallas")
+    nan = g.copy()
+    rng = np.random.default_rng(d)
+    rows = rng.choice(M, 40, replace=False)
+    nan[rows, rng.integers(0, d, 40)] = np.nan
+    nan[rows[:20], rng.integers(0, d, 20)] = np.nan  # some rows hold two
+    ev, ei = _topk_compress_kernel(nan, k, 8)
+    jv, ji = jref.topk_compress_ref(jnp.asarray(nan), k)
+    _same_bits(ev, jv, "vals vs lax.top_k with NaN rows")
+    _same_bits(ei, ji, "idx vs lax.top_k with NaN rows")
+    assert (np.asarray(topk_compress_pallas(jnp.asarray(nan), k, interpret=True)[1])[rows]
+            == d).all()
+
+
+def _hand_over(monkeypatch):
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(ops, "sm_count", lambda device: 132)
+    return seen
+
+
+@pytest.mark.parametrize("m,d", [(15_976, 10), (300, 16), (15_976, 4), (3, 129), (5, 1_600)])
+def test_fp16_compress_wrapper_hands_the_launcher_its_plan(monkeypatch, m, d):
+    seen = _hand_over(monkeypatch)
+    g = torch.zeros((m, d))
+    q, s = ops._fp16_compress_cuda(g)
+    (name, args), = seen
+    assert name == "fp16_compress" and args[:3] == (g.data_ptr(), q.data_ptr(), s.data_ptr())
+    assert args[3:] == (m, d, *ops.fp16_compress_plan(m, d, 132))
+    assert q.shape == (m, d) and s.shape == (m, 1) and q.data_ptr() % 16 == 0
+    ops._fp16_compress_cuda(torch.zeros((0, d)))
+    assert len(seen) == 1  # no rows launch nothing
+
+
+@pytest.mark.parametrize("m,d,k", [(15_976, 10, 2), (300, 16, 4), (7, 10, 10), (3, 129, 32),
+                                   (5, 1_600, 400)])
+def test_topk_compress_wrapper_hands_the_launcher_its_plan(monkeypatch, m, d, k):
+    seen = _hand_over(monkeypatch)
+    g = torch.zeros((m, d))
+    vals, idx = ops._topk_compress_cuda(g, k)
+    (name, args), = seen
+    assert name == "topk_compress" and args[:3] == (g.data_ptr(), vals.data_ptr(),
+                                                    idx.data_ptr())
+    assert args[3:] == (m, d, k, *ops.topk_compress_plan(m, d, k, 132))
+    assert vals.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+    ops._topk_compress_cuda(torch.zeros((0, d)), k)
+    assert len(seen) == 1  # no rows launch nothing
