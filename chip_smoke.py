@@ -27,12 +27,18 @@ Phases, in order (any failure raises and exits non-zero):
    67, 429: within 1e-5 of scale, repeating bit for bit). The embedding
    kernels run again at dcn-v2's D = 16 and n = B x 26 on its table.
    ``gather_project`` and ``gather_project_grad`` run at the narrow plan's
-   serving and training shapes (d = 4, D = 10, m = the bucket capacity)
-   and at bulk, ``gather_project`` (one launch from
-   ``ops.gather_project_plan``) also at DLRM's (d = 32, D = 128, n =
-   13,312 and 6,656): outputs within 1e-5 of scale, not-kept positions and
-   empty slots exactly 0, both repeating bit for bit, the gradient reached
-   both standalone and through the autograd of ``ops.gather_project``.
+   serving and training shapes (d = 4, D = 10, m = the bucket capacity),
+   at DLRM's (d = 32, D = 128, n = 13,312 and 6,656) and at bulk
+   (``gather_project`` one launch from ``ops.gather_project_plan``;
+   ``gather_project_grad`` a memset and two kernels grouping each slot's
+   positions in lists, no sort, lanes from ``ops.gather_project_grad_plan``):
+   outputs within 1e-5 of scale, not-kept positions and empty slots exactly
+   0, both repeating bit for bit, the gradient reached both standalone and
+   through the autograd of ``ops.gather_project``; the gradient also on
+   edge lists (n = 0, m = 1, every position on one slot, runs of 32 and
+   33 and of 128 and 129 about the lists it sorts in shared memory, slots
+   outside [0, m), d = 1, d = 256, d * D = 12,288, g_wide off 16 bytes),
+   empty slots exactly +0.0.
    ``fm_interaction`` and ``fm_interaction_bwd`` (samples staged in shared
    memory by ``cp.async``, ``ops.fm_plan`` and ``ops.fm_bwd_plan``) run at
    deepfm's serving and training batches and at bulk: within 1e-5 of
@@ -75,7 +81,14 @@ Phases, in order (any failure raises and exits non-zero):
    bytes off 16 (each kernel launches from its ``ops`` plan:
    ``fp16_compress_plan`` stages tiles of rows in shared memory from D = 9
    on, ``topk_compress_plan`` reads rows directly for k <= 8 and stages
-   them for the k passes past 8, ``topk_decompress_plan`` builds tiles).
+   them for the k passes past 8, ``topk_decompress_plan`` builds tiles,
+   ``fp16_decompress_plan`` gives each thread a quad of 4 outputs, two
+   where the quads pass what the SMs hold at once). ``fp16_decompress``
+   also runs at DLRM's
+   d = 32 and on edge payloads (half NaN payloads, +-inf, -0.0, float16
+   subnormals, zero rows) at m * D = 1-17 and at D = 3, 10 and 32, with q
+   2, 4, 8 and 12 bytes off 16 and the output 4, 8 and 12 bytes off 16:
+   bitwise the plain version, repeating bit for bit.
    The two DLRM dot
    kernels (persistent ``cp.async`` rings feeding register tiles, 4 x 4 or
    the forward's 2 x 2 at B <= 264) run at F = 27, D = 128 at both path
@@ -1078,7 +1091,9 @@ def run_gather_project_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
     n_kept = int(kept.sum())
     b_ms, b_by = bound(n * (4 + 1) + n_kept * (d + nd) * 4 + nd * d * 4 + m * nd * 4,
                        n_kept * nd * (2 * d + 2))
-    return {"n": n, "m": m, "kept": n_kept, "empty_slots": int((~touched).sum()),
+    return {"n": n, "m": m, "d": d, "narrow_d": nd, "kept": n_kept,
+            "empty_slots": int((~touched).sum()),
+            "plan": list(ops.gather_project_grad_plan(m, nd, d, ops.sm_count(DEV))),
             "max_abs_err": max_err(got, exp), "max_err_of_scale": err,
             "ms": cuda_ms(lambda: ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj,
                                                           m)),
@@ -1089,6 +1104,85 @@ def run_gather_project_grad(b: int, gen: torch.Generator, a: Arch) -> dict:
             "library_ms": cuda_ms(lib),
             "library_call": "autograd of F.embedding * kept @ proj (g_wide only)",
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def project_edge_case(gen: torch.Generator, m: int, n: int, nd: int, d: int, layout: str,
+                      off: int = 0):
+    """``(g_wide, g_narrow, idx, kept, proj)`` of n positions into m slots
+    at narrow width nd and wide width d, by ``layout``: "uniform" (slots
+    uniform, 60 % kept), "path" (the same, not-kept positions on slot
+    m - 1, as ``mp_lookup_narrow`` passes them), "one slot" (every position
+    kept, on slot m // 2: a list far past what the kernel sorts in shared
+    memory), "runs" and "long runs" (slot 5 takes exactly 32 or 128 kept
+    positions spread over [0, n), slot 6 one more, no other kept position
+    takes either: the kernel sorts lists of up to 32 positions at one lane
+    a slot and up to 128 from four lanes, and scans for longer ones),
+    "outside" (a fifth of the kept positions on -1, -2^31, m, m + 7 and
+    2^31 - 1); ``g_wide`` a view ``off`` floats past its buffer's start."""
+    idx = torch.randint(0, m, (n,), device=DEV, generator=gen, dtype=torch.int32)
+    kept = torch.rand((n,), device=DEV, generator=gen) < 0.6
+    if layout == "path":
+        idx = torch.where(kept, idx, torch.full_like(idx, m - 1))
+    elif layout == "one slot":
+        idx.fill_(m // 2)
+        kept.fill_(True)
+    elif layout in ("runs", "long runs"):
+        run = 32 if layout == "runs" else 128
+        idx = torch.where((idx == 5) | (idx == 6), idx + 2, idx)
+        at = torch.randperm(n, device=DEV, generator=gen)[:2 * run + 1]
+        idx[at[:run]] = 5
+        idx[at[run:]] = 6
+        kept[at] = True
+    elif layout == "outside":
+        bad = torch.tensor([-1, -2**31, m, m + 7, 2**31 - 1], dtype=torch.int32, device=DEV)
+        pick = kept & (torch.rand((n,), device=DEV, generator=gen) < 0.2)
+        which = torch.randint(0, bad.numel(), (n,), device=DEV, generator=gen)
+        idx = torch.where(pick, bad[which], idx)
+    g_wide = torch.randn((n * d + off,), device=DEV, generator=gen)[off:].view(n, d)
+    g_narrow = torch.randn((n, nd), device=DEV, generator=gen)
+    proj = torch.randn((nd, d), device=DEV, generator=gen) / nd ** 0.5
+    return g_wide, g_narrow, idx, kept, proj
+
+
+# (m, n, d, D, layout, g_wide offset floats) of gather_project_grad's edge lists
+PROJECT_GRAD_EDGES = ((100, 0, 4, 10, "uniform", 0), (1, 500, 4, 10, "uniform", 0),
+                      (15_976, 9_984, 4, 10, "one slot", 0), (15_976, 9_984, 4, 10, "runs", 0),
+                      (15_976, 9_984, 4, 10, "long runs", 0), (15_976, 9_984, 1, 10, "runs", 0),
+                      (15_976, 9_984, 4, 10, "outside", 0), (15_976, 9_984, 1, 10, "path", 0),
+                      (4_000, 2_000, 256, 48, "path", 0), (4_000, 2_000, 96, 128, "path", 0),
+                      (15_976, 9_984, 3, 7, "path", 0), (4_000, 2_000, 32, 128, "runs", 0),
+                      (15_976, 9_984, 4, 10, "path", 1))
+
+
+def project_edge_label(m: int, n: int, nd: int, d: int, layout: str, off: int) -> str:
+    return f"m={m} n={n} d={nd} D={d} {layout}" + (f" g_wide off {4 * off}" if off else "")
+
+
+def run_gather_project_grad_edges(gen: torch.Generator) -> dict:
+    """gather_project_grad on ``PROJECT_GRAD_EDGES`` (n = 0, m = 1, one
+    slot, runs of 32 and 33 and of 128 and 129, slots outside [0, m), d =
+    1, 256, d * D = 12,288, odd widths, DLRM's widths, g_wide off 16
+    bytes): within TOL of scale of the plain version, empty slots exactly
+    +0.0, a second call bitwise the first. Returns each case's error of
+    scale."""
+    out = {}
+    for m, n, nd, d, layout, off in PROJECT_GRAD_EDGES:
+        g_wide, g_narrow, idx, kept, proj = project_edge_case(gen, m, n, nd, d, layout, off)
+        got = ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj, m)
+        again = ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj, m)
+        exp = ref.gather_project_grad_ref(g_wide, g_narrow, idx, kept, proj, m)
+        torch.cuda.synchronize(DEV)
+        case = project_edge_label(m, n, nd, d, layout, off)
+        ok = kept & (idx >= 0) & (idx < m)
+        touched = torch.zeros((m,), dtype=torch.bool, device=DEV)
+        touched[idx[ok].long()] = True
+        err = max_err(got, exp) / scale_of(exp)
+        check(err <= TOL, f"gather_project_grad {case}: err {err} of scale")
+        check(same_bits(got[~touched], torch.zeros_like(got[~touched])),
+              f"gather_project_grad {case}: empty slots exactly +0.0")
+        check(same_bits(got, again), f"gather_project_grad {case} repeats")
+        out[case] = err
+    return out
 
 
 def grad_rows(b: int, gen: torch.Generator, a: Arch) -> torch.Tensor:
@@ -1114,10 +1208,13 @@ def zero_rows_of(g: torch.Tensor) -> torch.Tensor:
     return zero
 
 
-def view_off_16(g: torch.Tensor) -> torch.Tensor:
-    """A copy of ``g`` in a view 4 bytes past a 16-byte boundary."""
-    view = torch.empty((g.numel() + 1,), dtype=g.dtype, device=g.device)[1:].view(g.shape)
-    check(view.data_ptr() % 16 == 4, f"view at {view.data_ptr() % 16} bytes off 16")
+def view_off_16(g: torch.Tensor, off: int = 4) -> torch.Tensor:
+    """A copy of ``g`` in a view ``off`` bytes past a 16-byte boundary."""
+    per = 16 // g.element_size()
+    buf = torch.empty((g.numel() + 2 * per,), dtype=g.dtype, device=g.device)
+    start = (-(buf.data_ptr() % 16) // g.element_size()) % per + off // g.element_size()
+    view = buf[start:start + g.numel()].view(g.shape)
+    check(view.data_ptr() % 16 == off, f"view at {view.data_ptr() % 16} bytes off 16")
     return view.copy_(g)
 
 
@@ -1165,13 +1262,71 @@ def run_fp16_decompress(b: int, gen: torch.Generator, a: Arch) -> dict:
     check(err <= 2.0 ** -11, f"fp16 roundtrip within a half ulp of the row max: {err}")
     check(same_bits(torch.mul(q, s), rout), "mul yardstick agrees")
     b_ms, b_by = bound(m * d * (2 + 4) + m * 4, m * d)
-    return {"m": m, "d": d, "zero_rows": int(zero.sum()), "max_abs_err": max_err(out, rout),
+    return {"m": m, "d": d, "plan": list(ops.fp16_decompress_plan(m, d, ops.sm_count(DEV))),
+            "zero_rows": int(zero.sum()), "max_abs_err": max_err(out, rout),
             "roundtrip_err_of_scale": err,
             "ms": cuda_ms(lambda: ops.decompress_fp16(q, s)),
             "call_ms": cuda_ms(lambda: ops.decompress_fp16(q, s), device_only=False),
             "plain_ms": cuda_ms(lambda: ref.fp16_decompress_ref(q, s)),
             "library_ms": cuda_ms(lambda: torch.mul(q, s)), "library_call": "mul",
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def fp16_edge_payload(gen: torch.Generator, m: int, d: int):
+    """``(q, s)``: compressed rows with the decompression edges: of the
+    halves a fifth NaNs of several payloads and both signs, +-inf, -0.0
+    and float16 subnormals; 30 % zero rows (scale 0); scales from 1e-6 to
+    1e3."""
+    q = (torch.rand((m, d), device=DEV, generator=gen) * 2 - 1).half()
+    special = torch.tensor([0x7C01, 0xFE00, 0x7FFF, 0x7C00, 0xFC00, 0x8000, 0x0001, 0x83FF],
+                           dtype=torch.int32, device=DEV).to(torch.int16)
+    pick = torch.rand((m, d), device=DEV, generator=gen) < 0.2
+    which = torch.randint(0, special.numel(), (m, d), device=DEV, generator=gen)
+    bits = q.view(torch.int16)
+    bits.copy_(torch.where(pick, special[which], bits))
+    s = 10.0 ** (torch.rand((m, 1), device=DEV, generator=gen) * 9 - 6)
+    zero = torch.rand((m,), device=DEV, generator=gen) < 0.3
+    q[zero] = 0
+    s[zero] = 0
+    return q, s
+
+
+def fp16_decompress_at(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The kernel launched from its plan into ``out`` (any float32 view,
+    such as one off 16 bytes, which the wrapper never allocates); not
+    counted in ``ops.launches``."""
+    m, d = q.shape
+    rc = build.launcher("fp16_decompress")(
+        q.data_ptr(), s.data_ptr(), out.data_ptr(), m * d, d,
+        *ops.fp16_decompress_plan(m, d, ops.sm_count(DEV)),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"fp16_decompress into a view: cudaError {rc}")
+    return out
+
+
+def run_fp16_decompress_edges(gen: torch.Generator) -> dict:
+    """fp16_decompress on edge payloads (``fp16_edge_payload``) at m * D =
+    1-17 (D = 1, 2, 3 and one row) and at deepfm's D = 10, DLRM's d = 32
+    and D = 3, with q 2, 4, 8 and 12 bytes off 16 and the output 4, 8 and
+    12 bytes off 16: bitwise the plain version, a second call bitwise the
+    first. Returns the number of cases."""
+    shapes = sorted({(md // d, d) for md in range(1, 18) for d in (1, 2, 3, md) if md % d == 0})
+    cases = 0
+    for m, d in shapes + [(15_976, 10), (10_652, 32), (1_001, 3)]:
+        q, s = fp16_edge_payload(gen, m, d)
+        exp = ref.fp16_decompress_ref(q, s)
+        for qoff, ooff in ((0, 0), (2, 0), (4, 0), (8, 0), (12, 0), (0, 4), (0, 8), (0, 12),
+                           (2, 12), (6, 4)):
+            qv = view_off_16(q, qoff) if qoff else q
+            got = (fp16_decompress_at(qv, s, view_off_16(exp, ooff).fill_(7.0)) if ooff
+                   else ops.decompress_fp16(qv, s))
+            again = ops.decompress_fp16(qv, s)
+            torch.cuda.synchronize(DEV)
+            what = f"fp16_decompress m={m} D={d} q off {qoff} out off {ooff}"
+            check(same_bits(got, exp), f"{what} bitwise the plain version")
+            check(same_bits(again, exp), f"{what} repeats")
+            cases += 1
+    return {"cases": cases}
 
 
 def run_topk_compress(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -2094,7 +2249,7 @@ def main() -> None:
     other_shapes = {"segment_grad": [], "tier_probe": [], "gather_pool": [],
                     "dot_interaction": [], "fm_interaction": [], "gather_project": [],
                     "fm_interaction_bwd": [], "topk_decompress": [], "fp16_compress": [],
-                    "topk_compress": []}
+                    "topk_compress": [], "fp16_decompress": [], "gather_project_grad": []}
     for name, (run, arch, path, main_b) in runners.items():
         for label, b in ((path, main_b), ("bulk", BULK_B)):
             r = run(b, gen, ARCHS[arch])
@@ -2153,20 +2308,36 @@ def main() -> None:
              "dedup_adagrad narrow L2 tier train": lambda: run_dedup_adagrad(
                  TRAIN_B, gen, narrow, tier=True),
              "tier_probe L2 serve": lambda: run_tier_probe(SERVE_B, gen, narrow, l2=True)}
+    extra.update({
+        "gather_project_grad dlrm-narrow train": lambda: run_gather_project_grad(TRAIN_B, gen,
+                                                                                 dl),
+        "gather_project_grad dlrm-narrow serve": lambda: run_gather_project_grad(SERVE_B, gen,
+                                                                                 dl)})
     for label, run in extra.items():
         r = run()
         print(f"[kernel] {label} " + json.dumps(r), flush=True)
         if label.startswith("tier_probe"):
             other_shapes["tier_probe"].append({"label": "deepfm-narrow L2 serve", **r})
+        elif label.startswith("gather_project_grad"):
+            shape = label.split(" ", 1)[1]
+            other_shapes["gather_project_grad"].append(
+                {"label": shape if "dlrm" in shape else "deepfm-narrow serve", **r})
+    print("[kernel] gather_project_grad edge lists (err of scale) "
+          + json.dumps(run_gather_project_grad_edges(gen)), flush=True)
     # the compression kernels at the other masters' widths: dcn-v2's D = 16
-    # (k = 4) and the narrow d = 4 (k = 1), and on edge rows
+    # (k = 4) and the narrow d = 4 (k = 1), fp16_decompress also at DLRM's
+    # d = 32; and on edge rows
     for name in ("fp16_compress", "fp16_decompress", "topk_compress", "topk_decompress"):
-        for other in ("dcn-v2", "deepfm-narrow"):
+        others = ("dcn-v2", "deepfm-narrow") + (("dlrm-narrow",) if name == "fp16_decompress"
+                                               else ())
+        for other in others:
             r = runners[name][0](TRAIN_B, gen, ARCHS[other])
             print(f"[kernel] {name} {other} train " + json.dumps(r), flush=True)
             if name in other_shapes:
                 other_shapes[name].append({"label": f"{other} train", **r})
     print("[kernel] compression edge rows " + json.dumps(run_compress_edges()), flush=True)
+    print("[kernel] fp16_decompress edge payloads and views "
+          + json.dumps(run_fp16_decompress_edges(gen)), flush=True)
     # the dot kernels at the other path's batch, at the bench config's D = 16
     # (B = 256), and on edge shapes
     # the cross forward at the training path's B = 256 (3 launches a step),

@@ -3,9 +3,8 @@
 the card at every path shape and at bulk, beside their plain versions and
 PyTorch yardsticks; checks each against its plain version and records
 digests of its outputs, so two versions can be held bit for bit against
-each other. Also records ``gather_project_grad``'s digests and times, traces
-one call of each redesigned kernel, and traces full-width deepfm training
-steps.
+each other. Also traces one call of each redesigned kernel, and traces
+full-width deepfm training steps.
 
     python3 scripts/torch_probe_segment_bench.py [--src DIR] [--tag NAME]
         [--against TAG] [--max-segment-ops N] [--max-pool-ops N] [--sweep]
@@ -166,19 +165,8 @@ def main() -> None:
                           *case, timed=kind == "runs 1-200" and d in (10, 128)))
     torch.cuda.empty_cache()
 
-    narrow = cs.ARCHS["deepfm-narrow"]
-    for label, b in (("narrow train", cs.TRAIN_B), ("narrow serve", cs.SERVE_B)):
-        back, idx, kept, proj, g_wide, g_narrow = cs.project_case(b, gen, narrow)
-        m = back.shape[0]
-        got = ops.gather_project_grad(g_wide, g_narrow, idx, kept, proj, m)
-        key = f"gather_project_grad {label}"
-        digests[key] = digest(got)
-        emit({"kernel": "gather_project_grad", "shape": label, "n": idx.shape[0], "m": m,
-              "digest": digests[key],
-              "ms": cs.cuda_ms(lambda: ops.gather_project_grad(g_wide, g_narrow, idx, kept,
-                                                               proj, m))})
-
     # --------------------------------------------------------- tier probe
+    narrow = cs.ARCHS["deepfm-narrow"]
     shapes = [("deepfm L1 serve", deepfm, cs.SERVE_B, False),
               ("deepfm L1 train", deepfm, cs.TRAIN_B, False),
               ("dcn-v2 L1 serve", dcn, cs.SERVE_B, False),

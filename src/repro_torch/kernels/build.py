@@ -49,13 +49,13 @@ SIGNATURES: Dict[str, List] = {
     # back, idx, kept, proj, wide, narrow, m, n, nd, d, w, cw, rows, threads,
     # tile, stream
     "gather_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _I, _P],
-    # g_wide, g_narrow, proj, order, sorted idx, offsets (scratch), out, n, m,
-    # nd, d, stream
-    "gather_project_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
+    # g_wide, g_narrow, proj, idx, kept, scratch (head, next), out, n, m, nd,
+    # d, lanes, cw, threads, stream
+    "gather_project_grad": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P],
     # g, q, scale, m, d, rows a block, threads, staged, stream
     "fp16_compress": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
-    # q, scale, out, m * d, d, stream
-    "fp16_decompress": [_P, _P, _P, _I64, _I, _P],
+    # q, scale, out, m * d, d, blocks, threads, stream
+    "fp16_decompress": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # g, vals, idx, m, d, k, rows a block, threads, staged, stream
     "topk_compress": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
     # vals, idx, out, m, d, k, rows a block, threads, stream

@@ -729,8 +729,13 @@ def cross_layer(x0, x, w, b, fused: Optional[bool] = None):
 
 # ------------------------------------------------------------ gather project
 
-# gather_project_grad stages proj in at most 48 KB of shared memory
-_SMEM_FLOATS = 12288
+# gather_project_grad takes proj of at most _SMEM_FLOATS floats (48 KB, the
+# earlier sort-based kernel's limit, kept); its sum kernel gives a slot a
+# group of lanes, as many (up to a lane an output) as let all slots' lanes
+# fit GPG_SM_THREADS threads an SM, at least one lane for 8 outputs, and a
+# block GPG_SLOTS slots, at most GPG_MAX_THREADS threads
+# (scripts/torch_fp16dec_projgrad_bench.py --sweep on the H100)
+_SMEM_FLOATS, GPG_SM_THREADS, GPG_SLOTS, GPG_MAX_THREADS = 12288, 2048, 32, 256
 # gather_project: GP_THREADS threads a block over a tile of at most
 # GP_MAX_TILE positions (no fewer than GP_MIN_TILE just to fill the card),
 # each lane gathering at most GP_GATHER_BATCH of them; proj and the tile's
@@ -829,6 +834,24 @@ def _gather_project_cuda(back, idx, kept, proj):
     return wide, narrow
 
 
+def gather_project_grad_plan(m: int, nd: int, d: int, sms: int,
+                             align: int = 16) -> Tuple[int, int, int]:
+    """``(lanes, cw, threads)`` of the ``gather_project_grad`` sum kernel for
+    ``m`` slots, ``proj [nd, D=d]`` and ``g_wide`` aligned to ``align`` bytes
+    on a card of ``sms`` SMs. ``lanes`` a slot, a power of two: the most,
+    up to ``nd`` rounded up (a lane an output), for which all ``m * lanes``
+    threads fit GPG_SM_THREADS on each SM, and no fewer than ``nd / 8``
+    rounded up (8 outputs a lane); a lane takes every ``lanes``-th output.
+    ``cw`` the floats a ``g_wide`` row load takes: the widest of 4, 2, 1
+    that divides ``d`` and whose bytes divide ``align``. ``threads`` a
+    block: GPG_SLOTS slots, at most GPG_MAX_THREADS threads."""
+    top = 1 << max(nd - 1, 0).bit_length()
+    lanes = min(32, top)
+    while lanes > max(1, top // 8) and m * lanes > sms * GPG_SM_THREADS:
+        lanes //= 2
+    return lanes, _vec_width(d, align), min(GPG_MAX_THREADS, GPG_SLOTS * lanes)
+
+
 def _gather_project_grad_cuda(g_wide, g_narrow, idx, kept, proj, m: int):
     dev = g_wide.device
     _expect(g_wide, "gather_project_grad g_wide", torch.float32, 2, dev)
@@ -842,19 +865,17 @@ def _gather_project_grad_cuda(g_wide, g_narrow, idx, kept, proj, m: int):
     if (max(n, m) >= 2**31 - 1 or not 0 < nd <= 256 or d <= 0
             or nd * d > _SMEM_FLOATS):
         raise ValueError(f"gather_project_grad: n={n}, m={m}, d={nd}, D={d} exceed the "
-                         "kernel's int32 offsets, its 256-thread rows or 48 KB")
+                         "kernel's int32 offsets, its 256 outputs a slot or 48 KB of proj")
     out = torch.empty((m, nd), dtype=g_wide.dtype, device=dev)
     if m:
-        # not-kept positions and slots outside [0, m) take the sentinel m:
-        # they sort last and the kernel drops their run; stable, so a slot's
-        # positions keep their original order (the reference's segment_sum)
-        ok = kept & (idx >= 0) & (idx < m)
-        sidx = torch.where(ok, idx, torch.full_like(idx, m))
-        si, order = torch.sort(sidx, stable=True)
-        offsets = torch.empty((m + 1,), dtype=torch.int32, device=dev)
+        # the kernel's slot lists (head [m], next [n]); it drops not-kept
+        # positions and slots outside [0, m) and sums each slot's positions
+        # in ascending order, as the reference's segment_sum does
+        scratch = torch.empty((m + n,), dtype=torch.int32, device=dev)
         _launch("gather_project_grad", g_wide.data_ptr(), g_narrow.data_ptr(),
-                proj.data_ptr(), order.data_ptr(), si.data_ptr(), offsets.data_ptr(),
-                out.data_ptr(), n, m, nd, d)
+                proj.data_ptr(), idx.data_ptr(), kept.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), n, m, nd, d,
+                *gather_project_grad_plan(m, nd, d, sm_count(dev), _alignment(g_wide)))
     return out
 
 
@@ -944,8 +965,28 @@ def _fp16_decompress_cuda(q, scale):
         raise ValueError(f"fp16_decompress: q {(m, d)}, scale {tuple(scale.shape)}")
     out = torch.empty((m, d), dtype=torch.float32, device=dev)
     if m and d:
-        _launch("fp16_decompress", q.data_ptr(), scale.data_ptr(), out.data_ptr(), m * d, d)
+        _launch("fp16_decompress", q.data_ptr(), scale.data_ptr(), out.data_ptr(), m * d, d,
+                *fp16_decompress_plan(m, d, sm_count(dev)))
     return out
+
+
+# fp16_decompress: a thread a quad of 4 outputs, FD_THREADS threads a
+# block; where the quads pass what the SMs hold at once (FD_SM_THREADS
+# each), a thread takes FD_ROUNDS of them, grid-stride: at bulk 3 % faster
+# than a quad a thread, at the path shapes 4 % slower; blocks of 256 ran
+# as fast as any other size at every path shape
+# (scripts/torch_fp16dec_projgrad_bench.py --sweep on the H100)
+FD_THREADS, FD_SM_THREADS, FD_ROUNDS = 256, 2048, 2
+
+
+def fp16_decompress_plan(m: int, d: int, sms: int) -> Tuple[int, int]:
+    """``(blocks, threads)`` of the decompression kernel for ``m`` rows of
+    width ``d`` on a card of ``sms`` SMs: FD_THREADS threads a block, a
+    thread a quad (4 outputs), or FD_ROUNDS quads where the quads pass
+    ``sms * FD_SM_THREADS``."""
+    quads = max(1, -(-m * d // 4))
+    rounds = FD_ROUNDS if quads > sms * FD_SM_THREADS else 1
+    return -(-quads // (FD_THREADS * rounds)), FD_THREADS
 
 
 def decompress_fp16(q, scale, fused: Optional[bool] = None):

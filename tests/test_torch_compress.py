@@ -1180,3 +1180,211 @@ def test_topk_compress_wrapper_hands_the_launcher_its_plan(monkeypatch, m, d, k)
     assert vals.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
     ops._topk_compress_cuda(torch.zeros((0, d)), k)
     assert len(seen) == 1  # no rows launch nothing
+
+
+# ------------------------------------------------- the fp16 decompression kernel
+
+
+@pytest.mark.parametrize("m,d,plan", [
+    (15_976, 10, (157, 256)),       # deepfm-fp16 training: 39,940 quads
+    (10_652, 16, (167, 256)),       # dcn-v2's bucket at D = 16
+    (15_976, 4, (63, 256)),         # the narrow d = 4: 15,976 quads
+    (10_652, 32, (333, 256)),       # DLRM's narrow d = 32
+    (4_089_448, 10, (19_969, 256)),  # bulk: two quads a thread
+    (1, 1, (1, 256)),               # one element
+    (3, 3, (1, 256)),               # m * D = 9: three quads
+    (132 * 2048, 4, (1_056, 256)),  # every quad resident: one round
+    (132 * 2048 + 1, 4, (529, 256)),  # one quad past: two rounds
+    (2_000_000_000, 3, (2_929_688, 256))])  # m * D past 2^32
+def test_fp16_decompress_plan_by_hand(m, d, plan):
+    """Blocks of 256 threads, a thread a quad of 4 outputs, or two where the
+    ceil(m * D / 4) quads pass the 2,048 threads each of an H100's 132 SMs
+    holds at once."""
+    assert ops.fp16_decompress_plan(m, d, 132) == plan
+    blocks, threads = plan
+    quads = -(-m * d // 4)
+    rounds = 1 if quads <= 132 * 2048 else 2
+    assert threads == 256 and blocks == -(-quads // (256 * rounds)) < 2**31
+
+
+def _fast_div(x, d):
+    """The kernel's x // d for 0 <= x < 2^31: a multiply-high by
+    ceil(2^p / d), p = 31 + ceil(log2 d), shifted by p - 32."""
+    if d == 1:
+        return x
+    p = 31 + (d - 1).bit_length()
+    return ((x * (((1 << p) + d - 1) // d)) >> 32) >> (p - 32)
+
+
+def test_fp16_decompress_fast_division_is_exact():
+    """The multiply-high division equals x // d for every D a row can have
+    up to 2^31 - 1 at the offsets that stress it (0, d - 1, d, multiples of
+    d and their neighbours, 2^31 - 1), and on random offsets."""
+    rng = np.random.default_rng(0)
+    ds = list(range(1, 300)) + [2**k + o for k in range(9, 31) for o in (-1, 0, 1)
+                                if 0 < 2**k + o < 2**31]
+    for d in ds:
+        xs = {0, d - 1, d, 2**31 - 1} | {q * d + o for q in (1, 2, 3, (2**31 - 1) // d)
+                                         for o in (-1, 0, 1)}
+        xs |= set(rng.integers(0, 2**31, 64).tolist())
+        for x in xs:
+            if 0 <= x < 2**31:
+                assert _fast_div(x, d) == x // d, (x, d)
+
+
+@np.errstate(invalid="ignore")  # inf * 0 of a zero row gives its NaN
+def _fp16_decompress_kernel(q, s, blocks, threads, qoff=0, ooff=0):
+    """The decompression kernel's launcher and index arithmetic, in numpy:
+    ``q`` (halves) at ``qoff`` bytes off 16 and the output at ``ooff``; a
+    scalar head up to out's 16-byte boundary and a scalar tail, quads of 4
+    outputs in between, quad t, t + T, ... a thread (T threads), its first
+    row from the multiply-high division (32-bit offsets) and then stepped by
+    the host's quotient and remainder of the grid's stride. Asserts that
+    every 16-byte store is aligned, every q load is aligned to its width,
+    every quad's row and column are right, and each output is written once;
+    returns the output."""
+    m, d = q.shape
+    n = m * d
+    qf, sf = q.reshape(-1).astype(np.float32), s.reshape(-1)
+    out = np.full(n, np.float32(7.0))
+    writes = np.zeros(n, np.int64)
+
+    def put(e, x):
+        out[e] = x
+        writes[e] += 1
+
+    e0 = min(n, ((16 - ooff % 16) % 16) // 4)
+    quads = (n - e0) // 4
+    qa = (qoff + 2 * e0) % 8
+    qw = 8 if qa == 0 else (4 if qa % 4 == 0 else 2)
+    total = blocks * threads
+    assert n + 8 * total < 2**31  # the 32-bit route
+    r_step, c_step = divmod(4 * total, d)
+    tail0 = e0 + 4 * quads
+
+    def scales(r, c):
+        if d >= 4:  # two rows at most: both read, the right one taken
+            s0, s1 = sf[r], sf[min(r + 1, m - 1)]
+            return [s0 if c + k < d else s1 for k in range(4)]
+        out_ = []
+        for _ in range(4):
+            out_.append(sf[r])
+            c += 1
+            if c == d:
+                c, r = 0, r + 1
+        return out_
+
+    for t in range(total):
+        if t < quads:
+            e = e0 + 4 * t
+            r = _fast_div(e, d)
+            c = e - r * d
+            while True:
+                assert (ooff + 4 * e) % 16 == 0 and (qoff + 2 * e) % qw == 0
+                assert divmod(e, d) == (r, c)
+                for k, sc in enumerate(scales(r, c)):
+                    put(e + k, qf[e + k] * sc)
+                e += 4 * total
+                if e >= tail0:
+                    break
+                r, c = r + r_step, c + c_step
+                if c >= d:
+                    c, r = c - d, r + 1
+        if t < e0:
+            put(t, qf[t] * sf[t // d])
+        if t < n - tail0:
+            put(tail0 + t, qf[tail0 + t] * sf[(tail0 + t) // d])
+    assert (writes == 1).all()
+    return out.reshape(m, d)
+
+
+def _fp16_edge_payload(m, d, seed):
+    """Compressed rows with the decompression edges: half NaNs of several
+    payloads and both signs, +-inf, -0.0, float16 subnormals, zero rows
+    (scale 0), and scales from 1e-6 to 1e3."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-1, 1, (m, d)).astype(np.float16)
+    bits = q.view(np.uint16)
+    pick = rng.random((m, d))
+    special = np.array([0x7C01, 0xFE00, 0x7FFF, 0x7C00, 0xFC00, 0x8000, 0x0001, 0x83FF],
+                       np.uint16)
+    at = pick < 0.2
+    bits[at] = special[rng.integers(0, special.size, int(at.sum()))]
+    s = (10.0 ** rng.uniform(-6, 3, (m, 1))).astype(np.float32)
+    zero = rng.random(m) < 0.3
+    q[zero], s[zero] = 0, 0
+    return q, s
+
+
+@pytest.mark.parametrize("md", list(range(1, 18)))
+@pytest.mark.parametrize("qoff,ooff", [(0, 0), (2, 0), (4, 4), (8, 8), (12, 12), (6, 4),
+                                       (0, 12)])
+def test_fp16_decompress_quads_write_each_float_once(md, qoff, ooff):
+    """m * D of 1-17 at D = 1, 2, 3 and m * D itself (one row), with q
+    and the output off 16 bytes: the emulated kernel writes each float once
+    through aligned accesses and gives bitwise the plain version's output,
+    at the plan's grid and at one warp (grid-stride)."""
+    for d in sorted({1, 2, 3, md} & set(range(1, md + 1))):
+        if md % d:
+            continue
+        q, s = _fp16_edge_payload(md // d, d, 31 * md + d)
+        want = ops.decompress_fp16(_t(q), _t(s)).numpy()
+        for blocks, threads in {ops.fp16_decompress_plan(md // d, d, 132), (1, 32)}:
+            got = _fp16_decompress_kernel(q, s, blocks, threads, qoff, ooff)
+            _same_bits(got, want, f"D={d} grid={blocks}x{threads}")
+
+
+@pytest.mark.parametrize("m,d", [(300, 10), (37, 16), (300, 4), (41, 32), (100, 3),
+                                 (250, 1), (7, 129)])
+@pytest.mark.parametrize("qoff,ooff", [(0, 0), (2, 4), (12, 8)])
+def test_fp16_decompress_quads_on_edge_payloads(m, d, qoff, ooff):
+    """At path-like widths (deepfm D = 10, dcn-v2 16, the narrow 4, DLRM's
+    32) and D = 1, 3 and 129, on NaN payloads, +-inf, -0.0, float16
+    subnormals and zero rows, at a small grid so that every thread takes
+    several rounds: bitwise the plain version's output."""
+    q, s = _fp16_edge_payload(m, d, m + d)
+    want = ops.decompress_fp16(_t(q), _t(s)).numpy()
+    assert not want[s[:, 0] == 0].any()
+    for blocks, threads in ((1, 32), (3, 32), (2, 64)):
+        _same_bits(_fp16_decompress_kernel(q, s, blocks, threads, qoff, ooff), want)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_fp16_decompress_plain_matches_reference_and_pallas_at_dlrm_widths(d):
+    """DLRM's narrow d = 32 and its D = 128, on edge payloads: the plain
+    version bitwise the reference and its Pallas kernel (interpret mode)."""
+    q, s = _fp16_edge_payload(M, d, d)
+    out = ops.decompress_fp16(_t(q), _t(s)).numpy()
+    jq, js = jnp.asarray(q), jnp.asarray(s)
+    _same_bits(out, jref.fp16_decompress_ref(jq, js), "vs ref")
+    _same_bits(out, fp16_decompress_pallas(jq, js, interpret=True), "vs pallas")
+
+
+@pytest.mark.parametrize("m,d", [(15_976, 10), (300, 16), (15_976, 4), (3, 129), (1, 1)])
+def test_fp16_decompress_wrapper_hands_the_launcher_its_plan(monkeypatch, m, d):
+    seen = _hand_over(monkeypatch)
+    q, s = torch.zeros((m, d), dtype=torch.float16), torch.zeros((m, 1))
+    out = ops._fp16_decompress_cuda(q, s)
+    (name, args), = seen
+    assert name == "fp16_decompress" and args[:3] == (q.data_ptr(), s.data_ptr(),
+                                                      out.data_ptr())
+    assert args[3:] == (m * d, d, *ops.fp16_decompress_plan(m, d, 132))
+    assert out.shape == (m, d) and out.dtype == torch.float32
+    ops._fp16_decompress_cuda(torch.zeros((0, d), dtype=torch.float16), torch.zeros((0, 1)))
+    ops._fp16_decompress_cuda(torch.zeros((m, 0), dtype=torch.float16), torch.zeros((m, 1)))
+    assert len(seen) == 1  # no elements launch nothing
+
+
+def test_fp16_decompress_wrapper_errors_before_launch(monkeypatch):
+    monkeypatch.setattr(ops, "_launch", lambda *a: pytest.fail("launched"))
+    q, s = torch.zeros((3, 8), dtype=torch.float16), torch.ones((3, 1))
+    with pytest.raises(ValueError, match="float16"):
+        ops._fp16_decompress_cuda(q.float(), s)
+    with pytest.raises(ValueError, match="float32"):
+        ops._fp16_decompress_cuda(q, s.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._fp16_decompress_cuda(torch.zeros((8, 3), dtype=torch.float16).T, s)
+    with pytest.raises(ValueError, match="scale"):
+        ops._fp16_decompress_cuda(q, torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="2-d"):
+        ops._fp16_decompress_cuda(q.view(-1), s)

@@ -287,6 +287,237 @@ def test_gather_project_wrapper_hands_the_launcher_its_plan(monkeypatch):
     assert seen[1][1][10] == 1  # scalar lanes for the offset view
 
 
+@pytest.mark.parametrize("m,nd,d,align,plan", [
+    (15_976, 4, 10, 16, (4, 2, 128)),     # narrow deepfm training: a lane an output
+    (31_952, 4, 10, 16, (4, 2, 128)),     # narrow deepfm serving
+    (10_652, 32, 128, 16, (16, 4, 256)),  # DLRM training: 16 lanes fit, float4 rows
+    (21_300, 32, 128, 16, (8, 4, 256)),   # DLRM serving: 8 lanes fit
+    (4_089_448, 4, 10, 16, (1, 2, 32)),   # bulk: a lane a slot, 32 slots a block
+    (15_976, 4, 10, 4, (4, 1, 128)),      # g_wide 4 bytes off 16: scalar rows
+    (1, 4, 10, 16, (4, 2, 128)),          # one slot
+    (15_976, 1, 10, 16, (1, 2, 32)),      # d = 1
+    (15_976, 3, 7, 16, (4, 1, 128)),      # odd widths: d = 3 -> 4 lanes
+    (100, 5, 12, 8, (8, 2, 256)),         # an 8-byte-aligned g_wide
+    (4_000, 96, 128, 16, (32, 4, 256)),   # d * D = 12,288
+    (4_000, 256, 48, 16, (32, 4, 256)),   # d = 256: 32 lanes of 8
+    (4_089_448, 256, 48, 16, (32, 4, 256))])  # at least a lane for 8 outputs
+def test_gather_project_grad_plan_by_hand(m, nd, d, align, plan):
+    """Lanes a slot: d rounded up to a power of two (a lane an output, at
+    most 32), halved while m * lanes passes the 2,048 threads each of an
+    H100's 132 SMs holds, but not below a lane for 8 outputs; row loads:
+    the widest of 4, 2, 1 floats that divides D and whose bytes divide
+    g_wide's alignment; threads a block: 32 slots, at most 256."""
+    assert ops.gather_project_grad_plan(m, nd, d, 132, align) == plan
+    lanes, cw, threads = plan
+    assert 1 <= lanes <= 32 and nd <= 8 * lanes and threads == min(256, 32 * lanes)
+    assert d % cw == 0 and align % (4 * cw) == 0
+    assert m * lanes <= 132 * 2048 or 2 * lanes > min(32, 1 << (nd - 1).bit_length()) // 8
+
+
+def _grad_lists(idx, kept, m, order, lanes=1):
+    """The kernel's grouping, emulated: positions inserted in ``order`` (any
+    order the atomics take), each pushed on its slot's list (``next[i] =
+    head[slot]; head[slot] = i + 1``; not-kept positions and slots outside
+    [0, m) dropped); then a slot group takes its first entry, and where
+    that links on, walks at most klist + 1 entries and sorts a list of at
+    most klist = min(32 lanes, 128) ascending, or past that scans idx and
+    kept in steps of 32 lanes positions, the hits of each step in
+    ascending order. Returns the positions of every slot in the order the
+    kernel sums them."""
+    n, klist = idx.shape[0], min(32 * lanes, 128)
+    head, nxt = np.zeros(m, np.int64), np.full(n, -7, np.int64)
+    for i in order:
+        if kept[i] and 0 <= idx[i] < m:
+            nxt[i], head[idx[i]] = head[idx[i]], i + 1
+    lists = []
+    for j in range(m):
+        if head[j] == 0:
+            lists.append([])
+            continue
+        p0 = head[j] - 1
+        if nxt[p0] == 0:
+            lists.append([p0])
+            continue
+        buf, p = [p0], nxt[p0]
+        while p != 0 and len(buf) <= klist:
+            buf.append(p - 1)
+            p = nxt[p - 1]
+        if len(buf) <= klist:
+            lists.append(sorted(buf))
+            continue
+        got, step = [], 32 * lanes
+        for q0 in range(0, n, step):
+            hits = [q for q in range(q0, min(q0 + step, n)) if kept[q] and idx[q] == j]
+            assert len(hits) <= step
+            got += hits
+        lists.append(got)
+    return lists
+
+
+def _grad_layout(layout, m, n, seed):
+    """Edge lists: "path" (60 % kept, the rest on slot m - 1), "one slot"
+    (every position kept on slot m // 2), "runs" and "long runs" (slot 1
+    takes exactly 32 or 128 kept positions, slot 2 one more, spread over
+    [0, n)), "outside" (kept positions on -1, -2^31, m and 2^31 - 1 among
+    in-range ones)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    kept = rng.random(n) < 0.6
+    if layout == "path":
+        idx[~kept] = m - 1
+    elif layout == "one slot":
+        idx[:], kept[:] = m // 2, True
+    elif layout in ("runs", "long runs"):
+        run = 32 if layout == "runs" else 128
+        idx[(idx == 1) | (idx == 2)] = 0
+        at = rng.permutation(n)[:2 * run + 1]
+        idx[at[:run]], idx[at[run:]], kept[at] = 1, 2, True
+    elif layout == "outside":
+        bad = np.array([-1, -2**31, m, 2**31 - 1], np.int32)
+        pick = kept & (rng.random(n) < 0.3)
+        idx[pick] = bad[rng.integers(0, bad.size, int(pick.sum()))]
+    return idx, kept
+
+
+GRAD_LISTS = [("path", 40, 300), ("one slot", 40, 300), ("runs", 40, 300),
+              ("long runs", 40, 300), ("outside", 40, 300), ("path", 1, 50), ("path", 10, 0),
+              ("one slot", 3, 1)]
+
+
+@pytest.mark.parametrize("layout,m,n", GRAD_LISTS)
+@pytest.mark.parametrize("order", ["ascending", "descending", "random"])
+def test_gather_project_grad_lists_give_the_stable_sort_runs(layout, m, n, order):
+    """Whatever order the atomics insert positions in, the emulated
+    grouping sums each slot's kept positions in ascending order: the
+    earlier kernel's stable-sort runs, the reference's segment_sum order;
+    at one lane a slot runs of exactly 32 take the sorted list and 33 the
+    scan, at four lanes 128 and 129, and every position on one slot takes
+    the scan; not-kept positions and slots outside [0, m) are in no
+    list. Summed in that order (fold then add, from +0.0) the lists give
+    the plain version's output within 1e-6 of scale, and empty slots are
+    exactly +0.0."""
+    idx, kept = _grad_layout(layout, m, n, 7 * m + n)
+    rng = np.random.default_rng(n)
+    ins = {"ascending": np.arange(n), "descending": np.arange(n)[::-1],
+           "random": rng.permutation(n)}[order]
+    ok = kept & (idx >= 0) & (idx < m)
+    order_ = np.argsort(np.where(ok, idx, m), kind="stable")
+    want = [[] for _ in range(m)]
+    for p in order_:
+        if ok[p]:
+            want[idx[p]].append(int(p))
+    for lanes in (1, 4, 32):
+        assert _grad_lists(idx, kept, m, ins, lanes) == want
+    if layout.endswith("runs"):
+        run = 32 if layout == "runs" else 128
+        assert sorted(len(w) for w in want)[-2:] == [run, run + 1]
+    nd, d = 3, 7
+    g_wide = rng.normal(size=(n, d)).astype(np.float32)
+    g_narrow = rng.normal(size=(n, nd)).astype(np.float32)
+    proj = rng.normal(size=(nd, d)).astype(np.float32)
+    out = np.zeros((m, nd), np.float32)
+    for j, ps in enumerate(_grad_lists(idx, kept, m, ins)):
+        acc = np.zeros(nd, np.float32)
+        for p in ps:
+            fold = np.zeros(nd, np.float32)
+            for c in range(d):
+                fold = fold + g_wide[p, c] * proj[:, c]
+            acc = acc + (fold + g_narrow[p])
+        out[j] = acc
+    exp = ref.gather_project_grad_ref(_t(g_wide), _t(g_narrow), _t(idx), _t(kept), _t(proj), m)
+    _close(out, exp, 1e-6)
+    empty = np.array([not w for w in want], bool)
+    assert (out[empty].view(np.uint32) == 0).all()
+    assert (exp.numpy()[empty].view(np.uint32) == 0).all()
+
+
+@pytest.mark.parametrize("layout,m,n,nd,d", [
+    ("path", 40, 80, 32, 128), ("one slot", 40, 80, 32, 128), ("runs", 40, 80, 32, 128),
+    ("path", 1, 30, 32, 128), ("path", 12, 0, 32, 128), ("path", 20, 40, 1, 10),
+    ("path", 20, 40, 256, 48), ("one slot", 20, 40, 96, 128)])
+def test_gather_project_grad_plain_on_edge_lists(layout, m, n, nd, d):
+    """At DLRM's widths (d = 32, D = 128) and at d = 1, d = 256 and
+    d * D = 12,288, on one-slot lists, runs of 32 and 33, m = 1 and n = 0:
+    the plain version against the reference and its Pallas kernel
+    (interpret mode) to 1e-6 of scale, empty slots exactly +0.0."""
+    idx, kept = _grad_layout(layout, m, n, m + n + nd)
+    rng = np.random.default_rng(nd)
+    g_wide = rng.normal(size=(n, d)).astype(np.float32)
+    g_narrow = rng.normal(size=(n, nd)).astype(np.float32)
+    proj = rng.normal(size=(nd, d)).astype(np.float32)
+    got = ops.gather_project_grad(_t(g_wide), _t(g_narrow), _t(idx), _t(kept), _t(proj), m)
+    j = [jnp.asarray(x) for x in (g_wide, g_narrow, idx, kept, proj)]
+    _close(got, jref.gather_project_grad_ref(*j, m), 1e-6)
+    _close(got, gather_project_grad_pallas(*j, m, interpret=True), 1e-6)
+    touched = np.zeros(m, bool)
+    touched[idx[kept]] = True
+    assert (got.numpy()[~touched].view(np.uint32) == 0).all()
+
+
+def test_gather_project_grad_plain_drops_slots_outside_the_buffer():
+    """Kept positions on -1, -2^31, m and 2^31 - 1 drop out of the plain
+    version as out of the reference's segment_sum, at DLRM's widths; the
+    rest of the slots match. (The Pallas kernel assumes in-range slots.)"""
+    m, n, nd, d = 40, 120, 32, 128
+    idx, kept = _grad_layout("outside", m, n, 5)
+    assert (kept & ((idx < 0) | (idx >= m))).sum() > 10
+    rng = np.random.default_rng(6)
+    g_wide = rng.normal(size=(n, d)).astype(np.float32)
+    g_narrow = rng.normal(size=(n, nd)).astype(np.float32)
+    proj = rng.normal(size=(nd, d)).astype(np.float32)
+    got = ops.gather_project_grad(_t(g_wide), _t(g_narrow), _t(idx), _t(kept), _t(proj), m)
+    j = [jnp.asarray(x) for x in (g_wide, g_narrow, idx, kept, proj)]
+    _close(got, jref.gather_project_grad_ref(*j, m), 1e-6)
+    inside = (idx >= 0) & (idx < m)
+    _close(got, ops.gather_project_grad(_t(g_wide), _t(g_narrow), _t(idx),
+                                        _t(kept & inside), _t(proj), m), 0.0)
+
+
+def test_gather_project_grad_wrapper_hands_the_launcher_its_plan(monkeypatch):
+    """The launcher gets the inputs, an m + n scratch, the output and the
+    plan at g_wide's own alignment (a view 4 bytes off 16 takes scalar row
+    loads); m = 0 launches nothing."""
+    seen = []
+    monkeypatch.setattr(ops, "_launch", lambda name, *a: seen.append((name, a)))
+    monkeypatch.setattr(ops, "sm_count", lambda device: 132)
+    n, m = 40, 6
+    idx, kept = torch.zeros(n, dtype=torch.int32), torch.ones(n, dtype=torch.bool)
+    offset = torch.zeros(n * 10 + 1)[1:].view(n, 10)
+    for gw, gn, proj in ((torch.zeros((n, 10)), torch.zeros((n, 4)), torch.zeros((4, 10))),
+                         (offset, torch.zeros((n, 4)), torch.zeros((4, 10))),
+                         (torch.zeros((n, 128)), torch.zeros((n, 96)), torch.zeros((96, 128)))):
+        out = ops._gather_project_grad_cuda(gw, gn, idx, kept, proj, m)
+        name, args = seen[-1]
+        nd, d = proj.shape
+        align = 16 if gw.data_ptr() % 16 == 0 else 4
+        assert name == "gather_project_grad"
+        assert args[:5] == (gw.data_ptr(), gn.data_ptr(), proj.data_ptr(), idx.data_ptr(),
+                            kept.data_ptr())
+        assert args[6] == out.data_ptr() and out.shape == (m, nd)
+        assert args[7:] == (n, m, nd, d, *ops.gather_project_grad_plan(m, nd, d, 132, align))
+    assert seen[1][1][12] == 1  # scalar row loads for the offset view
+    ops._gather_project_grad_cuda(torch.zeros((n, 10)), torch.zeros((n, 4)), idx, kept,
+                                  torch.zeros((4, 10)), 0)
+    assert len(seen) == 3
+
+
+def test_gather_project_grad_wrapper_keeps_its_limits(monkeypatch):
+    """The earlier kernel's limits, unchanged: d <= 256, d * D <= 12,288
+    floats, n and m below 2^31 - 1, and D > 0."""
+    monkeypatch.setattr(ops, "_launch", lambda *a: pytest.fail("launched"))
+    idx, kept = torch.zeros(4, dtype=torch.int32), torch.ones(4, dtype=torch.bool)
+    for nd, d in ((257, 4), (97, 128), (4, 0)):
+        with pytest.raises(ValueError, match="exceed"):
+            ops._gather_project_grad_cuda(torch.zeros((4, d)), torch.zeros((4, nd)), idx,
+                                          kept, torch.zeros((nd, d)), 6)
+    with pytest.raises(ValueError, match="exceed"):
+        ops._gather_project_grad_cuda(torch.zeros((4, 10)), torch.zeros((4, 4)), idx, kept,
+                                      torch.zeros((4, 10)), 2**31 - 1)
+    with pytest.raises(ValueError, match="kept"):
+        ops._gather_project_grad_cuda(torch.zeros((4, 10)), torch.zeros((4, 4)), idx,
+                                      kept.to(torch.int32), torch.zeros((4, 10)), 6)
+
+
 # -------------------------------------------------------------------- state
 
 
