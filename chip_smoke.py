@@ -3,8 +3,10 @@
 against its plain PyTorch version, serves and trains full-width deepfm,
 full-width dcn-v2 and full-width deepfm with ``picasso_narrow`` and its L2
 tier on one card, trains full-width deepfm under ``--grad-compress fp16``
-and ``topk``, and serves and trains full Criteo DLRM under
-``picasso_narrow``.
+and ``topk``, serves and trains full Criteo DLRM under ``picasso_narrow``,
+and serves and trains full-width deepfm unpacked under the per-group
+``mixed`` assignment and packed under ``ps``, with ``hybrid``,
+``mp_nodedup`` and ``allgather_rows`` driven on the packed state.
 
     python3 chip_smoke.py
 
@@ -98,7 +100,11 @@ Phases, in order (any failure raises and exits non-zero):
    and the forward at its plan's boundaries (F = 2 and 27 by D = 1, 3, 16,
    128 and 129 by B = 1, 37 and 65,537): within 1e-5 of scale, repeating
    bit for bit, the backward reached both standalone and through the
-   autograd of ``ops.dot_interaction``;
+   autograd of ``ops.dot_interaction``. ``segment_grad`` and
+   ``dedup_adagrad`` also run at the unpacked path's per-table shapes (n =
+   256 and 512 at D = 10: ``segment_grad`` along a ps group's identity
+   order and a picasso group's unique sort, ``dedup_adagrad`` into a 3-row
+   and an 8,192-row table): within 1e-5 of scale, bitwise repeats, no sort;
 3. serve full-width deepfm (187,780,711 x 10 table, 4,194,304-row hot tier,
    B = 512) through ``make_serve_step``: 8 warm-up requests feed the
    FCounter, ``engine.flush`` loads the tier, then 300 timed requests with
@@ -172,7 +178,28 @@ Phases, in order (any failure raises and exits non-zero):
    ``dedup_adagrad`` (the d = 32 master and the L2 tier at D = 128) and 1
    ``dot_interaction_bwd``; the kernel path repeating bit for bit, the
    shared-state check at steps 1 and 21, both tiers filled after step 39;
-   a smoke training run on the card matching the CPU.
+   a smoke training run on the card matching the CPU;
+12. free every earlier state and serve and train full-width deepfm as the
+   launchers run ``--no-packing --strategy mixed``: 39 groups, 187,780,711
+   rows at D = 10, the cost model's assignment (checked equal to
+   ``compile_assignment``'s) 26 ``ps`` groups (the tables of at most 8,192
+   rows) and 13 ``picasso`` groups with 3,634,216 tier rows in all; as in
+   phases 3-4 with 39 K-Interleaving waves: per request 13 ``tier_probe``,
+   39 ``gather_pool``, 1 ``fm_interaction``; per step those plus 39
+   ``segment_grad``, 39 ``dedup_adagrad``, 1 ``fm_interaction_bwd``; hits
+   on every request and step after the flush, all of them the picasso
+   groups' (``cache_hits/ps`` 0); no sort; the kernel path repeating bit
+   for bit; the shared-state check at steps 1 and 21; the ps groups'
+   budgeted tiers bitwise untouched by every flush and step; a smoke run
+   (the categorical tables on picasso, ``SMOKE_MIX``) on the card matching
+   the CPU; the configuration's wall time printed;
+13. the same for packed full-width deepfm under ``ps``: no ``tier_probe``
+   and no hit, ``segment_grad`` over B x 39 positions along the identity
+   order; then, on one packed train state, ``hybrid``, ``mp_nodedup`` (on
+   ``exact_capacity`` plans) and ``allgather_rows`` each serve 10 requests
+   against the plain path (1e-5) and take one kernel step and one plain
+   step from copies of the state (the shared-state check), each with its
+   launches checked and printed.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -188,6 +215,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
 
@@ -203,7 +231,8 @@ from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.features import pack_group  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
-from repro_torch.engine import resolve_assignment  # noqa: E402
+from repro_torch.engine import (compile_assignment, maybe_compile,  # noqa: E402
+                                resolve_assignment)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim import grad_compression as gcomp  # noqa: E402
@@ -249,6 +278,9 @@ class Arch(NamedTuple):
     l2_rows: int = 0                # the L2 tier that budget plans
     grad_compress: str = "none"     # the train launcher's --grad-compress
     full_tiers_first: bool = False  # serve the timed requests from full tiers
+    packing: bool = True            # False: the launchers' --no-packing
+    mix: Tuple[Tuple[str, int], ...] = ()  # the assignment's groups a strategy
+    exact_capacity: bool = False    # lossless buckets (mp_nodedup's parity plans)
 
     @property
     def master_dim(self) -> int:
@@ -300,7 +332,32 @@ ARCHS["dlrm-narrow"] = Arch(
      "segment_grad": 1, "dedup_adagrad": 2, "dot_interaction_bwd": 1}, False,
     (1, FLUSH_ITERS + 1), "picasso_narrow", 32, 2_147_483_648, 4_161_784,
     full_tiers_first=True)
+# full-width deepfm with --no-packing --strategy mixed: one group a table,
+# the cost model puts the 26 tables of at most 8,192 rows on ps and the 13
+# big ones on picasso, each with its own hot tier (3,634,216 rows in all). A
+# request probes the 13 picasso tiers and pools every group; a step adds a
+# segment_grad and a dedup_adagrad a group (owner side for picasso,
+# replicated for ps). Phase 12
+_MIXED_SERVE = {"tier_probe": 13, "gather_pool": 39, "fm_interaction": 1}
+ARCHS["deepfm-mixed"] = Arch(
+    "deepfm-mixed", "deepfm", 39, 10, 187_780_711, 3_634_216, _MIXED_SERVE,
+    {**_MIXED_SERVE, "segment_grad": 39, "dedup_adagrad": 39, "fm_interaction_bwd": 1},
+    False, (1, FLUSH_ITERS + 1), "mixed", packing=False, mix=(("picasso", 13), ("ps", 26)))
+# packed full-width deepfm under --strategy ps: no tier probe (the planned
+# tier stays inert), segment_grad along the identity order over B x 39
+# positions, dedup_adagrad on the replicated grads. Phase 13, which also
+# drives BASELINES on one packed state
+_PS_SERVE = {"gather_pool": 1, "fm_interaction": 1}
+ARCHS["deepfm-ps"] = Arch(
+    "deepfm-ps", "deepfm", 39, 10, 187_780_711, 4_194_304, _PS_SERVE,
+    {**_PS_SERVE, "segment_grad": 1, "dedup_adagrad": 1, "fm_interaction_bwd": 1},
+    False, (1, FLUSH_ITERS + 1), "ps")
+BASELINES = ("hybrid", "mp_nodedup", "allgather_rows")  # same launches as deepfm-ps
 MAIN = ("deepfm", "dcn-v2", "deepfm-narrow")  # phases 3-8; dlrm-narrow is 10-11
+MIXED_PATHS = ("deepfm-mixed", "deepfm-ps")   # phases 12-13
+# every deepfm-smoke table fits the ps gate, so the smoke of a mixed path
+# puts the categorical tables on picasso and mixes as the full width does
+SMOKE_MIX = {"cat_*": "picasso"}
 SMOKE_L2_BYTES = 1 << 16  # tests/test_narrow.py's L2 budget at smoke size
 SMOKE_NARROW_DIM = 4      # tests/test_narrow.py's, and the bench's D // 4 for dlrm
 
@@ -415,7 +472,9 @@ def arch_plan(a: Arch, b: int, *, smoke: bool = False, train: bool = False):
     every 20 steps after 10). At smoke size training flushes at step 3 after
     2 with a 1<<14-byte tier, and the L2 configuration also serves with that
     tier and a 1<<16-byte L2 (narrow dim 4), so both tiers take hits. The
-    smoke DLRM is ``dlrm(criteo=False)`` (26 fields at D = 16)."""
+    smoke DLRM is ``dlrm(criteo=False)`` (26 fields at D = 16). A mixed
+    arch is planned with ``--no-packing`` and its assignment compiled as
+    the launchers compile it (``SMOKE_MIX`` at smoke size)."""
     cfg = (dlrm(criteo=not smoke) if a.config == "dlrm"
            else get_config(a.config, smoke=smoke))
     kw = {}
@@ -427,7 +486,12 @@ def arch_plan(a: Arch, b: int, *, smoke: bool = False, train: bool = False):
                   narrow_dim=(SMOKE_NARROW_DIM if smoke else a.narrow_dim) or None)
         if smoke:
             kw["hot_bytes"] = 1 << 14
-    plan = make_plan(cfg, world=1, per_device_batch=b, **kw)
+    plan = make_plan(cfg, world=1, per_device_batch=b, enable_packing=a.packing,
+                     exact_capacity=a.exact_capacity, **kw)
+    # as the launchers: a mix is compiled for the step's id volume (training:
+    # the micro-batch; serving: the batch) and recorded before any state
+    maybe_compile(plan, a.strategy, per_device_batch=None if train else b,
+                  overrides=SMOKE_MIX if smoke and a.mix else None)
     resolve_assignment(plan, a.strategy)
     return cfg, plan
 
@@ -864,6 +928,81 @@ def run_dedup_adagrad(b: int, gen: torch.Generator, a: Arch, tier: bool = False,
             "plain_ms": cuda_ms(lambda: ref.dedup_adagrad_ref(w_p, acc_p, idx, g, valid,
                                                               LR, EPS)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+# the unpacked path's per-table shapes: B positions of one table at D = 10,
+# into a 3-row ps table (every position on one of 3 rows) and an 8,192-row
+# one (the largest the ps gate takes)
+TABLE_ROWS, TABLE_D = (3, 8_192), 10
+
+
+def run_table_shapes(gen: torch.Generator) -> dict:
+    """``segment_grad`` and ``dedup_adagrad`` at the unpacked path's per-table
+    shapes (n = 256 and 512 at D = 10): ``segment_grad`` along a ps group's
+    identity order and along a picasso group's unique sort over ``TABLE_ROWS``
+    rows, ``dedup_adagrad`` with every position's gradient on those rows. Each
+    within 1e-5 of scale of its plain version, repeating bit for bit, no
+    sort; rows no position touches bitwise unchanged."""
+    out = []
+    d = TABLE_D
+    for n in (TRAIN_B, SERVE_B):
+        g_bags = torch.randn((n, d), device=DEV, generator=gen)
+        seg = torch.arange(n, device=DEV, dtype=torch.int32)
+        w = torch.rand((n,), device=DEV, generator=gen) + 0.5
+        ident = torch.arange(n, device=DEV, dtype=torch.int32)
+        for rows in TABLE_ROWS:
+            ids = torch.randint(0, rows, (n,), device=DEV, generator=gen, dtype=torch.int32)
+            u = pe.fixed_unique(ids, sentinel=rows)
+            for kind, (inv, order, srt) in (("ps identity", (ident, ident.long(), ident)),
+                                            ("picasso unique", (u.inv, u.order,
+                                                                u.slot_sorted))):
+                if kind == "ps identity" and rows != TABLE_ROWS[0]:
+                    continue  # the identity order does not depend on the table
+                ops.reset_launches()
+                k = ops.segment_grad(g_bags, seg, w, inv, n, order=order, sorted_inv=srt)
+                k2 = ops.segment_grad(g_bags, seg, w, inv, n, order=order, sorted_inv=srt)
+                p = ref.segment_grad_ref(g_bags, seg, w, inv, n)
+                torch.cuda.synchronize(DEV)
+                err = max_err(k, p)
+                check(ops.sorts["segment_grad"] == 0 and ops.launches["segment_grad"] == 2
+                      and same_bits(k, k2) and err <= TOL * scale_of(p),
+                      f"segment_grad {kind} n={n} rows={rows}: err {err}")
+                out.append({"kernel": "segment_grad", "case": kind, "n": n, "rows": rows,
+                            "d": d, "max_abs_err": err,
+                            "ms": cuda_ms(lambda: ops.segment_grad(
+                                g_bags, seg, w, inv, n, order=order, sorted_inv=srt)),
+                            "plain_ms": cuda_ms(lambda: ref.segment_grad_ref(
+                                g_bags, seg, w, inv, n))})
+            tw = torch.randn((rows, d), device=DEV, generator=gen)
+            ta = torch.rand((rows, 1), device=DEV, generator=gen)
+            g = torch.randn((n, d), device=DEV, generator=gen)
+            valid = torch.ones((n,), device=DEV, dtype=torch.bool)
+            w0, a0 = tw.clone(), ta.clone()
+            pw, pa = tw.clone(), ta.clone()
+            ops.dedup_adagrad(tw, ta, ids, g, valid, LR, EPS)
+            ref.dedup_adagrad_ref(pw, pa, ids, g, valid, LR, EPS)
+            first = (tw.clone(), ta.clone())
+            tw.copy_(w0)
+            ta.copy_(a0)
+            ops.dedup_adagrad(tw, ta, ids, g, valid, LR, EPS)
+            torch.cuda.synchronize(DEV)
+            touched = torch.unique(ids).long()
+            untouched = torch.ones((rows,), device=DEV, dtype=torch.bool)
+            untouched[touched] = False
+            err_w, err_a = max_err(tw, pw), max_err(ta, pa)
+            check(same_bits(tw, first[0]) and same_bits(ta, first[1])
+                  and err_w <= TOL * scale_of(pw) and err_a <= TOL * scale_of(pa)
+                  and torch.equal(tw[untouched], w0[untouched])
+                  and torch.equal(ta[untouched], a0[untouched]),
+                  f"dedup_adagrad n={n} rows={rows}: err w {err_w}, acc {err_a}")
+            out.append({"kernel": "dedup_adagrad", "n": n, "rows": rows, "d": d,
+                        "touched_rows": int(touched.numel()),
+                        "max_abs_err": max(err_w, err_a),
+                        "ms": cuda_ms(lambda: ops.dedup_adagrad(tw, ta, ids, g, valid, LR,
+                                                                EPS)),
+                        "plain_ms": cuda_ms(lambda: ref.dedup_adagrad_ref(
+                            pw, pa, ids, g, valid, LR, EPS))})
+    return out
 
 
 def run_fm_bwd(b: int, gen: torch.Generator, a: Arch) -> dict:
@@ -1553,27 +1692,65 @@ def to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
+def routed(engine, ctx):
+    """The lookup ctxs that carry the Shuffle's routing (and tier hits):
+    those of the groups whose strategy has ``uses_routing_ctx``, as the
+    reference gates them (a ``ps`` ctx has neither)."""
+    return [c for gid, c in ctx.ctxs.items() if engine.strategies[gid].uses_routing_ctx]
+
+
 def warm_tier(serve, state, cfg, rng, n_requests: int):
-    """The reference's FCounter warm-up, then one flush loads the L1 tier."""
+    """The reference's FCounter warm-up, then one flush loads the L1 tiers
+    (of the groups whose strategy reads one)."""
     for _ in range(n_requests):
         _, ctx = serve.score(state, make_batch(cfg, serve.global_batch, rng))
         for gid, c in ctx.ctxs.items():
-            pe.count_frequencies(state["emb"][str(gid)].counts, c)
+            if serve.engine.strategies[gid].uses_routing_ctx:
+                pe.count_frequencies(state["emb"][str(gid)].counts, c)
     state["emb"] = serve.engine.flush(state["emb"])
 
 
-def hits_of(ctx) -> int:
+def hits_of(engine, ctx) -> int:
     """Ids served by any tier (L1 + L2)."""
     return int(sum(int(pe.cache_hit_count(c)) + int(pe.l2_hit_count(c))
-                   for c in ctx.ctxs.values()))
+                   for c in routed(engine, ctx)))
 
 
-def l2_hits_of(ctx) -> int:
-    return int(sum(int(pe.l2_hit_count(c)) for c in ctx.ctxs.values()))
+def l2_hits_of(engine, ctx) -> int:
+    return int(sum(int(pe.l2_hit_count(c)) for c in routed(engine, ctx)))
 
 
-def check_full_plan(a: Arch, plan) -> None:
-    """One packed group with the arch's table, tiers and master width."""
+def inert_tiers(engine, emb) -> Dict[int, list]:
+    """Copies of the tiers the engine gates off (a ``ps`` group's budgeted
+    tier), to show that no flush or update touches them."""
+    return {gid: [t.clone() for t in emb[str(gid)].cache]
+            for gid, on in engine.cache_on.items() if not on}
+
+
+def check_inert(emb, before: Dict[int, list], what: str) -> None:
+    check(all(same_bits(x, y) for gid, ts in before.items()
+              for x, y in zip(ts, emb[str(gid)].cache)),
+          f"{what}: the tiers of the groups without one untouched")
+
+
+def check_full_plan(a: Arch, plan, b: int, train: bool = False) -> None:
+    """One packed group with the arch's table, tiers and master width; or
+    with ``--no-packing`` one group a field, the tables summing to the
+    arch's rows, the assignment mixed as ``a.mix`` says and equal to
+    ``compile_assignment``'s, the picasso groups' tiers summing to
+    ``a.hot_rows``."""
+    if not a.packing:
+        gs = plan.groups
+        asg = compile_assignment(plan, per_device_batch=None if train else b).strategy
+        cached = [g.gid for g in gs if plan.strategy[g.gid] == "picasso"]
+        mix = dict(Counter(plan.strategy.values()))
+        check(len(gs) == a.n_fields and sum(g.rows for g in gs) == a.rows
+              and {g.dim for g in gs} == {a.dim} and mix == dict(a.mix)
+              and asg == plan.strategy
+              and sum(plan.cache_rows[gid] for gid in cached) == a.hot_rows,
+              f"full {a.name} plan: {len(gs)} groups, {sum(g.rows for g in gs)} rows, "
+              f"mix {mix}, tiers {sum(plan.cache_rows[gid] for gid in cached)}")
+        return
     g = plan.groups[0]
     check(len(plan.groups) == 1 and (g.rows, g.dim) == (a.rows, a.dim)
           and plan.cache_rows[0] == a.hot_rows and plan.l2_rows.get(0, 0) == a.l2_rows
@@ -1589,11 +1766,20 @@ def tier_keys_of(st, rows: int) -> Dict[str, int]:
     return out
 
 
+def tier_keys_all(engine, emb) -> Dict[str, int]:
+    """Tier keys loaded, summed over the groups whose L1 tier is on."""
+    out: Dict[str, int] = {}
+    for g in engine.plan.groups:
+        if engine.cache_on[g.gid]:
+            for k, v in tier_keys_of(emb[str(g.gid)], g.rows).items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
 def serve_full_width(arch: str) -> dict:
     a = ARCHS[arch]
     cfg, plan = arch_plan(a, SERVE_B)
-    check_full_plan(a, plan)
-    g = plan.groups[0]
+    check_full_plan(a, plan, SERVE_B)
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
     t0 = time.perf_counter()
@@ -1603,11 +1789,13 @@ def serve_full_width(arch: str) -> dict:
     serve = make_serve_step(model, plan, SERVE_B,
                             ServeConfig(strategy=a.strategy, use_fused_kernels="auto"), DEV)
     rng = np.random.default_rng(SEED)
+    inert = inert_tiers(serve.engine, state["emb"])
     t0 = time.perf_counter()
     warm_tier(serve, state, cfg, rng, 8)
     torch.cuda.synchronize(DEV)
     warm_s = time.perf_counter() - t0
-    tier_keys = tier_keys_of(state["emb"]["0"], g.rows)
+    check_inert(state["emb"], inert, f"{arch} warm-up flush")
+    tier_keys = tier_keys_all(serve.engine, state["emb"])
     full_tiers = fill_tiers(serve.engine, state, a, SEED + 3) if a.full_tiers_first else None
     batches = [make_batch(cfg, SERVE_B, rng) for _ in range(N_TIMED)]
 
@@ -1618,15 +1806,23 @@ def serve_full_width(arch: str) -> dict:
         probs, ctx = serve.score(state, b)
         torch.cuda.synchronize(DEV)
         lat.append((time.perf_counter() - t0) * 1e3)
-        hits.append(hits_of(ctx))
-        l2_hits.append(l2_hits_of(ctx))
+        hits.append(hits_of(serve.engine, ctx))
+        l2_hits.append(l2_hits_of(serve.engine, ctx))
     launches = dict(ops.launches)
+    if a.strategy == "ps":
+        # the packed ps group's rows are per position: segment_grad runs
+        # over all B x fields of them along the identity order
+        c = ctx.ctxs[0]
+        check(c.inv.shape[0] == SERVE_B * a.n_fields
+              and torch.equal(c.order, torch.arange(c.inv.shape[0], device=DEV)),
+              f"{arch}: the ctx carries the identity order over B x fields positions")
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
           "full-width probabilities finite [B, 1]")
     check(launches == {n: a.serve_launches.get(n, 0) * N_TIMED for n in launches},
           f"{arch} serving launches per request {a.serve_launches}: {launches}")
-    check(min(hits) > 0, f"cache hits on every request: {hits}")
+    check(min(hits) > 0 if serve.engine.any_cache else max(hits) == 0,
+          f"cache hits on every request (none without a tier): {hits}")
     check(not a.full_tiers_first or min(l2_hits) > 0, f"L2 hits on every request: {l2_hits}")
     plain = make_serve_step(model, plan, SERVE_B,
                             ServeConfig(strategy=a.strategy, use_fused_kernels="off"), DEV)
@@ -1635,8 +1831,9 @@ def serve_full_width(arch: str) -> dict:
     err = max_err(probs, p_plain)
     check(err <= TOL, f"kernel vs plain probabilities err {err}")
     breakdown = where_time_goes(serve, state, batches[:10])
-    out = {"arch": arch, "strategy": a.strategy, "table": [g.rows, a.master_dim],
-           "hot_rows": plan.cache_rows[0], "l2_rows": plan.l2_rows.get(0, 0),
+    out = {"arch": arch, "strategy": a.strategy, "table": [a.rows, a.master_dim],
+           "groups": len(plan.groups), "assignment": dict(a.mix) or None,
+           "hot_rows": a.hot_rows, "l2_rows": plan.l2_rows.get(0, 0),
            "capacity": plan.capacity[0], "tier_keys_loaded": tier_keys,
            "init_s": init_s, "warmup_and_flush_s": warm_s,
            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
@@ -1687,7 +1884,7 @@ def serve_full_tiers(serve, plain, state, batches, a: Arch) -> dict:
     l2, err = [], 0.0
     for b in batches:
         probs, ctx = serve.score(state, b)
-        l2.append(l2_hits_of(ctx))
+        l2.append(l2_hits_of(serve.engine, ctx))
         err = max(err, max_err(probs, plain(state, b)))
     torch.cuda.synchronize(DEV)
     check(min(l2) > 0 and err <= TOL, f"full tiers: L2 hits {l2}, plain err {err}")
@@ -1768,14 +1965,15 @@ def smoke_against_cpu(arch: str) -> dict:
     p_gpu, ctx_gpu = serve_gpu.score(to_device(state, DEV), batch)
     err = max_err(p_gpu.cpu(), p_cpu)
     check(err <= TOL, f"smoke card vs CPU probabilities err {err}")
-    check(hits_of(ctx_gpu) == hits_of(ctx_cpu) > 0
-          and l2_hits_of(ctx_gpu) == l2_hits_of(ctx_cpu) and (l2_hits_of(ctx_gpu) > 0
-                                                              or not a.l2_bytes),
-          "smoke cache hits (L1 + L2, and L2) equal and > 0")
+    eng = serve_gpu.engine
+    hits, l2_hits = hits_of(eng, ctx_gpu), l2_hits_of(eng, ctx_gpu)
+    check(hits == hits_of(serve_cpu.engine, ctx_cpu) and (hits > 0) == eng.any_cache
+          and l2_hits == l2_hits_of(serve_cpu.engine, ctx_cpu)
+          and (l2_hits > 0 or not a.l2_bytes),
+          "smoke cache hits (L1 + L2, and L2) equal, and > 0 where a tier is on")
     check(all(ops.launches[n] > 0 for n in a.serve_launches),
           f"smoke request on the card went through the kernels: {ops.launches}")
-    return {"max_abs_err": err, "cache_hits": hits_of(ctx_gpu),
-            "l2_hits": l2_hits_of(ctx_gpu)}
+    return {"max_abs_err": err, "cache_hits": hits, "l2_hits": l2_hits}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1936,8 +2134,9 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
                               ts.TrainConfig(strategy=a.strategy, use_fused_kernels=fused,
                                              grad_compress=a.grad_compress), DEV)
     torch.cuda.synchronize(DEV)
+    inert = inert_tiers(step.engine, state["emb"])
     ops.reset_launches()
-    lat, losses, hits, l2_hits, ovf, checks = [], [], [], [], [], {}
+    lat, losses, hits, l2_hits, ps_hits, ovf, checks = [], [], [], [], [], [], {}
     for i, b in enumerate(batches[:TRAIN_STEPS], start=1):
         if i in check_at:
             checks[i] = shared_state_check(model, plan, step, state, b)
@@ -1948,10 +2147,14 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
         losses.append(float(m["loss"]))
         hits.append(int(m["cache_hits"]))
         l2_hits.append(int(m.get("cache_hits/l2", 0)))
+        ps_hits.append(int(m.get("cache_hits/ps", 0)))
         ovf.append(int(m["overflow"]))
     out = {"launches": dict(ops.launches), "sorts": dict(ops.sorts), "lat": lat,
-           "losses": losses, "hits": hits,
+           "losses": losses, "hits": hits, "any_cache": step.engine.any_cache,
+           "metric_keys": list(step.engine.metric_keys), "ps_hits": ps_hits,
            "l2_hits": l2_hits, "overflow": ovf, "shared_state_checks": checks}
+    # a ps group's budgeted tier: no update and no flush (step 20) touches it
+    check_inert(state["emb"], inert, f"{arch} training")
     if breakdown:
         out["stages"] = train_breakdown(step, state, batches[TRAIN_STEPS:])
         if a.l2_rows:
@@ -2030,9 +2233,9 @@ def train_breakdown(step, state, batches) -> dict:
 def train_full_width(arch: str) -> dict:
     a = ARCHS[arch]
     cfg, plan = arch_plan(a, TRAIN_B, train=True)
-    check_full_plan(a, plan)
-    g = plan.groups[0]
-    check(plan.microbatch == TRAIN_B and len(plan.interleave) == 1,
+    check_full_plan(a, plan, TRAIN_B, train=True)
+    # one K-Interleaving wave a packed group
+    check(plan.microbatch == TRAIN_B and len(plan.interleave) == len(plan.groups),
           f"full {arch} train plan: {plan.microbatch} {plan.interleave}")
     stream = batch_stream(cfg, TRAIN_B, seed=SEED)
     batches = [next(stream) for _ in range(TRAIN_STEPS + 12)]
@@ -2044,8 +2247,13 @@ def train_full_width(arch: str) -> dict:
     # segment_grad runs along the forward unique's sort: no sort of its own
     check(k["sorts"]["segment_grad"] == 0, f"{arch} training sorted for segment_grad: "
           f"{k['sorts']}")
-    check(min(k["hits"][FLUSH_ITERS:]) > 0 and max(k["hits"][:FLUSH_ITERS]) == 0,
-          f"tier hits exactly on the steps after the step-{FLUSH_ITERS} flush: {k['hits']}")
+    check((min(k["hits"][FLUSH_ITERS:]) > 0 if k["any_cache"] else max(k["hits"]) == 0)
+          and max(k["hits"][:FLUSH_ITERS]) == 0,
+          f"tier hits exactly on the steps after the step-{FLUSH_ITERS} flush (none "
+          f"without a tier): {k['hits']}")
+    # a mix breaks the hits down by class: every one a picasso group's
+    check(max(k["ps_hits"]) == 0 and (not a.mix or "cache_hits/ps" in k["metric_keys"]),
+          f"{arch}: cache_hits/ps {k['ps_hits']}, metric keys {k['metric_keys']}")
     # the kernels sum in a fixed order, so the kernel path repeats itself;
     # the second run also holds one kernel step against one plain step from
     # a shared state where the arch asks (dcn-v2: before step 1 and before
@@ -2075,8 +2283,10 @@ def train_full_width(arch: str) -> dict:
     lat = np.array(k["lat"])
     steady = np.array([t for i, t in enumerate(lat, start=1)
                        if i > WARMUP_ITERS and i != FLUSH_ITERS])
-    return {"arch": arch, "strategy": a.strategy, "table": [g.rows, a.master_dim],
-            "hot_rows": plan.cache_rows[0], "l2_rows": plan.l2_rows.get(0, 0),
+    return {"arch": arch, "strategy": a.strategy, "table": [a.rows, a.master_dim],
+            "groups": len(plan.groups), "waves": len(plan.interleave),
+            "metric_keys": k["metric_keys"], "cache_hits_ps": k["ps_hits"],
+            "hot_rows": a.hot_rows, "l2_rows": plan.l2_rows.get(0, 0),
             "capacity": plan.capacity[0], "batch": TRAIN_B, "steps": TRAIN_STEPS,
             "step_p50_ms": float(np.percentile(steady, 50)),
             "step_p99_ms": float(np.percentile(steady, 99)),
@@ -2123,12 +2333,13 @@ def train_smoke_against_cpu(arch: str) -> dict:
         hg.append((int(mg["cache_hits"]), int(mg.get("cache_hits/l2", 0))))
         hc.append((int(mc["cache_hits"]), int(mc.get("cache_hits/l2", 0))))
     check(np.allclose(lg, lc, rtol=1e-4, atol=1e-5), f"smoke train card vs CPU: {lg} vs {lc}")
-    check(hg == hc and min(h for h, _ in hg[3:]) > 0
+    check(hg == hc and (min(h for h, _ in hg[3:]) > 0) == step_gpu.engine.any_cache
           and (min(h2 for _, h2 in hg[3:]) > 0 or not a.l2_bytes),
           f"smoke train hits (L1 + L2, L2) equal and > 0 after flush: {hg} {hc}")
     sg, sc = state_gpu["emb"]["0"], state_cpu["emb"]["0"]
-    err = max_err(sg.w.cpu(), sc.w)
-    check(err <= 1e-4, f"smoke train table card vs CPU err {err}")
+    err = max(max_err(state_gpu["emb"][k].w.cpu(), state_cpu["emb"][k].w)
+              for k in state_cpu["emb"])
+    check(err <= 1e-4, f"smoke train tables card vs CPU err {err}")
     out = {"losses_card": lg, "losses_cpu": lc,
            "max_abs_loss_diff": float(np.max(np.abs(np.array(lg) - np.array(lc)))),
            "table_max_abs_err": err, "hits_and_l2_hits": hg}
@@ -2142,11 +2353,16 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
     """Serve then train one configuration at full width, each followed by
     its smoke config on the card against the CPU; its states are freed
     before the next configuration's."""
+    t_phase = time.perf_counter()
     full = runs[arch, "serve"] = serve_full_width(arch)
+    wt = full["where_time_goes"]
     print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
     print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
           f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
-          f"cache_hits/request={full['cache_hits_per_request']:.1f}", flush=True)
+          f"cache_hits/request={full['cache_hits_per_request']:.1f} "
+          f"device ms/request={wt['device_ms_per_request']} "
+          f"device ops/request={wt['kernels_per_request']} "
+          f"peak={full['peak_mem_gib']:.2f}GiB", flush=True)
     print(f"[serve] {arch}-smoke card vs CPU " + json.dumps(smoke_against_cpu(arch)),
           flush=True)
 
@@ -2155,13 +2371,80 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
     print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
           f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
           f"flush step={train['flush_step_ms']:.1f}ms "
-          f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g}",
-          flush=True)
+          f"kernel vs plain 30-step loss diff={train['max_abs_loss_diff']:.3g} "
+          f"device ms/step={train['where_time_goes']['device_ms_per_step']} "
+          f"device ops/step={train['where_time_goes']['kernels_per_step']} "
+          f"peak={train['peak_mem_gib']:.2f}GiB", flush=True)
     print_step_kernels(arch, train)
     print(f"[train] {arch}-smoke card vs CPU "
           + json.dumps(train_smoke_against_cpu(arch)), flush=True)
     torch.cuda.empty_cache()
-    print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s "
+          f"(this configuration {time.perf_counter() - t_phase:.1f}s)", flush=True)
+
+
+def drive_baselines() -> dict:
+    """Phase 13's other names on one packed full-width deepfm train state:
+    ``hybrid``, ``mp_nodedup`` (on ``exact_capacity`` plans, as the
+    reference's parity runs) and ``allgather_rows`` each serve 10 requests,
+    held against the plain path, and take one training step, kernel and
+    plain each from its own copy of the state (``shared_state_check``), so
+    no name's update reaches the next. Each launches what ``deepfm-ps``
+    launches, without a sort."""
+    base = ARCHS["deepfm-ps"]
+    state, out = None, {}
+    for name in BASELINES:
+        a = base._replace(name=f"deepfm-{name}", strategy=name,
+                          exact_capacity=name == "mp_nodedup")
+        cfg, splan = arch_plan(a, SERVE_B)
+        _, tplan = arch_plan(a, TRAIN_B, train=True)
+        check_full_plan(a, splan, SERVE_B)
+        model = WDLModel(cfg, tplan)
+        if state is None:
+            state = ts.init_state(model, tplan, torch.Generator(device=DEV).manual_seed(SEED),
+                                  DEV)
+        serve = make_serve_step(model, splan, SERVE_B, ServeConfig(strategy=name), DEV)
+        plain = make_serve_step(model, splan, SERVE_B,
+                                ServeConfig(strategy=name, use_fused_kernels="off"), DEV)
+        rng = np.random.default_rng(SEED + 5)
+        batches = [make_batch(cfg, SERVE_B, rng) for _ in range(10)]
+        serve(state, batches[0])  # first call outside the counts and the clock
+        torch.cuda.synchronize(DEV)
+        ops.reset_launches()
+        lat = []
+        for b in batches:
+            t0 = time.perf_counter()
+            probs, ctx = serve.score(state, b)
+            torch.cuda.synchronize(DEV)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(ops.launches)
+        check(launches == {n: a.serve_launches.get(n, 0) * len(batches) for n in launches},
+              f"{name} serving launches per request {a.serve_launches}: {launches}")
+        check(sum(int(c.routing.overflow) for c in routed(serve.engine, ctx)) == 0,
+              f"{name}: nothing overflows")
+        err = max_err(probs, plain(state, batches[-1]))
+        check(bool(torch.isfinite(probs).all()) and err <= TOL,
+              f"{name} kernel vs plain probabilities err {err}")
+        step = ts.make_train_step(model, tplan, TRAIN_B, ts.TrainConfig(strategy=name), DEV)
+        tb = next(batch_stream(cfg, TRAIN_B, seed=SEED))
+        ops.reset_launches()
+        shared = shared_state_check(model, tplan, step, state, tb)
+        step_launches, sorts = dict(ops.launches), dict(ops.sorts)
+        check(step_launches == {n: a.train_launches.get(n, 0) for n in step_launches}
+              and sorts["segment_grad"] == 0,
+              f"{name} step launches {a.train_launches}: {step_launches}, sorts {sorts}")
+        out[name] = {"capacity": tplan.capacity[0], "request_ms": lat,
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "plain_vs_kernel_max_abs_err": err, "mean_prob": float(probs.mean()),
+                     "launches_per_request": {n: v / len(batches)
+                                              for n, v in launches.items() if v},
+                     "launches_per_step": {n: v for n, v in step_launches.items() if v},
+                     "shared_state_check": shared}
+        print(f"[baseline] {name} full width " + json.dumps(out[name]), flush=True)
+        del serve, plain, step
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def print_step_kernels(arch: str, train: dict) -> None:
@@ -2357,6 +2640,9 @@ def main() -> None:
             "dedup_adagrad skewed rows (1000, 33, 2) train": lambda: run_dedup_adagrad(
                 TRAIN_B, gen, ARCHS["deepfm"], skew=True)}.items():
         print(f"[kernel] {label} " + json.dumps(run()), flush=True)
+    # segment_grad and dedup_adagrad at the unpacked path's per-table shapes
+    print("[kernel] per-table shapes of the unpacked path "
+          + json.dumps(run_table_shapes(gen)), flush=True)
     _TABLES.clear()
     torch.cuda.empty_cache()
     print("[kernel] dot_interaction plan boundaries "
@@ -2393,6 +2679,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s", flush=True)
     serve_and_train("dlrm-narrow", runs, t_start)  # phases 10-11
+    for arch in MIXED_PATHS:  # phases 12-13
+        serve_and_train(arch, runs, t_start)
+    t_phase = time.perf_counter()
+    drive_baselines()
+    print(f"[wall] baselines done at {time.perf_counter() - t_start:.1f}s "
+          f"(these {time.perf_counter() - t_phase:.1f}s)", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -2408,6 +2700,11 @@ def main() -> None:
             where = f"{arch} serve + train"
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
+                        # the kernel's launches on every path run (300 requests,
+                        # 30 steps each)
+                        "launches_by_path": {f"{ar} {pa}": r2["launches"][name]
+                                             for (ar, pa), r2 in runs.items()
+                                             if r2["launches"].get(name)},
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

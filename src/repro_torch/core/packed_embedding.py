@@ -1,5 +1,6 @@
 """PICASSO packed-embedding primitives (``repro.core.packed_embedding`` in
-torch), for the ``picasso``, ``picasso_l2`` and ``picasso_narrow`` paths.
+torch), for the ``picasso``, ``picasso_l2`` and ``picasso_narrow`` paths and
+the baselines' lookups (``ps_lookup``, ``mp_lookup_nodedup``).
 
 The kernel layer beneath ``repro_torch.engine.EmbeddingEngine``: stateless,
 fixed-shape building blocks for one *packed* lookup per D-packed group:
@@ -171,7 +172,7 @@ def _probe_tiers(u: UniqueResult, hot_keys, hot_rows, l2_keys, l2_rows,
     return _Probe(hit, cache_slot, l1_rows, l2_hit, l2_slot, l2v, miss)
 
 
-def _shuffle_gather(table_shard: torch.Tensor, u: UniqueResult, r: Routing, world: int,
+def _shuffle_gather(table_shard: torch.Tensor, uniq: torch.Tensor, r: Routing, world: int,
                     capacity: int):
     """Route the misses to their owners (an identity all_to_all at world 1),
     gather the owner rows and route them back: ``(recv_ids, recv_local,
@@ -179,7 +180,7 @@ def _shuffle_gather(table_shard: torch.Tensor, u: UniqueResult, r: Routing, worl
     rps, width = table_shard.shape
     send_ids = torch.full((world * capacity + 1,), -1, dtype=torch.int32,
                           device=table_shard.device)
-    send_ids[r.send_slot.long()] = u.uniq.to(torch.int32)  # last slot = drop
+    send_ids[r.send_slot.long()] = uniq.to(torch.int32)  # last slot = drop
     recv_ids = send_ids[:-1].reshape(world, capacity)
     base = 0  # this rank's first row
     recv_valid = recv_ids >= 0
@@ -226,8 +227,8 @@ def mp_lookup(
     u = fixed_unique(ids, sentinel=rps * world)
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
-    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u, r, world,
-                                                             capacity)
+    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
+                                                             world, capacity)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
     miss_rows = back[take_idx] * r.kept[:, None].to(back.dtype)
     ctx = LookupCtx(
@@ -263,8 +264,8 @@ def mp_lookup_narrow(
     u = fixed_unique(ids, sentinel=rps * world)
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
-    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u, r, world,
-                                                             capacity)
+    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
+                                                             world, capacity)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1)
     miss_rows, narrow = ops.gather_project(back, take_idx, r.kept, proj, fused=fused)
     ctx = LookupCtx(
@@ -824,3 +825,61 @@ def flush_cache_narrow(
         new_l2 = _carry_exact_rows(new_l2, cache, l2, rows_padded)
     _decay(counts_shard, decay)
     return w_shard, acc_shard, counts_shard, new_l1, new_l2
+
+
+# ---------------------------------------------------------------------------
+# baseline lookups (paper §II-C) for the comparison strategies
+# ---------------------------------------------------------------------------
+
+
+def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, *, world: int) -> torch.Tensor:
+    """PS/DP-style lookup: all_gather the ids, gather the rows this shard
+    owns, psum the partial rows (no routing, no dedup, no cache). At world 1
+    the collectives are identities, so this is a masked gather: ids outside
+    ``[0, rps)`` (the sentinel slots of ``allgather_rows``) get exact zero
+    rows."""
+    _require_single_rank(world)
+    rps = table_shard.shape[0]
+    ok = (ids >= 0) & (ids < rps)  # the rows this rank owns start at 0
+    part = table_shard[torch.clamp(ids, 0, rps - 1).long()]
+    return part * ok[:, None].to(part.dtype)
+
+
+def mp_lookup_nodedup(
+    table_shard: torch.Tensor,
+    ids: torch.Tensor,
+    *,
+    world: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, LookupCtx]:
+    """Model-parallel Shuffle without K-Packed dedup (paper §II-C baseline):
+    every raw id, duplicates included, takes its own bucket slot.
+
+    The ids are sorted (stably, as ``jnp.argsort``), not uniqued: ``inv``
+    maps positions to sorted slots, so pooling and the transposed gradient
+    path compose unchanged, and the owner-side dedup + Adagrad sums the
+    duplicates' grads. ``ctx.order`` is the sort and ``ctx.slot_sorted`` is
+    ``arange(n)`` (``inv[order]``), so the backward's ``segment_grad`` runs
+    without a sort of its own. No tier: ``hit`` is all False. Needs
+    ``capacity >= n`` per owner in the worst case (``exact_capacity=True``
+    plans for lossless parity)."""
+    _require_single_rank(world)
+    n = ids.shape[0]
+    dev = ids.device
+    order = torch.argsort(ids, stable=True)
+    s = ids[order]
+    slot_sorted = torch.arange(n, dtype=torch.int32, device=dev)
+    inv = torch.empty((n,), dtype=torch.int32, device=dev)
+    inv[order] = slot_sorted
+    every = torch.ones((n,), dtype=torch.bool, device=dev)
+    r = partition(s, every, table_shard.shape[0], world, capacity)
+    recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, s, r, world,
+                                                             capacity)
+    take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
+    rows = back[take_idx] * r.kept[:, None].to(back.dtype)
+    ctx = LookupCtx(
+        uniq=s, inv=inv, uvalid=every, hit=torch.zeros((n,), dtype=torch.bool, device=dev),
+        cache_slot=torch.zeros((n,), dtype=torch.int32, device=dev), routing=r,
+        recv_ids=recv_ids, recv_local=recv_local, recv_valid=recv_valid,
+        order=order, slot_sorted=slot_sorted)
+    return rows, ctx

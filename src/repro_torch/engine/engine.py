@@ -9,25 +9,34 @@
 
 ``forward`` runs the planner's K-Interleaving waves and pools each packed
 group into ``pooled[gid]: [B, n_bags, D]``. Strategy is a per-group
-property: the engine owns a ``Dict[gid, LookupStrategy]``. The HybridHash
-hot tier participates only where ``use_cache`` is on, the strategy has
-``uses_cache`` AND the plan budgets ``cache_rows`` for that gid
-(``make_plan(enable_cache=False)`` budgets none). The L2 tier sits strictly
-behind it: on only where ``use_l2`` is on, L1 is active, the strategy has
-``uses_l2`` and the plan budgets ``l2_rows``. ``flush`` skips every group
-without an active L1 tier. In ``'psum'`` mode the flush writes the tiers
-back to the master first; in ``'stale'`` mode the master is already exact
-and is not overwritten. ``backward`` and ``flush`` update the state's
-tensors in place. A plan that narrows a group's master (a recorded
-``'picasso_narrow'`` assignment) can only be driven by ``'picasso_narrow'``.
+property: the engine owns a ``Dict[gid, LookupStrategy]``, and ``strategy=``
+takes a registry name (broadcast to every group), ``'mixed'``/``'auto'``
+(the plan's recorded assignment, else one compiled by ``core.assign`` and
+recorded on the plan), or a ``{gid: name}`` dict or ``StrategyAssignment``
+covering exactly the plan's gids. The HybridHash hot tier participates
+only where ``use_cache`` is on, the strategy has ``uses_cache`` AND the plan
+budgets ``cache_rows`` for that gid (``make_plan(enable_cache=False)``
+budgets none). The L2 tier sits strictly behind it: on only where
+``use_l2`` is on, L1 is active, the strategy has ``uses_l2`` and the plan
+budgets ``l2_rows``. ``flush`` skips every group without an active L1 tier,
+a ``ps`` group's budgeted tier among them. In ``'psum'`` mode the flush
+writes the tiers back to the master first; in ``'stale'`` mode the master
+is already exact and is not overwritten. ``backward`` and ``flush`` update
+the state's tensors in place. A plan that narrows a group's master (a
+recorded ``'picasso_narrow'`` assignment) can only be driven by
+``'picasso_narrow'``. With more than one strategy class, the metrics add
+per-class sums (``overflow/<name>``, ``cache_hits/<name>``).
 """
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import packed_embedding as pe
+from repro_torch.core.assign import StrategySpec, resolve_assignment
 from repro_torch.core.features import PackedBatch
 from repro_torch.core.interleaving import wave_barrier
 from repro_torch.core.packing import PicassoPlan
@@ -35,27 +44,6 @@ from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine.strategies import LookupStrategy, get_strategy
 from repro_torch.kernels import ops
 from repro_torch.optim import grad_compression as gcomp
-
-AUTO_NAMES = ("mixed", "auto")
-
-
-def resolve_assignment(plan: PicassoPlan, spec: Any) -> Dict[int, str]:
-    """gid -> strategy name for a broadcast registry name, validated against
-    the port's registry. A ``'picasso_narrow'`` broadcast is also recorded
-    on ``plan.strategy``, as the reference does, because the narrow master
-    widths (``PicassoPlan.narrow_width``) gate on it. The reference's
-    per-group cost-model assignment (``'mixed'``/``'auto'``, explicit dicts)
-    comes with a later slice."""
-    if not isinstance(spec, str) or spec in AUTO_NAMES:
-        raise NotImplementedError(
-            f"strategy {spec!r}: only broadcast registry names are ported; "
-            "'mixed'/'auto' and per-group assignments come with a later slice")
-    get_strategy(spec)
-    mapping = {g.gid: spec for g in plan.groups}
-    if spec == "picasso_narrow":
-        plan.strategy = dict(mapping)
-    return mapping
-
 
 class EngineContext(NamedTuple):
     """What a ``forward`` call leaves for statistics passes."""
@@ -67,7 +55,9 @@ class EngineContext(NamedTuple):
 class EmbeddingEngine:
     """Owns the sparse path for one PicassoPlan on one rank.
 
-    strategy: a registry name, broadcast to every group.
+    strategy: a registry name (broadcast), ``'mixed'``/``'auto'`` (use or
+        compile a per-group assignment), a ``{gid: name}`` dict or a
+        ``StrategyAssignment`` (see ``core.assign``).
     use_cache / use_l2 / use_interleave: the HybridHash tier, the L2 tier
         behind it and K-Interleaving waves (False: no tier; one wave of
         every group).
@@ -81,7 +71,8 @@ class EmbeddingEngine:
         validated here and handed to every strategy.
     """
 
-    def __init__(self, plan: PicassoPlan, world: int = 1, *, strategy: Any = "picasso",
+    def __init__(self, plan: PicassoPlan, world: int = 1, *,
+                 strategy: StrategySpec = "picasso",
                  use_cache: bool = True, use_l2: bool = True, use_interleave: bool = True,
                  lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
                  use_fused_kernels: Any = "auto", grad_compress: str = "none"):
@@ -97,7 +88,10 @@ class EmbeddingEngine:
         self.cache_update = cache_update
         self.use_fused = ops.resolve_fused(use_fused_kernels)
         self.grad_compress = gcomp.validate_routed_mode(grad_compress)
-        self.assignment: Dict[int, str] = resolve_assignment(plan, strategy)
+        # gid -> registry name; a compiled 'mixed'/'auto' assignment is
+        # recorded on the plan, so the host flush gates tiers identically
+        self.assignment: Dict[int, str] = resolve_assignment(
+            plan, strategy, world=world, use_cache=use_cache)
         # a narrow master is [rows, d]; every other strategy reads [rows, D]
         for g in plan.groups:
             if (plan.narrow_width(g.gid) < g.dim
@@ -107,7 +101,9 @@ class EmbeddingEngine:
                     f"{plan.narrow_width(g.gid)} (< dim {g.dim}), but this engine "
                     f"assigns {self.assignment.get(g.gid)!r}; narrow state is only "
                     "readable through 'picasso_narrow'")
-        names = sorted(set(self.assignment.values()))
+        names = tuple(sorted(set(self.assignment.values())))
+        self.strategy_names = names
+        self.strategy_name = names[0] if len(names) == 1 else "mixed"
         insts: Dict[str, LookupStrategy] = {
             name: get_strategy(name)(world=world, capacity=dict(plan.capacity),
                                      lr=lr_emb, eps=eps, cache_update=cache_update,
@@ -134,10 +130,14 @@ class EmbeddingEngine:
 
     @property
     def metric_keys(self) -> Tuple[str, ...]:
-        """The metric keys ``backward`` emits: totals plus the strategies'
-        per-tier keys (``cache_hits/l1``, ``cache_hits/l2``). Assignments are
-        broadcast names, so there are no per-strategy-class breakdowns."""
-        return ("overflow", "cache_hits") + self._extra_keys
+        """The metric keys ``backward`` emits: totals, per-class sums when
+        the assignment mixes classes, and the strategies' per-tier keys
+        (``cache_hits/l1``, ``cache_hits/l2``)."""
+        keys = ["overflow", "cache_hits"]
+        if len(self.strategy_names) > 1:
+            keys += [f"overflow/{n}" for n in self.strategy_names]
+            keys += [f"cache_hits/{n}" for n in self.strategy_names]
+        return tuple(keys) + self._extra_keys
 
     # ------------------------------------------------------------- forward
     def _wave_lookups(self, emb: Dict[str, EmbeddingState],
@@ -189,17 +189,21 @@ class EmbeddingEngine:
 
         The SegmentReduction of ``forward`` is linear in the looked-up rows,
         so its transpose is explicit: one ``ops.segment_grad`` pass, along
-        the forward unique's sort (no sort of its own), gives the
-        ``[n_unique, D]`` row grads, which each group's strategy applies.
+        the ctx's carried sort (no sort of its own), gives the
+        ``[n_rows, D]`` row grads, which each group's strategy applies.
+        With a mixed assignment, ``overflow/<name>`` and ``cache_hits/<name>``
+        break the totals down per strategy class (see ``metric_keys``).
         """
         emb = dict(emb)
         dev = next(iter(g_pooled.values())).device
-        ovf = torch.zeros((), dtype=torch.int32, device=dev)
-        hits = torch.zeros((), dtype=torch.int32, device=dev)
-        extra = {k: torch.zeros((), dtype=torch.int32, device=dev) for k in self._extra_keys}
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        ovf = {n: zero for n in self.strategy_names}
+        hits = {n: zero for n in self.strategy_names}
+        extra = {k: zero for k in self._extra_keys}
         for gid, g_p in g_pooled.items():
             pb = ctx.packed[gid]
             gctx = ctx.ctxs[gid]
+            name = self.assignment[gid]
             g_flat = g_p.reshape(-1, g_p.shape[-1]).contiguous()
             g_rows = ops.segment_grad(g_flat, pb.seg, pb.weights, gctx.inv,
                                       pb.ids.shape[0], fused=self.use_fused,
@@ -208,11 +212,19 @@ class EmbeddingEngine:
                 emb[str(gid)], gid, gctx, g_rows, cache_on=self.cache_on[gid],
                 l2_on=self.l2_on[gid])
             emb[str(gid)] = st2
-            ovf = ovf + o
-            hits = hits + h
+            ovf[name] = ovf[name] + o
+            hits[name] = hits[name] + h
             for k, v in self.strategies[gid].tier_metrics(gctx).items():
                 extra[k] = extra[k] + v
-        return emb, {"overflow": ovf, "cache_hits": hits, **extra}
+        # a single class's sums are the totals as they are, with no extra add
+        metrics = {"overflow": functools.reduce(operator.add, ovf.values()),
+                   "cache_hits": functools.reduce(operator.add, hits.values())}
+        if len(self.strategy_names) > 1:
+            for n in self.strategy_names:
+                metrics[f"overflow/{n}"] = ovf[n]
+                metrics[f"cache_hits/{n}"] = hits[n]
+        metrics.update(extra)
+        return emb, metrics
 
     # --------------------------------------------------------------- flush
     def flush(self, emb: Dict[str, EmbeddingState]) -> Dict[str, EmbeddingState]:

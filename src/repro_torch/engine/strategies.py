@@ -3,12 +3,22 @@
 
 A ``LookupStrategy`` owns the per-group sparse hot path: how packed IDs turn
 into rows (``lookup``) and how row gradients update the state
-(``apply_grads``). The port has the registry and three strategies:
+(``apply_grads``). Strategies bind to groups: the engine dispatches each
+packed group to the strategy its assignment names (``core.assign``), so a
+plan can replicate its tiny tables with ``ps`` while it routes and caches
+the big ones in the same step. The registry:
 
 ``picasso``
     K-Packed Unique&Partition, fixed-capacity Shuffle, HybridHash hot tier
     on the read path; transposed Shuffle + dedup/row-wise Adagrad, hit
     grads into the tier or to their owners.
+``hybrid``
+    ``picasso`` with the tier forced off: every unique id rides the Shuffle
+    every step. On a plan built with ``enable_packing=False`` it is the
+    paper's "MP without packing or cache" baseline (§II-C).
+``ps``
+    PS-style lookups (all_gather ids, psum partial rows): no routing, no
+    dedup, no cache; the backward all_gathers per-id grads.
 ``picasso_l2``
     ``picasso`` with a second, larger cache tier behind the hot tier: L1
     misses probe L2, only ids in neither tier ride the Shuffle, and the
@@ -19,23 +29,33 @@ into rows (``lookup``) and how row gradients update the state
     while the cold master stores and routes ``d = plan.narrow_dim`` wide
     rows, widened at lookup through a learned ``[d, D]`` projection. A
     group the plan does not narrow runs ``picasso_l2`` exactly.
+``mp_nodedup``
+    The Shuffle without K-Packed dedup: every raw id, duplicates included,
+    rides it. Exact against ``picasso`` on ``exact_capacity`` plans.
+``allgather_rows``
+    Dedup'd replication: the unique ids are served by ``ps_lookup`` and
+    their row grads ride one all_gather back.
 
 A strategy advertises its tiers through class attributes the engine gates
 on per group: ``uses_cache`` (L1 where the plan budgets ``cache_rows``),
-``uses_l2`` (L2 where the plan budgets ``l2_rows`` *and* L1 is active) and
-``extra_metric_keys`` (the per-tier counters ``tier_metrics`` reports).
-Every strategy's routed gradient hops honour ``grad_compress`` (``'none' |
-'fp16' | 'topk'``, ``optim.grad_compression``). The other strategies come
-with later slices.
+``uses_l2`` (L2 where the plan budgets ``l2_rows`` *and* L1 is active),
+``uses_routing_ctx`` (its ctx carries the Shuffle's routing, which the
+FCounter update reads) and ``extra_metric_keys`` (the per-tier counters
+``tier_metrics`` reports). Every ctx carries ``inv``, and ``order`` and
+``slot_sorted`` (a stable argsort of ``inv`` and ``inv`` in its order), so
+the engine's backward ``segment_grad`` never sorts. Every strategy's routed
+or gathered gradient hop honours ``grad_compress`` (``'none' | 'fp16' |
+'topk'``, ``optim.grad_compression``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Type
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 
 import torch
 
 from repro_torch.core import packed_embedding as pe
 from repro_torch.embedding.state import EmbeddingState
+from repro_torch.optim import grad_compression as gcomp
 
 _REGISTRY: Dict[str, Type["LookupStrategy"]] = {}
 
@@ -61,7 +81,7 @@ def get_strategy(name: str) -> Type["LookupStrategy"]:
         return _REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown lookup strategy {name!r}; available in the port: "
+            f"unknown lookup strategy {name!r}; available: "
             f"{', '.join(available_strategies())}") from None
 
 
@@ -71,6 +91,7 @@ class LookupStrategy:
     name = "base"
     uses_cache = False        # whether the HybridHash hot tier participates
     uses_l2 = False           # whether the L2 tier participates
+    uses_routing_ctx = True   # ctx carries Shuffle routing (MP strategies)
     extra_metric_keys: Tuple[str, ...] = ()  # keys tier_metrics reports
 
     def __init__(self, *, world: int, capacity: Dict[int, int], lr: float = 0.05,
@@ -136,6 +157,23 @@ class PicassoStrategy(LookupStrategy):
                           cache=cache2 if cache2 is not None else st.cache)
         return (st2, ctx.routing.overflow.to(torch.int32),
                 pe.cache_hit_count(ctx).to(torch.int32))
+
+
+@register_strategy("hybrid")
+class HybridStrategy(PicassoStrategy):
+    """MP Shuffle routing without the HybridHash tier (paper §II-C): the
+    ``picasso`` path with the tier never participating, so every unique id
+    is routed to its owner every step. Isolates the cache's contribution;
+    on a plan built with ``enable_packing=False`` it is the "MP without
+    packing or cache" baseline."""
+
+    uses_cache = False
+
+    def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
+        return super().lookup(st, gid, ids, cache_on=False)
+
+    def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
+        return super().apply_grads(st, gid, ctx, g_rows, cache_on=False)
 
 
 @register_strategy("picasso_l2")
@@ -234,3 +272,105 @@ class PicassoNarrowStrategy(PicassoL2Strategy):
                           l2=l22 if with_l2 else st.l2, proj=proj2)
         hits = pe.cache_hit_count(ctx) + pe.l2_hit_count(ctx)
         return st2, ctx.routing.overflow.to(torch.int32), hits.to(torch.int32)
+
+
+def _identity_order(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, slot_sorted)`` of a ctx whose ``inv`` is ``arange(n)``."""
+    return (torch.arange(n, dtype=torch.int64, device=device),
+            torch.arange(n, dtype=torch.int32, device=device))
+
+
+def _gathered_apply(strategy: "LookupStrategy", st: EmbeddingState, ids: torch.Tensor,
+                    g_rows: torch.Tensor) -> Tuple[EmbeddingState, torch.Tensor, torch.Tensor]:
+    """The replicated strategies' backward: every shard's ids and row grads
+    are all_gathered (the grads compressed on the wire under
+    ``grad_compress``; both gathers are identities at world 1) and each
+    shard applies the ones it owns with dedup + row-wise Adagrad, in place.
+    Returns zero overflow and zero hits: nothing routes, nothing is cached."""
+    rps = st.w.shape[0]
+    all_g = gcomp.compressed_all_gather(g_rows, strategy.world, mode=strategy.grad_compress,
+                                        fused=strategy.use_fused)
+    local = ids.to(torch.int32)  # the rows this rank owns start at 0
+    ok = (local >= 0) & (local < rps)
+    pe._dedup_apply(st.w, st.acc, torch.clamp(local, 0, rps - 1), all_g, ok, strategy.lr,
+                    strategy.eps, fused=strategy.use_fused)
+    zero = torch.zeros((), dtype=torch.int32, device=g_rows.device)
+    return st, zero, zero
+
+
+class PSCtx(NamedTuple):
+    """Context of a PS lookup: rows are per id, so ``inv`` is the identity
+    and so is its sort."""
+
+    inv: torch.Tensor          # [n] arange(n), int32
+    ids: torch.Tensor          # [n] the packed ids (the backward needs them)
+    order: torch.Tensor        # [n] arange(n), int64
+    slot_sorted: torch.Tensor  # [n] arange(n), int32
+
+
+@register_strategy("ps")
+class PSStrategy(LookupStrategy):
+    """PS/DP-style baseline (paper §II-C): all_gather ids, psum partial rows.
+    No routing, no dedup, no cache: the fragmentary pattern PICASSO beats.
+    The backward all_gathers per-id grads and applies the local ones."""
+
+    uses_cache = False
+    uses_routing_ctx = False
+
+    def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
+        rows = pe.ps_lookup(st.w, ids, world=self.world)
+        order, slot_sorted = _identity_order(ids.shape[0], ids.device)
+        return rows, PSCtx(inv=slot_sorted, ids=ids, order=order, slot_sorted=slot_sorted)
+
+    def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
+        return _gathered_apply(self, st, ctx.ids, g_rows)
+
+
+@register_strategy("mp_nodedup")
+class MPNoDedupStrategy(LookupStrategy):
+    """Model-parallel Shuffle without K-Packed dedup (paper §II-C baseline):
+    every raw id, duplicates included, takes a Shuffle bucket slot, so the
+    wire payload scales with the batch's id count, not its unique count.
+    Exact against ``picasso`` when nothing overflows (``exact_capacity=True``
+    plans): the owner-side dedup + Adagrad sums the duplicates' grads."""
+
+    def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
+        return pe.mp_lookup_nodedup(st.w, ids, world=self.world,
+                                    capacity=self.capacity[gid])
+
+    def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
+        pe._apply_miss_grads(st.w, st.acc, ctx, g_rows, self.world, self.lr, self.eps,
+                             self.use_fused, self.grad_compress)
+        pe.count_frequencies(st.counts, ctx)
+        return (st, ctx.routing.overflow.to(torch.int32),
+                torch.zeros((), dtype=torch.int32, device=g_rows.device))
+
+
+class AllGatherCtx(NamedTuple):
+    """Context of an ``allgather_rows`` lookup: rows are per unique slot."""
+
+    inv: torch.Tensor          # [n] position -> unique slot
+    uniq: torch.Tensor         # [n] sorted unique ids (sentinel-padded)
+    order: torch.Tensor        # [n] the unique's stable sort (int64)
+    slot_sorted: torch.Tensor  # [n] ``inv[order]`` (int32)
+
+
+@register_strategy("allgather_rows")
+class AllGatherRowsStrategy(LookupStrategy):
+    """Dedup'd replication baseline: the batch is uniqued (fixed shape) and
+    the unique set served by ``ps_lookup``, sentinel slots as exact zero
+    rows. The backward all_gathers the unique ids and their row grads and
+    applies them on the owner shard. Its wire cost sits between ``ps`` and
+    the routed strategies; no routing ctx, no tiers."""
+
+    uses_cache = False
+    uses_routing_ctx = False
+
+    def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
+        u = pe.fixed_unique(ids, sentinel=st.w.shape[0] * self.world)
+        rows = pe.ps_lookup(st.w, u.uniq, world=self.world)
+        return rows, AllGatherCtx(inv=u.inv, uniq=u.uniq, order=u.order,
+                                  slot_sorted=u.slot_sorted)
+
+    def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
+        return _gathered_apply(self, st, ctx.uniq, g_rows)

@@ -9,14 +9,19 @@ dcn-v2 on one card.
       --device cpu --n-requests 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
       --strategy picasso_narrow --narrow-dim 4 --l2-budget 2147483648
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
+      --no-packing --strategy mixed
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
+``--strategy mixed``/``auto`` compiles a per-group assignment with the
+constant cost model at the serving batch before the state is made and
+prints it.
 """
 import argparse
 
 
 def main(argv=None):
-    from repro_torch.engine import available_strategies
+    from repro_torch.engine import AUTO_NAMES, available_strategies
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -25,9 +30,13 @@ def main(argv=None):
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--n-requests", type=int, default=10)
-    ap.add_argument("--strategy", default="picasso", choices=names,
-                    help="EmbeddingEngine lookup strategy, broadcast to every "
-                         f"packed group: one of {', '.join(names)}")
+    ap.add_argument("--strategy", default="picasso", choices=names + AUTO_NAMES,
+                    help="EmbeddingEngine lookup strategy: one of "
+                         f"{', '.join(names)} (broadcast to every packed "
+                         f"group), or {'/'.join(AUTO_NAMES)} for the "
+                         "per-group cost-model assignment")
+    ap.add_argument("--no-packing", action="store_true",
+                    help="one packed group per table (no D-Packing)")
     ap.add_argument("--l2-budget", type=int, default=0, metavar="BYTES",
                     help="L2 cache tier budget in bytes (0 disables; >0 budgets "
                          "an L2 tier behind the hot tier, used by picasso_l2 and "
@@ -56,21 +65,25 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core.packing import make_plan
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.engine import resolve_assignment
+    from repro_torch.engine import maybe_compile, resolve_assignment
     from repro_torch.models.wdl import WDLModel
     from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
-                     narrow_dim=args.narrow_dim or None)
-    # record the assignment before init_state: a 'picasso_narrow' broadcast
-    # gates the master widths the state is sized by
-    resolve_assignment(plan, args.strategy)
+                     narrow_dim=args.narrow_dim or None,
+                     enable_packing=not args.no_packing)
+    # record the assignment before init_state: a compiled mix or a
+    # 'picasso_narrow' broadcast gates the master widths the state is sized
+    # by; serving has no micro pipeline, so the cost model sees the batch
+    strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch,
+                             log=lambda s: print(f"[serve] {s}"))
+    resolve_assignment(plan, strategy)
     model = WDLModel(cfg, plan)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_state(model, plan, gen, device)
-    scfg = ServeConfig(strategy=args.strategy, use_fused_kernels=args.fused_kernels)
+    scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
     serve = make_serve_step(model, plan, args.batch, scfg, device)
     rng = np.random.default_rng(args.seed)
     lat = []

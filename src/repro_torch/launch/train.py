@@ -12,17 +12,20 @@ or dcn-v2 on one card (world 1).
       --l2-budget 2147483648
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --grad-compress topk
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+      --global-batch 256 --no-packing --strategy mixed
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
 ``--smoke`` and ``1<<30`` without, a flush every 20 steps after 10 warm-up
-steps.
+steps. ``--strategy mixed``/``auto`` compiles a per-group assignment with
+the constant cost model before the state is made and prints it.
 """
 import argparse
 
 
 def main(argv=None):
-    from repro_torch.engine import available_strategies
+    from repro_torch.engine import AUTO_NAMES, available_strategies
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -31,9 +34,11 @@ def main(argv=None):
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=256)
-    ap.add_argument("--strategy", default="picasso", choices=names,
-                    help="EmbeddingEngine lookup strategy, broadcast to every "
-                         f"packed group: one of {', '.join(names)}")
+    ap.add_argument("--strategy", default="picasso", choices=names + AUTO_NAMES,
+                    help="EmbeddingEngine lookup strategy: one of "
+                         f"{', '.join(names)} (broadcast to every packed "
+                         f"group), or {'/'.join(AUTO_NAMES)} for the "
+                         "per-group cost-model assignment")
     ap.add_argument("--fused-kernels", default="auto", choices=("auto", "on", "off"),
                     help="CUDA kernels: 'auto' for tensors on the card, 'on' "
                          "forces them (raises on the CPU), 'off' forces the "
@@ -54,8 +59,16 @@ def main(argv=None):
                          "per-row amax-scaled float16 cast, 'topk' = per-row "
                          "magnitude top-(D/4) sparsification, 'none' keeps "
                          "training bitwise-exact")
+    ap.add_argument("--overlap", default="auto", choices=("off", "on", "auto"),
+                    help="software-pipelined train step: 'on' issues the "
+                         "sparse lookup of micro-batch i+1 behind a handoff "
+                         "while the dense stage of i runs, 'off' keeps the "
+                         "plain loop, 'auto' overlaps whenever the step has "
+                         ">1 micro-batch; numerics are identical either way")
     ap.add_argument("--no-cache", action="store_true",
                     help="no HybridHash hot tier (the plan budgets none)")
+    ap.add_argument("--no-packing", action="store_true",
+                    help="one packed group per table (no D-Packing)")
     ap.add_argument("--no-interleave", action="store_true",
                     help="one K-Interleaving wave of every packed group")
     ap.add_argument("--n-micro", type=int, default=None,
@@ -80,23 +93,27 @@ def main(argv=None):
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
-    from repro_torch.engine import resolve_assignment
+    from repro_torch.engine import maybe_compile, resolve_assignment
     from repro_torch.models.wdl import WDLModel
     from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = make_plan(cfg, world=1, per_device_batch=args.global_batch,
+                     enable_packing=not args.no_packing,
                      enable_cache=not args.no_cache, n_micro=args.n_micro,
                      hot_bytes=1 << 24 if args.smoke else 1 << 30,
                      l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
                      flush_iters=20, warmup_iters=10)
-    # record the assignment before init_state: a 'picasso_narrow' broadcast
-    # gates the master widths the state is sized by
-    resolve_assignment(plan, args.strategy)
+    # record the assignment before init_state: a compiled mix or a
+    # 'picasso_narrow' broadcast gates the master widths the state is sized
+    # by; training issues plan.microbatch ids a step (per_device_batch=None)
+    strategy = maybe_compile(plan, args.strategy, use_cache=not args.no_cache,
+                             log=lambda s: print(f"[train] {s}"))
+    resolve_assignment(plan, strategy, use_cache=not args.no_cache)
     model = WDLModel(cfg, plan)
-    tcfg = TrainConfig(strategy=args.strategy, use_cache=not args.no_cache,
-                       use_interleave=not args.no_interleave,
+    tcfg = TrainConfig(strategy=strategy, use_cache=not args.no_cache,
+                       use_interleave=not args.no_interleave, overlap=args.overlap,
                        use_fused_kernels=args.fused_kernels,
                        grad_compress=args.grad_compress,
                        lr_emb=args.lr_emb, lr_dense=args.lr_dense)

@@ -150,8 +150,8 @@ def compressed_all_gather(g: torch.Tensor, world: int = 1, mode: str = "none",
     """all_gather of gradient rows with the payload compressed on the wire.
     Every rank would gather the same payload and decompress it alike, so
     replica-consistent consumers stay consistent; at world 1 the gather is
-    the identity and only the roundtrip remains. No caller yet: the
-    ``ps`` and ``allgather_rows`` strategies come with a later slice."""
+    the identity and only the roundtrip remains. The ``ps`` and
+    ``allgather_rows`` strategies' backward moves its grads through it."""
     require_single_rank(world)
     if mode == "none":
         return g

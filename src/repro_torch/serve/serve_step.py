@@ -24,7 +24,7 @@ from repro_torch.models.wdl import WDLModel
 class ServeConfig:
     """Serving-side engine knobs."""
 
-    strategy: Any = "picasso"  # a broadcast registry name
+    strategy: Any = "picasso"  # registry name | 'mixed' | 'auto' | {gid: name}
     use_cache: bool = True
     use_l2: bool = True   # the L2 tier (plan-budgeted, behind L1)
     # CUDA sparse and interaction kernels: 'auto' (for tensors on the card) | 'on' | 'off'

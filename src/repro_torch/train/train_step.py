@@ -58,7 +58,7 @@ class TrainConfig:
     lr_emb: float = 0.05
     lr_dense: float = 1e-3
     optimizer: str = "adam"        # 'adam' | 'lamb' | 'sgd'
-    strategy: Any = "picasso"      # a broadcast registry name
+    strategy: Any = "picasso"      # registry name | 'mixed' | 'auto' | {gid: name}
     pipeline_micro: bool = True    # D-Interleaving pipeline order
     overlap: Any = "auto"          # 'off' | 'on' | 'auto' (on when n_micro > 1)
     use_cache: bool = True
@@ -90,8 +90,10 @@ class TrainConfig:
 class TrainStep:
     """``step(state, batch) -> (state, metrics)``; the state is updated in
     place and returned. Metrics are device tensors (``loss``, ``grad_norm``,
-    ``overflow``, ``cache_hits`` and, for two-tier strategies,
-    ``cache_hits/l1`` and ``cache_hits/l2``) plus the host int ``step``."""
+    ``overflow``, ``cache_hits``, for a mixed assignment
+    ``overflow/<name>`` and ``cache_hits/<name>`` per strategy class, and,
+    for two-tier strategies, ``cache_hits/l1`` and ``cache_hits/l2``) plus
+    the host int ``step``."""
 
     def __init__(self, model: WDLModel, plan: PicassoPlan, global_batch: int,
                  tcfg: TrainConfig, device: torch.device):
@@ -260,13 +262,14 @@ def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any =
                   ) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
     """Host-scheduled HybridHash flush, ``state -> state`` (for
     ``flush_in_step=False``). ``strategy=None`` follows the assignment
-    recorded on the plan (a ``'picasso_narrow'`` broadcast), else
+    recorded on the plan (a ``'mixed'``/``'auto'`` compile or a
+    ``'picasso_narrow'`` broadcast), so groups whose strategy never reads
+    a tier (``ps`` among them) are skipped; an unassigned plan flushes as
     ``'picasso'``. ``cache_update``, ``strategy``, ``use_cache`` and
     ``use_l2`` must mirror the training engine's, or the flush would write a
     tier training never updated back over the master."""
     if strategy is None:
-        names = set(plan.strategy.values())
-        strategy = names.pop() if len(names) == 1 else "mixed" if names else "picasso"
+        strategy = "mixed" if plan.strategy else "picasso"
     engine = EmbeddingEngine(plan, plan.world, strategy=strategy, use_cache=use_cache,
                              use_l2=use_l2, cache_update=cache_update)
 

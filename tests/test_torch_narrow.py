@@ -924,8 +924,10 @@ def test_engine_rejects_non_narrow_assignment_on_narrow_plan():
     _, plan = _narrow_plans()
     with pytest.raises(ValueError, match="picasso_narrow"):
         EmbeddingEngine(plan, 1, strategy="picasso_l2")
-    with pytest.raises(NotImplementedError, match="mixed"):
-        EmbeddingEngine(plan, 1, strategy="mixed")
+    with pytest.raises(ValueError, match="picasso_narrow"):
+        EmbeddingEngine(plan, 1, strategy={0: "ps"})
+    # 'mixed' follows the assignment the plan records
+    assert EmbeddingEngine(plan, 1, strategy="mixed").assignment == {0: "picasso_narrow"}
     assert EmbeddingEngine(plan, 1, strategy="picasso_narrow").l2_on == {0: True}
 
 

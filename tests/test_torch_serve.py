@@ -122,7 +122,7 @@ def test_launcher_help_exits_zero(capsys):
     assert exc.value.code == 0
     out = capsys.readouterr().out
     for flag in ("--arch", "--smoke", "--batch", "--n-requests", "--strategy",
-                 "--fused-kernels", "--device", "--seed"):
+                 "--fused-kernels", "--device", "--seed", "--no-packing"):
         assert flag in out
 
 
