@@ -199,7 +199,29 @@ Phases, in order (any failure raises and exits non-zero):
    ``exact_capacity`` plans) and ``allgather_rows`` each serve 10 requests
    against the plain path (1e-5) and take one kernel step and one plain
    step from copies of the state (the shared-state check), each with its
-   launches checked and printed.
+   launches checked and printed;
+14. the runtime at world 1. Full-width deepfm on the train launcher's plan:
+   30 steps unguarded, then from the same seed 30 steps with the anomaly
+   guard (the step, judged, journals the rows it writes and judges itself
+   before the dense update): the state digests (an int64 sum
+   on the card of every leaf's bits as int32) and losses bitwise equal, the
+   guarded run's launches counted; one ``save_checkpoint`` of that whole
+   state (about 9.2 GB) and one ``restore_verified`` into its tensors zeroed,
+   the digest bitwise back, bytes, seconds, GB/s and the peak host RSS of
+   each printed; a guarded run fed ``nan@12,nan@13`` through
+   ``ChaosStream``: both steps rejected with the digest unchanged, training
+   going on; ten steps and one replan with the hot envelope halved (half
+   the bytes the 4,194,304-row tier holds), master rows, adagrad slots and
+   FCounter exactly kept, the harvest, compile and migration seconds
+   printed, then one step from a shared state on the new plan against the
+   plain path at phase 6's bars. At deepfm-smoke width on the card: the
+   ``Supervisor`` through ``nan@7,nan@8,crash@13,ckpt@20`` (checkpoints
+   every 5 steps) ends bitwise at a clean run over the batches it kept, the
+   torn checkpoint is quarantined; ``run_stream`` publishes three segments;
+   ``python -m repro_torch.launch.serve --reload-dir ... --chaos torn@2``
+   as a subprocess loads the newest delta, keeps it past the torn one and
+   serves within 1e-5 of the trainer's state served in-process; the same
+   server under ``PYTHONHASHSEED=1`` fails on the packing salts.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -212,8 +234,11 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -228,8 +253,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, get_shapes  # noqa: E402
 from repro_torch.configs.paper_models import dlrm  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
-from repro_torch.core.features import pack_group  # noqa: E402
+from repro_torch.core.features import pack_group, table_salts  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
+from repro_torch.data.pipeline import ReplayableStream  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.engine import (compile_assignment, maybe_compile,  # noqa: E402
                                 resolve_assignment)
@@ -237,8 +263,14 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim import grad_compression as gcomp  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from repro_torch.runtime import (AnomalyGuard, ChaosController, ChaosStream,  # noqa: E402
+                                 FaultPlan, PublishPoller, Replanner, apply_plan_meta,
+                                 parse_fault_plan, plan_meta, publish_state, run_stream)
+from repro_torch.runtime.chaos import tear_published  # noqa: E402
 from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
+from repro_torch.train.fault_tolerance import Supervisor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -2485,6 +2517,419 @@ def ptxas_usage(log: str):
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+# the runtime at world 1: the guard, checkpoints and the replanner at full
+# width, the supervisor, stream and reload matrix at smoke width
+
+GUARD_NAN = (12, 13)       # batches the full-width guarded run is fed poisoned
+SMOKE_CHAOS = "nan@7,nan@8,crash@13,ckpt@20"
+SMOKE_B, SMOKE_STEPS, SMOKE_CKPT_EVERY = 32, 30, 5
+SMOKE_SEGMENTS, SMOKE_SEGMENT_STEPS = 3, 5
+SERVE_SMOKE_B, SERVE_SMOKE_REQUESTS, SERVE_TORN_AT = 64, 4, 2
+
+
+def state_digest(state) -> list:
+    """One integer a leaf, in leaf-name order: the int64 sum on the device of
+    the leaf's bits viewed as int32 (host ints as they are)."""
+    sums, host = [], []
+    for name, x in sorted(ckpt._flatten(state).items()):
+        if isinstance(x, torch.Tensor):
+            v = x.detach().reshape(-1)
+            v = v.to(torch.int32) if v.dtype == torch.bool else v.view(torch.int32)
+            sums.append(torch.sum(v, dtype=torch.int64))
+        else:
+            host.append((len(sums) + len(host), int(x)))
+    out = torch.stack(sums).tolist() if sums else []
+    for i, v in host:
+        out.insert(i, v)
+    return out
+
+
+class RssSampler:
+    """The process's resident set, sampled every 5 ms on a thread: the peak
+    above the level at entry, in bytes."""
+
+    def __enter__(self):
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def above_base(self) -> int:
+        return self.peak - self.base
+
+
+def guard_run(batches, guard: bool, nan=(), keep: bool = False) -> dict:
+    """Full-width deepfm on the train launcher's plan from seed 0 over
+    ``batches``: unguarded (the default step) or guarded (the step judged by
+    ``AnomalyGuard``), the batches at ``nan`` poisoned through
+    ``ChaosStream``; launch counters reset just before and read just after.
+    Around each poisoned step the digest must not move."""
+    a = ARCHS["deepfm"]
+    cfg, plan = arch_plan(a, TRAIN_B, train=True)
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    step = ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(strategy=a.strategy), DEV)
+    fn = AnomalyGuard(step) if guard else step
+    stream = ChaosStream(iter(batches), frozenset(nan)) if nan else iter(batches)
+    torch.cuda.synchronize(DEV)
+    ops.reset_launches()
+    lat, rejected, losses = [], [], []
+    for i, b in enumerate(stream):
+        before = state_digest(state) if i in nan else None
+        t0 = time.perf_counter()
+        state, m = fn(state, b)
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if i in nan:
+            check(m["anomalous"] == 1 and state_digest(state) == before,
+                  f"guarded step {i + 1} (batch {i} poisoned) rejected with the state "
+                  f"digest unchanged: {m.get('anomalous')}")
+            rejected.append(i)
+        elif guard:
+            check(m["anomalous"] == 0, f"clean guarded step {i + 1} accepted")
+    launches = dict(ops.launches)
+    out = {"digest": state_digest(state), "lat": lat, "losses": losses, "launches": launches,
+           "rejected": rejected, "accepted": len(lat) - len(rejected),
+           "step": state["step"], "plan": plan, "cfg": cfg, "model": model}
+    if keep:
+        out["state"] = state
+    else:
+        del state
+    del step, fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def steady_p50(lat) -> float:
+    return float(np.percentile([t for i, t in enumerate(lat, start=1)
+                                if i > WARMUP_ITERS and i != FLUSH_ITERS], 50))
+
+
+def checkpoint_dir() -> str:
+    """A new directory on the file system with the most free space of the
+    temporary directory and the checkout (removed by the caller)."""
+    roots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent)]
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    return tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+
+
+def full_width_checkpoint(run: dict) -> dict:
+    """``save_checkpoint`` of the guarded run's whole train state, then
+    ``restore_verified`` into the same tensors zeroed: the digest after the
+    restore bitwise the digest before. Bytes, seconds, GB/s each way and the
+    peak host RSS above the level before each."""
+    state, plan = run["state"], run["plan"]
+    nbytes = sum(x.numel() * x.element_size() for x in ckpt._flatten(state).values()
+                 if isinstance(x, torch.Tensor))
+    d = checkpoint_dir()
+    try:
+        free = shutil.disk_usage(d).free
+        check(free > 1.2 * nbytes, f"free disk {free / 1e9:.1f} GB for a {nbytes / 1e9:.2f} GB "
+              "checkpoint")
+        before = state_digest(state)
+        torch.cuda.synchronize(DEV)
+        with RssSampler() as rs_save:
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(d, int(state["step"]), state, meta=plan_meta(plan),
+                                 salts=table_salts(plan))
+            t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()
+        t_sync = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        for x in ckpt._flatten(state).values():
+            if isinstance(x, torch.Tensor):
+                x.zero_()
+        zeroed = state_digest(state)
+        check(zeroed != before, "the zeroed template differs from the saved state")
+        torch.cuda.synchronize(DEV)
+        with RssSampler() as rs_load:
+            t0 = time.perf_counter()
+            restored, s = ckpt.restore_verified(d, state)
+            torch.cuda.synchronize(DEV)
+            t_load = time.perf_counter() - t0
+        after = state_digest(restored)
+        check(after == before and s == int(state["step"]),
+              "full-width restore_verified gives back the saved state bit for bit")
+        run["state"] = restored
+        return {"state_bytes": nbytes, "bytes_on_disk": on_disk, "free_disk_bytes": free,
+                "codec": "npy.zst" if ckpt.zstandard is not None else "npy",
+                "dir_on": "checkout" if str(Path(d).parent) == str(
+                    Path(__file__).resolve().parent) else "tmp",
+                "save_s": t_save, "save_gb_per_s": nbytes / t_save / 1e9,
+                "sync_after_save_s": t_sync,
+                "restore_s": t_load, "restore_gb_per_s": nbytes / t_load / 1e9,
+                "save_peak_rss_above_base_bytes": rs_save.above_base,
+                "restore_peak_rss_above_base_bytes": rs_load.above_base,
+                "chunk_bytes": ckpt.CHUNK_BYTES, "digest_equal": after == before}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def full_width_replan(batches) -> dict:
+    """Ten steps, then one replan with the hot envelope halved (half the
+    bytes the hot tier holds: the planned 1 GiB caps at 4,194,304 rows, so
+    half of it would change nothing): master rows, adagrad slots and the
+    FCounter after the migration are exactly the old ones with the tier
+    written back, the new tier holds the rows it ranks, and one step from a
+    shared state on the new plan meets the kernel-vs-plain bars."""
+    a = ARCHS["deepfm"]
+    cfg, plan = arch_plan(a, TRAIN_B, train=True)
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    step = ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(strategy=a.strategy), DEV)
+    for b in batches[:10]:
+        state, _ = step(state, b)
+    g = plan.groups[0]
+    hot_now = plan.cache_rows[g.gid] * (g.dim + 1) * 4
+    rp = Replanner(plan, strategy=a.strategy, hot_bytes=hot_now // 2)
+    st = state["emb"][str(g.gid)]
+    w_exp, acc_exp, counts = st.w.clone(), st.acc.clone(), st.counts.clone()
+    mine = st.cache.keys < g.rows
+    w_exp[st.cache.keys[mine].long()] = st.cache.rows[mine]
+    acc_exp[st.cache.keys[mine].long()] = st.cache.acc[mine]
+    torch.cuda.synchronize(DEV)
+    out = rp.maybe_replan(state, step=10)
+    torch.cuda.synchronize(DEV)
+    check(out is not None, f"the replan with half the hot tier's bytes changes the plan: "
+          f"{rp.events[-1].describe()}")
+    plan2, state = out
+    ev = rp.events[-1]
+    mg = state["emb"][str(g.gid)]
+    exact = (torch.equal(mg.w, w_exp) and torch.equal(mg.acc, acc_exp)
+             and torch.equal(mg.counts, counts))
+    check(exact, "migration keeps every master row, adagrad slot and FCounter entry")
+    h1 = plan2.cache_rows[g.gid]
+    live = mg.cache.keys < g.rows
+    keys = mg.cache.keys[live].long()
+    check(mg.cache.keys.shape[0] == h1 and bool((mg.cache.keys[1:] >= mg.cache.keys[:-1]).all())
+          and torch.equal(mg.cache.rows[live], w_exp[keys])
+          and int(counts[keys].min()) >= int(counts.sort(descending=True).values[h1 - 1]),
+          "the new tier holds the top rows by count, loaded from the synced master")
+    del w_exp, acc_exp, counts
+    torch.cuda.empty_cache()
+    model2 = WDLModel(cfg, plan2)
+    step2 = ts.make_train_step(model2, plan2, TRAIN_B, ts.TrainConfig(strategy="mixed"), DEV)
+    shared = shared_state_check(model2, plan2, step2, state, batches[10])
+    state, m = step2(state, batches[10])
+    check(np.isfinite(float(m["loss"])), "a step on the replanned state")
+    res = {"event": ev.describe(), "seconds": ev.seconds,
+           "hot_rows": [plan.cache_rows[g.gid], h1], "hot_bytes": [plan.hot_bytes, hot_now // 2],
+           "master_exact": exact, "shared_state": shared}
+    del state, step, step2, mg, st
+    torch.cuda.empty_cache()
+    return res
+
+
+def smoke_plan():
+    """The train launcher's smoke plan at B = 32 with a 1<<14-byte tier
+    flushed every 5 steps after 2."""
+    cfg = get_config("deepfm", smoke=True)
+    plan = make_plan(cfg, world=1, per_device_batch=SMOKE_B, hot_bytes=1 << 14,
+                     flush_iters=5, warmup_iters=2, mesh_shape=(1, 1))
+    resolve_assignment(plan, "picasso")
+    return cfg, plan, WDLModel(cfg, plan)
+
+
+def smoke_supervised(d: str, chaos: bool):
+    cfg, plan, model = smoke_plan()
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    guard = AnomalyGuard(ts.make_train_step(model, plan, SMOKE_B, ts.TrainConfig(), DEV))
+    ctl = ChaosController(parse_fault_plan(SMOKE_CHAOS) if chaos else FaultPlan())
+    stream = ctl.wrap_stream(ReplayableStream(
+        lambda s: batch_stream(cfg, SMOKE_B, seed=SEED, start=s)))
+    # every checkpoint kept, so the torn one is still there to be quarantined
+    sup = Supervisor(d, ckpt_every=SMOKE_CKPT_EVERY, backoff_s=0.0, salts=table_salts(plan),
+                     keep=SMOKE_STEPS // SMOKE_CKPT_EVERY)
+
+    def on_metrics(i, m):
+        ctl.after_checkpoint(i, d, sup.ckpt)
+        ctl.injector(i)
+
+    state = sup.run(state, guard, stream, SMOKE_STEPS, on_metrics=on_metrics)
+    return state, sup, guard, ctl
+
+
+def smoke_matrix() -> dict:
+    """At deepfm-smoke width on the card: the Supervisor through
+    ``SMOKE_CHAOS`` (checkpoints every 5 steps) ends bitwise at a clean run
+    over the batches it did not reject; ``run_stream`` publishes; a serve
+    launcher subprocess follows the deltas (``--reload-dir``, a torn delta
+    before request 2) within 1e-5 of the trainer's state served in-process;
+    another under a different ``PYTHONHASHSEED`` fails on the salts."""
+    out = {}
+    root = Path(checkpoint_dir())
+    try:
+        state, sup, guard, ctl = smoke_supervised(str(root / "sup"), chaos=True)
+        cfg, plan, model = smoke_plan()
+        rejected = sorted(parse_fault_plan(SMOKE_CHAOS).nan_batch)
+        clean = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        step = ts.make_train_step(model, plan, SMOKE_B, ts.TrainConfig(), DEV)
+        for i, b in enumerate(batch_stream(cfg, SMOKE_B, seed=SEED)):
+            if i >= SMOKE_STEPS:
+                break
+            if i not in rejected:
+                clean, _ = step(clean, b)
+        same = state_digest(state) == state_digest(clean)
+        check(same and [e.kind for e in guard.events] == ["nonfinite"] * len(rejected)
+              and sup.total_failures == 1 and ctl.fired == {"crash@13", "ckpt@20"},
+              f"supervised chaos run: bitwise {same}, events {guard.events}, failures "
+              f"{sup.total_failures}, fired {ctl.fired}")
+        template = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(1), DEV)
+        _, s = ckpt.restore_verified(str(root / "sup"), template, step=15)
+        quarantined = sorted(p.name for p in (root / "sup").glob("step_*.corrupt"))
+        check(s == 10 and quarantined == ["step_00000015.corrupt"],
+              f"the torn step-15 checkpoint is quarantined, restore falls back: {s} "
+              f"{quarantined}")
+        out["supervisor"] = {"chaos": SMOKE_CHAOS, "bitwise_clean": same,
+                             "rejected_batches": rejected, "restores": sup.total_failures,
+                             "quarantined": quarantined, "fallback_step": s}
+        del state, clean, template
+        # the streaming driver, publishing every segment
+        pub = str(root / "pub")
+        state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+        writer = ckpt.AsyncCheckpointer(str(root / "stream"), salts=table_salts(plan))
+        state, last = run_stream(
+            state, step, ReplayableStream(lambda s: batch_stream(cfg, SMOKE_B, seed=SEED,
+                                                                 start=s)),
+            segment_steps=SMOKE_SEGMENT_STEPS, n_segments=SMOKE_SEGMENTS, checkpointer=writer,
+            meta_fn=lambda: plan_meta(plan),
+            publisher=lambda i, st: publish_state(pub, i, st, meta=plan_meta(plan),
+                                                  salts=table_salts(plan)),
+            log=lambda s: None)
+        writer.wait()
+        check(last == SMOKE_SEGMENTS * SMOKE_SEGMENT_STEPS, f"stream ran to step {last}")
+        # the trainer's state served in-process on the serve launcher's plan
+        plan_s = apply_plan_meta(make_plan(cfg, world=1, per_device_batch=SERVE_SMOKE_B,
+                                           mesh_shape=(1, 1)), plan_meta(plan))
+        serve = make_serve_step(WDLModel(cfg, plan_s), plan_s, SERVE_SMOKE_B,
+                                ServeConfig(strategy="mixed"), DEV)
+        rng = np.random.default_rng(0)  # the launcher's --seed 0 request stream
+        want = []
+        for _ in range(SERVE_SMOKE_REQUESTS):
+            p = serve({"emb": state["emb"], "dense": state["dense"]},
+                      make_batch(cfg, SERVE_SMOKE_B, rng))
+            want.append((float(p.mean()), [float(x) for x in p.reshape(-1)[:4]]))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "deepfm", "--smoke",
+               "--batch", str(SERVE_SMOKE_B), "--n-requests", str(SERVE_SMOKE_REQUESTS),
+               "--device", DEV.type, "--reload-dir", pub, "--chaos", f"torn@{SERVE_TORN_AT}"]
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+        t_serve = time.perf_counter() - t0
+        check(r.returncode == 0, f"serve --reload-dir exited {r.returncode}: {r.stderr[-2000:]}")
+        got = re.findall(r"^\[serve\] request (\d+): step (\d+) mean_prob=([\d.]+) "
+                         r"probs\[:4\]=([\d. ]+)$", r.stdout, re.M)
+        check(len(got) == SERVE_SMOKE_REQUESTS and f"reloaded published step {last}" in r.stdout
+              and "tearing published delta before request" in r.stdout
+              and all(int(g[1]) == last for g in got),
+              f"the server loaded step {last} and kept it past the torn delta: {r.stdout}")
+        err = max(max(abs(float(g[2]) - w[0]), *(abs(float(x) - y) for x, y in
+                                                  zip(g[3].split(), w[1])))
+                  for g, w in zip(got, want))
+        check(err <= 1e-5, f"reloaded probabilities within 1e-5 of the trainer's: {err}")
+        # in-process (the server tore the step-15 delta): a good delta loads,
+        # a newer torn one is skipped and the last good one stays
+        poller = PublishPoller(pub)
+        tmpl = {"emb": state["emb"], "dense": state["dense"]}
+        for s_pub in (last + 5, last + 10):
+            publish_state(pub, s_pub, state, meta=plan_meta(plan), salts=table_salts(plan))
+            if s_pub == last + 10:
+                tear_published(pub)
+            got_pub = poller.poll(tmpl)
+            check((got_pub is not None) == (s_pub == last + 5) and poller.last_step == last + 5,
+                  f"poller at delta {s_pub}: loaded {poller.last_step}, failures "
+                  f"{poller.failures}")
+        # another process under other salts must refuse the delta
+        r2 = subprocess.run(cmd[:-2], capture_output=True, text=True, timeout=300,
+                            env={**env, "PYTHONHASHSEED": "1"})
+        check(r2.returncode != 0 and "SaltMismatch" in r2.stderr
+              and "PYTHONHASHSEED" in r2.stderr,
+              f"a server under PYTHONHASHSEED=1 refuses the delta: rc {r2.returncode} "
+              f"{r2.stderr[-1000:]}")
+        out["stream"] = {"published": last, "serve_subprocess_s": t_serve,
+                         "served_steps": [int(g[1]) for g in got],
+                         "max_prob_err_vs_in_process": err,
+                         "other_salts_exit": r2.returncode,
+                         "other_salts_error": r2.stderr.strip().splitlines()[-1][:300]}
+        del state
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def runtime_phase(runs: dict) -> dict:
+    """Phase 14."""
+    a = ARCHS["deepfm"]
+    cfg, _ = arch_plan(a, TRAIN_B, train=True)
+    stream = batch_stream(cfg, TRAIN_B, seed=SEED)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    plain = guard_run(batches[:TRAIN_STEPS], guard=False)
+    guarded = guard_run(batches[:TRAIN_STEPS], guard=True, keep=True)
+    runs["deepfm-guard", "train"] = {"launches": guarded["launches"]}
+    same = guarded["digest"] == plain["digest"]
+    check(same and guarded["losses"] == plain["losses"],
+          "30 guarded steps bitwise the 30 unguarded steps (state digest and losses)")
+    check(guarded["launches"] == {n: a.train_launches.get(n, 0) * TRAIN_STEPS
+                                  for n in guarded["launches"]},
+          f"guarded launches per step {a.train_launches}: {guarded['launches']}")
+    out = {"guard": {"digest_equal": same, "leaves": len(plain["digest"]),
+                     "step_p50_ms_unguarded": steady_p50(plain["lat"]),
+                     "step_p50_ms_guarded": steady_p50(guarded["lat"]),
+                     "launches": guarded["launches"]}}
+    print("[runtime] full-width guard " + json.dumps(out["guard"]), flush=True)
+    out["checkpoint"] = full_width_checkpoint(guarded)
+    print("[runtime] full-width checkpoint " + json.dumps(out["checkpoint"]), flush=True)
+    del guarded
+    torch.cuda.empty_cache()
+    poisoned = guard_run(batches[:GUARD_NAN[-1] + 3], guard=True, nan=GUARD_NAN)
+    check(poisoned["rejected"] == list(GUARD_NAN) and poisoned["step"] == poisoned["accepted"]
+          and all(np.isfinite(poisoned["losses"][GUARD_NAN[-1] + 1:])),
+          f"both poisoned steps rejected, training goes on: {poisoned['rejected']}")
+    out["nan"] = {"poisoned_batches": list(GUARD_NAN), "rejected": poisoned["rejected"],
+                  "accepted": poisoned["accepted"], "state_step": poisoned["step"],
+                  "loss_after": poisoned["losses"][-1]}
+    print("[runtime] full-width nan " + json.dumps(out["nan"]), flush=True)
+    del poisoned
+    out["replan"] = full_width_replan(batches)
+    print("[runtime] full-width replan " + json.dumps(out["replan"]), flush=True)
+    t_full = time.perf_counter() - t0
+    out["smoke"] = smoke_matrix()
+    print("[runtime] smoke matrix " + json.dumps(out["smoke"]), flush=True)
+    g, c, r = out["guard"], out["checkpoint"], out["replan"]["seconds"]
+    print(f"[runtime] deepfm B={TRAIN_B}: step p50 {g['step_p50_ms_unguarded']:.3f}ms "
+          f"unguarded, {g['step_p50_ms_guarded']:.3f}ms guarded; checkpoint "
+          f"{c['state_bytes'] / 1e9:.2f} GB save {c['save_s']:.2f}s "
+          f"({c['save_gb_per_s']:.2f} GB/s) restore {c['restore_s']:.2f}s "
+          f"({c['restore_gb_per_s']:.2f} GB/s); replan harvest {r['harvest']:.3f}s compile "
+          f"{r['compile']:.3f}s migrate {r['migrate']:.3f}s; full width {t_full:.1f}s",
+          flush=True)
+    return out
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2685,6 +3130,11 @@ def main() -> None:
     drive_baselines()
     print(f"[wall] baselines done at {time.perf_counter() - t_start:.1f}s "
           f"(these {time.perf_counter() - t_phase:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    runtime_phase(runs)  # phase 14
+    print(f"[wall] runtime done at {time.perf_counter() - t_start:.1f}s "
+          f"(phase 14 {time.perf_counter() - t_phase:.1f}s)", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

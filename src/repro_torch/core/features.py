@@ -42,13 +42,27 @@ def field_index(plan: PicassoPlan) -> Dict[str, FieldView]:
     return out
 
 
+def table_salt(table: str) -> int:
+    """The per-table packing salt, ``hash(table) % 10007`` exactly as in the
+    reference. Python salts ``str`` hashes per process (``PYTHONHASHSEED``),
+    so a raw id packs to the same row only in processes that agree on it;
+    checkpoint and publication manifests record these salts
+    (``table_salts``) and restores compare them (``train.checkpoint``)."""
+    return hash(table) % 10007
+
+
+def table_salts(plan: PicassoPlan) -> Dict[str, int]:
+    """``{table: salt}`` for every table the plan packs."""
+    return {t.name: table_salt(t.name) for g in plan.groups for t in g.tables}
+
+
 def pack_group(group: PackedGroup, batch: Dict[str, Dict[str, np.ndarray]],
                device: Union[str, torch.device]) -> PackedBatch:
     """Build the packed ID tensor for one group on ``device``.
 
-    The per-table salt is ``hash(table) % 10007`` exactly as in the
-    reference. Python salts ``str`` hashes per process, so packed ids agree
-    with the reference only inside one process (see ROADMAP Queue 3)."""
+    The per-table salt is ``table_salt``'s, exactly the reference's; packed
+    ids agree with the reference only inside one process or across
+    processes that share ``PYTHONHASHSEED`` (see ROADMAP Queue 3)."""
     raw_l, w_l = [], []
     cols = []  # per packed column: (mult, salt, vocab, row offset, bag)
     for s in group.slots:
@@ -60,7 +74,7 @@ def pack_group(group: PackedGroup, batch: Dict[str, Dict[str, np.ndarray]],
             w = (w / denom).astype(np.float32)
         w_l.append(w)
         table = next(t for t in group.tables if t.name == s.table)
-        const = (_coprime_mult(table.vocab), hash(s.table) % 10007, table.vocab,
+        const = (_coprime_mult(table.vocab), table_salt(s.table), table.vocab,
                  group.table_offsets[s.table])
         for j in range(f.max_len):
             bag = s.bag_offset + (j if f.pooling == "none" else 0)

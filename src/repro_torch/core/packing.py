@@ -8,10 +8,13 @@ balance, exactly as the paper prescribes ("for embedding tables with a
 dimension of 32, create four shards, each with a quarter of these tables").
 
 This module is pure planning (numpy / python): it maps a WDLConfig + optional
-warm-up frequency statistics to a ``PicassoPlan`` the engine executes.
+warm-up frequency statistics to a ``PicassoPlan`` the engine executes, and
+``revise_plan`` recompiles a plan's tier budgets from measured statistics
+(the replanning loop, ``repro_torch.runtime.replanner``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -483,4 +486,58 @@ def make_plan(
         narrow_dim=(plan_narrow(groups, narrow_dim)
                     if narrow_dim is not None else {}),
         mesh_shape=tuple(int(x) for x in mesh_shape) if mesh_shape else (),
+    )
+
+
+def revise_plan(
+    plan: PicassoPlan,
+    stats: Optional[Dict[int, np.ndarray]] = None,
+    *,
+    hot_bytes: Optional[int] = None,
+    l2_bytes: Optional[int] = None,
+    enable_cache: bool = True,
+) -> PicassoPlan:
+    """Recompile the plan's *revisable* decisions into revision ``rev+1``.
+
+    The structural plan — groups, all_to_all capacities, interleave waves,
+    micro-batch — is carried over untouched (it derives from the config and
+    mesh, which do not change at runtime). What gets recompiled is the tier
+    split: ``cache_rows``/``l2_rows`` are re-budgeted by ``plan_cache``/
+    ``plan_l2`` with the measured FCounter ``stats`` (∝ measured lookup
+    mass) instead of the structural warm prior.
+
+    ``hot_bytes``/``l2_bytes``: byte envelopes for the re-split; ``None``
+    re-splits the envelope recorded on the plan (``plan.hot_bytes`` /
+    ``plan.l2_bytes``) — pass an explicit value to retune tier *capacity*
+    at runtime (HugeCTR-style), including 0 to drop a tier.
+
+    ``enable_cache=False`` (the engine runs with ``use_cache=False``)
+    zeroes both tiers like ``make_plan``.
+
+    The returned plan carries **no strategy assignment**: callers re-run
+    ``repro_torch.core.assign.compile_assignment(new_plan, stats=...)`` so the
+    strategy mix is scored against the *new* budgets, then record it with
+    ``apply_assignment``. ``repro_torch.runtime.Replanner`` packages that loop,
+    plus the live-state migration between revisions.
+    """
+    hb = int(plan.hot_bytes if hot_bytes is None else hot_bytes)
+    lb = int(plan.l2_bytes if l2_bytes is None else l2_bytes)
+    if enable_cache:
+        cache_rows = plan_cache(plan.groups, hb, plan.world, stats=stats)
+        l2_rows = plan_l2(plan.groups, lb, cache_rows, stats=stats)
+    else:
+        cache_rows = {g.gid: 0 for g in plan.groups}
+        l2_rows = {g.gid: 0 for g in plan.groups}
+    # dataclasses.replace: any future PicassoPlan field is carried over by
+    # construction instead of silently resetting to its default here
+    return dataclasses.replace(
+        plan,
+        capacity=dict(plan.capacity),
+        interleave=[list(w) for w in plan.interleave],
+        cache_rows=cache_rows,
+        l2_rows=l2_rows,
+        rev=plan.rev + 1,
+        hot_bytes=hb,
+        l2_bytes=lb,
+        strategy={},  # deliberately unassigned: callers re-compile vs stats
     )

@@ -11,7 +11,7 @@ the reference's pinned-host placement (``--pin-l2``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +94,231 @@ def tier_gates(plan: PicassoPlan, gid: int, *, use_cache: bool = True,
     cache_on = bool(use_cache and cls.uses_cache and plan.cache_rows.get(gid, 0) > 0)
     l2_on = bool(use_l2 and cache_on and cls.uses_l2 and plan.l2_rows.get(gid, 0) > 0)
     return cache_on, l2_on
+
+
+# ---------------------------------------------------------------------------
+# plan-revision state migration (the replanning loop, runtime.replanner)
+# ---------------------------------------------------------------------------
+#
+# The reference migrates on host copies in numpy. The port migrates on the
+# state's own device and in place where it can: the master ``w``/``acc`` of
+# a migrated group take the tiers' write-back in place, so a full-width
+# migration never copies the 7.5 GB table to the host. The old state's
+# tensors are reused; use only the returned state afterwards.
+
+
+def _np_write_back(w: torch.Tensor, acc: torch.Tensor, tier: CacheState,
+                   pinv: Optional[torch.Tensor] = None) -> None:
+    """Owner write-back of a tier into the master, in place: authoritative
+    tier rows (narrowed through ``pinv`` for a narrow master) and adagrad
+    slots land on their row ids; sentinel keys (empty slots) are skipped."""
+    mine = tier.keys < w.shape[0]
+    idx = tier.keys[mine].long()
+    rows = tier.rows[mine]
+    if pinv is not None:
+        rows = rows.to(torch.float32) @ pinv
+    w[idx] = rows.to(w.dtype)
+    acc[idx] = tier.acc[mine].to(acc.dtype)
+
+
+def _np_load_tier(rows_of, acc: torch.Tensor, keys: torch.Tensor, rows_padded: int,
+                  dtype) -> CacheState:
+    """A fresh tier holding ``keys``: rows from ``rows_of(idx)`` (the synced
+    master's rows at the tier width) and the adagrad slots from ``acc``;
+    sentinel slots stay exactly zero."""
+    mine = (keys < rows_padded)[:, None]
+    idx = torch.clamp(keys.long(), 0, acc.shape[0] - 1)
+    rows = rows_of(idx)
+    zero = torch.zeros((), dtype=dtype, device=acc.device)
+    return CacheState(keys=keys,
+                      rows=torch.where(mine, rows.to(dtype), zero),
+                      acc=torch.where(mine, acc[idx].to(dtype), zero))
+
+
+def _rank_tier_keys(counts: torch.Tensor, h1: int, h2: int, rows_padded: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-(h1+h2) row ids by measured frequency, split hottest-h1 / next-h2,
+    each sorted; ties go to the lower row id (the flush's stable descending
+    order, ``packed_embedding._top_k_stable``), and rows counted 0 take the
+    sentinel instead."""
+    from repro_torch.core.packed_embedding import _top_k_stable
+
+    h = h1 + h2
+    c = counts.reshape(-1).to(torch.int64)
+    vals, order = _top_k_stable(c, min(h, c.shape[0]))
+    ranked = torch.where(vals > 0, order, torch.full_like(order, rows_padded))
+    if ranked.shape[0] < h:  # a tier larger than the table (degenerate)
+        ranked = torch.cat([ranked, torch.full((h - ranked.shape[0],), rows_padded,
+                                               dtype=ranked.dtype, device=ranked.device)])
+    keys1 = torch.sort(ranked[:h1]).values.to(torch.int32)
+    keys2 = torch.sort(ranked[h1:]).values.to(torch.int32)
+    return keys1, keys2
+
+
+def _np_proj_pinv(kernel: torch.Tensor, ridge: float = 1e-6) -> torch.Tensor:
+    """The reference's float64 pseudo-inverse ``P^T (P P^T + ridge I)^{-1}``
+    of a ``[d, D]`` projection (``[D, d]``, float32), for migrations that
+    narrow wide rows."""
+    k = kernel.to(torch.float64)
+    eye = torch.eye(k.shape[0], dtype=torch.float64, device=k.device)
+    return (k.T @ torch.linalg.solve(k @ k.T + ridge * eye, eye)).to(torch.float32)
+
+
+def _exact_rows(keys: torch.Tensor, old_tiers, rows_padded: int):
+    """For each key, the row of the last old tier holding it: ``(found,
+    rows)``; ``found`` is False where no old tier holds the key."""
+    found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    rows = None
+    for tier in old_tiers:
+        if tier.keys.shape[0] == 0:
+            continue
+        p = torch.clamp(torch.searchsorted(tier.keys, keys), 0, tier.keys.shape[0] - 1)
+        hit = (tier.keys[p] == keys) & (keys < rows_padded)
+        cand = tier.rows[p]
+        rows = cand if rows is None else torch.where(hit[:, None], cand, rows)
+        found = found | hit
+    return found, rows
+
+
+def _migrate_group(group: PackedGroup, st: EmbeddingState,
+                   gates_old: Tuple[bool, bool], gates_new: Tuple[bool, bool],
+                   h1_new: int, h2_new: int, cache_update: str,
+                   nd_old: int, nd_new: int) -> EmbeddingState:
+    """Move one group's live state onto new tier budgets and gating, on the
+    state's device (the reference's ``_migrate_group`` step for step):
+
+    1. in ``'psum'`` mode the active tiers are authoritative for their rows:
+       write them back into the master first, in place (through the
+       projection's pseudo-inverse for a narrow master);
+    2. re-rank tier residency from the FCounter: the hottest ``h1_new`` rows
+       seed L1, the next ``h2_new`` L2, loaded from the just-synced master
+       at full width (ids the old tiers held keep their exact wide rows in
+       ``'psum'`` mode; other narrow rows are widened through the
+       projection);
+    3. a width change re-masters the table (``w @ P`` to widen, a fresh
+       deterministic projection's pseudo-inverse to narrow); an unchanged
+       narrow width keeps the learned projection and the master bitwise;
+    4. adagrad slots and FCounter mass are preserved exactly.
+    """
+    cache_on_old, l2_on_old = gates_old
+    cache_on_new, l2_on_new = gates_new
+    dim = group.dim
+    w, acc, counts = st.w, st.acc, st.counts
+    dtype, dev = w.dtype, w.device
+    rows_padded = group.rows
+    psum = cache_update == "psum"
+
+    narrow_old = st.proj is not None and w.shape[1] < dim
+    proj_old = st.proj.kernel.to(torch.float32) if narrow_old else None
+
+    old_tiers = []
+    if cache_on_old:
+        old_tiers.append(st.cache)
+    if l2_on_old and st.l2 is not None:
+        old_tiers.append(st.l2)
+    if psum:
+        pinv_old = _np_proj_pinv(proj_old) if narrow_old else None
+        for tier in old_tiers:
+            _np_write_back(w, acc, tier, pinv_old)
+
+    def wide_rows(idx: torch.Tensor) -> torch.Tensor:
+        """Full-width rows of the synced master at ``idx`` (the reference's
+        ``w_wide[idx]``)."""
+        if not narrow_old:
+            return w[idx]
+        rows = (w[idx].to(torch.float32) @ proj_old).to(dtype)
+        if psum and old_tiers:
+            found, exact = _exact_rows(idx.to(torch.int32), old_tiers, rows_padded)
+            if exact is not None:
+                rows = torch.where(found[:, None], exact.to(dtype), rows)
+        return rows
+
+    def remaster(fn, width: int) -> torch.Tensor:
+        """A new ``[rows, width]`` master, ``fn`` of the wide rows, built in
+        row chunks so no full-width temporary of the table exists."""
+        out = torch.empty((w.shape[0], width), dtype=dtype, device=dev)
+        step = max(1, (64 << 20) // (4 * max(dim, 1)))
+        for r0 in range(0, w.shape[0], step):
+            idx = torch.arange(r0, min(w.shape[0], r0 + step), device=dev)
+            out[r0:r0 + idx.shape[0]] = fn(wide_rows(idx)).to(dtype)
+        return out
+
+    proj: Optional[ProjState] = None
+    if 0 < nd_new < dim:
+        if narrow_old and nd_new == nd_old:
+            w_new = w  # exact narrow pass-through; the learned projection survives
+            proj = ProjState(kernel=st.proj.kernel, acc=st.proj.acc)
+        else:  # a widening round trip or a first narrowing: fresh projection
+            kern = torch.as_tensor(_np_proj_kernel(group.gid, nd_new, dim)).to(dev)
+            pinv = _np_proj_pinv(kern)
+            w_new = remaster(lambda r: r.to(torch.float32) @ pinv, nd_new)
+            proj = ProjState(kernel=kern.to(dtype),
+                             acc=torch.zeros((nd_new, 1), dtype=dtype, device=dev))
+    elif narrow_old:
+        w_new = remaster(lambda r: r, dim)  # re-widened
+    else:
+        w_new = w  # never narrow
+
+    keys1, keys2 = _rank_tier_keys(counts, h1_new if cache_on_new else 0,
+                                   h2_new if l2_on_new else 0, rows_padded)
+    if cache_on_new:
+        cache = _np_load_tier(wide_rows, acc, keys1, rows_padded, dtype)
+    else:  # allocated (the plan budgets rows) but inert under the new strategy
+        cache = init_cache(h1_new, dim, rows_padded, dtype, device=dev)
+    l2: Optional[CacheState] = None
+    if h2_new > 0:
+        l2 = (_np_load_tier(wide_rows, acc, keys2, rows_padded, dtype) if l2_on_new
+              else init_cache(h2_new, dim, rows_padded, dtype, device=dev))
+    return EmbeddingState(w=w_new, acc=acc, counts=counts, cache=cache, l2=l2, proj=proj)
+
+
+def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
+                  use_cache: bool = True, use_l2: bool = True,
+                  cache_update: str = "psum") -> Any:
+    """Carry live embedding state from ``old_plan`` to ``new_plan``, two
+    revisions of one structural plan (same gids, dims and rows; what may
+    differ is ``cache_rows``/``l2_rows``, the strategy assignment and the
+    narrow widths).
+
+    A group with identical tier shapes, gating and width passes through
+    untouched (the same tensors: a replan that recompiles to the same plan
+    is a no-op); the others migrate on their device (``_migrate_group``),
+    their master taking the tiers' write-back in place. A change of rows (a
+    world resize, ``reshard_plan``) raises ``NotImplementedError``: the
+    elastic path is ROADMAP Queue 1 item 6. ``use_cache``/``use_l2``/
+    ``cache_update`` must mirror the engine flags the state was trained
+    under. Takes the full train/serve state (``{"emb": ...}``) or the bare
+    per-group emb dict and returns the same structure.
+    """
+    if isinstance(state, dict) and "emb" in state:
+        return {**state, "emb": migrate_state(old_plan, new_plan, state["emb"],
+                                              use_cache=use_cache, use_l2=use_l2,
+                                              cache_update=cache_update)}
+    old_gids = sorted(g.gid for g in old_plan.groups)
+    new_gids = sorted(g.gid for g in new_plan.groups)
+    if old_gids != new_gids:
+        raise ValueError(f"migrate_state needs revisions of one structural plan; group "
+                         f"sets differ: {old_gids} vs {new_gids}")
+    out: Dict[str, EmbeddingState] = {}
+    for g in new_plan.groups:
+        og = old_plan.group(g.gid)
+        if og.dim != g.dim:
+            raise ValueError(f"g{g.gid}: packed dim changed across revisions "
+                             f"({og.rows}x{og.dim} -> {g.rows}x{g.dim}); only tier "
+                             "budgets, strategy, and world padding may change")
+        if og.rows != g.rows:
+            raise NotImplementedError(
+                f"g{g.gid}: rows {og.rows} -> {g.rows} (a world resize); resharding "
+                "state is the elastic path of ROADMAP Queue 1 item 6, not ported")
+        h_old = (old_plan.cache_rows.get(g.gid, 0), old_plan.l2_rows.get(g.gid, 0))
+        h_new = (new_plan.cache_rows.get(g.gid, 0), new_plan.l2_rows.get(g.gid, 0))
+        gates_old = tier_gates(old_plan, g.gid, use_cache=use_cache, use_l2=use_l2)
+        gates_new = tier_gates(new_plan, g.gid, use_cache=use_cache, use_l2=use_l2)
+        nd_old, nd_new = old_plan.narrow_width(g.gid), new_plan.narrow_width(g.gid)
+        st = state[str(g.gid)]
+        if h_old == h_new and gates_old == gates_new and nd_old == nd_new:
+            out[str(g.gid)] = st  # pass-through
+        else:
+            out[str(g.gid)] = _migrate_group(g, st, gates_old, gates_new, h_new[0],
+                                             h_new[1], cache_update, nd_old, nd_new)
+    return out

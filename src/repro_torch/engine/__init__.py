@@ -5,7 +5,7 @@ from repro_torch.core.assign import (AUTO_NAMES, GroupScore, StrategyAssignment,
                                      apply_assignment, compile_assignment,
                                      estimate_l2_gain, estimate_narrow_gain,
                                      estimate_skew, maybe_compile, resolve_assignment)
-from repro_torch.engine.engine import EmbeddingEngine, EngineContext
+from repro_torch.engine.engine import EmbeddingEngine, EngineContext, export_stats
 from repro_torch.engine.strategies import (AllGatherRowsStrategy, HybridStrategy,
                                            LookupStrategy, MPNoDedupStrategy,
                                            PicassoL2Strategy, PicassoNarrowStrategy,
@@ -33,6 +33,7 @@ __all__ = [
     "estimate_l2_gain",
     "estimate_narrow_gain",
     "estimate_skew",
+    "export_stats",
     "get_strategy",
     "maybe_compile",
     "register_strategy",

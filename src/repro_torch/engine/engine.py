@@ -33,6 +33,7 @@ import functools
 import operator
 from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import packed_embedding as pe
@@ -44,6 +45,18 @@ from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine.strategies import LookupStrategy, get_strategy
 from repro_torch.kernels import ops
 from repro_torch.optim import grad_compression as gcomp
+
+
+def export_stats(plan: PicassoPlan, emb: Dict[str, EmbeddingState]
+                 ) -> Dict[int, np.ndarray]:
+    """Harvest the live FCounter: ``gid -> counts`` (host numpy, the full
+    logical array). The measurement half of the replanning loop
+    (``runtime.replanner``): the counts feed ``compile_assignment(plan,
+    stats=...)`` and the stats-driven ``plan_cache``/``plan_l2`` re-budget.
+    Call between steps; it copies each counter to the host (751 MB for
+    full-width deepfm)."""
+    return {g.gid: emb[str(g.gid)].counts.detach().cpu().numpy() for g in plan.groups}
+
 
 class EngineContext(NamedTuple):
     """What a ``forward`` call leaves for statistics passes."""
@@ -127,6 +140,10 @@ class EmbeddingEngine:
             {k for n in names for k in get_strategy(n).extra_metric_keys}))
         self.waves = (plan.interleave if use_interleave
                       else [[g.gid for g in plan.groups]])
+
+    def export_stats(self, emb: Dict[str, EmbeddingState]) -> Dict[int, np.ndarray]:
+        """Module-level ``export_stats`` bound to this engine's plan."""
+        return export_stats(self.plan, emb)
 
     @property
     def metric_keys(self) -> Tuple[str, ...]:
@@ -225,6 +242,14 @@ class EmbeddingEngine:
                 metrics[f"cache_hits/{n}"] = hits[n]
         metrics.update(extra)
         return emb, metrics
+
+    def journal(self, emb: Dict[str, EmbeddingState], ctx: EngineContext, j: Any) -> None:
+        """Save into ``j`` every row ``backward(emb, ctx, ...)`` may write:
+        each group's strategy journals its own writes (``journal`` beside
+        its ``apply_grads``), under the flags ``backward`` passes it."""
+        for gid, gctx in ctx.ctxs.items():
+            self.strategies[gid].journal(j, emb[str(gid)], gctx, cache_on=self.cache_on[gid],
+                                         l2_on=self.l2_on[gid])
 
     # --------------------------------------------------------------- flush
     def flush(self, emb: Dict[str, EmbeddingState]) -> Dict[str, EmbeddingState]:

@@ -120,10 +120,34 @@ class LookupStrategy:
         ``cache_hits`` counts ids served by any tier."""
         raise NotImplementedError
 
+    def journal(self, j: Any, st: EmbeddingState, ctx: Any,
+                *, cache_on: bool = False, l2_on: bool = False) -> None:
+        """Save into ``j`` (``j.save(tensor, idx=None)``: the rows at
+        ``idx``, or the whole tensor) every row ``apply_grads`` may write
+        from this ``ctx`` under these flags, before it runs, so a rejected
+        step can restore them (``train.train_step``). A strategy that writes
+        more in ``apply_grads`` saves more here; one without this method
+        cannot be guarded. No host sync."""
+        raise NotImplementedError(f"strategy {self.name!r} keeps no journal")
+
     def tier_metrics(self, ctx: Any) -> Dict[str, torch.Tensor]:
         """Per-tier counters of one lookup, exactly ``extra_metric_keys``
         (int32 scalars) whether or not a tier was warm."""
         return {}
+
+
+def _save_rows(j: Any, tensors: Tuple[torch.Tensor, ...], ids: torch.Tensor) -> None:
+    """Rows at ``ids`` of each tensor; an invalid (sentinel) id clamps to a
+    row saved alongside, which its masked write leaves as it was."""
+    idx = torch.clamp(ids.long(), 0, tensors[0].shape[0] - 1)
+    for t in tensors:
+        j.save(t, idx)
+
+
+def _save_tier(j: Any, tier: Any, slot: torch.Tensor) -> None:
+    """A tier's rows and accumulators at the probe slots."""
+    if tier.keys.shape[0] > 0:
+        _save_rows(j, (tier.rows, tier.acc), slot)
 
 
 @register_strategy("picasso")
@@ -158,6 +182,13 @@ class PicassoStrategy(LookupStrategy):
         return (st2, ctx.routing.overflow.to(torch.int32),
                 pe.cache_hit_count(ctx).to(torch.int32))
 
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        # the routed misses, the stale hit routes and the FCounter's rows
+        # all lie among the ctx's unique ids; 'psum' hits write L1 by slot
+        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq)
+        if cache_on:
+            _save_tier(j, st.cache, ctx.cache_slot)
+
 
 @register_strategy("hybrid")
 class HybridStrategy(PicassoStrategy):
@@ -174,6 +205,9 @@ class HybridStrategy(PicassoStrategy):
 
     def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
         return super().apply_grads(st, gid, ctx, g_rows, cache_on=False)
+
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        super().journal(j, st, ctx, cache_on=False)
 
 
 @register_strategy("picasso_l2")
@@ -220,6 +254,11 @@ class PicassoL2Strategy(PicassoStrategy):
                           cache=cache2 if cache2 is not None else st.cache, l2=l22)
         hits = pe.cache_hit_count(ctx) + pe.l2_hit_count(ctx)
         return st2, ctx.routing.overflow.to(torch.int32), hits.to(torch.int32)
+
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        super().journal(j, st, ctx, cache_on=cache_on)
+        if l2_on and st.l2 is not None and ctx.l2_hit is not None:
+            _save_tier(j, st.l2, ctx.l2_slot)
 
     def tier_metrics(self, ctx):
         return {"cache_hits/l1": pe.cache_hit_count(ctx).to(torch.int32),
@@ -273,6 +312,12 @@ class PicassoNarrowStrategy(PicassoL2Strategy):
         hits = pe.cache_hit_count(ctx) + pe.l2_hit_count(ctx)
         return st2, ctx.routing.overflow.to(torch.int32), hits.to(torch.int32)
 
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        super().journal(j, st, ctx, cache_on=cache_on, l2_on=l2_on)
+        if st.proj is not None:  # the projection trains whole
+            j.save(st.proj.kernel)
+            j.save(st.proj.acc)
+
 
 def _identity_order(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(order, slot_sorted)`` of a ctx whose ``inv`` is ``arange(n)``."""
@@ -325,6 +370,9 @@ class PSStrategy(LookupStrategy):
     def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
         return _gathered_apply(self, st, ctx.ids, g_rows)
 
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        _save_rows(j, (st.w, st.acc), ctx.ids)  # the rows of every position
+
 
 @register_strategy("mp_nodedup")
 class MPNoDedupStrategy(LookupStrategy):
@@ -344,6 +392,9 @@ class MPNoDedupStrategy(LookupStrategy):
         pe.count_frequencies(st.counts, ctx)
         return (st, ctx.routing.overflow.to(torch.int32),
                 torch.zeros((), dtype=torch.int32, device=g_rows.device))
+
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq)  # the sorted ids
 
 
 class AllGatherCtx(NamedTuple):
@@ -374,3 +425,6 @@ class AllGatherRowsStrategy(LookupStrategy):
 
     def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
         return _gathered_apply(self, st, ctx.uniq, g_rows)
+
+    def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
+        _save_rows(j, (st.w, st.acc), ctx.uniq)

@@ -12,10 +12,20 @@ dcn-v2 on one card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
       --no-packing --strategy mixed
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
+      --device cpu --n-requests 6 --reload-dir /tmp/pub --chaos torn@3
+
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 ``--strategy mixed``/``auto`` compiles a per-group assignment with the
 constant cost model at the serving batch before the state is made and
-prints it.
+prints it. ``--reload-dir`` follows a streaming trainer's published deltas
+(``repro_torch.launch.train --stream --publish-dir``): the serve state is
+shaped by the published plan revision, and before each request the server
+polls for a new delta and loads it in place once every leaf has passed its
+checksum; a torn or corrupt delta is skipped and the last good state keeps
+serving. A delta packed under other table salts raises
+(``PYTHONHASHSEED``). ``--chaos torn@i`` tears the newest delta before
+request ``i``.
 """
 import argparse
 
@@ -54,7 +64,19 @@ def main(argv=None):
                          "only when asked)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the request stream")
+    ap.add_argument("--reload-dir", default="", metavar="DIR",
+                    help="pick up model deltas a streaming trainer publishes "
+                         "(repro_torch.launch.train --stream --publish-dir DIR): "
+                         "before each request, poll DIR/LATEST and load the emb + "
+                         "dense state in place, no restart")
+    ap.add_argument("--chaos", default="", metavar="SPEC",
+                    help="fault injection for the reload path: 'torn@i' tears "
+                         "the newest published delta on disk before request i "
+                         "(needs --reload-dir); the server must keep answering "
+                         "from its last good state")
     args = ap.parse_args(argv)
+    if args.chaos and not args.reload_dir:
+        ap.error("--chaos needs --reload-dir (faults target published deltas)")
 
     import time
 
@@ -73,27 +95,68 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
                      narrow_dim=args.narrow_dim or None,
-                     enable_packing=not args.no_packing)
-    # record the assignment before init_state: a compiled mix or a
-    # 'picasso_narrow' broadcast gates the master widths the state is sized
-    # by; serving has no micro pipeline, so the cost model sees the batch
-    strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch,
-                             log=lambda s: print(f"[serve] {s}"))
-    resolve_assignment(plan, strategy)
+                     enable_packing=not args.no_packing, mesh_shape=(1, 1))
+    if args.reload_dir:
+        # shape the serve state by the published plan revision (tier budgets,
+        # strategy, narrow widths) so published deltas load as they are
+        from repro_torch.runtime import apply_plan_meta
+        from repro_torch.train.checkpoint import load_checkpoint_meta
+
+        pub_meta = load_checkpoint_meta(args.reload_dir)
+        if pub_meta is not None:
+            plan = apply_plan_meta(plan, pub_meta)
+            print(f"[serve] following published plan rev {plan.rev} from "
+                  f"{args.reload_dir}")
+    if plan.strategy:
+        strategy = "mixed"  # the published assignment
+    else:
+        # record the assignment before init_state: a compiled mix or a
+        # 'picasso_narrow' broadcast gates the master widths the state is
+        # sized by; serving has no micro pipeline, so the cost model sees
+        # the batch
+        strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch,
+                                 log=lambda s: print(f"[serve] {s}"))
+        resolve_assignment(plan, strategy)
     model = WDLModel(cfg, plan)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_state(model, plan, gen, device)
     scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
     serve = make_serve_step(model, plan, args.batch, scfg, device)
+    poller = torn = None
+    if args.reload_dir:
+        # degraded-mode pickup: a torn, corrupt or pruned delta is skipped with
+        # capped backoff and the server keeps its last good state
+        from repro_torch.runtime import PublishPoller, parse_fault_plan
+        from repro_torch.runtime.chaos import tear_published
+
+        poller = PublishPoller(args.reload_dir, plan=plan, log=lambda s: print(s, flush=True))
+        if args.chaos:
+            torn, fired = parse_fault_plan(args.chaos).torn_publish, set()
     rng = np.random.default_rng(args.seed)
     lat = []
-    for _ in range(args.n_requests):
+    for i in range(args.n_requests):
+        if torn is not None and i in torn and i not in fired:
+            fired.add(i)
+            print(f"[serve] chaos: tearing published delta before request {i}",
+                  flush=True)
+            tear_published(args.reload_dir)
+        if poller is not None:
+            out = poller.poll({"emb": state["emb"], "dense": state["dense"]})
+            if out is not None:
+                loaded, s_pub = out
+                state = {**state, **loaded}
+                print(f"[serve] reloaded published step {s_pub} from {args.reload_dir}",
+                      flush=True)
         b = make_batch(cfg, args.batch, rng)
         t0 = time.perf_counter()
         probs = serve(state, b)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         lat.append(time.perf_counter() - t0)
+        if poller is not None:  # which delta served the request, and what it gave
+            head = " ".join(f"{float(p):.7f}" for p in probs.reshape(-1)[:4])
+            print(f"[serve] request {i}: step {poller.last_step} "
+                  f"mean_prob={float(probs.mean()):.9f} probs[:4]={head}", flush=True)
     lat = np.array(lat[1:] or lat) * 1e3
     print(f"[serve] {args.arch} B={args.batch}: p50={np.percentile(lat, 50):.1f}ms "
           f"p99={np.percentile(lat, 99):.1f}ms mean_prob={float(probs.mean()):.3f}")

@@ -14,12 +14,30 @@ or dcn-v2 on one card (world 1).
       --global-batch 256 --grad-compress topk
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --no-packing --strategy mixed
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
+      --device cpu --steps 30 --global-batch 32 --ckpt-dir /tmp/ck \\
+      --ckpt-every 5 --guard --chaos nan@7,nan@8,crash@13,ckpt@20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
+      --device cpu --global-batch 32 --stream --segment-steps 5 \\
+      --stream-segments 3 --ckpt-dir /tmp/ck --publish-dir /tmp/pub
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
 ``--smoke`` and ``1<<30`` without, a flush every 20 steps after 10 warm-up
 steps. ``--strategy mixed``/``auto`` compiles a per-group assignment with
 the constant cost model before the state is made and prints it.
+
+Runtime flags, wired as the reference's launcher wires them: ``--ckpt-dir``
+(with ``--ckpt-every``) runs the loop under the ``Supervisor`` and resumes
+from the newest verified checkpoint, its plan revision first; ``--guard``
+rejects anomalous steps (``AnomalyGuard`` judging the journaling step);
+``--chaos`` injects faults; ``--stream`` runs segments that checkpoint and,
+with ``--publish-dir``, publish a delta a ``repro_torch.launch.serve
+--reload-dir`` process picks up; ``--replan-iters`` replans from the live
+FCounter and migrates the state. Checkpoints and deltas record the packing
+salts; a resume under other salts raises (``PYTHONHASHSEED``). The
+reference's ``--reshard-*``, ``--calibrate`` and ``--pin-l2`` wait for
+later slices of the port.
 """
 import argparse
 
@@ -84,18 +102,73 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where tables and compute live (default cuda; cpu "
                          "only when asked)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: run under the Supervisor "
+                         "(restore + replay on a transient failure) and resume "
+                         "from the newest verified checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--guard", action="store_true",
+                    help="numeric anomaly guard: a NaN/Inf loss or a grad-norm "
+                         "spike (EMA threshold) rejects the step (its rows "
+                         "restored from a journal, the batch skipped, the event "
+                         "logged); K consecutive rejections roll back to the "
+                         "last verified checkpoint")
+    ap.add_argument("--chaos", default="", metavar="SPEC",
+                    help="deterministic fault injection: comma-separated "
+                         "kind@step tokens, kinds nan (poison batch), crash "
+                         "(raise at step), ckpt (corrupt the newest checkpoint "
+                         "on disk), torn (tear the published delta); e.g. "
+                         "'nan@7,crash@13,ckpt@20,torn@45'")
+    ap.add_argument("--stream", action="store_true",
+                    help="streaming driver: --stream-segments segments of "
+                         "--segment-steps (ignoring --steps), a checkpoint and "
+                         "a published delta at every segment boundary")
+    ap.add_argument("--segment-steps", type=int, default=20, metavar="N")
+    ap.add_argument("--stream-segments", type=int, default=3, metavar="K")
+    ap.add_argument("--publish-dir", default="", metavar="DIR",
+                    help="streaming mode: publish the serveable state (emb + "
+                         "dense) here at every segment boundary, with an atomic "
+                         "LATEST pointer that repro_torch.launch.serve "
+                         "--reload-dir picks up without restart")
+    ap.add_argument("--replan-iters", type=int, default=0, metavar="N",
+                    help="every N steps harvest the live FCounter, recompile "
+                         "the tier budgets (and a mixed/auto assignment) and "
+                         "migrate the state to the new plan revision (0: off)")
+    ap.add_argument("--replan-hot-bytes", type=int, default=None, metavar="BYTES",
+                    help="hot-tier byte envelope of replan re-budgets (default: "
+                         "the plan's)")
+    ap.add_argument("--replan-l2-bytes", type=int, default=None, metavar="BYTES",
+                    help="L2 byte envelope of replan re-budgets (default: the "
+                         "plan's)")
     args = ap.parse_args(argv)
+    if args.replan_iters < 0:
+        ap.error("--replan-iters must be >= 0 (0 disables replanning)")
+
+    import logging
 
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.core.features import table_salts
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
     from repro_torch.engine import maybe_compile, resolve_assignment
     from repro_torch.models.wdl import WDLModel
+    from repro_torch.runtime import (AnomalyGuard, ChaosController, Replanner,
+                                     apply_plan_meta, parse_fault_plan, plan_meta,
+                                     publish_state, run_stream)
+    from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
+                                              load_checkpoint_meta, load_checkpoint_salts,
+                                              restore_verified)
+    from repro_torch.train.fault_tolerance import Supervisor
     from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
+
+    # recovery events (rollbacks, quarantines) are the operator's window into
+    # the fault-tolerance subsystem
+    logging.basicConfig(format="[%(name)s] %(levelname)s: %(message)s")
+    logging.getLogger("repro_torch").setLevel(logging.INFO)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -104,44 +177,181 @@ def main(argv=None):
                      enable_cache=not args.no_cache, n_micro=args.n_micro,
                      hot_bytes=1 << 24 if args.smoke else 1 << 30,
                      l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
-                     flush_iters=20, warmup_iters=10)
-    # record the assignment before init_state: a compiled mix or a
-    # 'picasso_narrow' broadcast gates the master widths the state is sized
-    # by; training issues plan.microbatch ids a step (per_device_batch=None)
-    strategy = maybe_compile(plan, args.strategy, use_cache=not args.no_cache,
-                             log=lambda s: print(f"[train] {s}"))
-    resolve_assignment(plan, strategy, use_cache=not args.no_cache)
-    model = WDLModel(cfg, plan)
-    tcfg = TrainConfig(strategy=strategy, use_cache=not args.no_cache,
-                       use_interleave=not args.no_interleave, overlap=args.overlap,
-                       use_fused_kernels=args.fused_kernels,
-                       grad_compress=args.grad_compress,
-                       lr_emb=args.lr_emb, lr_dense=args.lr_dense)
-    step_fn = make_train_step(model, plan, args.global_batch, tcfg, device)
+                     flush_iters=20, warmup_iters=10, mesh_shape=(1, 1))
+    salts = table_salts(plan)
+    meta = None
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        # a checkpointed run may have replanned: revise the structural plan
+        # back to the checkpointed revision before the state is shaped
+        meta = load_checkpoint_meta(args.ckpt_dir)
+        if meta is not None and int(meta.get("world", 1)) != 1:
+            raise NotImplementedError(
+                f"checkpoint under {args.ckpt_dir} was written at world "
+                f"{meta['world']}; the elastic restore is ROADMAP Queue 1 item 6")
+        if meta is not None:
+            plan = apply_plan_meta(plan, meta)
+            print(f"[train] resumed plan rev {plan.rev} from checkpoint meta "
+                  f"(strategy: {sorted(set(plan.strategy.values()))})")
+        if load_checkpoint_salts(args.ckpt_dir) is None:
+            print(f"[train] checkpoint under {args.ckpt_dir} records no packing salts "
+                  "(written by the reference); restoring it unchecked", flush=True)
+    if plan.strategy:
+        # the plan carries the checkpointed assignment: every engine follows it
+        strategy = "mixed"
+    else:
+        # record the assignment before init_state: a compiled mix or a
+        # 'picasso_narrow' broadcast gates the master widths the state is
+        # sized by; training issues plan.microbatch ids a step
+        strategy = maybe_compile(plan, args.strategy, use_cache=not args.no_cache,
+                                 log=lambda s: print(f"[train] {s}"))
+        resolve_assignment(plan, strategy, use_cache=not args.no_cache)
+
+    guard = None
+    if args.guard:
+        guard = AnomalyGuard(log=lambda s: print(f"[train] {s}", flush=True))
+    chaos = None
+    if args.chaos:
+        chaos = ChaosController(parse_fault_plan(args.chaos))
+        print(f"[train] chaos plan armed: {args.chaos}", flush=True)
+
+    def build_step(plan):
+        """(Re)build the step against a plan revision; the guard (if armed)
+        judges the fresh step and keeps its EMA and event history."""
+        model = WDLModel(cfg, plan)
+        tcfg = TrainConfig(strategy="mixed" if plan.strategy else strategy,
+                           use_cache=not args.no_cache,
+                           use_interleave=not args.no_interleave, overlap=args.overlap,
+                           use_fused_kernels=args.fused_kernels,
+                           grad_compress=args.grad_compress,
+                           lr_emb=args.lr_emb, lr_dense=args.lr_dense)
+        # a judged step journals the rows it writes so it can reject itself
+        raw = make_train_step(model, plan, args.global_batch, tcfg, device)
+        return model, tcfg, (guard.rebind(raw) if guard is not None else raw)
+
+    model, tcfg, step_fn = build_step(plan)
     state = init_state(model, plan, torch.Generator(device=device).manual_seed(args.seed),
                        device)
+    replanner = None
+    if args.replan_iters:
+        replanner = Replanner(plan, strategy=args.strategy,
+                              hot_bytes=args.replan_hot_bytes,
+                              l2_bytes=args.replan_l2_bytes,
+                              use_cache=not args.no_cache, cache_update=tcfg.cache_update,
+                              log=lambda s: print(f"[train] replan {s}", flush=True))
     print(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
           f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world=1, "
-          f"device={device}")
+          f"device={device}, plan rev={plan.rev}")
 
+    # the positional factory gives the Supervisor an exact rewind after a
+    # rollback (ReplayableStream.seek)
     stream = ReplayableStream(lambda start: Prefetcher(
         batch_stream(cfg, args.global_batch, seed=args.seed, learnable=args.learnable,
                      start=start), depth=2))
+    if chaos is not None:
+        stream = chaos.wrap_stream(stream)
+    active_ckpt = None  # the live AsyncCheckpointer (chaos ckpt@ targets it)
+
+    def on_metrics(step, m):
+        if replanner is not None:
+            replanner.observe(m)
+        if step % args.log_every == 0:
+            tiers = "".join(f" {k.split('/')[1]}={int(m[k])}" for k in
+                            ("cache_hits/l1", "cache_hits/l2") if k in m)
+            print(f"  step {step:5d} loss={float(m['loss']):.4f} "
+                  f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}{tiers}",
+                  flush=True)
+        if chaos is not None:
+            if args.ckpt_dir:
+                chaos.after_checkpoint(step, args.ckpt_dir, active_ckpt)
+            # raised inside the Supervisor's loop (or run_stream's), a crash@
+            # fault drives the real recovery path of either driver
+            chaos.injector(step)
+
+    def do_replan(state, step):
+        """Harvest + recompile; on a real change, migrate + rebuild the step.
+        Returns (state, migrated?)."""
+        nonlocal plan, model, tcfg, step_fn
+        out = replanner.maybe_replan(state, step=step)
+        if out is None:
+            return state, False
+        plan, state = out
+        model, tcfg, step_fn = build_step(plan)
+        return state, True
+
     try:
-        for i in range(1, args.steps + 1):
-            try:
-                batch = next(stream)
-            except StopIteration:  # the stream ended or stalled: finish
-                break
-            state, m = step_fn(state, batch)
-            if i % args.log_every == 0:
-                tiers = "".join(f" {k.split('/')[1]}={int(m[k])}" for k in
-                                ("cache_hits/l1", "cache_hits/l2") if k in m)
-                print(f"  step {i:5d} loss={float(m['loss']):.4f} "
-                      f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}{tiers}",
-                      flush=True)
+        if args.stream:
+            # segments over the unbounded stream (--steps is ignored); each
+            # boundary checkpoints and publishes
+            ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts) if args.ckpt_dir else None
+            active_ckpt = ckpt
+            start = 0
+            if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+                state, start = restore_verified(
+                    args.ckpt_dir, state, log=lambda s: print(f"[train] {s}", flush=True))
+                stream.seek(start)  # resume replays from the exact batch index
+                print(f"[train] stream resumed at step {start}", flush=True)
+            publisher = None
+            if args.publish_dir:
+                def publisher(step, state):
+                    publish_state(args.publish_dir, step, state, meta=plan_meta(plan),
+                                  salts=salts)
+                    print(f"[stream] published step {step} -> {args.publish_dir}",
+                          flush=True)
+                    if chaos is not None:
+                        chaos.after_publish(step, args.publish_dir)
+
+            state, last = run_stream(
+                state, step_fn, stream, segment_steps=args.segment_steps,
+                n_segments=args.stream_segments, start_step=start, checkpointer=ckpt,
+                meta_fn=lambda: plan_meta(plan), publisher=publisher,
+                on_metrics=on_metrics)
+            if ckpt is not None:
+                ckpt.wait()
+            print(f"[train] stream done at step {last} (world=1)")
+            return
+        if args.ckpt_dir:
+            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts)
+            active_ckpt = sup.ckpt
+            # the plan sidecar rides every checkpoint: a resume after a replan
+            # must shape its template by the replanned revision
+            sup.meta = plan_meta(plan)
+            state, start = sup.maybe_restore(state)
+            stream.seek(start)  # resume replays from the exact batch index
+            step = start
+            ri = args.replan_iters
+            while step < args.steps:
+                seg_end = min(args.steps, (step // ri + 1) * ri) if ri else args.steps
+                state = sup.run(state, step_fn, stream, seg_end, start_step=step,
+                                on_metrics=on_metrics)
+                step = seg_end
+                if replanner is not None and step < args.steps:
+                    state, migrated = do_replan(state, step)
+                    if migrated:
+                        # a plan-consistent restore point: a later failure
+                        # must not restore pre-migration tier shapes
+                        sup.meta = plan_meta(plan)
+                        sup.ckpt.save(step, state, meta=sup.meta)
+                        sup.ckpt.wait()
+        else:
+            it = iter(stream)
+            for i in range(1, args.steps + 1):
+                try:
+                    batch = next(it)
+                except StopIteration:  # the stream ended or stalled: finish
+                    break
+                state, m = step_fn(state, batch)
+                on_metrics(i, m)
+                if (replanner is not None and i % args.replan_iters == 0
+                        and i < args.steps):
+                    state, _ = do_replan(state, i)
     finally:
         stream.close()
+    if replanner is not None:
+        n_mig = sum(1 for e in replanner.events if e.migrated)
+        print(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "
+              f"final plan rev={plan.rev}")
+    if guard is not None:
+        print(f"[train] guard: {guard.accepted} accepted, {guard.rejected} rejected")
     print("[train] done")
 
 

@@ -130,6 +130,11 @@ class WDLModel:
         if labels.dim() == 1:
             labels = labels[:, None]
         labels = labels.expand(logits.shape).to(logits.dtype)
-        ls = (torch.clamp(logits, min=0) - logits * labels
-              + torch.log1p(torch.exp(-logits.abs())))
+        # the reference's gradient conventions at a logit of exactly 0, where
+        # a sample whose every hidden unit is dead lands: jnp.maximum splits
+        # the gradient (0.5, as torch.maximum does; clamp gives 1) and
+        # jnp.abs takes the positive branch (1; torch.abs gives 0)
+        pos = torch.maximum(logits, torch.zeros_like(logits))
+        mag = torch.where(logits >= 0, logits, -logits)
+        ls = pos - logits * labels + torch.log1p(torch.exp(-mag))
         return ls.sum(), logits

@@ -1,0 +1,260 @@
+"""Adaptive replanning runtime (``repro.runtime.replanner`` in torch): close
+the measure -> recompile -> migrate loop at world 1.
+
+Every ``--replan-iters`` steps the trainer calls ``Replanner.maybe_replan``:
+
+1. **harvest** the engine's live FCounter counts (``engine.export_stats``)
+   plus the window's ``overflow*``/``cache_hits*`` metric sums
+   (``observe``);
+2. **recompile**: ``revise_plan`` re-budgets ``cache_rows``/``l2_rows`` from
+   the measured mass and ``compile_assignment(plan, stats=...)`` re-mixes
+   the per-group strategy (for ``'mixed'``/``'auto'``) -> revision ``rev+1``;
+3. **migrate**: if anything changed, ``embedding.state.migrate_state``
+   carries the live state across revisions on its device (write-back,
+   measured top-(H1+H2) tier re-split, master rows, adagrad slots and the
+   FCounter preserved exactly). At world 1 placing the state onto the new
+   plan's shardings is the identity.
+
+The caller then rebuilds its train step against the new plan. A recompile
+that lands on an identical plan returns ``None``: no migration, no rebuild,
+and training is bitwise the run that never replanned.
+
+Checkpoint contract: ``plan_meta(plan)`` is the JSON record of a revision
+the trainer saves beside the state; on resume ``apply_plan_meta`` revises
+the freshly compiled structural plan back to it before the restore
+template is built.
+
+The reference's measured cost model (``cost_model=`` and
+``observe_timing``'s feedback into it) waits for ROADMAP Queue 1 item 5:
+the constructor takes no such argument, so passing one is a ``TypeError``,
+as it is for ``compile_assignment``. There is no mesh: the port runs one
+rank.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.assign import apply_assignment, compile_assignment, resolve_assignment
+from repro_torch.core.packing import PicassoPlan, revise_plan
+from repro_torch.embedding.state import migrate_state
+from repro_torch.engine.engine import export_stats
+
+
+# ---------------------------------------------------------------------------
+# plan deltas + checkpoint meta
+# ---------------------------------------------------------------------------
+
+
+def plan_delta(old: PicassoPlan, new: PicassoPlan) -> Dict[int, str]:
+    """gid -> what changed between two revisions; empty == a no-op revision
+    (same tier budgets, strategies and master widths)."""
+    changed: Dict[int, str] = {}
+    for g in new.groups:
+        h1o, h1n = old.cache_rows.get(g.gid, 0), new.cache_rows.get(g.gid, 0)
+        h2o, h2n = old.l2_rows.get(g.gid, 0), new.l2_rows.get(g.gid, 0)
+        so = old.strategy.get(g.gid, "picasso")
+        sn = new.strategy.get(g.gid, "picasso")
+        ndo, ndn = old.narrow_width(g.gid), new.narrow_width(g.gid)
+        parts = []
+        if so != sn:
+            parts.append(f"{so}->{sn}")
+        if h1o != h1n:
+            parts.append(f"L1 {h1o}->{h1n}")
+        if h2o != h2n:
+            parts.append(f"L2 {h2o}->{h2n}")
+        if ndo != ndn:
+            parts.append(f"narrow {ndo}->{ndn}")
+        if parts:
+            changed[g.gid] = " ".join(parts)
+    return changed
+
+
+def plan_meta(plan: PicassoPlan) -> Dict[str, Any]:
+    """JSON-serializable record of a plan revision (the checkpoint sidecar):
+    the revisable decisions, and the world and mesh the state was written
+    under. Field for field the reference's."""
+    return {
+        "world": int(plan.world),
+        "mesh_shape": [int(x) for x in plan.mesh_shape],
+        "plan_rev": int(plan.rev),
+        "hot_bytes": int(plan.hot_bytes),
+        "l2_bytes": int(plan.l2_bytes),
+        "cache_rows": {str(gid): int(r) for gid, r in plan.cache_rows.items()},
+        "l2_rows": {str(gid): int(r) for gid, r in plan.l2_rows.items()},
+        "strategy": {str(gid): name for gid, name in plan.strategy.items()},
+        "narrow_dim": {str(gid): int(d) for gid, d in plan.narrow_dim.items()},
+    }
+
+
+def apply_plan_meta(plan: PicassoPlan, meta: Mapping[str, Any]) -> PicassoPlan:
+    """Revise a freshly compiled structural ``plan`` back to a checkpointed
+    revision (tier budgets, strategy, narrow widths from ``meta``). Call
+    before building the state template."""
+    gids = {g.gid for g in plan.groups}
+    meta_gids = {int(k) for k in meta.get("cache_rows", {})}
+    if meta_gids and meta_gids != gids:
+        raise ValueError(
+            f"checkpoint plan meta covers gids {sorted(meta_gids)} but the compiled "
+            f"plan has {sorted(gids)} — config/mesh changed under a resumed run")
+    return dataclasses.replace(
+        plan,
+        capacity=dict(plan.capacity),
+        interleave=[list(w) for w in plan.interleave],
+        cache_rows={int(k): int(v) for k, v in meta["cache_rows"].items()},
+        l2_rows={int(k): int(v) for k, v in meta["l2_rows"].items()},
+        rev=int(meta.get("plan_rev", 0)),
+        hot_bytes=int(meta.get("hot_bytes", plan.hot_bytes)),
+        l2_bytes=int(meta.get("l2_bytes", plan.l2_bytes)),
+        strategy={int(k): v for k, v in meta.get("strategy", {}).items()},
+        narrow_dim=({int(k): int(v) for k, v in meta["narrow_dim"].items()}
+                    if "narrow_dim" in meta else dict(plan.narrow_dim)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the Replanner
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ReplanEvent:
+    """One replan attempt (kept in ``Replanner.events``). ``seconds`` holds
+    the host time of its ``harvest``, ``compile`` and ``migrate`` phases."""
+
+    step: int
+    old_rev: int
+    new_rev: int                  # == old_rev when the recompile was a no-op
+    changed: Dict[int, str]       # gid -> delta description (empty = no-op)
+    window: Dict[str, int]        # metric sums observed since the last replan
+    seconds: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def migrated(self) -> bool:
+        return bool(self.changed)
+
+    def describe(self) -> str:
+        w = " ".join(f"{k}={v}" for k, v in sorted(self.window.items()))
+        if not self.changed:
+            return (f"step {self.step}: plan rev {self.old_rev} unchanged "
+                    f"(recompile is a no-op){'  [' + w + ']' if w else ''}")
+        ch = "; ".join(f"g{gid}: {d}" for gid, d in sorted(self.changed.items()))
+        return (f"step {self.step}: plan rev {self.old_rev} -> {self.new_rev}, "
+                f"migrated {len(self.changed)} group(s) [{ch}]"
+                f"{'  [' + w + ']' if w else ''}")
+
+
+def _sync(state: Dict[str, Any]) -> None:
+    """Wait for the device work queued on the state's device, so a host
+    clock read after it counts that work."""
+    for es in state["emb"].values():
+        if es.w.is_cuda:
+            torch.cuda.synchronize(es.w.device)
+        return
+
+
+class Replanner:
+    """Owns the adaptive replanning loop for one training run.
+
+    plan: the live plan; without a recorded assignment the ``strategy`` spec
+        is resolved and recorded (migration gating needs each group's class).
+    strategy: ``'mixed'``/``'auto'`` re-mixes from measured skew at every
+        replan; any other spec is re-resolved against each revision.
+    hot_bytes/l2_bytes: byte envelopes of the re-budget (``None``: the ones
+        recorded on the plan).
+    rebudget: ``False`` keeps ``cache_rows``/``l2_rows`` exactly.
+    use_cache/use_l2/cache_update: must mirror the train engine's flags.
+    per_device_batch/overrides: forwarded to ``compile_assignment``.
+    """
+
+    def __init__(self, plan: PicassoPlan, *, strategy: Any = "auto",
+                 hot_bytes: Optional[int] = None, l2_bytes: Optional[int] = None,
+                 rebudget: bool = True, use_cache: bool = True, use_l2: bool = True,
+                 cache_update: str = "psum", per_device_batch: Optional[int] = None,
+                 overrides: Optional[Mapping[Union[int, str], str]] = None,
+                 log: Optional[Callable[[str], None]] = None):
+        self.plan = plan
+        self.strategy = strategy
+        self.hot_bytes = hot_bytes
+        self.l2_bytes = l2_bytes
+        self.rebudget = rebudget
+        self.use_cache = use_cache
+        self.use_l2 = use_l2
+        self.cache_update = cache_update
+        self.per_device_batch = per_device_batch
+        self.overrides = overrides
+        self.log = log or (lambda s: None)
+        self.events: List[ReplanEvent] = []
+        self._window: Dict[str, Any] = {}  # device-scalar running sums
+        self._auto = isinstance(strategy, str) and strategy in ("mixed", "auto")
+        if not plan.strategy:
+            apply_assignment(plan, resolve_assignment(plan, strategy, use_cache=use_cache))
+
+    def observe(self, metrics: Mapping[str, Any]) -> None:
+        """Fold one step's ``overflow*``/``cache_hits*`` metrics into the
+        window; the sums stay on the device until ``maybe_replan``."""
+        for k, v in metrics.items():
+            if k.startswith("overflow") or k.startswith("cache_hits"):
+                self._window[k] = self._window.get(k, 0) + v
+
+    def _close_window(self) -> Dict[str, int]:
+        window = {k: int(v) for k, v in self._window.items()}
+        self._window = {}
+        return window
+
+    def _recompile(self, stats: Dict[int, np.ndarray]) -> PicassoPlan:
+        """Measured stats -> candidate revision (budgets + assignment)."""
+        new_plan = revise_plan(
+            self.plan, stats if self.rebudget else None,
+            hot_bytes=(self.hot_bytes if self.rebudget else self.plan.hot_bytes),
+            l2_bytes=(self.l2_bytes if self.rebudget else self.plan.l2_bytes),
+            enable_cache=self.use_cache)
+        if not self.rebudget:
+            new_plan.cache_rows = dict(self.plan.cache_rows)
+            new_plan.l2_rows = dict(self.plan.l2_rows)
+        if self._auto:
+            apply_assignment(new_plan, compile_assignment(
+                new_plan, stats=stats, per_device_batch=self.per_device_batch,
+                overrides=self.overrides, enable_cache=self.use_cache))
+        else:
+            apply_assignment(new_plan, resolve_assignment(new_plan, self.strategy,
+                                                          use_cache=self.use_cache))
+        return new_plan
+
+    def maybe_replan(self, state: Dict[str, Any], step: int = -1
+                     ) -> Optional[Tuple[PicassoPlan, Dict[str, Any]]]:
+        """Harvest -> recompile -> (maybe) migrate. ``None`` when the
+        revision equals the live plan (state untouched), else ``(new_plan,
+        new_state)``; the old state's tensors are reused by the new one
+        (migration writes the tiers back into the master in place)."""
+        _sync(state)  # the last step's queued work is not the harvest's
+        t0 = time.perf_counter()
+        stats = export_stats(self.plan, state["emb"])
+        t1 = time.perf_counter()
+        new_plan = self._recompile(stats)
+        changed = plan_delta(self.plan, new_plan)
+        window = self._close_window()
+        _sync(state)
+        t2 = time.perf_counter()
+        seconds = {"harvest": t1 - t0, "compile": t2 - t1}
+        if not changed:
+            ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=self.plan.rev,
+                             changed={}, window=window, seconds=seconds)
+            self.events.append(ev)
+            self.log(ev.describe())
+            return None
+        new_state = migrate_state(self.plan, new_plan, state, use_cache=self.use_cache,
+                                  use_l2=self.use_l2, cache_update=self.cache_update)
+        _sync(new_state)  # the sort, the write-backs and the tier loads are queued
+        seconds["migrate"] = time.perf_counter() - t2
+        ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=new_plan.rev,
+                         changed=changed, window=window, seconds=seconds)
+        self.events.append(ev)
+        self.log(ev.describe())
+        self.plan = new_plan
+        return new_plan, new_state

@@ -24,6 +24,18 @@ is a host int, so the flush decision costs no device sync.
 A step runs named stages, ``pack`` -> ``sparse`` -> ``dense`` (loss and
 gradients) -> ``sparse_backward`` -> ``dense_update`` -> ``flush``; a
 per-layer timing sets ``on_stage`` to read the clock after each one.
+
+A step with a ``judge`` bound can reject itself (``runtime.guard``): before
+each chunk's ``sparse_backward`` it journals the rows that update may write
+(``EmbeddingEngine.journal``: each group's strategy saves what its
+``apply_grads`` writes), and after the chunk loop, once the loss and the
+dense gradient norm are known and before anything dense is written, it asks
+its ``judge(loss, grad_norm)``. On a rejection it restores the journal in
+reverse chunk order and skips ``dense_update``, ``flush`` and the step
+count, so every leaf of the state is bitwise as it was. The journal costs a
+few rows a chunk (about 16k rows of 11 floats at full-width deepfm); the
+judge's read of the loss is one host sync a step. Without a judge (the
+default) there is neither.
 """
 from __future__ import annotations
 
@@ -87,13 +99,43 @@ class TrainConfig:
                              f"got {self.optimizer!r}")
 
 
+class _Journal:
+    """Rows of the state saved before in-place writes, restored newest
+    first. Every save of one step holds the values from before that step's
+    first write to them, so repeated indices restore consistently."""
+
+    def __init__(self):
+        self.entries = []
+
+    def save(self, t: torch.Tensor, idx: Optional[torch.Tensor] = None) -> None:
+        self.entries.append((t, idx, t.clone() if idx is None else t[idx]))
+
+    def restore(self) -> None:
+        for t, idx, saved in reversed(self.entries):
+            if idx is None:
+                t.copy_(saved)
+            else:
+                t[idx] = saved
+        self.entries = []
+
+
+def _grad_norm(g_dense: Any) -> torch.Tensor:
+    return torch.sqrt(sum(torch.vdot(g.reshape(-1), g.reshape(-1))
+                          for g in tree_leaves(g_dense)))
+
+
 class TrainStep:
     """``step(state, batch) -> (state, metrics)``; the state is updated in
     place and returned. Metrics are device tensors (``loss``, ``grad_norm``,
     ``overflow``, ``cache_hits``, for a mixed assignment
     ``overflow/<name>`` and ``cache_hits/<name>`` per strategy class, and,
     for two-tier strategies, ``cache_hits/l1`` and ``cache_hits/l2``) plus
-    the host int ``step``."""
+    the host int ``step``.
+
+    ``judge`` (``None``, or a ``(loss, grad_norm) -> bool`` callable, as
+    ``runtime.AnomalyGuard.rebind`` binds it) makes the step rejectable
+    (module docstring); a rejected step adds ``rejected: True`` to its
+    metrics."""
 
     def __init__(self, model: WDLModel, plan: PicassoPlan, global_batch: int,
                  tcfg: TrainConfig, device: torch.device):
@@ -116,6 +158,7 @@ class TrainStep:
         self.prefetch_early = self.use_overlap or tcfg.pipeline_micro
         self.update = OPTIMIZERS[tcfg.optimizer]
         self.on_stage: Optional[Callable[[str], None]] = None
+        self.judge: Optional[Callable[[torch.Tensor, torch.Tensor], bool]] = None
 
     def _mark(self, stage: str) -> None:
         if self.on_stage is not None:
@@ -190,8 +233,7 @@ class TrainStep:
         """Optimizer step on the dense parameters; returns the gradient norm."""
         state["dense"], state["opt"] = self.update(state["dense"], g_dense, state["opt"],
                                                    self.tcfg.lr_dense)
-        return torch.sqrt(sum(torch.vdot(g.reshape(-1), g.reshape(-1))
-                              for g in tree_leaves(g_dense)))
+        return _grad_norm(g_dense)
 
     @torch.no_grad()
     def flush(self, state: Dict[str, Any]) -> None:
@@ -210,6 +252,7 @@ class TrainStep:
         g_dense_acc = None
         em_acc = {k: torch.zeros((), dtype=torch.int32, device=self.device)
                   for k in self.engine.metric_keys}
+        journal = _Journal() if self.judge is not None else None
         pending = (self.sparse(state, self.micro_batch(packed_full, side, 0)[0]), 0)
         self._mark("sparse")
         for i in range(self.n_micro):
@@ -227,6 +270,8 @@ class TrainStep:
             loss_acc = loss_acc + loss
             g_dense_acc = (g_dense if g_dense_acc is None
                            else tree_map(torch.add, g_dense_acc, g_dense))
+            if journal is not None:
+                self.engine.journal(state["emb"], ectx, journal)
             em = self.sparse_backward(state, ectx, g_pooled)
             self._mark("sparse_backward")
             em_acc = {k: em_acc[k] + em[k] for k in em_acc}
@@ -239,7 +284,15 @@ class TrainStep:
             # error-feedback residual is dropped, so none carries across steps
             g_dense_acc, _ = gcomp.compressed_psum(g_dense_acc, int(self.plan.world),
                                                    self.tcfg.grad_compression)
-        grad_norm = self.dense_update(state, g_dense_acc)
+        if journal is not None:
+            grad_norm = _grad_norm(g_dense_acc)
+            if not self.judge(loss_acc, grad_norm):
+                journal.restore()
+                return state, {"loss": loss_acc, "step": state["step"],
+                               "grad_norm": grad_norm, **em_acc, "rejected": True}
+            self.dense_update(state, g_dense_acc)
+        else:
+            grad_norm = self.dense_update(state, g_dense_acc)
         self._mark("dense_update")
         state["step"] = int(state["step"]) + 1
         self.flush(state)
@@ -251,9 +304,15 @@ class TrainStep:
 
 def make_train_step(model: WDLModel, plan: PicassoPlan, global_batch: int,
                     tcfg: TrainConfig = TrainConfig(),
-                    device: Union[str, torch.device] = "cuda") -> TrainStep:
+                    device: Union[str, torch.device] = "cuda",
+                    donate: bool = True) -> TrainStep:
     """The train step on ``device`` (``cuda`` unless the caller asks for the
-    CPU): ``step(state, batch) -> (state, metrics)``."""
+    CPU): ``step(state, batch) -> (state, metrics)``. ``donate`` is the
+    reference's signature and changes nothing here: the reference's guard
+    needs a step that keeps its input state (``donate=False``); the port's
+    step updates the state in place either way and journals the rows it
+    writes exactly while a judge is bound (``runtime.AnomalyGuard``)."""
+    del donate
     return TrainStep(model, plan, global_batch, tcfg, resolve_device(device))
 
 

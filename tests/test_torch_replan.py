@@ -1,0 +1,480 @@
+"""The port's replanning loop against the reference on the CPU:
+``core.packing.revise_plan``, ``engine.export_stats``,
+``embedding.state.migrate_state`` and ``runtime.replanner``, case by case
+after ``tests/test_replan.py``.
+
+- ``revise_plan``, ``plan_meta``, ``apply_plan_meta`` and ``plan_delta``
+  equal the reference's field by field on the same measured stats;
+- ``migrate_state`` on a converted deepfm-smoke state (trained past a flush)
+  matches the reference's on the same state: integer state and tier keys
+  bitwise, float state within 1e-6 of its scale, rows written back through
+  the narrow projection's pseudo-inverse within 1e-5; over tier resizes,
+  a move to an uncached strategy, ``'stale'`` mode and every narrow-width
+  transition;
+- a no-op replan returns ``None`` and training goes on bitwise; a replanned
+  run meets the PR 12 bars against the reference's replanned run; the
+  checkpoint of a replanned run resumes its revision; the train launcher's
+  ``--replan-iters`` runs at smoke width.
+"""
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.core.assign import apply_assignment as japply_assignment
+from repro.core.assign import resolve_assignment as jresolve_assignment
+from repro.core.packing import make_plan as jmake_plan
+from repro.core.packing import plan_cache as jplan_cache
+from repro.core.packing import revise_plan as jrevise_plan
+from repro.data.synthetic import make_batch as jmake_batch
+from repro.dist.sharding import batch_specs, to_named
+from repro.embedding.state import migrate_state as jmigrate_state
+from repro.models.wdl import WDLModel as JWDLModel
+from repro.runtime import Replanner as JReplanner
+from repro.runtime import apply_plan_meta as japply_plan_meta
+from repro.runtime import plan_delta as jplan_delta
+from repro.runtime import plan_meta as jplan_meta
+from repro.train.train_step import TrainConfig as JTrainConfig
+from repro.train.train_step import init_state as jinit_state
+from repro.train.train_step import make_train_step as jmake_train_step
+from repro_torch.configs import get_config
+from repro_torch.configs.base import FeatureField, InteractionSpec, WDLConfig
+from repro_torch.convert import train_state_from_jax
+from repro_torch.core.assign import apply_assignment, resolve_assignment
+from repro_torch.core.features import table_salts
+from repro_torch.core.packing import make_plan, plan_cache, plan_l2, revise_plan
+from repro_torch.data.synthetic import make_batch
+from repro_torch.embedding.state import migrate_state, tier_gates
+from repro_torch.engine import export_stats
+from repro_torch.models.wdl import WDLModel
+from repro_torch.runtime import Replanner, apply_plan_meta, plan_delta, plan_meta
+from repro_torch.train.checkpoint import (load_checkpoint_meta, restore_checkpoint,
+                                          save_checkpoint)
+from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
+from test_torch_serve import ROOT, _env
+from test_torch_train import _check_state, _KinkAware
+
+torch.set_num_threads(1)
+
+AXES = ("data", "model")
+GB = 32
+PLAN_KW = dict(hot_bytes=1 << 14, l2_bytes=1 << 16, flush_iters=5, warmup_iters=2)
+_PLAN_FIELDS = ("cache_rows", "l2_rows", "rev", "hot_bytes", "l2_bytes", "capacity",
+                "interleave", "microbatch", "strategy", "narrow_dim", "mesh_shape",
+                "flush_iters", "warmup_iters", "world")
+
+
+def _plans(**kw):
+    k = dict(PLAN_KW)
+    k.update(kw)
+    return (jmake_plan(jget_config("deepfm", smoke=True), 1, GB, **k),
+            make_plan(get_config("deepfm", smoke=True), 1, GB, **k))
+
+
+def _same_plan(p, j):
+    for f in _PLAN_FIELDS:
+        a, b = getattr(p, f), getattr(j, f)
+        assert (list(a) if f == "mesh_shape" else a) == (list(b) if f == "mesh_shape" else b), f
+    assert [g.gid for g in p.groups] == [g.gid for g in j.groups]
+    assert [(g.rows, g.dim) for g in p.groups] == [(g.rows, g.dim) for g in j.groups]
+
+
+def _stats(plan, seed=0, skew=1.3):
+    rng = np.random.default_rng(seed)
+    return {g.gid: np.minimum(rng.zipf(skew, g.rows), 10_000).astype(np.int32)
+            for g in plan.groups}
+
+
+# ---------------------------------------------------------------- revision
+
+
+def test_make_plan_records_budgets_and_rev():
+    _, plan = _plans()
+    assert plan.rev == 0
+    assert plan.hot_bytes == PLAN_KW["hot_bytes"] and plan.l2_bytes == PLAN_KW["l2_bytes"]
+    off = make_plan(get_config("deepfm", smoke=True), world=1, per_device_batch=GB,
+                    enable_cache=False, hot_bytes=1 << 20)
+    assert off.hot_bytes == 0 and all(v == 0 for v in off.cache_rows.values())
+
+
+@pytest.mark.parametrize("case", ["no-stats", "stats", "retune", "drop-l2", "no-cache",
+                                  "unpacked-stats"])
+def test_revise_plan_matches_reference(case):
+    """The revision, field by field, on the same measured stats."""
+    jplan, plan = _plans(enable_packing=case != "unpacked-stats")
+    stats = _stats(plan) if "stats" in case and case != "no-stats" else None
+    kw = {"retune": dict(hot_bytes=1 << 11, l2_bytes=1 << 15), "drop-l2": dict(l2_bytes=0),
+          "no-cache": dict(enable_cache=False)}.get(case, {})
+    new, jnew = revise_plan(plan, stats, **kw), jrevise_plan(jplan, stats, **kw)
+    _same_plan(new, jnew)
+    assert new.rev == 1 and new.strategy == {}
+    assert plan_delta(plan, new) == jplan_delta(jplan, jnew)
+    if case == "no-stats":
+        assert not plan_delta(plan, new)
+    if case in ("retune", "drop-l2", "no-cache"):
+        assert plan_delta(plan, new)
+
+
+def test_plan_meta_apply_and_delta_match_reference():
+    """plan_meta of an assigned narrow plan, its JSON form re-applied to the
+    seed plan, and the delta of a re-assignment equal the reference's."""
+    jplan, plan = _plans(narrow_dim=4)
+    stats = _stats(plan, seed=2)
+    new, jnew = revise_plan(plan, stats, l2_bytes=1 << 15), jrevise_plan(
+        jplan, stats, l2_bytes=1 << 15)
+    apply_assignment(new, {g.gid: "picasso_narrow" for g in plan.groups})
+    japply_assignment(jnew, {g.gid: "picasso_narrow" for g in jplan.groups})
+    assert plan_meta(new) == jplan_meta(jnew)
+    seed_j, seed_p = _plans(narrow_dim=4)
+    _same_plan(apply_plan_meta(seed_p, plan_meta(new)), japply_plan_meta(seed_j, jplan_meta(jnew)))
+    assert plan_delta(plan, new) == jplan_delta(jplan, jnew)
+    assert "narrow 10->4" in " ".join(plan_delta(plan, new).values())
+    meta = plan_meta(plan)
+    meta["cache_rows"] = {"0": 8, "7": 8}  # gid 7 does not exist
+    with pytest.raises(ValueError, match="config/mesh changed"):
+        apply_plan_meta(plan, meta)
+
+
+def test_stats_driven_budget_follows_measured_mass():
+    fields = [FeatureField("a", 4096, 8, max_len=1, pooling="sum"),
+              FeatureField("b", 4096, 16, max_len=1, pooling="sum")]
+    cfg = WDLConfig(name="t", fields=tuple(fields), n_dense=0,
+                    interactions=(InteractionSpec("fm"),), mlp_dims=(8,))
+    plan = make_plan(cfg, world=1, per_device_batch=16, hot_bytes=1 << 13)
+    gids = sorted(g.gid for g in plan.groups)
+    hot, cold = gids
+    stats = {hot: np.full(plan.group(hot).rows, 50, np.int32),
+             cold: np.zeros(plan.group(cold).rows, np.int32)}
+    rows = plan_cache(plan.groups, 1 << 13, plan.world, stats=stats)
+    base = plan_cache(plan.groups, 1 << 13, plan.world)
+    assert rows[hot] >= base[hot] and rows[cold] <= base[cold]
+    assert rows == jplan_cache(plan.groups, 1 << 13, plan.world, stats=stats)
+    cold_stats = {g.gid: np.zeros(g.rows, np.int32) for g in plan.groups}
+    assert plan_cache(plan.groups, 1 << 13, plan.world, stats=cold_stats) == base
+    assert plan_l2(plan.groups, 1 << 15, rows, stats=cold_stats) == plan_l2(
+        plan.groups, 1 << 15, rows)
+
+
+# ------------------------------------------------ a trained reference state
+
+
+_TRAINED = {}
+
+
+def _train_jax(mesh1, jplan, strategy, cache_update="psum", steps=7):
+    """The reference's state after ``steps`` steps on its plan (host numpy),
+    shared by the cases that train the same plan and strategy."""
+    key = (repr(jplan), strategy, cache_update, steps)
+    if key not in _TRAINED:
+        _TRAINED[key] = _train_jax_uncached(mesh1, jplan, strategy, cache_update, steps)
+    return _TRAINED[key]
+
+
+def _train_jax_uncached(mesh1, jplan, strategy, cache_update, steps):
+    jcfg = jget_config("deepfm", smoke=True)
+    jmodel = JWDLModel(jcfg, jplan)
+    jstate = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)
+    jstep, _ = jmake_train_step(jmodel, jplan, mesh1, AXES, GB,
+                                JTrainConfig(strategy=strategy, cache_update=cache_update,
+                                             use_fused_kernels="off"), donate=False)
+    rng = np.random.default_rng(1)
+    for _ in range(steps):
+        b = jmake_batch(jcfg, GB, rng)
+        jstate, _ = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
+    return jax.device_get(jstate)
+
+
+def _scale(x):
+    return max(1.0, float(np.abs(x).max()))
+
+
+def _close(got, exp, tol, what):
+    got, exp = got.numpy(), np.asarray(exp)
+    assert got.shape == exp.shape and got.dtype == exp.dtype, what
+    assert np.abs(got - exp).max(initial=0.0) <= tol * _scale(exp), what
+
+
+# (old strategy, new strategy, plan kwargs, revise kwargs, cache_update)
+MIGRATIONS = {
+    "l2-shrink": ("picasso_l2", "picasso_l2", {}, dict(hot_bytes=1 << 10, l2_bytes=1 << 15),
+                  "psum"),
+    "l2-grow": ("picasso_l2", "picasso_l2", dict(l2_bytes=1 << 15), dict(l2_bytes=1 << 17),
+                "psum"),
+    "to-uncached": ("picasso_l2", "hybrid", {}, {}, "psum"),
+    "to-ps": ("picasso", "ps", {}, {}, "psum"),
+    "stale": ("picasso_l2", "picasso_l2", {}, dict(hot_bytes=1 << 10, l2_bytes=1 << 15),
+              "stale"),
+    "narrow-resize": ("picasso_narrow", "picasso_narrow", dict(narrow_dim=4),
+                      dict(hot_bytes=1 << 10, l2_bytes=1 << 15), "psum"),
+    "narrow-to-wide": ("picasso_narrow", "picasso_l2", dict(narrow_dim=4), {}, "psum"),
+    "wide-to-narrow": ("picasso_l2", "picasso_narrow", dict(narrow_dim=4), {}, "psum"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIGRATIONS))
+def test_migrate_state_matches_reference(mesh1, case):
+    old_s, new_s, plan_kw, rev_kw, cu = MIGRATIONS[case]
+    jplan, plan = _plans(**plan_kw)
+    for p, apply, resolve in ((plan, apply_assignment, resolve_assignment),
+                              (jplan, japply_assignment, jresolve_assignment)):
+        apply(p, resolve(p, old_s))
+    jstate = _train_jax(mesh1, jplan, old_s, cu)
+    state = train_state_from_jax(jstate, plan, "cpu")
+    stats = export_stats(plan, state["emb"])
+    for gid, c in stats.items():
+        np.testing.assert_array_equal(c, np.asarray(jstate["emb"][str(gid)].counts))
+    new, jnew = revise_plan(plan, stats, **rev_kw), jrevise_plan(jplan, stats, **rev_kw)
+    for p, apply, resolve in ((new, apply_assignment, resolve_assignment),
+                              (jnew, japply_assignment, jresolve_assignment)):
+        apply(p, resolve(p, new_s))
+    assert plan_delta(plan, new) == jplan_delta(jplan, jnew) != {}
+    out = migrate_state(plan, new, state, cache_update=cu)
+    jout = jmigrate_state(jplan, jnew, jstate, cache_update=cu)
+    narrow_wb = cu == "psum" and plan.narrow_width(0) < plan.group(0).dim
+    for gid in (str(g.gid) for g in plan.groups):
+        st, jst = out["emb"][gid], jout["emb"][gid]
+        np.testing.assert_array_equal(st.counts.numpy(), np.asarray(jst.counts))
+        tiers = [("cache", st.cache, jst.cache)]
+        assert (st.l2 is None) == (jst.l2 is None)
+        if st.l2 is not None:
+            tiers.append(("l2", st.l2, jst.l2))
+        for name, t, jt in tiers:
+            np.testing.assert_array_equal(t.keys.numpy(), np.asarray(jt.keys), name)
+            _close(t.rows, jt.rows, 1e-5 if narrow_wb else 1e-6, f"{case} {name} rows")
+            _close(t.acc, jt.acc, 1e-6, f"{case} {name} acc")
+        # the master: rows written back through the pseudo-inverse to 1e-5
+        _close(st.w, jst.w, 1e-5 if narrow_wb or case == "wide-to-narrow" else 1e-6,
+               f"{case} w")
+        _close(st.acc, jst.acc, 1e-6, f"{case} acc")
+        assert (st.proj is None) == (jst.proj is None)
+        if st.proj is not None:
+            _close(st.proj.kernel, jst.proj.kernel, 1e-6, f"{case} proj")
+            _close(st.proj.acc, jst.proj.acc, 1e-6, f"{case} proj acc")
+    if case == "to-uncached":
+        assert tier_gates(new, 0) == (False, False)
+        assert (out["emb"]["0"].cache.keys == plan.group(0).rows).all()
+
+
+def test_migrate_state_passthrough_identity(mesh1):
+    jplan, plan = _plans()
+    apply_assignment(plan, resolve_assignment(plan, "picasso_l2"))
+    state = train_state_from_jax(_train_jax(mesh1, jplan, "picasso_l2"), plan, "cpu")
+    new = revise_plan(plan)
+    new.cache_rows, new.l2_rows = dict(plan.cache_rows), dict(plan.l2_rows)
+    apply_assignment(new, resolve_assignment(new, "picasso_l2"))
+    out = migrate_state(plan, new, state)
+    for k, st in state["emb"].items():
+        assert out["emb"][k] is st
+
+
+def test_forced_resize_migration_preserves_master_exactly(mesh1):
+    """Shrink L1 and L2 after real steps: every master row and adagrad slot
+    survives exactly through the write-back of the 'psum' tiers, the
+    FCounter is untouched, the new tiers hold the measured top-H1 / next-H2
+    rows (ties to the lower row id) loaded from the synced master."""
+    jplan, plan = _plans()
+    apply_assignment(plan, resolve_assignment(plan, "picasso_l2"))
+    state = train_state_from_jax(_train_jax(mesh1, jplan, "picasso_l2"), plan, "cpu")
+    new = revise_plan(plan, hot_bytes=1 << 10, l2_bytes=1 << 15)
+    apply_assignment(new, resolve_assignment(new, "picasso_l2"))
+    g = plan.group(0)
+    st = state["emb"]["0"]
+    w_exp, acc_exp = st.w.clone(), st.acc.clone()
+    for tier in (st.cache, st.l2):
+        mine = tier.keys < g.rows
+        w_exp[tier.keys[mine].long()] = tier.rows[mine]
+        acc_exp[tier.keys[mine].long()] = tier.acc[mine]
+    counts = st.counts.clone()
+    mg = migrate_state(plan, new, state)["emb"]["0"]
+    assert torch.equal(mg.w, w_exp) and torch.equal(mg.acc, acc_exp)
+    assert torch.equal(mg.counts, counts)
+    h1, h2 = new.cache_rows[0], new.l2_rows[0]
+    c = counts.numpy().astype(np.int64)
+    order = np.argsort(-c, kind="stable")
+    ranked = order[c[order] > 0][:h1 + h2]
+    k1, k2 = mg.cache.keys.numpy(), mg.l2.keys.numpy()
+    np.testing.assert_array_equal(k1[k1 < g.rows], np.sort(ranked[:h1]))
+    np.testing.assert_array_equal(k2[k2 < g.rows], np.sort(ranked[h1:]))
+    assert torch.equal(mg.cache.rows[torch.as_tensor(k1 < g.rows)],
+                       w_exp[torch.as_tensor(k1[k1 < g.rows]).long()])
+
+
+# ------------------------------------------------------------ the Replanner
+
+
+def _port_run(plan, n, strategy="picasso_l2", hook=None, seed=3, state=None):
+    cfg = get_config("deepfm", smoke=True)
+    model = WDLModel(cfg, plan)
+    step = make_train_step(model, plan, GB, TrainConfig(strategy=strategy), "cpu")
+    if state is None:
+        state = init_state(model, plan, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        state, m = step(state, make_batch(cfg, GB, rng))
+        if hook is not None:
+            state, step = hook(i + 1, state, step, m)
+    return state
+
+
+def test_replan_noop_is_bitwise_equal():
+    _, plan_a = _plans()
+    state_a = _port_run(plan_a, 12)
+    _, plan_b = _plans()
+    rp = Replanner(plan_b, strategy="picasso_l2", rebudget=False)
+
+    def hook(i, state, step, m):
+        rp.observe(m)
+        if i % 4 == 0:
+            assert rp.maybe_replan(state, step=i) is None
+        return state, step
+
+    state_b = _port_run(plan_b, 12, hook=hook)
+    assert len(rp.events) == 3 and not any(e.migrated for e in rp.events)
+    assert rp.events[-1].window["cache_hits"] > 0
+    assert set(rp.events[-1].seconds) == {"harvest", "compile"}
+    for a, b in zip(sorted(state_a["emb"]["0"]._asdict().items()),
+                    sorted(state_b["emb"]["0"]._asdict().items())):
+        if a[1] is not None:
+            for x, y in zip(a[1] if isinstance(a[1], tuple) else (a[1],),
+                            b[1] if isinstance(b[1], tuple) else (b[1],)):
+                assert torch.equal(x, y), a[0]
+
+
+def test_replanner_takes_no_cost_model():
+    """The measured cost model waits for ROADMAP Queue 1 item 5."""
+    _, plan = _plans()
+    with pytest.raises(TypeError):
+        Replanner(plan, strategy="auto", cost_model=object())
+
+
+def test_replanned_run_meets_reference_bars(mesh1):
+    """Both sides train 8 steps, replanning at step 4 (the L2 envelope
+    halved), then rebuild their steps and train on. Each step starts from a
+    shared state (the reference's, carried over), as the PR 12 bars are held
+    where last bits compound (``check_train_trajectory(shared_state=True)``;
+    over 8 compounding steps the loss parts by 1.2e-4 relative under
+    ``PYTHONHASHSEED=22``), and a hidden unit whose sign float32 cannot
+    determine takes the port's side on both (``_KinkAware``): losses to rtol
+    1e-4 / atol 1e-5, hits and overflow equal, the state at the PR 12 bars
+    after every step and after the migration, the tiers' keys bitwise, and
+    the same replan events."""
+    jplan, plan = _plans()
+    jcfg, cfg = jget_config("deepfm", smoke=True), get_config("deepfm", smoke=True)
+    jmodel = JWDLModel(jcfg, jplan)
+    jstate = jinit_state(jmodel, jplan, jax.random.PRNGKey(0), mesh=mesh1, axes=AXES)
+    jrp = JReplanner(jplan, mesh1, AXES, strategy="picasso_l2", l2_bytes=1 << 15)
+    rp = Replanner(plan, strategy="picasso_l2", l2_bytes=1 << 15)
+
+    def jstep_for(p):
+        return jmake_train_step(JWDLModel(jcfg, p), p, mesh1, AXES, GB,
+                                JTrainConfig(strategy="mixed", use_fused_kernels="off"),
+                                donate=False)[0]
+
+    def step_for(p):
+        return make_train_step(WDLModel(cfg, p), p, GB, TrainConfig(strategy="mixed"), "cpu")
+
+    def same_state(state, jst):
+        jfin = jax.device_get(jst)
+        _check_state(state, jfin)
+        for t, jt in ((state["emb"]["0"].cache, jfin["emb"]["0"].cache),
+                      (state["emb"]["0"].l2, jfin["emb"]["0"].l2)):
+            np.testing.assert_array_equal(t.keys.numpy(), np.asarray(jt.keys))
+            np.testing.assert_allclose(t.rows.numpy(), np.asarray(jt.rows), atol=1e-4, rtol=0)
+
+    jstep, step = jstep_for(jplan), step_for(plan)
+    rng = np.random.default_rng(0)
+    with _KinkAware() as kinks:
+        for i in range(1, 9):
+            state, m, jstate, jm = _replan_step(mesh1, jcfg, rng, plan, step, jstep, jstate)
+            same_state(state, jstate)
+            jrp.observe(jm)
+            rp.observe(m)
+            if i == 4:
+                jout, out = jrp.maybe_replan(jstate, step=i), rp.maybe_replan(state, step=i)
+                assert jout is not None and out is not None
+                (jplan2, jstate), (plan, state) = jout, out
+                _same_plan(plan, jplan2)
+                same_state(state, jstate)
+                jstep, step = jstep_for(jplan2), step_for(plan)
+    assert kinks.unexplained == 0
+    assert [e.describe() for e in rp.events] == [e.describe() for e in jrp.events]
+    assert rp.events[0].migrated and set(rp.events[0].seconds) == {"harvest", "compile",
+                                                                   "migrate"}
+    assert plan.rev == 1 and int(m["cache_hits"]) > 0
+
+
+def _replan_step(mesh1, jcfg, rng, plan, step, jstep, jstate):
+    """One step on each side from the reference's state: losses to rtol
+    1e-4 / atol 1e-5, hits and overflow equal."""
+    b = jmake_batch(jcfg, GB, rng)
+    state, m = step(train_state_from_jax(jax.device_get(jstate), plan, "cpu"), b)
+    jstate, jm = jstep(jstate, jax.device_put(b, to_named(mesh1, batch_specs(b, AXES))))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4, atol=1e-5)
+    assert (int(m["cache_hits"]), int(m["overflow"])) == (int(jm["cache_hits"]),
+                                                          int(jm["overflow"]))
+    return state, m, jstate, jm
+
+
+def test_checkpoint_roundtrip_restores_current_plan(tmp_path):
+    """A resume after a replan rebuilds the replanned revision from the
+    checkpoint meta, restores bitwise under it and steps."""
+    _, plan = _plans()
+    rp = Replanner(plan, strategy="picasso_l2", l2_bytes=1 << 15)
+    state = _port_run(plan, 8)
+    plan2, state2 = rp.maybe_replan(state, step=8)
+    save_checkpoint(str(tmp_path), 8, state2, meta=plan_meta(plan2), salts=table_salts(plan2))
+    meta = load_checkpoint_meta(str(tmp_path))
+    assert meta is not None and meta["plan_rev"] == 1
+    _, seed_plan = _plans()
+    assert seed_plan.l2_rows != plan2.l2_rows
+    planR = apply_plan_meta(seed_plan, meta)
+    assert (planR.rev, planR.cache_rows, planR.l2_rows, planR.strategy) == (
+        1, plan2.cache_rows, plan2.l2_rows, plan2.strategy)
+    modelR = WDLModel(get_config("deepfm", smoke=True), planR)
+    template = init_state(modelR, planR, torch.Generator().manual_seed(4), "cpu")
+    restored, s = restore_checkpoint(str(tmp_path), template)
+    assert s == 8 and restored["step"] == state2["step"]
+    for k in ("w", "acc", "counts"):
+        assert torch.equal(getattr(restored["emb"]["0"], k), getattr(state2["emb"]["0"], k))
+    for t, u in ((restored["emb"]["0"].l2, state2["emb"]["0"].l2),
+                 (restored["emb"]["0"].cache, state2["emb"]["0"].cache)):
+        assert all(torch.equal(a, b) for a, b in zip(t, u))
+    assert restored["emb"]["0"].counts.sum() > 0
+    _port_run(planR, 2, strategy="mixed", seed=12, state=restored)
+
+
+def test_checkpoint_meta_absent_is_none(tmp_path):
+    save_checkpoint(str(tmp_path), 1, {"x": torch.zeros((2,))})
+    assert load_checkpoint_meta(str(tmp_path)) is None
+    assert load_checkpoint_meta(str(tmp_path / "nope")) is None
+
+
+def test_train_launcher_replans_and_resumes_the_revision(tmp_path):
+    """``--replan-iters`` on the CPU: the L2 envelope halved at steps 5 and
+    10 migrates once (the second recompile is a no-op), checkpoints carry
+    the revision, and a resume follows it."""
+    ckd = str(tmp_path / "ck")
+    common = ["--arch", "deepfm", "--smoke", "--device", "cpu", "--global-batch", "32",
+              "--log-every", "5", "--strategy", "picasso_l2", "--l2-budget", "65536",
+              "--ckpt-dir", ckd, "--ckpt-every", "5", "--replan-iters", "5",
+              "--replan-l2-bytes", "32768"]
+    env = _env(PYTHONHASHSEED="0")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *common,
+                          "--steps", "12"], capture_output=True, text=True, timeout=600,
+                         env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"\[train\] replan step 5: plan rev 0 -> 1, migrated 1 group", out.stdout)
+    assert "[train] replan step 10: plan rev 1 unchanged" in out.stdout
+    assert "[train] replans: 2 attempted, 1 migrated, final plan rev=1" in out.stdout
+    assert load_checkpoint_meta(ckd)["plan_rev"] == 1
+    again = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *common,
+                            "--steps", "14"], capture_output=True, text=True, timeout=600,
+                           env=env, cwd=str(ROOT))
+    assert again.returncode == 0, again.stderr
+    assert "[train] resumed plan rev 1 from checkpoint meta" in again.stdout
+    assert "  step     1 " not in again.stdout and again.stdout.rstrip().endswith("[train] done")
