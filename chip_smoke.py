@@ -4,9 +4,11 @@ against its plain PyTorch version, serves and trains full-width deepfm,
 full-width dcn-v2 and full-width deepfm with ``picasso_narrow`` and its L2
 tier on one card, trains full-width deepfm under ``--grad-compress fp16``
 and ``topk``, serves and trains full Criteo DLRM under ``picasso_narrow``,
-and serves and trains full-width deepfm unpacked under the per-group
+serves and trains full-width deepfm unpacked under the per-group
 ``mixed`` assignment and packed under ``ps``, with ``hybrid``,
-``mp_nodedup`` and ``allgather_rows`` driven on the packed state.
+``mp_nodedup`` and ``allgather_rows`` driven on the packed state, drives
+the runtime (checkpoints, guard, chaos, streaming, replanning), and serves,
+trains and retrieves with full-width sasrec and mind.
 
     python3 chip_smoke.py
 
@@ -221,7 +223,23 @@ Phases, in order (any failure raises and exits non-zero):
    ``python -m repro_torch.launch.serve --reload-dir ... --chaos torn@2``
    as a subprocess loads the newest delta, keeps it past the torn one and
    serves within 1e-5 of the trainer's state served in-process; the same
-   server under ``PYTHONHASHSEED=1`` fails on the packing salts.
+   server under ``PYTHONHASHSEED=1`` fails on the packing salts;
+15. the sequence models. ``gather_pool`` and ``tier_probe`` at sasrec's
+   and mind's serving (B = 512) and training (B = 256) shapes,
+   ``segment_grad`` (uniform and the path's zipf batch) and
+   ``dedup_adagrad`` (on the full table) at B = 256, against their plain
+   versions as in phase 2: D = 50 with 101 bags a sample (the first width
+   not a multiple of 4) and D = 64 with 54. Then sasrec (a 10,000,050 x 50
+   table, a 1,250,008-row L1 tier) and mind (20,002,068 x 64, 2,500,264)
+   each as phases 3-4 with 100 timed requests: served against the plain
+   path (1e-5), 30 training steps with the flush at step 20, one kernel
+   step held against one plain step from a shared state before step 1 and
+   step 21, and their smoke configs on the card against the CPU. Each then
+   retrieves the top 10 of 1,048,576 candidates for one user, chunked at
+   65,536 and in one chunk, on the kernels and on the plain path: the ids
+   equal, and equal to a stable sort of the scores computed straight from
+   the table. Last, din, mmoe and can at ``scale=0.01`` serve one request
+   and train one step, each against the plain path.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -251,7 +269,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_shapes  # noqa: E402
-from repro_torch.configs.paper_models import dlrm  # noqa: E402
+from repro_torch.configs.paper_models import PAPER_MODELS, dlrm  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.features import pack_group, table_salts  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
@@ -267,7 +285,8 @@ from repro_torch.runtime import (AnomalyGuard, ChaosController, ChaosStream,  # 
                                  FaultPlan, PublishPoller, Replanner, apply_plan_meta,
                                  parse_fault_plan, plan_meta, publish_state, run_stream)
 from repro_torch.runtime.chaos import tear_published  # noqa: E402
-from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step  # noqa: E402
+from repro_torch.serve.serve_step import (ServeConfig, init_state,  # noqa: E402
+                                          make_retrieval_step, make_serve_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 from repro_torch.train.fault_tolerance import Supervisor  # noqa: E402
@@ -313,6 +332,7 @@ class Arch(NamedTuple):
     packing: bool = True            # False: the launchers' --no-packing
     mix: Tuple[Tuple[str, int], ...] = ()  # the assignment's groups a strategy
     exact_capacity: bool = False    # lossless buckets (mp_nodedup's parity plans)
+    n_requests: int = N_TIMED       # timed full-width requests
 
     @property
     def master_dim(self) -> int:
@@ -385,6 +405,25 @@ ARCHS["deepfm-ps"] = Arch(
     {**_PS_SERVE, "segment_grad": 1, "dedup_adagrad": 1, "fm_interaction_bwd": 1},
     False, (1, FLUSH_ITERS + 1), "ps")
 BASELINES = ("hybrid", "mp_nodedup", "allgather_rows")  # same launches as deepfm-ps
+# the sequence models at full width (phase 15): one packed group each, a
+# bag per history position, position and target (sasrec: 101 at D = 50, the
+# first path width not a multiple of 4; mind: 50 history items, the target
+# and three profile fields, 54 at D = 64), probed and pooled once a request
+# and a step, with one segment_grad and one dedup_adagrad a step. Each is
+# held one step from a shared state before step 1 and after the flush, as
+# every path since dcn-v2 is; the 30-step loss difference is printed
+_SEQ_TRAIN = {**_EMB, "segment_grad": 1, "dedup_adagrad": 1}
+ARCHS["sasrec"] = Arch("sasrec", "sasrec", 101, 50, 10_000_050, 1_250_008, _EMB,
+                       _SEQ_TRAIN, False, (1, FLUSH_ITERS + 1), n_requests=100)
+ARCHS["mind"] = Arch("mind", "mind", 54, 64, 20_002_068, 2_500_264, _EMB, _SEQ_TRAIN,
+                     False, (1, FLUSH_ITERS + 1), n_requests=100)
+SEQ_PATHS = ("sasrec", "mind")
+# two-tower retrieval: the top 10 of 2^20 candidates, chunked and in one go,
+# each way timed over 100 calls after one warm-up (about 4 s a way)
+RETRIEVAL_N, RETRIEVAL_CHUNK, RETRIEVAL_K = 1 << 20, 65_536, 10
+RETRIEVAL_CALLS = 100
+# the paper's other configs, at the reference's bench scale
+PAPER_SMOKE = ("din", "mmoe", "can")
 MAIN = ("deepfm", "dcn-v2", "deepfm-narrow")  # phases 3-8; dlrm-narrow is 10-11
 MIXED_PATHS = ("deepfm-mixed", "deepfm-ps")   # phases 12-13
 # every deepfm-smoke table fits the ps gate, so the smoke of a mixed path
@@ -1829,7 +1868,7 @@ def serve_full_width(arch: str) -> dict:
     check_inert(state["emb"], inert, f"{arch} warm-up flush")
     tier_keys = tier_keys_all(serve.engine, state["emb"])
     full_tiers = fill_tiers(serve.engine, state, a, SEED + 3) if a.full_tiers_first else None
-    batches = [make_batch(cfg, SERVE_B, rng) for _ in range(N_TIMED)]
+    batches = [make_batch(cfg, SERVE_B, rng) for _ in range(a.n_requests)]
 
     ops.reset_launches()
     lat, hits, l2_hits, probs = [], [], [], None
@@ -1851,7 +1890,7 @@ def serve_full_width(arch: str) -> dict:
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
           "full-width probabilities finite [B, 1]")
-    check(launches == {n: a.serve_launches.get(n, 0) * N_TIMED for n in launches},
+    check(launches == {n: a.serve_launches.get(n, 0) * a.n_requests for n in launches},
           f"{arch} serving launches per request {a.serve_launches}: {launches}")
     check(min(hits) > 0 if serve.engine.any_cache else max(hits) == 0,
           f"cache hits on every request (none without a tier): {hits}")
@@ -1874,7 +1913,7 @@ def serve_full_width(arch: str) -> dict:
            "cache_hits_per_request": float(np.mean(hits)),
            "l2_hits_per_request": float(np.mean(l2_hits)),
            "ids_per_request": SERVE_B * a.n_fields, "launches": launches,
-           "launches_per_request": {n: v / N_TIMED for n, v in launches.items() if v},
+           "launches_per_request": {n: v / a.n_requests for n, v in launches.items() if v},
            "plain_vs_kernel_max_abs_err": err,
            "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
            "where_time_goes": breakdown}
@@ -1943,13 +1982,13 @@ def where_time_goes(serve, state, batches) -> dict:
     layers = {"pack_ms": [], "sparse_ms": [], "dense_ms": []}
     for b in batches:
         t0 = time.perf_counter()
-        packed, dense_x = serve.pack(b)
+        packed, side = serve.pack(b)
         torch.cuda.synchronize(DEV)
         t1 = time.perf_counter()
         pooled, _ = serve.sparse(state, packed)
         torch.cuda.synchronize(DEV)
         t2 = time.perf_counter()
-        serve.dense(state, pooled, dense_x)
+        serve.dense(state, pooled, side)
         torch.cuda.synchronize(DEV)
         t3 = time.perf_counter()
         for k, v in zip(layers, (t1 - t0, t2 - t1, t3 - t2)):
@@ -2515,6 +2554,209 @@ def ptxas_usage(log: str):
         elif "registers" in ln:
             out.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}{spill}")
     return out
+
+
+# ------------------------------------------------------------------ phase 15
+
+
+def seq_kernels(gen: torch.Generator) -> Dict[str, list]:
+    """The four kernels of the sequence paths at their shapes: gather_pool
+    and tier_probe at serving's B = 512 and training's B = 256, segment_grad
+    (uniform and on the path's own zipf batch, where the 50 position rows
+    recur once a sample) and dedup_adagrad on the full table at B = 256; at
+    D = 50 (sasrec: gather_pool's float2 lanes, tier_probe's and
+    segment_grad's scalar copies) and D = 64 (mind)."""
+    out: Dict[str, list] = {"gather_pool": [], "tier_probe": [], "segment_grad": [],
+                            "dedup_adagrad": []}
+    for arch in SEQ_PATHS:
+        a = ARCHS[arch]
+        cases = {f"gather_pool {arch} serve": lambda: run_gather_pool(SERVE_B, gen, a),
+                 f"gather_pool {arch} train": lambda: run_gather_pool(TRAIN_B, gen, a),
+                 f"tier_probe {arch} serve": lambda: run_tier_probe(SERVE_B, gen, a),
+                 f"tier_probe {arch} train": lambda: run_tier_probe(TRAIN_B, gen, a),
+                 f"segment_grad {arch} train": lambda: run_segment_grad(TRAIN_B, gen, a),
+                 f"segment_grad {arch} train zipf": lambda: run_segment_grad(
+                     TRAIN_B, gen, a, zipf=True),
+                 f"dedup_adagrad {arch} train": lambda: run_dedup_adagrad(TRAIN_B, gen, a)}
+        for label, run in cases.items():
+            r = run()
+            print(f"[kernel] {label} " + json.dumps(r), flush=True)
+            name, shape = label.split(" ", 1)
+            out[name].append({"label": shape, **r})
+        _TABLES.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed(fn, n: int):
+    """``n`` calls of ``fn``, each ended by a synchronize: (last result,
+    host ms of each)."""
+    lat, res = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return res, lat
+
+
+def retrieval_full_width(arch: str) -> dict:
+    """The serve launcher's ``--retrieval`` at full width: the top 10 of
+    2^20 candidates (``arange(n) % vocab``, rows of the packed item table)
+    for one user, chunked at 65,536 and in one chunk, on the kernels and on
+    the plain path, from one state. The ids of all three must be equal, and
+    equal to a stable sort of ``max_k <w[c], user_k>`` over every candidate
+    computed straight from the table."""
+    a = ARCHS[arch]
+    cfg = get_config(a.config)
+    plan = make_plan(cfg, world=1, per_device_batch=1, enable_cache=False,
+                     exact_capacity=True)
+    resolve_assignment(plan, "picasso", use_cache=False)
+    model = WDLModel(cfg, plan)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    state = init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    user = make_batch(cfg, 1, np.random.default_rng(1))
+    cand = torch.arange(RETRIEVAL_N, dtype=torch.int32, device=DEV) % cfg.fields[0].vocab
+    steps = {label: make_retrieval_step(
+        model, plan, RETRIEVAL_N, RETRIEVAL_K,
+        ServeConfig(use_cache=False, use_fused_kernels=fused), score_chunk=chunk, device=DEV)
+        for label, chunk, fused in (("chunked", RETRIEVAL_CHUNK, "auto"),
+                                    ("unchunked", None, "auto"),
+                                    ("plain", RETRIEVAL_CHUNK, "off"))}
+    out, res, calls = {"arch": arch, "candidates": RETRIEVAL_N, "top_k": RETRIEVAL_K,
+                       "chunk": RETRIEVAL_CHUNK, "capacity_user": plan.capacity[0],
+                       "capacity_chunked": steps["chunked"].cand_engine.strategies[0]
+                       .capacity[0]}, {}, 0
+    ops.reset_launches()
+    for label in ("chunked", "unchunked", "plain"):
+        if label == "plain":
+            launches = dict(ops.launches)
+            check(launches == {n: calls if n == "gather_pool" else 0 for n in launches},
+                  f"{arch} retrieval: one gather_pool a call (the user tower), no tier: "
+                  f"{launches}")
+        res[label], lat = timed(lambda: steps[label](state, user, cand), RETRIEVAL_CALLS + 1)
+        calls += len(lat)
+        out[f"{label}_first_ms"] = lat[0]
+        for q in (50, 90, 99):
+            out[f"{label}_p{q}_ms"] = float(np.percentile(lat[1:], q))
+    out["timed_calls"] = RETRIEVAL_CALLS
+    # device time of ten calls each way: what the host clock's p50 is made of
+    from torch.profiler import ProfilerActivity, profile
+    for label in ("chunked", "unchunked"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                steps[label](state, user, cand)
+            torch.cuda.synchronize(DEV)
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 10
+        out[f"{label}_device_ms"] = float(dev) if dev > 0 else None
+        out[f"{label}_device_busy_share"] = (dev / out[f"{label}_p50_ms"]
+                                             if dev > 0 else None)
+    u = steps["chunked"].user(state, user)
+    exact = torch.amax(state["emb"]["0"].w[cand.long()] @ u.T, dim=-1)
+    order = torch.sort(exact, descending=True, stable=True).indices[:RETRIEVAL_K]
+    sv, ids = res["chunked"]
+    for label in ("unchunked", "plain"):
+        check(torch.equal(res[label][1], ids), f"{arch} retrieval {label} ids "
+              f"{res[label][1].tolist()} vs chunked {ids.tolist()}")
+    check(torch.equal(ids, cand[order]), f"{arch} retrieval ids vs the table's own scores")
+    err = max(max_err(sv, exact[order]), max_err(res["unchunked"][0], sv),
+              max_err(res["plain"][0], sv))
+    check(bool(torch.isfinite(sv).all()) and bool((sv[:-1] >= sv[1:]).all())
+          and err <= TOL * scale_of(exact[order]),
+          f"{arch} retrieval scores descending, agreeing to 1e-5 of scale: {err}")
+    out.update({"user_vectors": list(u.shape), "top_ids": ids.tolist(),
+                "top_scores": sv.tolist(), "max_abs_err": err, "launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30})
+    del state, steps, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def paper_against_plain(name: str) -> dict:
+    """A paper config at the reference's bench scale (``scale=0.01``): one
+    request on the kernels after a warm-up flush and one on the plain path
+    from the same state (1e-5), and one training step held against a plain
+    step from a shared state (``shared_state_check``), then one step whose
+    launches are counted."""
+    cfg = PAPER_MODELS[name](scale=0.01)
+    plan = make_plan(cfg, world=1, per_device_batch=SERVE_B)
+    model = WDLModel(cfg, plan)
+    state = init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    serve = make_serve_step(model, plan, SERVE_B, ServeConfig(), DEV)
+    rng = np.random.default_rng(SEED)
+    warm_tier(serve, state, cfg, rng, 4)
+    batch = make_batch(cfg, SERVE_B, rng)
+    ops.reset_launches()
+    probs, ctx = serve.score(state, batch)
+    torch.cuda.synchronize(DEV)
+    serve_launches = dict(ops.launches)
+    plain = make_serve_step(model, plan, SERVE_B, ServeConfig(use_fused_kernels="off"), DEV)
+    err = max_err(probs, plain(state, batch))
+    n_g = len(plan.groups)
+    check(err <= TOL and tuple(probs.shape) == (SERVE_B, cfg.n_tasks)
+          and hits_of(serve.engine, ctx) > 0
+          and serve_launches["tier_probe"] == serve_launches["gather_pool"] == n_g,
+          f"{name}: request kernel vs plain err {err}, launches {serve_launches}")
+    del state, serve, plain
+    tplan = make_plan(cfg, world=1, per_device_batch=TRAIN_B, flush_iters=FLUSH_ITERS,
+                      warmup_iters=WARMUP_ITERS)
+    tmodel = WDLModel(cfg, tplan)
+    tstate = ts.init_state(tmodel, tplan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    step = ts.make_train_step(tmodel, tplan, TRAIN_B, ts.TrainConfig(), DEV)
+    tb = next(batch_stream(cfg, TRAIN_B, seed=SEED))
+    shared = shared_state_check(tmodel, tplan, step, tstate, tb)
+    ops.reset_launches()
+    tstate, m = step(tstate, tb)
+    torch.cuda.synchronize(DEV)
+    train_launches = dict(ops.launches)
+    check(bool(np.isfinite(float(m["loss"])))
+          and all(train_launches[k] == n_g for k in ("tier_probe", "gather_pool",
+                                                     "segment_grad", "dedup_adagrad")),
+          f"{name}: step loss {float(m['loss'])}, launches {train_launches}")
+    return {"config": name, "groups": n_g, "dims": sorted({g.dim for g in plan.groups}),
+            "n_tasks": cfg.n_tasks, "request_max_abs_err": err,
+            "request_launches": serve_launches, "step_launches": train_launches,
+            "step_loss": float(m["loss"]), "shared_state_check": shared}
+
+
+def seq_phase(runs: dict, t_start: float) -> Dict[str, list]:
+    """Phase 15: the sequence paths' kernel shapes, sasrec and mind served
+    (100 timed requests at B = 512) and trained (30 steps at B = 256, flush
+    at 20) at full width, full-width retrieval, and din, mmoe and can at
+    ``scale=0.01``. Returns the kernel shapes for the kernel line."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    shapes = seq_kernels(gen)
+    print(f"[wall] phase 15 kernels at {time.perf_counter() - t_start:.1f}s", flush=True)
+    for arch in SEQ_PATHS:
+        serve_and_train(arch, runs, t_start)
+        r = runs[arch, "retrieval"] = retrieval_full_width(arch)
+        print(f"[retrieval] {arch} full width " + json.dumps(r), flush=True)
+        print(f"[retrieval] {arch} top {RETRIEVAL_K} of {RETRIEVAL_N}, "
+              f"{RETRIEVAL_CALLS} calls each: chunked p50={r['chunked_p50_ms']:.3f}ms "
+              f"p99={r['chunked_p99_ms']:.3f}ms device={r['chunked_device_ms']}ms; "
+              f"unchunked p50={r['unchunked_p50_ms']:.3f}ms p99={r['unchunked_p99_ms']:.3f}ms "
+              f"device={r['unchunked_device_ms']}ms; plain p50={r['plain_p50_ms']:.3f}ms "
+              f"p99={r['plain_p99_ms']:.3f}ms peak={r['peak_mem_gib']:.2f}GiB", flush=True)
+    for name in PAPER_SMOKE:
+        print(f"[paper] {name} scale=0.01 " + json.dumps(paper_against_plain(name)),
+              flush=True)
+        torch.cuda.empty_cache()
+    stamp = card_stamp()
+    for arch in SEQ_PATHS:
+        sv, tr, rt = runs[arch, "serve"], runs[arch, "train"], runs[arch, "retrieval"]
+        print(f"[phase 15] {arch} on {stamp}: request p50={sv['p50_ms']:.3f}ms "
+              f"device ms/request={sv['where_time_goes']['device_ms_per_request']} "
+              f"step p50={tr['step_p50_ms']:.3f}ms "
+              f"device ms/step={tr['where_time_goes']['device_ms_per_step']} "
+              f"retrieval p50={rt['chunked_p50_ms']:.3f}ms (chunked) "
+              f"{rt['unchunked_p50_ms']:.3f}ms (one chunk) peak GiB serve/train/retrieval="
+              f"{sv['peak_mem_gib']:.2f}/{tr['peak_mem_gib']:.2f}/{rt['peak_mem_gib']:.2f} "
+              f"launches/request={sv['launches_per_request']} "
+              f"launches/step={tr['launches_per_step']}", flush=True)
+    print(f"[wall] phase 15 {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return shapes
 
 
 # ------------------------------------------------------------------ phase 14
@@ -3135,6 +3377,10 @@ def main() -> None:
     runtime_phase(runs)  # phase 14
     print(f"[wall] runtime done at {time.perf_counter() - t_start:.1f}s "
           f"(phase 14 {time.perf_counter() - t_phase:.1f}s)", flush=True)
+    torch.cuda.empty_cache()
+    other_shapes["dedup_adagrad"] = []
+    for name, rows in seq_phase(runs, t_start).items():  # phase 15
+        other_shapes[name] += rows
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

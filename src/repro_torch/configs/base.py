@@ -1,5 +1,5 @@
 """Config dataclasses + arch/shape registry (copy of ``repro.configs.base``,
-WDL part only).
+WDL part only: deepfm, dcn-v2, sasrec and mind).
 
 Every registered architecture has a ``full()`` (exact public config) and a
 ``smoke()`` (reduced same-family config for CPU tests) plus its shape set.
@@ -33,7 +33,8 @@ class FeatureField:
 class InteractionSpec:
     """One feature-interaction submodule (paper Fig. 2)."""
 
-    kind: str  # the port runs 'fm', 'linear' and 'cross' so far
+    kind: str  # 'linear' | 'fm' | 'cross' | 'dot' | 'self_attn_seq' | 'target_attn'
+    #            | 'capsule' | 'gru' | 'coaction' | 'mmoe
     fields: Tuple[str, ...] = ()  # field names it consumes ('' = all)
     kwargs: Dict[str, Any] = field(default_factory=dict)
 
@@ -50,6 +51,12 @@ class WDLConfig:
     dense_arch: Tuple[int, ...] = ()  # bottom MLP for numeric features
     n_tasks: int = 1
     dtype: str = "float32"
+
+    def field_by_name(self, name: str) -> FeatureField:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(name)
 
 
 @dataclass(frozen=True)
@@ -103,4 +110,4 @@ def list_archs() -> List[str]:
 
 def _ensure_loaded() -> None:
     # importing an arch module runs its register_arch call
-    from repro_torch.configs import dcn_v2, deepfm  # noqa: F401
+    from repro_torch.configs import dcn_v2, deepfm, mind, sasrec  # noqa: F401

@@ -5,8 +5,10 @@ example with ``jax.device_get``); nothing here imports JAX. The embedding
 part is read by attribute (``w``, ``acc``, ``counts``, the tiers ``cache``
 and ``l2`` as ``keys``/``rows``/``acc``, the projection ``proj`` as
 ``kernel``/``acc``; ``l2`` and ``proj`` may be ``None``), the dense part and
-the Adam moments are nested dicts of arrays with the same layout as
-``WDLModel.init_dense``.
+the Adam moments are nested dicts of arrays, of any depth, with the same
+layout as ``WDLModel.init_dense`` (the sequence models' ``b{i}``/``ln_f``/
+``attn`` blocks, ``s``, MMoE's ``e{i}``/``g{t}`` and ``task{t}`` towers
+carry over leaf for leaf).
 """
 from __future__ import annotations
 

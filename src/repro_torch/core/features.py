@@ -7,11 +7,12 @@ Scrambling + table offsets map raw per-table IDs into the packed global row
 space. All of a group's fields are scrambled in one pass over a ``[B, L]``
 matrix with per-column constants, so a group costs three host-to-device
 copies whatever its field count. ``dense_features`` moves the batch's
-numeric features to the device beside them.
+numeric features to the device beside them, and ``seq_masks`` the validity
+masks of the sequence fields.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,3 +99,40 @@ def dense_features(cfg: Any, batch: Dict, device: Union[str, torch.device]
     if cfg.n_dense <= 0:
         return None
     return torch.as_tensor(np.asarray(batch["dense"], np.float32)).to(device)
+
+
+MASK_PREFIX = "mask/"  # a sequence field's mask in a flat side dict
+
+
+def mask_key(name: str) -> str:
+    """The key of field ``name``'s validity mask in a step's side dict."""
+    return MASK_PREFIX + name
+
+
+def seq_masks(cfg: Any, batch: Dict, device: Union[str, torch.device]
+              ) -> Dict[str, torch.Tensor]:
+    """``{mask_key(name): weights > 0}`` ``[B, L]`` bool on ``device`` for
+    every sequence field (``pooling == 'none'``), the reference's
+    ``field_mask``, from one host-to-device copy of their weights. Flat, one
+    tensor a field, so a micro-batch slices each with ``v[lo:hi]``."""
+    seq = [f for f in cfg.fields if f.pooling == "none"]
+    if not seq:
+        return {}
+    w = np.concatenate([np.asarray(batch["fields"][f.name]["weights"], np.float32)
+                        for f in seq], axis=1)
+    valid = torch.as_tensor(w).to(device) > 0
+    return dict(zip((mask_key(f.name) for f in seq),
+                    torch.split(valid, [f.max_len for f in seq], dim=1)))
+
+
+def pack_batch(cfg: Any, plan: PicassoPlan, batch: Dict, device: Union[str, torch.device]
+               ) -> Tuple[Dict[int, PackedBatch], Dict[str, torch.Tensor]]:
+    """A step's device inputs: one ``PackedBatch`` per group, and the side
+    tensors the model reads (``dense`` when the config has dense features,
+    the sequence masks under ``mask_key``)."""
+    packed = {g.gid: pack_group(g, batch["fields"], device) for g in plan.groups}
+    side = seq_masks(cfg, batch, device)
+    dense_x = dense_features(cfg, batch, device)
+    if dense_x is not None:
+        side["dense"] = dense_x
+    return packed, side

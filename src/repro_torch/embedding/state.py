@@ -3,7 +3,9 @@ the narrow projection), ``repro.embedding.state`` in torch.
 
 The state is built directly on the target device from a ``torch.Generator``
 on that device: full-width deepfm's table is 187,780,711 x 10 float32
-(7.5 GB) and is never staged through the host. ``l2`` is the optional
+(7.5 GB) and is never staged through the host. A ``JaxKey`` in its place
+draws the reference's numbers on the host (``core.jax_random``; small
+tables). ``l2`` is the optional
 second cache tier behind the hot tier (``None`` when the plan budgets no L2
 rows); ``proj`` is set exactly when the master is narrow (``picasso_narrow``
 with ``narrow_dim < dim``). The port keeps the L2 tier in device memory;
@@ -16,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.jax_random import Rng, rng_normal, rng_split
 from repro_torch.core.packed_embedding import CacheState, ProjState, init_cache
 from repro_torch.core.packing import PackedGroup, PicassoPlan
 
@@ -47,7 +50,7 @@ def init_proj(gid: int, nd: int, d: int, device: torch.device,
                      acc=torch.zeros((nd, 1), dtype=dtype, device=device))
 
 
-def init_group_state(generator: torch.Generator, group: PackedGroup, hot_rows: int,
+def init_group_state(rng: Rng, group: PackedGroup, hot_rows: int,
                      device: torch.device, dtype=torch.float32, l2_rows: int = 0,
                      narrow_dim: Optional[int] = None) -> EmbeddingState:
     """``narrow_dim`` below the group's dim makes the MASTER narrow (cold ids
@@ -56,8 +59,8 @@ def init_group_state(generator: torch.Generator, group: PackedGroup, hot_rows: i
     nd = group.dim if narrow_dim is None else int(narrow_dim)
     narrow = 0 < nd < group.dim
     width = nd if narrow else group.dim
-    w = torch.randn((group.rows, width), generator=generator, dtype=dtype, device=device)
-    w.mul_(1.0 / float(max(width, 1)) ** 0.5)
+    w = rng_normal(rng, (group.rows, width), device, dtype)
+    w.mul_(float(np.float32(1) / np.sqrt(np.float32(max(width, 1)))))
     return EmbeddingState(
         w=w,
         acc=torch.zeros((group.rows, 1), dtype=dtype, device=device),
@@ -69,16 +72,17 @@ def init_group_state(generator: torch.Generator, group: PackedGroup, hot_rows: i
     )
 
 
-def init_embedding_state(generator: torch.Generator, plan: PicassoPlan,
+def init_embedding_state(rng: Rng, plan: PicassoPlan,
                          device: torch.device, dtype=torch.float32
                          ) -> Dict[int, EmbeddingState]:
     """Per-group state sized by the plan: hot tier ``cache_rows``, L2 tier
     ``l2_rows``, master width ``narrow_width`` (narrow only where the plan
     records a ``'picasso_narrow'`` assignment)."""
-    return {g.gid: init_group_state(generator, g, plan.cache_rows.get(g.gid, 0), device,
+    keys = rng_split(rng, len(plan.groups))
+    return {g.gid: init_group_state(keys[i], g, plan.cache_rows.get(g.gid, 0), device,
                                     dtype, l2_rows=plan.l2_rows.get(g.gid, 0),
                                     narrow_dim=plan.narrow_width(g.gid))
-            for g in plan.groups}
+            for i, g in enumerate(plan.groups)}
 
 
 def tier_gates(plan: PicassoPlan, gid: int, *, use_cache: bool = True,

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import functools
 import operator
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +82,17 @@ class EmbeddingEngine:
     grad_compress: wire compression of the routed sparse-gradient payload
         (``'none' | 'fp16' | 'topk'``, see ``optim.grad_compression``),
         validated here and handed to every strategy.
+    capacity: optional per-gid override of the bucket capacity (a
+        retrieval candidate tower looks up a score chunk of ids, far more
+        than the batch the plan was sized for); ``None`` takes the plan's.
     """
 
     def __init__(self, plan: PicassoPlan, world: int = 1, *,
                  strategy: StrategySpec = "picasso",
                  use_cache: bool = True, use_l2: bool = True, use_interleave: bool = True,
                  lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
-                 use_fused_kernels: Any = "auto", grad_compress: str = "none"):
+                 use_fused_kernels: Any = "auto", grad_compress: str = "none",
+                 capacity: Optional[Dict[int, int]] = None):
         if int(plan.world) != int(world):
             raise ValueError(
                 f"plan was compiled for world={plan.world} but the engine is "
@@ -117,8 +121,9 @@ class EmbeddingEngine:
         names = tuple(sorted(set(self.assignment.values())))
         self.strategy_names = names
         self.strategy_name = names[0] if len(names) == 1 else "mixed"
+        cap = dict(capacity if capacity is not None else plan.capacity)
         insts: Dict[str, LookupStrategy] = {
-            name: get_strategy(name)(world=world, capacity=dict(plan.capacity),
+            name: get_strategy(name)(world=world, capacity=cap,
                                      lr=lr_emb, eps=eps, cache_update=cache_update,
                                      use_fused=self.use_fused,
                                      grad_compress=self.grad_compress)

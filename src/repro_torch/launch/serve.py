@@ -1,5 +1,5 @@
-"""Serving launcher of the PyTorch port: batched scoring of deepfm or
-dcn-v2 on one card.
+"""Serving launcher of the PyTorch port: batched scoring of deepfm, dcn-v2,
+sasrec or mind, or two-tower retrieval of sasrec or mind, on one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
       --batch 512 --n-requests 10
@@ -14,6 +14,11 @@ dcn-v2 on one card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
       --device cpu --n-requests 6 --reload-dir /tmp/pub --chaos torn@3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --batch 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --smoke \\
+      --device cpu --retrieval
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mind --retrieval \\
+      --n-candidates 1048576 --score-chunk 65536
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 ``--strategy mixed``/``auto`` compiles a per-group assignment with the
@@ -26,6 +31,17 @@ checksum; a torn or corrupt delta is skipped and the last good state keeps
 serving. A delta packed under other table salts raises
 (``PYTHONHASHSEED``). ``--chaos torn@i`` tears the newest delta before
 request ``i``.
+
+``--retrieval`` (sasrec, mind) plans as the reference's launcher does (one
+user, no hot tier, exact capacities, a ``mixed``/``auto`` assignment
+compiled at the candidate tower's proxy batch), scores ``arange(n) % vocab``
+as the candidates' packed rows and prints the top 10 ids and scores. With
+``--smoke`` its weights are drawn as the reference's
+``init_state(PRNGKey(seed))`` draws them, on the host. The reference's
+launcher has no seed and draws ``PRNGKey(0)``, so at the default ``--seed
+0`` a smoke retrieval prints what ``repro.launch.serve --retrieval`` prints
+under the same ``PYTHONHASHSEED``. Every other run draws its weights from a
+generator on the device.
 """
 import argparse
 
@@ -35,7 +51,7 @@ def main(argv=None):
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2")
+    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2 | sasrec | mind")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--batch", type=int, default=256)
@@ -63,7 +79,19 @@ def main(argv=None):
                     help="where tables and compute live (default cuda; cpu "
                          "only when asked)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and the request stream")
+                    help="seed of the random weights (with --smoke --retrieval "
+                         "drawn as the reference's PRNGKey(seed) draws them) and "
+                         "the request stream")
+    ap.add_argument("--retrieval", action="store_true",
+                    help="two-tower retrieval (sasrec, mind): top-10 of the "
+                         "candidates for one user")
+    ap.add_argument("--candidates", type=int, default=65536)
+    ap.add_argument("--n-candidates", type=int, default=None, metavar="N",
+                    help="retrieval candidate count (falls back to --candidates)")
+    ap.add_argument("--score-chunk", type=int, default=0, metavar="C",
+                    help="retrieval: score the candidates in chunks of C (a "
+                         "streaming top-k; the candidate engine's capacity and "
+                         "memory scale with C); 0 scores them in one chunk")
     ap.add_argument("--reload-dir", default="", metavar="DIR",
                     help="pick up model deltas a streaming trainer publishes "
                          "(repro_torch.launch.train --stream --publish-dir DIR): "
@@ -77,6 +105,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.chaos and not args.reload_dir:
         ap.error("--chaos needs --reload-dir (faults target published deltas)")
+    if args.retrieval and (args.reload_dir or args.l2_budget):
+        ap.error("--retrieval runs uncached from a fresh state: no --reload-dir "
+                 "or --l2-budget")
 
     import time
 
@@ -89,10 +120,14 @@ def main(argv=None):
     from repro_torch.data.synthetic import make_batch
     from repro_torch.engine import maybe_compile, resolve_assignment
     from repro_torch.models.wdl import WDLModel
-    from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step
+    from repro_torch.serve.serve_step import (ServeConfig, init_state, make_retrieval_step,
+                                              make_serve_step)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.retrieval:
+        return retrieve(args, cfg, device)
+    rng = torch.Generator(device=device).manual_seed(args.seed)
     plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
                      narrow_dim=args.narrow_dim or None,
                      enable_packing=not args.no_packing, mesh_shape=(1, 1))
@@ -118,8 +153,7 @@ def main(argv=None):
                                  log=lambda s: print(f"[serve] {s}"))
         resolve_assignment(plan, strategy)
     model = WDLModel(cfg, plan)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_state(model, plan, gen, device)
+    state = init_state(model, plan, rng, device)
     scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
     serve = make_serve_step(model, plan, args.batch, scfg, device)
     poller = torn = None
@@ -160,6 +194,51 @@ def main(argv=None):
     lat = np.array(lat[1:] or lat) * 1e3
     print(f"[serve] {args.arch} B={args.batch}: p50={np.percentile(lat, 50):.1f}ms "
           f"p99={np.percentile(lat, 99):.1f}ms mean_prob={float(probs.mean()):.3f}")
+
+
+def retrieve(args, cfg, device) -> None:
+    """``--retrieval``: the reference launcher's retrieval plan (one user,
+    no hot tier, exact capacities), the user from ``make_batch(cfg, 1,
+    default_rng(1))``, candidates ``arange(n) % vocab`` and the top 10."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.features import field_index
+    from repro_torch.core.jax_random import prng_key
+    from repro_torch.core.packing import make_plan
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.engine import maybe_compile, resolve_assignment
+    from repro_torch.models.wdl import WDLModel
+    from repro_torch.serve.serve_step import ServeConfig, init_state, make_retrieval_step
+
+    item_field = next((f.name for f in cfg.fields if f.pooling == "none" and f.max_len > 1),
+                      None)
+    if item_field is None:
+        raise SystemExit(f"--retrieval needs a two-tower arch (sasrec, mind), not {args.arch}")
+    plan = make_plan(cfg, world=1, per_device_batch=1, enable_cache=False,
+                     exact_capacity=True, narrow_dim=args.narrow_dim or None,
+                     enable_packing=not args.no_packing)
+    nc = args.n_candidates or args.candidates
+    # the candidate tower dominates the lookups: the cost model sees a score
+    # chunk's worth of item-group samples, not the one-user batch
+    ips = plan.group(field_index(plan)[item_field].gid).ids_per_sample
+    proxy_batch = max(1, min(args.score_chunk or nc, nc) // max(ips, 1))
+    strategy = maybe_compile(plan, args.strategy, per_device_batch=proxy_batch,
+                             use_cache=False, log=lambda s: print(f"[serve] {s}"))
+    resolve_assignment(plan, strategy, use_cache=False)
+    model = WDLModel(cfg, plan)
+    # smoke tables are small enough to draw the reference's numbers on the host
+    rng = (prng_key(args.seed) if args.smoke
+           else torch.Generator(device=device).manual_seed(args.seed))
+    state = init_state(model, plan, rng, device)
+    step = make_retrieval_step(model, plan, nc, top_k=10,
+                               scfg=ServeConfig(strategy=strategy, use_cache=False,
+                                                use_fused_kernels=args.fused_kernels),
+                               score_chunk=args.score_chunk, device=device)
+    user = make_batch(cfg, 1, np.random.default_rng(1))
+    cand = torch.arange(nc, dtype=torch.int32, device=device) % cfg.fields[0].vocab
+    scores, ids = step(state, user, cand)
+    print("top-10:", ids.cpu().numpy(), np.round(scores.cpu().numpy(), 3))
 
 
 if __name__ == "__main__":

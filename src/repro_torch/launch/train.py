@@ -1,11 +1,15 @@
-"""Training launcher of the PyTorch port: PICASSO hybrid training of deepfm
-or dcn-v2 on one card (world 1).
+"""Training launcher of the PyTorch port: PICASSO hybrid training of deepfm,
+dcn-v2, sasrec or mind on one card (world 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --steps 50 --global-batch 256
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 \\
       --steps 50 --global-batch 256
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --smoke \\
+      --device cpu --steps 3 --global-batch 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
+      --steps 50 --global-batch 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mind --smoke \\
       --device cpu --steps 3 --global-batch 32 --log-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --strategy picasso_narrow --narrow-dim 4 \\
@@ -47,7 +51,7 @@ def main(argv=None):
 
     names = available_strategies()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2")
+    ap.add_argument("--arch", default="deepfm", help="deepfm | dcn-v2 | sasrec | mind")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized tables)")
     ap.add_argument("--steps", type=int, default=50)

@@ -1,5 +1,8 @@
-"""MLP tower (``repro.layers.mlp`` in torch) over plain parameter dicts
-``{"l0": {"w": [d_in, d_out], "b": [d_out]}, ...}``, the reference's layout.
+"""MLP tower and layer norm (``repro.layers.mlp`` in torch) over plain
+parameter dicts ``{"l0": {"w": [d_in, d_out], "b": [d_out]}, ...}``, the
+reference's layout. The initialisers take a ``torch.Generator`` or a
+``core.jax_random.JaxKey`` (``rng``) and split it as the reference splits
+its key.
 
 Dense products stay ``torch.matmul``, as the reference leaves them to XLA.
 TF32 is switched off for both matmuls and cuDNN so float32 products on the
@@ -10,16 +13,20 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.core.jax_random import Rng, rng_normal, rng_split
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def init_linear(generator: torch.Generator, d_in: int, d_out: int,
-                device: torch.device, dtype=torch.float32) -> Dict:
-    w = torch.randn((d_in, d_out), generator=generator, dtype=dtype, device=device)
-    return {"w": w * (2.0 / d_in) ** 0.5,
+def init_linear(rng: Rng, d_in: int, d_out: int, device: torch.device,
+                dtype=torch.float32) -> Dict:
+    """``w`` normal with the float32 scale ``sqrt(2 / d_in)``, ``b`` zero."""
+    w = rng_normal(rng_split(rng, 2)[0], (d_in, d_out), device, dtype)
+    return {"w": w * float(np.sqrt(np.float32(2.0 / d_in))),
             "b": torch.zeros((d_out,), dtype=dtype, device=device)}
 
 
@@ -27,12 +34,13 @@ def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
-def init_mlp(generator: torch.Generator, d_in: int, dims: Sequence[int],
-             device: torch.device, dtype=torch.float32) -> Dict:
+def init_mlp(rng: Rng, d_in: int, dims: Sequence[int], device: torch.device,
+             dtype=torch.float32) -> Dict:
     params = {}
     d = d_in
     for i, h in enumerate(dims):
-        params[f"l{i}"] = init_linear(generator, d, h, device, dtype)
+        rng, k = rng_split(rng, 2)
+        params[f"l{i}"] = init_linear(k, d, h, device, dtype)
         d = h
     return params
 
@@ -48,3 +56,14 @@ def mlp(p: Dict, x: torch.Tensor, act=torch.relu, final_act: bool = True) -> tor
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def init_layernorm(d: int, device: torch.device, dtype=torch.float32) -> Dict:
+    return {"g": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]

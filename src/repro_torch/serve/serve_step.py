@@ -1,9 +1,13 @@
-"""Online scoring for WDL models (``repro.serve.serve_step`` in torch).
+"""Online scoring and two-tower retrieval for WDL models
+(``repro.serve.serve_step`` in torch).
 
 Same program shape as the reference minus its ``shard_map``: the shared
 ``EmbeddingEngine`` runs the packed lookups (HybridHash read path and
-K-Interleaving waves) -> interactions -> sigmoid scores. Retrieval comes
-with a later slice.
+K-Interleaving waves) -> interactions -> sigmoid scores. Retrieval scores
+one user against a million candidates: the user tower (sasrec / mind) runs
+through the engine and ``user_repr``, the candidate rows come from a second
+engine whose bucket capacity fits one score chunk, scores are a batched
+dot, and a streaming top-k merges the chunks.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.features import dense_features, pack_group
+from repro_torch.core.features import field_index, pack_batch
+from repro_torch.core.jax_random import Rng, rng_split
 from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import init_embedding_state
 from repro_torch.engine import EmbeddingEngine, EngineContext
@@ -31,16 +36,18 @@ class ServeConfig:
     use_fused_kernels: Any = "auto"
 
 
-def init_state(model: WDLModel, plan: PicassoPlan, generator: torch.Generator,
+def init_state(model: WDLModel, plan: PicassoPlan, rng: Rng,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Serving state ``{"emb": {str(gid): EmbeddingState}, "dense": params}``
-    made on ``device`` from ``generator`` (which must live on that device).
-    The counterpart of the reference's ``train_step.init_state`` without
-    the optimizer state."""
+    made on ``device`` from ``rng``: a ``torch.Generator`` on that device, or
+    a ``JaxKey`` for the reference's own draws from ``PRNGKey(seed)`` (on the
+    host: small tables). The counterpart of the reference's
+    ``train_step.init_state`` without the optimizer state."""
     device = resolve_device(device)
-    emb = init_embedding_state(generator, plan, device)
+    k1, k2 = rng_split(rng, 2)
+    emb = init_embedding_state(k1, plan, device)
     return {"emb": {str(g): s for g, s in emb.items()},
-            "dense": model.init_dense(generator, device)}
+            "dense": model.init_dense(k2, device)}
 
 
 class ServeStep:
@@ -60,14 +67,14 @@ class ServeStep:
                                       use_cache=scfg.use_cache, use_l2=scfg.use_l2,
                                       use_fused_kernels=scfg.use_fused_kernels)
 
-    def pack(self, batch: Dict) -> Tuple[Dict[int, Any], Optional[torch.Tensor]]:
-        """Host batch -> one ``PackedBatch`` per group and the dense
-        features (``None`` when the config has none), on the device."""
+    def pack(self, batch: Dict) -> Tuple[Dict[int, Any], Dict[str, torch.Tensor]]:
+        """Host batch -> one ``PackedBatch`` per group and the side tensors
+        ``model.apply`` reads (``dense`` when the config has dense features,
+        the sequence fields' masks), on the device."""
         b = next(iter(batch["fields"].values()))["ids"].shape[0]
         if b != self.global_batch:
             raise ValueError(f"batch of {b} samples; this step serves {self.global_batch}")
-        packed = {g.gid: pack_group(g, batch["fields"], self.device) for g in self.plan.groups}
-        return packed, dense_features(self.model.cfg, batch, self.device)
+        return pack_batch(self.model.cfg, self.plan, batch, self.device)
 
     @torch.no_grad()
     def sparse(self, state: Dict[str, Any], packed: Dict[int, Any]):
@@ -76,16 +83,15 @@ class ServeStep:
 
     @torch.no_grad()
     def dense(self, state: Dict[str, Any], pooled,
-              dense_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+              side: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Interactions + MLP -> sigmoid probabilities."""
-        logits = self.model.apply(state["dense"], pooled, {"dense": dense_x},
-                                  fused=self.engine.use_fused)
+        logits = self.model.apply(state["dense"], pooled, side, fused=self.engine.use_fused)
         return torch.sigmoid(logits)
 
     def score(self, state: Dict[str, Any], batch: Dict) -> Tuple[torch.Tensor, EngineContext]:
-        packed, dense_x = self.pack(batch)
+        packed, side = self.pack(batch)
         pooled, ctx = self.sparse(state, packed)
-        return self.dense(state, pooled, dense_x), ctx
+        return self.dense(state, pooled, side), ctx
 
     def __call__(self, state: Dict[str, Any], batch: Dict) -> torch.Tensor:
         return self.score(state, batch)[0]
@@ -96,3 +102,81 @@ def make_serve_step(model: WDLModel, plan: PicassoPlan, global_batch: int,
                     device: Union[str, torch.device] = "cuda") -> ServeStep:
     """Forward-only scoring step: batch -> sigmoid probabilities [B, n_tasks]."""
     return ServeStep(model, plan, global_batch, scfg, resolve_device(device))
+
+
+class RetrievalStep:
+    """Two-tower retrieval, ``step(state, batch, cand_ids) -> (scores [k],
+    ids [k])``: the top ``k = min(top_k, n_candidates)`` candidates by
+    ``max_k <row, user_k>``, best first.
+
+    The user tower packs ``batch`` (one user), runs the engine and
+    ``model.user_repr``. The candidates are scored in chunks of
+    ``score_chunk`` (``None``/0: one chunk) through a second engine whose
+    item-group capacity is ``max(capacity, chunk)``, so memory scales with
+    the chunk. ``cand_ids`` are rows of the item group's packed table, looked
+    up as they are (no scramble, salt or table offset), as in the reference.
+    A ragged last chunk is padded with the first id and its pad scored
+    ``-inf``. The running best merges with each chunk by a stable
+    descending sort, so ties keep the earlier candidate, as ``lax.top_k``
+    does, and chunked and unchunked retrieval return the same result.
+    Retrieval runs uncached: ``scfg.use_cache`` is ignored."""
+
+    def __init__(self, model: WDLModel, plan: PicassoPlan, n_candidates: int, top_k: int,
+                 scfg: ServeConfig, score_chunk: Optional[int], device: torch.device):
+        self.model, self.plan, self.device = model, plan, device
+        self.n_candidates = int(n_candidates)
+        chunk = int(score_chunk) if score_chunk else self.n_candidates
+        self.chunk = max(1, min(chunk, self.n_candidates))
+        self.n_chunks = -(-self.n_candidates // self.chunk)
+        self.k = min(int(top_k), self.n_candidates)
+        item_field = next(f.name for f in model.cfg.fields
+                          if f.pooling == "none" and f.max_len > 1)
+        self.gid = field_index(model.plan)[item_field].gid
+        kw = dict(strategy=scfg.strategy, use_cache=False,
+                  use_fused_kernels=scfg.use_fused_kernels)
+        self.engine = EmbeddingEngine(plan, plan.world, **kw)
+        self.cand_engine = EmbeddingEngine(
+            plan, plan.world, capacity={**plan.capacity,
+                                        self.gid: max(plan.capacity[self.gid], self.chunk)},
+            **kw)
+
+    @torch.no_grad()
+    def user(self, state: Dict[str, Any], batch: Dict) -> torch.Tensor:
+        """The user tower's vectors ``[K, D]``."""
+        packed, side = pack_batch(self.model.cfg, self.plan, batch, self.device)
+        pooled, _ = self.engine.forward(state["emb"], packed)
+        return self.model.user_repr(state["dense"], pooled, side)
+
+    @torch.no_grad()
+    def __call__(self, state: Dict[str, Any], batch: Dict, cand_ids: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        user = self.user(state, batch)
+        ids = cand_ids.reshape(-1).to(self.device)
+        if ids.shape[0] != self.n_candidates:
+            raise ValueError(f"{ids.shape[0]} candidates; this step scores "
+                             f"{self.n_candidates}")
+        best_v = torch.full((self.k,), float("-inf"), dtype=torch.float32, device=self.device)
+        best_i = torch.zeros((self.k,), dtype=ids.dtype, device=self.device)
+        for c in range(self.n_chunks):
+            cids = ids[c * self.chunk:(c + 1) * self.chunk]
+            n_valid = cids.shape[0]
+            if n_valid < self.chunk:  # the ragged last chunk
+                cids = torch.cat([cids, ids[:1].expand(self.chunk - n_valid)])
+            rows = self.cand_engine.lookup_rows(state["emb"], self.gid, cids)
+            sc = torch.amax(rows @ user.T, dim=-1).to(torch.float32)
+            sc[n_valid:] = float("-inf")
+            av, ai = torch.cat([best_v, sc]), torch.cat([best_i, cids])
+            top = torch.sort(av, descending=True, stable=True).indices[:self.k]
+            best_v, best_i = av[top], ai[top]
+        return best_v, best_i
+
+
+def make_retrieval_step(model: WDLModel, plan: PicassoPlan, n_candidates: int,
+                        top_k: int = 100, scfg: ServeConfig = ServeConfig(use_cache=False),
+                        score_chunk: Optional[int] = None,
+                        device: Union[str, torch.device] = "cuda") -> RetrievalStep:
+    """Two-tower retrieval: one user -> top-k of ``n_candidates``
+    (``RetrievalStep``), on ``device`` (``cuda`` unless the caller asks for
+    the CPU)."""
+    return RetrievalStep(model, plan, n_candidates, top_k, scfg, score_chunk,
+                         resolve_device(device))

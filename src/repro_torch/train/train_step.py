@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.features import PackedBatch, dense_features, pack_group
+from repro_torch.core.features import PackedBatch, pack_batch
+from repro_torch.core.jax_random import Rng, rng_split
 from repro_torch.core.interleaving import pipeline_handoff, resolve_overlap
 from repro_torch.core.packing import PicassoPlan
 from repro_torch.embedding.state import init_embedding_state
@@ -167,18 +168,14 @@ class TrainStep:
     # -------------------------------------------------------------- stages
     def pack(self, batch: Dict) -> Tuple[Dict[int, PackedBatch], Dict[str, torch.Tensor]]:
         """Host batch -> one ``PackedBatch`` per group and the dense-side
-        batch (``labels``, plus ``dense`` features when the config has
-        them), on the device."""
+        batch (``labels``, ``dense`` features when the config has them and
+        each sequence field's mask, flat), on the device."""
         b = next(iter(batch["fields"].values()))["ids"].shape[0]
         if b != self.global_batch:
             raise ValueError(f"batch of {b} samples; this step trains on {self.global_batch}")
-        packed = {g.gid: pack_group(g, batch["fields"], self.device)
-                  for g in self.plan.groups}
-        side = {"labels": torch.as_tensor(np.asarray(batch["labels"], np.float32)
-                                          ).to(self.device)}
-        dense_x = dense_features(self.model.cfg, batch, self.device)
-        if dense_x is not None:
-            side["dense"] = dense_x
+        packed, side = pack_batch(self.model.cfg, self.plan, batch, self.device)
+        side["labels"] = torch.as_tensor(np.asarray(batch["labels"], np.float32)
+                                         ).to(self.device)
         return packed, side
 
     def micro_batch(self, packed: Dict[int, PackedBatch], side: Dict[str, torch.Tensor],
@@ -206,8 +203,8 @@ class TrainStep:
               ) -> Tuple[torch.Tensor, Any, Dict[int, torch.Tensor]]:
         """Loss of one chunk (summed BCE over the global batch) and its
         gradients with respect to the dense parameters and the pooled
-        embeddings. ``side`` holds the chunk's labels and dense features;
-        the features carry no gradient."""
+        embeddings. ``side`` holds the chunk's labels, dense features and
+        sequence masks; the features carry no gradient."""
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state["dense"])]
         params = tree_unflatten(state["dense"], leaves)
         gids = sorted(pooled)
@@ -339,13 +336,15 @@ def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any =
     return flush
 
 
-def init_state(model: WDLModel, plan: PicassoPlan, generator: torch.Generator,
+def init_state(model: WDLModel, plan: PicassoPlan, rng: Rng,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Train state ``{"emb", "dense", "opt", "step"}`` made on ``device``
-    from ``generator`` (which must live on that device). ``step`` is a host
-    int."""
+    from ``rng``: a ``torch.Generator`` on that device, or a ``JaxKey`` for
+    the reference's own draws (on the host: small tables). ``step`` is a
+    host int."""
     device = resolve_device(device)
-    emb = init_embedding_state(generator, plan, device)
-    dense = model.init_dense(generator, device)
+    k1, k2 = rng_split(rng, 2)
+    emb = init_embedding_state(k1, plan, device)
+    dense = model.init_dense(k2, device)
     return {"emb": {str(g): s for g, s in emb.items()}, "dense": dense,
             "opt": adam_init(dense), "step": 0}

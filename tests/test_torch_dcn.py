@@ -319,15 +319,24 @@ def test_convert_carries_cross_params_unchanged(mesh1):
 
 
 def test_unported_dense_side_still_raises():
-    """Sequence fields still raise; a bottom MLP (``dense_arch``) is ported
-    with dlrm and widens the base by its last width, not ``n_dense``."""
+    """A sequence field (ported with sasrec and mind) leaves the pooled base
+    and takes the reference's wiring width; a bottom MLP (``dense_arch``) is
+    ported with dlrm and widens the base by its last width, not
+    ``n_dense``."""
     cfg = get_config("dcn-v2", smoke=True)
     plan = make_plan(cfg, 1, 8)
     bottom = WDLModel(dataclasses.replace(cfg, dense_arch=(16,)), plan)
     assert bottom.base_dim == 26 * 16 + 16
     f = dataclasses.replace(cfg.fields[0], pooling="none")
-    with pytest.raises(NotImplementedError, match="sequence"):
-        WDLModel(dataclasses.replace(cfg, fields=(f,) + cfg.fields[1:]), plan)
+    seq = dataclasses.replace(cfg, fields=(f,) + cfg.fields[1:])
+    jseq = dataclasses.replace(jget_config("dcn-v2", smoke=True), fields=(
+        dataclasses.replace(jget_config("dcn-v2", smoke=True).fields[0], pooling="none"),
+    ) + jget_config("dcn-v2", smoke=True).fields[1:])
+    model = WDLModel(seq, make_plan(seq, 1, 8))
+    jw = JWDLModel(jseq, jmake_plan(jseq, 1, 8))._wiring
+    assert (model.base_dim, model.deep_dim) == (jw["base_dim"], jw["deep_dim"]) \
+        == (25 * 16 + 13, 25 * 16 + 13)
+    assert f.name not in [g.name for g in model.pooled_fields]
 
 
 def test_dcn_smoke_serve_matches_reference(mesh1):
