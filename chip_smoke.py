@@ -7,15 +7,19 @@ and ``topk``, serves and trains full Criteo DLRM under ``picasso_narrow``,
 serves and trains full-width deepfm unpacked under the per-group
 ``mixed`` assignment and packed under ``ps``, with ``hybrid``,
 ``mp_nodedup`` and ``allgather_rows`` driven on the packed state, drives
-the runtime (checkpoints, guard, chaos, streaming, replanning), and serves,
-trains and retrieves with full-width sasrec and mind.
+the runtime (checkpoints, guard, chaos, streaming, replanning), serves,
+trains and retrieves with full-width sasrec and mind, and runs DLRM and
+narrow deepfm with ``--pin-l2`` (the L2 tier and the narrow master in pinned
+host memory, read and written by the kernels over the bus) and the
+calibrated cost model.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-   (sixteen kernels, one nvcc per source, all at once);
+   (the sixteen ports and ``host_rows.cu``, the row gather/scatter for a
+   host-resident table; one nvcc per source, all at once);
 2. run each kernel at its path's shape (serving B = 512, training B = 256)
    and at a bulk shape (B = 65,536) against its plain version on the same
    inputs: ``hit``/``slot`` bitwise, rows/bags/FM/gradients/updated rows/
@@ -223,7 +227,8 @@ Phases, in order (any failure raises and exits non-zero):
    ``python -m repro_torch.launch.serve --reload-dir ... --chaos torn@2``
    as a subprocess loads the newest delta, keeps it past the torn one and
    serves within 1e-5 of the trainer's state served in-process; the same
-   server under ``PYTHONHASHSEED=1`` fails on the packing salts;
+   server under ``PYTHONHASHSEED=1``, run beside it on a copy of the
+   deltas, fails on the packing salts;
 15. the sequence models. ``gather_pool`` and ``tier_probe`` at sasrec's
    and mind's serving (B = 512) and training (B = 256) shapes,
    ``segment_grad`` (uniform and the path's zipf batch) and
@@ -231,7 +236,7 @@ Phases, in order (any failure raises and exits non-zero):
    versions as in phase 2: D = 50 with 101 bags a sample (the first width
    not a multiple of 4) and D = 64 with 54. Then sasrec (a 10,000,050 x 50
    table, a 1,250,008-row L1 tier) and mind (20,002,068 x 64, 2,500,264)
-   each as phases 3-4 with 100 timed requests: served against the plain
+   each as phases 3-4 with 100 timed requests (phase 12 also times 100): served against the plain
    path (1e-5), 30 training steps with the flush at step 20, one kernel
    step held against one plain step from a shared state before step 1 and
    step 21, and their smoke configs on the card against the CPU. Each then
@@ -239,7 +244,39 @@ Phases, in order (any failure raises and exits non-zero):
    65,536 and in one chunk, on the kernels and on the plain path: the ids
    equal, and equal to a stable sort of the scores computed straight from
    the table. Last, din, mmoe and can at ``scale=0.01`` serve one request
-   and train one step, each against the plain path.
+   and train one step, each against the plain path;
+16. ``--pin-l2`` and the calibrated cost model. The bus rate from one 1 GiB
+   pinned copy each way; ``tier_probe(fused=False)`` on the card refuses
+   host operands. Full Criteo DLRM as phases 10-11 with
+   ``TrainConfig(pin_l2=True)``: the narrow master and its accumulator and
+   the L2 tier (``embedding.state.pinned_leaves``) moved to mapped pinned
+   host memory before anything runs (MemAvailable and the bytes printed,
+   those leaves checked pinned by the CUDA driver and every other leaf on the
+   card, the peak reset), then phase 10's 300 requests and phase 11's 30
+   steps: every request's probabilities, the 30 losses and the state
+   digests after steps 1, 20, 21 and 30 bitwise phase 10-11's, the steady
+   peak at least 20 GiB below theirs, the L2 probe, both ``dedup_adagrad``
+   updates and the master's row gather (``host_rows``) launched on host
+   operands (``ops.host_launches``), the plain path refusing them. On the
+   trained state's host master (187,767,399 x 32) and L2 tier (4,161,784 x
+   128), and on a pinned narrow deepfm L2 tier (48,806,440 x 10):
+   ``tier_probe``, ``dedup_adagrad`` and ``host_rows`` bitwise the same
+   kernel on device copies (whole tables by digest) and the plain versions,
+   each timed beside its bus-byte bound at the measured rate.
+   ``get_cost_model('force')`` on the small grid times the four kernels,
+   ``'auto'`` reloads it, and ``compile_assignment(cost_model=)`` of
+   full-width unpacked deepfm prints its mix beside the constant one. Then
+   three launcher subprocesses run together: both launchers with
+   ``--pin-l2`` at full-width narrow deepfm (25 steps past the flush; 10
+   requests), the pinned bytes checked, and the train launcher with
+   ``--strategy auto --calibrate auto --replan-iters 10``, which prints the
+   replan's measured, predicted and correction values. Beside them, at
+   smoke width: a ``pin_l2`` step refuses a state whose named leaves are on
+   the card; a pinned state trains bitwise the unpinned one; a checkpoint
+   saved straight after its sixth step, nothing synced in between, restores
+   bitwise the synced state; it rejects a poisoned step through the
+   journal's host rows and survives a replan migration with its placement
+   and values kept.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -248,6 +285,7 @@ under ``PYTHONHASHSEED=0``: the packing salt hashes table names, so a fixed
 seed makes the served rows, and so the probabilities, repeat run to run.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -275,9 +313,10 @@ from repro_torch.core.features import pack_group, table_salts  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
 from repro_torch.data.pipeline import ReplayableStream  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
+from repro_torch.embedding.state import pin_to_host, pinned_leaves  # noqa: E402
 from repro_torch.engine import (compile_assignment, maybe_compile,  # noqa: E402
                                 resolve_assignment)
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, host_memory, ops, ref  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim import grad_compression as gcomp  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
@@ -394,7 +433,8 @@ _MIXED_SERVE = {"tier_probe": 13, "gather_pool": 39, "fm_interaction": 1}
 ARCHS["deepfm-mixed"] = Arch(
     "deepfm-mixed", "deepfm", 39, 10, 187_780_711, 3_634_216, _MIXED_SERVE,
     {**_MIXED_SERVE, "segment_grad": 39, "dedup_adagrad": 39, "fm_interaction_bwd": 1},
-    False, (1, FLUSH_ITERS + 1), "mixed", packing=False, mix=(("picasso", 13), ("ps", 26)))
+    False, (1, FLUSH_ITERS + 1), "mixed", packing=False, mix=(("picasso", 13), ("ps", 26)),
+    n_requests=100)  # 39 groups make a request ~50 ms: 100 timed keep the phase short
 # packed full-width deepfm under --strategy ps: no tier probe (the planned
 # tier stays inert), segment_grad along the identity order over B x 39
 # positions, dedup_adagrad on the replicated grads. Phase 13, which also
@@ -419,9 +459,9 @@ ARCHS["mind"] = Arch("mind", "mind", 54, 64, 20_002_068, 2_500_264, _EMB, _SEQ_T
                      False, (1, FLUSH_ITERS + 1), n_requests=100)
 SEQ_PATHS = ("sasrec", "mind")
 # two-tower retrieval: the top 10 of 2^20 candidates, chunked and in one go,
-# each way timed over 100 calls after one warm-up (about 4 s a way)
+# each way timed over 50 calls after one warm-up (about 2 s a way)
 RETRIEVAL_N, RETRIEVAL_CHUNK, RETRIEVAL_K = 1 << 20, 65_536, 10
-RETRIEVAL_CALLS = 100
+RETRIEVAL_CALLS = 50
 # the paper's other configs, at the reference's bench scale
 PAPER_SMOKE = ("din", "mmoe", "can")
 MAIN = ("deepfm", "dcn-v2", "deepfm-narrow")  # phases 3-8; dlrm-narrow is 10-11
@@ -465,6 +505,11 @@ SOURCES = {
                         "src/repro/kernels/dot_interaction.py:37"),
     "dot_interaction_bwd": ("src/repro_torch/kernels/csrc/dot_interaction_bwd.cu",
                             "src/repro/kernels/interaction_bwd.py:89"),
+    # no TPU kernel: the reference gathers its pinned-host narrow master with
+    # jnp.take (an XLA gather, no pallas_call); this kernel does that and the
+    # flush's scatters for a host-resident table (phase 16)
+    "host_rows": ("src/repro_torch/kernels/csrc/host_rows.cu",
+                  "src/repro/core/packed_embedding.py:319"),
 }
 # the arch whose serving or training path each kernel was ported for
 PORTED_FOR = {"tier_probe": ("deepfm", "serve"), "gather_pool": ("deepfm", "serve"),
@@ -1847,7 +1892,10 @@ def tier_keys_all(engine, emb) -> Dict[str, int]:
     return out
 
 
-def serve_full_width(arch: str) -> dict:
+def serve_full_width(arch: str, pin: bool = False) -> dict:
+    """``pin`` (phase 16): the state's ``pinned_leaves`` go to pinned host
+    memory before anything runs, the peak counts from there, and the plain
+    path must refuse the host-resident leaves instead of running."""
     a = ARCHS[arch]
     cfg, plan = arch_plan(a, SERVE_B)
     check_full_plan(a, plan, SERVE_B)
@@ -1857,6 +1905,7 @@ def serve_full_width(arch: str) -> dict:
     state = init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     torch.cuda.synchronize(DEV)
     init_s = time.perf_counter() - t0
+    placed = pin_state(state, plan, f"{arch} serve") if pin else None
     serve = make_serve_step(model, plan, SERVE_B,
                             ServeConfig(strategy=a.strategy, use_fused_kernels="auto"), DEV)
     rng = np.random.default_rng(SEED)
@@ -1871,7 +1920,7 @@ def serve_full_width(arch: str) -> dict:
     batches = [make_batch(cfg, SERVE_B, rng) for _ in range(a.n_requests)]
 
     ops.reset_launches()
-    lat, hits, l2_hits, probs = [], [], [], None
+    lat, hits, l2_hits, probs, all_probs = [], [], [], None, []
     for b in batches:
         t0 = time.perf_counter()
         probs, ctx = serve.score(state, b)
@@ -1879,7 +1928,8 @@ def serve_full_width(arch: str) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
         hits.append(hits_of(serve.engine, ctx))
         l2_hits.append(l2_hits_of(serve.engine, ctx))
-    launches = dict(ops.launches)
+        all_probs.append(probs)
+    launches, host_launches = dict(ops.launches), dict(ops.host_launches)
     if a.strategy == "ps":
         # the packed ps group's rows are per position: segment_grad runs
         # over all B x fields of them along the identity order
@@ -1890,17 +1940,32 @@ def serve_full_width(arch: str) -> dict:
 
     check(tuple(probs.shape) == (SERVE_B, 1) and bool(torch.isfinite(probs).all()),
           "full-width probabilities finite [B, 1]")
-    check(launches == {n: a.serve_launches.get(n, 0) * a.n_requests for n in launches},
-          f"{arch} serving launches per request {a.serve_launches}: {launches}")
+    want = {**a.serve_launches, **({"host_rows": 1} if pin else {})}
+    check(launches == {n: want.get(n, 0) * a.n_requests for n in launches},
+          f"{arch} serving launches per request {want}: {launches}")
+    check(host_launches == {n: (PIN_SERVE_LAUNCHES.get(n, 0) * a.n_requests if pin else 0)
+                            for n in host_launches},
+          f"{arch} serving launches on host operands: {host_launches}")
     check(min(hits) > 0 if serve.engine.any_cache else max(hits) == 0,
           f"cache hits on every request (none without a tier): {hits}")
     check(not a.full_tiers_first or min(l2_hits) > 0, f"L2 hits on every request: {l2_hits}")
     plain = make_serve_step(model, plan, SERVE_B,
                             ServeConfig(strategy=a.strategy, use_fused_kernels="off"), DEV)
-    p_plain = plain(state, batches[-1])
-    torch.cuda.synchronize(DEV)
-    err = max_err(probs, p_plain)
-    check(err <= TOL, f"kernel vs plain probabilities err {err}")
+    if pin:
+        # the plain versions compute on the card and refuse a host leaf
+        try:
+            plain(state, batches[-1])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "host-resident" in refused,
+              f"the plain path refuses the host-resident leaves: {refused}")
+        err = None
+    else:
+        p_plain = plain(state, batches[-1])
+        torch.cuda.synchronize(DEV)
+        err = max_err(probs, p_plain)
+        check(err <= TOL, f"kernel vs plain probabilities err {err}")
     breakdown = where_time_goes(serve, state, batches[:10])
     out = {"arch": arch, "strategy": a.strategy, "table": [a.rows, a.master_dim],
            "groups": len(plan.groups), "assignment": dict(a.mix) or None,
@@ -1916,7 +1981,12 @@ def serve_full_width(arch: str) -> dict:
            "launches_per_request": {n: v / a.n_requests for n, v in launches.items() if v},
            "plain_vs_kernel_max_abs_err": err,
            "peak_mem_gib": torch.cuda.max_memory_allocated(DEV) / 2**30,
-           "where_time_goes": breakdown}
+           "where_time_goes": breakdown,
+           # every request's probabilities (phase 16 holds its own to them)
+           "_probs": torch.stack(all_probs).cpu()}
+    if pin:
+        out.update(pinned=placed, host_launches=host_launches,
+                   plain_refused=refused[:160])
     if full_tiers:
         out["full_tiers"] = full_tiers
     elif a.l2_rows:
@@ -1999,13 +2069,15 @@ def where_time_goes(serve, state, batches) -> dict:
             serve(state, b)
         torch.cuda.synchronize(DEV)
     # kernel-level events only: an aten op's device time is its kernels'
+    # (key_averages is built once: on deepfm-mixed it takes seconds)
+    events = prof.key_averages()
     per_kernel = {e.key: e.self_device_time_total / 1e3 / len(batches)
-                  for e in prof.key_averages()
+                  for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0}
     dev_ms = float(sum(per_kernel.values())) if per_kernel else None
     out["device_ms_per_request"] = dev_ms
-    out["kernels_per_request"] = (sum(e.count for e in prof.key_averages()
+    out["kernels_per_request"] = (sum(e.count for e in events
                                       if e.device_type == torch.autograd.DeviceType.CUDA)
                                   / len(batches))
     out["device_busy_share"] = (dev_ms / (out["pack_ms"] + out["sparse_ms"] + out["dense_ms"])
@@ -2192,25 +2264,37 @@ def leaf_names(tree, prefix=""):
 
 
 def train_run(arch: str, fused: str, batches, breakdown: bool = False,
-              check_at: Tuple[int, ...] = ()) -> dict:
+              check_at: Tuple[int, ...] = (), pin: bool = False,
+              digest_at: Tuple[int, ...] = (), keep: bool = False) -> dict:
     """30 full-width training steps from seed 0; the state is freed after.
     Before each step in ``check_at`` (1-based) the shared-state check runs on
-    copies, outside the timed step, and leaves this run's state alone."""
+    copies, outside the timed step, and leaves this run's state alone; after
+    each step in ``digest_at`` the state's digest is taken. ``pin`` (phase
+    16) trains under ``TrainConfig(pin_l2=True)`` with the state's
+    ``pinned_leaves`` placed in pinned host memory before the first step,
+    the peak memory counted from there (and read again before the flush).
+    ``keep`` returns the trained state and the step under ``_state`` and
+    ``_step`` instead of freeing them."""
     a = ARCHS[arch]
     cfg, plan = arch_plan(a, TRAIN_B, train=True)
     model = WDLModel(cfg, plan)
     torch.cuda.reset_peak_memory_stats(DEV)
     state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    placed = pin_state(state, plan, f"{arch} train") if pin else None
     step = ts.make_train_step(model, plan, TRAIN_B,
                               ts.TrainConfig(strategy=a.strategy, use_fused_kernels=fused,
-                                             grad_compress=a.grad_compress), DEV)
+                                             grad_compress=a.grad_compress, pin_l2=pin),
+                              DEV)
     torch.cuda.synchronize(DEV)
     inert = inert_tiers(step.engine, state["emb"])
     ops.reset_launches()
     lat, losses, hits, l2_hits, ps_hits, ovf, checks = [], [], [], [], [], [], {}
+    digests, peak_before_flush = {}, None
     for i, b in enumerate(batches[:TRAIN_STEPS], start=1):
         if i in check_at:
             checks[i] = shared_state_check(model, plan, step, state, b)
+        if i == FLUSH_ITERS:
+            peak_before_flush = torch.cuda.max_memory_allocated(DEV) / 2**30
         t0 = time.perf_counter()
         state, m = step(state, b)
         torch.cuda.synchronize(DEV)
@@ -2220,10 +2304,16 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
         l2_hits.append(int(m.get("cache_hits/l2", 0)))
         ps_hits.append(int(m.get("cache_hits/ps", 0)))
         ovf.append(int(m["overflow"]))
+        if i in digest_at:
+            digests[i] = state_digest(state)
     out = {"launches": dict(ops.launches), "sorts": dict(ops.sorts), "lat": lat,
            "losses": losses, "hits": hits, "any_cache": step.engine.any_cache,
            "metric_keys": list(step.engine.metric_keys), "ps_hits": ps_hits,
-           "l2_hits": l2_hits, "overflow": ovf, "shared_state_checks": checks}
+           "l2_hits": l2_hits, "overflow": ovf, "shared_state_checks": checks,
+           "digests": digests, "host_launches": dict(ops.host_launches),
+           "peak_before_flush_gib": peak_before_flush, "pinned": placed}
+    if pin:  # the placement held across the steps and the flush
+        check_placement(state, plan, f"{arch} after {TRAIN_STEPS} pinned steps")
     # a ps group's budgeted tier: no update and no flush (step 20) touches it
     check_inert(state["emb"], inert, f"{arch} training")
     if breakdown:
@@ -2231,6 +2321,8 @@ def train_run(arch: str, fused: str, batches, breakdown: bool = False,
         if a.l2_rows:
             out["full_tiers"] = train_full_tiers(step, state, batches[TRAIN_STEPS + 9:], a)
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
+    if keep:
+        out["_state"], out["_step"] = state, step
     del state, step
     torch.cuda.empty_cache()
     return out
@@ -2284,14 +2376,15 @@ def train_breakdown(step, state, batches) -> dict:
     step.on_stage = None
     out = {f"{k}_ms": float(np.median(v)) for k, v in stages.items()}
     host_ms = sum(out.values())
+    events = prof.key_averages()  # built once, as in where_time_goes
     per_kernel = {e.key: e.self_device_time_total / 1e3 / len(prof_batches)
-                  for e in prof.key_averages()
+                  for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0}
     dev_ms = float(sum(per_kernel.values())) if per_kernel else None
     out["host_ms_per_step"] = host_ms
     out["device_ms_per_step"] = dev_ms
-    out["kernels_per_step"] = (sum(e.count for e in prof.key_averages()
+    out["kernels_per_step"] = (sum(e.count for e in events
                                    if e.device_type == torch.autograd.DeviceType.CUDA)
                                / len(prof_batches))
     out["device_busy_share"] = dev_ms / host_ms if dev_ms else None
@@ -2310,7 +2403,8 @@ def train_full_width(arch: str) -> dict:
           f"full {arch} train plan: {plan.microbatch} {plan.interleave}")
     stream = batch_stream(cfg, TRAIN_B, seed=SEED)
     batches = [next(stream) for _ in range(TRAIN_STEPS + 12)]
-    k = train_run(arch, "auto", batches, breakdown=True)
+    k = train_run(arch, "auto", batches, breakdown=True,
+                  digest_at=PIN_DIGEST_AT if arch == PIN_ARCH else ())
     launches = k["launches"]
     check(all(np.isfinite(k["losses"])), f"finite losses: {k['losses']}")
     check(launches == {n: a.train_launches.get(n, 0) * TRAIN_STEPS for n in launches},
@@ -2375,7 +2469,8 @@ def train_full_width(arch: str) -> dict:
             "segment_grad_sorts": k["sorts"]["segment_grad"],
             "launches_per_step": {n: v / TRAIN_STEPS for n, v in launches.items() if v},
             "peak_mem_gib": k["peak_mem_gib"], "where_time_goes": k["stages"],
-            "full_tiers": k.get("full_tiers")}
+            "full_tiers": k.get("full_tiers"), "peak_before_flush_gib":
+            k["peak_before_flush_gib"], "_digests": k["digests"]}
 
 
 def train_smoke_against_cpu(arch: str) -> dict:
@@ -2425,20 +2520,23 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
     its smoke config on the card against the CPU; its states are freed
     before the next configuration's."""
     t_phase = time.perf_counter()
+    marks = {}
     full = runs[arch, "serve"] = serve_full_width(arch)
     wt = full["where_time_goes"]
-    print(f"[serve] {arch} full width " + json.dumps(full), flush=True)
+    print(f"[serve] {arch} full width " + json.dumps(public(full)), flush=True)
     print(f"[serve] {arch} B={SERVE_B}: p50={full['p50_ms']:.3f}ms "
           f"p99={full['p99_ms']:.3f}ms mean_prob={full['mean_prob']:.4f} "
           f"cache_hits/request={full['cache_hits_per_request']:.1f} "
           f"device ms/request={wt['device_ms_per_request']} "
           f"device ops/request={wt['kernels_per_request']} "
           f"peak={full['peak_mem_gib']:.2f}GiB", flush=True)
+    marks["serve"] = time.perf_counter() - t_phase
     print(f"[serve] {arch}-smoke card vs CPU " + json.dumps(smoke_against_cpu(arch)),
           flush=True)
-
+    marks["serve_smoke"] = time.perf_counter() - t_phase
     train = runs[arch, "train"] = train_full_width(arch)
-    print(f"[train] {arch} full width " + json.dumps(train), flush=True)
+    marks["train"] = time.perf_counter() - t_phase
+    print(f"[train] {arch} full width " + json.dumps(public(train)), flush=True)
     print(f"[train] {arch} B={TRAIN_B}: step p50={train['step_p50_ms']:.3f}ms "
           f"p99={train['step_p99_ms']:.3f}ms samples/s={train['samples_per_s']:.0f} "
           f"flush step={train['flush_step_ms']:.1f}ms "
@@ -2451,7 +2549,8 @@ def serve_and_train(arch: str, runs: dict, t_start: float) -> None:
           + json.dumps(train_smoke_against_cpu(arch)), flush=True)
     torch.cuda.empty_cache()
     print(f"[wall] {arch} done at {time.perf_counter() - t_start:.1f}s "
-          f"(this configuration {time.perf_counter() - t_phase:.1f}s)", flush=True)
+          f"(this configuration {time.perf_counter() - t_phase:.1f}s; cumulative s at "
+          + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()) + ")", flush=True)
 
 
 def drive_baselines() -> dict:
@@ -2770,15 +2869,26 @@ SMOKE_SEGMENTS, SMOKE_SEGMENT_STEPS = 3, 5
 SERVE_SMOKE_B, SERVE_SMOKE_REQUESTS, SERVE_TORN_AT = 64, 4, 2
 
 
+def bits_sum(x: torch.Tensor) -> torch.Tensor:
+    """The int64 sum on the card of ``x``'s bits viewed as int32, in chunks
+    of 2^26 words; a host leaf (``--pin-l2``) is staged over chunk by
+    chunk."""
+    v = x.detach().reshape(-1)
+    v = v.to(torch.int32) if v.dtype == torch.bool else v.view(torch.int32)
+    step = 1 << 26  # the int64 sum widens its input: 512 MB at a time
+    total = torch.zeros((), dtype=torch.int64, device=DEV)
+    for i in range(0, v.shape[0], step):
+        total += torch.sum(v[i:i + step].to(DEV), dtype=torch.int64)
+    return total
+
+
 def state_digest(state) -> list:
     """One integer a leaf, in leaf-name order: the int64 sum on the device of
     the leaf's bits viewed as int32 (host ints as they are)."""
     sums, host = [], []
     for name, x in sorted(ckpt._flatten(state).items()):
         if isinstance(x, torch.Tensor):
-            v = x.detach().reshape(-1)
-            v = v.to(torch.int32) if v.dtype == torch.bool else v.view(torch.int32)
-            sums.append(torch.sum(v, dtype=torch.int64))
+            sums.append(bits_sum(x))
         else:
             host.append((len(sums) + len(host), int(x)))
     out = torch.stack(sums).tolist() if sums else []
@@ -3020,7 +3130,7 @@ def smoke_matrix() -> dict:
     launcher subprocess follows the deltas (``--reload-dir``, a torn delta
     before request 2) within 1e-5 of the trainer's state served in-process;
     another under a different ``PYTHONHASHSEED`` fails on the salts."""
-    out = {}
+    out, t0 = {"seconds": {}}, time.perf_counter()
     root = Path(checkpoint_dir())
     try:
         state, sup, guard, ctl = smoke_supervised(str(root / "sup"), chaos=True)
@@ -3048,6 +3158,7 @@ def smoke_matrix() -> dict:
                              "rejected_batches": rejected, "restores": sup.total_failures,
                              "quarantined": quarantined, "fallback_step": s}
         del state, clean, template
+        out["seconds"]["supervisor"] = time.perf_counter() - t0
         # the streaming driver, publishing every segment
         pub = str(root / "pub")
         state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
@@ -3062,35 +3173,52 @@ def smoke_matrix() -> dict:
             log=lambda s: None)
         writer.wait()
         check(last == SMOKE_SEGMENTS * SMOKE_SEGMENT_STEPS, f"stream ran to step {last}")
-        # the trainer's state served in-process on the serve launcher's plan
-        plan_s = apply_plan_meta(make_plan(cfg, world=1, per_device_batch=SERVE_SMOKE_B,
-                                           mesh_shape=(1, 1)), plan_meta(plan))
-        serve = make_serve_step(WDLModel(cfg, plan_s), plan_s, SERVE_SMOKE_B,
-                                ServeConfig(strategy="mixed"), DEV)
-        rng = np.random.default_rng(0)  # the launcher's --seed 0 request stream
-        want = []
-        for _ in range(SERVE_SMOKE_REQUESTS):
-            p = serve({"emb": state["emb"], "dense": state["dense"]},
-                      make_batch(cfg, SERVE_SMOKE_B, rng))
-            want.append((float(p.mean()), [float(x) for x in p.reshape(-1)[:4]]))
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "deepfm", "--smoke",
-               "--batch", str(SERVE_SMOKE_B), "--n-requests", str(SERVE_SMOKE_REQUESTS),
-               "--device", DEV.type, "--reload-dir", pub, "--chaos", f"torn@{SERVE_TORN_AT}"]
+        out["seconds"]["stream"] = time.perf_counter() - t0 - out["seconds"]["supervisor"]
+        # a serve launcher follows the deltas (tearing one before request 2)
+        # while another, under other salts, tries a copy of them; both start
+        # now and run together
+        args = ["repro_torch.launch.serve", "--arch", "deepfm", "--smoke", "--batch",
+                str(SERVE_SMOKE_B), "--n-requests", str(SERVE_SMOKE_REQUESTS), "--device",
+                DEV.type, "--reload-dir"]
         env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
-        t_serve = time.perf_counter() - t0
-        check(r.returncode == 0, f"serve --reload-dir exited {r.returncode}: {r.stderr[-2000:]}")
+        other = str(root / "pub_other_salts")
+        shutil.copytree(pub, other)
+        jobs = [start_launcher([*args, pub, "--chaos", f"torn@{SERVE_TORN_AT}"],
+                               "serve --reload-dir", env),
+                start_launcher([*args, other], "serve under PYTHONHASHSEED=1",
+                               {**env, "PYTHONHASHSEED": "1"})]
+        try:
+            # the trainer's state served in-process on the serve launcher's plan
+            plan_s = apply_plan_meta(make_plan(cfg, world=1, per_device_batch=SERVE_SMOKE_B,
+                                               mesh_shape=(1, 1)), plan_meta(plan))
+            serve = make_serve_step(WDLModel(cfg, plan_s), plan_s, SERVE_SMOKE_B,
+                                    ServeConfig(strategy="mixed"), DEV)
+            rng = np.random.default_rng(0)  # the launcher's --seed 0 request stream
+            want = []
+            for _ in range(SERVE_SMOKE_REQUESTS):
+                p = serve({"emb": state["emb"], "dense": state["dense"]},
+                          make_batch(cfg, SERVE_SMOKE_B, rng))
+                want.append((float(p.mean()), [float(x) for x in p.reshape(-1)[:4]]))
+            stdout, _, _, t_serve = finish_launcher(jobs[0], timeout=300)
+            _, stderr2, rc2, _ = finish_launcher(jobs[1], expect_ok=False, timeout=300)
+        finally:
+            stop_launchers(jobs)
+        out["seconds"]["serve_subprocesses"] = time.perf_counter() - t0 - sum(
+            out["seconds"].values())
         got = re.findall(r"^\[serve\] request (\d+): step (\d+) mean_prob=([\d.]+) "
-                         r"probs\[:4\]=([\d. ]+)$", r.stdout, re.M)
-        check(len(got) == SERVE_SMOKE_REQUESTS and f"reloaded published step {last}" in r.stdout
-              and "tearing published delta before request" in r.stdout
+                         r"probs\[:4\]=([\d. ]+)$", stdout, re.M)
+        check(len(got) == SERVE_SMOKE_REQUESTS and f"reloaded published step {last}" in stdout
+              and "tearing published delta before request" in stdout
               and all(int(g[1]) == last for g in got),
-              f"the server loaded step {last} and kept it past the torn delta: {r.stdout}")
+              f"the server loaded step {last} and kept it past the torn delta: {stdout}")
         err = max(max(abs(float(g[2]) - w[0]), *(abs(float(x) - y) for x, y in
                                                   zip(g[3].split(), w[1])))
                   for g, w in zip(got, want))
         check(err <= 1e-5, f"reloaded probabilities within 1e-5 of the trainer's: {err}")
+        # another process under other salts must refuse the delta
+        check(rc2 != 0 and "SaltMismatch" in stderr2 and "PYTHONHASHSEED" in stderr2,
+              f"a server under PYTHONHASHSEED=1 refuses the delta: rc {rc2} "
+              f"{stderr2[-1000:]}")
         # in-process (the server tore the step-15 delta): a good delta loads,
         # a newer torn one is skipped and the last good one stays
         poller = PublishPoller(pub)
@@ -3103,18 +3231,11 @@ def smoke_matrix() -> dict:
             check((got_pub is not None) == (s_pub == last + 5) and poller.last_step == last + 5,
                   f"poller at delta {s_pub}: loaded {poller.last_step}, failures "
                   f"{poller.failures}")
-        # another process under other salts must refuse the delta
-        r2 = subprocess.run(cmd[:-2], capture_output=True, text=True, timeout=300,
-                            env={**env, "PYTHONHASHSEED": "1"})
-        check(r2.returncode != 0 and "SaltMismatch" in r2.stderr
-              and "PYTHONHASHSEED" in r2.stderr,
-              f"a server under PYTHONHASHSEED=1 refuses the delta: rc {r2.returncode} "
-              f"{r2.stderr[-1000:]}")
         out["stream"] = {"published": last, "serve_subprocess_s": t_serve,
                          "served_steps": [int(g[1]) for g in got],
                          "max_prob_err_vs_in_process": err,
-                         "other_salts_exit": r2.returncode,
-                         "other_salts_error": r2.stderr.strip().splitlines()[-1][:300]}
+                         "other_salts_exit": rc2,
+                         "other_salts_error": stderr2.strip().splitlines()[-1][:300]}
         del state
         torch.cuda.empty_cache()
         return out
@@ -3172,11 +3293,748 @@ def runtime_phase(runs: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+#
+# --pin-l2 (the L2 tier and the narrow masters in pinned host memory, read
+# and written by the kernels over the bus) and the calibrated cost model.
+
+PIN_ARCH = "dlrm-narrow"          # phases 10-11's run is the unpinned side
+PIN_DIGEST_AT = (1, FLUSH_ITERS, FLUSH_ITERS + 1, TRAIN_STEPS)
+# launches a request / a step that go to host operands under --pin-l2: the
+# L2 probe, the master's rows gathered for the Shuffle, and in training the
+# two dedup_adagrad updates (the narrow master and the L2 tier)
+PIN_SERVE_LAUNCHES = {"tier_probe": 1, "host_rows": 1}
+PIN_TRAIN_LAUNCHES = {"tier_probe": 1, "host_rows": 1, "dedup_adagrad": 2}
+# the step-20 flush is the run's first: both tiers hold only sentinel keys,
+# so nothing is written back, and the reload gathers each new tier's rows and
+# accumulators from the host master (4 launches)
+PIN_FLUSH_HOST_ROWS = 4
+BUS_COPY_BYTES = 1 << 30
+# the narrow deepfm launchers at full width: 25 steps take the step-20 flush
+PIN_LAUNCHER_STEPS = 25
+CALIB_REPLAN_ITERS, CALIB_STEPS = 10, 20
+
+
+def public(d: dict) -> dict:
+    """A result without its private (``_``) entries, for printing."""
+    return {k: v for k, v in d.items() if not k.startswith("_")}
+
+
+def mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("MemAvailable:"))
+    return kb / 2**20
+
+
+def check_placement(state, plan, what: str) -> dict:
+    """The leaves ``pinned_leaves(plan)`` names are CPU tensors in mapped
+    page-locked memory (the CUDA driver's own attributes say so), every other
+    tensor of the state is on the card."""
+    names = pinned_leaves(plan)
+    host, bad = 0, []
+    for gid, st in state["emb"].items():
+        leaves = {"w": st.w, "acc": st.acc, "counts": st.counts}
+        for part in ("cache", "l2", "proj"):
+            sub = getattr(st, part)
+            if sub is not None:
+                leaves.update({f"{part}.{k}": getattr(sub, k) for k in sub._fields})
+        for name, t in leaves.items():
+            pinned = name in names.get(gid, ())
+            ok = (t.device.type == "cpu" and host_memory.driver_pinned(t)) if pinned \
+                else t.device == DEV
+            host += t.numel() * t.element_size() if pinned else 0
+            if not ok:
+                bad.append(f"{gid}.{name} on {t.device}")
+    rest = [t for k, v in state.items() if k != "emb"
+            for t in tree_leaves(v) if isinstance(t, torch.Tensor)]
+    bad += [f"dense/opt leaf on {t.device}" for t in rest if t.device != DEV]
+    check(not bad, f"{what}: placement {bad[:5]}")
+    return {"pinned_leaves": {g: list(v) for g, v in names.items()}, "host_bytes": host}
+
+
+# the pinned buffers of phase 16's DLRM serve state, which its train state
+# (the same leaves, shapes and dtypes) is written into instead of new ones
+PINNED_REUSE: Dict[str, object] = {}
+
+
+def into_held_buffers(emb: dict, plan) -> dict:
+    """``emb`` with each leaf ``pinned_leaves(plan)`` names copied into the
+    ``PINNED_REUSE`` buffer of the same group and name (its shape and dtype
+    checked), so the phase page-locks DLRM's 25 GiB once for serving and
+    training."""
+    out = {}
+    for gid, st in emb.items():
+        old, top, l2 = PINNED_REUSE.get(gid), {}, {}
+        for name in pinned_leaves(plan).get(gid, ()):
+            tier, key = name.startswith("l2."), name.split(".")[-1]
+            t = getattr(st.l2 if tier else st, key)
+            o = None if old is None else getattr(old.l2 if tier else old, key)
+            if o is not None:
+                check(o.shape == t.shape and o.dtype == t.dtype,
+                      f"g{gid}.{name}: held buffer {tuple(o.shape)} {o.dtype}, leaf "
+                      f"{tuple(t.shape)} {t.dtype}")
+                (l2 if tier else top)[key] = o.copy_(t)
+        if l2:
+            top["l2"] = st.l2._replace(**l2)
+        out[gid] = st._replace(**top)
+    return out
+
+
+# what hold_pinned_buffers did ahead of the first move: MemAvailable before
+# it, its seconds and bytes
+HELD: Dict[str, float] = {}
+
+
+def hold_pinned_buffers(arch: str) -> None:
+    """Page-lock exact-size buffers for every leaf ``pinned_leaves`` names in
+    the arch's serve state, into ``PINNED_REUSE``, so the state's move only
+    copies into them (phase 16 locks DLRM's 25 GiB beside the launcher
+    subprocesses, where nothing is timed)."""
+    from types import SimpleNamespace
+
+    _, plan = arch_plan(ARCHS[arch], SERVE_B)
+    gc.collect()
+    HELD["mem_available_gib_before"] = mem_available_gib()
+    t0 = time.perf_counter()
+    for gid, names in pinned_leaves(plan).items():
+        g = plan.group(int(gid))
+        nd, h2 = plan.narrow_width(g.gid), plan.l2_rows.get(g.gid, 0)
+        shapes = {"w": ((g.rows, nd), torch.float32), "acc": ((g.rows, 1), torch.float32),
+                  "l2.keys": ((h2,), torch.int32), "l2.rows": ((h2, g.dim), torch.float32),
+                  "l2.acc": ((h2, 1), torch.float32)}
+        top, l2 = {}, {}
+        for name in names:
+            (l2 if name.startswith("l2.") else top)[name.split(".")[-1]] = \
+                host_memory.pinned_empty(*shapes[name])
+        PINNED_REUSE[gid] = SimpleNamespace(**top, l2=SimpleNamespace(**l2) if l2 else None)
+    HELD["lock_s"] = time.perf_counter() - t0
+    HELD["bytes"] = host_memory.pinned_bytes()
+
+
+def pin_state(state, plan, what: str) -> dict:
+    """Phase 16's move: MemAvailable, the pinned leaves placed (timed; into
+    ``PINNED_REUSE``'s buffers where they fit), the placement checked, the
+    peak statistics reset after the move."""
+    gc.collect()  # a freed state's pinned buffers go back first
+    held = dict(HELD)
+    HELD.clear()
+    avail = held.get("mem_available_gib_before") or mem_available_gib()
+    t0 = time.perf_counter()
+    state["emb"] = pin_to_host(into_held_buffers(state["emb"], plan), plan)
+    PINNED_REUSE.clear()
+    PINNED_REUSE.update({gid: st._replace(counts=None, cache=None, proj=None)
+                         for gid, st in state["emb"].items()})
+    torch.cuda.synchronize(DEV)
+    secs = time.perf_counter() - t0
+    out = check_placement(state, plan, what)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    out.update(mem_available_gib_before=avail, pin_s=secs,
+               pinned_bytes=host_memory.pinned_bytes(),
+               device_gib_after_move=torch.cuda.memory_allocated(DEV) / 2**30)
+    if held:
+        out.update(locked_ahead_s=held["lock_s"], locked_ahead_bytes=held["bytes"])
+    ahead = (f" (page-locked ahead in {held['lock_s']:.2f}s beside the launchers)"
+             if held else "")
+    print(f"[pin] {what}: MemAvailable {avail:.2f} GiB before; "
+          f"{out['pinned_bytes']} bytes pinned, moved in {secs:.2f}s{ahead}; "
+          f"{out['device_gib_after_move']:.2f} GiB left on the card", flush=True)
+    return out
+
+
+def bus_bandwidth() -> dict:
+    """One 1 GiB copy each way between pinned host memory and the card
+    (CUDA events), in bytes a second."""
+    h = host_memory.pinned_empty((BUS_COPY_BYTES // 4,), torch.float32)
+    d = torch.empty((BUS_COPY_BYTES // 4,), dtype=torch.float32, device=DEV)
+    h.fill_(1.0)
+    out = {}
+    for name, fn in (("h2d", lambda: d.copy_(h)), ("d2h", lambda: h.copy_(d))):
+        out[name + "_ms"] = cuda_ms(fn, iters=3, warmup=1, device_only=False)
+        out[name + "_bytes_per_s"] = BUS_COPY_BYTES / (out[name + "_ms"] / 1e3)
+    del h, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def bus_bound(read: float, written: float, bw: dict) -> float:
+    """ms the bus needs to read ``read`` bytes from host memory and write
+    ``written`` to it (the two directions overlap)."""
+    return max(read / bw["h2d_bytes_per_s"], written / bw["d2h_bytes_per_s"]) * 1e3
+
+
+def host_probe_check(label: str, uniq, uvalid, keys_h, rows_h, bw: dict) -> dict:
+    """``tier_probe`` on host keys and rows against the same kernel on
+    device copies (bitwise) and the plain version on them (bitwise)."""
+    keys_d, rows_d = keys_h.to(DEV), rows_h.to(DEV)
+    h = ops.tier_probe(uniq, uvalid, keys_h, rows_h)
+    d = ops.tier_probe(uniq, uvalid, keys_d, rows_d)
+    r = ref.tier_probe_ref(uniq, uvalid, keys_d, rows_d)
+    torch.cuda.synchronize(DEV)
+    check(all(same_bits(x, y) for x, y in zip(h, d)) and all(
+        same_bits(x, y) for x, y in zip(h, r)),
+        f"{label}: tier_probe on host operands bitwise the kernel on device copies and "
+        "the plain version")
+    n, hh, dd = uniq.shape[0], keys_h.shape[0], rows_h.shape[1]
+    n_hit = int(h[0].sum())
+    check(0 < n_hit < n, f"{label}: the probe case has hits and misses")
+    keys_read = min(hh, n * (math.ceil(math.log2(hh / n)) + 2))
+    out = {"label": label, "n": n, "d": dd, "tier_keys": hh, "hits": n_hit,
+           "max_abs_err": max_err(h[2], r[2]),
+           "ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys_h, rows_h)),
+           "device_copy_ms": cuda_ms(lambda: ops.tier_probe(uniq, uvalid, keys_d, rows_d)),
+           "plain_ms": cuda_ms(lambda: ref.tier_probe_ref(uniq, uvalid, keys_d, rows_d)),
+           "library_ms": None, "plain_on": "device copies",
+           "bound_ms": bus_bound(keys_read * 4 + n_hit * dd * 4, 0, bw),
+           "bound_by": "bytes"}
+    del keys_d, rows_d
+    return out
+
+
+def host_dedup_check(label: str, w_h, acc_h, idx, g, valid, bw: dict) -> dict:
+    """``dedup_adagrad`` into host ``w``/``acc`` against the kernel on device
+    copies (bitwise, the whole tables by digest: untouched rows unchanged)
+    and the plain version on the touched rows (1e-5 of scale)."""
+    w_d, acc_d = w_h.to(DEV), acc_h.to(DEV)
+    rows = w_h.shape[0]
+    kept = valid & (idx >= 0) & (idx < rows)
+    u = torch.unique(idx[kept].long())
+    sub_w, sub_a = w_d[u].clone(), acc_d[u].clone()
+    sub_idx = torch.searchsorted(u, torch.clamp(idx.long(), 0, rows - 1)).clamp_(
+        max=max(u.shape[0] - 1, 0)).to(torch.int32)
+    ops.dedup_adagrad(w_h, acc_h, idx, g, valid, LR, EPS)
+    ops.dedup_adagrad(w_d, acc_d, idx, g, valid, LR, EPS)
+    ref.dedup_adagrad_ref(sub_w, sub_a, sub_idx, g, kept, LR, EPS)
+    torch.cuda.synchronize(DEV)
+    same = (bits_sum(w_h).item() == bits_sum(w_d).item()
+            and bits_sum(acc_h).item() == bits_sum(acc_d).item()
+            and same_bits(ops.take_rows(w_h, u), w_d[u])
+            and same_bits(ops.take_rows(acc_h, u), acc_d[u]))
+    err = max_err(w_d[u], sub_w) / scale_of(sub_w)
+    check(same and err <= TOL, f"{label}: dedup_adagrad into host w/acc bitwise the kernel "
+          f"on device copies (err vs plain {err} of scale)")
+    d = w_h.shape[1]
+    touched = u.shape[0]
+    out = {"label": label, "m": idx.shape[0], "d": d, "rows": rows, "touched": touched,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: ops.dedup_adagrad(w_h, acc_h, idx, g, valid, LR, EPS)),
+           "device_copy_ms": cuda_ms(lambda: ops.dedup_adagrad(w_d, acc_d, idx, g, valid,
+                                                               LR, EPS)),
+           "plain_ms": cuda_ms(lambda: ref.dedup_adagrad_ref(w_d, acc_d, idx, g, valid, LR,
+                                                              EPS)),
+           "plain_on": "device copies", "library_ms": None,
+           "bound_ms": bus_bound(touched * (d + 1) * 4, touched * (d + 1) * 4, bw),
+           "bound_by": "bytes"}
+    del w_d, acc_d
+    return out
+
+
+def host_rows_check(label: str, table_h, idx, bw: dict) -> dict:
+    """The row helper: a gather of ``idx`` from the host table and a scatter
+    of new rows to its distinct rows, each bitwise torch indexing of a
+    device copy (the whole table by digest)."""
+    table_d = table_h.to(DEV)
+    got = ops.take_rows(table_h, idx)
+    check(same_bits(got, table_d[idx.long()]), f"{label}: host_rows gather bitwise")
+    u = torch.unique(idx.long())
+    vals = torch.randn((u.shape[0],) + tuple(table_h.shape[1:]), device=DEV,
+                       generator=torch.Generator(device=DEV).manual_seed(SEED + 16))
+    ops.put_rows(table_h, u, vals)
+    table_d[u] = vals
+    torch.cuda.synchronize(DEV)
+    check(bits_sum(table_h).item() == bits_sum(table_d).item()
+          and same_bits(ops.take_rows(table_h, u), vals), f"{label}: host_rows scatter bitwise")
+    width = table_h[0].numel()
+    out = {"label": label, "n": idx.shape[0], "d": width, "rows": table_h.shape[0],
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: ops.take_rows(table_h, idx)),
+           "scatter_ms": cuda_ms(lambda: ops.put_rows(table_h, u, vals)),
+           "plain_ms": cuda_ms(lambda: table_d[idx.long()]), "plain_on": "device copy",
+           "library_ms": None,
+           "bound_ms": bus_bound(idx.shape[0] * width * 4, 0, bw), "bound_by": "bytes",
+           "scatter_bound_ms": bus_bound(0, u.shape[0] * width * 4, bw)}
+    del table_d
+    return out
+
+
+def path_ids(n: int, rows: int, keys: torch.Tensor, gen: torch.Generator):
+    """A path-like sorted unique query set: half tier keys, half random rows."""
+    half = n // 2
+    ids = torch.cat([keys[torch.randint(0, keys.shape[0], (half,), device=DEV,
+                                        generator=gen)],
+                     torch.randint(0, rows, (n - half,), device=DEV, generator=gen,
+                                   dtype=torch.int32)])
+    return pe.fixed_unique(ids.to(torch.int32), sentinel=rows)
+
+
+def host_kernels(st, a: Arch, bw: dict, gen: torch.Generator, table_label: str) -> list:
+    """The three kernels on one state's host-resident master and L2 tier
+    (phase 16), at the arch's training shape."""
+    out = []
+    n = TRAIN_B * a.n_fields
+    if st.l2 is not None and host_memory.is_mapped(st.l2.rows):
+        keys_d = st.l2.keys.to(DEV)
+        live = keys_d[keys_d < a.rows]
+        u = path_ids(n, a.rows, live, gen)
+        out.append(("tier_probe", host_probe_check(
+            f"{table_label} L2 {st.l2.rows.shape[0]:,} x {a.dim}", u.uniq, u.uvalid,
+            st.l2.keys, st.l2.rows, bw)))
+        slots = torch.randperm(st.l2.rows.shape[0], device=DEV, generator=gen)[:n]
+        valid = torch.rand(n, device=DEV, generator=gen) < 0.5
+        g = torch.randn((n, a.dim), device=DEV, generator=gen)
+        out.append(("dedup_adagrad", host_dedup_check(
+            f"{table_label} L2 tier", st.l2.rows, st.l2.acc, slots.to(torch.int32), g,
+            valid, bw)))
+        out.append(("host_rows", host_rows_check(f"{table_label} L2 tier", st.l2.rows,
+                                                 slots, bw)))
+        del keys_d, live
+    if host_memory.is_mapped(st.w):
+        rows, d = st.w.shape
+        idx = torch.randint(0, rows, (n,), device=DEV, generator=gen, dtype=torch.int32)
+        valid = torch.rand(n, device=DEV, generator=gen) < 0.9
+        g = torch.randn((n, d), device=DEV, generator=gen)
+        out.append(("dedup_adagrad", host_dedup_check(f"{table_label} master", st.w, st.acc,
+                                                      idx, g, valid, bw)))
+        out.append(("host_rows", host_rows_check(f"{table_label} master", st.w, idx, bw)))
+    return out
+
+
+def deepfm_l2_kernels(bw: dict, gen: torch.Generator) -> list:
+    """The narrow deepfm L2 tier (48,806,440 x 10) in pinned host memory,
+    made on the card and moved."""
+    a = ARCHS["deepfm-narrow"]
+    h = a.l2_rows
+    stride = a.rows // h
+    keys = (torch.arange(h, device=DEV, dtype=torch.int64) * stride
+            + torch.randint(0, stride, (h,), device=DEV, generator=gen)).to(torch.int32)
+    tier = pe.CacheState(host_memory.pinned_like(keys),
+                         host_memory.pinned_like(torch.randn((h, a.dim), device=DEV,
+                                                             generator=gen)),
+                         host_memory.pinned_like(torch.rand((h, 1), device=DEV,
+                                                            generator=gen)))
+    n = TRAIN_B * a.n_fields
+    u = path_ids(n, a.rows, keys, gen)
+    out = [("tier_probe", host_probe_check(f"deepfm-narrow L2 {h:,} x {a.dim}", u.uniq,
+                                           u.uvalid, tier.keys, tier.rows, bw))]
+    slots = torch.randperm(h, device=DEV, generator=gen)[:n].to(torch.int32)
+    valid = torch.rand(n, device=DEV, generator=gen) < 0.5
+    g = torch.randn((n, a.dim), device=DEV, generator=gen)
+    out.append(("dedup_adagrad", host_dedup_check("deepfm-narrow L2 tier", tier.rows,
+                                                  tier.acc, slots, g, valid, bw)))
+    out.append(("host_rows", host_rows_check("deepfm-narrow L2 tier", tier.rows, slots, bw)))
+    del tier, keys
+    torch.cuda.empty_cache()
+    return out
+
+
+def pinned_dlrm(runs: dict, bw: dict, gen: torch.Generator) -> Tuple[dict, list]:
+    """Full Criteo DLRM under ``picasso_narrow`` with its narrow master and L2
+    tier in pinned host memory: phase 10's 300 requests and phase 11's 30
+    steps again, bitwise theirs; then the three kernels on the trained
+    state's host-resident master and L2 tier."""
+    a = ARCHS[PIN_ARCH]
+    base_s, base_t = runs[PIN_ARCH, "serve"], runs[PIN_ARCH, "train"]
+    sv = serve_full_width(PIN_ARCH, pin=True)
+    check(same_bits(sv["_probs"], base_s["_probs"]),
+          f"pinned DLRM: {a.n_requests} requests' probabilities bitwise phase 10's")
+    check(sv["peak_mem_gib"] <= base_s["peak_mem_gib"] - 20,
+          f"pinned DLRM serving peak {sv['peak_mem_gib']:.2f} GiB at least 20 GiB below "
+          f"{base_s['peak_mem_gib']:.2f}")
+    torch.cuda.empty_cache()
+    cfg, plan = arch_plan(a, TRAIN_B, train=True)
+    stream = batch_stream(cfg, TRAIN_B, seed=SEED)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    k = train_run(PIN_ARCH, "auto", batches, pin=True, digest_at=PIN_DIGEST_AT, keep=True)
+    state, step = k.pop("_state"), k.pop("_step")
+    check(k["losses"] == base_t["losses"],
+          f"pinned DLRM: {TRAIN_STEPS} losses bitwise phase 11's: {k['losses']} vs "
+          f"{base_t['losses']}")
+    check(k["digests"] == base_t["_digests"],
+          f"pinned DLRM: state digests at steps {PIN_DIGEST_AT} bitwise phase 11's")
+    check(k["hits"] == base_t["hits"] and k["l2_hits"] == base_t["l2_hits"],
+          "pinned DLRM: hits equal phase 11's")
+    want = {n: (a.train_launches.get(n, 0) + (n == "host_rows")) * TRAIN_STEPS
+            + PIN_FLUSH_HOST_ROWS * (n == "host_rows") for n in k["launches"]}
+    check(k["launches"] == want, f"pinned DLRM training launches: {k['launches']} vs {want}")
+    host_want = {n: PIN_TRAIN_LAUNCHES[n] * TRAIN_STEPS
+                 + PIN_FLUSH_HOST_ROWS * (n == "host_rows") for n in k["host_launches"]}
+    check(k["host_launches"] == host_want,
+          f"pinned DLRM training launches on host operands: {k['host_launches']}")
+    steady = k["peak_before_flush_gib"]
+    check(steady <= base_t["peak_before_flush_gib"] - 20,
+          f"pinned DLRM steady training peak {steady:.2f} GiB at least 20 GiB below "
+          f"{base_t['peak_before_flush_gib']:.2f}")
+    lat = np.array(k["lat"])
+    stead = [t for i, t in enumerate(lat, start=1) if i > WARMUP_ITERS and i != FLUSH_ITERS]
+    res = {"serve": {key: sv[key] for key in (
+               "p50_ms", "p99_ms", "mean_ms", "peak_mem_gib", "launches", "host_launches",
+               "pinned", "plain_refused", "cache_hits_per_request", "l2_hits_per_request",
+               "init_s", "warmup_and_flush_s", "full_tiers")},
+           "serve_device_ms_per_request": sv["where_time_goes"]["device_ms_per_request"],
+           "serve_unpinned": {key: base_s[key] for key in ("p50_ms", "p99_ms",
+                                                            "peak_mem_gib")},
+           "train": {"step_p50_ms": float(np.percentile(stead, 50)),
+                     "step_p99_ms": float(np.percentile(stead, 99)), "step_ms": k["lat"],
+                     "flush_step_ms": float(lat[FLUSH_ITERS - 1]),
+                     "first_step_ms": float(lat[0]),
+                     "peak_before_flush_gib": steady, "peak_mem_gib": k["peak_mem_gib"],
+                     "launches": k["launches"], "host_launches": k["host_launches"],
+                     "pinned": k["pinned"], "digests_equal_at": list(PIN_DIGEST_AT),
+                     "losses_equal": True},
+           "train_unpinned": {key: base_t[key] for key in (
+               "step_p50_ms", "step_p99_ms", "flush_step_ms", "peak_mem_gib",
+               "peak_before_flush_gib")}}
+    print("[pin] dlrm-narrow pinned " + json.dumps(res), flush=True)
+    # both tiers filled (a flush from a full FCounter, which writes the
+    # trained tiers back into the host master first), then the kernels on
+    # the host master and L2 tier
+    res["fill_flush"] = fill_tiers(step.engine, state, a, SEED + 4)
+    check_placement(state, plan, f"{PIN_ARCH} after the full flush")
+    print("[pin] dlrm-narrow full flush " + json.dumps(res["fill_flush"]), flush=True)
+    rows = host_kernels(state["emb"]["0"], a, bw, gen, "dlrm-narrow")
+    del state, k, step
+    PINNED_REUSE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, rows
+
+
+def pinned_bytes_of(plan) -> int:
+    """Bytes of the leaves ``pinned_leaves(plan)`` names, from the plan."""
+    total = 0
+    for gid, names in pinned_leaves(plan).items():
+        g = plan.group(int(gid))
+        nd, h2 = plan.narrow_width(g.gid), plan.l2_rows.get(g.gid, 0)
+        size = {"w": g.rows * nd, "acc": g.rows, "l2.keys": h2, "l2.rows": h2 * g.dim,
+                "l2.acc": h2}
+        total += 4 * sum(size[n] for n in names)
+    return total
+
+
+class Launcher(NamedTuple):
+    """A launcher subprocess started by ``start_launcher``: its output goes
+    to files (no pipe fills while the script waits on another one)."""
+    proc: subprocess.Popen
+    out: object
+    err: object
+    t0: float
+    what: str
+
+
+def start_launcher(args: list, what: str, env: dict = None) -> Launcher:
+    env = env or {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", *args], stdout=out, stderr=err, text=True,
+                            env=env)
+    return Launcher(proc, out, err, time.perf_counter(), what)
+
+
+def finish_launcher(job: Launcher, expect_ok: bool = True,
+                    timeout: float = 600) -> Tuple[str, str, int, float]:
+    """Wait for ``job`` (killed past ``timeout``): its stdout, stderr, exit
+    code and wall seconds from its start. ``expect_ok`` fails the phase on a
+    nonzero exit."""
+    try:
+        job.proc.wait(timeout=timeout)
+    finally:
+        if job.proc.poll() is None:
+            job.proc.kill()
+            job.proc.wait()
+    secs = time.perf_counter() - job.t0
+    texts = []
+    for f in (job.out, job.err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    rc = job.proc.returncode
+    if expect_ok:
+        check(rc == 0, f"{job.what} exited {rc}: {texts[1][-3000:]}")
+    return texts[0], texts[1], rc, secs
+
+
+def stop_launchers(jobs) -> None:
+    """Kill whatever of ``jobs`` still runs (a failed phase leaves none)."""
+    for job in jobs:
+        if job.proc.poll() is None:
+            job.proc.kill()
+            job.proc.wait()
+
+
+PIN_FLAGS = ("--arch", "deepfm", "--strategy", ARCHS["deepfm-narrow"].strategy, "--narrow-dim",
+             str(ARCHS["deepfm-narrow"].narrow_dim), "--l2-budget",
+             str(ARCHS["deepfm-narrow"].l2_bytes), "--pin-l2")
+
+
+def start_pinned_launchers() -> Dict[str, Launcher]:
+    """Both launchers at full-width narrow deepfm with ``--pin-l2``, started
+    together: the trainer for 25 steps (past the step-20 flush) with the
+    narrow master and the L2 tier pinned, the server with its L2 tier
+    pinned."""
+    return {"train": start_launcher(["repro_torch.launch.train", *PIN_FLAGS, "--steps",
+                                     str(PIN_LAUNCHER_STEPS), "--global-batch", str(TRAIN_B),
+                                     "--log-every", "5"], "train --pin-l2"),
+            "serve": start_launcher(["repro_torch.launch.serve", *PIN_FLAGS, "--batch",
+                                     str(SERVE_B), "--n-requests", "10"], "serve --pin-l2")}
+
+
+def pinned_launchers(jobs: Dict[str, Launcher]) -> dict:
+    """The pinned launchers' output checked: the bytes each pinned, and
+    finite steps with hits after the flush or a served line."""
+    a = ARCHS["deepfm-narrow"]
+    out = {}
+    text, _, _, secs = finish_launcher(jobs["train"])
+    _, plan = arch_plan(a, TRAIN_B, train=True)
+    pinned = [int(x) for x in re.findall(r"^\[train\] pin-l2: (\d+) bytes pinned", text, re.M)]
+    steps = re.findall(r"^  step +(\d+) loss=([\d.]+) hits=(\d+) ovf=\d+ l1=(\d+) l2=(\d+)$",
+                       text, re.M)
+    check(pinned and pinned[0] == pinned_bytes_of(plan) and len(steps) == PIN_LAUNCHER_STEPS // 5
+          and all(np.isfinite(float(s[1])) for s in steps) and int(steps[-1][2]) > 0,
+          f"train --pin-l2: pinned {pinned} (want {pinned_bytes_of(plan)}), steps {steps}")
+    out["train"] = {"seconds": secs, "pinned_bytes": pinned[0],
+                    "steps": [[int(s[0]), float(s[1]), int(s[2])] for s in steps]}
+    _, splan = arch_plan(a, SERVE_B)
+    want = sum(4 * splan.l2_rows[g.gid] * (g.dim + 2) for g in splan.groups
+               if splan.l2_rows.get(g.gid, 0))
+    text, _, _, secs = finish_launcher(jobs["serve"])
+    pinned = [int(x) for x in re.findall(r"^\[serve\] pin-l2: (\d+) bytes pinned", text, re.M)]
+    line = re.search(r"^\[serve\] deepfm B=\d+: p50=([\d.]+)ms p99=([\d.]+)ms "
+                     r"mean_prob=([\d.]+)$", text, re.M)
+    check(pinned == [want] and line is not None,
+          f"serve --pin-l2: pinned {pinned} (want {want}): {text[-1500:]}")
+    out["serve"] = {"seconds": secs, "pinned_bytes": pinned[0], "p50_ms": float(line.group(1)),
+                    "p99_ms": float(line.group(2)), "mean_prob": float(line.group(3)),
+                    "ran_beside": "the other launchers and the pinned smoke state"}
+    return out
+
+
+def pinned_smoke() -> dict:
+    """A pinned narrow deepfm-smoke state (both tiers, flushed at step 3) on
+    the card beside an unpinned one from the same seed: the pinned step
+    refusing the unpinned state, 6 steps bitwise alike, a checkpoint saved
+    straight after the sixth (no sync), a guarded step fed a NaN rejected
+    through the journal's host rows, the checkpoint's round trip and a
+    replan migration (half the L2 bytes), each keeping the placement and
+    the values bitwise the unpinned side's."""
+    a = ARCHS["deepfm-narrow"]
+    b = 64  # train_smoke_against_cpu's batch: L2 hits after the step-3 flush
+    cfg, plan = arch_plan(a, b, smoke=True, train=True)
+    model = WDLModel(cfg, plan)
+
+    def make():
+        return ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+
+    pinned, plain = make(), make()
+    pinned["emb"] = pin_to_host(pinned["emb"], plan)
+    check_placement(pinned, plan, "pinned smoke state")
+    cfg_p = ts.TrainConfig(strategy=a.strategy, pin_l2=True)
+    step_p = ts.make_train_step(model, plan, b, cfg_p, DEV)
+    step_u = ts.make_train_step(model, plan, b, ts.TrainConfig(strategy=a.strategy), DEV)
+    rng = np.random.default_rng(SEED + 16)
+    batches = [make_batch(cfg, b, rng) for _ in range(7)]
+    try:  # the step checks the placement and never re-pins a lost leaf
+        step_p(plain, batches[0])
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "a pin_l2 step refuses a state whose named leaves are on the card")
+    l2 = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_pin_")
+    try:
+        for i, batch in enumerate(batches[:6]):
+            pinned, mp = step_p(pinned, batch)
+            if i == 5:
+                # saved straight after an unguarded step, nothing synced in
+                # between: the save waits for the step's queued host-row
+                # writes itself (held against the synced state below)
+                ckpt.save_checkpoint(root, 6, pinned)
+            plain, mu = step_u(plain, batch)
+            check(float(mp["loss"]) == float(mu["loss"]), "pinned smoke step bitwise")
+            l2.append(int(mp["cache_hits/l2"]))
+        check(state_digest(pinned) == state_digest(plain) and max(l2[3:]) > 0,
+              f"pinned smoke: 6 steps bitwise the unpinned, L2 hits after the flush {l2}")
+        # a rejected step restores its host rows through the journal
+        guard = AnomalyGuard(step_p)
+        poisoned = next(ChaosStream(iter(batches[6:]), frozenset({0})))
+        before = state_digest(pinned)
+        pinned, m = guard(pinned, poisoned)
+        check(m["anomalous"] == 1 and state_digest(pinned) == before,
+              "pinned smoke: the poisoned step rejected, every leaf bitwise as before")
+        ops.reset_launches()
+        want = state_digest(pinned)
+        for t in ckpt._flatten(pinned).values():
+            if isinstance(t, torch.Tensor):
+                t.zero_()
+        restored, step_no = ckpt.restore_checkpoint(root, pinned)
+        torch.cuda.synchronize(DEV)
+        check(step_no == 6 and state_digest(restored) == want,
+              "pinned smoke: the checkpoint saved right after an unsynced step restores "
+              "every leaf bitwise the synced state")
+        check_placement(restored, plan, "pinned smoke state after restore")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rp_p = Replanner(plan, strategy=a.strategy, l2_bytes=SMOKE_L2_BYTES // 2, pin_l2=True)
+    rp_u = Replanner(plan, strategy=a.strategy, l2_bytes=SMOKE_L2_BYTES // 2)
+    out_p, out_u = rp_p.maybe_replan(restored, step=6), rp_u.maybe_replan(plain, step=6)
+    check(out_p is not None and out_u is not None and plan_meta(out_p[0]) == plan_meta(out_u[0]),
+          f"pinned smoke: both replans migrate alike: {rp_p.events[-1].describe()}")
+    plan2, new_p = out_p
+    new_u = out_u[1]
+    check(state_digest(new_p) == state_digest(new_u),
+          "pinned smoke: the migrated pinned state bitwise the unpinned one")
+    placed = check_placement(new_p, plan2, "pinned smoke state after the replan")
+    model2 = WDLModel(cfg, plan2)
+    s2p = ts.make_train_step(model2, plan2, b, ts.TrainConfig(strategy="mixed", pin_l2=True),
+                             DEV)
+    s2u = ts.make_train_step(model2, plan2, b, ts.TrainConfig(strategy="mixed"), DEV)
+    new_p, mp = s2p(new_p, batches[6])
+    new_u, mu = s2u(new_u, batches[6])
+    check(float(mp["loss"]) == float(mu["loss"]) and state_digest(new_p) == state_digest(new_u),
+          "pinned smoke: a step on the replanned states bitwise alike")
+    res = {"l2_hits": l2, "replan": rp_p.events[-1].describe(),
+           "l2_rows": [plan.l2_rows[0], plan2.l2_rows[0]], "pinned_after_replan": placed,
+           "host_launches": dict(ops.host_launches)}
+    del pinned, plain, restored, new_p, new_u
+    torch.cuda.empty_cache()
+    return res
+
+
+def calibration_phase(root: str) -> dict:
+    """``get_cost_model('force')`` on the ``small`` grid through the port's
+    kernels (launch counters) into ``root``, ``'auto'`` reloading the same
+    model, and the calibrated against the constant assignment of full-width
+    unpacked deepfm."""
+    from repro_torch.perf import get_cost_model
+
+    path = os.path.join(root, "calibration.json")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = get_cost_model("force", path, grid="small", device=DEV,
+                           log=lambda s: print(f"[calib] {s}", flush=True))
+    secs = time.perf_counter() - t0
+    ran = {k: ops.launches[k] for k in ("gather_pool", "dedup_adagrad", "tier_probe",
+                                        "gather_project")}
+    check(all(v > 0 for v in ran.values()) and model.backend == "torch-cuda",
+          f"calibration timed the four kernels on the card: {ran}, {model.backend}")
+    again = get_cost_model("auto", path, grid="small", device=DEV)
+    check(again.to_json() == model.to_json(), "'auto' reloads the same model")
+    curves = {op: c["ys_us"] for op, c in model.to_json()["ops"].items()}
+    print("[calib] fitted curves (us at each grid point) " + json.dumps(
+        {op: {"xs": c["xs"], "us": c["ys_us"]} for op, c in model.to_json()["ops"].items()}),
+        flush=True)
+    cfg = get_config("deepfm")
+    plan = make_plan(cfg, world=1, per_device_batch=TRAIN_B, enable_packing=False,
+                     hot_bytes=1 << 30, flush_iters=FLUSH_ITERS,
+                     warmup_iters=WARMUP_ITERS, mesh_shape=(1, 1))
+    const = compile_assignment(plan)
+    calib = compile_assignment(plan, cost_model=model)
+    mix_c, mix_k = dict(Counter(const.strategy.values())), dict(Counter(calib.strategy.values()))
+    check(mix_c == dict(ARCHS["deepfm-mixed"].mix)
+          and all(s.units == "us" for s in calib.scores.values()),
+          f"constant mix {mix_c}, calibrated scores in us")
+    return {"calibrate_s": secs, "kernel_launches": ran, "curves_us": curves,
+            "mix_constant": mix_c, "mix_calibrated": mix_k, "_path": path}
+
+
+def start_calibrated_launcher(path: str) -> Launcher:
+    """A calibrated full-width training through the launcher (``--strategy
+    auto --calibrate auto`` on the file at ``path``), whose replan prints
+    the measured, predicted and correction values."""
+    return start_launcher(
+        ["repro_torch.launch.train", "--arch", "deepfm", "--no-packing", "--strategy",
+         "auto", "--calibrate", "auto", "--calib-file", path, "--replan-iters",
+         str(CALIB_REPLAN_ITERS), "--steps", str(CALIB_STEPS), "--global-batch",
+         str(TRAIN_B), "--log-every", "10"], "train --calibrate auto")
+
+
+def calibrated_feedback(job: Launcher) -> dict:
+    text, _, _, secs = finish_launcher(job)
+    fb = re.findall(r"^\[train\] replan (step \d+: .*measured=(\d+)us predicted=(\d+)us "
+                    r"corr=([\d.]+).*)$", text, re.M)
+    check("[train] calib loaded calibration" in text and len(fb) == 1,
+          f"the launcher loaded the calibration and its replan fed back: {text[-2000:]}")
+    return {"launcher_s": secs, "replan": fb[0][0], "measured_us": int(fb[0][1]),
+            "predicted_us": int(fb[0][2]), "correction": float(fb[0][3]),
+            "launcher_ran_beside": "the pinned launchers and the pinned smoke state"}
+
+
+def pin_phase(runs: dict, t_start: float) -> Tuple[Dict[str, list], int]:
+    """Phase 16. Returns the host-operand kernel rows for the kernel line and
+    the ``host_rows`` launches of the pinned DLRM run (300 requests, 30
+    steps)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    bw = bus_bandwidth()
+    print("[pin] bus " + json.dumps(bw), flush=True)
+    # the plain path on the card refuses a host operand rather than staging it
+    keys_h = host_memory.pinned_like(torch.arange(8, dtype=torch.int32, device=DEV))
+    rows_h = host_memory.pinned_like(torch.zeros((8, 4), device=DEV))
+    q = torch.arange(4, dtype=torch.int32, device=DEV)
+    try:
+        ops.tier_probe(q, q >= 0, keys_h, rows_h, fused=False)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "tier_probe(fused=False) refuses host keys and rows on the card")
+    del keys_h, rows_h
+    # the calibration times kernels, so it runs alone; then the three
+    # launcher subprocesses run together, and beside them DLRM's pinned
+    # buffers are page-locked and the pinned smoke state checked (values and
+    # placement only, nothing timed); the pinned DLRM runs, timed, after
+    root, jobs = tempfile.mkdtemp(prefix="chip_smoke_calib_"), {}
+    try:
+        calib = calibration_phase(root)
+        jobs = start_pinned_launchers()
+        jobs["calib"] = start_calibrated_launcher(calib.pop("_path"))
+        hold_pinned_buffers(PIN_ARCH)
+        smoke = pinned_smoke()
+        print("[pin] smoke " + json.dumps(smoke), flush=True)
+        launchers = pinned_launchers(jobs)
+        print("[pin] launchers " + json.dumps(launchers), flush=True)
+        calib.update(calibrated_feedback(jobs["calib"]))
+    finally:
+        stop_launchers(jobs.values())
+        shutil.rmtree(root, ignore_errors=True)
+    print("[calib] " + json.dumps(calib), flush=True)
+    print(f"[wall] phase 16 calibration, launchers and smoke at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    res, rows = pinned_dlrm(runs, bw, gen)
+    rows += deepfm_l2_kernels(bw, gen)
+    for name, r in rows:
+        print(f"[pin] {name} host operands " + json.dumps(r), flush=True)
+    sv, tr = res["serve"], res["train"]
+    su, tu = res["serve_unpinned"], res["train_unpinned"]
+    print(f"[phase 16] {card_stamp()}: dlrm-narrow pinned {sv['pinned']['host_bytes']} bytes; "
+          f"request p50={sv['p50_ms']:.3f}ms p99={sv['p99_ms']:.3f}ms (unpinned "
+          f"{su['p50_ms']:.3f}/{su['p99_ms']:.3f}); step p50={tr['step_p50_ms']:.3f}ms "
+          f"p99={tr['step_p99_ms']:.3f}ms flush step={tr['flush_step_ms']:.1f}ms (unpinned "
+          f"{tu['step_p50_ms']:.3f}/{tu['step_p99_ms']:.3f}/{tu['flush_step_ms']:.1f}); peak "
+          f"serve {sv['peak_mem_gib']:.2f} GiB (unpinned {su['peak_mem_gib']:.2f}), train "
+          f"steady {tr['peak_before_flush_gib']:.2f} / with the flush {tr['peak_mem_gib']:.2f} "
+          f"GiB (unpinned {tu['peak_before_flush_gib']:.2f} / {tu['peak_mem_gib']:.2f}); "
+          f"host launches serve {sv['host_launches']} train {tr['host_launches']}; bus "
+          f"{bw['h2d_bytes_per_s'] / 1e9:.2f} / {bw['d2h_bytes_per_s'] / 1e9:.2f} GB/s; "
+          f"calibrated mix {calib['mix_calibrated']} vs constant {calib['mix_constant']}; "
+          f"phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    out: Dict[str, list] = {"tier_probe": [], "dedup_adagrad": [], "host_rows": []}
+    for name, r in rows:
+        out[name].append({**r, "label": "host " + r["label"]})
+    return out, sv["launches"]["host_rows"] + tr["launches"]["host_rows"]
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def warm_profiler() -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(4).sum()
+    prof.key_averages()
 
 
 def main() -> None:
@@ -3188,12 +4046,20 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t_start = time.perf_counter()
+    # the profiler's first use imports torch._dynamo and sympy (seconds on
+    # the card's host): done on a CPU-only window while nvcc builds
+    warm = threading.Thread(target=warm_profiler)
+    warm.start()
     secs = build.build_all()
+    warm.join()
     for name in SOURCES:
         build.launcher(name)
         print(f"[build] {name}: {'; '.join(ptxas_usage(build.BUILD_LOG.get(name, ''))) or 'cached'}",
               flush=True)
-    print(f"[build] {len(SOURCES)} kernels in {secs:.2f}s", flush=True)
+    print(f"[build] {len(SOURCES)} kernels in {secs:.2f}s; s to each nvcc's end "
+          + json.dumps({k: round(v, 1) for k, v in sorted(build.BUILD_SECONDS.items(),
+                                                          key=lambda kv: -kv[1])}),
+          flush=True)
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     # name -> (runner, arch, path, the path's batch); each also runs at bulk
@@ -3381,9 +4247,33 @@ def main() -> None:
     other_shapes["dedup_adagrad"] = []
     for name, rows in seq_phase(runs, t_start).items():  # phase 15
         other_shapes[name] += rows
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    pinned, host_rows_launches = pin_phase(runs, t_start)  # phase 16
+    print(f"[wall] phase 16 done at {time.perf_counter() - t_start:.1f}s "
+          f"(phase 16 {time.perf_counter() - t_phase:.1f}s)", flush=True)
+    for name in ("tier_probe", "dedup_adagrad"):
+        other_shapes[name] += pinned[name]
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
+        if name == "host_rows":
+            # its main path is phase 16's pinned DLRM (300 requests, 30
+            # steps); the time is the gather at the master's training shape
+            r = next(x for x in pinned["host_rows"] if "master" in x["label"])
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "replaces_note": "no pallas_call: an XLA gather in the reference",
+                "launches": host_rows_launches,
+                "path": "dlrm-narrow --pin-l2 serve + train",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "plain_on": r["plain_on"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound_note": "bus bytes at the measured rate",
+                "library_ms": r["library_ms"],
+                "shapes": [{k: x.get(k) for k in (
+                    "label", "n", "d", "rows", "ms", "scatter_ms", "plain_ms", "bound_ms",
+                    "scatter_bound_ms", "bound_by")} for x in pinned["host_rows"]]})
+            continue
         r = main_shape[name]
         # each kernel's launches on the main path it was ported for
         arch, path = PORTED_FOR[name]
@@ -3416,7 +4306,7 @@ def main() -> None:
             kernels[-1]["shapes"] = [{k: r2.get(k) for k in (
                 "label", "n", "m", "d", "k", "narrow_d", "plan", "case", "tier_keys", "lanes",
                 "longest_run", "max_abs_err", "ms", "plain_ms", "library_ms", "sorting_ms",
-                "bound_ms", "bound_by")} for r2 in other_shapes[name]]
+                "device_copy_ms", "bound_ms", "bound_by")} for r2 in other_shapes[name]]
         if name == "gather_project_grad":
             # the engine's backward folds the cotangent through proj^T itself,
             # as the reference's does; the kernel is reached through the

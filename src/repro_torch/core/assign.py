@@ -1,5 +1,5 @@
 """Per-group strategy assignment: the cost model behind 'mixed' engines
-(``repro.core.assign`` in torch, on its constant cost model).
+(``repro.core.assign`` in torch, on the constant or the calibrated model).
 
 PICASSO's packing analysis (paper §III-B) treats every packed group the same
 way, but embedding tables are wildly heterogeneous: a handful of huge skewed
@@ -107,7 +107,7 @@ class GroupScore:
     costs: Dict[str, float]     # candidate name -> estimated cost / step
     choice: str
     reason: str
-    units: str = "elems"        # the constant model's row elements
+    units: str = "elems"        # "elems" (constants) | "us" (calibrated)
 
 
 @dataclass(frozen=True)
@@ -150,7 +150,7 @@ def _ranked(counts: Optional[np.ndarray], ranked: bool) -> Optional[np.ndarray]:
 
 def estimate_skew(group: PackedGroup, cache_rows: int,
                   counts: Optional[np.ndarray] = None, *,
-                  ranked: bool = False) -> float:
+                  ranked: bool = False, cost_model=None) -> float:
     """Expected hot-tier hit ratio for ``group`` given ``cache_rows`` slots.
 
     With measured FCounter ``counts`` (the engine's per-row frequency stats,
@@ -160,6 +160,8 @@ def estimate_skew(group: PackedGroup, cache_rows: int,
     the tier covers the whole table, where every lookup hits.
     ``ranked=True`` promises ``counts`` is already sorted descending (so a
     caller scoring several tiers sorts the multi-million-row array once).
+    A calibrated ``cost_model`` replaces the structural prior with its
+    measured ``hit_prior`` (``repro_torch.perf.CostModel``).
     """
     cache_rows = min(int(cache_rows), group.rows)
     if cache_rows <= 0:
@@ -171,12 +173,13 @@ def estimate_skew(group: PackedGroup, cache_rows: int,
             return float(c[:cache_rows].sum() / total)
     if cache_rows >= group.rows:
         return 1.0
-    return DEFAULT_HIT_RATIO
+    return float(cost_model.hit_prior) if cost_model is not None \
+        else DEFAULT_HIT_RATIO
 
 
 def estimate_l2_gain(group: PackedGroup, cache_rows: int, l2_rows: int,
                      counts: Optional[np.ndarray] = None, *,
-                     ranked: bool = False) -> float:
+                     ranked: bool = False, cost_model=None) -> float:
     """Extra hit ratio an L2 tier of ``l2_rows`` slots adds behind an L1 of
     ``cache_rows`` slots.
 
@@ -198,23 +201,27 @@ def estimate_l2_gain(group: PackedGroup, cache_rows: int, l2_rows: int,
         total = float(c.sum())
         if total > 0:
             return float(c[cache_rows:cache_rows + l2_rows].sum() / total)
-    l1 = estimate_skew(group, cache_rows)
+    l1 = estimate_skew(group, cache_rows, cost_model=cost_model)
     if cache_rows + l2_rows >= group.rows:
         return 1.0 - l1
-    return (1.0 - l1) * DEFAULT_HIT_RATIO * min(1.0, l2_rows / max(cache_rows, 1))
+    prior = (float(cost_model.hit_prior) if cost_model is not None
+             else DEFAULT_HIT_RATIO)
+    return (1.0 - l1) * prior * min(1.0, l2_rows / max(cache_rows, 1))
 
 
 def estimate_narrow_gain(group: PackedGroup, cache_rows: int, l2_rows: int,
                          counts: Optional[np.ndarray] = None, *,
-                         ranked: bool = False) -> float:
+                         ranked: bool = False, cost_model=None) -> float:
     """Cold lookup mass: the fraction of lookups served by NEITHER tier —
     exactly the traffic (and, weighted by residency, the parameter bytes)
     that the picasso_narrow candidate moves to the narrow width. With
     measured FCounter ``counts`` this is the lookup share of the rows ranked
     below ``cache_rows + l2_rows``; without stats, the complement of the
     warm-skew priors. ``ranked=True`` as in ``estimate_skew``."""
-    skew = estimate_skew(group, cache_rows, counts, ranked=ranked)
-    l2 = estimate_l2_gain(group, cache_rows, l2_rows, counts, ranked=ranked)
+    skew = estimate_skew(group, cache_rows, counts, ranked=ranked,
+                         cost_model=cost_model)
+    l2 = estimate_l2_gain(group, cache_rows, l2_rows, counts, ranked=ranked,
+                          cost_model=cost_model)
     return float(max(0.0, 1.0 - skew - l2))
 
 
@@ -225,55 +232,68 @@ def _score_group(group: PackedGroup, world: int, ids_per_shard: int,
                  ps_max_rows: int = PS_MAX_ROWS,
                  skew_min: float = SKEW_MIN,
                  narrow_min_rows: int = NARROW_MIN_ROWS,
-                 narrow_cold_min: float = NARROW_COLD_MIN) -> GroupScore:
+                 narrow_cold_min: float = NARROW_COLD_MIN,
+                 cost_model=None) -> GroupScore:
     """Score one group: comm-volume estimates plus the replicability /
     skew gates that pick ps for tiny groups, picasso for large skewed
     ones, hybrid for the middle — picasso_l2 where an L2 budget captures
     working set that overflows the hot tier, and picasso_narrow where a
-    vparam-dominated group's cold tail can ride the narrow wire. Prices are
-    the constant model's per-step element volumes (the reference's
-    calibrated per-op curves are not ported)."""
+    vparam-dominated group's cold tail can ride the narrow wire.
+
+    With a calibrated ``cost_model`` (``repro_torch.perf.CostModel``) the candidate
+    prices come from measured per-op curves (microseconds) instead of the
+    abstract element-volume constants below; the candidate set and every
+    decision gate are identical either way — only the prices change."""
     n, d = float(max(ids_per_shard, 1)), float(group.dim)
     narrow_ok = (0 < narrow_dim < group.dim
                  and group.rows >= narrow_min_rows
                  and narrow_gain >= narrow_cold_min)
-    # ps: all_gather n ids from every shard, psum [world*n, D] partials.
-    ps = world * n * (d + 1.0)
-    # hybrid: route ids out (n) and rows back (n*D), twice (fwd + bwd),
-    # plus the fixed dispatch overhead of the Shuffle machinery.
-    hybrid = 2.0 * n * (1.0 + d) + ROUTE_OVERHEAD_ELEMS
-    # picasso: only misses ride the Shuffle; hit-grad handling is
-    # amortized over flush_iters (psum mode) or rides a small second
-    # a2a (stale mode).
-    picasso = 2.0 * n * (1.0 - skew) * (1.0 + d) + ROUTE_OVERHEAD_ELEMS
-    costs = {"ps": ps, "hybrid": hybrid, "picasso": picasso}
-    l2_maint = 0.0
-    if l2_rows > 0:
-        # picasso_l2: L2 hits leave the network entirely but pay a
-        # host-DMA read charged at L2_HOST_FACTOR of a network element,
-        # plus the tier's exact-update maintenance in 'psum' mode — the
-        # cheaper of the dense tier psum (O(H2*D)) and the gathered
-        # hit-grad update (O((world-1)*n*D)); see
-        # packed_embedding.apply_sparse_grads_l2.
-        l2_maint = min((world - 1) * n * (1.0 + d), float(l2_rows) * d)
-        costs["picasso_l2"] = (
-            2.0 * n * (1.0 - skew - l2_gain) * (1.0 + d)
-            + L2_HOST_FACTOR * 2.0 * n * l2_gain * (1.0 + d)
-            + l2_maint
-            + ROUTE_OVERHEAD_ELEMS)
-    if narrow_ok:
-        # picasso_narrow: the cold tail (neither tier) routes at width
-        # nd instead of D — both back-a2a directions shrink — while tier
-        # hits cost what they cost under picasso_l2; the learned
-        # projection adds a per-step nd x D grad psum. Tier maintenance
-        # matches picasso_l2 (the tiers themselves stay full-width).
-        nd = float(narrow_dim)
-        costs["picasso_narrow"] = (
-            2.0 * n * narrow_gain * (1.0 + nd)
-            + L2_HOST_FACTOR * 2.0 * n * l2_gain * (1.0 + d)
-            + l2_maint
-            + nd * d
-            + ROUTE_OVERHEAD_ELEMS)
+    if cost_model is not None:
+        costs = cost_model.score_candidates(
+            world=world, n=n, d=d, skew=skew,
+            l2_rows=l2_rows, l2_gain=l2_gain,
+            narrow_dim=narrow_dim if narrow_ok else 0,
+            narrow_gain=narrow_gain)
+        units = "us"
+    else:
+        # ps: all_gather n ids from every shard, psum [world*n, D] partials.
+        ps = world * n * (d + 1.0)
+        # hybrid: route ids out (n) and rows back (n*D), twice (fwd + bwd),
+        # plus the fixed dispatch overhead of the Shuffle machinery.
+        hybrid = 2.0 * n * (1.0 + d) + ROUTE_OVERHEAD_ELEMS
+        # picasso: only misses ride the Shuffle; hit-grad handling is
+        # amortized over flush_iters (psum mode) or rides a small second
+        # a2a (stale mode).
+        picasso = 2.0 * n * (1.0 - skew) * (1.0 + d) + ROUTE_OVERHEAD_ELEMS
+        costs = {"ps": ps, "hybrid": hybrid, "picasso": picasso}
+        l2_maint = 0.0
+        if l2_rows > 0:
+            # picasso_l2: L2 hits leave the network entirely but pay a
+            # host-DMA read charged at L2_HOST_FACTOR of a network element,
+            # plus the tier's exact-update maintenance in 'psum' mode — the
+            # cheaper of the dense tier psum (O(H2*D)) and the gathered
+            # hit-grad update (O((world-1)*n*D)); see
+            # packed_embedding.apply_sparse_grads_l2.
+            l2_maint = min((world - 1) * n * (1.0 + d), float(l2_rows) * d)
+            costs["picasso_l2"] = (
+                2.0 * n * (1.0 - skew - l2_gain) * (1.0 + d)
+                + L2_HOST_FACTOR * 2.0 * n * l2_gain * (1.0 + d)
+                + l2_maint
+                + ROUTE_OVERHEAD_ELEMS)
+        if narrow_ok:
+            # picasso_narrow: the cold tail (neither tier) routes at width
+            # nd instead of D — both back-a2a directions shrink — while tier
+            # hits cost what they cost under picasso_l2; the learned
+            # projection adds a per-step nd x D grad psum. Tier maintenance
+            # matches picasso_l2 (the tiers themselves stay full-width).
+            nd = float(narrow_dim)
+            costs["picasso_narrow"] = (
+                2.0 * n * narrow_gain * (1.0 + nd)
+                + L2_HOST_FACTOR * 2.0 * n * l2_gain * (1.0 + d)
+                + l2_maint
+                + nd * d
+                + ROUTE_OVERHEAD_ELEMS)
+        units = "elems"
     if group.rows <= ps_max_rows and costs["ps"] <= costs["hybrid"]:
         choice, reason = "ps", "tiny/replicable: PS transfer under routing overhead"
     elif cache_rows > 0 and skew >= skew_min:
@@ -293,7 +313,7 @@ def _score_group(group: PackedGroup, world: int, ids_per_shard: int,
         choice, reason = "hybrid", "too big to replicate, too flat to cache"
     return GroupScore(gid=group.gid, vparam=group.vparam,
                       ids_per_shard=ids_per_shard, rows=group.rows, skew=skew,
-                      costs=costs, choice=choice, reason=reason)
+                      costs=costs, choice=choice, reason=reason, units=units)
 
 
 def _apply_overrides(plan: PicassoPlan, strategy: Dict[int, str],
@@ -329,6 +349,7 @@ def compile_assignment(
     ps_max_rows: int = PS_MAX_ROWS,
     skew_min: float = SKEW_MIN,
     enable_cache: bool = True,
+    cost_model=None,
 ) -> StrategyAssignment:
     """Score every packed group and pick its cheapest lookup strategy.
 
@@ -351,6 +372,10 @@ def compile_assignment(
     enable_cache: pass False when the engine will run with the hot tier
         disabled (``use_cache=False``), so the model scores groups with
         skew=0 instead of crediting a tier that never participates.
+    cost_model: optional calibrated ``repro_torch.perf.CostModel``; when set, the
+        candidate prices come from measured per-op curves (in us) and the
+        no-stats tier estimates use its measured ``hit_prior``. ``None``
+        keeps the constant model byte-for-byte.
     """
     world = int(world if world is not None else plan.world)
     batch = int(per_device_batch if per_device_batch is not None
@@ -364,19 +389,22 @@ def compile_assignment(
         # rank the (potentially multi-million-row) stats once per group,
         # shared by both tier estimators
         counts = _ranked(stats.get(g.gid) if stats else None, False)
-        skew = estimate_skew(g, cache_rows, counts, ranked=True)
-        l2_gain = estimate_l2_gain(g, cache_rows, l2_rows, counts, ranked=True)
+        skew = estimate_skew(g, cache_rows, counts, ranked=True,
+                             cost_model=cost_model)
+        l2_gain = estimate_l2_gain(g, cache_rows, l2_rows, counts, ranked=True,
+                                   cost_model=cost_model)
         # the narrow candidate is only offered where the plan budgets an
         # actually-narrowing width (plan_narrow records dim = "no narrowing")
         nd = int(plan.narrow_dim.get(g.gid, g.dim))
         narrow_gain = (estimate_narrow_gain(g, cache_rows, l2_rows, counts,
-                                            ranked=True)
+                                            ranked=True, cost_model=cost_model)
                        if 0 < nd < g.dim else 0.0)
         sc = _score_group(g, world, batch * g.ids_per_sample, cache_rows, skew,
                           l2_rows=l2_rows, l2_gain=l2_gain,
                           narrow_dim=nd if nd < g.dim else 0,
                           narrow_gain=narrow_gain,
-                          ps_max_rows=ps_max_rows, skew_min=skew_min)
+                          ps_max_rows=ps_max_rows, skew_min=skew_min,
+                          cost_model=cost_model)
         strategy[g.gid] = sc.choice
         scores[g.gid] = sc
     if overrides:
@@ -405,6 +433,7 @@ def maybe_compile(plan: PicassoPlan, spec: "StrategySpec", *,
                   per_device_batch: Optional[int] = None,
                   use_cache: bool = True,
                   overrides: Optional[Mapping[Union[int, str], str]] = None,
+                  cost_model=None,
                   log=None) -> "StrategySpec":
     """Launcher-side 'mixed'/'auto' handling: compile the assignment once,
     record it on the plan (so every engine built from the plan — train step,
@@ -412,22 +441,27 @@ def maybe_compile(plan: PicassoPlan, spec: "StrategySpec", *,
     Any other spec passes through untouched.
 
     ``stats`` is the optional gid -> measured FCounter counts map: the
-    compile-time call passes None (structural prior); live counters make the
-    mix score *measured* skew.
+    compile-time call passes None (structural prior); the runtime Replanner
+    passes the harvested live counters so the re-mix scores *measured* skew
+    (the full stats path: harvest -> revise_plan -> maybe_compile(stats=)).
     ``per_device_batch`` must match the id volume the engine actually issues
     per step: leave it None (-> ``plan.microbatch``) for training, pass the
     per-shard batch for serving (no micro pipeline there). ``use_cache``
     must match the engine flag so the model never credits a disabled tier.
-    ``overrides`` forwards user ``{gid_or_glob: name}`` pins.
+    ``overrides`` forwards user ``{gid_or_glob: name}`` pins. ``cost_model``
+    forwards a calibrated ``repro_torch.perf.CostModel`` (None = constants).
     """
     if isinstance(spec, str) and spec in AUTO_NAMES:
         asg = compile_assignment(plan, stats=stats,
                                  per_device_batch=per_device_batch,
                                  overrides=overrides,
-                                 enable_cache=use_cache)
+                                 enable_cache=use_cache,
+                                 cost_model=cost_model)
         apply_assignment(plan, asg)
         if log is not None:
             src = "measured skew" if stats else "cost model"
+            if cost_model is not None:
+                src += f", calibrated curves ({cost_model.backend})"
             log(f"strategy assignment ({src}, plan rev {plan.rev}):\n"
                 f"{asg.describe()}")
     return spec
@@ -477,8 +511,8 @@ def resolve_assignment(plan: PicassoPlan, spec: StrategySpec,
         mapping = {g.gid: spec for g in plan.groups}
         if spec == "picasso_narrow":
             # narrow gating (PicassoPlan.narrow_width) reads plan.strategy:
-            # record the broadcast so state init sees the narrow master
-            # widths this engine runs with.
+            # record the broadcast so state init and the migration see the
+            # narrow master widths this engine runs with.
             apply_assignment(plan, mapping)
         return mapping
 

@@ -173,19 +173,20 @@ def _probe_tiers(u: UniqueResult, hot_keys, hot_rows, l2_keys, l2_rows,
 
 
 def _shuffle_gather(table_shard: torch.Tensor, uniq: torch.Tensor, r: Routing, world: int,
-                    capacity: int):
+                    capacity: int, fused: Optional[bool] = None):
     """Route the misses to their owners (an identity all_to_all at world 1),
     gather the owner rows and route them back: ``(recv_ids, recv_local,
-    recv_valid, back [world*cap, width])``."""
+    recv_valid, back [world*cap, width])``. A host-resident table
+    (``--pin-l2``) is read over the bus by ``ops.take_rows``."""
     rps, width = table_shard.shape
     send_ids = torch.full((world * capacity + 1,), -1, dtype=torch.int32,
-                          device=table_shard.device)
+                          device=uniq.device)
     send_ids[r.send_slot.long()] = uniq.to(torch.int32)  # last slot = drop
     recv_ids = send_ids[:-1].reshape(world, capacity)
     base = 0  # this rank's first row
     recv_valid = recv_ids >= 0
     recv_local = torch.clamp(recv_ids - base, 0, rps - 1)
-    served = table_shard[recv_local.reshape(-1).long()]
+    served = ops.take_rows(table_shard, recv_local.reshape(-1), fused=fused)
     served = served * recv_valid.reshape(-1, 1).to(served.dtype)
     return recv_ids, recv_local, recv_valid, served.reshape(world * capacity, width)
 
@@ -228,7 +229,7 @@ def mp_lookup(
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
     recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
-                                                             world, capacity)
+                                                             world, capacity, fused)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
     miss_rows = back[take_idx] * r.kept[:, None].to(back.dtype)
     ctx = LookupCtx(
@@ -265,7 +266,7 @@ def mp_lookup_narrow(
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
     recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
-                                                             world, capacity)
+                                                             world, capacity, fused)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1)
     miss_rows, narrow = ops.gather_project(back, take_idx, r.kept, proj, fused=fused)
     ctx = LookupCtx(
@@ -690,15 +691,16 @@ def flush_cache_l2(
     rps = w_shard.shape[0]
     rows_padded = rps * world
     base = 0
-    if write_back:
+    if write_back:  # a host-resident L2 tier is staged only to be written back
         _write_back_tier(w_shard, acc_shard, cache, base, rps, rows_padded)
-        _write_back_tier(w_shard, acc_shard, l2, base, rps, rows_padded)
+        _write_back_tier(w_shard, acc_shard, _staged_tier(l2, counts_shard.device), base,
+                         rps, rows_padded)
     keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
                                world, rows_padded)
     new_l1 = _load_tier(w_shard, acc_shard, keys1, base, rps, rows_padded)
     new_l2 = _load_tier(w_shard, acc_shard, keys2, base, rps, rows_padded)
     _decay(counts_shard, decay)
-    return w_shard, acc_shard, counts_shard, new_l1, new_l2
+    return w_shard, acc_shard, counts_shard, new_l1, _into(l2, new_l2)
 
 
 def _write_back_tier(w_shard, acc_shard, tier: CacheState, base: int, rps: int,
@@ -707,8 +709,8 @@ def _write_back_tier(w_shard, acc_shard, tier: CacheState, base: int, rps: int,
     local = tier.keys - base
     mine = (local >= 0) & (local < rps) & (tier.keys < rows_padded)
     idx = local[mine].long()
-    w_shard[idx] = tier.rows[mine].to(w_shard.dtype)
-    acc_shard[idx] = tier.acc[mine].to(acc_shard.dtype)
+    ops.put_rows(w_shard, idx, tier.rows[mine].to(w_shard.dtype))
+    ops.put_rows(acc_shard, idx, tier.acc[mine].to(acc_shard.dtype))
 
 
 def _load_tier(w_shard, acc_shard, keys, base: int, rps: int,
@@ -718,9 +720,28 @@ def _load_tier(w_shard, acc_shard, keys, base: int, rps: int,
     nlocal = keys - base
     nmine = (nlocal >= 0) & (nlocal < rps) & (keys < rows_padded)
     nclip = torch.clamp(nlocal, 0, rps - 1).long()
-    contrib_w = w_shard[nclip] * nmine[:, None].to(w_shard.dtype)
-    contrib_a = acc_shard[nclip] * nmine[:, None].to(acc_shard.dtype)
+    contrib_w = ops.take_rows(w_shard, nclip) * nmine[:, None].to(w_shard.dtype)
+    contrib_a = ops.take_rows(acc_shard, nclip) * nmine[:, None].to(acc_shard.dtype)
     return CacheState(keys, contrib_w, contrib_a)
+
+
+def _staged_tier(tier: CacheState, device: torch.device) -> CacheState:
+    """A host-resident tier (``--pin-l2``) copied to ``device`` for a
+    flush's arithmetic; a tier already there is returned as it is."""
+    if tier.rows.device == device:
+        return tier
+    return CacheState(*(t.to(device) for t in tier))
+
+
+def _into(old: CacheState, new: CacheState) -> CacheState:
+    """The flush's fresh tier, in place of a host-resident one: written into
+    its pinned buffers (a tier keeps its size across flushes), so the
+    placement survives; a device tier is simply replaced."""
+    if old.rows.device == new.rows.device:
+        return new
+    for dst, src in zip(old, new):
+        dst.copy_(src)
+    return old
 
 
 # ---------------------------------------------------------------------------
@@ -748,8 +769,8 @@ def _write_back_tier_narrow(w_shard, acc_shard, tier: CacheState, pinv: torch.Te
     mine = (local >= 0) & (local < rps) & (tier.keys < rows_padded)
     idx = local[mine].long()
     nrows = tier.rows @ pinv   # [H, d]
-    w_shard[idx] = nrows[mine].to(w_shard.dtype)
-    acc_shard[idx] = tier.acc[mine].to(acc_shard.dtype)
+    ops.put_rows(w_shard, idx, nrows[mine].to(w_shard.dtype))
+    ops.put_rows(acc_shard, idx, tier.acc[mine].to(acc_shard.dtype))
 
 
 def _load_tier_widened(w_shard, acc_shard, keys: torch.Tensor, proj_kernel: torch.Tensor,
@@ -759,8 +780,8 @@ def _load_tier_widened(w_shard, acc_shard, keys: torch.Tensor, proj_kernel: torc
     nlocal = keys - base
     nmine = (nlocal >= 0) & (nlocal < rps) & (keys < rows_padded)
     nclip = torch.clamp(nlocal, 0, rps - 1).long()
-    narrow = w_shard[nclip] * nmine[:, None].to(w_shard.dtype)
-    contrib_a = acc_shard[nclip] * nmine[:, None].to(acc_shard.dtype)
+    narrow = ops.take_rows(w_shard, nclip) * nmine[:, None].to(w_shard.dtype)
+    contrib_a = ops.take_rows(acc_shard, nclip) * nmine[:, None].to(acc_shard.dtype)
     return CacheState(keys, (narrow @ proj_kernel).to(w_shard.dtype), contrib_a)
 
 
@@ -805,15 +826,24 @@ def flush_cache_narrow(
        ids that stayed tier-resident keep their exact wide rows
        (``_carry_exact_rows``; ``'psum'`` mode only: in ``'stale'`` mode the
        master is the single source of truth).
+
+    Under ``--pin-l2`` the narrow master and the L2 tier are host-resident:
+    the L2 tier is staged onto the card for the write-back's arithmetic (the
+    same products as on device leaves, so the same bits; a flush that writes
+    nothing back stages nothing), the master's rows move
+    through ``ops.take_rows``/``ops.put_rows``, and the fresh L2 tier is
+    written into the old one's pinned buffers.
     """
     _require_single_rank(world)
     rps = w_shard.shape[0]
     rows_padded = rps * world
     base = 0
+    l2_d = None  # a host-resident L2 tier is staged only to be written back
     if write_back:
+        l2_d = _staged_tier(l2, counts_shard.device)
         pinv = proj_pinv(proj_kernel)
         _write_back_tier_narrow(w_shard, acc_shard, cache, pinv, base, rps, rows_padded)
-        _write_back_tier_narrow(w_shard, acc_shard, l2, pinv, base, rps, rows_padded)
+        _write_back_tier_narrow(w_shard, acc_shard, l2_d, pinv, base, rps, rows_padded)
     keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
                                world, rows_padded)
     new_l1 = _load_tier_widened(w_shard, acc_shard, keys1, proj_kernel, base, rps,
@@ -821,10 +851,10 @@ def flush_cache_narrow(
     new_l2 = _load_tier_widened(w_shard, acc_shard, keys2, proj_kernel, base, rps,
                                 rows_padded)
     if write_back:
-        new_l1 = _carry_exact_rows(new_l1, cache, l2, rows_padded)
-        new_l2 = _carry_exact_rows(new_l2, cache, l2, rows_padded)
+        new_l1 = _carry_exact_rows(new_l1, cache, l2_d, rows_padded)
+        new_l2 = _carry_exact_rows(new_l2, cache, l2_d, rows_padded)
     _decay(counts_shard, decay)
-    return w_shard, acc_shard, counts_shard, new_l1, new_l2
+    return w_shard, acc_shard, counts_shard, new_l1, _into(l2, new_l2)
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,26 @@ draws the reference's numbers on the host (``core.jax_random``; small
 tables). ``l2`` is the optional
 second cache tier behind the hot tier (``None`` when the plan budgets no L2
 rows); ``proj`` is set exactly when the master is narrow (``picasso_narrow``
-with ``narrow_dim < dim``). The port keeps the L2 tier in device memory;
-the reference's pinned-host placement (``--pin-l2``) is not ported.
+with ``narrow_dim < dim``).
+
+``--pin-l2`` places the cold side in pinned host memory, which the kernels
+read and write over the bus (``kernels.host_memory``; ``kernels.ops``):
+``pinned_leaves(plan)`` names every L2 tier leaf and the ``w``/``acc`` of
+every group whose planned width is narrowed, the counterpart of the
+reference's ``emb_shardings(plan, mesh, axes, pin_l2=True)``, and
+``pin_to_host`` places exactly those (the train launcher, once, after
+init; ``migrate_state`` keeps the placement across a replan, the replanner
+pins what a new plan names for the first time, and the train step only
+checks it with ``check_pinned``); ``pin_l2_to_host`` places the L2 leaves
+alone, as the
+reference's function of that name does for its serve launcher. Where torch
+has no CUDA both return the state unchanged, as the reference's do on a
+backend without a ``pinned_host`` memory kind; the math is the same either
+way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +97,154 @@ def init_embedding_state(rng: Rng, plan: PicassoPlan,
                                     dtype, l2_rows=plan.l2_rows.get(g.gid, 0),
                                     narrow_dim=plan.narrow_width(g.gid))
             for i, g in enumerate(plan.groups)}
+
+
+# ---------------------------------------------------------------------------
+# --pin-l2: the cold side in pinned host memory
+# ---------------------------------------------------------------------------
+
+
+def pinned_leaves(plan: PicassoPlan) -> Dict[str, Tuple[str, ...]]:
+    """``{gid: leaf names}`` that ``--pin-l2`` places in pinned host memory:
+    ``l2.keys``/``l2.rows``/``l2.acc`` where the plan budgets L2 rows, and
+    ``w``/``acc`` where its width for the group is narrowed. The reference's
+    ``emb_shardings(pin_l2=True)`` gives exactly these leaves the
+    ``pinned_host`` memory kind."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for g in plan.groups:
+        names = []
+        if plan.narrow_width(g.gid) < g.dim:
+            names += ["w", "acc"]
+        if plan.l2_rows.get(g.gid, 0) > 0:
+            names += ["l2.keys", "l2.rows", "l2.acc"]
+        if names:
+            out[str(g.gid)] = tuple(names)
+    return out
+
+
+def l2_pinning_supported() -> bool:
+    """True where pinned host memory the card maps exists: torch with CUDA
+    and a card (the precondition for the pinning functions to do anything)."""
+    return bool(torch.cuda.is_available())
+
+
+_PIN_L2_WARNED = False
+
+
+def warn_pin_l2_limits() -> None:
+    """One-time ``--pin-l2`` caveat, printed by both launchers where the
+    flag cannot take effect (the reference's text)."""
+    global _PIN_L2_WARNED
+    if _PIN_L2_WARNED:
+        return
+    _PIN_L2_WARNED = True
+    if not l2_pinning_supported():
+        print("[pin-l2] warning: this backend exposes no 'pinned_host' "
+              "memory kind — --pin-l2 is a no-op here (see the --pin-l2 "
+              "row in README.md for the flag's documented limits)")
+
+
+# the leaves --pin-l2 can place: the master's, then the L2 tier's
+_PINNABLE = ("w", "acc", "l2.keys", "l2.rows", "l2.acc")
+
+
+def _leaf(st: EmbeddingState, name: str) -> Optional[torch.Tensor]:
+    if name.startswith("l2."):
+        return None if st.l2 is None else getattr(st.l2, name[3:])
+    return getattr(st, name)
+
+
+def _with_leaves(st: EmbeddingState, leaves: Dict[str, torch.Tensor]) -> EmbeddingState:
+    l2 = {k[3:]: v for k, v in leaves.items() if k.startswith("l2.")}
+    top = {k: v for k, v in leaves.items() if not k.startswith("l2.")}
+    if l2:
+        top["l2"] = st.l2._replace(**l2)
+    return st._replace(**top)
+
+
+def _host_resident(t: torch.Tensor, st: EmbeddingState) -> bool:
+    """True for a leaf of ``st`` that lives off the state's compute device
+    (``counts`` never leaves it): a pinned host leaf under ``--pin-l2``."""
+    return t.device != st.counts.device
+
+
+def _place(st: EmbeddingState, names: Sequence[str],
+           reuse: Optional[EmbeddingState] = None) -> EmbeddingState:
+    """``st`` with the named leaves in mapped pinned host memory. A leaf
+    already there stays; another is copied into ``reuse``'s pinned leaf of
+    the same name, shape and dtype where there is one, else into a new
+    exact-size buffer."""
+    from repro_torch.kernels import host_memory
+
+    moved: Dict[str, torch.Tensor] = {}
+    for name in names:
+        t = _leaf(st, name)
+        if t is None or host_memory.is_mapped(t):
+            continue
+        old = None if reuse is None else _leaf(reuse, name)
+        if (old is not None and host_memory.is_mapped(old) and old.shape == t.shape
+                and old.dtype == t.dtype):
+            old.copy_(t)
+            moved[name] = old
+        else:
+            moved[name] = host_memory.pinned_like(t)
+    return _with_leaves(st, moved) if moved else st
+
+
+def _map_emb(state: Any, fn) -> Any:
+    if isinstance(state, dict) and "emb" in state:
+        return {**state, "emb": _map_emb(state["emb"], fn)}
+    return {gid: fn(gid, st) for gid, st in state.items()}
+
+
+def pin_to_host(state: Any, plan: PicassoPlan) -> Any:
+    """Place the leaves ``pinned_leaves(plan)`` names in mapped pinned host
+    memory (a no-op for a leaf already there, and for the whole state where
+    ``l2_pinning_supported`` is False). Takes the full state (``{"emb":
+    ...}``) or the bare per-group emb dict and returns the same structure;
+    the device copies are dropped from it."""
+    if not l2_pinning_supported():
+        return state
+    names = pinned_leaves(plan)
+    return _map_emb(state, lambda gid, st: _place(st, names.get(str(gid), ())))
+
+
+def check_pinned(state: Any, plan: PicassoPlan) -> None:
+    """Raise unless every leaf ``pinned_leaves(plan)`` names lies in mapped
+    pinned host memory (nothing to check where ``l2_pinning_supported`` is
+    False). The train step's guard under ``--pin-l2``: the placement is made
+    once (``pin_to_host``) and kept in place by the flushes, the journal,
+    ``migrate_state`` and checkpoint restore, so a leaf found elsewhere is a
+    path that lost it, never silently re-pinned."""
+    if not l2_pinning_supported():
+        return
+    from repro_torch.kernels import host_memory
+
+    emb = state["emb"] if isinstance(state, dict) and "emb" in state else state
+    lost = [f"g{gid}.{name} on {t.device}"
+            for gid, names in pinned_leaves(plan).items() for name in names
+            if (t := _leaf(emb[gid], name)) is not None and not host_memory.is_mapped(t)]
+    if lost:
+        raise RuntimeError(f"--pin-l2: leaves the plan pins are not in mapped pinned host "
+                           f"memory: {', '.join(lost)} (place the state once with "
+                           "embedding.state.pin_to_host)")
+
+
+def pin_l2_to_host(state: Any) -> Any:
+    """Place every L2 tier leaf in mapped pinned host memory (the
+    reference's ``pin_l2_to_host``; its serve launcher's placement). A
+    no-op where ``l2_pinning_supported`` is False."""
+    if not l2_pinning_supported():
+        return state
+    return _map_emb(state, lambda gid, st: _place(st, _PINNABLE[2:]))
+
+
+def _staged(st: EmbeddingState) -> EmbeddingState:
+    """``st`` with every host-resident leaf copied to its compute device."""
+    dev = st.counts.device
+    leaves = {name: t.to(dev) for name in _PINNABLE
+              if (t := _leaf(st, name)) is not None and _host_resident(t, st)}
+    return _with_leaves(st, leaves) if leaves else st
 
 
 def tier_gates(plan: PicassoPlan, gid: int, *, use_cache: bool = True,
@@ -293,6 +455,12 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
     ``cache_update`` must mirror the engine flags the state was trained
     under. Takes the full train/serve state (``{"emb": ...}``) or the bare
     per-group emb dict and returns the same structure.
+
+    A state with host-resident leaves (``--pin-l2``) keeps that placement: a
+    migrating group is staged whole onto its compute device (its narrow
+    master included), migrated there as any other, and its result placed
+    back by ``pinned_leaves(new_plan)``, into the old pinned buffers where
+    the shapes stayed.
     """
     if isinstance(state, dict) and "emb" in state:
         return {**state, "emb": migrate_state(old_plan, new_plan, state["emb"],
@@ -303,6 +471,9 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
     if old_gids != new_gids:
         raise ValueError(f"migrate_state needs revisions of one structural plan; group "
                          f"sets differ: {old_gids} vs {new_gids}")
+    pinned = any(_host_resident(t, st) for st in state.values() for name in _PINNABLE
+                 if (t := _leaf(st, name)) is not None)
+    names = pinned_leaves(new_plan) if pinned else {}
     out: Dict[str, EmbeddingState] = {}
     for g in new_plan.groups:
         og = old_plan.group(g.gid)
@@ -323,6 +494,7 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
         if h_old == h_new and gates_old == gates_new and nd_old == nd_new:
             out[str(g.gid)] = st  # pass-through
         else:
-            out[str(g.gid)] = _migrate_group(g, st, gates_old, gates_new, h_new[0],
-                                             h_new[1], cache_update, nd_old, nd_new)
+            new = _migrate_group(g, _staged(st), gates_old, gates_new, h_new[0],
+                                 h_new[1], cache_update, nd_old, nd_new)
+            out[str(g.gid)] = _place(new, names.get(str(g.gid), ()), reuse=st)
     return out

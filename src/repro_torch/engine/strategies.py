@@ -213,9 +213,9 @@ class HybridStrategy(PicassoStrategy):
 @register_strategy("picasso_l2")
 class PicassoL2Strategy(PicassoStrategy):
     """PICASSO with a two-level parameter cache: the L1 hot tier and, behind
-    it, a larger L2 tier (the reference places it in pinned host memory;
-    the port keeps it on the card). Unique ids probe L1, the L1 misses probe
-    L2, and only the rest ride the Shuffle.
+    it, a larger L2 tier (on the card, or in pinned host memory under
+    ``--pin-l2``, where the kernels reach it over the bus). Unique ids probe
+    L1, the L1 misses probe L2, and only the rest ride the Shuffle.
 
     The backward follows ``cache_update`` as for L1 (``'psum'``: both tiers
     authoritative between flushes; ``'stale'``: the union of tier hits is

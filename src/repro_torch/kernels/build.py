@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
@@ -26,6 +27,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flags of one source only: gather_project_grad's 72 template instantiations
+# (lanes x outputs a lane x load width) are the longest build by far, so its
+# device code is compiled in parallel threads
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"gather_project_grad": ("--split-compile=0",)}
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # kernel name -> argtypes of its C entry point ``<name>_launch``
@@ -64,12 +69,26 @@ SIGNATURES: Dict[str, List] = {
     "dot_interaction": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _I, _P],
     # x, g, out, b, f, d, samples a group, stages, threads, smem bytes, stream
     "dot_interaction_bwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P],
+    # table, idx, rows on the card, n, table rows, width in words, scatter, stream
+    "host_rows": [_P, _P, _P, _I64, _I64, _I, _I, _P],
+}
+# the other C entry points of a library: name -> symbol -> argtypes
+EXTRA_SYMBOLS: Dict[str, Dict[str, List]] = {
+    # bytes, *host, *dev: pinned mapped host memory, and its release
+    "host_rows": {"host_rows_alloc": [ctypes.c_uint64, ctypes.POINTER(_P),
+                                      ctypes.POINTER(_P)],
+                  "host_rows_free": [_P],
+                  # ptr, *memory type, *device address (cudaPointerGetAttributes)
+                  "host_rows_pointer_kind": [_P, ctypes.POINTER(_I), ctypes.POINTER(_P)]},
 }
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}
 _LIBS: List[ctypes.CDLL] = []  # keep the loaded libraries alive
 # kernel name -> compiler output of its last build (``-Xptxas -v`` lines)
 BUILD_LOG: Dict[str, str] = {}
+# kernel name -> wall seconds from the start of its last build_all to the end
+# of its nvcc (the longest one is the build's critical path)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -85,9 +104,13 @@ def nvcc() -> str:
         "need the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -104,13 +127,22 @@ def build_all() -> float:
         if out.exists():
             continue
         tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(src)]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
+        BUILD_LOG[name], _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _, _, proc in jobs]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
     failed = []
     for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
+        log = BUILD_LOG[name]
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:
@@ -120,16 +152,23 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def launcher(name: str) -> Callable[..., int]:
-    """The C entry point of kernel ``name``, building everything first if
-    needed. It returns the ``cudaGetLastError()`` code of its launch."""
-    fn = _LAUNCHERS.get(name)
+def function(name: str, symbol: str) -> Callable[..., int]:
+    """The C entry point ``symbol`` of kernel ``name``'s library, building
+    everything first if needed; it returns a CUDA error code."""
+    fn = _LAUNCHERS.get(symbol)
     if fn is None:
         build_all()
         lib = ctypes.CDLL(str(_target(name)[1]))
         _LIBS.append(lib)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = (SIGNATURES[name] if symbol == f"{name}_launch"
+                       else EXTRA_SYMBOLS[name][symbol])
         fn.restype = ctypes.c_int
-        _LAUNCHERS[name] = fn
+        _LAUNCHERS[symbol] = fn
     return fn
+
+
+def launcher(name: str) -> Callable[..., int]:
+    """The C entry point of kernel ``name``, building everything first if
+    needed. It returns the ``cudaGetLastError()`` code of its launch."""
+    return function(name, f"{name}_launch")

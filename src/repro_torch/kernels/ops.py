@@ -25,6 +25,16 @@ are also standalone ops for the engine's explicit backward, and
 ``gather_project_grad`` a standalone op as in the reference (the engine
 folds the narrow cotangent itself); ``dedup_adagrad`` updates the table and
 accumulator it is given in place.
+
+Host-resident operands (``--pin-l2``): ``tier_probe``'s ``keys``/``rows``
+and ``dedup_adagrad``'s ``w``/``acc`` may be CPU tensors in mapped pinned
+memory (``kernels.host_memory``), which the kernels read and write in place
+over the bus; ``take_rows``/``put_rows`` gather and scatter the rows of such
+a table (``csrc/host_rows.cu``). Those wrappers follow their compute operand
+(the ids, the gradient, the indices), never the table, so ``fused=None``
+with a pinned table and ids on the card launches the kernel; the plain
+version raises on the card given a host-resident table rather than staging
+it. Any other CPU operand beside CUDA ones raises.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, host_memory, ref
 
 launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
@@ -41,16 +51,18 @@ launches: Dict[str, int] = {"tier_probe": 0, "gather_pool": 0, "fm_interaction":
                             "gather_project_grad": 0, "fp16_compress": 0,
                             "fp16_decompress": 0, "topk_compress": 0,
                             "topk_decompress": 0, "dot_interaction": 0,
-                            "dot_interaction_bwd": 0}
+                            "dot_interaction_bwd": 0, "host_rows": 0}
 
 
 # sorts a wrapper ran on the card before its kernel: ``segment_grad`` sorts
 # only when it is called without the forward's permutation
 sorts: Dict[str, int] = {"segment_grad": 0}
+# the launches (of ``launches``) given a host-resident operand (--pin-l2)
+host_launches: Dict[str, int] = {"tier_probe": 0, "dedup_adagrad": 0, "host_rows": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, sorts):
+    for counts in (launches, sorts, host_launches):
         for name in counts:
             counts[name] = 0
 
@@ -80,12 +92,26 @@ def _use_kernel(fused: Optional[bool], t: torch.Tensor, op: str) -> bool:
 
 
 def _expect(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
-            device: torch.device) -> None:
-    if t.dtype != dtype or t.dim() != ndim or t.device != device or not t.is_contiguous():
+            device: torch.device, host: bool = False) -> int:
+    """Check ``t`` and return the address its kernel takes. ``host`` also
+    accepts a CPU tensor in mapped pinned memory (its device address)."""
+    on_host = host and t.device.type == "cpu" and device.type == "cuda"
+    if (t.dtype != dtype or t.dim() != ndim or (t.device != device and not on_host)
+            or not t.is_contiguous()):
         raise ValueError(
-            f"{what}: want a contiguous {ndim}-d {dtype} tensor on {device}, got "
+            f"{what}: want a contiguous {ndim}-d {dtype} tensor on {device}"
+            f"{' or in mapped pinned host memory' if host else ''}, got "
             f"{tuple(t.shape)} {t.dtype} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+    return host_memory.device_pointer(t, what) if on_host else t.data_ptr()
+
+
+def _plain_on_host(compute: torch.Tensor, op: str, *tables: torch.Tensor) -> None:
+    """The plain versions compute where the tensors are: on the card they
+    refuse a host-resident table instead of staging it over the bus."""
+    if compute.is_cuda and any(t.device.type == "cpu" for t in tables):
+        raise ValueError(f"{op}: the plain version does not read a host-resident "
+                         "table from the card; use the kernel (fused='auto' or 'on')")
 
 
 def _launch(name: str, *args) -> None:
@@ -130,11 +156,11 @@ def tier_probe_plan(n: int, sms: int) -> int:
 
 
 def _tier_probe_cuda(uniq, uvalid, keys, rows):
-    dev = rows.device
+    dev = uniq.device
     _expect(uniq, "tier_probe uniq", torch.int32, 1, dev)
     _expect(uvalid, "tier_probe uvalid", torch.bool, 1, dev)
-    _expect(keys, "tier_probe keys", torch.int32, 1, dev)
-    _expect(rows, "tier_probe rows", torch.float32, 2, dev)
+    keys_p = _expect(keys, "tier_probe keys", torch.int32, 1, dev, host=True)
+    rows_p = _expect(rows, "tier_probe rows", torch.float32, 2, dev, host=True)
     n = uniq.shape[0]
     h, d = rows.shape
     if uvalid.shape[0] != n or keys.shape[0] != h or h == 0:
@@ -144,17 +170,20 @@ def _tier_probe_cuda(uniq, uvalid, keys, rows):
     slot = torch.empty((n,), dtype=torch.int32, device=dev)
     out = torch.empty((n, d), dtype=rows.dtype, device=dev)
     if n:
-        _launch("tier_probe", uniq.data_ptr(), uvalid.data_ptr(), keys.data_ptr(),
-                rows.data_ptr(), hit.data_ptr(), slot.data_ptr(), out.data_ptr(),
+        _launch("tier_probe", uniq.data_ptr(), uvalid.data_ptr(), keys_p,
+                rows_p, hit.data_ptr(), slot.data_ptr(), out.data_ptr(),
                 n, h, d, tier_probe_plan(n, sm_count(dev)))
+        host_launches["tier_probe"] += keys.device != dev or rows.device != dev
     return hit, slot, out
 
 
 def tier_probe(uniq, uvalid, keys, rows, fused: Optional[bool] = None):
     """Probe one sorted-key cache tier: ``(hit, slot, rows)`` with miss rows
-    exactly zero and ``slot`` the clamped searchsorted position."""
-    if _use_kernel(fused, rows, "tier_probe"):
+    exactly zero and ``slot`` the clamped searchsorted position. ``keys`` and
+    ``rows`` may be host-resident (the module docstring)."""
+    if _use_kernel(fused, uniq, "tier_probe"):
         return _tier_probe_cuda(uniq, uvalid, keys, rows)
+    _plain_on_host(uniq, "tier_probe", keys, rows)
     return ref.tier_probe_ref(uniq, uvalid, keys, rows)
 
 
@@ -295,9 +324,9 @@ def dedup_scratch(m: int) -> Tuple[int, int]:
 
 
 def _dedup_adagrad_cuda(w, acc, idx, g, valid, lr: float, eps: float):
-    dev = w.device
-    _expect(w, "dedup_adagrad w", torch.float32, 2, dev)
-    _expect(acc, "dedup_adagrad acc", torch.float32, 2, dev)
+    dev = g.device
+    w_p = _expect(w, "dedup_adagrad w", torch.float32, 2, dev, host=True)
+    acc_p = _expect(acc, "dedup_adagrad acc", torch.float32, 2, dev, host=True)
     _expect(idx, "dedup_adagrad idx", torch.int32, 1, dev)
     _expect(g, "dedup_adagrad g", torch.float32, 2, dev)
     _expect(valid, "dedup_adagrad valid", torch.bool, 1, dev)
@@ -313,9 +342,10 @@ def _dedup_adagrad_cuda(w, acc, idx, g, valid, lr: float, eps: float):
         # a memset and two kernels: the table is cleared, filled, then read
         cap, ints = dedup_scratch(m)
         scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
-        _launch("dedup_adagrad", w.data_ptr(), acc.data_ptr(), idx.data_ptr(),
+        _launch("dedup_adagrad", w_p, acc_p, idx.data_ptr(),
                 valid.data_ptr(), g.data_ptr(), scratch.data_ptr(), scratch.numel(), m,
                 rows, d, cap, float(lr), float(eps))
+        host_launches["dedup_adagrad"] += w.device != dev or acc.device != dev
     return w, acc
 
 
@@ -326,10 +356,66 @@ def dedup_adagrad(w, acc, idx, g, valid, lr: float, eps: float,
     are summed in ascending position order from +0.0 (the reference's
     stable-sorted order; the kernel groups them by hashing, without a sort):
     untouched rows stay bitwise unchanged, touched rows match the plain
-    version to about 1 ULP of the adagrad arithmetic."""
-    if _use_kernel(fused, w, "dedup_adagrad"):
+    version to about 1 ULP of the adagrad arithmetic. ``w`` and ``acc`` may
+    be host-resident (the module docstring): the kernel's atomics work on
+    its device scratch only, and it writes the rows with plain stores."""
+    if _use_kernel(fused, g, "dedup_adagrad"):
         return _dedup_adagrad_cuda(w, acc, idx, g, valid, lr, eps)
+    _plain_on_host(g, "dedup_adagrad", w, acc)
     return ref.dedup_adagrad_ref(w, acc, idx, g, valid, lr, eps)
+
+
+# ----------------------------------------------------- host-resident rows
+
+
+def _host_rows_cuda(table, idx, rows, scatter: bool):
+    dev = idx.device
+    if table.dtype not in (torch.float32, torch.int32) or rows.dtype != table.dtype:
+        raise ValueError(f"host_rows: 4-byte tables only, got {table.dtype} / {rows.dtype}")
+    t_p = _expect(table, "host_rows table", table.dtype, table.dim(), dev, host=True)
+    _expect(idx, "host_rows idx", torch.int64, 1, dev)
+    _expect(rows, "host_rows rows", table.dtype, table.dim(), dev)
+    n = idx.shape[0]
+    width = 1 if table.dim() == 1 else table.shape[1]
+    if table.dim() > 2 or rows.shape[0] != n or tuple(rows.shape[1:]) != tuple(table.shape[1:]):
+        raise ValueError(f"host_rows: table {tuple(table.shape)}, idx {n}, "
+                         f"rows {tuple(rows.shape)}")
+    if n and width:
+        _launch("host_rows", t_p, idx.data_ptr(), rows.data_ptr(), n, table.shape[0], width,
+                int(scatter))
+        host_launches["host_rows"] += table.device != dev
+    return rows
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor,
+              fused: Optional[bool] = None) -> torch.Tensor:
+    """``table[idx]`` on ``idx``'s device. A table on that device is indexed
+    as before; a host-resident one (a CPU table beside indices on the card)
+    is gathered over the bus by the ``host_rows`` kernel, whose plain
+    version refuses it (the module docstring). The indices must lie in
+    ``[0, rows)``, as torch indexing needs."""
+    if table.device == idx.device:
+        return table[idx.long()]
+    if _use_kernel(fused, idx, "host_rows"):
+        out = torch.empty((idx.shape[0],) + tuple(table.shape[1:]), dtype=table.dtype,
+                          device=idx.device)
+        return _host_rows_cuda(table, idx.long().contiguous(), out, scatter=False)
+    _plain_on_host(idx, "host_rows", table)
+    return ref.take_rows_ref(table, idx)
+
+
+def put_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+             fused: Optional[bool] = None) -> None:
+    """``table[idx] = rows`` in place, dispatched as ``take_rows``; the
+    indices name distinct rows (or rows that take equal values)."""
+    if table.device == idx.device:
+        table[idx.long()] = rows
+        return
+    if _use_kernel(fused, idx, "host_rows"):
+        _host_rows_cuda(table, idx.long().contiguous(), rows.contiguous(), scatter=True)
+        return
+    _plain_on_host(idx, "host_rows", table)
+    ref.put_rows_ref(table, idx, rows)
 
 
 # ------------------------------------------------------------ fm interaction

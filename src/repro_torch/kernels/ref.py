@@ -91,6 +91,16 @@ def tier_probe_ref(uniq: torch.Tensor, uvalid: torch.Tensor, keys: torch.Tensor,
     return hit, slot.to(torch.int32), out
 
 
+def take_rows_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (the ``host_rows`` gather)."""
+    return table[idx.long()]
+
+
+def put_rows_ref(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """``table[idx] = rows`` in place (the ``host_rows`` scatter)."""
+    table[idx.long()] = rows
+
+
 def _routed(idx: torch.Tensor, kept: torch.Tensor, m: int) -> torch.Tensor:
     """The kernels' ``ok`` condition: kept and a slot inside ``[0, m)``."""
     return kept & (idx >= 0) & (idx < m)

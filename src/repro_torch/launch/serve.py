@@ -11,6 +11,10 @@ sasrec or mind, or two-tower retrieval of sasrec or mind, on one card.
       --strategy picasso_narrow --narrow-dim 4 --l2-budget 2147483648
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
       --no-packing --strategy mixed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
+      --strategy picasso_narrow --narrow-dim 4 --l2-budget 2147483648 --pin-l2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --batch 512 \\
+      --no-packing --strategy auto --calibrate auto
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
       --device cpu --n-requests 6 --reload-dir /tmp/pub --chaos torn@3
@@ -21,9 +25,13 @@ sasrec or mind, or two-tower retrieval of sasrec or mind, on one card.
       --n-candidates 1048576 --score-chunk 65536
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
-``--strategy mixed``/``auto`` compiles a per-group assignment with the
-constant cost model at the serving batch before the state is made and
-prints it. ``--reload-dir`` follows a streaming trainer's published deltas
+``--strategy mixed``/``auto`` compiles a per-group assignment at the
+serving batch before the state is made and prints it: on the constant cost
+model, or with ``--calibrate auto|force`` on curves measured on this device
+(``repro_torch.perf``, cached in ``--calib-file``). ``--pin-l2`` places the
+L2 tier leaves in pinned host memory (``embedding.state.pin_l2_to_host``,
+the reference serve launcher's placement), which the kernels read over the
+bus, and prints the bytes pinned. ``--reload-dir`` follows a streaming trainer's published deltas
 (``repro_torch.launch.train --stream --publish-dir``): the serve state is
 shaped by the published plan revision, and before each request the server
 polls for a new delta and loads it in place once every leaf has passed its
@@ -66,11 +74,26 @@ def main(argv=None):
     ap.add_argument("--l2-budget", type=int, default=0, metavar="BYTES",
                     help="L2 cache tier budget in bytes (0 disables; >0 budgets "
                          "an L2 tier behind the hot tier, used by picasso_l2 and "
-                         "picasso_narrow; the port keeps it in device memory)")
+                         "picasso_narrow; in device memory, or in pinned host "
+                         "memory with --pin-l2)")
     ap.add_argument("--narrow-dim", type=int, default=0, metavar="D",
                     help="narrow master width for picasso_narrow (0 disables): "
                          "cold ids are stored at D columns and up-projected at "
                          "lookup, hot ids stay full-width in the tiers")
+    ap.add_argument("--pin-l2", action="store_true",
+                    help="place the L2 tier leaves in pinned host memory, read "
+                         "by the kernels over the bus (pin_l2_to_host; a no-op "
+                         "where torch has no CUDA)")
+    ap.add_argument("--calibrate", default="off", choices=("auto", "force", "off"),
+                    help="measured cost model for the mixed/auto assignment: "
+                         "'auto' loads the stamped calibration file "
+                         "(--calib-file) or benches once and writes it, 'force' "
+                         "always re-benches, 'off' (default) keeps the constant "
+                         "model")
+    ap.add_argument("--calib-file", default="", metavar="PATH",
+                    help="calibration cache for --calibrate (default: "
+                         "~/.cache/repro_torch/calibration.json); reused only "
+                         "when its stamp matches this process")
     ap.add_argument("--fused-kernels", default="auto", choices=("auto", "on", "off"),
                     help="CUDA kernels: 'auto' for tensors on the card, 'on' "
                          "forces them (raises on the CPU), 'off' forces the "
@@ -124,9 +147,16 @@ def main(argv=None):
                                               make_serve_step)
 
     device = resolve_device(args.device)
+    cost_model = None
+    if args.calibrate != "off":
+        from repro_torch.perf import get_cost_model
+        cost_model = get_cost_model(
+            args.calibrate, args.calib_file or None,
+            grid="tiny" if args.smoke else "small", device=device,
+            log=lambda s: print(f"[serve] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.retrieval:
-        return retrieve(args, cfg, device)
+        return retrieve(args, cfg, device, cost_model)
     rng = torch.Generator(device=device).manual_seed(args.seed)
     plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
                      narrow_dim=args.narrow_dim or None,
@@ -150,10 +180,18 @@ def main(argv=None):
         # sized by; serving has no micro pipeline, so the cost model sees
         # the batch
         strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch,
+                                 cost_model=cost_model,
                                  log=lambda s: print(f"[serve] {s}"))
         resolve_assignment(plan, strategy)
     model = WDLModel(cfg, plan)
     state = init_state(model, plan, rng, device)
+    if args.pin_l2:
+        from repro_torch.embedding.state import pin_l2_to_host, warn_pin_l2_limits
+        from repro_torch.kernels.host_memory import pinned_bytes
+
+        warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
+        state = pin_l2_to_host(state)
+        print(f"[serve] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
     scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
     serve = make_serve_step(model, plan, args.batch, scfg, device)
     poller = torn = None
@@ -196,7 +234,7 @@ def main(argv=None):
           f"p99={np.percentile(lat, 99):.1f}ms mean_prob={float(probs.mean()):.3f}")
 
 
-def retrieve(args, cfg, device) -> None:
+def retrieve(args, cfg, device, cost_model=None) -> None:
     """``--retrieval``: the reference launcher's retrieval plan (one user,
     no hot tier, exact capacities), the user from ``make_batch(cfg, 1,
     default_rng(1))``, candidates ``arange(n) % vocab`` and the top 10."""
@@ -224,7 +262,8 @@ def retrieve(args, cfg, device) -> None:
     ips = plan.group(field_index(plan)[item_field].gid).ids_per_sample
     proxy_batch = max(1, min(args.score_chunk or nc, nc) // max(ips, 1))
     strategy = maybe_compile(plan, args.strategy, per_device_batch=proxy_batch,
-                             use_cache=False, log=lambda s: print(f"[serve] {s}"))
+                             use_cache=False, cost_model=cost_model,
+                             log=lambda s: print(f"[serve] {s}"))
     resolve_assignment(plan, strategy, use_cache=False)
     model = WDLModel(cfg, plan)
     # smoke tables are small enough to draw the reference's numbers on the host

@@ -24,12 +24,23 @@ dcn-v2, sasrec or mind on one card (world 1).
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
       --device cpu --global-batch 32 --stream --segment-steps 5 \\
       --stream-segments 3 --ckpt-dir /tmp/ck --publish-dir /tmp/pub
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+      --global-batch 256 --strategy picasso_narrow --narrow-dim 4 \\
+      --l2-budget 2147483648 --pin-l2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
+      --global-batch 256 --no-packing --strategy auto --calibrate auto
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
 ``--smoke`` and ``1<<30`` without, a flush every 20 steps after 10 warm-up
-steps. ``--strategy mixed``/``auto`` compiles a per-group assignment with
-the constant cost model before the state is made and prints it.
+steps. ``--strategy mixed``/``auto`` compiles a per-group assignment before
+the state is made and prints it: on the constant cost model, or with
+``--calibrate auto|force`` on curves measured on this device
+(``repro_torch.perf``, cached in ``--calib-file``), whose replans then also
+feed the step times back (``Replanner.observe_timing``). ``--pin-l2``
+places the L2 tiers and the narrow masters in pinned host memory, where the
+kernels read and write them over the bus (``TrainConfig.pin_l2``), and
+prints the bytes pinned.
 
 Runtime flags, wired as the reference's launcher wires them: ``--ckpt-dir``
 (with ``--ckpt-every``) runs the loop under the ``Supervisor`` and resumes
@@ -40,8 +51,7 @@ with ``--publish-dir``, publish a delta a ``repro_torch.launch.serve
 --reload-dir`` process picks up; ``--replan-iters`` replans from the live
 FCounter and migrates the state. Checkpoints and deltas record the packing
 salts; a resume under other salts raises (``PYTHONHASHSEED``). The
-reference's ``--reshard-*``, ``--calibrate`` and ``--pin-l2`` wait for
-later slices of the port.
+reference's ``--reshard-*`` waits for the multi-rank slice of the port.
 """
 import argparse
 
@@ -68,12 +78,28 @@ def main(argv=None):
     ap.add_argument("--l2-budget", type=int, default=0, metavar="BYTES",
                     help="L2 cache tier budget in bytes (0 disables; >0 budgets "
                          "an L2 tier behind the hot tier, used by picasso_l2 and "
-                         "picasso_narrow; the port keeps it in device memory)")
+                         "picasso_narrow; in device memory, or in pinned host "
+                         "memory with --pin-l2)")
     ap.add_argument("--narrow-dim", type=int, default=0, metavar="D",
                     help="narrow master width for picasso_narrow (0 disables): "
                          "cold ids are stored and routed at this width and "
                          "projected up at lookup, hot ids stay full-width in "
                          "the tiers")
+    ap.add_argument("--pin-l2", action="store_true",
+                    help="place the L2 tier leaves (and narrow masters) in "
+                         "pinned host memory, read and written in place by the "
+                         "kernels over the bus and kept there across steps, "
+                         "flushes and replans (a no-op where torch has no CUDA)")
+    ap.add_argument("--calibrate", default="off", choices=("auto", "force", "off"),
+                    help="measured cost model for mixed/auto assignment and "
+                         "replanning: 'auto' loads the stamped calibration file "
+                         "(--calib-file) or microbenches the priced ops once and "
+                         "writes it, 'force' always re-benches, 'off' keeps the "
+                         "constant model (the default)")
+    ap.add_argument("--calib-file", default="", metavar="PATH",
+                    help="calibration cache for --calibrate (default: "
+                         "~/.cache/repro_torch/calibration.json); reused only "
+                         "when its stamp matches this process")
     ap.add_argument("--grad-compress", default="none", choices=("none", "fp16", "topk"),
                     help="wire compression of the routed sparse-gradient "
                          "payload (the transposed-Shuffle all_to_all and the "
@@ -149,6 +175,7 @@ def main(argv=None):
         ap.error("--replan-iters must be >= 0 (0 disables replanning)")
 
     import logging
+    import time
 
     import torch
 
@@ -158,7 +185,9 @@ def main(argv=None):
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
+    from repro_torch.embedding.state import pin_to_host, warn_pin_l2_limits
     from repro_torch.engine import maybe_compile, resolve_assignment
+    from repro_torch.kernels.host_memory import pinned_bytes
     from repro_torch.models.wdl import WDLModel
     from repro_torch.runtime import (AnomalyGuard, ChaosController, Replanner,
                                      apply_plan_meta, parse_fault_plan, plan_meta,
@@ -175,6 +204,13 @@ def main(argv=None):
     logging.getLogger("repro_torch").setLevel(logging.INFO)
 
     device = resolve_device(args.device)
+    cost_model = None
+    if args.calibrate != "off":
+        from repro_torch.perf import get_cost_model
+        cost_model = get_cost_model(
+            args.calibrate, args.calib_file or None,
+            grid="tiny" if args.smoke else "small", device=device,
+            log=lambda s: print(f"[train] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
     plan = make_plan(cfg, world=1, per_device_batch=args.global_batch,
                      enable_packing=not args.no_packing,
@@ -207,6 +243,7 @@ def main(argv=None):
         # 'picasso_narrow' broadcast gates the master widths the state is
         # sized by; training issues plan.microbatch ids a step
         strategy = maybe_compile(plan, args.strategy, use_cache=not args.no_cache,
+                                 cost_model=cost_model,
                                  log=lambda s: print(f"[train] {s}"))
         resolve_assignment(plan, strategy, use_cache=not args.no_cache)
 
@@ -218,6 +255,24 @@ def main(argv=None):
         chaos = ChaosController(parse_fault_plan(args.chaos))
         print(f"[train] chaos plan armed: {args.chaos}", flush=True)
 
+    def wrap_timed(fn):
+        """Measured-vs-predicted feedback: time each step (ended by a
+        synchronize on the card) and feed the wall time to the Replanner.
+        Only wrapped when a calibrated cost model is live: the per-step sync
+        it costs is what the feedback loop needs to be honest."""
+        if cost_model is None:
+            return fn
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            if replanner is not None:
+                replanner.observe_timing((time.perf_counter() - t0) * 1e6)
+            return out
+        return timed
+
     def build_step(plan):
         """(Re)build the step against a plan revision; the guard (if armed)
         judges the fresh step and keeps its EMA and event history."""
@@ -226,21 +281,28 @@ def main(argv=None):
                            use_cache=not args.no_cache,
                            use_interleave=not args.no_interleave, overlap=args.overlap,
                            use_fused_kernels=args.fused_kernels,
-                           grad_compress=args.grad_compress,
+                           grad_compress=args.grad_compress, pin_l2=args.pin_l2,
                            lr_emb=args.lr_emb, lr_dense=args.lr_dense)
         # a judged step journals the rows it writes so it can reject itself
         raw = make_train_step(model, plan, args.global_batch, tcfg, device)
-        return model, tcfg, (guard.rebind(raw) if guard is not None else raw)
+        return model, tcfg, wrap_timed(guard.rebind(raw) if guard is not None else raw)
 
+    replanner = None
     model, tcfg, step_fn = build_step(plan)
     state = init_state(model, plan, torch.Generator(device=device).manual_seed(args.seed),
                        device)
-    replanner = None
+    if args.pin_l2:
+        # placed once here: the flushes, the journal, restores and the
+        # replanner's migration keep it, and the step checks it
+        warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
+        state = pin_to_host(state, plan)
+        print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
     if args.replan_iters:
         replanner = Replanner(plan, strategy=args.strategy,
                               hot_bytes=args.replan_hot_bytes,
                               l2_bytes=args.replan_l2_bytes,
                               use_cache=not args.no_cache, cache_update=tcfg.cache_update,
+                              cost_model=cost_model, pin_l2=args.pin_l2,
                               log=lambda s: print(f"[train] replan {s}", flush=True))
     print(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
           f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world=1, "
@@ -278,8 +340,10 @@ def main(argv=None):
         out = replanner.maybe_replan(state, step=step)
         if out is None:
             return state, False
-        plan, state = out
+        plan, state = out  # migrated under --pin-l2's placement (Replanner(pin_l2=))
         model, tcfg, step_fn = build_step(plan)
+        if args.pin_l2:
+            print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
         return state, True
 
     try:

@@ -24,11 +24,16 @@ the trainer saves beside the state; on resume ``apply_plan_meta`` revises
 the freshly compiled structural plan back to it before the restore
 template is built.
 
-The reference's measured cost model (``cost_model=`` and
-``observe_timing``'s feedback into it) waits for ROADMAP Queue 1 item 5:
-the constructor takes no such argument, so passing one is a ``TypeError``,
-as it is for ``compile_assignment``. There is no mesh: the port runs one
-rank.
+With a calibrated ``cost_model`` (``repro_torch.perf``) every recompile
+prices the candidates from its curves, and the feedback loop runs: step
+times fed to ``observe_timing`` are compared at each replan against
+``cost_model.predict_step_us``, and the ratio is blended into its
+``correction`` (the reference's geometric EMA). ``pin_l2`` mirrors the
+trainer's ``--pin-l2``: ``migrate_state`` keeps the leaves the old plan
+pinned where they are, and the replanner pins what the new plan names and
+the old one did not (``embedding.state.pin_to_host``, a no-op for a leaf
+already placed).
+There is no mesh: the port runs one rank.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 
 from repro_torch.core.assign import apply_assignment, compile_assignment, resolve_assignment
 from repro_torch.core.packing import PicassoPlan, revise_plan
-from repro_torch.embedding.state import migrate_state
+from repro_torch.embedding.state import migrate_state, pin_to_host
 from repro_torch.engine.engine import export_stats
 
 
@@ -133,6 +138,13 @@ class ReplanEvent:
     changed: Dict[int, str]       # gid -> delta description (empty = no-op)
     window: Dict[str, int]        # metric sums observed since the last replan
     seconds: Dict[str, float] = field(default_factory=dict)
+    # cost-model feedback for this window (calibrated runs only): the
+    # measured-vs-predicted sparse-path ratio and the correction factor the
+    # NEXT recompile's scores were blended with (None = no cost model or no
+    # timings observed this window)
+    measured_us: Optional[float] = None
+    predicted_us: Optional[float] = None
+    correction: Optional[float] = None
 
     @property
     def migrated(self) -> bool:
@@ -140,6 +152,10 @@ class ReplanEvent:
 
     def describe(self) -> str:
         w = " ".join(f"{k}={v}" for k, v in sorted(self.window.items()))
+        if self.correction is not None:
+            w = (f"measured={self.measured_us:.0f}us "
+                 f"predicted={self.predicted_us:.0f}us "
+                 f"corr={self.correction:.3f}" + (" " + w if w else ""))
         if not self.changed:
             return (f"step {self.step}: plan rev {self.old_rev} unchanged "
                     f"(recompile is a no-op){'  [' + w + ']' if w else ''}")
@@ -151,10 +167,11 @@ class ReplanEvent:
 
 def _sync(state: Dict[str, Any]) -> None:
     """Wait for the device work queued on the state's device, so a host
-    clock read after it counts that work."""
+    clock read after it counts that work (``counts`` never leaves the
+    device; ``w`` may be pinned in host memory)."""
     for es in state["emb"].values():
-        if es.w.is_cuda:
-            torch.cuda.synchronize(es.w.device)
+        if es.counts.is_cuda:
+            torch.cuda.synchronize(es.counts.device)
         return
 
 
@@ -170,6 +187,13 @@ class Replanner:
     rebudget: ``False`` keeps ``cache_rows``/``l2_rows`` exactly.
     use_cache/use_l2/cache_update: must mirror the train engine's flags.
     per_device_batch/overrides: forwarded to ``compile_assignment``.
+    cost_model: optional calibrated ``repro_torch.perf.CostModel``: every
+        recompile prices candidates from its curves, and the feedback loop
+        (``observe_timing``) blends measured/predicted into its
+        ``correction`` at each replan (the module docstring).
+    pin_l2: mirrors the trainer's ``--pin-l2``: after the migration the
+        leaves the new plan pins and the old one did not go to pinned host
+        memory (``embedding.state.pin_to_host``).
     """
 
     def __init__(self, plan: PicassoPlan, *, strategy: Any = "auto",
@@ -177,6 +201,7 @@ class Replanner:
                  rebudget: bool = True, use_cache: bool = True, use_l2: bool = True,
                  cache_update: str = "psum", per_device_batch: Optional[int] = None,
                  overrides: Optional[Mapping[Union[int, str], str]] = None,
+                 cost_model=None, pin_l2: bool = False,
                  log: Optional[Callable[[str], None]] = None):
         self.plan = plan
         self.strategy = strategy
@@ -188,9 +213,12 @@ class Replanner:
         self.cache_update = cache_update
         self.per_device_batch = per_device_batch
         self.overrides = overrides
+        self.cost_model = cost_model
+        self.pin_l2 = pin_l2
         self.log = log or (lambda s: None)
         self.events: List[ReplanEvent] = []
         self._window: Dict[str, Any] = {}  # device-scalar running sums
+        self._timings_us: List[float] = []  # measured step wall times (host)
         self._auto = isinstance(strategy, str) and strategy in ("mixed", "auto")
         if not plan.strategy:
             apply_assignment(plan, resolve_assignment(plan, strategy, use_cache=use_cache))
@@ -202,10 +230,33 @@ class Replanner:
             if k.startswith("overflow") or k.startswith("cache_hits"):
                 self._window[k] = self._window.get(k, 0) + v
 
+    def observe_timing(self, step_us: float) -> None:
+        """Record one measured step wall time (host float, us) for the cost
+        model's feedback loop; ignored without a calibrated cost model."""
+        if self.cost_model is not None and step_us > 0.0:
+            self._timings_us.append(float(step_us))
+
     def _close_window(self) -> Dict[str, int]:
         window = {k: int(v) for k, v in self._window.items()}
         self._window = {}
         return window
+
+    def _feedback(self, stats: Dict[int, np.ndarray]
+                  ) -> Tuple[Optional[float], Optional[float], Optional[float]]:
+        """Blend this window's measured-vs-predicted ratio into the cost
+        model's correction. The prediction uses the correction the window's
+        scores used (before the update), so the EMA converges where the
+        corrected prediction equals the measurement; the median ignores the
+        window's slow first steps."""
+        if self.cost_model is None or not self._timings_us:
+            self._timings_us = []
+            return None, None, None
+        measured = float(np.median(self._timings_us))
+        self._timings_us = []
+        predicted = self.cost_model.predict_step_us(
+            self.plan, stats, per_device_batch=self.per_device_batch)
+        corr = self.cost_model.observe_measured(measured, predicted)
+        return measured, predicted, corr
 
     def _recompile(self, stats: Dict[int, np.ndarray]) -> PicassoPlan:
         """Measured stats -> candidate revision (budgets + assignment)."""
@@ -220,7 +271,8 @@ class Replanner:
         if self._auto:
             apply_assignment(new_plan, compile_assignment(
                 new_plan, stats=stats, per_device_batch=self.per_device_batch,
-                overrides=self.overrides, enable_cache=self.use_cache))
+                overrides=self.overrides, enable_cache=self.use_cache,
+                cost_model=self.cost_model))
         else:
             apply_assignment(new_plan, resolve_assignment(new_plan, self.strategy,
                                                           use_cache=self.use_cache))
@@ -236,6 +288,9 @@ class Replanner:
         t0 = time.perf_counter()
         stats = export_stats(self.plan, state["emb"])
         t1 = time.perf_counter()
+        # feedback first: the correction lands in the cost model BEFORE the
+        # recompile below prices this revision's candidates
+        measured, predicted, corr = self._feedback(stats)
         new_plan = self._recompile(stats)
         changed = plan_delta(self.plan, new_plan)
         window = self._close_window()
@@ -244,16 +299,21 @@ class Replanner:
         seconds = {"harvest": t1 - t0, "compile": t2 - t1}
         if not changed:
             ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=self.plan.rev,
-                             changed={}, window=window, seconds=seconds)
+                             changed={}, window=window, seconds=seconds,
+                             measured_us=measured, predicted_us=predicted,
+                             correction=corr)
             self.events.append(ev)
             self.log(ev.describe())
             return None
         new_state = migrate_state(self.plan, new_plan, state, use_cache=self.use_cache,
                                   use_l2=self.use_l2, cache_update=self.cache_update)
+        if self.pin_l2:  # what the new plan pins and the old one did not
+            new_state = pin_to_host(new_state, new_plan)
         _sync(new_state)  # the sort, the write-backs and the tier loads are queued
         seconds["migrate"] = time.perf_counter() - t2
         ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=new_plan.rev,
-                         changed=changed, window=window, seconds=seconds)
+                         changed=changed, window=window, seconds=seconds,
+                         measured_us=measured, predicted_us=predicted, correction=corr)
         self.events.append(ev)
         self.log(ev.describe())
         self.plan = new_plan

@@ -52,6 +52,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import host_memory
+
 try:  # optional: plain .npy files where zstandard is missing
     import zstandard
 except ImportError:
@@ -137,7 +139,12 @@ def _shape(x) -> Tuple[int, ...]:
 
 def host_snapshot(tree) -> Any:
     """A host copy of every leaf (tensors to CPU copies, arrays copied), so
-    a later in-place step cannot change what gets written."""
+    a later in-place step cannot change what gets written. A leaf in mapped
+    pinned memory (``--pin-l2``) is copied after the card's queued writes to
+    it have landed."""
+    flat = _flatten(tree)
+    host_memory.wait_for_card(flat.values())
+
     def leaf(x):
         if isinstance(x, torch.Tensor):
             return x.detach().to("cpu", copy=True)
@@ -145,7 +152,7 @@ def host_snapshot(tree) -> Any:
             return x.copy()
         return x
 
-    return _unflatten_into(tree, {k: leaf(v) for k, v in _flatten(tree).items()})
+    return _unflatten_into(tree, {k: leaf(v) for k, v in flat.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -225,15 +232,20 @@ def _write_leaf(path: Path, x, compress: bool) -> Tuple[int, Tuple[int, ...], np
 
 def _file_crc(f) -> int:
     """crc32 of an open file's bytes, read from its start; leaves it
-    positioned at its start again."""
-    crc = 0
+    positioned at its start again. Each read asks for no more than the
+    bytes left: a read sized ``CHUNK_BYTES`` sets up a 256 MiB buffer
+    however small the file, which some hosts' kernels make cost
+    milliseconds (on the H100 host, seconds for a smoke checkpoint's
+    small leaves)."""
+    crc, left = 0, os.fstat(f.fileno()).st_size
     f.seek(0)
     while True:
-        b = f.read(CHUNK_BYTES)
+        b = f.read(max(1, min(CHUNK_BYTES, left)))
         if not b:
             f.seek(0)
             return crc & 0xFFFFFFFF
         crc = zlib.crc32(b, crc)
+        left -= len(b)
 
 
 def _read_array(f, shape: Tuple[int, ...], dtype: np.dtype, what: str,
@@ -338,7 +350,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any, keep: int = 3,
     ``meta`` is the optional JSON sidecar (the trainer records the live plan
     revision, ``runtime.plan_meta``); ``salts`` the packing salts of the
     plan's tables (``core.features.table_salts``), which restores check.
-    Leaves may live on any device; each is streamed to disk in row chunks.
+    Leaves may live on any device; each is streamed to disk in row chunks,
+    a leaf in mapped pinned memory after the card's queued writes to it.
     """
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -346,8 +359,10 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any, keep: int = 3,
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_"))
     compress = zstandard is not None
     manifest = {}
+    flat = _flatten(state)
+    host_memory.wait_for_card(flat.values())
     try:
-        for name, x in _flatten(state).items():
+        for name, x in flat.items():
             fn = name.replace(_SEP, "__") + (".npy.zst" if compress else ".npy")
             crc, shape, dtype = _write_leaf(tmp / fn, x, compress)
             manifest[name] = {"file": fn, "shape": list(shape), "dtype": str(dtype),
@@ -508,7 +523,8 @@ def restore_checkpoint(ckpt_dir: str, template: Any, step: Optional[int] = None,
     tensor on the template's device); ``'repad'`` zero-extends or truncates
     into the template's rows (states without cache tiers only).
     ``shardings`` is accepted for the reference's signature: at world 1 the
-    placement is the template's own.
+    placement is the template's own. A template leaf in mapped pinned memory
+    (``--pin-l2``) is written after the card's queued work on it is done.
     """
     del shardings  # world 1: the template's placement is the placement
     if on_row_mismatch not in ("error", "keep", "repad"):
@@ -560,7 +576,8 @@ def restore_checkpoint(ckpt_dir: str, template: Any, step: Optional[int] = None,
                         "different world size. The elastic restore that remaps tier "
                         "sentinel keys (runtime.elastic) is ROADMAP Queue 1 item 6 and "
                         "not ported; a blind re-pad would corrupt them.")
-        # pass 2: load
+        # pass 2: load, once no queued kernel reads or writes a mapped leaf
+        host_memory.wait_for_card(tflat.values())
         out = {}
         for name, t in tflat.items():
             p = held[name]

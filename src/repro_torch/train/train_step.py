@@ -36,6 +36,15 @@ count, so every leaf of the state is bitwise as it was. The journal costs a
 few rows a chunk (about 16k rows of 11 floats at full-width deepfm); the
 judge's read of the loss is one host sync a step. Without a judge (the
 default) there is neither.
+
+``TrainConfig(pin_l2=True)`` keeps the cold side in pinned host memory, as
+the reference's memory-kind ``out_shardings`` do. The caller places the
+state once (``embedding.state.pin_to_host``: the leaves
+``pinned_leaves(plan)`` names); every path that touches them afterwards
+(the lookups, the sparse updates, the flush, the journal) reads and writes
+them in place over the bus (``kernels.ops``), and each step checks the
+placement (``check_pinned``) and raises if a named leaf left the host
+(nothing to check where torch has no CUDA).
 """
 from __future__ import annotations
 
@@ -50,23 +59,20 @@ from repro_torch.core.features import PackedBatch, pack_batch
 from repro_torch.core.jax_random import Rng, rng_split
 from repro_torch.core.interleaving import pipeline_handoff, resolve_overlap
 from repro_torch.core.packing import PicassoPlan
-from repro_torch.embedding.state import init_embedding_state
+from repro_torch.embedding.state import check_pinned, init_embedding_state
+from repro_torch.kernels import ops
 from repro_torch.engine import EmbeddingEngine, EngineContext
 from repro_torch.models.wdl import WDLModel
 from repro_torch.optim import grad_compression as gcomp
 from repro_torch.optim.optimizers import (OPTIMIZERS, adam_init, tree_leaves, tree_map,
                                           tree_unflatten)
 
-# fields of the reference's TrainConfig whose features come with later slices
-_UNPORTED = {"pin_l2": False}
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig``, field for field. ``pin_l2`` (the L2
-    tier in pinned host memory) belongs to a later slice and raises on any
-    value but its default; an unknown ``grad_compression`` or
-    ``grad_compress`` mode raises ``ValueError``."""
+    """The reference's ``TrainConfig``, field for field. ``pin_l2`` keeps the
+    L2 tier and the narrow masters in pinned host memory (module
+    docstring); an unknown ``grad_compression`` or ``grad_compress`` mode
+    raises ``ValueError``."""
 
     lr_emb: float = 0.05
     lr_dense: float = 1e-3
@@ -88,11 +94,6 @@ class TrainConfig:
     eps: float = 1e-8
 
     def __post_init__(self):
-        for name, default in _UNPORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: only the default "
-                    f"{default!r} is ported; the feature comes with a later slice")
         gcomp.validate_dense_mode(self.grad_compression)
         gcomp.validate_routed_mode(self.grad_compress)
         if self.optimizer not in OPTIMIZERS:
@@ -103,20 +104,22 @@ class TrainConfig:
 class _Journal:
     """Rows of the state saved before in-place writes, restored newest
     first. Every save of one step holds the values from before that step's
-    first write to them, so repeated indices restore consistently."""
+    first write to them, so repeated indices restore consistently. The rows
+    of a host-resident leaf (``--pin-l2``) are read and restored over the
+    bus (``ops.take_rows``/``ops.put_rows``), the saved copy on the card."""
 
     def __init__(self):
         self.entries = []
 
     def save(self, t: torch.Tensor, idx: Optional[torch.Tensor] = None) -> None:
-        self.entries.append((t, idx, t.clone() if idx is None else t[idx]))
+        self.entries.append((t, idx, t.clone() if idx is None else ops.take_rows(t, idx)))
 
     def restore(self) -> None:
         for t, idx, saved in reversed(self.entries):
             if idx is None:
                 t.copy_(saved)
             else:
-                t[idx] = saved
+                ops.put_rows(t, idx, saved)
         self.entries = []
 
 
@@ -243,6 +246,8 @@ class TrainStep:
     # ---------------------------------------------------------------- step
     def __call__(self, state: Dict[str, Any], batch: Dict
                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        if self.tcfg.pin_l2:
+            check_pinned(state["emb"], self.plan)
         packed_full, side = self.pack(batch)
         self._mark("pack")
         loss_acc = torch.zeros((), device=self.device)

@@ -94,15 +94,28 @@ def test_cost_model_mixes_ps_picasso_hybrid(enable_cache):
 
 
 def test_calibrated_cost_model_is_not_ported():
-    """The calibrated model is not ported: passing one is a TypeError, not
-    an argument silently ignored."""
-    _, plan = _mixed_plans()
-    for fn, args in ((compile_assignment, (plan,)), (maybe_compile, (plan, "mixed")),
-                     (estimate_skew, (plan.groups[0], 8)),
-                     (estimate_l2_gain, (plan.groups[0], 8, 8)),
-                     (estimate_narrow_gain, (plan.groups[0], 8, 8))):
-        with pytest.raises(TypeError, match="cost_model"):
-            fn(*args, cost_model=object())
+    """The calibrated model is ported now (the test keeps its name): given
+    the same synthetic curves, every function that takes ``cost_model=``
+    answers as the reference's does, a measured ``hit_prior`` and a slow
+    all_gather included, and its scores are in microseconds."""
+    from repro.perf import synthetic_cost_model as jsynthetic
+    from repro_torch.perf import synthetic_cost_model
+
+    jplan, plan = _mixed_plans(l2_bytes=1 << 15)
+    for per in (None, {"wire_ag": 1e3}):
+        m, jm = synthetic_cost_model(per, hit_prior=0.37), jsynthetic(per, hit_prior=0.37)
+        asg = compile_assignment(plan, cost_model=m)
+        _same(asg, jassign.compile_assignment(jplan, cost_model=jm))
+        assert {s.units for s in asg.scores.values()} == {"us"}
+        for g, jg in zip(plan.groups, jplan.groups):
+            for fn, jfn, args in ((estimate_skew, jassign.estimate_skew, (8,)),
+                                  (estimate_l2_gain, jassign.estimate_l2_gain, (8, 8)),
+                                  (estimate_narrow_gain, jassign.estimate_narrow_gain,
+                                   (8, 8))):
+                assert fn(g, *args, cost_model=m) == jfn(jg, *args, cost_model=jm)
+        assert maybe_compile(plan, "mixed", cost_model=m) == "mixed"
+        jassign.maybe_compile(jplan, "mixed", cost_model=jm)
+        assert plan.strategy == jplan.strategy == asg.strategy
 
 
 @pytest.mark.parametrize("world,batch", [(1, 16), (4, 64), (8, 512)])

@@ -241,6 +241,8 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
     xd = torch.ones((2, 4, 3), requires_grad=True)
     ops.dot_interaction(xd).sum().backward()
     ops.dot_interaction_bwd(torch.ones((2, 4, 3)), torch.ones((2, 6)))
+    table = torch.ones((5, 4))
+    ops.put_rows(table, torch.tensor([1, 3]), ops.take_rows(table, torch.tensor([0, 2])))
     assert ops.launches == {"tier_probe": 0, "gather_pool": 0, "fm_interaction": 0,
                             "segment_grad": 0, "dedup_adagrad": 0,
                             "fm_interaction_bwd": 0, "cross_layer": 0,
@@ -248,7 +250,7 @@ def test_cpu_dispatch_counts_no_launch_and_builds_nothing():
                             "gather_project_grad": 0, "fp16_compress": 0,
                             "fp16_decompress": 0, "topk_compress": 0,
                             "topk_decompress": 0, "dot_interaction": 0,
-                            "dot_interaction_bwd": 0}
+                            "dot_interaction_bwd": 0, "host_rows": 0}
     assert not build._LAUNCHERS
 
 

@@ -1077,10 +1077,18 @@ def test_switched_off_l2_is_not_flushed_over_trained_master_rows(mesh1):
     assert bool((post.l2.keys == rows).all())
 
 
-def test_train_config_accepts_use_l2_false():
+def test_train_config_accepts_use_l2_false(mesh1):
+    """``use_l2=False`` and ``pin_l2=True`` are both accepted; the narrow
+    plan's pinned leaves (the master, its accumulator and the L2 tier) are
+    the reference's ``emb_shardings(pin_l2=True)``'s."""
+    from repro_torch.embedding.state import pinned_leaves
+    from test_torch_pin import reference_pinned_leaves
+
     assert not TrainConfig(use_l2=False).use_l2
-    with pytest.raises(NotImplementedError, match="pin_l2"):
-        TrainConfig(pin_l2=True)
+    assert TrainConfig(pin_l2=True).pin_l2
+    jplan, plan = _narrow_plans()
+    assert pinned_leaves(plan) == reference_pinned_leaves(jplan, mesh1) == {
+        "0": ("w", "acc", "l2.keys", "l2.rows", "l2.acc")}
 
 
 @pytest.mark.parametrize("launcher,args,pattern", [

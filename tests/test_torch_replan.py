@@ -345,11 +345,30 @@ def test_replan_noop_is_bitwise_equal():
                 assert torch.equal(x, y), a[0]
 
 
-def test_replanner_takes_no_cost_model():
-    """The measured cost model waits for ROADMAP Queue 1 item 5."""
-    _, plan = _plans()
-    with pytest.raises(TypeError):
-        Replanner(plan, strategy="auto", cost_model=object())
+def test_replanner_takes_no_cost_model(mesh1):
+    """The measured cost model is ported now (the test keeps its name): a
+    Replanner given one feeds the window's step times back as the
+    reference's does, measured, predicted and correction equal, and its
+    recompile prices with it (the events' mix equals the reference's)."""
+    from repro.perf import synthetic_cost_model as jsynthetic
+    from repro_torch.perf import synthetic_cost_model
+
+    jplan, plan = _plans()
+    m, jm = synthetic_cost_model({"wire_a2a": 2e-3}), jsynthetic({"wire_a2a": 2e-3})
+    rp = Replanner(plan, strategy="auto", cost_model=m, rebudget=False)
+    jrp = JReplanner(jplan, mesh1, AXES, strategy="auto", cost_model=jm, rebudget=False)
+    assert rp.cost_model is m and not rp.pin_l2
+    rng = np.random.default_rng(4)
+    stats = {g.gid: rng.integers(0, 9, g.rows).astype(np.int64) for g in plan.groups}
+    for window in ((900.0, 1400.0, 1100.0), (), (5.0e4,)):
+        for t in window:
+            rp.observe_timing(t)
+            jrp.observe_timing(t)
+        rp.observe_timing(-1.0)  # a non-positive time is ignored on both sides
+        jrp.observe_timing(-1.0)
+        assert rp._feedback(stats) == jrp._feedback(stats)
+    assert m.correction == jm.correction != 1.0
+    assert rp._recompile(stats).strategy == jrp._recompile(stats).strategy
 
 
 def test_replanned_run_meets_reference_bars(mesh1):

@@ -510,12 +510,19 @@ def test_batch_stream_seeks_like_reference():
 
 @pytest.mark.parametrize("field,value", [("grad_compression", "bf16"),
                                          ("grad_compress", "fp16"), ("pin_l2", True)])
-def test_train_config_raises_on_unported_fields(field, value):
-    """``pin_l2`` is not ported and raises; the compression fields are: each
-    of their modes is taken and an unknown one raises ``ValueError``."""
+def test_train_config_raises_on_unported_fields(field, value, mesh1):
+    """Every field is ported now (the test keeps its name). ``pin_l2`` is
+    accepted, and the leaves it places are the reference's
+    ``emb_shardings(pin_l2=True)``'s; the compression fields take each of
+    their modes and raise ``ValueError`` on an unknown one."""
     if field == "pin_l2":
-        with pytest.raises(NotImplementedError, match=field):
-            TrainConfig(**{field: value})
+        from repro_torch.embedding.state import pinned_leaves
+        from test_torch_pin import _plan_pair, reference_pinned_leaves
+
+        assert TrainConfig(**{field: value}).pin_l2 is True
+        for case in ("picasso_l2", "picasso_narrow"):
+            jplan, plan = _plan_pair(case)
+            assert pinned_leaves(plan) == reference_pinned_leaves(jplan, mesh1) != {}
         return
     modes = {"grad_compression": ("none", "bf16", "fp16", "f8"),
              "grad_compress": ("none", "fp16", "topk")}[field]
