@@ -276,7 +276,30 @@ Phases, in order (any failure raises and exits non-zero):
    saved straight after its sixth step, nothing synced in between, restores
    bitwise the synced state; it rejects a poisoned step through the
    journal's host rows and survives a replan migration with its placement
-   and values kept.
+   and values kept;
+17. world > 1. Full-width deepfm on 4 ranks (``dist.spawn_ranks``, one
+   process each, mesh 2x2, gloo on CUDA tensors: the ranks share the one
+   card, which NCCL refuses), each holding a quarter of the table. Each
+   rank's rows of the master and the dense parameters are checked equal to
+   the world-1 draw (digests); the ranks serve 20 requests of 512 (128 a
+   rank) and train 30 steps of 256 (64 a rank), the host flushing at step
+   20 after saving the pre-flush state. In this process the world-1 kernel
+   path then holds them: every request's probabilities within 1e-5; one
+   step from the shared state before step 1 and, after loading the saved
+   state and flushing it at world 1, after the flush: the loss to rtol
+   1e-5, each dense gradient within 1e-5 of its largest entry, the rows
+   every rank touched within 1e-6 of their scale; the flushed keys and the
+   FCounter bitwise world 1's where no bucket overflowed (the overflow is
+   printed), the 4 ranks' tiers bitwise alike. Each rank launches
+   ``tier_probe``, ``gather_pool``, ``fm_interaction`` a request and those
+   and ``segment_grad``, ``dedup_adagrad`` and ``fm_interaction_bwd`` a
+   step, and its ``dedup_adagrad`` receives rows other ranks routed to it;
+   then one step each under ``--grad-compress fp16`` and ``topk`` (one
+   compress and one decompress launch) and one under ``picasso_narrow``
+   with the largest L2 tier whose hit grads take the dense psum (both tiers
+   hit). Request and step p50/p99 and the bytes each collective moves a
+   step are printed as 4 ranks time-sharing one card over gloo, beside the
+   card's name and power limit: not NCCL numbers.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -4022,6 +4045,471 @@ def pin_phase(runs: dict, t_start: float) -> Tuple[Dict[str, list], int]:
     return out, sv["launches"]["host_rows"] + tr["launches"]["host_rows"]
 
 
+# ------------------------------------------------------------------ phase 17
+#
+# World > 1: full-width deepfm on 4 ranks, one process each, time-sharing
+# the one card over gloo (NCCL refuses two ranks on one device), against the
+# world-1 kernel path on the same state. Not NCCL numbers.
+
+WORLD, WORLD_MESH = 4, (2, 2)
+WORLD_REQUESTS = 20
+WORLD_KERNELS = ("tier_probe", "gather_pool", "fm_interaction", "fm_interaction_bwd",
+                 "segment_grad", "dedup_adagrad")
+
+
+def world_plans(world: int, exact: bool = True):
+    """deepfm's train and serve plans at ``world`` as the launchers build
+    them at ``--global-batch 256`` and ``--batch 512``: the train
+    launcher's tier budget and flush schedule, one micro-batch a step.
+    ``exact`` sizes every bucket for all of a rank's ids
+    (``exact_capacity``): the packed table's contiguous row blocks give
+    the last rank most of deepfm's lookups (its small tables sit at the
+    end), which the launchers' uniform capacity drops at world 4, and the
+    comparison with world 1 needs every id served."""
+    from repro_torch.launch.mesh import mesh_world
+
+    cfg = get_config("deepfm")
+    shape = WORLD_MESH if world > 1 else (1, 1)
+    check(mesh_world(shape) == world, f"mesh {shape} for world {world}")
+    train = make_plan(cfg, world=world, per_device_batch=TRAIN_B // world,
+                      hot_bytes=1 << 30, flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS,
+                      mesh_shape=shape, exact_capacity=exact)
+    serve = make_plan(cfg, world=world, per_device_batch=SERVE_B // world, mesh_shape=shape,
+                      exact_capacity=exact)
+    check(train.cache_rows == serve.cache_rows and train.microbatch == TRAIN_B // world,
+          f"world {world} plans: tiers {train.cache_rows} {serve.cache_rows}, "
+          f"micro {train.microbatch}")
+    return cfg, train, serve
+
+
+def world_batches():
+    cfg = get_config("deepfm")
+    stream = batch_stream(cfg, TRAIN_B, seed=SEED)
+    train = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+    rng = np.random.default_rng(SEED + 17)
+    return train, [make_batch(cfg, SERVE_B, rng) for _ in range(WORLD_REQUESTS)]
+
+
+def owned_rows(plan, batch, lo: int, hi: int) -> torch.Tensor:
+    """The batch's unique packed ids in rows ``[lo, hi)``."""
+    ids = torch.unique(pack_group(plan.groups[0], batch["fields"], DEV).ids.long())
+    return ids[(ids >= lo) & (ids < hi)]
+
+
+def grads_of(step) -> dict:
+    """Wrap ``step.dense_update`` to keep the dense gradient it is handed
+    (after the psum at world > 1)."""
+    seen = {}
+
+    def update(state, g_dense, _orig=step.dense_update):
+        seen["g"] = [g.detach().cpu() for g in tree_leaves(g_dense)]
+        return _orig(state, g_dense)
+
+    step.dense_update = update
+    return seen
+
+
+def step_record(step, state, batch, plan, lo: int, hi: int) -> dict:
+    """One step; its loss, metrics, dense gradient and the rows it touched
+    in ``[lo, hi)`` after it."""
+    seen = grads_of(step)
+    try:
+        state, m = step(state, batch)
+    finally:
+        del step.dense_update
+    mine = owned_rows(plan, batch, lo, hi)
+    st = state["emb"]["0"]
+    return {"loss": float(m["loss"]), "hits": int(m["cache_hits"]),
+            "overflow": int(m["overflow"]), "g": seen["g"], "ids": mine.cpu(),
+            "w": st.w[mine - lo].cpu(), "acc": st.acc[mine - lo].cpu()}
+
+
+def world_rank(group, workdir: str) -> dict:
+    """One rank of phase 17: serve WORLD_REQUESTS requests of SERVE_B and
+    train TRAIN_STEPS steps of TRAIN_B at full width, the flush at step 20
+    run by the host (``make_flush_fn``) after the pre-flush state is saved
+    to ``workdir`` for the world-1 side; then one step each under fp16 and
+    topk routed compression and under picasso_narrow with an L2 tier that
+    takes the dense psum."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.features import agree_salts
+    from repro_torch.dist.sharding import row_range
+
+    torch.set_num_threads(2)
+    cfg, plan, splan = world_plans(group.world)
+    agree_salts(plan, group)
+    model = WDLModel(cfg, plan)
+    rows = plan.groups[0].rows
+    lo, hi = row_range(rows, group)
+    live = min(hi, sum(t.vocab for t in plan.groups[0].tables))
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    st0 = state["emb"]["0"]
+    out = {"rank": group.rank, "rows": [lo, hi], "live": live,
+           "capacity": plan.capacity[0], "serve_capacity": splan.capacity[0],
+           "init_digest": int(bits_sum(st0.w[:live - lo])),
+           "dense_digest": [int(bits_sum(x)) for x in tree_leaves(state["dense"])]}
+    train_b, serve_b = world_batches()
+
+    # -- serving: each rank scores its 128 of every request of 512
+    serve = make_serve_step(model, splan, SERVE_B, ServeConfig(), DEV, group=group)
+    ops.reset_launches()
+    lat, probs = [], []
+    for b in serve_b:
+        rdist.barrier(group)
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        p = serve(state, b)
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        probs.append(rdist.all_gather_tiled(p, group).cpu())
+    out["serve"] = {"launches": dict(ops.launches), "lat": lat,
+                    "probs": torch.stack(probs) if group.rank == 0 else None}
+    # the launcher's own serve plan (uniform bucket capacity): what it drops
+    dplan = world_plans(group.world, exact=False)[2]
+    dserve = make_serve_step(model, dplan, SERVE_B, ServeConfig(), DEV, group=group)
+    dropped = uniq = 0
+    for b in serve_b:
+        _, ectx = dserve.score(state, b)
+        dropped += int(ectx.ctxs[0].routing.overflow)
+        uniq += int(ectx.ctxs[0].uvalid.sum())
+    out["default_plan"] = {"capacity": dplan.capacity[0], "overflow": dropped,
+                           "unique_ids": uniq}
+    del dserve
+
+    # -- training: the host flush at step 20, after the save
+    tcfg = ts.TrainConfig(flush_in_step=False)
+    step = ts.make_train_step(model, plan, TRAIN_B, tcfg, DEV, group=group)
+    flush = ts.make_flush_fn(plan, group=group)
+    recv = {"rows": 0}
+    orig = pe._apply_miss_grads
+
+    def counted(w, acc, ctx, g_u, world, *a, **k):
+        # (lr, eps, fused, compress, group) follow ``world`` positionally
+        grp = k.get("group", a[4] if len(a) > 4 else rdist.WORLD1)
+        peers = [p for p in range(world) if p != grp.rank]
+        recv["rows"] += int(ctx.recv_valid[peers].sum())
+        return orig(w, acc, ctx, g_u, world, *a, **k)
+
+    pe._apply_miss_grads = counted
+    ops.reset_launches()
+    lat, losses, hits, ovf, traffic, rec = [], [], [], [], [], {}
+    try:
+        for i, b in enumerate(train_b[:TRAIN_STEPS], start=1):
+            rdist.barrier(group)
+            rdist.reset_traffic()
+            torch.cuda.synchronize(DEV)
+            t0 = time.perf_counter()
+            if i in (1, FLUSH_ITERS + 1):
+                r = step_record(step, state, b, plan, lo, hi)
+                rec[i] = r
+                loss, h, o = r["loss"], r["hits"], r["overflow"]
+            else:
+                state, m = step(state, b)
+                loss, h, o = float(m["loss"]), int(m["cache_hits"]), int(m["overflow"])
+            if i == FLUSH_ITERS:
+                torch.cuda.synchronize(DEV)
+                step_ms = (time.perf_counter() - t0) * 1e3
+                save_shard(state, group, workdir, lo, live)
+                t0 = time.perf_counter()
+                state = flush(state)
+                torch.cuda.synchronize(DEV)
+                out["flush_ms"] = (time.perf_counter() - t0) * 1e3
+                st = state["emb"]["0"]
+                out["flush"] = {"keys": st.cache.keys.cpu() if group.rank == 0 else None,
+                                "keys_digest": int(bits_sum(st.cache.keys)),
+                                "rows_digest": int(bits_sum(st.cache.rows)),
+                                "counts_digest": int(bits_sum(st.counts[:live - lo])),
+                                "counts_total": int(st.counts.sum())}
+            else:
+                torch.cuda.synchronize(DEV)
+                step_ms = (time.perf_counter() - t0) * 1e3
+            lat.append(step_ms)
+            traffic.append(rdist.traffic_snapshot())
+            losses.append(loss)
+            hits.append(h)
+            ovf.append(o)
+    finally:
+        pe._apply_miss_grads = orig
+    out["train"] = {"launches": dict(ops.launches), "lat": lat, "losses": losses,
+                    "hits": hits, "overflow": ovf, "traffic": traffic,
+                    "recv_from_others": recv["rows"], "records": rec}
+
+    # -- one step each under routed compression, from the trained state
+    out["compressed"] = {}
+    for mode in ("fp16", "topk"):
+        cstep = ts.make_train_step(model, plan, TRAIN_B,
+                                   dataclasses.replace(tcfg, grad_compress=mode), DEV,
+                                   group=group)
+        ops.reset_launches()
+        state, m = cstep(state, train_b[TRAIN_STEPS])
+        torch.cuda.synchronize(DEV)
+        out["compressed"][mode] = {"loss": float(m["loss"]), "launches": dict(ops.launches),
+                                   "hits": int(m["cache_hits"])}
+        del cstep
+    del state, step, serve, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["narrow"] = world_narrow_rank(group, cfg, train_b[0])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
+    return out
+
+
+def save_shard(state, group, workdir: str, lo: int, live: int) -> None:
+    """The pre-flush state for the world-1 side: this rank's live master
+    rows, and from rank 0 the replicated leaves."""
+    st = state["emb"]["0"]
+    n = live - lo
+    torch.save({"w": st.w[:n].cpu(), "acc": st.acc[:n].cpu(), "counts": st.counts[:n].cpu()},
+               os.path.join(workdir, f"shard{group.rank}.pt"))
+    if group.rank == 0:
+        torch.save({"cache": [x.cpu() for x in st.cache],
+                    "dense": tree_leaves(state["dense"]),
+                    "m": tree_leaves(state["opt"]["m"]), "v": tree_leaves(state["opt"]["v"]),
+                    "t": state["opt"]["t"], "step": state["step"]},
+                   os.path.join(workdir, "replicated.pt"))
+
+
+def world_narrow_rank(group, cfg, batch) -> dict:
+    """picasso_narrow at world 4 with the largest L2 tier whose hit grads
+    take the dense psum (its ``H2 * D`` elements at most the all_gather's
+    ``(world - 1) * n * (D + 1)``: 8,232 rows at 64 samples a rank) behind
+    an L1 of a quarter of the batch's unique ids: FCounter counts on the
+    batch's own ids (3 where the id is a multiple of 3, else 2), so a flush
+    fills L1 with a third's hottest and L2 with the rest, and one step."""
+    from repro_torch.dist.sharding import row_range
+
+    kw = dict(world=group.world, per_device_batch=TRAIN_B // group.world, narrow_dim=4,
+              flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS, mesh_shape=WORLD_MESH,
+              exact_capacity=True)
+    g0 = make_plan(cfg, **kw)
+    d, n = g0.groups[0].dim, g0.microbatch * g0.groups[0].ids_per_sample
+    h2 = (group.world - 1) * n * (d + 1) // d // 8 * 8
+    n_uniq = int(owned_rows(g0, batch, 0, g0.groups[0].rows).numel())
+    plan = make_plan(cfg, l2_bytes=h2 * (d + 1) * 4,
+                     hot_bytes=n_uniq // 4 * (d + 1) * 4, **kw)
+    resolve_assignment(plan, "picasso_narrow", world=group.world)
+    check(plan.l2_rows[0] == h2, f"narrow world-4 plan: L2 rows {plan.l2_rows} for {h2}")
+    choice = pe.l2_reduction(group.world, n, d, h2)
+    check(choice == "psum", f"narrow world-4 plan: L2 rows {h2}, n {n} take {choice}")
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    lo, hi = row_range(plan.groups[0].rows, group)
+    mine = owned_rows(plan, batch, lo, hi)
+    st = state["emb"]["0"]
+    st.counts[mine - lo] = torch.where(mine % 3 == 0, 3, 2).to(st.counts.dtype)
+    state = ts.make_flush_fn(plan, group=group)(state)
+    step = ts.make_train_step(model, plan, TRAIN_B,
+                              ts.TrainConfig(strategy="picasso_narrow", flush_in_step=False),
+                              DEV, group=group)
+    ops.reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize(DEV)
+    out = {"l2_rows": h2, "l1_rows": plan.cache_rows[0], "n": n, "uniq": n_uniq,
+           "l2_reduction": choice,
+           "loss": float(m["loss"]), "l1_hits": int(m["cache_hits/l1"]),
+           "l2_hits": int(m["cache_hits/l2"]), "launches": dict(ops.launches)}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def world_phase(runs: dict, t_start: float) -> dict:
+    """Phase 17: ``world_rank`` on 4 spawned ranks over gloo, then the
+    world-1 kernel path in this process on the same state: the init draws
+    (digests), every request's probabilities, one step from the shared
+    state before step 1 and after the flush (the pre-flush state loaded
+    from the ranks' save, flushed at world 1), the flushed keys and
+    FCounter bitwise where no bucket overflowed."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    roots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent)]
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    workdir = tempfile.mkdtemp(prefix=".chip_smoke_world_", dir=root)
+    try:
+        ranks = rdist.spawn_ranks(world_rank, WORLD, workdir, device="cuda",
+                                  workdir=workdir)
+        t_ranks = time.perf_counter() - t_phase
+        out = world_one_side(ranks, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["ranks_s"] = t_ranks
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[wall] phase 17 done at {time.perf_counter() - t_start:.1f}s "
+          f"(ranks {t_ranks:.1f}s, phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def world_one_side(ranks: list, workdir: str) -> dict:
+    """The world-1 side of phase 17 and every check between the two."""
+    from repro_torch.dist.compat import backend_for
+
+    r0 = ranks[0]
+    backend = backend_for("cuda", WORLD)
+    check(backend == "gloo", f"4 ranks on {torch.cuda.device_count()} card(s): {backend}")
+    cfg, plan, splan = world_plans(1)
+    model = WDLModel(cfg, plan)
+    rows1 = plan.groups[0].rows
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    st = state["emb"]["0"]
+    for r in ranks:  # every rank holds exactly its rows of the world-1 draw
+        lo, live = r["rows"][0], r["live"]
+        check(int(bits_sum(st.w[lo:live])) == r["init_digest"],
+              f"rank {r['rank']}'s rows {lo}:{live} of the world-1 draw")
+        check(r["dense_digest"] == [int(bits_sum(x)) for x in tree_leaves(state["dense"])],
+              f"rank {r['rank']}'s dense parameters are the world-1 draw")
+    train_b, serve_b = world_batches()
+
+    # -- serving: every request's probabilities against the world-1 kernel path
+    serve = make_serve_step(model, splan, SERVE_B, ServeConfig(), DEV)
+    lat1, prob_err = [], 0.0
+    for i, b in enumerate(serve_b):
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        p = serve(state, b)
+        torch.cuda.synchronize(DEV)
+        lat1.append((time.perf_counter() - t0) * 1e3)
+        prob_err = max(prob_err, max_err(r0["serve"]["probs"][i].to(DEV), p))
+    check(prob_err <= TOL, f"world-4 probabilities vs world 1: {prob_err}")
+    for r in ranks:
+        check(r["serve"]["launches"] == {n: ARCHS["deepfm"].serve_launches.get(n, 0)
+                                         * WORLD_REQUESTS for n in r["serve"]["launches"]},
+              f"rank {r['rank']} serving launches {r['serve']['launches']}")
+
+    # -- one step from the shared init state
+    step = ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(flush_in_step=False), DEV)
+    checks = {1: world_step_check(ranks, 1, step, state, train_b[0], plan)}
+
+    # -- the pre-flush state after step 20, flushed at world 1
+    for r in ranks:
+        lo, live = r["rows"][0], r["live"]
+        shard = torch.load(os.path.join(workdir, f"shard{r['rank']}.pt"))
+        st.w[lo:live].copy_(shard["w"])
+        st.acc[lo:live].copy_(shard["acc"])
+        st.counts[lo:live].copy_(shard["counts"])
+        del shard
+    rep = torch.load(os.path.join(workdir, "replicated.pt"))
+    for dst, src in zip(st.cache, rep["cache"]):
+        dst.copy_(src)
+    for name, leaves in (("dense", rep["dense"]), ("m", rep["m"]), ("v", rep["v"])):
+        tree = state["dense"] if name == "dense" else state["opt"][name]
+        for dst, src in zip(tree_leaves(tree), leaves):
+            dst.copy_(src)
+    state["opt"]["t"] = rep["t"].to(DEV)
+    state["step"] = rep["step"]
+    del rep
+    state = ts.make_flush_fn(plan)(state)
+    st = state["emb"]["0"]
+    ovf = sum(sum(r["train"]["overflow"][:FLUSH_ITERS]) for r in ranks)
+    # world 4 pads the table by a row, so its sentinel key is world 1's + 1
+    keys4 = r0["flush"]["keys"].to(DEV)
+    keys4 = torch.where(keys4 >= rows1, torch.full_like(keys4, rows1), keys4)
+    flush = {"overflow_steps_1_20": ovf,
+             "keys_equal": bool(torch.equal(keys4, st.cache.keys)),
+             "replicas_equal": len({(r["flush"]["keys_digest"], r["flush"]["rows_digest"])
+                                    for r in ranks}) == 1,
+             "counts_equal": all(int(bits_sum(st.counts[r["rows"][0]:r["live"]]))
+                                 == r["flush"]["counts_digest"] for r in ranks),
+             "counts_total_1": int(st.counts.sum()),
+             "counts_total_4": sum(r["flush"]["counts_total"] for r in ranks),
+             "tier_keys": int((st.cache.keys < rows1).sum())}
+    check(flush["replicas_equal"], "the 4 ranks' flushed tiers are bitwise alike")
+    if ovf == 0:
+        check(flush["keys_equal"] and flush["counts_equal"]
+              and flush["counts_total_1"] == flush["counts_total_4"],
+              f"no bucket overflowed: flushed keys and FCounter bitwise world 1's {flush}")
+    checks[FLUSH_ITERS + 1] = world_step_check(ranks, FLUSH_ITERS + 1, step, state,
+                                               train_b[FLUSH_ITERS], plan)
+    del state, step, serve, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the ranks' own checks: kernels, routed rows, hits, compression, narrow
+    tr_each = ARCHS["deepfm"].train_launches
+    for r in ranks:
+        t = r["train"]
+        check(t["launches"] == {n: tr_each.get(n, 0) * TRAIN_STEPS for n in t["launches"]},
+              f"rank {r['rank']} training launches {t['launches']}")
+        check(all(t["launches"].get(n, 0) > 0 for n in WORLD_KERNELS),
+              f"rank {r['rank']}: every kernel of the path launched")
+        check(t["recv_from_others"] > 0,
+              f"rank {r['rank']}'s dedup_adagrad got no rows from another rank")
+        check(all(np.isfinite(t["losses"])) and max(t["hits"][:FLUSH_ITERS]) == 0
+              and min(t["hits"][FLUSH_ITERS:]) > 0, f"rank {r['rank']} hits {t['hits']}")
+        for mode, c in r["compressed"].items():
+            check(np.isfinite(c["loss"]) and c["launches"].get(f"{mode}_compress") == 1
+                  and c["launches"].get(f"{mode}_decompress") == 1,
+                  f"rank {r['rank']} {mode} step {c}")
+        n = r["narrow"]
+        check(np.isfinite(n["loss"]) and n["l1_hits"] > 0 and n["l2_hits"] > 0
+              and n["launches"].get("tier_probe") == 2
+              and n["launches"].get("gather_project") == 1
+              and n["launches"].get("dedup_adagrad") == 1,
+              f"rank {r['rank']} narrow step (the L2 tier by the dense psum) {n}")
+    check(len({tuple(r["train"]["losses"]) for r in ranks}) == 1,
+          "every rank reports the same summed losses")
+
+    lat_s = np.array([max(r["serve"]["lat"][i] for r in ranks)
+                      for i in range(1, WORLD_REQUESTS)])
+    steady = [i for i in range(WARMUP_ITERS, TRAIN_STEPS) if i != FLUSH_ITERS - 1]
+    lat_t = np.array([max(r["train"]["lat"][i] for r in ranks) for i in steady])
+    bytes_step = {k: float(np.median([r0["train"]["traffic"][i][k] for i in steady]))
+                  for k in r0["train"]["traffic"][0]}
+    return {
+        "world": WORLD, "mesh": "x".join(map(str, WORLD_MESH)), "backend": backend,
+        "rows": [r["rows"] for r in ranks], "capacity": r0["capacity"],
+        "serve_capacity": r0["serve_capacity"],
+        "launcher_plan_serving": [r["default_plan"] for r in ranks],
+        "request_p50_ms": float(np.percentile(lat_s, 50)),
+        "request_p99_ms": float(np.percentile(lat_s, 99)),
+        "world1_request_p50_ms": float(np.percentile(lat1[1:], 50)),
+        "step_p50_ms": float(np.percentile(lat_t, 50)),
+        "step_p99_ms": float(np.percentile(lat_t, 99)),
+        "flush_ms": [r["flush_ms"] for r in ranks],
+        "bytes_per_step_per_rank": bytes_step,
+        "flush_step_bytes_rank0": r0["train"]["traffic"][FLUSH_ITERS - 1],
+        "probs_max_abs_err": prob_err, "shared_state": checks, "flush": flush,
+        "losses": r0["train"]["losses"], "hits": r0["train"]["hits"],
+        "overflow_by_rank": [r["train"]["overflow"] for r in ranks],
+        "serve_launches_by_rank": [r["serve"]["launches"] for r in ranks],
+        "train_launches_by_rank": [r["train"]["launches"] for r in ranks],
+        "recv_rows_from_others_by_rank": [r["train"]["recv_from_others"] for r in ranks],
+        "compressed": {m: [r["compressed"][m] for r in ranks] for m in ("fp16", "topk")},
+        "narrow": [r["narrow"] for r in ranks],
+        "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in ranks]}
+
+
+def world_step_check(ranks, i: int, step, state, batch, plan) -> dict:
+    """World-1 step ``i`` from the state the ranks stepped from: the loss
+    to rtol 1e-5, each dense gradient within 1e-5 of its largest entry, the
+    rows every rank touched within 1e-6 of their scale."""
+    rec = step_record(step, state, batch, plan, 0, plan.groups[0].rows)
+    r0 = ranks[0]["train"]["records"][i]
+    loss_rel = abs(r0["loss"] - rec["loss"]) / abs(rec["loss"])
+    check(loss_rel <= 1e-5, f"step {i}: world-4 loss {r0['loss']} vs world 1 {rec['loss']}")
+    g_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(r0["g"], rec["g"]))
+    check(g_err <= TOL, f"step {i}: dense gradients {g_err} of their largest entry")
+    w1 = state["emb"]["0"]
+    row_err, n_rows = 0.0, 0
+    for r in ranks:
+        rr = r["train"]["records"][i]
+        ids = rr["ids"].to(DEV)
+        n_rows += int(ids.numel())
+        for got, leaf in ((rr["w"], w1.w), (rr["acc"], w1.acc)):
+            exp = leaf[ids]
+            row_err = max(row_err, max_err(got.to(DEV), exp) / scale_of(exp))
+    check(n_rows == int(rec["ids"].numel()), f"step {i}: the ranks own every touched row")
+    check(row_err <= 1e-6, f"step {i}: touched master rows {row_err} of their scale")
+    return {"loss_4": r0["loss"], "loss_1": rec["loss"], "loss_rel": loss_rel,
+            "dense_grad_err": g_err, "rows": n_rows, "row_err_of_scale": row_err,
+            "hits_4": r0["hits"], "hits_1": rec["hits"]}
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4254,6 +4742,17 @@ def main() -> None:
           f"(phase 16 {time.perf_counter() - t_phase:.1f}s)", flush=True)
     for name in ("tier_probe", "dedup_adagrad"):
         other_shapes[name] += pinned[name]
+    world = world_phase(runs, t_start)  # phase 17
+    print("[world] " + json.dumps(world), flush=True)
+    bs = world["bytes_per_step_per_rank"]
+    print(f"[phase 17] {card_stamp()}: 4 ranks time-sharing one card over gloo (not "
+          f"NCCL numbers), full-width deepfm mesh {world['mesh']}: request B={SERVE_B} "
+          f"p50={world['request_p50_ms']:.3f}ms p99={world['request_p99_ms']:.3f}ms "
+          f"(world 1 p50={world['world1_request_p50_ms']:.3f}ms); step B={TRAIN_B} "
+          f"p50={world['step_p50_ms']:.3f}ms p99={world['step_p99_ms']:.3f}ms; bytes a "
+          f"step a rank: all_to_all={bs['all_to_all']:.0f} psum={bs['psum']:.0f} "
+          f"all_gather={bs['all_gather']:.0f}; probs err {world['probs_max_abs_err']:.3g}; "
+          f"overflow steps 1-20 {world['flush']['overflow_steps_1_20']}", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -4284,8 +4783,14 @@ def main() -> None:
         if name == "gather_pool":  # once a request and once a step
             launches += runs[arch, "train"]["launches"][name]
             where = f"{arch} serve + train"
+        # phase 17's 20 requests and 30 steps, each rank's own launches
+        world4 = ([t[name] + sv.get(name, 0)
+                   for t, sv in zip(world["train_launches_by_rank"],
+                                    world["serve_launches_by_rank"])]
+                  if name in WORLD_KERNELS else None)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
+                        "launches_world4_by_rank": world4,
                         # the kernel's launches on every path run (300 requests,
                         # 30 steps each)
                         "launches_by_path": {f"{ar} {pa}": r2["launches"][name]

@@ -6,7 +6,10 @@ counterpart is easy to find. It imports ``torch`` and never ``jax`` or
 anything of ``repro``: what it needs of the framework-free planner is copied.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; with no GPU
-and no explicit CPU request they raise (``resolve_device``).
+and no explicit CPU request they raise (``resolve_device``). Past world 1
+the port runs one process per rank (``dist``): every entry point built for
+``world > 1`` takes that rank's ``dist.Group`` and raises ``ValueError``
+without it.
 """
 from __future__ import annotations
 
@@ -26,10 +29,3 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
     return dev
-
-
-def require_single_rank(world: int) -> None:
-    """The port runs one rank (its collectives are identities) until the
-    multi-rank (NCCL) slice: ``world > 1`` raises."""
-    if world != 1:
-        raise NotImplementedError("world > 1 needs the multi-rank (NCCL) slice of the port")

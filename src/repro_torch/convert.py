@@ -9,10 +9,14 @@ the Adam moments are nested dicts of arrays, of any depth, with the same
 layout as ``WDLModel.init_dense`` (the sequence models' ``b{i}``/``ln_f``/
 ``attn`` blocks, ``s``, MMoE's ``e{i}``/``g{t}`` and ``task{t}`` towers
 carry over leaf for leaf).
+
+With a ``dist.Group`` past world 1 the reference state is the whole
+(gathered) one, and each rank keeps its rows of ``w``/``acc``/``counts``
+(``dist.sharding``), the rest whole.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,6 +24,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.packed_embedding import CacheState, ProjState
 from repro_torch.core.packing import PicassoPlan
+from repro_torch.dist.compat import Group, resolve_group
+from repro_torch.dist.sharding import shard_emb_state
 from repro_torch.embedding.state import EmbeddingState
 
 
@@ -34,11 +40,14 @@ def _tree(x: Any, device: torch.device) -> Any:
 
 
 def state_from_jax(emb_np: Dict[str, Any], dense_np: Dict[str, Any], plan: PicassoPlan,
-                   device: Union[str, torch.device] = "cuda"
+                   device: Union[str, torch.device] = "cuda",
+                   group: Optional[Group] = None
                    ) -> Tuple[Dict[str, EmbeddingState], Dict[str, Any]]:
     """Reference ``state["emb"]``/``state["dense"]`` (host numpy) -> the
-    port's ``emb`` dict and dense params on ``device``."""
+    port's ``emb`` dict and dense params on ``device`` (this rank's rows of
+    the masters with ``group``)."""
     device = resolve_device(device)
+    grp = resolve_group(plan.world, group)
     emb = {}
     for g in plan.groups:
         st = emb_np[str(g.gid)]
@@ -56,16 +65,18 @@ def state_from_jax(emb_np: Dict[str, Any], dense_np: Dict[str, Any], plan: Picas
             cache=CacheState(*(_tensor(x, device) for x in st.cache)),
             l2=None if l2 is None else CacheState(*(_tensor(x, device) for x in l2)),
             proj=None if proj is None else ProjState(*(_tensor(x, device) for x in proj)))
+        emb[str(g.gid)] = shard_emb_state(emb[str(g.gid)], grp)
     return emb, _tree(dense_np, device)
 
 
 def train_state_from_jax(state_np: Dict[str, Any], plan: PicassoPlan,
-                         device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+                         device: Union[str, torch.device] = "cuda",
+                         group: Optional[Group] = None) -> Dict[str, Any]:
     """A reference train state (host numpy: ``emb``, ``dense``, ``opt`` with
     ``m``/``v``/``t``, ``step``) -> the port's train state on ``device``,
     with ``step`` a host int, so both sides can resume from one state."""
     device = resolve_device(device)
-    emb, dense = state_from_jax(state_np["emb"], state_np["dense"], plan, device)
+    emb, dense = state_from_jax(state_np["emb"], state_np["dense"], plan, device, group)
     opt = state_np["opt"]
     return {"emb": emb, "dense": dense,
             "opt": {"m": _tree(opt["m"], device), "v": _tree(opt["v"], device),

@@ -9,6 +9,13 @@ matrix with per-column constants, so a group costs three host-to-device
 copies whatever its field count. ``dense_features`` moves the batch's
 numeric features to the device beside them, and ``seq_masks`` the validity
 masks of the sequence fields.
+
+The packing salt is the reference's ``hash(table) % 10007``, and Python
+salts ``str`` hashes per process (``PYTHONHASHSEED``). One process per
+rank must agree on it, or a raw id would pack to another row on each rank:
+``agree_salts`` gathers every rank's salts once at start-up and raises
+``SaltMismatch`` on a difference, and the launchers fix ``PYTHONHASHSEED``
+before they spawn the ranks.
 """
 from __future__ import annotations
 
@@ -55,6 +62,36 @@ def table_salt(table: str) -> int:
 def table_salts(plan: PicassoPlan) -> Dict[str, int]:
     """``{table: salt}`` for every table the plan packs."""
     return {t.name: table_salt(t.name) for g in plan.groups for t in g.tables}
+
+
+class SaltMismatch(ValueError):
+    """Packing salts that differ from this process's: a checkpoint or a
+    published delta packed under another ``PYTHONHASHSEED``, or ranks of
+    one world that do not agree on it."""
+
+
+def agree_salts(plan: PicassoPlan, group: Any) -> Dict[str, int]:
+    """This rank's ``table_salts(plan)``, once every rank of ``group`` (a
+    ``dist.Group``) is known to compute the same: the salts are
+    all_gathered and a rank that differs from rank 0 makes every rank raise
+    ``SaltMismatch`` naming ``PYTHONHASHSEED``. At world 1 there is nothing
+    to compare."""
+    salts = table_salts(plan)
+    if group.world == 1:
+        return salts
+    from repro_torch.dist.compat import all_gather_tiled
+
+    names = sorted(salts)
+    dev = "cuda" if group.backend == "nccl" else "cpu"  # NCCL moves card tensors only
+    mine = torch.tensor([salts[n] for n in names], dtype=torch.int64, device=dev)
+    every = all_gather_tiled(mine, group).reshape(group.world, len(names))
+    bad = [r for r in range(group.world) if not torch.equal(every[r], every[0])]
+    if bad:
+        raise SaltMismatch(
+            f"ranks {bad} pack tables under other salts than rank 0 "
+            f"(rank {group.rank}: {dict(zip(names, mine.tolist()))}); start every rank "
+            "under one PYTHONHASHSEED (the launchers set it before they spawn the ranks)")
+    return salts
 
 
 def pack_group(group: PackedGroup, batch: Dict[str, Dict[str, np.ndarray]],

@@ -24,7 +24,7 @@ hash needs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,8 +70,9 @@ def threefry2x32(key: JaxKey, x0: np.ndarray, x1: np.ndarray
     return x0, x1
 
 
-def _hash_iota(key: JaxKey, n: int) -> Tuple[np.ndarray, np.ndarray]:
-    return threefry2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+def _hash_iota(key: JaxKey, n: int, start: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    return threefry2x32(key, np.zeros(n, np.uint32),
+                        np.arange(start, start + n, dtype=np.int64).astype(np.uint32))
 
 
 def split(key: JaxKey, n: int = 2) -> List[JaxKey]:
@@ -87,11 +88,16 @@ def fold_in(key: JaxKey, data: int) -> JaxKey:
     return JaxKey(int(x0[0]), int(x1[0]))
 
 
-def bits(key: JaxKey, shape: Sequence[int]) -> np.ndarray:
-    """``jax.random.bits(key, shape)`` (uint32), bit for bit."""
-    n = int(np.prod(shape, dtype=np.int64))
-    x0, x1 = _hash_iota(key, n)
-    return (x0 ^ x1).reshape(tuple(shape))
+def bits(key: JaxKey, shape: Sequence[int], rows: Optional[Tuple[int, int]] = None
+         ) -> np.ndarray:
+    """``jax.random.bits(key, shape)`` (uint32), bit for bit; with ``rows``
+    ``(lo, hi)`` only those rows of it (each element's counter is its flat
+    index, so a slice is drawn alone)."""
+    shape = tuple(int(s) for s in shape)
+    lo, hi = (0, shape[0]) if rows is None else rows
+    per = int(np.prod(shape[1:], dtype=np.int64))
+    x0, x1 = _hash_iota(key, (hi - lo) * per, lo * per)
+    return (x0 ^ x1).reshape((hi - lo,) + shape[1:])
 
 
 def _erfinv32(x: np.ndarray) -> np.ndarray:
@@ -106,9 +112,11 @@ def _erfinv32(x: np.ndarray) -> np.ndarray:
     return (p * x).astype(np.float32)
 
 
-def normal(key: JaxKey, shape: Sequence[int]) -> np.ndarray:
-    """``jax.random.normal(key, shape)`` in float32."""
-    b = bits(key, shape)
+def normal(key: JaxKey, shape: Sequence[int], rows: Optional[Tuple[int, int]] = None
+           ) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32 (rows ``[lo, hi)`` of it
+    with ``rows``)."""
+    b = bits(key, shape, rows)
     f = ((b >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
     lo = np.nextafter(np.float32(-1), np.float32(0))
     # uniform(lo, 1): (1 - lo) rounds to 2 in float32
@@ -146,10 +154,18 @@ def rng_fold_in(rng: Rng, data: int) -> Rng:
 
 
 def rng_normal(rng: Rng, shape: Sequence[int], device: torch.device,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """A standard normal draw of ``shape`` on ``device``: the reference's
     from a ``JaxKey`` (computed on the host), else from the generator (which
-    lives on ``device``)."""
+    lives on ``device``). ``rows`` ``(lo, hi)`` returns only those rows of
+    the same draw: a ``JaxKey`` computes just them; a generator, whose
+    numbers are not addressable by position, draws the whole tensor (so it
+    advances as far as the whole draw would) and keeps the slice."""
     if isinstance(rng, JaxKey):
-        return torch.from_numpy(normal(rng, shape)).to(device, dtype)
-    return torch.randn(tuple(shape), generator=rng, dtype=dtype, device=device)
+        return torch.from_numpy(normal(rng, shape, rows)).to(device, dtype)
+    full = torch.randn(tuple(shape), generator=rng, dtype=dtype, device=device)
+    if rows is None:
+        return full
+    part = full[rows[0]:rows[1]].clone()
+    del full
+    return part

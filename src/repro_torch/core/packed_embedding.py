@@ -20,9 +20,12 @@ the full width ``D``.
 The reference keeps static shapes for its TPU collectives (sort-based fixed
 unique, fixed-capacity per-peer buckets, sentinel slots); the port keeps
 them too, so ``overflow``, ``send_slot`` and the exact-zero contracts match
-bit for bit. This slice runs one rank: the all_to_all Shuffle, ``psum`` and
-``all_gather`` are identities at world 1, and ``world > 1`` raises until
-the multi-rank (NCCL) slice. The FCounter update and the HybridHash flush
+bit for bit. Past world 1 every rank runs in a process of its own and
+passes its ``dist.Group`` where the reference passes ``axes``: the Shuffle
+is ``dist.all_to_all_tiled``, the tier and projection reductions
+``dist.psum``, the flush's candidates and the baselines' ids and rows
+``dist.all_gather_tiled``. With no group at world 1 every collective is the
+identity, so that path is what it was. The FCounter update and the HybridHash flush
 update the state's tensors in place, and so do the sparse updates: the
 full-width table is 7.5 GB and a functional copy per step would double it.
 """
@@ -32,7 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import require_single_rank as _require_single_rank
+from repro_torch.dist.compat import (WORLD1, Group, all_gather_tiled, all_to_all_tiled,
+                                     psum, resolve_group)
 from repro_torch.kernels import ops
 from repro_torch.optim import grad_compression as gcomp
 
@@ -173,22 +177,23 @@ def _probe_tiers(u: UniqueResult, hot_keys, hot_rows, l2_keys, l2_rows,
 
 
 def _shuffle_gather(table_shard: torch.Tensor, uniq: torch.Tensor, r: Routing, world: int,
-                    capacity: int, fused: Optional[bool] = None):
-    """Route the misses to their owners (an identity all_to_all at world 1),
-    gather the owner rows and route them back: ``(recv_ids, recv_local,
-    recv_valid, back [world*cap, width])``. A host-resident table
-    (``--pin-l2``) is read over the bus by ``ops.take_rows``."""
+                    capacity: int, fused: Optional[bool] = None, group: Group = WORLD1):
+    """Route the misses to their owners (``all_to_all_tiled``, the identity
+    at world 1), gather the owner rows and route them back: ``(recv_ids,
+    recv_local, recv_valid, back [world*cap, width])``. A host-resident
+    table (``--pin-l2``) is read over the bus by ``ops.take_rows``."""
     rps, width = table_shard.shape
     send_ids = torch.full((world * capacity + 1,), -1, dtype=torch.int32,
                           device=uniq.device)
     send_ids[r.send_slot.long()] = uniq.to(torch.int32)  # last slot = drop
-    recv_ids = send_ids[:-1].reshape(world, capacity)
-    base = 0  # this rank's first row
+    recv_ids = all_to_all_tiled(send_ids[:-1], group).reshape(world, capacity)
+    base = group.rank * rps  # this rank's first row
     recv_valid = recv_ids >= 0
     recv_local = torch.clamp(recv_ids - base, 0, rps - 1)
     served = ops.take_rows(table_shard, recv_local.reshape(-1), fused=fused)
     served = served * recv_valid.reshape(-1, 1).to(served.dtype)
-    return recv_ids, recv_local, recv_valid, served.reshape(world * capacity, width)
+    back = all_to_all_tiled(served.reshape(world * capacity, width), group)
+    return recv_ids, recv_local, recv_valid, back
 
 
 def _stitch(miss_rows: torch.Tensor, pr: _Probe) -> torch.Tensor:
@@ -213,6 +218,7 @@ def mp_lookup(
     l2_keys: Optional[torch.Tensor] = None,    # [H2] L2 tier, sorted
     l2_rows: Optional[torch.Tensor] = None,    # [H2, D]
     fused: Optional[bool] = None,              # see kernels.ops
+    group: Optional[Group] = None,             # this rank's (None at world 1)
 ) -> Tuple[torch.Tensor, LookupCtx]:
     """Forward packed lookup. Returns unique rows [n, D] + routing context.
 
@@ -223,13 +229,13 @@ def mp_lookup(
     Shuffle. Without ``l2_keys`` every intermediate is the L1-only path's
     and ``ctx.l2_hit`` stays ``None``.
     """
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = table_shard.shape[0]
     u = fixed_unique(ids, sentinel=rps * world)
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
     recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
-                                                             world, capacity, fused)
+                                                             world, capacity, fused, grp)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
     miss_rows = back[take_idx] * r.kept[:, None].to(back.dtype)
     ctx = LookupCtx(
@@ -252,6 +258,7 @@ def mp_lookup_narrow(
     l2_keys: Optional[torch.Tensor] = None,    # [H2] sorted
     l2_rows: Optional[torch.Tensor] = None,    # [H2, D]
     fused: Optional[bool] = None,
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, LookupCtx]:
     """``mp_lookup`` with hot/cold widths: tier hits are served full-width
     ``D`` rows as in the L2 path, while the misses ride the Shuffle at the
@@ -260,13 +267,13 @@ def mp_lookup_narrow(
     rows land in ``ctx.narrow_rows`` (zeros at tier hits and padding) as the
     residual of the projection's gradient. Probes, overflow and routing are
     ``mp_lookup``'s."""
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = table_shard.shape[0]
     u = fixed_unique(ids, sentinel=rps * world)
     pr = _probe_tiers(u, hot_keys, hot_rows, l2_keys, l2_rows, fused)
     r = partition(u.uniq, pr.miss, rps, world, capacity)
     recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, u.uniq, r,
-                                                             world, capacity, fused)
+                                                             world, capacity, fused, grp)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1)
     miss_rows, narrow = ops.gather_project(back, take_idx, r.kept, proj, fused=fused)
     ctx = LookupCtx(
@@ -316,6 +323,7 @@ def apply_sparse_grads(
     cache_update: str = "psum",   # 'psum' (tier authoritative, exact) | 'stale'
     fused: Optional[bool] = None,
     compress: str = "none",
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"]]:
     """Transposed path: miss grads -> owners; hit grads -> hot tier or owners.
 
@@ -329,24 +337,26 @@ def apply_sparse_grads(
     ``w_shard``, ``acc_shard`` and the tier are updated in place; the
     returned tuple names them.
     """
-    _check_update(world, compress, cache_update)
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress)
+    grp = _check_update(world, compress, cache_update, group)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress, grp)
 
     if cache is None or cache.keys.shape[0] == 0:
         return w_shard, acc_shard, cache
     if cache_update == "stale":
         _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit, g_u, world, lr, eps, fused,
-                         compress)
+                         compress, grp)
         return w_shard, acc_shard, cache
     return w_shard, acc_shard, _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u,
-                                               lr, eps)
+                                               lr, eps, grp)
 
 
-def _check_update(world: int, compress: str, cache_update: str) -> None:
-    _require_single_rank(world)
+def _check_update(world: int, compress: str, cache_update: str,
+                  group: Optional[Group]) -> Group:
+    grp = resolve_group(world, group)
     gcomp.validate_routed_mode(compress)
     if cache_update not in ("psum", "stale"):
         raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
+    return grp
 
 
 def _scatter_rows(send_slot: torch.Tensor, values: torch.Tensor, n_slots: int,
@@ -361,34 +371,38 @@ def _scatter_rows(send_slot: torch.Tensor, values: torch.Tensor, n_slots: int,
 
 
 def _compressed_a2a_rows(send_g: torch.Tensor, compress: str = "none",
-                         fused: Optional[bool] = None) -> torch.Tensor:
+                         fused: Optional[bool] = None,
+                         group: Group = WORLD1) -> torch.Tensor:
     """all_to_all ``[world*cap, D]`` gradient rows, compressed on the wire.
 
     ``'none'`` is the exact hop. Otherwise the rows are compressed before the
-    collective and decompressed after it, as in the reference: at world 1
-    the all_to_all of each payload tensor is the identity, but the lossy
+    collective, every payload tensor rides its own all_to_all (each keeps
+    the leading row dimension) and the owner decompresses after it, as in
+    the reference: at world 1 the all_to_alls are identities, but the lossy
     roundtrip runs all the same. Zero rows (empty bucket slots) survive
     every mode bitwise."""
     if compress == "none":
-        return send_g
+        return all_to_all_tiled(send_g, group)
     payload = gcomp.compress_rows(send_g, compress, fused=fused)
+    payload = type(payload)(*(all_to_all_tiled(x, group) for x in payload))
     return gcomp.decompress_rows(payload, send_g.shape[-1], compress, fused=fused)
 
 
 def _apply_miss_grads(w_shard, acc_shard, ctx: LookupCtx, g_u, world: int, lr: float,
-                      eps: float, fused: Optional[bool] = None, compress: str = "none"):
+                      eps: float, fused: Optional[bool] = None, compress: str = "none",
+                      group: Group = WORLD1):
     """Transposed Shuffle: route miss grads to owner rows and apply. Kept
     positions have distinct slots; the rest all land in the drop slot."""
     cap = ctx.recv_ids.shape[1]
     send_g = _scatter_rows(ctx.routing.send_slot, g_u, world * cap)
-    recv_g = _compressed_a2a_rows(send_g, compress, fused)
+    recv_g = _compressed_a2a_rows(send_g, compress, fused, group)
     return _dedup_apply(w_shard, acc_shard, ctx.recv_local.reshape(-1), recv_g,
                         ctx.recv_valid.reshape(-1), lr, eps, fused)
 
 
 def _route_hit_grads(w_shard, acc_shard, ctx: LookupCtx, hit_mask, g_u, world: int,
                      lr: float, eps: float, fused: Optional[bool] = None,
-                     compress: str = "none"):
+                     compress: str = "none", group: Group = WORLD1):
     """'stale' mode: grads of tier-served ids ride a second small Shuffle to
     their owner rows; the tier itself stays read-only between flushes."""
     rps = w_shard.shape[0]
@@ -396,9 +410,9 @@ def _route_hit_grads(w_shard, acc_shard, ctx: LookupCtx, hit_mask, g_u, world: i
     r = partition(ctx.uniq, hit_mask, rps, world, cap)
     send_ids = _scatter_rows(r.send_slot, ctx.uniq.to(torch.int32), world * cap, -1)
     send_hg = _scatter_rows(r.send_slot, g_u, world * cap)
-    recv_ids = send_ids  # identity all_to_all at world 1
-    recv_hg = _compressed_a2a_rows(send_hg, compress, fused)
-    base = 0  # this rank's first row
+    recv_ids = all_to_all_tiled(send_ids, group)
+    recv_hg = _compressed_a2a_rows(send_hg, compress, fused, group)
+    base = group.rank * rps  # this rank's first row
     local = torch.clamp(recv_ids - base, 0, rps - 1)
     return _dedup_apply(w_shard, acc_shard, local, recv_hg, recv_ids >= 0, lr, eps,
                         fused)
@@ -418,48 +432,68 @@ def _tier_adagrad(tier: "CacheState", g_hot: torch.Tensor, lr: float,
 
 
 def _psum_into_tier(tier: "CacheState", hit_mask: torch.Tensor, slot: torch.Tensor,
-                    g_u: torch.Tensor, lr: float, eps: float) -> "CacheState":
-    """'psum' mode: sum the tier-hit grads per tier slot and adagrad the tier
-    in place (the psum over replicas is the identity at world 1).
+                    g_u: torch.Tensor, lr: float, eps: float,
+                    group: Group = WORLD1) -> "CacheState":
+    """'psum' mode: sum the tier-hit grads per tier slot, ``psum`` them over
+    the replicas (the identity at world 1) and adagrad the tier in place.
 
     Plain PyTorch on purpose, as in the reference: the dense ``[H, D]``
     gradient buffer exists anyway, after which the row-wise adagrad is an
     elementwise pass, and a per-row scatter kernel would only serialize it.
     Non-hit positions add into a drop row past the tier. At world 1 the
     hit positions are distinct unique ids, so their tier slots are distinct
-    and this ``index_add_`` is deterministic on the card too."""
+    and this ``index_add_`` is deterministic on the card too; the all_reduce
+    hands every replica the same sum."""
     h = tier.keys.shape[0]
     dst = torch.where(hit_mask, slot.long(), torch.full_like(slot, h, dtype=torch.long))
     g_hot = torch.zeros((h + 1, g_u.shape[1]), dtype=g_u.dtype, device=g_u.device)
     g_hot.index_add_(0, dst, g_u)
-    return _tier_adagrad(tier, g_hot[:h], lr, eps)
+    return _tier_adagrad(tier, psum(g_hot[:h], group), lr, eps)
 
 
 def _allgather_into_tier(tier: "CacheState", hit_mask: torch.Tensor, slot: torch.Tensor,
                          g_u: torch.Tensor, lr: float, eps: float,
-                         fused: Optional[bool] = None) -> "CacheState":
-    """Exact tier update whose cost follows the batch, not the tier: the
-    hit grads and their slots (an identity all_gather at world 1) feed
-    ``ops.dedup_adagrad`` in place on the tier, so no dense ``[H2, D]``
-    buffer exists. Positions that missed the tier take the sentinel slot and
-    are dropped; duplicate slots sum in stable-sorted position order."""
+                         fused: Optional[bool] = None,
+                         group: Group = WORLD1) -> "CacheState":
+    """Exact tier update whose cost follows the batch, not the tier: every
+    rank's hit grads and slots are all_gathered (the identity at world 1)
+    and feed ``ops.dedup_adagrad`` in place on the tier, so no dense
+    ``[H2, D]`` buffer exists. Positions that missed the tier take the
+    sentinel slot and are dropped; duplicate slots sum in stable-sorted
+    position order of the gathered (rank-major) list, the same on every
+    replica."""
     h = tier.keys.shape[0]
     slots = torch.where(hit_mask, slot, torch.full_like(slot, h))
+    if group.world > 1:
+        slots = all_gather_tiled(slots, group)
+        g_u = all_gather_tiled(g_u * hit_mask[:, None].to(g_u.dtype), group)
+        hit_mask = slots < h
     ops.dedup_adagrad(tier.rows, tier.acc, slots, g_u, hit_mask, lr, eps, fused=fused)
     return tier
 
 
+def l2_reduction(world: int, n: int, d: int, h2: int) -> str:
+    """The reference's static choice of the L2 tier's exact reduction:
+    ``'all_gather'`` of the batch's hit grads and slots when its
+    ``(world - 1) * n * (D + 1)`` elements are fewer than the dense
+    ``H2 * D`` psum's, else ``'psum'``. At world 1 it is always the gather."""
+    return "all_gather" if (world - 1) * n * (d + 1) < h2 * d else "psum"
+
+
 def _tier_hit_grads(cache: Optional["CacheState"], l2: Optional["CacheState"],
                     ctx: LookupCtx, g_u: torch.Tensor, lr: float, eps: float,
-                    fused: Optional[bool]):
+                    fused: Optional[bool], group: Group = WORLD1):
     """'psum' mode for both tiers: L1 hit grads through the dense tier
-    Adagrad, L2 hit grads through ``_allgather_into_tier``. The reference
-    picks the L2 reduction by ``(world - 1) * n * (D + 1) < H2 * D``, which
-    at world 1 always chooses the gather."""
+    Adagrad, L2 hit grads through the reduction ``l2_reduction`` picks."""
     if cache is not None and cache.keys.shape[0] > 0:
-        cache = _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u, lr, eps)
+        cache = _psum_into_tier(cache, ctx.hit, ctx.cache_slot, g_u, lr, eps, group)
     if l2 is not None and l2.keys.shape[0] > 0 and ctx.l2_hit is not None:
-        l2 = _allgather_into_tier(l2, ctx.l2_hit, ctx.l2_slot, g_u, lr, eps, fused)
+        n, d = g_u.shape
+        if l2_reduction(group.world, n, d, l2.keys.shape[0]) == "all_gather":
+            l2 = _allgather_into_tier(l2, ctx.l2_hit, ctx.l2_slot, g_u, lr, eps, fused,
+                                      group)
+        else:
+            l2 = _psum_into_tier(l2, ctx.l2_hit, ctx.l2_slot, g_u, lr, eps, group)
     return cache, l2
 
 
@@ -477,22 +511,24 @@ def apply_sparse_grads_l2(
     cache_update: str = "psum",
     fused: Optional[bool] = None,
     compress: str = "none",
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"], "CacheState"]:
     """Two-tier transposed path (L1 hot tier + L2 tier), in place.
 
     Misses ride the transposed Shuffle as in ``apply_sparse_grads``. In
     ``'psum'`` mode both tiers stay authoritative between flushes: L1 hit
-    grads through the dense tier Adagrad, L2 hit grads through
-    ``_allgather_into_tier``. In ``'stale'`` mode the union of the two
-    tiers' hits rides a second Shuffle to the owner rows and both tiers stay
-    read-only. ``ctx`` must come from an L2-probing lookup."""
-    _check_update(world, compress, cache_update)
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress)
+    grads through the dense tier Adagrad, L2 hit grads through the
+    all_gather or the dense psum, as ``l2_reduction`` picks. In ``'stale'``
+    mode the union of the two tiers' hits rides a second Shuffle to the
+    owner rows and both tiers stay read-only. ``ctx`` must come from an
+    L2-probing lookup."""
+    grp = _check_update(world, compress, cache_update, group)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_u, world, lr, eps, fused, compress, grp)
     if cache_update == "stale":
         _route_hit_grads(w_shard, acc_shard, ctx, ctx.hit | ctx.l2_hit, g_u, world, lr,
-                         eps, fused, compress)
+                         eps, fused, compress, grp)
         return w_shard, acc_shard, cache, l2
-    cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
+    cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused, grp)
     return w_shard, acc_shard, cache, l2
 
 
@@ -532,6 +568,7 @@ def apply_sparse_grads_narrow(
     cache_update: str = "psum",
     fused: Optional[bool] = None,
     compress: str = "none",
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional["CacheState"], Optional["CacheState"],
            ProjState]:
     """Two-tier transposed path at hot/cold widths, in place.
@@ -542,17 +579,18 @@ def apply_sparse_grads_narrow(
     dedup + Adagrad. Tier-hit grads update the WIDE tiers as in
     ``apply_sparse_grads_l2``. The projection's gradient is one
     ``narrow_rows^T @ g_u`` product off the lookup's residual (tier hits
-    never passed through ``proj``), then its row-wise Adagrad."""
-    _check_update(world, compress, cache_update)
+    never passed through ``proj``), psum'd over the replicas, then its
+    row-wise Adagrad."""
+    grp = _check_update(world, compress, cache_update, group)
     g_n = g_u @ proj.kernel.T   # [n, d]
-    _apply_miss_grads(w_shard, acc_shard, ctx, g_n, world, lr, eps, fused, compress)
+    _apply_miss_grads(w_shard, acc_shard, ctx, g_n, world, lr, eps, fused, compress, grp)
     if cache_update == "stale":
         both = ctx.hit if ctx.l2_hit is None else ctx.hit | ctx.l2_hit
         _route_hit_grads(w_shard, acc_shard, ctx, both, g_n, world, lr, eps, fused,
-                         compress)
+                         compress, grp)
     else:
-        cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused)
-    g_proj = ctx.narrow_rows.T @ g_u   # [d, D]; the psum is the identity at world 1
+        cache, l2 = _tier_hit_grads(cache, l2, ctx, g_u, lr, eps, fused, grp)
+    g_proj = psum(ctx.narrow_rows.T @ g_u, grp)   # [d, D]
     proj = _proj_adagrad(proj, g_proj, lr, eps)
     return w_shard, acc_shard, cache, l2, proj
 
@@ -586,15 +624,16 @@ def count_frequencies(counts_shard: torch.Tensor, ctx: LookupCtx) -> torch.Tenso
 
 
 def count_hit_frequencies(counts_shard: torch.Tensor, ctx: LookupCtx,
-                          hit_mask: torch.Tensor, *, world: int) -> torch.Tensor:
+                          hit_mask: torch.Tensor, *, world: int,
+                          group: Optional[Group] = None) -> torch.Tensor:
     """FCounter update for tier-served lookups, in place. Tier hits never
     ride the Shuffle, so the owner never sees them; each rank adds the hits
     it issued to its own rows, weighted by ``world`` (the reference's
     unbiased estimate, exact at world 1). Positions that are not counted
     add 0 to row 0, so the update needs no host sync."""
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = counts_shard.shape[0]
-    base = 0  # this rank's first row
+    base = grp.rank * rps  # this rank's first row
     local = ctx.uniq.to(torch.int32) - base
     ok = hit_mask & (local >= 0) & (local < rps)
     safe = torch.where(ok, local, torch.zeros_like(local)).long()
@@ -620,19 +659,22 @@ def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _rank_tiers(counts_shard: torch.Tensor, h1: int, h2: int, world: int,
-                rows_padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                rows_padded: int, group: Group = WORLD1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frequency ranking for both tiers: the top-(H1+H2) rows by FCounter
     count, split hottest-H1 / next-H2, each sorted; rows counted 0 never
-    enter a tier (sentinel keys instead). The reference keeps the per-shard
-    top-(4H/world) and merges them after an all_gather; at world 1 the merge
-    is a second top-k of the first."""
+    enter a tier (sentinel keys instead). As in the reference each rank
+    keeps its top-(4H/world), the candidates and their global ids are
+    all_gathered (rank-major), and a second top-k over the gathered list
+    breaks ties toward the lower gathered index, as ``lax.top_k`` does; at
+    world 1 the gather is the identity."""
     rps = counts_shard.shape[0]
     h = h1 + h2
-    base = 0  # this rank's first row
+    base = group.rank * rps  # this rank's first row
     k_local = min(rps, max(32, (4 * h + world - 1) // world))
     lvals, lidx = _top_k_stable(counts_shard, k_local)
-    gids = base + lidx.to(torch.int32)
-    tvals, tidx = _top_k_stable(lvals, h)
+    gids = all_gather_tiled(base + lidx.to(torch.int32), group)
+    tvals, tidx = _top_k_stable(all_gather_tiled(lvals, group), h)
     ranked = torch.where(tvals > 0, gids[tidx], torch.full_like(gids[tidx], rows_padded))
     return torch.sort(ranked[:h1]).values, torch.sort(ranked[h1:]).values
 
@@ -650,6 +692,7 @@ def flush_cache(
     world: int,
     decay: float = 0.5,
     write_back: bool = True,
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CacheState]:
     """Periodic HybridHash flush (Algorithm 1 L23-26).
 
@@ -660,14 +703,14 @@ def flush_cache(
     ``counts_shard`` decays in place; the returned tuple names the same
     ``w``/``acc``/``counts`` tensors and a fresh tier.
     """
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = w_shard.shape[0]
     rows_padded = rps * world
-    base = 0
+    base = grp.rank * rps
     if write_back:
         _write_back_tier(w_shard, acc_shard, cache, base, rps, rows_padded)
-    keys, _ = _rank_tiers(counts_shard, cache.keys.shape[0], 0, world, rows_padded)
-    new_cache = _load_tier(w_shard, acc_shard, keys, base, rps, rows_padded)
+    keys, _ = _rank_tiers(counts_shard, cache.keys.shape[0], 0, world, rows_padded, grp)
+    new_cache = _load_tier(w_shard, acc_shard, keys, base, rps, rows_padded, grp)
     _decay(counts_shard, decay)
     return w_shard, acc_shard, counts_shard, new_cache
 
@@ -682,23 +725,24 @@ def flush_cache_l2(
     world: int,
     decay: float = 0.5,
     write_back: bool = True,
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CacheState, CacheState]:
     """Two-tier HybridHash flush: write both tiers back (``'psum'`` mode),
     rank the top-(H1+H2) rows once and split them hottest-H1 -> L1, next-H2
     -> L2 (disjoint by construction), and reload both from the master. An
     empty tier makes this the single-tier flush of the other."""
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = w_shard.shape[0]
     rows_padded = rps * world
-    base = 0
+    base = grp.rank * rps
     if write_back:  # a host-resident L2 tier is staged only to be written back
         _write_back_tier(w_shard, acc_shard, cache, base, rps, rows_padded)
         _write_back_tier(w_shard, acc_shard, _staged_tier(l2, counts_shard.device), base,
                          rps, rows_padded)
     keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
-                               world, rows_padded)
-    new_l1 = _load_tier(w_shard, acc_shard, keys1, base, rps, rows_padded)
-    new_l2 = _load_tier(w_shard, acc_shard, keys2, base, rps, rows_padded)
+                               world, rows_padded, grp)
+    new_l1 = _load_tier(w_shard, acc_shard, keys1, base, rps, rows_padded, grp)
+    new_l2 = _load_tier(w_shard, acc_shard, keys2, base, rps, rows_padded, grp)
     _decay(counts_shard, decay)
     return w_shard, acc_shard, counts_shard, new_l1, _into(l2, new_l2)
 
@@ -714,15 +758,15 @@ def _write_back_tier(w_shard, acc_shard, tier: CacheState, base: int, rps: int,
 
 
 def _load_tier(w_shard, acc_shard, keys, base: int, rps: int,
-               rows_padded: int) -> CacheState:
-    """Master rows -> a fresh tier (the reference's psum of owner
-    contributions is the identity at world 1)."""
+               rows_padded: int, group: Group = WORLD1) -> CacheState:
+    """Master rows -> a fresh replicated tier: the psum of the owners'
+    contributions (the identity at world 1)."""
     nlocal = keys - base
     nmine = (nlocal >= 0) & (nlocal < rps) & (keys < rows_padded)
     nclip = torch.clamp(nlocal, 0, rps - 1).long()
     contrib_w = ops.take_rows(w_shard, nclip) * nmine[:, None].to(w_shard.dtype)
     contrib_a = ops.take_rows(acc_shard, nclip) * nmine[:, None].to(acc_shard.dtype)
-    return CacheState(keys, contrib_w, contrib_a)
+    return CacheState(keys, psum(contrib_w, group), psum(contrib_a, group))
 
 
 def _staged_tier(tier: CacheState, device: torch.device) -> CacheState:
@@ -774,15 +818,17 @@ def _write_back_tier_narrow(w_shard, acc_shard, tier: CacheState, pinv: torch.Te
 
 
 def _load_tier_widened(w_shard, acc_shard, keys: torch.Tensor, proj_kernel: torch.Tensor,
-                       base: int, rps: int, rows_padded: int) -> CacheState:
-    """Narrow master rows -> a fresh WIDE tier: the rows are gathered at the
-    narrow width and widened by one product over the whole tier."""
+                       base: int, rps: int, rows_padded: int,
+                       group: Group = WORLD1) -> CacheState:
+    """Narrow master rows -> a fresh WIDE tier: the owners' rows are psum'd
+    at the narrow width and widened by one product over the whole tier."""
     nlocal = keys - base
     nmine = (nlocal >= 0) & (nlocal < rps) & (keys < rows_padded)
     nclip = torch.clamp(nlocal, 0, rps - 1).long()
-    narrow = ops.take_rows(w_shard, nclip) * nmine[:, None].to(w_shard.dtype)
+    narrow = psum(ops.take_rows(w_shard, nclip) * nmine[:, None].to(w_shard.dtype), group)
     contrib_a = ops.take_rows(acc_shard, nclip) * nmine[:, None].to(acc_shard.dtype)
-    return CacheState(keys, (narrow @ proj_kernel).to(w_shard.dtype), contrib_a)
+    return CacheState(keys, (narrow @ proj_kernel).to(w_shard.dtype),
+                      psum(contrib_a, group))
 
 
 def _carry_exact_rows(tier: CacheState, old1: CacheState, old2: CacheState,
@@ -815,6 +861,7 @@ def flush_cache_narrow(
     world: int,
     decay: float = 0.5,
     write_back: bool = True,
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, CacheState, CacheState]:
     """Two-tier flush at hot/cold widths, the re-widening lifecycle:
 
@@ -834,10 +881,10 @@ def flush_cache_narrow(
     through ``ops.take_rows``/``ops.put_rows``, and the fresh L2 tier is
     written into the old one's pinned buffers.
     """
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     rps = w_shard.shape[0]
     rows_padded = rps * world
-    base = 0
+    base = grp.rank * rps
     l2_d = None  # a host-resident L2 tier is staged only to be written back
     if write_back:
         l2_d = _staged_tier(l2, counts_shard.device)
@@ -845,11 +892,11 @@ def flush_cache_narrow(
         _write_back_tier_narrow(w_shard, acc_shard, cache, pinv, base, rps, rows_padded)
         _write_back_tier_narrow(w_shard, acc_shard, l2_d, pinv, base, rps, rows_padded)
     keys1, keys2 = _rank_tiers(counts_shard, cache.keys.shape[0], l2.keys.shape[0],
-                               world, rows_padded)
+                               world, rows_padded, grp)
     new_l1 = _load_tier_widened(w_shard, acc_shard, keys1, proj_kernel, base, rps,
-                                rows_padded)
+                                rows_padded, grp)
     new_l2 = _load_tier_widened(w_shard, acc_shard, keys2, proj_kernel, base, rps,
-                                rows_padded)
+                                rows_padded, grp)
     if write_back:
         new_l1 = _carry_exact_rows(new_l1, cache, l2_d, rows_padded)
         new_l2 = _carry_exact_rows(new_l2, cache, l2_d, rows_padded)
@@ -862,17 +909,21 @@ def flush_cache_narrow(
 # ---------------------------------------------------------------------------
 
 
-def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, *, world: int) -> torch.Tensor:
+def ps_lookup(table_shard: torch.Tensor, ids: torch.Tensor, *, world: int,
+              group: Optional[Group] = None) -> torch.Tensor:
     """PS/DP-style lookup: all_gather the ids, gather the rows this shard
-    owns, psum the partial rows (no routing, no dedup, no cache). At world 1
-    the collectives are identities, so this is a masked gather: ids outside
-    ``[0, rps)`` (the sentinel slots of ``allgather_rows``) get exact zero
-    rows."""
-    _require_single_rank(world)
+    owns, psum the partial rows and keep this rank's (no routing, no dedup,
+    no cache). At world 1 the collectives are identities, so this is a
+    masked gather. Ids outside the table (the sentinel slots of
+    ``allgather_rows``) get exact zero rows."""
+    grp = resolve_group(world, group)
     rps = table_shard.shape[0]
-    ok = (ids >= 0) & (ids < rps)  # the rows this rank owns start at 0
-    part = table_shard[torch.clamp(ids, 0, rps - 1).long()]
-    return part * ok[:, None].to(part.dtype)
+    n = ids.shape[0]
+    local = all_gather_tiled(ids, grp) - grp.rank * rps
+    ok = (local >= 0) & (local < rps)
+    part = table_shard[torch.clamp(local, 0, rps - 1).long()]
+    full = psum(part * ok[:, None].to(part.dtype), grp)
+    return full[grp.rank * n:(grp.rank + 1) * n]
 
 
 def mp_lookup_nodedup(
@@ -881,6 +932,7 @@ def mp_lookup_nodedup(
     *,
     world: int,
     capacity: int,
+    group: Optional[Group] = None,
 ) -> Tuple[torch.Tensor, LookupCtx]:
     """Model-parallel Shuffle without K-Packed dedup (paper §II-C baseline):
     every raw id, duplicates included, takes its own bucket slot.
@@ -893,7 +945,7 @@ def mp_lookup_nodedup(
     without a sort of its own. No tier: ``hit`` is all False. Needs
     ``capacity >= n`` per owner in the worst case (``exact_capacity=True``
     plans for lossless parity)."""
-    _require_single_rank(world)
+    grp = resolve_group(world, group)
     n = ids.shape[0]
     dev = ids.device
     order = torch.argsort(ids, stable=True)
@@ -904,7 +956,7 @@ def mp_lookup_nodedup(
     every = torch.ones((n,), dtype=torch.bool, device=dev)
     r = partition(s, every, table_shard.shape[0], world, capacity)
     recv_ids, recv_local, recv_valid, back = _shuffle_gather(table_shard, s, r, world,
-                                                             capacity)
+                                                             capacity, group=grp)
     take_idx = torch.clamp(r.send_slot, max=world * capacity - 1).long()
     rows = back[take_idx] * r.kept[:, None].to(back.dtype)
     ctx = LookupCtx(

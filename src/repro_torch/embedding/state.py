@@ -24,6 +24,18 @@ reference's function of that name does for its serve launcher. Where torch
 has no CUDA both return the state unchanged, as the reference's do on a
 backend without a ``pinned_host`` memory kind; the math is the same either
 way.
+
+Past world 1 (one process per rank, ``dist.Group``) ``init_embedding_state``
+gives rank ``r`` exactly rows ``[r*rps, (r+1)*rps)`` of the master,
+accumulator and FCounter that the same ``rng`` draws for the whole table,
+and the tiers and projection whole (``dist.sharding``). A ``JaxKey`` draws
+only the rank's rows. A generator's numbers are not addressable by row, so
+each rank draws every table whole and keeps its rows; on a card the ranks
+share, they take turns, so at most one whole table is transient at a time.
+A generator draws the live rows (the group's vocabularies) and leaves the
+padding rows past them, which no packed id reaches, at zero: at world 1
+there are none, and at any world the draws, and so the dense parameters
+drawn after them, are the world-1 run's.
 """
 from __future__ import annotations
 
@@ -32,9 +44,10 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.jax_random import Rng, rng_normal, rng_split
+from repro_torch.core.jax_random import JaxKey, Rng, rng_normal, rng_split
 from repro_torch.core.packed_embedding import CacheState, ProjState, init_cache
 from repro_torch.core.packing import PackedGroup, PicassoPlan
+from repro_torch.dist.compat import WORLD1, Group, barrier, resolve_group
 
 
 class EmbeddingState(NamedTuple):
@@ -64,21 +77,54 @@ def init_proj(gid: int, nd: int, d: int, device: torch.device,
                      acc=torch.zeros((nd, 1), dtype=dtype, device=device))
 
 
+def _draw_rank_rows(rng: Rng, group: PackedGroup, width: int, rows: Tuple[int, int],
+                    device: torch.device, dtype, ranks: Group) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the group's master draw (module docstring). A
+    generator on a card the ranks share draws its table one rank at a time
+    (a barrier between turns), and the cache returns the table's memory
+    before the next turn."""
+    if isinstance(rng, JaxKey):
+        return rng_normal(rng, (group.rows, width), device, dtype, rows=rows)
+    live = sum(t.vocab for t in group.tables)
+    lo, hi = rows
+    shared_card = device.type == "cuda"
+    out = None
+    for turn in range(ranks.world):
+        if turn == ranks.rank:
+            mine = rng_normal(rng, (live, width), device, dtype, rows=(min(lo, live),
+                                                                         min(hi, live)))
+            pad = torch.zeros((hi - lo - mine.shape[0], width), dtype=dtype, device=device)
+            out = torch.cat([mine, pad]) if pad.shape[0] else mine
+            if shared_card:
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+        if shared_card:
+            barrier(ranks)
+    return out
+
+
 def init_group_state(rng: Rng, group: PackedGroup, hot_rows: int,
                      device: torch.device, dtype=torch.float32, l2_rows: int = 0,
-                     narrow_dim: Optional[int] = None) -> EmbeddingState:
+                     narrow_dim: Optional[int] = None, ranks: Group = WORLD1
+                     ) -> EmbeddingState:
     """``narrow_dim`` below the group's dim makes the MASTER narrow (cold ids
     live at width ``d``, scaled ``1/sqrt(d)``, and are projected up at
-    lookup); the tiers stay at the full width."""
+    lookup); the tiers stay at the full width. ``ranks`` (a ``dist.Group``)
+    keeps this rank's rows of the master, accumulator and FCounter."""
     nd = group.dim if narrow_dim is None else int(narrow_dim)
     narrow = 0 < nd < group.dim
     width = nd if narrow else group.dim
-    w = rng_normal(rng, (group.rows, width), device, dtype)
+    rps = group.rows // ranks.world
+    lo = ranks.rank * rps
+    if ranks.world == 1:
+        w = rng_normal(rng, (group.rows, width), device, dtype)
+    else:
+        w = _draw_rank_rows(rng, group, width, (lo, lo + rps), device, dtype, ranks)
     w.mul_(float(np.float32(1) / np.sqrt(np.float32(max(width, 1)))))
     return EmbeddingState(
         w=w,
-        acc=torch.zeros((group.rows, 1), dtype=dtype, device=device),
-        counts=torch.zeros((group.rows,), dtype=torch.int32, device=device),
+        acc=torch.zeros((rps, 1), dtype=dtype, device=device),
+        counts=torch.zeros((rps,), dtype=torch.int32, device=device),
         cache=init_cache(hot_rows, group.dim, group.rows, dtype, device=device),
         l2=(init_cache(l2_rows, group.dim, group.rows, dtype, device=device)
             if l2_rows > 0 else None),
@@ -87,15 +133,18 @@ def init_group_state(rng: Rng, group: PackedGroup, hot_rows: int,
 
 
 def init_embedding_state(rng: Rng, plan: PicassoPlan,
-                         device: torch.device, dtype=torch.float32
-                         ) -> Dict[int, EmbeddingState]:
+                         device: torch.device, dtype=torch.float32,
+                         group: Optional[Group] = None) -> Dict[int, EmbeddingState]:
     """Per-group state sized by the plan: hot tier ``cache_rows``, L2 tier
     ``l2_rows``, master width ``narrow_width`` (narrow only where the plan
-    records a ``'picasso_narrow'`` assignment)."""
+    records a ``'picasso_narrow'`` assignment). Past world 1 ``group`` is
+    this rank's ``dist.Group`` and the masters hold its rows (module
+    docstring)."""
+    ranks = resolve_group(plan.world, group)
     keys = rng_split(rng, len(plan.groups))
     return {g.gid: init_group_state(keys[i], g, plan.cache_rows.get(g.gid, 0), device,
                                     dtype, l2_rows=plan.l2_rows.get(g.gid, 0),
-                                    narrow_dim=plan.narrow_width(g.gid))
+                                    narrow_dim=plan.narrow_width(g.gid), ranks=ranks)
             for i, g in enumerate(plan.groups)}
 
 

@@ -1,7 +1,7 @@
 """EmbeddingEngine: the one owner of PICASSO's packed sparse path
 (``repro.engine.engine`` in torch, with the L1 tier).
 
-    EmbeddingEngine(plan, world=1, strategy=<name>)
+    EmbeddingEngine(plan, world=1, strategy=<name>, group=None)
         .forward(emb, packed)          -> (pooled, ctx)     # K-interleaved
         .backward(emb, ctx, g_pooled)  -> (emb', metrics)   # transposed path
         .flush(emb)                    -> emb'              # HybridHash flush
@@ -26,6 +26,12 @@ the state's tensors in place. A plan that narrows a group's master (a
 recorded ``'picasso_narrow'`` assignment) can only be driven by
 ``'picasso_narrow'``. With more than one strategy class, the metrics add
 per-class sums (``overflow/<name>``, ``cache_hits/<name>``).
+
+Past world 1 the engine runs on one rank of a ``dist.Group`` (one process
+per rank, the group where the reference passes ``axes``): the state holds
+this rank's rows of each master, every collective spans the group, and the
+metrics ``backward`` returns are this rank's sums, which the callers sum
+over the ranks (``train.train_step``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from repro_torch.core.assign import StrategySpec, resolve_assignment
 from repro_torch.core.features import PackedBatch
 from repro_torch.core.interleaving import wave_barrier
 from repro_torch.core.packing import PicassoPlan
+from repro_torch.dist.compat import Group, resolve_group
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine.strategies import LookupStrategy, get_strategy
 from repro_torch.kernels import ops
@@ -85,6 +92,8 @@ class EmbeddingEngine:
     capacity: optional per-gid override of the bucket capacity (a
         retrieval candidate tower looks up a score chunk of ids, far more
         than the batch the plan was sized for); ``None`` takes the plan's.
+    group: this rank's ``dist.Group``; required past world 1, ``None`` at
+        world 1.
     """
 
     def __init__(self, plan: PicassoPlan, world: int = 1, *,
@@ -92,12 +101,12 @@ class EmbeddingEngine:
                  use_cache: bool = True, use_l2: bool = True, use_interleave: bool = True,
                  lr_emb: float = 0.05, eps: float = 1e-8, cache_update: str = "psum",
                  use_fused_kernels: Any = "auto", grad_compress: str = "none",
-                 capacity: Optional[Dict[int, int]] = None):
+                 capacity: Optional[Dict[int, int]] = None, group: Optional[Group] = None):
         if int(plan.world) != int(world):
             raise ValueError(
                 f"plan was compiled for world={plan.world} but the engine is "
                 f"built for world={world}")
-        pe._require_single_rank(world)
+        self.group = resolve_group(world, group)
         if cache_update not in ("psum", "stale"):
             raise ValueError(f"cache_update must be 'psum' or 'stale', got {cache_update!r}")
         self.plan = plan
@@ -126,7 +135,7 @@ class EmbeddingEngine:
             name: get_strategy(name)(world=world, capacity=cap,
                                      lr=lr_emb, eps=eps, cache_update=cache_update,
                                      use_fused=self.use_fused,
-                                     grad_compress=self.grad_compress)
+                                     grad_compress=self.grad_compress, group=self.group)
             for name in names}
         self.strategies: Dict[int, LookupStrategy] = {
             gid: insts[name] for gid, name in self.assignment.items()}
@@ -281,16 +290,17 @@ class EmbeddingEngine:
                     0, g.dim, g.rows, st.cache.rows.dtype, device=st.cache.rows.device)
                 w2, acc2, counts2, cache2, l22 = pe.flush_cache_narrow(
                     st.w, st.acc, st.counts, st.cache, l2t, st.proj.kernel,
-                    world=self.world, write_back=wb)
+                    world=self.world, write_back=wb, group=self.group)
                 out[str(g.gid)] = EmbeddingState(
                     w2, acc2, counts2, cache2, l22 if l2_live else st.l2, st.proj)
             elif self.l2_on.get(g.gid, False) and st.l2 is not None:
                 w2, acc2, counts2, cache2, l22 = pe.flush_cache_l2(
                     st.w, st.acc, st.counts, st.cache, st.l2, world=self.world,
-                    write_back=wb)
+                    write_back=wb, group=self.group)
                 out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, l22)
             else:
                 w2, acc2, counts2, cache2 = pe.flush_cache(
-                    st.w, st.acc, st.counts, st.cache, world=self.world, write_back=wb)
+                    st.w, st.acc, st.counts, st.cache, world=self.world, write_back=wb,
+                    group=self.group)
                 out[str(g.gid)] = EmbeddingState(w2, acc2, counts2, cache2, st.l2)
         return out

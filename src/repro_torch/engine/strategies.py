@@ -54,6 +54,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 import torch
 
 from repro_torch.core import packed_embedding as pe
+from repro_torch.dist.compat import Group, all_gather_tiled, resolve_group
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.optim import grad_compression as gcomp
 
@@ -96,7 +97,10 @@ class LookupStrategy:
 
     def __init__(self, *, world: int, capacity: Dict[int, int], lr: float = 0.05,
                  eps: float = 1e-8, cache_update: str = "psum",
-                 use_fused: Optional[bool] = None, grad_compress: str = "none"):
+                 use_fused: Optional[bool] = None, grad_compress: str = "none",
+                 group: Optional[Group] = None):
+        # this rank's group, where the reference holds its mesh axes
+        self.group = resolve_group(world, group)
         self.world = world
         self.capacity = capacity
         self.lr = lr
@@ -164,7 +168,7 @@ class PicassoStrategy(LookupStrategy):
 
     def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
         return pe.mp_lookup(
-            st.w, ids, world=self.world, capacity=self.capacity[gid],
+            st.w, ids, world=self.world, group=self.group, capacity=self.capacity[gid],
             hot_keys=st.cache.keys if cache_on else None,
             hot_rows=st.cache.rows if cache_on else None,
             fused=self.use_fused)
@@ -172,7 +176,7 @@ class PicassoStrategy(LookupStrategy):
     def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
         w2, acc2, cache2 = pe.apply_sparse_grads(
             st.w, st.acc, st.cache if cache_on else None, ctx, g_rows,
-            world=self.world, lr=self.lr, eps=self.eps,
+            world=self.world, group=self.group, lr=self.lr, eps=self.eps,
             cache_update=self.cache_update, fused=self.use_fused,
             compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
@@ -232,7 +236,7 @@ class PicassoL2Strategy(PicassoStrategy):
         if not l2_on or st.l2 is None:
             return super().lookup(st, gid, ids, cache_on=cache_on)
         return pe.mp_lookup(
-            st.w, ids, world=self.world, capacity=self.capacity[gid],
+            st.w, ids, world=self.world, group=self.group, capacity=self.capacity[gid],
             hot_keys=st.cache.keys if cache_on else None,
             hot_rows=st.cache.rows if cache_on else None,
             l2_keys=st.l2.keys, l2_rows=st.l2.rows, fused=self.use_fused)
@@ -242,14 +246,14 @@ class PicassoL2Strategy(PicassoStrategy):
             return super().apply_grads(st, gid, ctx, g_rows, cache_on=cache_on)
         w2, acc2, cache2, l22 = pe.apply_sparse_grads_l2(
             st.w, st.acc, st.cache if cache_on else None, st.l2, ctx, g_rows,
-            world=self.world, lr=self.lr, eps=self.eps,
+            world=self.world, group=self.group, lr=self.lr, eps=self.eps,
             cache_update=self.cache_update, fused=self.use_fused,
             compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
         # tier-served ids never route, so they are counted here, or the flush
         # ranking would evict the resident (hottest) rows
         counts2 = pe.count_hit_frequencies(counts2, ctx, ctx.hit | ctx.l2_hit,
-                                           world=self.world)
+                                           world=self.world, group=self.group)
         st2 = st._replace(w=w2, acc=acc2, counts=counts2,
                           cache=cache2 if cache2 is not None else st.cache, l2=l22)
         hits = pe.cache_hit_count(ctx) + pe.l2_hit_count(ctx)
@@ -285,7 +289,7 @@ class PicassoNarrowStrategy(PicassoL2Strategy):
             return super().lookup(st, gid, ids, cache_on=cache_on, l2_on=l2_on)
         with_l2 = l2_on and st.l2 is not None
         return pe.mp_lookup_narrow(
-            st.w, ids, proj=st.proj.kernel, world=self.world,
+            st.w, ids, proj=st.proj.kernel, world=self.world, group=self.group,
             capacity=self.capacity[gid],
             hot_keys=st.cache.keys if cache_on else None,
             hot_rows=st.cache.rows if cache_on else None,
@@ -299,13 +303,15 @@ class PicassoNarrowStrategy(PicassoL2Strategy):
         with_l2 = l2_on and st.l2 is not None and ctx.l2_hit is not None
         w2, acc2, cache2, l22, proj2 = pe.apply_sparse_grads_narrow(
             st.w, st.acc, st.cache if cache_on else None, st.l2 if with_l2 else None,
-            st.proj, ctx, g_rows, world=self.world, lr=self.lr, eps=self.eps,
+            st.proj, ctx, g_rows, world=self.world, group=self.group, lr=self.lr,
+            eps=self.eps,
             cache_update=self.cache_update, fused=self.use_fused,
             compress=self.grad_compress)
         counts2 = pe.count_frequencies(st.counts, ctx)
         if cache_on or with_l2:
             both = ctx.hit if ctx.l2_hit is None else ctx.hit | ctx.l2_hit
-            counts2 = pe.count_hit_frequencies(counts2, ctx, both, world=self.world)
+            counts2 = pe.count_hit_frequencies(counts2, ctx, both, world=self.world,
+                                               group=self.group)
         st2 = st._replace(w=w2, acc=acc2, counts=counts2,
                           cache=cache2 if cache2 is not None else st.cache,
                           l2=l22 if with_l2 else st.l2, proj=proj2)
@@ -333,9 +339,10 @@ def _gathered_apply(strategy: "LookupStrategy", st: EmbeddingState, ids: torch.T
     shard applies the ones it owns with dedup + row-wise Adagrad, in place.
     Returns zero overflow and zero hits: nothing routes, nothing is cached."""
     rps = st.w.shape[0]
+    grp = strategy.group
     all_g = gcomp.compressed_all_gather(g_rows, strategy.world, mode=strategy.grad_compress,
-                                        fused=strategy.use_fused)
-    local = ids.to(torch.int32)  # the rows this rank owns start at 0
+                                        fused=strategy.use_fused, group=grp)
+    local = all_gather_tiled(ids.to(torch.int32), grp) - grp.rank * rps
     ok = (local >= 0) & (local < rps)
     pe._dedup_apply(st.w, st.acc, torch.clamp(local, 0, rps - 1), all_g, ok, strategy.lr,
                     strategy.eps, fused=strategy.use_fused)
@@ -363,7 +370,7 @@ class PSStrategy(LookupStrategy):
     uses_routing_ctx = False
 
     def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
-        rows = pe.ps_lookup(st.w, ids, world=self.world)
+        rows = pe.ps_lookup(st.w, ids, world=self.world, group=self.group)
         order, slot_sorted = _identity_order(ids.shape[0], ids.device)
         return rows, PSCtx(inv=slot_sorted, ids=ids, order=order, slot_sorted=slot_sorted)
 
@@ -383,12 +390,12 @@ class MPNoDedupStrategy(LookupStrategy):
     plans): the owner-side dedup + Adagrad sums the duplicates' grads."""
 
     def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
-        return pe.mp_lookup_nodedup(st.w, ids, world=self.world,
+        return pe.mp_lookup_nodedup(st.w, ids, world=self.world, group=self.group,
                                     capacity=self.capacity[gid])
 
     def apply_grads(self, st, gid, ctx, g_rows, *, cache_on=False, l2_on=False):
         pe._apply_miss_grads(st.w, st.acc, ctx, g_rows, self.world, self.lr, self.eps,
-                             self.use_fused, self.grad_compress)
+                             self.use_fused, self.grad_compress, self.group)
         pe.count_frequencies(st.counts, ctx)
         return (st, ctx.routing.overflow.to(torch.int32),
                 torch.zeros((), dtype=torch.int32, device=g_rows.device))
@@ -419,7 +426,7 @@ class AllGatherRowsStrategy(LookupStrategy):
 
     def lookup(self, st, gid, ids, *, cache_on=False, l2_on=False):
         u = pe.fixed_unique(ids, sentinel=st.w.shape[0] * self.world)
-        rows = pe.ps_lookup(st.w, u.uniq, world=self.world)
+        rows = pe.ps_lookup(st.w, u.uniq, world=self.world, group=self.group)
         return rows, AllGatherCtx(inv=u.inv, uniq=u.uniq, order=u.order,
                                   slot_sorted=u.slot_sorted)
 

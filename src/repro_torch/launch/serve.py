@@ -1,5 +1,6 @@
 """Serving launcher of the PyTorch port: batched scoring of deepfm, dcn-v2,
-sasrec or mind, or two-tower retrieval of sasrec or mind, on one card.
+sasrec or mind, or two-tower retrieval of sasrec or mind, on one card or on
+``--devices`` ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
       --batch 512 --n-requests 10
@@ -23,6 +24,8 @@ sasrec or mind, or two-tower retrieval of sasrec or mind, on one card.
       --device cpu --retrieval
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mind --retrieval \\
       --n-candidates 1048576 --score-chunk 65536
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \
+      --device cpu --devices 4 --mesh 2x2 --batch 64 --n-requests 3
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 ``--strategy mixed``/``auto`` compiles a per-group assignment at the
@@ -50,6 +53,13 @@ launcher has no seed and draws ``PRNGKey(0)``, so at the default ``--seed
 0`` a smoke retrieval prints what ``repro.launch.serve --retrieval`` prints
 under the same ``PYTHONHASHSEED``. Every other run draws its weights from a
 generator on the device.
+
+``--devices N``/``--mesh AxB`` serve on ``world = prod(mesh)`` ranks, one
+process each, as ``repro_torch.launch.train`` runs them (its docstring):
+each rank scores ``batch // world`` samples of every request, retrieval
+ranks score ``n // world`` candidates each and merge their top-k; rank 0
+prints. ``--reload-dir``, ``--pin-l2`` and ``--calibrate`` refuse at world
+> 1 (ROADMAP Queue 1 item 6).
 """
 import argparse
 
@@ -125,13 +135,32 @@ def main(argv=None):
                          "the newest published delta on disk before request i "
                          "(needs --reload-dir); the server must keep answering "
                          "from its last good state")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks to run (one process each; 0: one rank, or the "
+                         "--mesh size)")
+    ap.add_argument("--mesh", default="", metavar="AxB",
+                    help="mesh shape, e.g. 2x2 or 4 (default: --devices x 1); "
+                         "world = its product")
     args = ap.parse_args(argv)
     if args.chaos and not args.reload_dir:
         ap.error("--chaos needs --reload-dir (faults target published deltas)")
     if args.retrieval and (args.reload_dir or args.l2_budget):
         ap.error("--retrieval runs uncached from a fresh state: no --reload-dir "
                  "or --l2-budget")
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.train import launch_ranks
 
+    try:
+        shape = parse_mesh(args.mesh, args.devices)
+    except ValueError as e:
+        ap.error(str(e))
+    launch_ranks("serve", args, shape, _serve, waiting={
+        "--reload-dir": bool(args.reload_dir), "--pin-l2": args.pin_l2,
+        "--calibrate": args.calibrate != "off"})
+
+
+def _serve(group, args, shape) -> None:
+    """One rank of the serving run (the whole run at world 1)."""
     import time
 
     import numpy as np
@@ -139,14 +168,22 @@ def main(argv=None):
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.core.features import agree_salts
     from repro_torch.core.packing import make_plan
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.dist.compat import all_gather_tiled, rank_device
     from repro_torch.engine import maybe_compile, resolve_assignment
+    from repro_torch.launch.mesh import describe
     from repro_torch.models.wdl import WDLModel
-    from repro_torch.serve.serve_step import (ServeConfig, init_state, make_retrieval_step,
-                                              make_serve_step)
+    from repro_torch.serve.serve_step import ServeConfig, init_state, make_serve_step
 
-    device = resolve_device(args.device)
+    world, lead = group.world, group.rank == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
+    device = rank_device(resolve_device(args.device), group)
     cost_model = None
     if args.calibrate != "off":
         from repro_torch.perf import get_cost_model
@@ -156,11 +193,18 @@ def main(argv=None):
             log=lambda s: print(f"[serve] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.retrieval:
-        return retrieve(args, cfg, device, cost_model)
+        return retrieve(args, cfg, device, cost_model, group, shape)
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} does not split over {world} ranks")
     rng = torch.Generator(device=device).manual_seed(args.seed)
-    plan = make_plan(cfg, world=1, per_device_batch=args.batch, l2_bytes=args.l2_budget,
-                     narrow_dim=args.narrow_dim or None,
-                     enable_packing=not args.no_packing, mesh_shape=(1, 1))
+    plan = make_plan(cfg, world=world, per_device_batch=args.batch // world,
+                     l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
+                     enable_packing=not args.no_packing,
+                     mesh_shape=shape if world > 1 else (1, 1))
+    agree_salts(plan, group)  # every rank packs alike, or all raise
+    if world > 1:
+        say(f"[serve] {cfg.name}: world={world} mesh={describe(shape)} "
+            f"backend={group.backend} device={device}", flush=True)
     if args.reload_dir:
         # shape the serve state by the published plan revision (tier budgets,
         # strategy, narrow widths) so published deltas load as they are
@@ -179,12 +223,12 @@ def main(argv=None):
         # 'picasso_narrow' broadcast gates the master widths the state is
         # sized by; serving has no micro pipeline, so the cost model sees
         # the batch
-        strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch,
+        strategy = maybe_compile(plan, args.strategy, per_device_batch=args.batch // world,
                                  cost_model=cost_model,
-                                 log=lambda s: print(f"[serve] {s}"))
-        resolve_assignment(plan, strategy)
+                                 log=lambda s: say(f"[serve] {s}"))
+        resolve_assignment(plan, strategy, world=world)
     model = WDLModel(cfg, plan)
-    state = init_state(model, plan, rng, device)
+    state = init_state(model, plan, rng, device, group=group)
     if args.pin_l2:
         from repro_torch.embedding.state import pin_l2_to_host, warn_pin_l2_limits
         from repro_torch.kernels.host_memory import pinned_bytes
@@ -193,7 +237,7 @@ def main(argv=None):
         state = pin_l2_to_host(state)
         print(f"[serve] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
     scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
-    serve = make_serve_step(model, plan, args.batch, scfg, device)
+    serve = make_serve_step(model, plan, args.batch, scfg, device, group=group)
     poller = torn = None
     if args.reload_dir:
         # degraded-mode pickup: a torn, corrupt or pruned delta is skipped with
@@ -230,19 +274,23 @@ def main(argv=None):
             print(f"[serve] request {i}: step {poller.last_step} "
                   f"mean_prob={float(probs.mean()):.9f} probs[:4]={head}", flush=True)
     lat = np.array(lat[1:] or lat) * 1e3
-    print(f"[serve] {args.arch} B={args.batch}: p50={np.percentile(lat, 50):.1f}ms "
-          f"p99={np.percentile(lat, 99):.1f}ms mean_prob={float(probs.mean()):.3f}")
+    probs = all_gather_tiled(probs, group)  # the whole request, rank-major
+    say(f"[serve] {args.arch} B={args.batch}: p50={np.percentile(lat, 50):.1f}ms "
+        f"p99={np.percentile(lat, 99):.1f}ms mean_prob={float(probs.mean()):.3f}")
 
 
-def retrieve(args, cfg, device, cost_model=None) -> None:
+def retrieve(args, cfg, device, cost_model=None, group=None, shape=(1, 1)) -> None:
     """``--retrieval``: the reference launcher's retrieval plan (one user,
     no hot tier, exact capacities), the user from ``make_batch(cfg, 1,
-    default_rng(1))``, candidates ``arange(n) % vocab`` and the top 10."""
+    default_rng(1))``, candidates ``arange(n) % vocab`` (``n`` rounded down
+    to a multiple of the world, as the reference's launcher does) and the
+    top 10."""
     import numpy as np
     import torch
 
-    from repro_torch.core.features import field_index
+    from repro_torch.core.features import agree_salts, field_index
     from repro_torch.core.jax_random import prng_key
+    from repro_torch.dist.compat import resolve_group
     from repro_torch.core.packing import make_plan
     from repro_torch.data.synthetic import make_batch
     from repro_torch.engine import maybe_compile, resolve_assignment
@@ -253,31 +301,38 @@ def retrieve(args, cfg, device, cost_model=None) -> None:
                       None)
     if item_field is None:
         raise SystemExit(f"--retrieval needs a two-tower arch (sasrec, mind), not {args.arch}")
-    plan = make_plan(cfg, world=1, per_device_batch=1, enable_cache=False,
+    group = resolve_group(1, None) if group is None else group
+    world = group.world
+    plan = make_plan(cfg, world=world, per_device_batch=1, enable_cache=False,
                      exact_capacity=True, narrow_dim=args.narrow_dim or None,
-                     enable_packing=not args.no_packing)
-    nc = args.n_candidates or args.candidates
+                     enable_packing=not args.no_packing,
+                     mesh_shape=shape if world > 1 else None)
+    agree_salts(plan, group)
+    nc = ((args.n_candidates or args.candidates) // world) * world
     # the candidate tower dominates the lookups: the cost model sees a score
     # chunk's worth of item-group samples, not the one-user batch
     ips = plan.group(field_index(plan)[item_field].gid).ids_per_sample
-    proxy_batch = max(1, min(args.score_chunk or nc, nc) // max(ips, 1))
+    local = nc // world
+    proxy_batch = max(1, min(args.score_chunk or local, local) // max(ips, 1))
     strategy = maybe_compile(plan, args.strategy, per_device_batch=proxy_batch,
                              use_cache=False, cost_model=cost_model,
-                             log=lambda s: print(f"[serve] {s}"))
-    resolve_assignment(plan, strategy, use_cache=False)
+                             log=(lambda s: print(f"[serve] {s}")) if group.rank == 0
+                             else None)
+    resolve_assignment(plan, strategy, world=world, use_cache=False)
     model = WDLModel(cfg, plan)
     # smoke tables are small enough to draw the reference's numbers on the host
     rng = (prng_key(args.seed) if args.smoke
            else torch.Generator(device=device).manual_seed(args.seed))
-    state = init_state(model, plan, rng, device)
+    state = init_state(model, plan, rng, device, group=group)
     step = make_retrieval_step(model, plan, nc, top_k=10,
                                scfg=ServeConfig(strategy=strategy, use_cache=False,
                                                 use_fused_kernels=args.fused_kernels),
-                               score_chunk=args.score_chunk, device=device)
+                               score_chunk=args.score_chunk, device=device, group=group)
     user = make_batch(cfg, 1, np.random.default_rng(1))
     cand = torch.arange(nc, dtype=torch.int32, device=device) % cfg.fields[0].vocab
     scores, ids = step(state, user, cand)
-    print("top-10:", ids.cpu().numpy(), np.round(scores.cpu().numpy(), 3))
+    if group.rank == 0:
+        print("top-10:", ids.cpu().numpy(), np.round(scores.cpu().numpy(), 3))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Training launcher of the PyTorch port: PICASSO hybrid training of deepfm,
-dcn-v2, sasrec or mind on one card (world 1).
+dcn-v2, sasrec or mind, on one card or on ``--devices`` ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --steps 50 --global-batch 256
@@ -29,6 +29,8 @@ dcn-v2, sasrec or mind on one card (world 1).
       --l2-budget 2147483648 --pin-l2
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --no-packing --strategy auto --calibrate auto
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \
+      --device cpu --devices 4 --mesh 2x2 --steps 3 --global-batch 64
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
@@ -50,8 +52,21 @@ rejects anomalous steps (``AnomalyGuard`` judging the journaling step);
 with ``--publish-dir``, publish a delta a ``repro_torch.launch.serve
 --reload-dir`` process picks up; ``--replan-iters`` replans from the live
 FCounter and migrates the state. Checkpoints and deltas record the packing
-salts; a resume under other salts raises (``PYTHONHASHSEED``). The
-reference's ``--reshard-*`` waits for the multi-rank slice of the port.
+salts; a resume under other salts raises (``PYTHONHASHSEED``).
+
+``--devices N`` and ``--mesh AxB`` have the reference's meaning: ``world =
+prod(mesh)`` ranks (``--mesh`` defaults to ``Nx1``), each training on
+``global_batch // world`` samples of every batch. The port runs one process
+per rank: this process fixes ``PYTHONHASHSEED`` (its own value, else 0) so
+the ranks pack alike, spawns them (``dist.spawn_ranks``), and rank 0 prints
+the lines a world-1 run prints. The backend is NCCL when every rank has a
+card of its own, else gloo (on the CPU, or on CUDA tensors when the ranks
+share one card); the first line names it. At world > 1 the runtime flags
+that wait for the elastic and multi-rank runtime slice (ROADMAP Queue 1
+item 6) refuse with ``NotImplementedError``: ``--ckpt-dir``, ``--guard``,
+``--chaos``, ``--stream``, ``--replan-iters``, ``--pin-l2``,
+``--calibrate``; ``--reshard-to``/``--reshard-at`` (``runtime/elastic.py``)
+refuse at any world.
 """
 import argparse
 
@@ -170,10 +185,66 @@ def main(argv=None):
     ap.add_argument("--replan-l2-bytes", type=int, default=None, metavar="BYTES",
                     help="L2 byte envelope of replan re-budgets (default: the "
                          "plan's)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks to run (one process each; 0: one rank, or the "
+                         "--mesh size)")
+    ap.add_argument("--mesh", default="", metavar="AxB",
+                    help="mesh shape, e.g. 2x2 or 4 (default: --devices x 1); "
+                         "world = its product")
+    ap.add_argument("--reshard-to", default="", metavar="AxB",
+                    help="live reshard to this mesh (the reference's elastic "
+                         "runtime; not ported: raises)")
+    ap.add_argument("--reshard-at", type=int, default=0, metavar="STEP")
     args = ap.parse_args(argv)
     if args.replan_iters < 0:
         ap.error("--replan-iters must be >= 0 (0 disables replanning)")
+    from repro_torch.launch.mesh import parse_mesh
 
+    try:
+        shape = parse_mesh(args.mesh, args.devices)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.reshard_to or args.reshard_at:
+        raise NotImplementedError("--reshard-to/--reshard-at need runtime/elastic.py, "
+                                  "ROADMAP Queue 1 item 6 (not ported)")
+    launch_ranks("train", args, shape, _train, waiting={
+        "--ckpt-dir": bool(args.ckpt_dir), "--guard": args.guard,
+        "--chaos": bool(args.chaos), "--stream": args.stream,
+        "--replan-iters": bool(args.replan_iters), "--pin-l2": args.pin_l2,
+        "--calibrate": args.calibrate != "off"})
+
+
+def launch_ranks(tag: str, args, shape, body, waiting) -> None:
+    """Run ``body(group, args, shape)`` at world ``prod(shape)``: in this
+    process at world 1, else in one spawned process a rank. Past world 1
+    the flags in ``waiting`` that are set refuse first, and
+    ``PYTHONHASHSEED`` is fixed before the spawn."""
+    import os
+
+    from repro_torch.dist.compat import WORLD1, backend_for, spawn_ranks
+    from repro_torch.launch.mesh import describe, mesh_world
+
+    world = mesh_world(shape)
+    if world == 1:
+        return body(WORLD1, args, shape)
+    on = [flag for flag, set_ in waiting.items() if set_]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)} at world {world}: the runtime past world 1 is ROADMAP "
+            "Queue 1 item 6 (checkpoints, guard, chaos, stream, replanner, --pin-l2 "
+            "and --calibrate wait for it)")
+    seed = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = seed if seed is not None else "0"
+    print(f"[{tag}] world={world} mesh={describe(shape)} "
+          f"backend={backend_for(args.device, world)} "
+          f"PYTHONHASHSEED={os.environ['PYTHONHASHSEED']}"
+          f"{' (this process)' if seed is not None else ' (set by the launcher)'}",
+          flush=True)
+    spawn_ranks(body, world, args, shape, device=args.device)
+
+
+def _train(group, args, shape) -> None:
+    """One rank of the training run (the whole run at world 1)."""
     import logging
     import time
 
@@ -181,7 +252,7 @@ def main(argv=None):
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.core.features import table_salts
+    from repro_torch.core.features import agree_salts
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
@@ -197,13 +268,21 @@ def main(argv=None):
                                               restore_verified)
     from repro_torch.train.fault_tolerance import Supervisor
     from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
+    from repro_torch.dist.compat import rank_device
+    from repro_torch.launch.mesh import describe
+
+    world, lead = group.world, group.rank == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
 
     # recovery events (rollbacks, quarantines) are the operator's window into
     # the fault-tolerance subsystem
     logging.basicConfig(format="[%(name)s] %(levelname)s: %(message)s")
     logging.getLogger("repro_torch").setLevel(logging.INFO)
 
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device), group)
     cost_model = None
     if args.calibrate != "off":
         from repro_torch.perf import get_cost_model
@@ -212,13 +291,17 @@ def main(argv=None):
             grid="tiny" if args.smoke else "small", device=device,
             log=lambda s: print(f"[train] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
-    plan = make_plan(cfg, world=1, per_device_batch=args.global_batch,
+    if args.global_batch % world:
+        raise SystemExit(f"--global-batch {args.global_batch} does not split over "
+                         f"{world} ranks")
+    plan = make_plan(cfg, world=world, per_device_batch=args.global_batch // world,
                      enable_packing=not args.no_packing,
                      enable_cache=not args.no_cache, n_micro=args.n_micro,
                      hot_bytes=1 << 24 if args.smoke else 1 << 30,
                      l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
-                     flush_iters=20, warmup_iters=10, mesh_shape=(1, 1))
-    salts = table_salts(plan)
+                     flush_iters=20, warmup_iters=10,
+                     mesh_shape=shape if world > 1 else (1, 1))
+    salts = agree_salts(plan, group)  # every rank packs alike, or all raise
     meta = None
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         # a checkpointed run may have replanned: revise the structural plan
@@ -244,8 +327,8 @@ def main(argv=None):
         # sized by; training issues plan.microbatch ids a step
         strategy = maybe_compile(plan, args.strategy, use_cache=not args.no_cache,
                                  cost_model=cost_model,
-                                 log=lambda s: print(f"[train] {s}"))
-        resolve_assignment(plan, strategy, use_cache=not args.no_cache)
+                                 log=lambda s: say(f"[train] {s}"))
+        resolve_assignment(plan, strategy, world=world, use_cache=not args.no_cache)
 
     guard = None
     if args.guard:
@@ -284,13 +367,13 @@ def main(argv=None):
                            grad_compress=args.grad_compress, pin_l2=args.pin_l2,
                            lr_emb=args.lr_emb, lr_dense=args.lr_dense)
         # a judged step journals the rows it writes so it can reject itself
-        raw = make_train_step(model, plan, args.global_batch, tcfg, device)
+        raw = make_train_step(model, plan, args.global_batch, tcfg, device, group=group)
         return model, tcfg, wrap_timed(guard.rebind(raw) if guard is not None else raw)
 
     replanner = None
     model, tcfg, step_fn = build_step(plan)
     state = init_state(model, plan, torch.Generator(device=device).manual_seed(args.seed),
-                       device)
+                       device, group=group)
     if args.pin_l2:
         # placed once here: the flushes, the journal, restores and the
         # replanner's migration keep it, and the step checks it
@@ -304,9 +387,10 @@ def main(argv=None):
                               use_cache=not args.no_cache, cache_update=tcfg.cache_update,
                               cost_model=cost_model, pin_l2=args.pin_l2,
                               log=lambda s: print(f"[train] replan {s}", flush=True))
-    print(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
-          f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world=1, "
-          f"device={device}, plan rev={plan.rev}")
+    mesh = f" mesh={describe(shape)} backend={group.backend}" if world > 1 else ""
+    say(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
+        f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world={world},"
+        f"{mesh} device={device}, plan rev={plan.rev}")
 
     # the positional factory gives the Supervisor an exact rewind after a
     # rollback (ReplayableStream.seek)
@@ -323,9 +407,9 @@ def main(argv=None):
         if step % args.log_every == 0:
             tiers = "".join(f" {k.split('/')[1]}={int(m[k])}" for k in
                             ("cache_hits/l1", "cache_hits/l2") if k in m)
-            print(f"  step {step:5d} loss={float(m['loss']):.4f} "
-                  f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}{tiers}",
-                  flush=True)
+            say(f"  step {step:5d} loss={float(m['loss']):.4f} "
+                f"hits={int(m['cache_hits'])} ovf={int(m['overflow'])}{tiers}",
+                flush=True)
         if chaos is not None:
             if args.ckpt_dir:
                 chaos.after_checkpoint(step, args.ckpt_dir, active_ckpt)
@@ -420,7 +504,7 @@ def main(argv=None):
               f"final plan rev={plan.rev}")
     if guard is not None:
         print(f"[train] guard: {guard.accepted} accepted, {guard.rejected} rejected")
-    print("[train] done")
+    say("[train] done")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,4 @@
-"""Gradient compression (``repro.optim.grad_compression`` in torch), at
-world 1.
+"""Gradient compression (``repro.optim.grad_compression`` in torch).
 
 Two wire paths, two APIs:
 
@@ -23,10 +22,13 @@ Both modes compress all-zero rows to exact zeros, so padded bucket slots
 survive the roundtrip bitwise, which the dedup + Adagrad behind the hop
 relies on. The per-row kernels are ``kernels.ops``'s CUDA kernels for CUDA
 tensors and their plain versions on the CPU (``fused=`` as on the sparse
-hot path). At world 1 every collective is the identity, but the lossy
-roundtrip still runs, exactly where the reference runs it; ``world > 1``
-raises until the multi-rank slice. Tier-maintenance traffic (tier psums,
-flush reloads) stays exact: only the per-step routed payload is compressed.
+hot path). Past world 1 the compressed payload is what crosses the wire
+(``dist.compat``): the narrow dense payload is all_gathered and summed in
+rank order in its narrow dtype, the routed payload tensors each ride the
+collective. At world 1 every collective is the identity, but the lossy
+roundtrip still runs, exactly where the reference runs it. Tier-maintenance
+traffic (tier psums, flush reloads) stays exact: only the per-step routed
+payload is compressed.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import require_single_rank
+from repro_torch.dist.compat import Group, all_gather_tiled, psum, resolve_group
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import tree_map
 
@@ -66,15 +68,38 @@ def _narrow_roundtrip(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return q
 
 
+def _narrow_sum(q: torch.Tensor, dt: torch.dtype, group: Group) -> torch.Tensor:
+    """The psum of a narrow payload ``q`` (float32 values of dtype ``dt``)
+    with ``dt`` on the wire: every rank's payload is all_gathered in ``dt``
+    and summed in rank order from zero, so every rank holds the same bits. The adds
+    round as the reference's all-reduce of a narrow dtype does on the CPU:
+    float16 rounds every partial sum to float16, bfloat16 and float8 keep
+    the partial sums in float32 and round once."""
+    if group.world == 1:
+        return q
+    parts = all_gather_tiled(q.to(dt), group).reshape((group.world,) + tuple(q.shape))
+    s = torch.zeros(q.shape, dtype=torch.float32, device=q.device)  # -0.0 sums to +0.0
+    for p in parts:
+        s = s + p.to(torch.float32)
+        if dt == torch.float16:
+            s = _narrow_roundtrip(s, dt)
+    return _narrow_roundtrip(s, dt)
+
+
 def compressed_psum(grads: Any, world: int = 1, mode: str = "none",
-                    residual: Optional[Any] = None) -> Tuple[Any, Any]:
+                    residual: Optional[Any] = None,
+                    group: Optional[Group] = None) -> Tuple[Any, Any]:
     """psum with the payload rounded to a narrow dtype + error feedback.
 
-    Returns (summed grads fp32, new residual); the psum is the identity at
-    world 1, so the sum is the rounded payload read back in float32."""
-    require_single_rank(world)
+    Returns (summed grads fp32, new residual). ``'none'`` is the plain
+    psum; otherwise the narrow payload crosses the wire (``_narrow_sum``).
+    At world 1 the psum is the identity, so the sum is the rounded payload
+    read back in float32."""
+    grp = resolve_group(world, group)
     dt = _DTYPES[validate_dense_mode(mode)]
     if dt is None:
+        if grp.world > 1:
+            grads = tree_map(lambda g: psum(g, grp), grads)
         return grads, residual
 
     def one(g, r=None):
@@ -82,7 +107,7 @@ def compressed_psum(grads: Any, world: int = 1, mode: str = "none",
         # gradient stays -0.0), so no residual means no addition here
         x = g if r is None else g + r
         q = _narrow_roundtrip(x, dt)   # the narrow payload, read back
-        return q, x - q                # the sum, the error-feedback residual
+        return _narrow_sum(q, dt, grp), x - q  # the sum, the error-feedback residual
 
     # tuples are leaves of a dict tree
     pairs = tree_map(one, grads) if residual is None else tree_map(one, grads, residual)
@@ -146,14 +171,16 @@ def decompress_rows(payload: Any, d: int, mode: str,
 
 
 def compressed_all_gather(g: torch.Tensor, world: int = 1, mode: str = "none",
-                          fused: Optional[bool] = None) -> torch.Tensor:
+                          fused: Optional[bool] = None,
+                          group: Optional[Group] = None) -> torch.Tensor:
     """all_gather of gradient rows with the payload compressed on the wire.
-    Every rank would gather the same payload and decompress it alike, so
-    replica-consistent consumers stay consistent; at world 1 the gather is
-    the identity and only the roundtrip remains. The ``ps`` and
+    Every rank gathers the same payload tensors and decompresses them alike,
+    so replica-consistent consumers stay consistent; at world 1 the gather
+    is the identity and only the roundtrip remains. The ``ps`` and
     ``allgather_rows`` strategies' backward moves its grads through it."""
-    require_single_rank(world)
+    grp = resolve_group(world, group)
     if mode == "none":
-        return g
-    return decompress_rows(compress_rows(g, mode, fused=fused), g.shape[-1], mode,
-                           fused=fused)
+        return all_gather_tiled(g, grp)
+    payload = compress_rows(g, mode, fused=fused)
+    payload = type(payload)(*(all_gather_tiled(x, grp) for x in payload))
+    return decompress_rows(payload, g.shape[-1], mode, fused=fused)

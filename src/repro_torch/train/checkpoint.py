@@ -52,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.features import SaltMismatch
 from repro_torch.kernels import host_memory
 
 try:  # optional: plain .npy files where zstandard is missing
@@ -74,10 +75,6 @@ class CheckpointCorrupt(RuntimeError):
         super().__init__(msg)
         self.step = step
         self.leaf = leaf
-
-
-class SaltMismatch(ValueError):
-    """The manifest's packing salts differ from this process's."""
 
 
 class WorldMismatch(NotImplementedError):

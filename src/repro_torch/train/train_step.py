@@ -1,5 +1,5 @@
 """Hybrid MP/DP train step for WDL models (``repro.train.train_step`` in
-torch), at world 1.
+torch).
 
   pack (D-Packing) -> EmbeddingEngine.forward (K-Packing + K-Interleaving)
   -> micro-batch pipeline (D-Interleaving): chunk i+1's forward is issued
@@ -12,8 +12,14 @@ torch), at world 1.
      HybridHash hit grads into the hot tier) ; FCounter update
   -> periodic HybridHash flush.
 
-The reference runs this under ``shard_map``; here the collectives are
-identities at world 1 and ``world > 1`` raises. The pooled embeddings enter
+The reference runs this under ``shard_map``; the port runs one process per
+rank and hands each step its ``dist.Group`` (``None`` at world 1, where
+every collective is the identity). A rank packs its slice of the global
+batch (``dist.sharding.batch_slice``), its dense gradients are
+all-reduced (or ``compressed_psum``'d under ``grad_compression``) before
+Adam, so the replicas stay in step, and the loss and the engine's metrics
+are summed over the ranks; the gradient norm is taken after the sum. The
+pooled embeddings enter
 the loss as detached leaves and ``torch.autograd.grad`` returns their
 gradients beside the dense ones (the reference's ``value_and_grad(...,
 argnums=(0, 1))``); the engine's explicit ``segment_grad`` backward does the
@@ -59,6 +65,8 @@ from repro_torch.core.features import PackedBatch, pack_batch
 from repro_torch.core.jax_random import Rng, rng_split
 from repro_torch.core.interleaving import pipeline_handoff, resolve_overlap
 from repro_torch.core.packing import PicassoPlan
+from repro_torch.dist.compat import Group, psum, resolve_group
+from repro_torch.dist.sharding import batch_slice
 from repro_torch.embedding.state import check_pinned, init_embedding_state
 from repro_torch.kernels import ops
 from repro_torch.engine import EmbeddingEngine, EngineContext
@@ -139,13 +147,15 @@ class TrainStep:
     ``judge`` (``None``, or a ``(loss, grad_norm) -> bool`` callable, as
     ``runtime.AnomalyGuard.rebind`` binds it) makes the step rejectable
     (module docstring); a rejected step adds ``rejected: True`` to its
-    metrics."""
+    metrics. ``group`` is this rank's ``dist.Group`` (required past world
+    1): the step takes the global batch and trains on the rank's slice."""
 
     def __init__(self, model: WDLModel, plan: PicassoPlan, global_batch: int,
-                 tcfg: TrainConfig, device: torch.device):
+                 tcfg: TrainConfig, device: torch.device, group: Optional[Group] = None):
         world = int(plan.world)
         if global_batch % world:
             raise ValueError(f"global batch {global_batch} not divisible by world {world}")
+        self.group = resolve_group(world, group)
         self.model, self.plan, self.tcfg, self.device = model, plan, tcfg, device
         self.global_batch = int(global_batch)
         b_local = self.global_batch // world
@@ -155,7 +165,8 @@ class TrainStep:
             plan, world, strategy=tcfg.strategy, use_cache=tcfg.use_cache,
             use_l2=tcfg.use_l2, use_interleave=tcfg.use_interleave, lr_emb=tcfg.lr_emb,
             eps=tcfg.eps, cache_update=tcfg.cache_update,
-            use_fused_kernels=tcfg.use_fused_kernels, grad_compress=tcfg.grad_compress)
+            use_fused_kernels=tcfg.use_fused_kernels, grad_compress=tcfg.grad_compress,
+            group=self.group)
         self.use_overlap = resolve_overlap(tcfg.overlap, self.n_micro)
         # with the software pipeline or the D-Interleaving order, chunk i+1's
         # forward is issued before chunk i's backward
@@ -172,10 +183,12 @@ class TrainStep:
     def pack(self, batch: Dict) -> Tuple[Dict[int, PackedBatch], Dict[str, torch.Tensor]]:
         """Host batch -> one ``PackedBatch`` per group and the dense-side
         batch (``labels``, ``dense`` features when the config has them and
-        each sequence field's mask, flat), on the device."""
+        each sequence field's mask, flat), on the device: of this rank's
+        slice of the global batch."""
         b = next(iter(batch["fields"].values()))["ids"].shape[0]
         if b != self.global_batch:
             raise ValueError(f"batch of {b} samples; this step trains on {self.global_batch}")
+        batch = batch_slice(batch, self.group)
         packed, side = pack_batch(self.model.cfg, self.plan, batch, self.device)
         side["labels"] = torch.as_tensor(np.asarray(batch["labels"], np.float32)
                                          ).to(self.device)
@@ -281,11 +294,17 @@ class TrainStep:
                 pending = (self.sparse(state, self.micro_batch(packed_full, side,
                                                                i + 1)[0]), i + 1)
                 self._mark("sparse")
+        # the dense data-parallel psum (identities at world 1)
         if self.tcfg.grad_compression != "none":
             # the dense psum's narrow payload; as in the reference the
             # error-feedback residual is dropped, so none carries across steps
             g_dense_acc, _ = gcomp.compressed_psum(g_dense_acc, int(self.plan.world),
-                                                   self.tcfg.grad_compression)
+                                                   self.tcfg.grad_compression,
+                                                   group=self.group)
+        elif self.group.world > 1:
+            g_dense_acc = tree_map(lambda g: psum(g, self.group), g_dense_acc)
+        loss_acc = psum(loss_acc, self.group)
+        em_acc = {k: psum(v, self.group) for k, v in em_acc.items()}
         if journal is not None:
             grad_norm = _grad_norm(g_dense_acc)
             if not self.judge(loss_acc, grad_norm):
@@ -307,19 +326,20 @@ class TrainStep:
 def make_train_step(model: WDLModel, plan: PicassoPlan, global_batch: int,
                     tcfg: TrainConfig = TrainConfig(),
                     device: Union[str, torch.device] = "cuda",
-                    donate: bool = True) -> TrainStep:
+                    donate: bool = True, group: Optional[Group] = None) -> TrainStep:
     """The train step on ``device`` (``cuda`` unless the caller asks for the
-    CPU): ``step(state, batch) -> (state, metrics)``. ``donate`` is the
+    CPU): ``step(state, batch) -> (state, metrics)``, on rank ``group``'s
+    slice of each global batch past world 1. ``donate`` is the
     reference's signature and changes nothing here: the reference's guard
     needs a step that keeps its input state (``donate=False``); the port's
     step updates the state in place either way and journals the rows it
     writes exactly while a judge is bound (``runtime.AnomalyGuard``)."""
     del donate
-    return TrainStep(model, plan, global_batch, tcfg, resolve_device(device))
+    return TrainStep(model, plan, global_batch, tcfg, resolve_device(device), group)
 
 
 def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any = None,
-                  use_cache: bool = True, use_l2: bool = True
+                  use_cache: bool = True, use_l2: bool = True, group: Optional[Group] = None
                   ) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
     """Host-scheduled HybridHash flush, ``state -> state`` (for
     ``flush_in_step=False``). ``strategy=None`` follows the assignment
@@ -328,11 +348,12 @@ def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any =
     a tier (``ps`` among them) are skipped; an unassigned plan flushes as
     ``'picasso'``. ``cache_update``, ``strategy``, ``use_cache`` and
     ``use_l2`` must mirror the training engine's, or the flush would write a
-    tier training never updated back over the master."""
+    tier training never updated back over the master. Past world 1 every
+    rank calls it with its ``group`` (the flush's gathers and psums)."""
     if strategy is None:
         strategy = "mixed" if plan.strategy else "picasso"
     engine = EmbeddingEngine(plan, plan.world, strategy=strategy, use_cache=use_cache,
-                             use_l2=use_l2, cache_update=cache_update)
+                             use_l2=use_l2, cache_update=cache_update, group=group)
 
     @torch.no_grad()
     def flush(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -342,14 +363,16 @@ def make_flush_fn(plan: PicassoPlan, cache_update: str = "psum", strategy: Any =
 
 
 def init_state(model: WDLModel, plan: PicassoPlan, rng: Rng,
-               device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+               device: Union[str, torch.device] = "cuda",
+               group: Optional[Group] = None) -> Dict[str, Any]:
     """Train state ``{"emb", "dense", "opt", "step"}`` made on ``device``
     from ``rng``: a ``torch.Generator`` on that device, or a ``JaxKey`` for
     the reference's own draws (on the host: small tables). ``step`` is a
-    host int."""
+    host int. Past world 1 the masters hold rank ``group``'s rows of the
+    tables the same ``rng`` draws whole (``embedding.state``)."""
     device = resolve_device(device)
     k1, k2 = rng_split(rng, 2)
-    emb = init_embedding_state(k1, plan, device)
+    emb = init_embedding_state(k1, plan, device, group=group)
     dense = model.init_dense(k2, device)
     return {"emb": {str(g): s for g, s in emb.items()}, "dense": dense,
             "opt": adam_init(dense), "step": 0}

@@ -254,7 +254,7 @@ def test_routed_roundtrip_matches_reference(mesh1, mode):
     for fused in (False, True):  # the Pallas branch in interpret mode
         _same_bits(gc.compressed_all_gather(_t(g), 1, mode).numpy(),
                    _jax_gather(mesh1, g, mode, fused), f"all_gather fused={fused}")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="world=2 needs a repro_torch.dist.Group"):
         gc.compressed_all_gather(_t(g), 2, mode)
 
 
@@ -309,7 +309,7 @@ def test_compressed_psum_matches_reference(mesh1, mode):
         assert nan_at[np.abs(sweep) > 464].all() and not nan_at[np.abs(sweep) <= 464].any()
     with pytest.raises(ValueError, match="grad_compression"):
         gc.compressed_psum(tgrads, 1, "int4")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="world=2 needs a repro_torch.dist.Group"):
         gc.compressed_psum(tgrads, 2, mode)
 
 

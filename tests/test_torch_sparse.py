@@ -31,6 +31,7 @@ from repro_torch.core.features import pack_group
 from repro_torch.core.hashing import scramble
 from repro_torch.core.packing import make_plan
 from repro_torch.data.synthetic import make_batch
+from repro_torch.dist import Group
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine import EmbeddingEngine
 
@@ -234,9 +235,14 @@ def test_lookup_rows_serves_tier_rows_then_master_rows():
 
 
 def test_multi_rank_raises():
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    """Past world 1 a lookup needs this rank's ``dist.Group``: ``world=2``
+    without one, or with a group of another world, raises ``ValueError``."""
+    with pytest.raises(ValueError, match="world=2 needs a repro_torch.dist.Group"):
         pe.mp_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32), world=2,
                      capacity=4)
+    with pytest.raises(ValueError, match="world=2 but the group given has world 4"):
+        pe.mp_lookup(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int32), world=2,
+                     capacity=4, group=Group(0, 4))
 
 
 def _tied_counts(rows, rng):

@@ -110,7 +110,7 @@ def test_ps_lookup_is_bitwise_the_reference(mesh1, kind):
     assert (got[outside] == 0).all()
     assert outside.any() == (kind in ("out_of_range", "negative"))
     np.testing.assert_array_equal(got[~outside], w[ids[~outside]])
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="world=2 needs a repro_torch.dist.Group"):
         pe.ps_lookup(_t(w), _t(ids), world=2)
 
 
@@ -254,9 +254,9 @@ def test_gathered_grads_move_through_compressed_all_gather(monkeypatch, name):
 
     calls, real = [], gcomp.compressed_all_gather
 
-    def spy(g, world=1, mode="none", fused=None):
+    def spy(g, world=1, mode="none", fused=None, group=None):
         calls.append((g.shape, mode))
-        return real(g, world, mode, fused)
+        return real(g, world, mode, fused, group)
 
     monkeypatch.setattr(gcomp, "compressed_all_gather", spy)
     jplan, plan = _roundtrip_plans()

@@ -400,15 +400,15 @@ def test_apply_sparse_grads_matches_reference(mesh1, cache_update):
 
 
 def test_apply_sparse_grads_rejects_unported_options():
-    """World > 1 raises; an unknown routed compression mode raises
-    ``ValueError`` and the ported ones are taken (``'none'`` bitwise as the
-    default)."""
+    """World > 1 without a ``dist.Group`` raises ``ValueError``; an unknown
+    routed compression mode raises ``ValueError`` and the ported ones are
+    taken (``'none'`` bitwise as the default)."""
     w, acc, ids, keys, hot, hot_acc, g_u = _sparse_case()
     _, ctx = pe.mp_lookup(_t(w), _t(ids), world=1, capacity=96)
     with pytest.raises(ValueError, match="grad_compress"):
         pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=1, lr=0.05,
                               compress="bf16")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(ValueError, match="world=2 needs a repro_torch.dist.Group"):
         pe.apply_sparse_grads(_t(w), _t(acc), None, ctx, _t(g_u), world=2, lr=0.05)
     ws = {}
     for mode in ("none", "fp16", "topk"):
