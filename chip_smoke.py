@@ -11,7 +11,9 @@ the runtime (checkpoints, guard, chaos, streaming, replanning), serves,
 trains and retrieves with full-width sasrec and mind, and runs DLRM and
 narrow deepfm with ``--pin-l2`` (the L2 tier and the narrow master in pinned
 host memory, read and written by the kernels over the bus) and the
-calibrated cost model.
+calibrated cost model, and trains full-width deepfm on 4 ranks sharing the
+card (phase 17), then under the Supervisor, the guard and chaos with the
+ranks' checkpoints (phase 18).
 
     python3 chip_smoke.py
 
@@ -299,7 +301,24 @@ Phases, in order (any failure raises and exits non-zero):
    with the largest L2 tier whose hit grads take the dense psum (both tiers
    hit). Request and step p50/p99 and the bytes each collective moves a
    step are printed as 4 ranks time-sharing one card over gloo, beside the
-   card's name and power limit: not NCCL numbers.
+   card's name and power limit: not NCCL numbers;
+18. the fault-tolerant loop past world 1, on phase 17's 4 ranks, plan and
+   batches: a clean unguarded run of 30 steps, then from the same draw 30
+   steps under the ``Supervisor`` (checkpoints every 10 steps, written by
+   the 4 ranks together on a background thread, about 9.2 GB each), the
+   guard and chaos ``nan@12,nan@13,ckpt@20,crash@24``: both poisoned steps
+   rejected on every rank, the step-20 checkpoint torn once every rank's
+   save of it is in and quarantined once, the crash rolling every rank back
+   to step 10 and the run replaying to step 30, each rank's state digest
+   bitwise the clean run's, each rank's launches of the six kernels
+   counted (each once a step); the step-30 checkpoint's files, read back
+   leaf by leaf, bitwise the ranks' live leaves; a fresh spawn of 4 ranks
+   resuming from the directory at step 30 with the same digests. Checkpoint
+   GB/s each way, host RSS peaks per rank, the seconds from the crash to
+   the first replayed step and the guarded step's p50 against the
+   unguarded one are printed as 4 ranks time-sharing one card over gloo,
+   beside the card's name and power limit. The checkpoint directory (up to
+   three checkpoints, the quarantined one included) is removed after.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -4510,6 +4529,284 @@ def world_step_check(ranks, i: int, step, state, batch, plan) -> dict:
             "hits_4": r0["hits"], "hits_1": rec["hits"]}
 
 
+# ------------------------------------------------------------------ phase 18
+#
+# The fault-tolerant loop past world 1: full-width deepfm on phase 17's 4
+# ranks and plan under the Supervisor, the guard and chaos, the ranks
+# writing one checkpoint together every 10 steps; the clean run it must end
+# at; the step-30 checkpoint's files against the live leaves; a fresh
+# 4-rank resume. Times are of 4 ranks time-sharing one card over gloo.
+
+FT_CHAOS = "nan@12,nan@13,ckpt@20,crash@24"
+FT_CKPT_EVERY = 10
+FT_KEEP = 2          # with the quarantined one, three checkpoints on disk at most
+FT_CHECKPOINTS_ON_DISK = 3
+
+
+def ft_steady(lat) -> float:
+    """p50 of ``(state step after, ms)`` pairs past the warm-up, the flush
+    step left out."""
+    return float(np.percentile([ms for s, ms in lat
+                                if s > WARMUP_ITERS and s != FLUSH_ITERS], 50))
+
+
+def ft_leaf_bytes(state, group) -> int:
+    """This rank's share of the logical checkpoint: its rows of the
+    row-sharded leaves, and the replicated leaves once (rank 0)."""
+    from repro_torch.dist.sharding import row_sharded_leaf
+
+    return sum(x.numel() * x.element_size() for name, x in ckpt._flatten(state).items()
+               if isinstance(x, torch.Tensor)
+               and (row_sharded_leaf(name) or group.rank == 0))
+
+
+def ft_files_match(d: str, state, group) -> dict:
+    """The checkpoint's files read back leaf by leaf (not through the
+    restore): this rank's rows of each row-sharded leaf and every replicated
+    leaf, bitwise its live leaves, chunk by chunk; the leaves that differ."""
+    import io
+
+    from repro_torch.dist.sharding import row_sharded_leaf
+
+    doc = json.loads((Path(d) / "manifest.json").read_text())
+    flat = ckpt._flatten(state)
+    bad, nbytes = sorted(set(doc["leaves"]) ^ set(flat)), 0
+    for name, info in doc["leaves"].items():
+        path = Path(d) / info["file"]
+        if path.name.endswith(".zst"):  # a host with zstandard: read it whole
+            import zstandard
+
+            with open(path, "rb") as f:
+                arr = np.load(io.BytesIO(zstandard.ZstdDecompressor().decompress(f.read())))
+        else:
+            arr = np.load(path, mmap_mode="r")
+        x = flat[name]
+        same = arr.dtype == ckpt._np_dtype(x)
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            live = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                              dtype=ckpt._np_dtype(x))
+            same &= arr.shape == () and np.asarray(arr).tobytes() == live.tobytes()
+        else:
+            lo = group.rank * x.shape[0] if row_sharded_leaf(name) else 0
+            same &= tuple(arr.shape[1:]) == tuple(x.shape[1:])
+            step = max(1, (64 << 20) // max(1, x[:1].numel() * x.element_size()))
+            for r0 in range(0, x.shape[0], step):
+                r1 = min(x.shape[0], r0 + step)
+                got = np.ascontiguousarray(arr[lo + r0:lo + r1])
+                same &= got.tobytes() == x[r0:r1].cpu().numpy().tobytes()
+                nbytes += got.nbytes
+        if not same:
+            bad.append(name)
+    return {"equal": not bad, "differ": bad, "leaves": len(flat), "bytes_read": nbytes}
+
+
+def ft_rank(group, d: str) -> dict:
+    """One rank of phase 18: an unguarded clean run of TRAIN_STEPS steps;
+    then, from the same draw, the Supervisor's run under the guard and
+    FT_CHAOS, checkpoints every FT_CKPT_EVERY steps, the launches counted;
+    then the step-30 checkpoint's files against the live leaves."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.features import agree_salts
+
+    torch.set_num_threads(2)
+    cfg, plan, _ = world_plans(group.world)
+    salts = agree_salts(plan, group)
+    model = WDLModel(cfg, plan)
+    batches = world_batches()[0][:TRAIN_STEPS]
+    out = {"rank": group.rank}
+
+    def timed(fn, lat):
+        def call(state, b):
+            torch.cuda.synchronize(DEV)
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize(DEV)
+            lat.append((state["step"], (time.perf_counter() - t0) * 1e3, bool(m.get("rejected"))))
+            return state, m
+        return call
+
+    # -- the clean run
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    lat = []
+    step = timed(ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(), DEV,
+                                    group=group), lat)
+    for b in batches:
+        state, _ = step(state, b)
+    out["clean"] = {"digest": state_digest(state), "lat": lat, "step": state["step"]}
+    out["bytes"] = ft_leaf_bytes(state, group)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the supervised run
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    guard = AnomalyGuard(ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(), DEV,
+                                            group=group), group=group)
+    ctl = ChaosController(parse_fault_plan(FT_CHAOS), group=group)
+    sup = Supervisor(d, ckpt_every=FT_CKPT_EVERY, backoff_s=0.0, keep=FT_KEEP, salts=salts,
+                     group=group)
+    sup.meta = plan_meta(plan)
+    # ckpt@20 tears the checkpoint written at step 20, once every rank's save
+    # of it is in: applied right after that save (the launcher applies chaos
+    # in its metrics hook, before the step's save, where it tears step 10's)
+    save = sup.ckpt.save
+
+    def save_then_chaos(at, st, meta=None):
+        save(at, st, meta=meta)
+        ctl.after_checkpoint(at, d, sup.ckpt)
+
+    sup.ckpt.save = save_then_chaos
+    saves, real_save = [], ckpt.save_checkpoint
+
+    def timed_save(*a, **k):  # on the writer thread
+        with RssSampler() as rs:
+            t0 = time.perf_counter()
+            path = real_save(*a, **k)
+            saves.append({"step": a[1], "s": time.perf_counter() - t0,
+                          "rss_above_base": rs.above_base})
+        return path
+
+    ckpt.save_checkpoint = timed_save
+    lat, crash = [], {}
+
+    def on_metrics(i, m):
+        if i in ctl.plan.crash and f"crash@{i}" not in ctl.fired:
+            crash["at"] = time.perf_counter()
+        ctl.injector(i)
+
+    stepper = timed(guard, lat)
+
+    def step_fn(st, b):
+        st, m = stepper(st, b)
+        if "at" in crash and "replayed" not in crash:
+            crash["replayed"] = time.perf_counter()
+        return st, m
+
+    torch.cuda.synchronize(DEV)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state = sup.run(state, step_fn, ctl.wrap_stream(ReplayableStream(
+            lambda s: iter(batches[s:]))), TRAIN_STEPS, on_metrics=on_metrics)
+        sup.ckpt.wait()
+    finally:
+        ckpt.save_checkpoint = real_save
+    torch.cuda.synchronize(DEV)
+    launches = dict(ops.launches)
+    rdist.barrier(group)  # every rank's writer done, rank 0's listing after
+    out["supervised"] = {
+        "digest": state_digest(state), "step": state["step"], "seconds": time.perf_counter() - t0,
+        "lat": lat, "calls": len(lat), "launches": launches, "saves": saves,
+        "events": [(e.step, e.kind, e.consecutive) for e in guard.events],
+        "accepted": guard.accepted, "rejected": guard.rejected,
+        "failures": sup.total_failures, "fired": sorted(ctl.fired),
+        "crash_to_replay_s": crash["replayed"] - crash["at"],
+        "dirs": sorted(p.name for p in Path(d).iterdir() if p.name.startswith("step_"))}
+    out["files"] = ft_files_match(str(Path(d) / f"step_{TRAIN_STEPS:08d}"), state, group)
+    del state, guard, sup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ft_restart_rank(group, d: str) -> dict:
+    """A fresh rank of phase 18: the Supervisor's resume from the ranks'
+    newest checkpoint into a state drawn from another seed."""
+    from repro_torch.core.features import agree_salts
+
+    torch.set_num_threads(2)
+    cfg, plan, _ = world_plans(group.world)
+    salts = agree_salts(plan, group)
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED + 1), DEV,
+                          group=group)
+    sup = Supervisor(d, ckpt_every=FT_CKPT_EVERY, salts=salts, group=group)
+    torch.cuda.synchronize(DEV)
+    with RssSampler() as rs:
+        t0 = time.perf_counter()
+        state, at = sup.maybe_restore(state)
+        torch.cuda.synchronize(DEV)
+        seconds = time.perf_counter() - t0
+    return {"step": at, "state_step": state["step"], "digest": state_digest(state),
+            "restore_s": seconds, "restore_rss_above_base": rs.above_base}
+
+
+def ft_phase(t_start: float) -> dict:
+    """Phase 18: ``ft_rank`` on 4 ranks, then ``ft_restart_rank`` on 4
+    fresh ones over the same directory (removed after), and the checks."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = checkpoint_dir()
+    try:
+        free = shutil.disk_usage(d).free
+        ranks = rdist.spawn_ranks(ft_rank, WORLD, d, device="cuda")
+        t_ranks = time.perf_counter() - t_phase
+        restart = rdist.spawn_ranks(ft_restart_rank, WORLD, d, device="cuda")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    nbytes = sum(r["bytes"] for r in ranks)
+    check(free > FT_CHECKPOINTS_ON_DISK * nbytes,
+          f"free disk {free / 1e9:.1f} GB for three {nbytes / 1e9:.2f} GB checkpoints")
+    per_step = ARCHS["deepfm"].train_launches
+    for r in ranks:
+        sv, k = r["supervised"], r["rank"]
+        check(sv["digest"] == r["clean"]["digest"] and sv["step"] == r["clean"]["step"]
+              == TRAIN_STEPS,
+              f"rank {k}: the supervised run's step-{TRAIN_STEPS} digest bitwise the clean run's")
+        check([e[1] for e in sv["events"]] == ["nonfinite", "nonfinite"] and sv["rejected"] == 2
+              and sv["failures"] == 1 and sv["fired"] == ["ckpt@20", "crash@24"],
+              f"rank {k}: both poisoned steps rejected, one rollback, chaos fired once: "
+              f"{sv['events']} {sv['failures']} {sv['fired']}")
+        check(sv["dirs"] == ["step_00000020", "step_00000020.corrupt", "step_00000030"],
+              f"rank {k}: the torn step-20 checkpoint quarantined once, the replay wrote "
+              f"20 and 30 again: {sv['dirs']}")
+        check(sv["launches"] == {n: per_step.get(n, 0) * sv["calls"] for n in sv["launches"]}
+              and all(sv["launches"].get(n, 0) > 0 for n in WORLD_KERNELS),
+              f"rank {k}: {sv['calls']} steps launched each kernel of the path once a step: "
+              f"{sv['launches']}")
+        check(r["files"]["equal"], f"rank {k}: the step-{TRAIN_STEPS} checkpoint's files "
+              f"bitwise its live leaves (differing: {r['files']['differ']})")
+    for r, again in zip(ranks, restart):
+        check(again["step"] == again["state_step"] == TRAIN_STEPS
+              and again["digest"] == r["supervised"]["digest"],
+              f"rank {r['rank']}: a fresh spawn resumed at step {again['step']} with the "
+              "live state's digest")
+    # each save's seconds on the slowest rank, in order (step 20 twice: the replay)
+    save_s = [[s["step"], max(r["supervised"]["saves"][i]["s"] for r in ranks)]
+              for i, s in enumerate(ranks[0]["supervised"]["saves"])]
+    restore_s = max(r["restore_s"] for r in restart)
+    lat_g = [(s, ms) for r in ranks for s, ms, rej in r["supervised"]["lat"] if not rej]
+    lat_u = [(s, ms) for r in ranks for s, ms, _ in r["clean"]["lat"]]
+    out = {"world": WORLD, "mesh": "x".join(map(str, WORLD_MESH)), "chaos": FT_CHAOS,
+           "checkpoint_bytes": nbytes, "free_disk_bytes": free,
+           "codec": "npy.zst" if ckpt.zstandard is not None else "npy",
+           "save_s_by_step": save_s,
+           "save_gb_per_s": nbytes / float(np.median([t for _, t in save_s])) / 1e9,
+           "restore_s": restore_s, "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "save_rss_peak_above_base_by_rank": [max(s["rss_above_base"]
+                                                    for s in r["supervised"]["saves"])
+                                                for r in ranks],
+           "restore_rss_peak_above_base_by_rank": [a["restore_rss_above_base"]
+                                                   for a in restart],
+           "crash_to_first_replayed_step_s": max(r["supervised"]["crash_to_replay_s"]
+                                                 for r in ranks),
+           "step_p50_ms_guarded": ft_steady(lat_g), "step_p50_ms_unguarded": ft_steady(lat_u),
+           "supervised_s": max(r["supervised"]["seconds"] for r in ranks),
+           "calls_by_rank": [r["supervised"]["calls"] for r in ranks],
+           "launches_by_rank": [r["supervised"]["launches"] for r in ranks],
+           "files_bytes_read_by_rank": [r["files"]["bytes_read"] for r in ranks],
+           "digest_leaves": len(ranks[0]["clean"]["digest"]),
+           "ranks_s": t_ranks, "phase_s": time.perf_counter() - t_phase}
+    print(f"[wall] phase 18 done at {time.perf_counter() - t_start:.1f}s "
+          f"(ranks {t_ranks:.1f}s, phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4753,6 +5050,20 @@ def main() -> None:
           f"step a rank: all_to_all={bs['all_to_all']:.0f} psum={bs['psum']:.0f} "
           f"all_gather={bs['all_gather']:.0f}; probs err {world['probs_max_abs_err']:.3g}; "
           f"overflow steps 1-20 {world['flush']['overflow_steps_1_20']}", flush=True)
+    ft = ft_phase(t_start)  # phase 18
+    print("[ft] " + json.dumps(ft), flush=True)
+    rss_s = [round(b / 2**20, 1) for b in ft["save_rss_peak_above_base_by_rank"]]
+    rss_r = [round(b / 2**20, 1) for b in ft["restore_rss_peak_above_base_by_rank"]]
+    print(f"[phase 18] {card_stamp()}: 4 ranks time-sharing one card over gloo (not NCCL "
+          f"numbers), full-width deepfm mesh {ft['mesh']} under the Supervisor, the guard "
+          f"and chaos {ft['chaos']}: checkpoint {ft['checkpoint_bytes'] / 1e9:.2f} GB "
+          f"({ft['codec']}) save {ft['save_gb_per_s']:.2f} GB/s (median of "
+          f"{len(ft['save_s_by_step'])} saves, written while the steps run) restore "
+          f"{ft['restore_gb_per_s']:.2f} GB/s ({ft['restore_s']:.2f}s, a fresh spawn); host RSS "
+          f"peak above base per rank MiB: save {rss_s} restore {rss_r}; crash to the first "
+          f"replayed step {ft['crash_to_first_replayed_step_s']:.2f}s; step p50 "
+          f"{ft['step_p50_ms_guarded']:.3f}ms guarded vs {ft['step_p50_ms_unguarded']:.3f}ms "
+          "unguarded", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -4788,9 +5099,13 @@ def main() -> None:
                    for t, sv in zip(world["train_launches_by_rank"],
                                     world["serve_launches_by_rank"])]
                   if name in WORLD_KERNELS else None)
+        # phase 18's supervised run, each rank's own launches
+        ft4 = ([la[name] for la in ft["launches_by_rank"]] if name in WORLD_KERNELS
+               else None)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
                         "launches_world4_by_rank": world4,
+                        "launches_world4_supervised_by_rank": ft4,
                         # the kernel's launches on every path run (300 requests,
                         # 30 steps each)
                         "launches_by_path": {f"{ar} {pa}": r2["launches"][name]

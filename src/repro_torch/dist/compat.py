@@ -45,25 +45,77 @@ a collective that fails raises.
 (``reset_traffic``/``traffic_snapshot``; a psum counts ``2 (W-1)/W`` of
 its tensor, what a ring all-reduce sends), which the chip check reports a
 step at a time.
+
+What the runtime needs past world 1, where the reference decides once in
+its one process and the port's ranks must decide alike:
+
+* ``agree`` all_gathers a few small ints from every rank over the step's
+  group (a failure class, a verdict, a step); every rank then computes the
+  same decision from the same list. It runs on the thread that runs the
+  steps, as every collective of the step's group does.
+* a gate: ``Group.gate`` holds, while armed (``arm_gate``), the agreement
+  the next collective of the step's group runs before it moves any bytes.
+  A supervisor arms it before a step, so a rank that fails before the
+  step's first collective (a fault injected before the step, a bad batch,
+  an error in packing) meets the other ranks in that agreement from its
+  error handler instead of leaving them blocked in the step's collective.
+* a second process group, ``Group.ckpt_pg`` (gloo, host tensors), made by
+  ``init_ranks`` on every rank for checkpoint traffic: a checkpoint is
+  written on a background thread while the step's collectives go on, and
+  two threads must never issue collectives on one group. The
+  ``ckpt_*`` helpers below move a checkpoint's bytes and verdicts on it.
+* a timeout on both groups (``PG_TIMEOUT_S``): a collective that a rank
+  never joins (the rank died, or failed inside the step after its first
+  collective) raises ``CollectiveFailure`` on the others when it expires,
+  and the run ends; nothing retries past a failed collective.
 """
 from __future__ import annotations
 
+import atexit
+import datetime
 import os
 import tempfile
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 
+PG_TIMEOUT_S = 600.0  # the process groups' timeout (init_ranks)
+
+
+class CollectiveFailure(RuntimeError):
+    """A collective raised (a peer died, a timeout expired, the ranks'
+    collectives did not match). The group is no longer usable: nothing
+    agrees or retries after it."""
+
+
+class Gate:
+    """The one-shot agreement the next collective of a step's group runs
+    first (``arm_gate``); owned by the group, used from the thread that
+    runs the steps."""
+
+    def __init__(self):
+        self.fn: Optional[Callable[[], None]] = None
+
+    def take(self) -> Optional[Callable[[], None]]:
+        fn, self.fn = self.fn, None
+        return fn
+
+
 class Group(NamedTuple):
-    """A rank's view of the world: its rank, the world size and the process
-    group every collective runs over (``None`` at world 1)."""
+    """A rank's view of the world: its rank, the world size, the process
+    group every collective runs over (``None`` at world 1), its backend,
+    the checkpoint traffic's gloo group and the step group's gate (both
+    made by ``init_ranks``)."""
 
     rank: int
     world: int
     pg: Any = None
     backend: str = "none"
+    ckpt_pg: Any = None
+    gate: Optional[Gate] = None
 
 
 WORLD1 = Group(0, 1, None, "none")
@@ -133,15 +185,32 @@ def _unwire(y: torch.Tensor, like: torch.Tensor, shape: Sequence[int]) -> torch.
     return (y if like.dtype in _NATIVE else y.view(like.dtype)).reshape(shape)
 
 
+def _call(fn: Callable, *args, **kwargs):
+    """``fn`` (a ``torch.distributed`` call); its error as
+    ``CollectiveFailure``."""
+    try:
+        return fn(*args, **kwargs)
+    except RuntimeError as e:
+        raise CollectiveFailure(f"{fn.__name__} failed: {e}") from e
+
+
+def _enter(group: Group) -> None:
+    """Run the agreement armed on the group's gate, if any, before the
+    collective."""
+    fn = group.gate.take() if group.gate is not None else None
+    if fn is not None:
+        fn()
+
+
 def _a2a(w: torch.Tensor, group: Group) -> torch.Tensor:
     out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=group.pg)
+    _call(dist.all_to_all_single, out, w, group=group.pg)
     return out
 
 
 def _gather(w: torch.Tensor, group: Group) -> torch.Tensor:
     out = torch.empty((group.world,) + tuple(w.shape), dtype=w.dtype, device=w.device)
-    dist.all_gather(list(out.unbind(0)), w, group=group.pg)
+    _call(dist.all_gather, list(out.unbind(0)), w, group=group.pg)
     return out
 
 
@@ -154,6 +223,7 @@ def all_to_all_tiled(x: torch.Tensor, group: Group) -> torch.Tensor:
         return x
     if x.shape[0] % group.world:
         raise ValueError(f"all_to_all of {x.shape[0]} rows over {group.world} ranks")
+    _enter(group)
     w = _wire(x)
     traffic["all_to_all"] += w.numel() * w.element_size() * (group.world - 1) // group.world
     return _unwire(_a2a(w, group), x, x.shape)
@@ -173,11 +243,12 @@ def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
         return x
     if x.dtype not in _NATIVE:
         raise TypeError(f"psum of {x.dtype}: sum a native dtype")
+    _enter(group)
     wld = group.world
     traffic["psum"] += 2 * x.numel() * x.element_size() * (wld - 1) // wld
     if not x.is_floating_point():
         y = x.contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group.pg)
+        _call(dist.all_reduce, y, op=dist.ReduceOp.SUM, group=group.pg)
         return y
     n = x.numel()
     per = -(-n // wld)
@@ -195,6 +266,7 @@ def all_gather_tiled(x: torch.Tensor, group: Group) -> torch.Tensor:
     concatenated on dim 0 in rank order."""
     if group.world == 1:
         return x
+    _enter(group)
     w = _wire(x)
     traffic["all_gather"] += w.numel() * w.element_size() * (group.world - 1)
     shape = (group.world * x.shape[0],) + tuple(x.shape[1:])
@@ -203,7 +275,83 @@ def all_gather_tiled(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 def barrier(group: Group) -> None:
     if group.world > 1:
-        dist.barrier(group=group.pg)
+        _enter(group)
+        _call(dist.barrier, group=group.pg)
+
+
+# ---------------------------------------------------------------------------
+# agreement (the step's group, the steps' thread)
+# ---------------------------------------------------------------------------
+
+
+def agree(values: Sequence[int], group: Group) -> List[List[int]]:
+    """Every rank's ``values`` (the same count of small ints on each), in
+    rank order: one all_gather over the step's group, which passes the gate
+    first as every collective of the group does (the gate's own agreement
+    finds it disarmed). At world 1, ``[values]``."""
+    vals = [int(v) for v in values]
+    if group.world == 1:
+        return [vals]
+    _enter(group)
+    dev = torch.device("cuda", torch.cuda.current_device()) if group.backend == "nccl" else "cpu"
+    mine = torch.tensor(vals, dtype=torch.int64, device=dev)
+    out = torch.empty((group.world, len(vals)), dtype=torch.int64, device=dev)
+    _call(dist.all_gather, list(out.unbind(0)), mine, group=group.pg)
+    return out.cpu().tolist()
+
+
+def arm_gate(group: Group, fn: Optional[Callable[[], None]]) -> None:
+    """Arm (``fn``) or disarm (``None``) the group's gate: the next
+    collective of the step's group calls ``fn`` first, once."""
+    if group.gate is not None:
+        group.gate.fn = fn
+
+
+def take_gate(group: Group) -> Optional[Callable[[], None]]:
+    """The armed agreement, disarmed (``None`` if none is armed)."""
+    return group.gate.take() if group.gate is not None else None
+
+
+# ---------------------------------------------------------------------------
+# checkpoint traffic (Group.ckpt_pg: gloo, host tensors, any one thread at a
+# time: a checkpoint's writer thread, or the main thread when no write is
+# in flight)
+# ---------------------------------------------------------------------------
+
+
+def ckpt_gather_objects(obj: Any, group: Group) -> List[Any]:
+    """Every rank's ``obj`` (picklable), in rank order."""
+    if group.world == 1:
+        return [obj]
+    out: List[Any] = [None] * group.world
+    _call(dist.all_gather_object, out, obj, group=group.ckpt_pg)
+    return out
+
+
+def ckpt_broadcast_object(obj: Any, group: Group, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` on every rank."""
+    if group.world == 1:
+        return obj
+    box = [obj]
+    _call(dist.broadcast_object_list, box, src=src, group=group.ckpt_pg)
+    return box[0]
+
+
+def ckpt_broadcast_bytes(buf: torch.Tensor, group: Group, src: int) -> torch.Tensor:
+    """``buf`` (uint8 on the host, the same size on every rank) filled with
+    rank ``src``'s."""
+    if group.world > 1:
+        _call(dist.broadcast, buf, src=src, group=group.ckpt_pg)
+    return buf
+
+
+def ckpt_send_bytes(buf: torch.Tensor, dst: int, group: Group, tag: int = 0) -> None:
+    _call(dist.send, buf, dst=dst, group=group.ckpt_pg, tag=tag)
+
+
+def ckpt_recv_bytes(buf: torch.Tensor, src: int, group: Group, tag: int = 0) -> torch.Tensor:
+    _call(dist.recv, buf, src=src, group=group.ckpt_pg, tag=tag)
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -232,12 +380,35 @@ def rank_device(device: Any, group: Group) -> torch.device:
 def init_ranks(rank: int, world: int, store_path: str, backend: str) -> Group:
     """Join the process group as ``rank`` of ``world`` through a
     ``FileStore`` at ``store_path`` (no port, so parallel runs on one host
-    cannot collide) and return this rank's ``Group``."""
+    cannot collide), make the checkpoint traffic's gloo group beside it
+    (both with a timeout of ``PG_TIMEOUT_S``) and return this rank's
+    ``Group``."""
     store = dist.FileStore(store_path, int(world))
-    dist.init_process_group(backend, store=store, rank=int(rank), world_size=int(world))
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    dist.init_process_group(backend, store=store, rank=int(rank), world_size=int(world),
+                            timeout=timeout)
     if backend == "nccl":
         torch.cuda.set_device(int(rank))
-    return Group(int(rank), int(world), dist.group.WORLD, backend)
+    ckpt_pg = dist.new_group(backend="gloo", timeout=timeout)
+    atexit.register(_leave_together, ckpt_pg)
+    return Group(int(rank), int(world), dist.group.WORLD, backend, ckpt_pg, Gate())
+
+
+EXIT_WAIT_S = 30.0  # how long a rank ending with its groups still up waits for the others
+
+
+def _leave_together(ckpt_pg) -> None:
+    """At exit with the groups still up: meet the other ranks, then destroy
+    the groups. A rank whose peer closed its connections first could abort
+    in gloo's teardown (seen on the CPU, about one process pair in fifty);
+    a rank that never comes is waited for ``EXIT_WAIT_S`` seconds."""
+    if not dist.is_initialized():
+        return
+    try:
+        dist.monitored_barrier(group=ckpt_pg, timeout=datetime.timedelta(seconds=EXIT_WAIT_S))
+    except (RuntimeError, ValueError):
+        pass  # a peer is gone, or the group was replaced: nothing to wait for
+    dist.destroy_process_group()
 
 
 def _rank_main(rank: int, fn: Callable, world: int, store_path: str, backend: str,
@@ -254,25 +425,37 @@ def _rank_main(rank: int, fn: Callable, world: int, store_path: str, backend: st
 
 
 def spawn_ranks(fn: Callable, world: int, *args, device: Any = "cpu",
-                threads: Optional[int] = None, workdir: Optional[str] = None
-                ) -> List[Any]:
+                threads: Optional[int] = None, workdir: Optional[str] = None,
+                deadline_s: Optional[float] = None) -> List[Any]:
     """Run ``fn(group, *args)`` in ``world`` fresh processes (the ``spawn``
     start method), one a rank, joined through a ``FileStore`` under
     ``workdir`` (a new temporary directory by default), and return the
     ranks' results in rank order (each must be something ``torch.save``
     can write). The backend follows ``backend_for(device, world)``. The
-    children inherit this process's environment, ``PYTHONHASHSEED``
-    included (``core.features.agree_salts`` checks the ranks agree). A
-    failing rank makes this raise, after every rank has ended."""
+    children inherit
+    this process's environment, ``PYTHONHASHSEED`` included
+    (``core.features.agree_salts`` checks the ranks agree). A failing rank
+    makes this raise once it has ended, the others stopped. With
+    ``deadline_s``, ranks still running that many seconds after the start
+    are stopped and this raises ``TimeoutError``."""
     import torch.multiprocessing as mp
 
     backend = backend_for(device, world)
     own = workdir is None
     d = tempfile.mkdtemp(prefix="ranks_") if own else workdir
     try:
-        mp.start_processes(_rank_main, args=(fn, int(world), os.path.join(d, "store"),
-                                             backend, d, threads, args),
-                           nprocs=int(world), start_method="spawn", join=True)
+        ctx = mp.start_processes(_rank_main, args=(fn, int(world), os.path.join(d, "store"),
+                                                   backend, d, threads, args),
+                                 nprocs=int(world), start_method="spawn", join=False)
+        end = None if deadline_s is None else time.monotonic() + float(deadline_s)
+        while not ctx.join(timeout=1.0):
+            if end is not None and time.monotonic() > end:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+                raise TimeoutError(f"{world} ranks still running after {deadline_s} s: "
+                                   "stopped")
         return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                 for r in range(int(world))]
     finally:

@@ -21,6 +21,13 @@ from repro_torch.dist.compat import Group
 ROW_SHARDED = ("w", "acc", "counts")   # EmbeddingState leaves split by rows
 
 
+def row_sharded_leaf(path: str) -> bool:
+    """Whether the flattened state path (``emb/<gid>/w``, the checkpoint's
+    leaf names) names a row-sharded leaf; every other leaf is replicated."""
+    parts = path.split("/")
+    return len(parts) == 3 and parts[0] == "emb" and parts[2] in ROW_SHARDED
+
+
 def row_range(rows: int, group: Group) -> Tuple[int, int]:
     """Rank ``group.rank``'s rows ``[lo, hi)`` of a table of ``rows``."""
     if rows % group.world:

@@ -54,7 +54,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 import torch
 
 from repro_torch.core import packed_embedding as pe
-from repro_torch.dist.compat import Group, all_gather_tiled, resolve_group
+from repro_torch.dist.compat import WORLD1, Group, all_gather_tiled, resolve_group
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.optim import grad_compression as gcomp
 
@@ -140,17 +140,30 @@ class LookupStrategy:
         return {}
 
 
-def _save_rows(j: Any, tensors: Tuple[torch.Tensor, ...], ids: torch.Tensor) -> None:
+def _save_rows(j: Any, tensors: Tuple[torch.Tensor, ...], ids: torch.Tensor,
+               group: Group = WORLD1) -> None:
     """Rows at ``ids`` of each tensor; an invalid (sentinel) id clamps to a
-    row saved alongside, which its masked write leaves as it was."""
-    idx = torch.clamp(ids.long(), 0, tensors[0].shape[0] - 1)
+    row saved alongside, which its masked write leaves as it was. Past
+    world 1 ``ids`` are this rank's global ids and the tensors its shard:
+    the writes land on the owners' rows of every rank's ids (the routed and
+    gathered grads, the FCounter), so the rows saved are this rank's rows
+    of every rank's ``ids``, all_gathered (one small collective)."""
+    rps = tensors[0].shape[0]
+    if group.world > 1:
+        ids = (all_gather_tiled(ids.reshape(-1).to(torch.int32), group).long()
+               - group.rank * rps)
+    idx = torch.clamp(ids.long(), 0, rps - 1)
     for t in tensors:
         j.save(t, idx)
 
 
-def _save_tier(j: Any, tier: Any, slot: torch.Tensor) -> None:
-    """A tier's rows and accumulators at the probe slots."""
+def _save_tier(j: Any, tier: Any, slot: torch.Tensor, group: Group = WORLD1) -> None:
+    """A tier's rows and accumulators at the probe slots. Past world 1 the
+    replicated tier takes every rank's hit grads (summed, or gathered), so
+    the slots saved are every rank's, all_gathered."""
     if tier.keys.shape[0] > 0:
+        if group.world > 1:
+            slot = all_gather_tiled(slot.reshape(-1).to(torch.int32), group)
         _save_rows(j, (tier.rows, tier.acc), slot)
 
 
@@ -189,9 +202,9 @@ class PicassoStrategy(LookupStrategy):
     def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
         # the routed misses, the stale hit routes and the FCounter's rows
         # all lie among the ctx's unique ids; 'psum' hits write L1 by slot
-        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq)
+        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq, self.group)
         if cache_on:
-            _save_tier(j, st.cache, ctx.cache_slot)
+            _save_tier(j, st.cache, ctx.cache_slot, self.group)
 
 
 @register_strategy("hybrid")
@@ -262,7 +275,7 @@ class PicassoL2Strategy(PicassoStrategy):
     def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
         super().journal(j, st, ctx, cache_on=cache_on)
         if l2_on and st.l2 is not None and ctx.l2_hit is not None:
-            _save_tier(j, st.l2, ctx.l2_slot)
+            _save_tier(j, st.l2, ctx.l2_slot, self.group)
 
     def tier_metrics(self, ctx):
         return {"cache_hits/l1": pe.cache_hit_count(ctx).to(torch.int32),
@@ -378,7 +391,7 @@ class PSStrategy(LookupStrategy):
         return _gathered_apply(self, st, ctx.ids, g_rows)
 
     def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
-        _save_rows(j, (st.w, st.acc), ctx.ids)  # the rows of every position
+        _save_rows(j, (st.w, st.acc), ctx.ids, self.group)  # every position's rows
 
 
 @register_strategy("mp_nodedup")
@@ -401,7 +414,7 @@ class MPNoDedupStrategy(LookupStrategy):
                 torch.zeros((), dtype=torch.int32, device=g_rows.device))
 
     def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
-        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq)  # the sorted ids
+        _save_rows(j, (st.w, st.acc, st.counts), ctx.uniq, self.group)  # the sorted ids
 
 
 class AllGatherCtx(NamedTuple):
@@ -434,4 +447,4 @@ class AllGatherRowsStrategy(LookupStrategy):
         return _gathered_apply(self, st, ctx.uniq, g_rows)
 
     def journal(self, j, st, ctx, *, cache_on=False, l2_on=False):
-        _save_rows(j, (st.w, st.acc), ctx.uniq)
+        _save_rows(j, (st.w, st.acc), ctx.uniq, self.group)

@@ -31,6 +31,9 @@ dcn-v2, sasrec or mind, on one card or on ``--devices`` ranks.
       --global-batch 256 --no-packing --strategy auto --calibrate auto
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \
       --device cpu --devices 4 --mesh 2x2 --steps 3 --global-batch 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \
+      --device cpu --devices 4 --mesh 2x2 --steps 30 --global-batch 64 \
+      --ckpt-dir /tmp/ck4 --ckpt-every 5 --guard --chaos nan@7,nan@8,crash@13,ckpt@20
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
@@ -61,12 +64,17 @@ per rank: this process fixes ``PYTHONHASHSEED`` (its own value, else 0) so
 the ranks pack alike, spawns them (``dist.spawn_ranks``), and rank 0 prints
 the lines a world-1 run prints. The backend is NCCL when every rank has a
 card of its own, else gloo (on the CPU, or on CUDA tensors when the ranks
-share one card); the first line names it. At world > 1 the runtime flags
-that wait for the elastic and multi-rank runtime slice (ROADMAP Queue 1
-item 6) refuse with ``NotImplementedError``: ``--ckpt-dir``, ``--guard``,
-``--chaos``, ``--stream``, ``--replan-iters``, ``--pin-l2``,
-``--calibrate``; ``--reshard-to``/``--reshard-at`` (``runtime/elastic.py``)
-refuse at any world.
+share one card); the first line names it. ``--ckpt-dir``, ``--guard`` and
+``--chaos`` run at any fixed world: every rank runs the ``Supervisor``, the
+ranks write one checkpoint together (the reference's files at the same
+mesh) and agree on every rollback; a resume reads a checkpoint written at
+this world, by either package, and refuses one of another world
+(``WorldMismatch``: the elastic restore is ROADMAP Queue 1 item 6.2). Rank
+0 prints the launcher's lines; each rank logs its warnings with its rank.
+The flags that wait for ROADMAP Queue 1 item 6.3 refuse past world 1 with
+``NotImplementedError``: ``--stream``, ``--replan-iters``, ``--pin-l2``,
+``--calibrate``; ``--reshard-to``/``--reshard-at`` (``runtime/elastic.py``,
+item 6.2) refuse at any world.
 """
 import argparse
 
@@ -208,10 +216,8 @@ def main(argv=None):
         raise NotImplementedError("--reshard-to/--reshard-at need runtime/elastic.py, "
                                   "ROADMAP Queue 1 item 6 (not ported)")
     launch_ranks("train", args, shape, _train, waiting={
-        "--ckpt-dir": bool(args.ckpt_dir), "--guard": args.guard,
-        "--chaos": bool(args.chaos), "--stream": args.stream,
-        "--replan-iters": bool(args.replan_iters), "--pin-l2": args.pin_l2,
-        "--calibrate": args.calibrate != "off"})
+        "--stream": args.stream, "--replan-iters": bool(args.replan_iters),
+        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"})
 
 
 def launch_ranks(tag: str, args, shape, body, waiting) -> None:
@@ -230,9 +236,9 @@ def launch_ranks(tag: str, args, shape, body, waiting) -> None:
     on = [flag for flag, set_ in waiting.items() if set_]
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)} at world {world}: the runtime past world 1 is ROADMAP "
-            "Queue 1 item 6 (checkpoints, guard, chaos, stream, replanner, --pin-l2 "
-            "and --calibrate wait for it)")
+            f"{', '.join(on)} at world {world}: the rest of the runtime past world 1 is "
+            "ROADMAP Queue 1 item 6.3 (stream and publish, --reload-dir, the replanner, "
+            "--pin-l2 and --calibrate wait for it)")
     seed = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = seed if seed is not None else "0"
     print(f"[{tag}] world={world} mesh={describe(shape)} "
@@ -263,7 +269,7 @@ def _train(group, args, shape) -> None:
     from repro_torch.runtime import (AnomalyGuard, ChaosController, Replanner,
                                      apply_plan_meta, parse_fault_plan, plan_meta,
                                      publish_state, run_stream)
-    from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
+    from repro_torch.train.checkpoint import (AsyncCheckpointer, WorldMismatch, latest_step,
                                               load_checkpoint_meta, load_checkpoint_salts,
                                               restore_verified)
     from repro_torch.train.fault_tolerance import Supervisor
@@ -278,8 +284,9 @@ def _train(group, args, shape) -> None:
             print(*a, **kw)
 
     # recovery events (rollbacks, quarantines) are the operator's window into
-    # the fault-tolerance subsystem
-    logging.basicConfig(format="[%(name)s] %(levelname)s: %(message)s")
+    # the fault-tolerance subsystem; past world 1 each rank logs its own
+    logging.basicConfig(format=(f"[rank {group.rank}] " if world > 1 else "")
+                        + "[%(name)s] %(levelname)s: %(message)s")
     logging.getLogger("repro_torch").setLevel(logging.INFO)
 
     device = rank_device(resolve_device(args.device), group)
@@ -303,21 +310,22 @@ def _train(group, args, shape) -> None:
                      mesh_shape=shape if world > 1 else (1, 1))
     salts = agree_salts(plan, group)  # every rank packs alike, or all raise
     meta = None
-    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+    if args.ckpt_dir and latest_step(args.ckpt_dir, group) is not None:
         # a checkpointed run may have replanned: revise the structural plan
         # back to the checkpointed revision before the state is shaped
-        meta = load_checkpoint_meta(args.ckpt_dir)
-        if meta is not None and int(meta.get("world", 1)) != 1:
-            raise NotImplementedError(
-                f"checkpoint under {args.ckpt_dir} was written at world "
-                f"{meta['world']}; the elastic restore is ROADMAP Queue 1 item 6")
+        meta = load_checkpoint_meta(args.ckpt_dir, group=group)
+        if meta is not None and int(meta.get("world", 1)) != world:
+            raise WorldMismatch(
+                f"checkpoint under {args.ckpt_dir} was written at world {meta['world']}, "
+                f"this run is world {world}: a different world size; the elastic "
+                "restore is ROADMAP Queue 1 item 6.2")
         if meta is not None:
             plan = apply_plan_meta(plan, meta)
-            print(f"[train] resumed plan rev {plan.rev} from checkpoint meta "
-                  f"(strategy: {sorted(set(plan.strategy.values()))})")
-        if load_checkpoint_salts(args.ckpt_dir) is None:
-            print(f"[train] checkpoint under {args.ckpt_dir} records no packing salts "
-                  "(written by the reference); restoring it unchecked", flush=True)
+            say(f"[train] resumed plan rev {plan.rev} from checkpoint meta "
+                f"(strategy: {sorted(set(plan.strategy.values()))})")
+        if load_checkpoint_salts(args.ckpt_dir, group=group) is None:
+            say(f"[train] checkpoint under {args.ckpt_dir} records no packing salts "
+                "(written by the reference); restoring it unchecked", flush=True)
     if plan.strategy:
         # the plan carries the checkpointed assignment: every engine follows it
         strategy = "mixed"
@@ -332,11 +340,11 @@ def _train(group, args, shape) -> None:
 
     guard = None
     if args.guard:
-        guard = AnomalyGuard(log=lambda s: print(f"[train] {s}", flush=True))
+        guard = AnomalyGuard(log=lambda s: say(f"[train] {s}", flush=True), group=group)
     chaos = None
     if args.chaos:
-        chaos = ChaosController(parse_fault_plan(args.chaos))
-        print(f"[train] chaos plan armed: {args.chaos}", flush=True)
+        chaos = ChaosController(parse_fault_plan(args.chaos), group=group)
+        say(f"[train] chaos plan armed: {args.chaos}", flush=True)
 
     def wrap_timed(fn):
         """Measured-vs-predicted feedback: time each step (ended by a
@@ -462,7 +470,8 @@ def _train(group, args, shape) -> None:
             print(f"[train] stream done at step {last} (world=1)")
             return
         if args.ckpt_dir:
-            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts)
+            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
+                             group=group)
             active_ckpt = sup.ckpt
             # the plan sidecar rides every checkpoint: a resume after a replan
             # must shape its template by the replanned revision
@@ -503,7 +512,7 @@ def _train(group, args, shape) -> None:
         print(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "
               f"final plan rev={plan.rev}")
     if guard is not None:
-        print(f"[train] guard: {guard.accepted} accepted, {guard.rejected} rejected")
+        say(f"[train] guard: {guard.accepted} accepted, {guard.rejected} rejected")
     say("[train] done")
 
 

@@ -27,13 +27,23 @@ state of a clean run, because every injected fault is either rejected
 
 Spec syntax (``--chaos``): comma-separated ``kind@step`` tokens, e.g.
 ``"nan@7,nan@8,crash@13,ckpt@20,torn@45"``.
+
+Past world 1 every rank holds a controller with the same plan
+(``ChaosController(plan, group=)``) and the faults stay one fault each, as
+the reference's one process injects them: ``nan@`` poisons the *global*
+batch, before the train step takes the rank's slice of it
+(``dist.sharding.batch_slice``), so every rank's slice is poisoned;
+``crash@`` raises on every rank at the same step, which the ranks'
+``Supervisor`` turns into one agreed rollback; ``ckpt@`` waits for the
+checkpoint every rank writes and then rank 0 alone mangles one leaf file
+of it, once. ``torn@`` belongs to publishing, which runs at world 1 only.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, FrozenSet, Iterator, Optional, Set
+from typing import Any, Callable, Dict, FrozenSet, Iterator, Optional, Set
 
 import numpy as np
 
@@ -185,14 +195,16 @@ class ChaosController:
       into ``Supervisor.run(fail_injector=...)``);
     - ``after_checkpoint(step, ckpt_dir, ckpt)``: once per configured
       ``ckpt@c`` with ``step >= c``, flush the async writer and mangle the
-      newest checkpoint on disk;
+      newest checkpoint on disk (past world 1, on rank 0 of ``group``, once
+      every rank's writer has finished, which ``ckpt.wait()`` implies);
     - ``after_publish(step, publish_dir)``: same pattern for ``torn@t``.
 
     All one-shot; ``fired`` survives rollback replays (see module doc).
     """
 
-    def __init__(self, plan: FaultPlan):
+    def __init__(self, plan: FaultPlan, group: Any = None):
         self.plan = plan
+        self.group = group
         self.fired: Set[str] = set()
 
     def wrap_stream(self, stream: Iterator) -> Iterator:
@@ -211,6 +223,16 @@ class ChaosController:
             if step >= c and f"ckpt@{c}" not in self.fired:
                 if ckpt is not None:
                     ckpt.wait()  # the file must exist before we can maul it
+                if self.group is not None and self.group.world > 1:
+                    # every rank sees the same renamed steps once its writer
+                    # is done; rank 0 alone tears the newest
+                    from repro_torch.train.checkpoint import available_steps
+
+                    if available_steps(ckpt_dir):
+                        if self.group.rank == 0:
+                            corrupt_checkpoint_file(ckpt_dir)
+                        self.fired.add(f"ckpt@{c}")
+                    continue
                 # armed until a checkpoint actually lands on disk: a
                 # ``ckpt@c`` between two save intervals waits for the next one
                 if corrupt_checkpoint_file(ckpt_dir) is not None:

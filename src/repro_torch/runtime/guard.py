@@ -21,6 +21,14 @@ steps before they become state.
    ``AnomalyRollback`` (the surviving state rides on it), which the
    ``Supervisor`` treats as transient: restore the last verified checkpoint
    and replay.
+
+Past world 1 (``group=``) every rank runs a guard over its own step. The
+judge reads the loss and the dense gradient norm after the step's psum,
+which leaves the same bits on every rank, so every rank reaches the same
+verdict; each judged step checks that with ``dist.agree`` and raises
+``VerdictMismatch`` (fatal) on every rank if the verdicts differ. Each rank
+journals and restores its own rows, so the events, counters and EMA are
+the same on every rank and equal the reference's one guard's.
 """
 from __future__ import annotations
 
@@ -28,6 +36,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+
+class VerdictMismatch(RuntimeError):
+    """The ranks' guards judged one step differently: their replicas of the
+    loss or the gradient norm differ, which no replay repairs. Fatal."""
 
 
 class AnomalyRollback(RuntimeError):
@@ -75,12 +88,14 @@ class AnomalyGuard:
     bound) or a functional step.
 
     ``rebind(step_fn)`` swaps the wrapped step (after a replan rebuild) and
-    keeps the EMA, counters and event history."""
+    keeps the EMA, counters and event history. ``group`` (past world 1) is
+    this rank's ``dist.Group``: each verdict is agreed (module docstring)."""
 
     def __init__(self, step_fn: Optional[Callable] = None,
                  cfg: GuardConfig = GuardConfig(),
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None, group: Any = None):
         self.cfg = cfg
+        self.group = group
         self.log = log or (lambda s: None)
         self.ema: Optional[float] = None   # EMA of accepted grad norms
         self.accepted = 0                  # accepted steps (feeds warmup)
@@ -115,6 +130,15 @@ class AnomalyGuard:
         gn = float(gn) if gn is not None else None
         nonfinite = not np.isfinite(loss) or (gn is not None and not np.isfinite(gn))
         spike = not nonfinite and gn is not None and thr > 0 and gn > thr
+        if self.group is not None and self.group.world > 1:
+            from repro_torch.dist.compat import agree
+
+            every = agree([int(nonfinite), int(spike)], self.group)
+            if any(v != every[0] for v in every):
+                raise VerdictMismatch(
+                    f"guard: the ranks judged step {self.accepted + self.rejected + 1} "
+                    f"differently (nonfinite, spike by rank: {every}); rank "
+                    f"{self.group.rank} read loss={loss!r} grad_norm={gn!r}")
         if not (nonfinite or spike):
             self.consecutive = 0
             self.accepted += 1

@@ -91,15 +91,18 @@ def run_reference(body: str, inputs, tmp: Path, timeout: int = 600):
         return pickle.load(f)
 
 
-def run_port(fn, *args, tmp: Path):
+def run_port(fn, *args, tmp: Path, deadline_s: float = 900):
     """``fn(group, *args)`` on 4 gloo ranks (one thread each) under the
-    module's ``PYTHONHASHSEED``; the ranks' results in rank order."""
+    module's ``PYTHONHASHSEED``; the ranks' results in rank order. Ranks
+    still running after ``deadline_s`` are stopped and the call fails, so a
+    hang fails the test instead of stalling the suite."""
     old = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = HASH_SEED
     try:
         d = tmp / "ranks"
         d.mkdir(exist_ok=True)
-        return rdist.spawn_ranks(fn, W, *args, threads=1, workdir=str(d))
+        return rdist.spawn_ranks(fn, W, *args, threads=1, workdir=str(d),
+                                 deadline_s=deadline_s)
     finally:
         if old is None:
             os.environ.pop("PYTHONHASHSEED", None)

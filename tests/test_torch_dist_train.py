@@ -298,7 +298,7 @@ def test_serve_launcher_at_world_4_matches_world_1():
     assert p4 and p4 == re.findall(r"mean_prob=([\d.]+)", w1)
 
 
-@pytest.mark.parametrize("module,flag", [("train", "--guard"), ("train", "--stream"),
+@pytest.mark.parametrize("module,flag", [("train", "--replan-iters=5"), ("train", "--stream"),
                                          ("train", "--pin-l2"), ("serve", "--pin-l2")])
 def test_launchers_refuse_waiting_flags_past_world_1(module, flag):
     """Nothing is dropped silently: a runtime flag that waits for item 6
