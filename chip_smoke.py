@@ -13,7 +13,8 @@ narrow deepfm with ``--pin-l2`` (the L2 tier and the narrow master in pinned
 host memory, read and written by the kernels over the bus) and the
 calibrated cost model, and trains full-width deepfm on 4 ranks sharing the
 card (phase 17), then under the Supervisor, the guard and chaos with the
-ranks' checkpoints (phase 18).
+ranks' checkpoints (phase 18), then through live reshards 4 -> 2 -> 4 and
+checkpoints restored at other worlds (phase 19).
 
     python3 chip_smoke.py
 
@@ -318,7 +319,27 @@ Phases, in order (any failure raises and exits non-zero):
    the first replayed step and the guarded step's p50 against the
    unguarded one are printed as 4 ranks time-sharing one card over gloo,
    beside the card's name and power limit. The checkpoint directory (up to
-   three checkpoints, the quarantined one included) is removed after.
+   three checkpoints, the quarantined one included) is removed after;
+19. the elastic reshard past world 1, on phase 17's plan and batches with
+   ``exact_capacity`` buckets at every world (``reshard_plan(...,
+   exact_capacity=True)``): 10 steps at world 4 (mesh 2x2) under the
+   ``Supervisor`` (its checkpoint at step 10), a live reshard to world 2
+   (mesh 2x1; ranks 2 and 3 leave and wait), 10 steps there (the host
+   flush at step 20 after a pre-flush checkpoint), a live reshard back to
+   world 4 with ranks 2 and 3 joining as spares, and 5 steps. Across each
+   reshard the ranks' digests of every logical row of ``w``/``acc``/
+   ``counts`` (position-weighted) and of every replicated leaf are equal,
+   the replicas bitwise alike; no bucket overflows at world 2 and each
+   rank launches the six kernels once a step there. In this process the
+   step-10 world-4 checkpoint restored at world 1 (``restore_elastic``)
+   has the world-4 digests, its sentinels remapped (counted); step 11 from
+   it, and step 21 from the step-20 world-2 checkpoint restored and
+   flushed at world 1 (keys and FCounter bitwise), meet phase 17's bars
+   against the world-2 ranks' steps; a fresh 2-rank spawn restores the
+   step-10 checkpoint at world 2 with the same digests. Bytes and seconds
+   of each reshard, host RSS peaks, step p50 at each world and the restore
+   GB/s are printed as 4 or 2 ranks time-sharing one card over gloo, beside
+   the card's name and power limit. The checkpoints are removed after.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -4807,6 +4828,343 @@ def ft_phase(t_start: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 19
+#
+# The elastic reshard past world 1: phase 17's plan and batches, full-width
+# deepfm with exact_capacity buckets at every world, 10 steps at world 4
+# under the Supervisor (a checkpoint at step 10), a live reshard to world 2,
+# 10 steps there (the host flush at step 20 after a pre-flush checkpoint),
+# a live reshard back to world 4 with the two ranks that left as spares, and
+# 5 steps; then world-1 checks in this process and a fresh 2-rank restore.
+# Times are of 4 or 2 ranks time-sharing one card over gloo.
+
+ELASTIC_STEPS = (10, 10, 5)   # steps at world 4, at world 2, at world 4 again
+ELASTIC_MESH2 = (2, 1)
+
+
+def row_digest(x: torch.Tensor, lo: int, n: int) -> Tuple[int, int]:
+    """The int64 sum of rows ``x[:n]``'s bits viewed as int32, and that sum
+    weighted by each row's table index + 1 (``lo`` the first's), both mod
+    2^64: the ranks' digests of a row-sharded leaf add up to the whole
+    table's at any world, and a row moved to another index changes the
+    weighted one."""
+    total = wtotal = 0
+    step = 1 << 22
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        v = x[r0:r1].reshape(r1 - r0, -1).to(DEV).view(torch.int32)
+        per_row = v.sum(1, dtype=torch.int64)
+        idx = torch.arange(lo + r0 + 1, lo + r1 + 1, device=DEV, dtype=torch.int64)
+        total += int(per_row.sum())
+        wtotal += int((per_row * idx).sum())
+    return total % 2**64, wtotal % 2**64
+
+
+def elastic_digest(state, plan, group) -> dict:
+    """This rank's digests: of its logical rows of every row-sharded leaf
+    (``row_digest``, to be summed over the ranks) and of every replicated
+    leaf (each rank's must be alike), a tier's sentinel keys (its padded
+    rows, which depend on the world) counted as -1."""
+    from repro_torch.dist.sharding import row_range, row_sharded_leaf
+
+    rows, repl = {}, {}
+    for name, x in sorted(ckpt._flatten(state).items()):
+        g = plan.group(int(name.split("/")[1])) if name.startswith("emb/") else None
+        live = sum(t.vocab for t in g.tables) if g is not None else 0
+        if row_sharded_leaf(name):
+            lo, hi = row_range(g.rows, group)
+            rows[name] = row_digest(x, lo, max(0, min(hi, live) - lo))
+        elif name.endswith("/keys"):
+            check(bool(((x < live) | (x == g.rows)).all()), f"{name}: keys or the sentinel")
+            repl[name] = int(bits_sum(torch.where(x < live, x, torch.full_like(x, -1))))
+        else:
+            repl[name] = int(bits_sum(x)) if isinstance(x, torch.Tensor) else int(x)
+    return {"rows": rows, "replicated": repl}
+
+
+def gathered(digests: list) -> dict:
+    """The ranks' digests as the whole state's: row digests summed mod 2^64,
+    the replicated ones once they are alike on every rank (checked)."""
+    first = digests[0]
+    for d in digests[1:]:
+        check(d["replicated"] == first["replicated"], "the replicas are bitwise alike")
+    rows = {k: tuple(sum(d["rows"][k][j] for d in digests) % 2**64 for j in (0, 1))
+            for k in first["rows"]}
+    return {"rows": rows, "replicated": dict(first["replicated"])}
+
+
+def elastic_reshard(plan, state, new_world: int, group, **kw):
+    """``reshard_live`` timed on the card, the host RSS peak above the level
+    before it and the bytes this rank sent."""
+    from repro_torch import dist as rdist
+    from repro_torch.runtime import reshard_live
+
+    rdist.reset_traffic()
+    torch.cuda.synchronize(DEV)
+    with RssSampler() as rs:
+        t0 = time.perf_counter()
+        out = reshard_live(plan, state, new_world, TRAIN_B // new_world, group=group,
+                           exact_capacity=True, device=DEV, **kw)
+        torch.cuda.synchronize(DEV)
+        seconds = time.perf_counter() - t0
+    return out, {"s": seconds, "rss_above_base": rs.above_base,
+                 "bytes_sent": rdist.traffic_snapshot()["rows"]}
+
+
+def elastic_rank(root, d4: str, d2: str) -> dict:
+    """One process of phase 19 (module comment above)."""
+    from repro_torch.core.features import agree_salts
+    from repro_torch.dist.sharding import row_range
+    from repro_torch.runtime.elastic import wait_for_reshard
+
+    torch.set_num_threads(2)
+    cfg, plan, _ = world_plans(WORLD)
+    salts = agree_salts(plan, root)
+    batches = world_batches()[0]
+    tcfg = ts.TrainConfig(flush_in_step=False)
+    n4, n2, n4b = ELASTIC_STEPS
+    out = {"rank": root.rank, "lat": {}}
+
+    def timed(step, lat):
+        def call(st, b):
+            torch.cuda.synchronize(DEV)
+            t0 = time.perf_counter()
+            st, m = step(st, b)
+            torch.cuda.synchronize(DEV)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            return st, m
+        return call
+
+    # -- world 4: n4 steps under the Supervisor, its checkpoint at step n4
+    state = ts.init_state(WDLModel(cfg, plan), plan,
+                          torch.Generator(device=DEV).manual_seed(SEED), DEV, group=root)
+    sup = Supervisor(d4, ckpt_every=n4, salts=salts, group=root)
+    sup.meta = plan_meta(plan)
+    out["lat"][4] = []
+    step = timed(ts.make_train_step(WDLModel(cfg, plan), plan, TRAIN_B, tcfg, DEV,
+                                    group=root), out["lat"][4])
+    state = sup.run(state, step, ReplayableStream(lambda s: iter(batches[s:])), n4)
+    del sup, step
+    out["digest_4"] = elastic_digest(state, plan, root)
+
+    # -- live 4 -> 2: ranks 2 and 3 leave and wait
+    (plan2, state, g2), out["reshard_4_2"] = elastic_reshard(plan, state, 2, root,
+                                                             mesh_shape=ELASTIC_MESH2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if g2 is not None:
+        out["digest_2"] = elastic_digest(state, plan2, g2)
+        # reshard_plan keeps the micro-batch (64: it divides the new per-rank
+        # batch), which would split a world-2 step in two; one micro-batch a
+        # step, as phase 17's plans take, is what world 1 can be held to
+        plan2 = dataclasses.replace(plan2, microbatch=TRAIN_B // 2)
+        lo, hi = row_range(plan2.groups[0].rows, g2)
+        step2 = ts.make_train_step(WDLModel(cfg, plan2), plan2, TRAIN_B, tcfg, DEV, group=g2)
+        out["lat"][2], rec, ovf = [], {}, []
+        stepper = timed(step2, out["lat"][2])
+        ops.reset_launches()
+        for i in range(n4 + 1, n4 + n2 + 1):
+            b = batches[i - 1]
+            if i == n4 + 1:  # from the shared state right after the reshard
+                torch.cuda.synchronize(DEV)
+                t0 = time.perf_counter()
+                rec[i] = step_record(step2, state, b, plan2, lo, hi)
+                torch.cuda.synchronize(DEV)
+                out["lat"][2].append((time.perf_counter() - t0) * 1e3)
+                ovf.append(rec[i]["overflow"])
+            else:
+                state, m = stepper(state, b)
+                ovf.append(int(m["overflow"]))
+        out["launches_2"] = dict(ops.launches)
+        out["micro_2"] = (TRAIN_B // 2) // plan2.microbatch
+        out["overflow_2"] = ovf
+        check(n4 + n2 == FLUSH_ITERS, f"the world-2 stretch ends at the flush step {FLUSH_ITERS}")
+        ckpt.save_checkpoint(d2, FLUSH_ITERS, state, meta=plan_meta(plan2), salts=salts,
+                             group=g2)
+        state = ts.make_flush_fn(plan2, group=g2)(state)
+        st = state["emb"]["0"]
+        out["flush"] = {"keys": st.cache.keys.cpu() if g2.rank == 0 else None,
+                        "digest": elastic_digest(state, plan2, g2)}
+        snap = ckpt.device_snapshot(state)  # one step from the flushed state, aside
+        rec[FLUSH_ITERS + 1] = step_record(step2, snap, batches[FLUSH_ITERS], plan2, lo, hi)
+        del snap, step2, stepper
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["records"] = rec
+        # -- live 2 -> 4: ranks 2 and 3 join
+        (plan4, state, g4), out["reshard_2_4"] = elastic_reshard(plan2, state, WORLD, g2,
+                                                                 mesh_shape=WORLD_MESH)
+    else:
+        state = None
+        ev = wait_for_reshard(root)
+        check(ev is not None and ev["world"] == WORLD, f"rank {root.rank}: the event {ev}")
+        (plan4, state, g4), out["reshard_2_4"] = elastic_reshard(
+            plan2, None, ev["world"], None, mesh_shape=ev["mesh_shape"])
+    out["digest_4b"] = elastic_digest(state, plan4, g4)
+    out["lat"]["4b"] = []
+    step = timed(ts.make_train_step(WDLModel(cfg, plan4), plan4, TRAIN_B, tcfg, DEV,
+                                    group=g4), out["lat"]["4b"])
+    for i in range(n4 + n2 + 1, n4 + n2 + n4b + 1):
+        state, m = step(state, batches[i - 1])
+        check(np.isfinite(float(m["loss"])), f"rank {root.rank} step {i} at world 4 again")
+    out["step_4b"] = int(state["step"])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_restore_rank(group, d4: str) -> dict:
+    """A fresh rank of a 2-rank spawn: ``restore_elastic`` of the world-4
+    step-10 checkpoint at world 2, timed, and its digests."""
+    from repro_torch.core.packing import reshard_plan
+    from repro_torch.runtime import restore_elastic
+
+    torch.set_num_threads(2)
+    cfg, plan4, _ = world_plans(WORLD)
+    plan2 = reshard_plan(plan4, 2, TRAIN_B // 2, mesh_shape=ELASTIC_MESH2,
+                         exact_capacity=True)
+    state = ts.init_state(WDLModel(cfg, plan2), plan2,
+                          torch.Generator(device=DEV).manual_seed(SEED + 1), DEV, group=group)
+    torch.cuda.synchronize(DEV)
+    with RssSampler() as rs:
+        t0 = time.perf_counter()
+        state, at = restore_elastic(d4, plan2, state, group=group)
+        torch.cuda.synchronize(DEV)
+        seconds = time.perf_counter() - t0
+    return {"step": at, "digest": elastic_digest(state, plan2, group), "s": seconds,
+            "rss_above_base": rs.above_base, "bytes": ft_leaf_bytes(state, group)}
+
+
+def elastic_phase(t_start: float) -> dict:
+    """Phase 19: ``elastic_rank`` on 4 ranks, ``elastic_restore_rank`` on 2
+    fresh ones, then the world-1 side in this process and the checks."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = checkpoint_dir()
+    d4, d2 = os.path.join(root, "world4"), os.path.join(root, "world2")
+    try:
+        ranks = rdist.spawn_ranks(elastic_rank, WORLD, d4, d2, device="cuda")
+        t_ranks = time.perf_counter() - t_phase
+        fresh = rdist.spawn_ranks(elastic_restore_rank, 2, d4, device="cuda")
+        t_fresh = time.perf_counter() - t_phase - t_ranks
+        out = elastic_one_side(ranks, fresh, d4, d2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(ranks_s=t_ranks, fresh_restore_s=t_fresh,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[wall] phase 19 done at {time.perf_counter() - t_start:.1f}s "
+          f"(ranks {t_ranks:.1f}s, phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def elastic_one_side(ranks: list, fresh: list, d4: str, d2: str) -> dict:
+    """Phase 19's checks: the digests across each reshard, the world-2
+    launches and overflow, the 2-rank restore, and in this process the
+    step-10 checkpoint restored at world 1 (its sentinels remapped), step 11
+    from it, the step-20 checkpoint restored at world 1 and flushed (keys
+    and FCounter), and step 21 from that, held to phase 17's bars."""
+    from repro_torch.dist.compat import WORLD1
+    from repro_torch.runtime import restore_elastic
+
+    n4, n2, n4b = ELASTIC_STEPS
+    two = [r for r in ranks if "digest_2" in r]
+    check([r["rank"] for r in two] == [0, 1], "ranks 0 and 1 hold world 2")
+    d4g, d2g = gathered([r["digest_4"] for r in ranks]), gathered([r["digest_2"] for r in two])
+    check(d2g == d4g, "4 -> 2: every logical row and replica bitwise across the reshard")
+    f2g = gathered([r["flush"]["digest"] for r in two])
+    d4bg = gathered([r["digest_4b"] for r in ranks])
+    check(d4bg == f2g, "2 -> 4: every logical row and replica bitwise across the reshard")
+    check(all(r["step_4b"] == n4 + n2 + n4b for r in ranks), "every rank ends at step 25")
+    per_step = ARCHS["deepfm"].train_launches
+    micro = two[0]["micro_2"]  # the recut keeps the micro-batch: micro-batches a step
+    for r in two:
+        check(r["launches_2"] == {k: per_step.get(k, 0) * micro * n2 for k in r["launches_2"]}
+              and all(r["launches_2"].get(k, 0) == micro * n2 for k in WORLD_KERNELS),
+              f"rank {r['rank']}: each kernel once a micro-batch ({micro} a step) at world 2: "
+              f"{r['launches_2']}")
+        check(sum(r["overflow_2"]) == 0, f"rank {r['rank']}: no bucket overflowed at world 2")
+    for r in fresh:
+        check(r["step"] == n4, f"the fresh restore's step {r['step']}")
+    check(gathered([r["digest"] for r in fresh]) == d4g,
+          "the world-4 checkpoint restored by a fresh 2-rank spawn: digests equal")
+
+    # -- world 1 in this process
+    cfg, plan1, _ = world_plans(1)
+    rows1 = plan1.groups[0].rows
+    model = WDLModel(cfg, plan1)
+    step1 = ts.make_train_step(model, plan1, TRAIN_B, ts.TrainConfig(flush_in_step=False), DEV)
+    logs = []
+    state = ts.init_state(model, plan1, torch.Generator(device=DEV).manual_seed(SEED + 2), DEV)
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    state, at = restore_elastic(d4, plan1, state, log=logs.append)
+    torch.cuda.synchronize(DEV)
+    restore1_s = time.perf_counter() - t0
+    remapped = int((state["emb"]["0"].cache.keys == rows1).sum())
+    d1 = elastic_digest(state, plan1, WORLD1)
+    check(at == n4 and logs == [f"restored world={WORLD} checkpoint at world=1 "
+                                f"(resharded step {n4})"], f"world-1 restore: {at} {logs}")
+    check(d1 == d4g, "the world-4 checkpoint at world 1: every logical row and replica "
+                     "bitwise the world-4 digests (the sentinels remapped)")
+    view = [{"train": {"records": r["records"]}} for r in two]
+    train_b = world_batches()[0]
+    checks = {n4 + 1: world_step_check(view, n4 + 1, step1, state, train_b[n4], plan1)}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = ts.init_state(model, plan1, torch.Generator(device=DEV).manual_seed(SEED + 3), DEV)
+    state, at = restore_elastic(d2, plan1, state)
+    check(at == FLUSH_ITERS, f"the world-2 pre-flush checkpoint at world 1: step {at}")
+    state = ts.make_flush_fn(plan1)(state)
+    st = state["emb"]["0"]
+    keys2 = two[0]["flush"]["keys"].to(DEV)
+    keys2 = torch.where(keys2 >= rows1, torch.full_like(keys2, rows1), keys2)
+    fd1 = elastic_digest(state, plan1, WORLD1)
+    flush = {"keys_equal": bool(torch.equal(keys2, st.cache.keys)),
+             "counts_equal": fd1["rows"]["emb/0/counts"] == f2g["rows"]["emb/0/counts"],
+             "tier_keys": int((st.cache.keys < rows1).sum())}
+    check(flush["keys_equal"] and flush["counts_equal"] and flush["tier_keys"] > 0,
+          f"the flush at world 2 against world 1: keys and FCounter bitwise {flush}")
+    checks[FLUSH_ITERS + 1] = world_step_check(view, FLUSH_ITERS + 1, step1, state,
+                                               train_b[FLUSH_ITERS], plan1)
+    nbytes = sum(r["bytes"] for r in fresh)
+    fresh_s = max(r["s"] for r in fresh)
+    del state, step1, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def p50(key, first=2):
+        lat = [ms for r in ranks for ms in r["lat"].get(key, [])[first - 1:]]
+        return float(np.percentile(lat, 50)) if lat else None
+
+    return {
+        "worlds": [WORLD, 2, WORLD], "meshes": ["2x2", "2x1", "2x2"],
+        "steps": list(ELASTIC_STEPS),
+        "reshard_4_2": {"s": max(r["reshard_4_2"]["s"] for r in ranks),
+                        "bytes_sent": sum(r["reshard_4_2"]["bytes_sent"] for r in ranks),
+                        "rss_above_base_by_rank": [r["reshard_4_2"]["rss_above_base"]
+                                                   for r in ranks]},
+        "reshard_2_4": {"s": max(r["reshard_2_4"]["s"] for r in ranks),
+                        "bytes_sent": sum(r["reshard_2_4"]["bytes_sent"] for r in ranks),
+                        "rss_above_base_by_rank": [r["reshard_2_4"]["rss_above_base"]
+                                                   for r in ranks]},
+        "step_p50_ms": {"world4": p50(4), "world2": p50(2), "world4_again": p50("4b")},
+        "launches_world2_by_rank": [r["launches_2"] for r in two],
+        "overflow_world2_by_rank": [r["overflow_2"] for r in two],
+        "shared_state": checks, "flush": flush,
+        "sentinels_remapped_world1": remapped,
+        "restore_world1_s": restore1_s,
+        "restore_world2_fresh_s": fresh_s, "restore_bytes": nbytes,
+        "restore_gb_per_s": nbytes / fresh_s / 1e9,
+        "restore_rss_above_base_by_rank": [r["rss_above_base"] for r in fresh],
+        "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in ranks]}
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5064,6 +5422,21 @@ def main() -> None:
           f"replayed step {ft['crash_to_first_replayed_step_s']:.2f}s; step p50 "
           f"{ft['step_p50_ms_guarded']:.3f}ms guarded vs {ft['step_p50_ms_unguarded']:.3f}ms "
           "unguarded", flush=True)
+    el = elastic_phase(t_start)  # phase 19
+    print("[elastic] " + json.dumps(el), flush=True)
+    rss = [round(max(el[k]["rss_above_base_by_rank"][i] for k in ("reshard_4_2", "reshard_2_4"))
+                 / 2**20, 1) for i in range(WORLD)]
+    sp = el["step_p50_ms"]
+    print(f"[phase 19] {card_stamp()}: 4 or 2 ranks time-sharing one card over gloo (not "
+          f"NCCL numbers), full-width deepfm, exact_capacity, mesh 2x2 -> 2x1 -> 2x2: "
+          f"reshard 4 -> 2 {el['reshard_4_2']['bytes_sent'] / 1e9:.3f} GB sent in "
+          f"{el['reshard_4_2']['s']:.2f}s, 2 -> 4 {el['reshard_2_4']['bytes_sent'] / 1e9:.3f} "
+          f"GB in {el['reshard_2_4']['s']:.2f}s; host RSS peak above base per rank MiB "
+          f"{rss}; step p50 world 4 {sp['world4']:.3f}ms, world 2 {sp['world2']:.3f}ms, "
+          f"world 4 again {sp['world4_again']:.3f}ms; restore at world 2 "
+          f"{el['restore_gb_per_s']:.2f} GB/s ({el['restore_world2_fresh_s']:.2f}s, a fresh "
+          f"2-rank spawn), at world 1 {el['restore_world1_s']:.2f}s; "
+          f"{el['sentinels_remapped_world1']} tier sentinels remapped at world 1", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -5102,10 +5475,14 @@ def main() -> None:
         # phase 18's supervised run, each rank's own launches
         ft4 = ([la[name] for la in ft["launches_by_rank"]] if name in WORLD_KERNELS
                else None)
+        # phase 19's 10 steps at world 2 after the live reshard, each rank's own
+        el2 = ([la[name] for la in el["launches_world2_by_rank"]] if name in WORLD_KERNELS
+               else None)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
                         "launches_world4_by_rank": world4,
                         "launches_world4_supervised_by_rank": ft4,
+                        "launches_world2_resharded_by_rank": el2,
                         # the kernel's launches on every path run (300 requests,
                         # 30 steps each)
                         "launches_by_path": {f"{ar} {pa}": r2["launches"][name]

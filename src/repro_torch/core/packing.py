@@ -8,9 +8,11 @@ balance, exactly as the paper prescribes ("for embedding tables with a
 dimension of 32, create four shards, each with a quarter of these tables").
 
 This module is pure planning (numpy / python): it maps a WDLConfig + optional
-warm-up frequency statistics to a ``PicassoPlan`` the engine executes, and
+warm-up frequency statistics to a ``PicassoPlan`` the engine executes,
 ``revise_plan`` recompiles a plan's tier budgets from measured statistics
-(the replanning loop, ``repro_torch.runtime.replanner``).
+(the replanning loop, ``repro_torch.runtime.replanner``), and
+``reshard_plan`` recuts a plan for another world size (the elastic
+reshard, ``repro_torch.runtime.elastic``).
 """
 from __future__ import annotations
 
@@ -540,4 +542,77 @@ def revise_plan(
         hot_bytes=hb,
         l2_bytes=lb,
         strategy={},  # deliberately unassigned: callers re-compile vs stats
+    )
+
+
+def reshard_plan(
+    plan: PicassoPlan,
+    new_world: int,
+    per_device_batch: int,
+    *,
+    mesh_shape: Optional[Sequence[int]] = None,
+    capacity_slack: float = 2.0,
+    exact_capacity: bool = False,
+) -> PicassoPlan:
+    """Recut the SAME plan revision for a different world size.
+
+    Unlike ``revise_plan`` (tier re-budget within one mesh), a reshard is a
+    pure permutation of the existing state: every revisable decision —
+    ``cache_rows``/``l2_rows`` budgets, the strategy mix, narrow widths,
+    ``rev`` itself — is carried over verbatim, because the migrated state
+    must stay bitwise-identical row for row. What changes is only what
+    *derives from the mesh*:
+
+    - each group's padded ``rows`` is recut to the new world multiple
+      (``_pad_to(logical_rows, new_world)`` — logical rows, i.e. the packed
+      table vocabs, never change);
+    - per-peer all_to_all ``capacity`` is re-planned for the new shard count
+      (fewer peers => more uniques per peer);
+    - ``microbatch`` is clamped to a divisor of the new per-device batch
+      (a world change at fixed global batch changes the local batch);
+    - ``mesh_shape``/``world`` record the new mesh.
+
+    ``repro_torch.embedding.state.reshard_state`` performs the matching state-side
+    permutation (pad/truncate padding rows, remap tier sentinel keys).
+    """
+    new_world = int(new_world)
+    if new_world <= 0:
+        raise ValueError(f"new_world must be positive, got {new_world}")
+    if mesh_shape is not None and int(np.prod(mesh_shape)) != new_world:
+        raise ValueError(
+            f"mesh_shape {tuple(mesh_shape)} has {int(np.prod(mesh_shape))} "
+            f"devices but new_world={new_world}")
+    groups = []
+    for g in plan.groups:
+        logical = max(g.table_offsets[t.name] + t.vocab for t in g.tables)
+        groups.append(dataclasses.replace(g, rows=_pad_to(logical, new_world)))
+    capacity = {}
+    for g in groups:
+        local_ids = per_device_batch * g.ids_per_sample
+        hit = 0.2 if plan.cache_rows.get(g.gid, 0) else 0.0
+        capacity[g.gid] = plan_capacity(g, local_ids, new_world,
+                                        slack=capacity_slack,
+                                        cache_hit_ratio=hit,
+                                        exact=exact_capacity)
+    micro = max(1, min(int(plan.microbatch), int(per_device_batch)))
+    while per_device_batch % micro:
+        micro -= 1
+    if mesh_shape is not None:
+        shape = tuple(int(x) for x in mesh_shape)
+    elif plan.mesh_shape and int(np.prod(plan.mesh_shape)) == new_world:
+        shape = tuple(plan.mesh_shape)
+    else:
+        shape = ()
+    return dataclasses.replace(
+        plan,
+        groups=groups,
+        world=new_world,
+        capacity=capacity,
+        interleave=[list(w) for w in plan.interleave],
+        microbatch=micro,
+        cache_rows=dict(plan.cache_rows),
+        l2_rows=dict(plan.l2_rows),
+        strategy=dict(plan.strategy),
+        narrow_dim=dict(plan.narrow_dim),
+        mesh_shape=shape,
     )

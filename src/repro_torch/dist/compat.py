@@ -43,8 +43,8 @@ a collective that fails raises.
 
 ``traffic`` counts the bytes each collective sends from this rank
 (``reset_traffic``/``traffic_snapshot``; a psum counts ``2 (W-1)/W`` of
-its tensor, what a ring all-reduce sends), which the chip check reports a
-step at a time.
+its tensor, what a ring all-reduce sends; ``rows`` the bytes ``send_rows``
+sends in a reshard), which the chip check reports a step at a time.
 
 What the runtime needs past world 1, where the reference decides once in
 its one process and the port's ranks must decide alike:
@@ -68,6 +68,19 @@ its one process and the port's ranks must decide alike:
   never joins (the rank died, or failed inside the step after its first
   collective) raises ``CollectiveFailure`` on the others when it expires,
   and the run ends; nothing retries past a failed collective.
+
+What a change of world needs (``runtime.elastic``): the processes
+``init_ranks`` started form the *root* group (``root_group``); the live
+world is the group of its first ``W`` ranks (``sub_group``, the
+counterpart of the reference's ``make_submesh``: a step group on the
+run's backend, its own gloo ``ckpt_pg`` and a fresh gate), and every
+process of the root, in the world or not, makes each sub-group with the
+others, in the same order. A process outside the live world (a spare
+before a scale-up names it, a rank that left after a scale-down) holds no
+state and waits in ``next_event`` for the live ranks' next ``announce``:
+a key of the ``FileStore`` the ranks joined through, polled, so no
+collective timeout cuts the wait. Rows move between processes with
+``send_rows``/``recv_rows`` on the root's ``ckpt_pg`` (gloo, host bytes).
 """
 from __future__ import annotations
 
@@ -149,7 +162,7 @@ def axis_index(group: Group) -> int:
 # wire accounting
 # ---------------------------------------------------------------------------
 
-traffic: Dict[str, int] = {"all_to_all": 0, "psum": 0, "all_gather": 0}
+traffic: Dict[str, int] = {"all_to_all": 0, "psum": 0, "all_gather": 0, "rows": 0}
 
 
 def reset_traffic() -> None:
@@ -377,12 +390,15 @@ def rank_device(device: Any, group: Group) -> torch.device:
     return torch.device("cuda", group.rank if group.backend == "nccl" else 0)
 
 
+_ROOT: Dict[str, Any] = {"group": None, "store": None, "events": 0}
+
+
 def init_ranks(rank: int, world: int, store_path: str, backend: str) -> Group:
     """Join the process group as ``rank`` of ``world`` through a
     ``FileStore`` at ``store_path`` (no port, so parallel runs on one host
     cannot collide), make the checkpoint traffic's gloo group beside it
     (both with a timeout of ``PG_TIMEOUT_S``) and return this rank's
-    ``Group``."""
+    ``Group``, which is also this process's ``root_group``."""
     store = dist.FileStore(store_path, int(world))
     timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
     dist.init_process_group(backend, store=store, rank=int(rank), world_size=int(world),
@@ -391,7 +407,93 @@ def init_ranks(rank: int, world: int, store_path: str, backend: str) -> Group:
         torch.cuda.set_device(int(rank))
     ckpt_pg = dist.new_group(backend="gloo", timeout=timeout)
     atexit.register(_leave_together, ckpt_pg)
-    return Group(int(rank), int(world), dist.group.WORLD, backend, ckpt_pg, Gate())
+    group = Group(int(rank), int(world), dist.group.WORLD, backend, ckpt_pg, Gate())
+    _ROOT.update(group=group, store=store, events=0)
+    return group
+
+
+def root_group() -> Group:
+    """The group of every process ``init_ranks`` started (``WORLD1`` in a
+    process that started none)."""
+    return _ROOT["group"] if _ROOT["group"] is not None and dist.is_initialized() else WORLD1
+
+
+def sub_group(world: int, root: Optional[Group] = None) -> Optional[Group]:
+    """The group of the first ``world`` ranks of ``root`` (default
+    ``root_group()``): its step group on the root's backend, its own gloo
+    ``ckpt_pg`` and a fresh gate, on its members; ``None`` on the other
+    processes. Every process of ``root`` calls it, in the same order, as
+    ``torch.distributed.new_group`` requires. The whole root is the root
+    with a fresh gate; one rank is a group of world 1 (no process group)."""
+    root = root_group() if root is None else root
+    world = int(world)
+    if not 1 <= world <= root.world:
+        raise ValueError(f"a world of {world} ranks out of the {root.world} started")
+    if world == root.world:
+        return root._replace(gate=Gate())
+    if world == 1:
+        return Group(0, 1, None, "none", None, Gate()) if root.rank == 0 else None
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    ranks = list(range(world))
+    pg = dist.new_group(ranks=ranks, backend=root.backend, timeout=timeout)
+    ckpt_pg = dist.new_group(ranks=ranks, backend="gloo", timeout=timeout)
+    if root.rank >= world:
+        return None
+    return Group(root.rank, world, pg, root.backend, ckpt_pg, Gate())
+
+
+EVENT_POLL_S = 0.05  # how often a waiting process looks for the next event
+
+
+def announce(event: Dict[str, Any], root: Optional[Group] = None) -> None:
+    """Publish ``event`` (a JSON-able dict) as the run's next event to the
+    processes waiting in ``next_event``; every live rank calls it (rank 0
+    writes it), so every process counts the same events."""
+    import json
+
+    root = root_group() if root is None else root
+    n = _ROOT["events"]
+    _ROOT["events"] = n + 1
+    if root.world > 1 and root.rank == 0:
+        _ROOT["store"].set(f"repro_torch/event/{n}", json.dumps(event))
+
+
+def next_event(root: Optional[Group] = None) -> Dict[str, Any]:
+    """The run's next event, waited for as long as it takes (a ``FileStore``
+    key polled every ``EVENT_POLL_S``: no collective timeout applies)."""
+    import json
+
+    root = root_group() if root is None else root
+    if root.world == 1:
+        raise RuntimeError("next_event: no other process can announce one at world 1")
+    n = _ROOT["events"]
+    key = f"repro_torch/event/{n}"
+    store = _ROOT["store"]
+    while not store.check([key]):
+        time.sleep(EVENT_POLL_S)
+    _ROOT["events"] = n + 1
+    return json.loads(store.get(key).decode())
+
+
+def send_rows(x: torch.Tensor, dst: int, root: Group, tag: int) -> None:
+    """``x``'s bytes to rank ``dst`` of ``root`` on its ``ckpt_pg`` (a card's
+    tensor staged through one host copy)."""
+    b = x.contiguous().reshape(-1).view(torch.uint8)
+    if b.device.type != "cpu":
+        b = b.cpu()
+    traffic["rows"] += b.numel()
+    _call(dist.send, b, dst=dst, group=root.ckpt_pg, tag=tag)
+
+
+def recv_rows(x: torch.Tensor, src: int, root: Group, tag: int) -> None:
+    """Rank ``src``'s ``send_rows`` into ``x`` (contiguous), in place."""
+    b = x.reshape(-1).view(torch.uint8)
+    if b.device.type == "cpu":
+        _call(dist.recv, b, src=src, group=root.ckpt_pg, tag=tag)
+        return
+    buf = torch.empty(b.shape, dtype=torch.uint8)
+    _call(dist.recv, buf, src=src, group=root.ckpt_pg, tag=tag)
+    b.copy_(buf)
 
 
 EXIT_WAIT_S = 30.0  # how long a rank ending with its groups still up waits for the others

@@ -487,20 +487,106 @@ def _migrate_group(group: PackedGroup, st: EmbeddingState,
     return EmbeddingState(w=w_new, acc=acc, counts=counts, cache=cache, l2=l2, proj=proj)
 
 
+# ---------------------------------------------------------------------------
+# world-size recut (the elastic reshard, runtime.elastic)
+# ---------------------------------------------------------------------------
+
+
+def _recut_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with ``rows`` leading rows: its first rows (a view) when it
+    shrinks, zero-extended when it grows; a leaf in mapped pinned host
+    memory stays there."""
+    if rows <= t.shape[0]:
+        return t[:rows]
+    from repro_torch.kernels import host_memory
+
+    shape = (rows,) + tuple(t.shape[1:])
+    if host_memory.is_mapped(t):
+        out = host_memory.pinned_empty(shape, t.dtype)
+        out.zero_()
+    else:
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[:t.shape[0]] = t
+    return out
+
+
+def remap_sentinels(tier: Optional[CacheState], cut: int, rows: int) -> Optional[CacheState]:
+    """``tier`` with every key ``>= cut`` set to ``rows``, the sentinel of a
+    table padded to ``rows`` (the keys a new tensor, rows and slots as they
+    are)."""
+    if tier is None:
+        return None
+    keys = torch.where(tier.keys >= cut, torch.full_like(tier.keys, rows), tier.keys)
+    return tier._replace(keys=keys)
+
+
+def _reshard_group_state(group: PackedGroup, st: EmbeddingState) -> EmbeddingState:
+    """Recut one group's world-1 layout state for a new padded row count, on
+    the state's device (the reference's ``_reshard_group_state``, which
+    does it in numpy on the host).
+
+    A world-size change re-pads the packed table (``rows = _pad_to(logical,
+    world)``) without touching the logical rows, so the recut is a pure
+    permutation plus padding surgery:
+
+    - the master ``w``, ``acc`` and the FCounter are zero-extended or
+      truncated, only ever in padding rows, which no packed id reaches; a
+      nonzero FCounter in the truncated tail would drop a real row, so it
+      raises ``ValueError``;
+    - every tier key ``>= min(r_old, r_new)`` is a sentinel (residents are
+      logical rows, below both paddings), so each moves to the new sentinel
+      ``r_new``; resident keys, rows and Adagrad slots carry bitwise;
+    - the projection of a narrow master does not depend on the rows and
+      carries bitwise.
+    """
+    r_old, r_new = int(st.w.shape[0]), int(group.rows)
+    if r_new < r_old and bool(st.counts[r_new:].ne(0).any()):
+        raise ValueError(f"g{group.gid}: resharding {r_old} -> {r_new} rows would drop "
+                         "rows with nonzero FCounter mass: the truncated tail must be "
+                         "pure padding")
+    cut = min(r_old, r_new)
+    return st._replace(w=_recut_rows(st.w, r_new), acc=_recut_rows(st.acc, r_new),
+                       counts=_recut_rows(st.counts, r_new),
+                       cache=remap_sentinels(st.cache, cut, r_new),
+                       l2=remap_sentinels(st.l2, cut, r_new))
+
+
+def reshard_state(new_plan: PicassoPlan, state: Any) -> Any:
+    """Recut a world-1 layout state onto ``new_plan``'s padded row counts:
+    the state-side half of ``core.packing.reshard_plan``. Per group, pad or
+    truncate the padding rows and remap the tier sentinels
+    (``_reshard_group_state``); a group whose rows already match passes
+    through untouched. Takes the full train/serve state (``{"emb": ...}``)
+    or the bare per-group emb dict and returns the same structure, its
+    tensors on their devices (the reference returns host arrays and places
+    them after). Past world 1 each rank holds a cut of the rows, and
+    ``runtime.elastic.reshard_live`` moves them."""
+    if isinstance(state, dict) and "emb" in state:
+        return {**state, "emb": reshard_state(new_plan, state["emb"])}
+    out = {}
+    for g in new_plan.groups:
+        key = str(g.gid) if str(g.gid) in state else g.gid
+        st = state[key]
+        out[key] = st if int(st.w.shape[0]) == g.rows else _reshard_group_state(g, st)
+    return out
+
+
 def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
                   use_cache: bool = True, use_l2: bool = True,
                   cache_update: str = "psum") -> Any:
     """Carry live embedding state from ``old_plan`` to ``new_plan``, two
-    revisions of one structural plan (same gids, dims and rows; what may
-    differ is ``cache_rows``/``l2_rows``, the strategy assignment and the
-    narrow widths).
+    revisions of one structural plan (same gids and dims; what may differ is
+    ``cache_rows``/``l2_rows``, the strategy assignment, the narrow widths
+    and, across a world resize (``reshard_plan``), the padded rows).
 
-    A group with identical tier shapes, gating and width passes through
-    untouched (the same tensors: a replan that recompiles to the same plan
-    is a no-op); the others migrate on their device (``_migrate_group``),
-    their master taking the tiers' write-back in place. A change of rows (a
-    world resize, ``reshard_plan``) raises ``NotImplementedError``: the
-    elastic path is ROADMAP Queue 1 item 6. ``use_cache``/``use_l2``/
+    A change of rows is recut first (``_reshard_group_state``: padding and
+    sentinels, exact for every logical row), as the reference's is. A group
+    with identical tier shapes, gating and width then passes through (the
+    same tensors where the rows did not change: a replan that recompiles
+    to the same plan is a no-op); the others migrate on their device
+    (``_migrate_group``), their master taking the tiers' write-back in
+    place. The state is the world-1 layout (every row in this process).
+    ``use_cache``/``use_l2``/
     ``cache_update`` must mirror the engine flags the state was trained
     under. Takes the full train/serve state (``{"emb": ...}``) or the bare
     per-group emb dict and returns the same structure.
@@ -530,16 +616,14 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
             raise ValueError(f"g{g.gid}: packed dim changed across revisions "
                              f"({og.rows}x{og.dim} -> {g.rows}x{g.dim}); only tier "
                              "budgets, strategy, and world padding may change")
-        if og.rows != g.rows:
-            raise NotImplementedError(
-                f"g{g.gid}: rows {og.rows} -> {g.rows} (a world resize); resharding "
-                "state is the elastic path of ROADMAP Queue 1 item 6, not ported")
         h_old = (old_plan.cache_rows.get(g.gid, 0), old_plan.l2_rows.get(g.gid, 0))
         h_new = (new_plan.cache_rows.get(g.gid, 0), new_plan.l2_rows.get(g.gid, 0))
         gates_old = tier_gates(old_plan, g.gid, use_cache=use_cache, use_l2=use_l2)
         gates_new = tier_gates(new_plan, g.gid, use_cache=use_cache, use_l2=use_l2)
         nd_old, nd_new = old_plan.narrow_width(g.gid), new_plan.narrow_width(g.gid)
         st = state[str(g.gid)]
+        if og.rows != g.rows:  # a world resize: recut padding and sentinels first
+            st = _reshard_group_state(g, st)
         if h_old == h_new and gates_old == gates_new and nd_old == nd_new:
             out[str(g.gid)] = st  # pass-through
         else:

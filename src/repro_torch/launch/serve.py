@@ -38,8 +38,9 @@ bus, and prints the bytes pinned. ``--reload-dir`` follows a streaming trainer's
 (``repro_torch.launch.train --stream --publish-dir``): the serve state is
 shaped by the published plan revision, and before each request the server
 polls for a new delta and loads it in place once every leaf has passed its
-checksum; a torn or corrupt delta is skipped and the last good state keeps
-serving. A delta packed under other table salts raises
+checksum; a delta published at another world is recut onto this server's
+plan (``runtime.stream.load_published``); a torn or corrupt delta, or one of
+another plan revision, is skipped and the last good state keeps serving. A delta packed under other table salts raises
 (``PYTHONHASHSEED``). ``--chaos torn@i`` tears the newest delta before
 request ``i``.
 
@@ -59,7 +60,7 @@ process each, as ``repro_torch.launch.train`` runs them (its docstring):
 each rank scores ``batch // world`` samples of every request, retrieval
 ranks score ``n // world`` candidates each and merge their top-k; rank 0
 prints. ``--reload-dir``, ``--pin-l2`` and ``--calibrate`` refuse at world
-> 1 (ROADMAP Queue 1 item 6).
+> 1 (ROADMAP Queue 1 item 6.3).
 """
 import argparse
 

@@ -34,6 +34,9 @@ dcn-v2, sasrec or mind, on one card or on ``--devices`` ranks.
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \
       --device cpu --devices 4 --mesh 2x2 --steps 30 --global-batch 64 \
       --ckpt-dir /tmp/ck4 --ckpt-every 5 --guard --chaos nan@7,nan@8,crash@13,ckpt@20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \
+      --device cpu --devices 4 --mesh 2x2 --steps 6 --global-batch 64 \
+      --reshard-to 2x1 --reshard-at 3 --ckpt-dir /tmp/ck42
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 The plan is the reference launcher's: hot tier budget ``1<<24`` bytes with
@@ -65,16 +68,24 @@ the ranks pack alike, spawns them (``dist.spawn_ranks``), and rank 0 prints
 the lines a world-1 run prints. The backend is NCCL when every rank has a
 card of its own, else gloo (on the CPU, or on CUDA tensors when the ranks
 share one card); the first line names it. ``--ckpt-dir``, ``--guard`` and
-``--chaos`` run at any fixed world: every rank runs the ``Supervisor``, the
+``--chaos`` run at any world: every rank runs the ``Supervisor``, the
 ranks write one checkpoint together (the reference's files at the same
-mesh) and agree on every rollback; a resume reads a checkpoint written at
-this world, by either package, and refuses one of another world
-(``WorldMismatch``: the elastic restore is ROADMAP Queue 1 item 6.2). Rank
-0 prints the launcher's lines; each rank logs its warnings with its rank.
-The flags that wait for ROADMAP Queue 1 item 6.3 refuse past world 1 with
-``NotImplementedError``: ``--stream``, ``--replan-iters``, ``--pin-l2``,
-``--calibrate``; ``--reshard-to``/``--reshard-at`` (``runtime/elastic.py``,
-item 6.2) refuse at any world.
+mesh) and agree on every rollback; a resume reads a checkpoint written by
+either package, at this world or, through ``runtime.elastic.restore_elastic``,
+at another. Rank 0 prints the launcher's lines; each rank logs its warnings
+with its rank.
+
+``--reshard-to AxB`` (with ``--reshard-at``) changes the world mid-run, as
+the reference's ``do_reshard``: at that step the plan is recut, the live
+state moves to the new world's ranks exactly (``runtime.elastic.reshard_live``),
+the step (and the ``Supervisor``, which writes a checkpoint at the new world
+there) is rebuilt on the new group, and the run goes on. The launcher starts
+``max(world, new world)`` processes: those past the live world are spares
+until the reshard names them, and the ranks a scale-down leaves free their
+state and wait for the run's end (``--devices`` counts them all). The flags
+that wait for ROADMAP Queue 1 item 6.3 refuse past world 1 with
+``NotImplementedError`` (``--reshard-to`` takes a run past world 1):
+``--stream``, ``--replan-iters``, ``--pin-l2``, ``--calibrate``.
 """
 import argparse
 
@@ -200,57 +211,72 @@ def main(argv=None):
                     help="mesh shape, e.g. 2x2 or 4 (default: --devices x 1); "
                          "world = its product")
     ap.add_argument("--reshard-to", default="", metavar="AxB",
-                    help="live reshard to this mesh (the reference's elastic "
-                         "runtime; not ported: raises)")
-    ap.add_argument("--reshard-at", type=int, default=0, metavar="STEP")
+                    help="elastic reshard target mesh, e.g. 2x1 or 4: at "
+                         "--reshard-at the run recuts the plan for the new world, "
+                         "moves the live state exactly (every master row, Adagrad "
+                         "slot and FCounter bitwise), rebuilds the step and goes on "
+                         "on the first prod(MESH) ranks; max(world, new world) "
+                         "processes are started")
+    ap.add_argument("--reshard-at", type=int, default=0, metavar="STEP",
+                    help="step at which to apply --reshard-to")
     args = ap.parse_args(argv)
     if args.replan_iters < 0:
         ap.error("--replan-iters must be >= 0 (0 disables replanning)")
-    from repro_torch.launch.mesh import parse_mesh
+    if args.reshard_at and not args.reshard_to:
+        ap.error("--reshard-at needs --reshard-to")
+    from repro_torch.launch.mesh import mesh_world, parse_mesh
 
     try:
-        shape = parse_mesh(args.mesh, args.devices)
+        # with --reshard-to, --devices counts every process (the spares too)
+        shape = parse_mesh(args.mesh, 0 if args.reshard_to and args.mesh else args.devices)
+        procs = mesh_world(shape)
+        if args.reshard_to:
+            procs = max(procs, mesh_world(parse_mesh(args.reshard_to)))
+            if args.devices and args.devices != procs:
+                raise ValueError(f"--devices {args.devices}: --mesh {args.mesh or shape[0]} "
+                                 f"and --reshard-to {args.reshard_to} need {procs} ranks")
     except ValueError as e:
         ap.error(str(e))
-    if args.reshard_to or args.reshard_at:
-        raise NotImplementedError("--reshard-to/--reshard-at need runtime/elastic.py, "
-                                  "ROADMAP Queue 1 item 6 (not ported)")
     launch_ranks("train", args, shape, _train, waiting={
         "--stream": args.stream, "--replan-iters": bool(args.replan_iters),
-        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"})
+        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"}, procs=procs)
 
 
-def launch_ranks(tag: str, args, shape, body, waiting) -> None:
-    """Run ``body(group, args, shape)`` at world ``prod(shape)``: in this
-    process at world 1, else in one spawned process a rank. Past world 1
-    the flags in ``waiting`` that are set refuse first, and
-    ``PYTHONHASHSEED`` is fixed before the spawn."""
+def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
+    """Run ``body(group, args, shape)`` on ``procs`` ranks (default: the
+    world ``prod(shape)``): in this process when that is 1, else in one
+    spawned process a rank. Past one rank the flags in ``waiting`` that are
+    set refuse first, and ``PYTHONHASHSEED`` is fixed before the spawn."""
     import os
 
     from repro_torch.dist.compat import WORLD1, backend_for, spawn_ranks
     from repro_torch.launch.mesh import describe, mesh_world
 
     world = mesh_world(shape)
-    if world == 1:
+    procs = max(procs, world)
+    if procs == 1:
         return body(WORLD1, args, shape)
     on = [flag for flag, set_ in waiting.items() if set_]
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)} at world {world}: the rest of the runtime past world 1 is "
+            f"{', '.join(on)} on {procs} ranks: the rest of the runtime past world 1 is "
             "ROADMAP Queue 1 item 6.3 (stream and publish, --reload-dir, the replanner, "
             "--pin-l2 and --calibrate wait for it)")
     seed = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = seed if seed is not None else "0"
     print(f"[{tag}] world={world} mesh={describe(shape)} "
-          f"backend={backend_for(args.device, world)} "
+          f"backend={backend_for(args.device, procs)} "
           f"PYTHONHASHSEED={os.environ['PYTHONHASHSEED']}"
-          f"{' (this process)' if seed is not None else ' (set by the launcher)'}",
+          f"{' (this process)' if seed is not None else ' (set by the launcher)'}"
+          f"{f' processes={procs}' if procs != world else ''}",
           flush=True)
-    spawn_ranks(body, world, args, shape, device=args.device)
+    spawn_ranks(body, procs, args, shape, device=args.device)
 
 
-def _train(group, args, shape) -> None:
-    """One rank of the training run (the whole run at world 1)."""
+def _train(root, args, shape) -> None:
+    """One process of the training run (the whole run at world 1). ``root``
+    is every process started; the live world is its first ``prod(shape)``
+    ranks, and with ``--reshard-to`` the others wait until the reshard."""
     import logging
     import time
 
@@ -262,6 +288,7 @@ def _train(group, args, shape) -> None:
     from repro_torch.core.packing import make_plan
     from repro_torch.data.pipeline import Prefetcher, ReplayableStream
     from repro_torch.data.synthetic import batch_stream
+    from repro_torch.dist import compat
     from repro_torch.embedding.state import pin_to_host, warn_pin_l2_limits
     from repro_torch.engine import maybe_compile, resolve_assignment
     from repro_torch.kernels.host_memory import pinned_bytes
@@ -269,15 +296,21 @@ def _train(group, args, shape) -> None:
     from repro_torch.runtime import (AnomalyGuard, ChaosController, Replanner,
                                      apply_plan_meta, parse_fault_plan, plan_meta,
                                      publish_state, run_stream)
-    from repro_torch.train.checkpoint import (AsyncCheckpointer, WorldMismatch, latest_step,
+    from repro_torch.runtime.elastic import (end_run, make_submesh, parse_mesh_shape,
+                                             reshard_live, restore_elastic, wait_for_reshard)
+    from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
                                               load_checkpoint_meta, load_checkpoint_salts,
                                               restore_verified)
     from repro_torch.train.fault_tolerance import Supervisor
     from repro_torch.train.train_step import TrainConfig, init_state, make_train_step
     from repro_torch.dist.compat import rank_device
-    from repro_torch.launch.mesh import describe
+    from repro_torch.launch.mesh import describe, mesh_world
 
-    world, lead = group.world, group.rank == 0
+    to = parse_mesh_shape(args.reshard_to) if args.reshard_to else None
+    world = mesh_world(shape)
+    # the live world: every process makes the group, in the same order
+    group = make_submesh(shape, group=root) if to is not None else root
+    lead = root.rank == 0  # rank 0 is in every world
 
     def say(*a, **kw):
         if lead:
@@ -285,11 +318,11 @@ def _train(group, args, shape) -> None:
 
     # recovery events (rollbacks, quarantines) are the operator's window into
     # the fault-tolerance subsystem; past world 1 each rank logs its own
-    logging.basicConfig(format=(f"[rank {group.rank}] " if world > 1 else "")
+    logging.basicConfig(format=(f"[rank {root.rank}] " if root.world > 1 else "")
                         + "[%(name)s] %(levelname)s: %(message)s")
     logging.getLogger("repro_torch").setLevel(logging.INFO)
 
-    device = rank_device(resolve_device(args.device), group)
+    device = rank_device(resolve_device(args.device), root)
     cost_model = None
     if args.calibrate != "off":
         from repro_torch.perf import get_cost_model
@@ -308,17 +341,12 @@ def _train(group, args, shape) -> None:
                      l2_bytes=args.l2_budget, narrow_dim=args.narrow_dim or None,
                      flush_iters=20, warmup_iters=10,
                      mesh_shape=shape if world > 1 else (1, 1))
-    salts = agree_salts(plan, group)  # every rank packs alike, or all raise
+    salts = agree_salts(plan, group) if group is not None else None
     meta = None
-    if args.ckpt_dir and latest_step(args.ckpt_dir, group) is not None:
+    if args.ckpt_dir and group is not None and latest_step(args.ckpt_dir, group) is not None:
         # a checkpointed run may have replanned: revise the structural plan
         # back to the checkpointed revision before the state is shaped
         meta = load_checkpoint_meta(args.ckpt_dir, group=group)
-        if meta is not None and int(meta.get("world", 1)) != world:
-            raise WorldMismatch(
-                f"checkpoint under {args.ckpt_dir} was written at world {meta['world']}, "
-                f"this run is world {world}: a different world size; the elastic "
-                "restore is ROADMAP Queue 1 item 6.2")
         if meta is not None:
             plan = apply_plan_meta(plan, meta)
             say(f"[train] resumed plan rev {plan.rev} from checkpoint meta "
@@ -365,8 +393,9 @@ def _train(group, args, shape) -> None:
         return timed
 
     def build_step(plan):
-        """(Re)build the step against a plan revision; the guard (if armed)
-        judges the fresh step and keeps its EMA and event history."""
+        """(Re)build the step against a plan revision (and the live group);
+        the guard (if armed) judges the fresh step and keeps its EMA and
+        event history."""
         model = WDLModel(cfg, plan)
         tcfg = TrainConfig(strategy="mixed" if plan.strategy else strategy,
                            use_cache=not args.no_cache,
@@ -378,28 +407,6 @@ def _train(group, args, shape) -> None:
         raw = make_train_step(model, plan, args.global_batch, tcfg, device, group=group)
         return model, tcfg, wrap_timed(guard.rebind(raw) if guard is not None else raw)
 
-    replanner = None
-    model, tcfg, step_fn = build_step(plan)
-    state = init_state(model, plan, torch.Generator(device=device).manual_seed(args.seed),
-                       device, group=group)
-    if args.pin_l2:
-        # placed once here: the flushes, the journal, restores and the
-        # replanner's migration keep it, and the step checks it
-        warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
-        state = pin_to_host(state, plan)
-        print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
-    if args.replan_iters:
-        replanner = Replanner(plan, strategy=args.strategy,
-                              hot_bytes=args.replan_hot_bytes,
-                              l2_bytes=args.replan_l2_bytes,
-                              use_cache=not args.no_cache, cache_update=tcfg.cache_update,
-                              cost_model=cost_model, pin_l2=args.pin_l2,
-                              log=lambda s: print(f"[train] replan {s}", flush=True))
-    mesh = f" mesh={describe(shape)} backend={group.backend}" if world > 1 else ""
-    say(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
-        f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world={world},"
-        f"{mesh} device={device}, plan rev={plan.rev}")
-
     # the positional factory gives the Supervisor an exact rewind after a
     # rollback (ReplayableStream.seek)
     stream = ReplayableStream(lambda start: Prefetcher(
@@ -407,7 +414,8 @@ def _train(group, args, shape) -> None:
                      start=start), depth=2))
     if chaos is not None:
         stream = chaos.wrap_stream(stream)
-    active_ckpt = None  # the live AsyncCheckpointer (chaos ckpt@ targets it)
+    replanner = sup = active_ckpt = None  # active_ckpt: the checkpointer chaos ckpt@ targets
+    reshard_pending = to is not None
 
     def on_metrics(step, m):
         if replanner is not None:
@@ -425,6 +433,63 @@ def _train(group, args, shape) -> None:
             # fault drives the real recovery path of either driver
             chaos.injector(step)
 
+    def join(state, step):
+        """Every rank of a new world, right after the reshard: the salts
+        agreed, the guard's history and the step rebuilt on the new group,
+        and (``--ckpt-dir``) a Supervisor on it that writes the durable
+        checkpoint at the new world, as the reference does."""
+        nonlocal salts, model, tcfg, step_fn, sup, active_ckpt
+        salts = agree_salts(plan, group)
+        if guard is not None:
+            guard.group = group
+            kept = compat.ckpt_broadcast_object(
+                (guard.ema, guard.accepted, guard.rejected, guard.consecutive,
+                 guard.events), group)
+            guard.ema, guard.accepted, guard.rejected, guard.consecutive, guard.events = kept
+        if chaos is not None:
+            chaos.group = group
+        model, tcfg, step_fn = build_step(plan)
+        stream.seek(step)
+        if args.ckpt_dir:
+            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
+                             group=group)
+            active_ckpt = sup.ckpt
+            sup.meta = plan_meta(plan)
+            # durable, world-consistent restore point: a later failure must
+            # restore the new rows and the new world's meta
+            sup.ckpt.save(step, state, meta=sup.meta)
+            sup.ckpt.wait()
+
+    def do_reshard(state, step):
+        """The live ranks' reshard to --reshard-to at ``step`` (one-shot):
+        the state moves to the new world's ranks; ``None`` on a rank that
+        leaves it."""
+        nonlocal plan, group, world, reshard_pending
+        reshard_pending = False  # applied (or a no-op): never fires again
+        new_world = mesh_world(to)
+        if new_world == world:
+            return state
+        if args.global_batch % new_world:
+            raise SystemExit(f"[train] --reshard-to {args.reshard_to}: global batch "
+                             f"{args.global_batch} not divisible by new world {new_world}")
+        say(f"[train] reshard world {world} -> {new_world} (mesh {describe(to)}) at step "
+            f"{step}", flush=True)
+        plan, state, group = reshard_live(plan, state, new_world,
+                                          args.global_batch // new_world, group=group,
+                                          mesh_shape=to, note={"step": step})
+        world = new_world
+        if group is not None:
+            join(state, step)
+        return state
+
+    def next_boundary(step):
+        """Next replan/reshard step strictly after ``step``."""
+        ri = args.replan_iters
+        b = min(args.steps, (step // ri + 1) * ri) if ri else args.steps
+        if reshard_pending and step < args.reshard_at:
+            b = min(b, args.reshard_at)
+        return b
+
     def do_replan(state, step):
         """Harvest + recompile; on a real change, migrate + rebuild the step.
         Returns (state, migrated?)."""
@@ -438,13 +503,67 @@ def _train(group, args, shape) -> None:
             print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
         return state, True
 
+    start = 0
+    if group is None:
+        # a spare: no state until the reshard names this rank
+        ev = wait_for_reshard(root)
+        if ev is None:
+            return  # the run ended without it
+        reshard_pending = False
+        plan, state, group = reshard_live(
+            apply_plan_meta(plan, ev["meta"]), None, ev["world"],
+            args.global_batch // ev["world"], mesh_shape=ev["mesh_shape"], device=device)
+        world, start = ev["world"], ev["step"]
+        if group is None:  # not named: nothing to do but wait for the end
+            wait_for_reshard(root)
+            return
+        join(state, start)
+    else:
+        model, tcfg, step_fn = build_step(plan)
+        state = init_state(model, plan,
+                           torch.Generator(device=device).manual_seed(args.seed), device,
+                           group=group)
+        if args.pin_l2:
+            # placed once here: the flushes, the journal, restores and the
+            # replanner's migration keep it, and the step checks it
+            warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
+            state = pin_to_host(state, plan)
+            print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
+        if args.replan_iters:
+            replanner = Replanner(plan, strategy=args.strategy,
+                                  hot_bytes=args.replan_hot_bytes,
+                                  l2_bytes=args.replan_l2_bytes,
+                                  use_cache=not args.no_cache,
+                                  cache_update=tcfg.cache_update, cost_model=cost_model,
+                                  pin_l2=args.pin_l2,
+                                  log=lambda s: print(f"[train] replan {s}", flush=True))
+        mesh = f" mesh={describe(shape)} backend={group.backend}" if world > 1 else ""
+        say(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
+            f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world={world},"
+            f"{mesh} device={device}, plan rev={plan.rev}")
+        if args.ckpt_dir and not args.stream:
+            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
+                             group=group)
+            active_ckpt = sup.ckpt
+            # the plan sidecar rides every checkpoint: it records the world
+            # the state was written at (the elastic restore reads it) and,
+            # after a replan, the revision a resume must shape its template by
+            sup.meta = plan_meta(plan)
+            if meta is not None and int(meta.get("world", world)) != world:
+                # written at another world: the exact recut, not the template
+                state, start = restore_elastic(
+                    args.ckpt_dir, plan, state, group=group,
+                    log=lambda s: say(f"[train] elastic {s}", flush=True))
+            else:
+                state, start = sup.maybe_restore(state)
+            stream.seek(start)  # resume replays from the exact batch index
+
     try:
         if args.stream:
             # segments over the unbounded stream (--steps is ignored); each
             # boundary checkpoints and publishes
             ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts) if args.ckpt_dir else None
             active_ckpt = ckpt
-            start = 0
             if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
                 state, start = restore_verified(
                     args.ckpt_dir, state, log=lambda s: print(f"[train] {s}", flush=True))
@@ -469,22 +588,17 @@ def _train(group, args, shape) -> None:
                 ckpt.wait()
             print(f"[train] stream done at step {last} (world=1)")
             return
-        if args.ckpt_dir:
-            sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
-                             group=group)
-            active_ckpt = sup.ckpt
-            # the plan sidecar rides every checkpoint: a resume after a replan
-            # must shape its template by the replanned revision
-            sup.meta = plan_meta(plan)
-            state, start = sup.maybe_restore(state)
-            stream.seek(start)  # resume replays from the exact batch index
-            step = start
-            ri = args.replan_iters
+        step = start
+        if sup is not None:
             while step < args.steps:
-                seg_end = min(args.steps, (step // ri + 1) * ri) if ri else args.steps
+                seg_end = next_boundary(step)
                 state = sup.run(state, step_fn, stream, seg_end, start_step=step,
                                 on_metrics=on_metrics)
                 step = seg_end
+                if reshard_pending and step >= args.reshard_at and step < args.steps:
+                    state = do_reshard(state, step)
+                    if state is None:
+                        break  # this rank left the world
                 if replanner is not None and step < args.steps:
                     state, migrated = do_replan(state, step)
                     if migrated:
@@ -495,18 +609,37 @@ def _train(group, args, shape) -> None:
                         sup.ckpt.wait()
         else:
             it = iter(stream)
-            for i in range(1, args.steps + 1):
+            while step < args.steps:
                 try:
                     batch = next(it)
                 except StopIteration:  # the stream ended or stalled: finish
                     break
                 state, m = step_fn(state, batch)
-                on_metrics(i, m)
-                if (replanner is not None and i % args.replan_iters == 0
-                        and i < args.steps):
-                    state, _ = do_replan(state, i)
+                step += 1
+                on_metrics(step, m)
+                if reshard_pending and step >= args.reshard_at and step < args.steps:
+                    state = do_reshard(state, step)
+                    if state is None:
+                        break  # this rank left the world
+                    it = iter(stream)
+                if (replanner is not None and step % args.replan_iters == 0
+                        and step < args.steps):
+                    state, _ = do_replan(state, step)
+    except BaseException as e:
+        if to is not None and group is not None:
+            end_run(ok=False, why=f"{type(e).__name__}: {e}", root=root)
+        raise
     finally:
         stream.close()
+    if to is not None:
+        if group is None:  # left the world: hold nothing, wait for the run's end
+            del state
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            if wait_for_reshard(root) is not None:
+                raise RuntimeError("a second reshard: the launcher makes one")
+            return
+        end_run(root=root)
     if replanner is not None:
         n_mig = sum(1 for e in replanner.events if e.migrated)
         print(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "

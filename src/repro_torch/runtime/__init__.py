@@ -4,11 +4,13 @@ the plan's revisable decisions and migrates the live state, and ``stream``
 is the segmented streaming driver with the publish/pickup train-to-serve
 handoff, both at world 1; ``guard`` detects and rejects numeric anomalies
 and ``chaos`` injects deterministic faults that prove the recovery paths,
-at any fixed world. The reference's ``elastic`` (world-size resharding) is
-ROADMAP Queue 1 item 6.2 and not exported here.
+at any fixed world; ``elastic`` moves a live run or a checkpoint between
+world sizes (one process a rank: the rows move between processes).
 """
 from repro_torch.runtime.chaos import (ChaosController, ChaosFailure, ChaosStream,
                                        FaultPlan, parse_fault_plan)
+from repro_torch.runtime.elastic import (make_submesh, parse_mesh_shape, place_state,
+                                         reshard_live, restore_elastic)
 from repro_torch.runtime.guard import (AnomalyGuard, AnomalyRollback, GuardConfig,
                                        VerdictMismatch)
 from repro_torch.runtime.replanner import (ReplanEvent, Replanner, apply_plan_meta,
@@ -30,10 +32,15 @@ __all__ = [
     "VerdictMismatch",
     "apply_plan_meta",
     "load_published",
+    "make_submesh",
     "parse_fault_plan",
+    "parse_mesh_shape",
+    "place_state",
     "plan_delta",
     "plan_meta",
     "poll_published",
     "publish_state",
+    "reshard_live",
+    "restore_elastic",
     "run_stream",
 ]

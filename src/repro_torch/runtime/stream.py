@@ -21,8 +21,11 @@ delta loads in place into the serving state's tensors only after every leaf
 has passed its checksum, header and shape checks, from files held open
 until the load ends, so a torn, mis-shaped or concurrently pruned delta
 never leaves the served state a mix of two deltas.
-A delta shaped by another world (the reference's ``reshard_state`` branch)
-raises ``NotImplementedError``: the elastic path is ROADMAP Queue 1 item 6.
+A delta shaped by another world is recut onto the consumer's plan
+(``embedding.state.reshard_state``), as the reference's is; it differs from
+the consumer's state only in the row-sharded leaves' rows, or it raises
+before anything is written. Both run at world 1 (a serving process past
+world 1 with ``--reload-dir`` is ROADMAP Queue 1 item 6.3).
 
 Publication layout: ``publish_dir/step_<n>/`` is an ordinary checkpoint of
 the serveable subset (``{"emb", "dense"}``) plus an atomically-renamed
@@ -34,9 +37,11 @@ import os
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+from repro_torch.dist.sharding import row_sharded_leaf
+from repro_torch.embedding.state import reshard_state
 from repro_torch.train.checkpoint import (CheckpointCorrupt, SaltMismatch, WorldMismatch,
-                                          available_steps, restore_checkpoint,
-                                          save_checkpoint)
+                                          _flatten, _read_manifest, _shape, available_steps,
+                                          latest_step, restore_checkpoint, save_checkpoint)
 
 
 def run_stream(state: Any, step_fn: Callable, batches: Iterable, *,
@@ -141,22 +146,34 @@ def poll_published(publish_dir: str, last_step: int = -1) -> Optional[int]:
 def load_published(publish_dir: str, template: Any,
                    plan=None, step: Optional[int] = None) -> Tuple[Any, int]:
     """Load one published delta into ``template`` (the serve {"emb","dense"}
-    subset), in place into its tensors, whole or not at all: every check
-    (checksums, packing salts, shapes) passes before the first leaf is
-    written (``restore_checkpoint``). A delta whose rows differ from the
-    template's was shaped by another world (or another plan revision); the
-    reference reshards it onto ``plan``, and here it raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 6) before anything is
-    written. ``plan`` only names the consumer in that message."""
+    subset), whole or not at all: every check (checksums, packing salts,
+    shapes) passes before the first leaf is written (``restore_checkpoint``).
+    A delta of the template's rows loads in place into its tensors.
+
+    With ``plan``, a delta published at another world size is recut onto the
+    consumer's padding (``reshard_state``: the cross-world train-to-serve
+    handoff; its row-sharded leaves come back as new tensors, the tier keys
+    remapped); a delta that differs in any other leaf's shape was shaped by
+    another plan revision and raises ``ValueError`` before anything is
+    written. Without ``plan`` a row mismatch raises ``WorldMismatch``."""
+    step = step if step is not None else latest_step(publish_dir)
+    if step is None:
+        raise FileNotFoundError(f"no published delta under {publish_dir}")
     try:
         return restore_checkpoint(publish_dir, template, step=step, on_row_mismatch="error")
-    except WorldMismatch as e:
+    except WorldMismatch:
         if plan is None:
             raise
-        raise NotImplementedError(
-            f"published delta step {step}: its rows differ from this server's plan "
-            f"({e}); resharding a delta is the elastic path of ROADMAP Queue 1 item 6, "
-            "not ported") from e
+    stored = _read_manifest(publish_dir, step)["leaves"]
+    other = sorted(name for name, t in _flatten(template).items()
+                   if name in stored and tuple(stored[name]["shape"]) != _shape(t)
+                   and not row_sharded_leaf(name))
+    if other:
+        raise ValueError(f"published delta step {step}: {', '.join(other)} differ from this "
+                         "server's plan beyond the world's rows: a delta of another plan "
+                         "revision")
+    state, s = restore_checkpoint(publish_dir, template, step=step, on_row_mismatch="keep")
+    return reshard_state(plan, state), s
 
 
 class PublishPoller:
@@ -166,8 +183,9 @@ class PublishPoller:
     delta loaded cleanly, else ``None`` — and a serving loop that only swaps
     on a non-None result keeps answering from its last good state through
     every failure mode a publisher can throw at it: torn LATEST pointer,
-    pruned step directory, corrupt/truncated leaf files, deltas shaped by a
-    different world, or a publish stall. A delta packed under other salts
+    pruned step directory, corrupt/truncated leaf files, deltas shaped by
+    another plan revision (or by another world when ``plan`` is None), or a
+    publish stall. A delta packed under other salts
     (``SaltMismatch``) is not a transient fault: every later delta of that
     publisher would be too, so it raises.
 
@@ -202,8 +220,7 @@ class PublishPoller:
                                       plan=self.plan, step=step)
         except SaltMismatch:
             raise
-        except (CheckpointCorrupt, ValueError, KeyError, FileNotFoundError,
-                NotImplementedError) as e:
+        except (CheckpointCorrupt, ValueError, KeyError, FileNotFoundError) as e:
             self.failures += 1
             self.skips_left = min(2 ** self.failures, self.max_backoff)
             self.log(f"[serve] delta step {step} failed verification "

@@ -33,8 +33,10 @@ restores unchecked (``load_checkpoint_salts`` returns ``None``).
 
 World size: a leaf whose rows differ from the template's was written at
 another world size; ``on_row_mismatch='error'`` raises ``WorldMismatch`` (a
-``NotImplementedError``: the elastic restore is ROADMAP Queue 1 item 6.2),
-``'keep'`` and ``'repad'`` keep the reference's meaning at world 1.
+``ValueError``, the class the reference raises) pointing to the elastic
+restore (``runtime.elastic.restore_elastic``, which remaps the tier
+sentinels); ``'keep'`` and ``'repad'`` have the reference's meaning at any
+world.
 
 Past world 1 (``group=`` a ``dist.Group`` of world W, on every rank at
 once) a checkpoint is still the *logical* state, file for file what the
@@ -68,8 +70,16 @@ meta are read by rank 0 and broadcast; ``restore_verified`` walks that one
 list, every rank raises the same error, and rank 0 quarantines a corrupt
 step once, after every rank has closed its files and before any rank
 goes on. A checkpoint written at another world (its rows, or the world its
-meta records) raises ``WorldMismatch``; ``'keep'``/``'repad'`` are the
-elastic restore's and raise ``NotImplementedError``.
+meta records) raises ``WorldMismatch`` under ``'error'``. ``'keep'`` gives
+rank ``r`` rows ``[r*R/W, (r+1)*R/W)`` of a leaf stored with ``R`` rows, in a
+new tensor; ``'repad'`` gives each rank its cut of the template's rows,
+read from the stored rows and zero past them: the logical leaf zero-extended
+or truncated, as at world 1. ``restore_resharded`` is ``'repad'`` with the
+check the elastic restore needs: the rows a cut drops hold no FCounter
+mass, read by the rank that reads them and agreed before anything is
+written. ``.npy`` leaves are read by each rank at its own cut; a
+``.npy.zst`` leaf stays one frame, read by its owner, who sends each rank
+its cut's rows.
 """
 from __future__ import annotations
 
@@ -117,12 +127,13 @@ class CheckpointCorrupt(RuntimeError):
         return (type(self), (str(self), self.step, self.leaf))
 
 
-class WorldMismatch(NotImplementedError):
+class WorldMismatch(ValueError):
     """A leaf's rows, or the meta, say it was written at another world size."""
 
 
-_ELASTIC = ("the elastic restore that remaps tier sentinel keys (runtime.elastic) is "
-            "ROADMAP Queue 1 item 6.2 and not ported; a blind re-pad would corrupt them.")
+_ELASTIC = ("Restore through the elastic path (runtime.elastic.restore_elastic / "
+            "embedding.state.reshard_state), which remaps tier sentinel keys; a blind "
+            "re-pad would corrupt them.")
 
 
 def _group(group: Optional[Group]) -> Group:
@@ -627,9 +638,12 @@ def restore_checkpoint(ckpt_dir: str, template: Any, step: Optional[int] = None,
     unreadable manifest. The recorded packing salts are checked
     (``check_salts``). ``on_row_mismatch`` decides what a stored leaf whose
     leading dim differs from the template's does: ``'error'`` raises
-    ``WorldMismatch``; ``'keep'`` returns the leaf at its stored rows (a new
-    tensor on the template's device); ``'repad'`` zero-extends or truncates
-    into the template's rows (states without cache tiers only).
+    ``WorldMismatch`` (a ``ValueError``) with the pointer to
+    ``runtime.elastic.restore_elastic``; ``'keep'`` returns the leaf at its
+    stored rows (a new tensor on the template's device; past world 1 each
+    rank's equal share of them); ``'repad'`` zero-extends or truncates into
+    the template's rows (states without cache tiers only: the sentinels are
+    not remapped).
     ``shardings`` is accepted for the reference's signature: the placement
     is the template's own (past world 1, this rank's rows). A template leaf
     in mapped pinned memory (``--pin-l2``) is written after the card's
@@ -674,7 +688,7 @@ def restore_checkpoint(ckpt_dir: str, template: Any, step: Optional[int] = None,
                     raise WorldMismatch(
                         f"{name}: stored {shape} vs template {tshape}: the row count "
                         "(world padding) differs, so this checkpoint was written at a "
-                        f"different world size. The {_ELASTIC}")
+                        f"different world size. {_ELASTIC}")
         # pass 2: load, once no queued kernel reads or writes a mapped leaf
         host_memory.wait_for_card(tflat.values())
         out = {}
@@ -693,11 +707,8 @@ def restore_checkpoint(ckpt_dir: str, template: Any, step: Optional[int] = None,
                     out[name] = _read_into(p, t, n, name, step)
             else:
                 arr = _read_into(p, None, shape[0] if shape else 0, name, step)
-                if shape != tshape and on_row_mismatch == "repad":
-                    new = np.zeros(tshape, arr.dtype)
-                    n = min(arr.shape[0], tshape[0])
-                    new[:n] = arr[:n]
-                    arr = new
+                if on_row_mismatch == "repad":
+                    arr = _repad(arr, tshape)
                 out[name] = _host_leaf(t, arr)
     finally:
         for h in held.values():
@@ -983,6 +994,9 @@ def _save_ranks(ckpt_dir, step: int, state: Any, keep: int, meta, salts,
     return _on_rank0(finish, group)
 
 
+_RECUT = "recut"  # restore_resharded's mode: 'repad' and the dropped-tail check
+
+
 class _Leaf(NamedTuple):
     """One leaf of a restore past world 1: who reads it and how."""
 
@@ -991,19 +1005,80 @@ class _Leaf(NamedTuple):
     t: Any              # the template's leaf
     info: Dict[str, Any]
     owner: int
-    sharded: bool       # row-sharded: this rank's rows are rows lo:hi
-    block: bool         # a row-sharded .npy leaf at this world: each rank reads its rows
+    sharded: bool       # row-sharded: rank r's leaf is the cut of rps rows from r * rps
+    block: bool         # a row-sharded .npy leaf: each rank reads its cut from the file
     stored: Tuple[int, ...]
-    want: Tuple[int, ...]
+    want: Tuple[int, ...]   # the logical shape the template holds
+    rps: int            # a row-sharded leaf's rows a rank; else 0
+    fresh: bool         # 'keep' of another row count: a new tensor at the stored rows
 
 
-def _leaf_plan(k: int, name: str, t, info: Dict[str, Any], group: Group) -> _Leaf:
+def _leaf_plan(k: int, name: str, t, info: Dict[str, Any], group: Group,
+               mode: str) -> _Leaf:
     stored = tuple(int(v) for v in info["shape"])
     tshape = _shape(t)
     sharded = row_sharded_leaf(name) and isinstance(t, torch.Tensor) and len(tshape) >= 1
     want = (tshape[0] * group.world,) + tshape[1:] if sharded else tshape
-    block = sharded and stored == want and not info["file"].endswith(".zst")
-    return _Leaf(k, name, t, info, k % group.world, sharded, block, stored, want)
+    fresh = mode == "keep" and len(stored) >= 1 and stored[:1] != want[:1]
+    rps = (stored[0] // group.world if fresh else tshape[0]) if sharded else 0
+    block = sharded and not info["file"].endswith(".zst")
+    return _Leaf(k, name, t, info, k % group.world, sharded, block, stored, want, rps,
+                 fresh)
+
+
+def _shape_error(lp: _Leaf, mode: str, group: Group) -> Optional[BaseException]:
+    """The stored shape against the template's under ``mode``: the same
+    verdict on every rank (both come from the manifest and the template)."""
+    if lp.stored == lp.want:
+        return None
+    if not (len(lp.stored) >= 1 and lp.stored[1:] == lp.want[1:]):
+        return ValueError(f"{lp.name}: stored {lp.stored} vs template {lp.want}")
+    if mode == "error":
+        return WorldMismatch(
+            f"{lp.name}: stored {lp.stored} vs {lp.want} at this world: the row count "
+            "(world padding) differs, so this checkpoint was written at a different world "
+            f"size. {_ELASTIC}")
+    if mode == _RECUT and not lp.sharded:
+        return ValueError(f"{lp.name}: stored {lp.stored} vs template {lp.want}: only the "
+                          "row-sharded leaves' rows change with the world; shape the "
+                          "template by the checkpoint's plan revision (apply_plan_meta)")
+    if lp.fresh and lp.sharded and lp.stored[0] % group.world:
+        return ValueError(f"{lp.name}: on_row_mismatch='keep' of {lp.stored[0]} stored rows "
+                          f"over {group.world} ranks: they do not split")
+    return None
+
+
+def _cut(lp: _Leaf, rank: int) -> Tuple[int, int]:
+    """The stored rows ``[a, b)`` rank ``rank`` reads into the first rows of
+    its leaf of a row-sharded leaf (its rows past ``b - a`` are zero)."""
+    lo = rank * lp.rps
+    return min(lo, lp.stored[0]), min(lo + lp.rps, lp.stored[0])
+
+
+def _dropped_tail(lp: _Leaf, group: Group) -> int:
+    """Stored rows of an FCounter leaf past every rank's cut (the rows a
+    ``restore_resharded`` drops), else 0."""
+    if not (lp.sharded and lp.name.endswith(_SEP + "counts")):
+        return 0
+    return max(0, lp.stored[0] - group.world * lp.rps)
+
+
+def _tail_error(lp: _Leaf, tail: np.ndarray, s: int) -> Optional[BaseException]:
+    if not np.asarray(tail).any():
+        return None
+    return ValueError(f"checkpoint step_{s:08d}: {lp.name}: restoring {lp.stored[0]} stored "
+                      f"rows into {lp.want[0]} would drop rows with nonzero FCounter mass: "
+                      "the truncated tail must be pure padding")
+
+
+def _repad(arr: np.ndarray, tshape: Tuple[int, ...]) -> np.ndarray:
+    """``arr`` zero-extended or truncated to ``tshape``'s rows."""
+    if tuple(arr.shape) == tuple(tshape):
+        return arr
+    new = np.zeros(tshape, arr.dtype)
+    n = min(arr.shape[0], tshape[0])
+    new[:n] = arr[:n]
+    return new
 
 
 def _npy_head(raw) -> Tuple[Tuple[int, ...], bool, np.dtype, int]:
@@ -1030,11 +1105,15 @@ def _region_crc(raw, start: int, length: int) -> Tuple[int, int]:
     return crc & 0xFFFFFFFF, got
 
 
-def _check_block(lp: _Leaf, d: Path, s: int, verify: bool, group: Group, held: dict):
+def _check_block(lp: _Leaf, d: Path, s: int, verify: bool, group: Group, held: dict,
+                 tail: bool):
     """Pass 1 of a row-sharded ``.npy`` leaf on this rank: open it, hash
-    its header (the owner) and this rank's rows. Returns the header's and
-    rows' (crc, bytes) and the header's problem, if any (judged after the
-    crc)."""
+    its header (the owner) and this rank's cut of the stored rows (the last
+    rank's runs to the stored end, so the parts tile the file). Returns the
+    header's and rows' (crc, bytes) and the leaf's problem, if any (judged
+    after the crc): a header that disagrees with the manifest, or, with
+    ``tail``, FCounter mass in the rows the cut drops (read by the last
+    rank)."""
     path = d / lp.info["file"]
     try:
         raw = held[lp.k] = open(path, "rb")
@@ -1044,12 +1123,15 @@ def _check_block(lp: _Leaf, d: Path, s: int, verify: bool, group: Group, held: d
                                 f"a valid .npy file ({e})", step=s, leaf=lp.name) from e
     dt = np.dtype(lp.info["dtype"])
     row_bytes = int(np.prod(lp.stored[1:], dtype=np.int64)) * dt.itemsize
-    rps = lp.stored[0] // group.world
+    a, b = _cut(lp, group.rank)
+    last = group.rank == group.world - 1
+    if last:
+        b = lp.stored[0]
     head = part = late = None
     if verify and "crc32" in lp.info:
         if group.rank == lp.owner:
             head = _region_crc(raw, 0, hlen)
-        part = _region_crc(raw, hlen + group.rank * rps * row_bytes, rps * row_bytes)
+        part = _region_crc(raw, hlen + a * row_bytes, (b - a) * row_bytes)
     size = os.fstat(raw.fileno()).st_size
     if (shape, fortran, dtype) != (lp.stored, False, dt):
         late = CheckpointCorrupt(
@@ -1060,23 +1142,39 @@ def _check_block(lp: _Leaf, d: Path, s: int, verify: bool, group: Group, held: d
             f"checkpoint step_{s:08d}: leaf {lp.name!r} is not a valid .npy payload "
             f"(file holds {size} bytes, its header says {hlen + lp.stored[0] * row_bytes})",
             step=s, leaf=lp.name)
+    elif tail and last and (n := _dropped_tail(lp, group)):
+        raw.seek(hlen + (lp.stored[0] - n) * row_bytes)
+        late = _tail_error(lp, _read_array(raw, (n,) + lp.stored[1:], dt, lp.name), s)
     return head, part, late
 
 
-def _check_owned(lp: _Leaf, d: Path, s: int, verify: bool, held: dict) -> None:
-    """Pass 1 of a leaf its owner reads whole: open, hash, header, shape."""
+def _check_owned(lp: _Leaf, d: Path, s: int, verify: bool, held: dict, group: Group,
+                 tail: bool) -> None:
+    """Pass 1 of a leaf its owner reads whole: open, hash, header against
+    the manifest; with ``tail``, the FCounter rows a cut drops, read
+    through a second handle so the payload stays at its first row."""
     p = _open_checked(d, lp.info, lp.name, s, verify, held, lp.k)
-    if p.shape != lp.want:
-        if not (len(p.shape) >= 1 and p.shape[1:] == lp.want[1:]):
-            raise ValueError(f"{lp.name}: stored {p.shape} vs template {lp.want}")
-        raise WorldMismatch(
-            f"{lp.name}: stored {p.shape} vs {lp.want} at this world: the row count (world "
-            "padding) differs, so this checkpoint was written at a different world size. "
-            f"The {_ELASTIC}")
-    if p.dtype != np.dtype(lp.info["dtype"]):
+    if p.shape != lp.stored or p.dtype != np.dtype(lp.info["dtype"]):
         raise CheckpointCorrupt(f"checkpoint step_{s:08d}: leaf {lp.name!r} holds "
-                                f"{p.dtype}, its manifest {lp.info['dtype']}", step=s,
-                                leaf=lp.name)
+                                f"{p.shape} {p.dtype}, its manifest {lp.stored} "
+                                f"{lp.info['dtype']}", step=s, leaf=lp.name)
+    n = _dropped_tail(lp, group) if tail else 0
+    if n:
+        path = d / lp.info["file"]
+        q = _open_payload(open(path, "rb"), path, lp.name, s)
+        try:
+            dt, keep = p.dtype, lp.stored[0] - n
+            row_bytes = int(np.prod(lp.stored[1:], dtype=np.int64)) * dt.itemsize
+            for r0, r1 in _chunks(keep, row_bytes):  # the kept rows, read past
+                _read_array(q.f, (r1 - r0,) + lp.stored[1:], dt, lp.name)
+            err = _tail_error(lp, _read_array(q.f, (n,) + lp.stored[1:], dt, lp.name), s)
+        except _decode_errors() as e:
+            raise CheckpointCorrupt(f"checkpoint step_{s:08d}: leaf {lp.name!r} unreadable "
+                                    f"({e})", step=s, leaf=lp.name) from e
+        finally:
+            q.close()
+        if err is not None:
+            raise err
 
 
 def _chunks(rows: int, row_bytes: int):
@@ -1120,32 +1218,35 @@ class _OwnerReader:
         return arr if arr is not None else np.zeros(shape, self.dtype)
 
 
-def _load_leaf(lp: _Leaf, held: dict, s: int, group: Group):
+def _load_leaf(lp: _Leaf, held: dict, s: int, group: Group, mode: str):
     """Pass 2 of one leaf: this rank's value and its error, if any."""
     t, rank, tail = lp.t, group.rank, lp.stored[1:]
     dt = np.dtype(lp.info["dtype"])
     row_bytes = int(np.prod(tail, dtype=np.int64)) * dt.itemsize
-    if lp.block:  # this rank's rows, in place, from its own open file
-        rps = t.shape[0]
+    if lp.sharded and lp.fresh:
+        t = torch.empty((lp.rps,) + tuple(tail), dtype=t.dtype, device=t.device)
+    if lp.block:  # this rank's cut, in place, from its own open file
+        a, b = _cut(lp, rank)
         raw = held[lp.k]
         _, _, _, hlen = _npy_head(raw)
-        raw.seek(hlen + rank * rps * row_bytes)
+        raw.seek(hlen + a * row_bytes)
         try:
-            for r0, r1 in _chunks(rps, row_bytes):
+            for r0, r1 in _chunks(b - a, row_bytes):
                 _put(t, r0, r1, _read_array(raw, (r1 - r0,) + tail, dt, lp.name))
         except _decode_errors() as e:
             return t, CheckpointCorrupt(f"checkpoint step_{s:08d}: leaf {lp.name!r} "
                                         f"unreadable ({e})", step=s, leaf=lp.name)
+        t[b - a:].zero_()
         return t, None
     reader = _OwnerReader(held[lp.k], lp, s) if rank == lp.owner else None
-    if lp.sharded:  # the owner decompresses once and sends each rank its rows
-        rps = t.shape[0]
+    if lp.sharded:  # the owner decompresses once and sends each rank its cut
         for q in range(group.world):
             if rank not in (q, lp.owner):
                 continue
-            for r0, r1 in _chunks(rps, row_bytes):
+            a, b = _cut(lp, q)
+            for r0, r1 in _chunks(b - a, row_bytes):
                 if rank == lp.owner:
-                    arr = reader.rows(q * rps + r0, q * rps + r1)
+                    arr = reader.rows(a + r0, a + r1)
                     if q == rank:
                         _put(t, r0, r1, arr)
                     else:
@@ -1154,15 +1255,21 @@ def _load_leaf(lp: _Leaf, held: dict, s: int, group: Group):
                     buf = torch.empty((r1 - r0) * row_bytes, dtype=torch.uint8)
                     compat.ckpt_recv_bytes(buf, lp.owner, group, lp.k)
                     _put(t, r0, r1, buf.numpy().view(dt).reshape((r1 - r0,) + tail))
+            if q == rank:
+                t[b - a:].zero_()
         return t, reader.err if reader is not None else None
     if isinstance(t, torch.Tensor) and t.dim() >= 1:  # replicated: read once, broadcast
-        for r0, r1 in _chunks(lp.stored[0], row_bytes):
+        if lp.fresh:
+            t = torch.empty(lp.stored, dtype=t.dtype, device=t.device)
+        rows = min(lp.stored[0], t.shape[0])  # 'repad' truncates or zero-extends
+        for r0, r1 in _chunks(rows, row_bytes):
             if reader is not None:
                 buf = _bytes_tensor(np.ascontiguousarray(reader.rows(r0, r1)))
             else:
                 buf = torch.empty((r1 - r0) * row_bytes, dtype=torch.uint8)
             compat.ckpt_broadcast_bytes(buf, group, lp.owner)
             _put(t, r0, r1, buf.numpy().view(dt).reshape((r1 - r0,) + tail))
+        t[rows:].zero_()
         return t, reader.err if reader is not None else None
     got = None  # a host or 0-d leaf: small, sent whole
     if reader is not None:
@@ -1177,15 +1284,16 @@ def _load_leaf(lp: _Leaf, held: dict, s: int, group: Group):
     if isinstance(t, torch.Tensor):
         t.copy_(torch.from_numpy(np.array(got[1], order="C")))
         return t, None
-    return _host_leaf(t, got[1]), None
+    arr = got[1]
+    if mode in ("repad", _RECUT) and np.ndim(arr):
+        arr = _repad(arr, _shape(t))
+    return _host_leaf(t, arr), None
 
 
-def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], on_row_mismatch: str,
+def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], mode: str,
                    verify: bool, group: Group) -> Tuple[Any, int]:
-    """``restore_checkpoint`` past world 1 (module docstring)."""
-    if on_row_mismatch != "error":
-        raise NotImplementedError(f"on_row_mismatch={on_row_mismatch!r} past world 1: the "
-                                  f"{_ELASTIC}")
+    """``restore_checkpoint`` past world 1 (module docstring); ``mode`` is
+    an ``on_row_mismatch`` or ``_RECUT``."""
 
     def pick():
         s = step if step is not None else latest_step(ckpt_dir)
@@ -1196,11 +1304,11 @@ def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], on_row_mismatch
     s, doc = _on_rank0(pick, group)
     where = f"checkpoint step_{s:08d}"
     meta = doc.get("meta") or {}
-    if int(meta.get("world", group.world)) != group.world:
+    if mode == "error" and int(meta.get("world", group.world)) != group.world:
         raise WorldMismatch(
             f"{where} was written at world {meta['world']} (mesh "
             f"{meta.get('mesh_shape')}), this run is world {group.world}: a different "
-            f"world size. The {_ELASTIC}")
+            f"world size. {_ELASTIC}")
     check_salts(doc.get("salts"), where)
     d = Path(ckpt_dir) / f"step_{s:08d}"
     leaves = []
@@ -1210,19 +1318,24 @@ def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], on_row_mismatch
             raise KeyError(f"{where} has no leaf {name!r}: the template enables state the "
                            "run that wrote it did not (e.g. an L2 tier turned on after "
                            "checkpointing)")
-        leaves.append(_leaf_plan(k, name, t, info, group))
+        leaves.append(_leaf_plan(k, name, t, info, group, mode))
+    tail = mode == _RECUT
     held: Dict[int, Any] = {}
     try:
         # pass 1: every check that can fail, on every rank, before any write
         errors, heads, parts, lates = [], {}, {}, {}
         for lp in leaves:
+            bad = _shape_error(lp, mode, group)
+            if bad is not None:
+                errors.append((lp.k, bad))
+                continue
             try:
                 if lp.block:
-                    head, part, late = _check_block(lp, d, s, verify, group, held)
+                    head, part, late = _check_block(lp, d, s, verify, group, held, tail)
                     heads[lp.k], parts[lp.k], lates[lp.k] = head, part, late
                 elif group.rank == lp.owner:
-                    _check_owned(lp, d, s, verify, held)
-            except (CheckpointCorrupt, WorldMismatch, ValueError) as e:
+                    _check_owned(lp, d, s, verify, held, group, tail)
+            except (CheckpointCorrupt, ValueError) as e:
                 errors.append((lp.k, e))
             except (OSError, EOFError) as e:
                 errors.append((lp.k, CheckpointCorrupt(
@@ -1253,7 +1366,7 @@ def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], on_row_mismatch
         host_memory.wait_for_card(lp.t for lp in leaves)
         out, errors = {}, []
         for lp in leaves:
-            out[lp.name], err = _load_leaf(lp, held, s, group)
+            out[lp.name], err = _load_leaf(lp, held, s, group, mode)
             if err is not None:
                 errors.append((lp.k, err))
         _agree_errors(errors, group)
@@ -1261,6 +1374,24 @@ def _restore_ranks(ckpt_dir, template: Any, step: Optional[int], on_row_mismatch
         for h in held.values():
             h.close()
     return _unflatten_into(template, out), s
+
+
+def restore_resharded(ckpt_dir: str, template: Any, step: Optional[int] = None,
+                      group: Optional[Group] = None) -> Tuple[Any, int]:
+    """Past world 1, a checkpoint of another world restored into this
+    world's ``template``: every rank of ``group`` reads its cut of each
+    row-sharded leaf from the stored rows, zero past them (``'repad'``), so
+    no rank holds the whole table. FCounter rows that no cut takes (the
+    stored table padded past this world's rows) must be zero: the rank that
+    reads them checks, and every rank raises the same ``ValueError`` before
+    anything is written (pass 1's agreement). The tier sentinels are left
+    as stored: ``runtime.elastic.restore_elastic`` remaps them."""
+    grp = _group(group)
+    if grp.world == 1:
+        raise ValueError("restore_resharded is the restore past world 1; at world 1 "
+                         "restore with on_row_mismatch='keep' and recut "
+                         "(embedding.state.reshard_state)")
+    return _restore_ranks(ckpt_dir, template, step, _RECUT, True, grp)
 
 
 class AsyncCheckpointer:

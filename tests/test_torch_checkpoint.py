@@ -129,12 +129,14 @@ def test_zst_leaf_without_zstandard_is_corrupt(tmp_path, monkeypatch):
 
 
 def test_world_mismatch_keep_and_repad(tmp_path):
-    """A row-count mismatch raises (the elastic restore is ROADMAP Queue 1
-    item 6); 'keep' hands back the stored rows, 'repad' zero-extends or
-    truncates into the template."""
+    """A row-count mismatch raises ``WorldMismatch``, a ``ValueError`` (the
+    reference's class) pointing to the elastic restore; 'keep' hands back
+    the stored rows, 'repad' zero-extends or truncates into the template."""
     save_checkpoint(str(tmp_path), 1, _state(rows=16))
-    with pytest.raises(NotImplementedError, match="different world size.*item 6"):
+    with pytest.raises(ValueError, match="different world size.*restore_elastic") as e:
         restore_checkpoint(str(tmp_path), _blank(rows=24))
+    assert isinstance(e.value, ck.WorldMismatch)
+    assert not isinstance(e.value, NotImplementedError)
     r, _ = restore_checkpoint(str(tmp_path), _blank(rows=24), on_row_mismatch="keep")
     assert tuple(r["emb"]["0"]["w"].shape) == (16, 4)
     r, _ = restore_checkpoint(str(tmp_path), _blank(rows=24), on_row_mismatch="repad")

@@ -9,8 +9,10 @@ rows of a row-sharded leaf in rank order.
   2 more steps and checkpoints with zstd and without; the reference
   restores each at mesh 2x2 with the step's shardings, every leaf bitwise
   the port's.
-- A checkpoint written at world 1 raises ``WorldMismatch`` naming ROADMAP
-  Queue 1 item 6.2 on every rank.
+- A checkpoint written at world 1 raises ``WorldMismatch`` (a
+  ``ValueError``) pointing to ``restore_elastic`` on every rank, and
+  ``restore_elastic`` restores it at world 4: every rank its rows of the
+  world-1 tables, bitwise.
 - A world-4 save is atomic: with one rank's rows slowed, ``step_<n>``
   appears only after that rank's rows are in.
 - A byte flipped in one rank's rows of a row-sharded leaf: every rank finds
@@ -137,7 +139,14 @@ def _port_ckpt(group, batches, ref_dirs, port_dirs, root):
         ck.restore_checkpoint(d1, template(5), group=group)
         out["world1"] = None
     except ck.WorldMismatch as e:
-        out["world1"] = str(e)
+        out["world1"] = (str(e), isinstance(e, ValueError))
+    from repro_torch.runtime import restore_elastic
+
+    restored, s1 = restore_elastic(d1, plan, template(5), group=group)
+    out["world1_elastic"] = {"step": s1, "restored": _np_leaves(restored),
+                             "rows": [g.rows for g in plan1.groups]}
+    if group.rank == 0:
+        out["world1_elastic"]["written"] = _np_leaves(st1)
 
     # atomicity: one rank's rows slowed; rank 0 watches for the step directory
     d2 = Path(root, "atomic")
@@ -267,10 +276,36 @@ def test_port_checkpoint_restores_in_the_reference_bitwise(runs, codec):
 
 
 def test_another_worlds_checkpoint_raises_on_every_rank(runs):
+    """``restore_checkpoint`` of a world-1 checkpoint at world 4 raises
+    ``WorldMismatch`` (a ``ValueError``) with the pointer to the elastic
+    restore on every rank; ``restore_elastic`` restores it: each rank's rows
+    of the world-1 tables (zero past them), the sentinels remapped, the
+    replicas bitwise."""
     _, port, _, _, _ = runs
     for r, p in enumerate(port):
-        msg = p["world1"]
-        assert msg is not None and "different world size" in msg and "item 6.2" in msg, (r, msg)
+        msg, is_value_error = p["world1"]
+        assert "different world size" in msg and "restore_elastic" in msg, (r, msg)
+        assert is_value_error, r
+    written = port[0]["world1_elastic"]["written"]
+    rows1 = port[0]["world1_elastic"]["rows"]
+    for name, exp in written.items():
+        got = [p["world1_elastic"]["restored"][name] for p in port]
+        assert all(p["world1_elastic"]["step"] == 1 for p in port)
+        if re.fullmatch(r"emb/\d+/(w|acc|counts)", name):
+            whole = np.concatenate(got)
+            n = exp.shape[0]
+            _bits(whole[:n], exp, name)
+            assert not whole[n:].any(), name
+        elif re.fullmatch(r"emb/\d+/(cache|l2)/keys", name):
+            gid = int(name.split("/")[1])
+            rows4 = got[0].dtype.type(port[0]["world1_elastic"]["restored"][
+                f"emb/{gid}/w"].shape[0] * W)
+            want = np.where(exp >= rows1[gid], rows4, exp)
+            for r, g in enumerate(got):
+                _bits(g, want, (name, r))
+        else:
+            for r, g in enumerate(got):
+                assert np.asarray(g).tobytes() == np.asarray(exp).tobytes(), (name, r)
 
 
 def test_world_4_save_appears_only_with_every_ranks_rows(runs):

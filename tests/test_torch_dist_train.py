@@ -299,19 +299,38 @@ def test_serve_launcher_at_world_4_matches_world_1():
 
 
 @pytest.mark.parametrize("module,flag", [("train", "--replan-iters=5"), ("train", "--stream"),
-                                         ("train", "--pin-l2"), ("serve", "--pin-l2")])
+                                         ("train", "--pin-l2"), ("serve", "--pin-l2"),
+                                         ("train", "--reshard-to=2 --stream")])
 def test_launchers_refuse_waiting_flags_past_world_1(module, flag):
-    """Nothing is dropped silently: a runtime flag that waits for item 6
-    raises ``NotImplementedError`` before any rank starts."""
+    """Nothing is dropped silently: a runtime flag that waits for item 6.3
+    raises ``NotImplementedError`` before any rank starts, also where
+    ``--reshard-to`` is what takes the run past world 1."""
     import importlib
 
     mod = importlib.import_module(f"repro_torch.launch.{module}")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mod.main(["--smoke", "--device", "cpu", "--devices", "4", flag])
+    world = [] if "--reshard-to" in flag else ["--devices", "4"]
+    with pytest.raises(NotImplementedError, match="item 6.3"):
+        mod.main(["--smoke", "--device", "cpu", *world, *flag.split()])
 
 
 def test_reshard_flags_refuse():
+    """``--reshard-to``/``--reshard-at`` run (they refused before
+    ``runtime/elastic.py``): world 1 -> 2 -> ... here 1 -> 2 on two ranks,
+    the second a spare until step 2, and the losses of steps 1-2 the world-1
+    run's; ``--reshard-at`` alone and a ``--devices`` count the two meshes
+    do not need are refused as usage errors."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="runtime/elastic.py"):
-        train.main(["--smoke", "--device", "cpu", "--reshard-to", "2x1", "--reshard-at", "3"])
+    up = _launch("train", "--steps", "4", "--global-batch", "64", "--log-every", "1",
+                 "--reshard-to", "2", "--reshard-at", "2")
+    w1 = _launch("train", "--steps", "2", "--global-batch", "64", "--log-every", "1")
+    assert "world=1" in up.splitlines()[0] and "processes=2" in up.splitlines()[0], up
+    assert "[train] reshard world 1 -> 2 (mesh 2x1) at step 2" in up
+    pat = r"^  step +(\d+) loss=(\S+) .*$"
+    got = re.findall(pat, up, re.M)
+    assert [s for s, _ in got] == ["1", "2", "3", "4"] and got[:2] == re.findall(pat, w1, re.M)
+    assert up.rstrip().endswith("[train] done")
+    for argv in (["--reshard-at", "3"], ["--devices", "3", "--mesh", "2x1", "--reshard-to",
+                                         "2x2"]):
+        with pytest.raises(SystemExit):
+            train.main(["--smoke", "--device", "cpu", *argv])

@@ -548,24 +548,48 @@ def test_load_published_survives_pruning_mid_load(tmp_path, monkeypatch):
 
 
 def test_mis_shaped_delta_leaves_served_state_unchanged(tmp_path):
-    """A delta whose rows differ from the server's plan (another world or
-    plan revision) raises before any leaf is written, though leaves ahead
-    of it match: the poller keeps serving its last good state bitwise."""
+    """A delta whose rows differ from the server's only in a row-sharded
+    leaf (another world) is recut onto the server's plan; one whose other
+    leaves differ too (another plan revision) raises before any leaf is
+    written, though leaves ahead of it match, and without a plan any row
+    mismatch raises: the poller keeps serving its last good state bitwise."""
+    from repro_torch.core.packed_embedding import CacheState
+    from repro_torch.core.packing import make_plan, reshard_plan
+    from repro_torch.embedding.state import EmbeddingState
+
     d = str(tmp_path)
-    template = {"emb": {"a": torch.full((4, 2), 0.5), "t": torch.full((4, 2), 0.5)},
-                "dense": {"w": torch.full((3,), 0.5)}}
+    plan = make_plan(get_config("deepfm", smoke=True), world=1, per_device_batch=8,
+                     hot_bytes=1 << 12)
+    rows, dim = plan.groups[0].rows, plan.groups[0].dim
+    h = plan.cache_rows[0]
+
+    def served(r, fill, keys=h):
+        return {"emb": {"0": EmbeddingState(
+            w=torch.full((r, dim), fill), acc=torch.full((r, 1), fill),
+            counts=torch.zeros((r,), dtype=torch.int32),
+            cache=CacheState(torch.full((keys,), r, dtype=torch.int32),
+                             torch.full((keys, dim), fill), torch.full((keys, 1), fill)))},
+                "dense": {"w": torch.full((3,), fill)}}
+
+    template = served(rows, 0.5)
     before = _snapshot(template)
-    publish_state(d, 10, {"emb": {"a": torch.full((4, 2), 2.0),
-                                  "t": torch.full((6, 2), 2.0)},
-                          "dense": {"w": torch.full((3,), 2.0)}})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        load_published(d, template, plan=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        load_published(d, template)
-    poller = PublishPoller(d, plan=object())
+    four = reshard_plan(plan, 4, 2)
+    publish_state(d, 10, served(four.groups[0].rows, 2.0))      # another world
+    got, s = load_published(d, template, plan=plan)
+    assert s == 10 and got["emb"]["0"].w.shape == (rows, dim)
+    assert bool((got["emb"]["0"].w == 2.0).all()) and bool((got["dense"]["w"] == 2.0).all())
+    assert bool((got["emb"]["0"].cache.keys == rows).all())    # the sentinel remapped
+    with pytest.raises(ValueError, match="different world size"):
+        load_published(d, served(rows, 0.5))
+    template = served(rows, 0.5)
+    publish_state(d, 20, served(four.groups[0].rows, 3.0, keys=h + 8))  # another revision
+    for p in (plan, None):
+        with pytest.raises(ValueError, match="another plan revision|different world size"):
+            load_published(d, template, plan=p)
+    poller = PublishPoller(d, plan=plan)
     assert poller.poll(template) is None and poller.failures == 1
-    for (k, got), (_, want) in zip(_leaves(template), before):
-        assert torch.equal(got, want), k
+    for (k, got_), (_, want) in zip(_leaves(template), before):
+        assert torch.equal(got_, want), k
 
 
 def test_publish_poller_raises_on_other_salts(tmp_path):
