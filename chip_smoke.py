@@ -5165,6 +5165,343 @@ def elastic_one_side(ranks: list, fresh: list, d4: str, d2: str) -> dict:
         "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in ranks]}
 
 
+# ------------------------------------------------------------------ phase 20
+#
+# Streaming past world 1, train to serve: phase 17's plan (exact_capacity at
+# every world), full-width deepfm streamed by 4 ranks in 3 segments of 5
+# steps, a checkpoint and a delta at each boundary (keep=2 of each), a live
+# reshard 4 -> 2 at step 5's boundary and torn@10; beside it 2 serving ranks
+# (mesh 2x1) answer requests of 512 while they poll the deltas, until they
+# serve step 15. Then in this process: step 15's delta loaded at world 1
+# (recut 2 -> 1) against the server's last request, and the stream's
+# checkpoint directory resumed at world 1 (restore_elastic). Times are of
+# ranks time-sharing one card over gloo.
+
+STREAM_SEG, STREAM_SEGMENTS = 5, 3
+STREAM_TORN = 10
+STREAM_SERVE_S = 420.0   # the server's limit: it stops at step 15 or here
+STREAM_PACE_S = 0.05     # between two requests
+
+
+def serving_of(state) -> dict:
+    return {"emb": state["emb"], "dense": state["dense"]}
+
+
+def stream_rank(root, pub: str, ck: str) -> dict:
+    """One trainer process of phase 20 (module comment above)."""
+    from repro_torch.core.features import agree_salts
+    from repro_torch.runtime.elastic import end_run, wait_for_reshard
+
+    torch.set_num_threads(2)
+    cfg, plan, _ = world_plans(WORLD)
+    salts = agree_salts(plan, root)
+    n = STREAM_SEG * STREAM_SEGMENTS
+    batches = world_batches()[0][:n]
+    tcfg = ts.TrainConfig(flush_in_step=False)
+    chaos = ChaosController(parse_fault_plan(f"torn@{STREAM_TORN}"), group=root)
+    cur = {"plan": plan, "group": root,
+           "ckpt": ckpt.AsyncCheckpointer(ck, keep=2, salts=salts, group=root)}
+    out = {"rank": root.rank, "lat": {WORLD: [], 2: []}, "publish": {}, "digests": {},
+           "left_at": None}
+
+    def make_step(plan, group):
+        step = ts.make_train_step(WDLModel(cfg, plan), plan, TRAIN_B, tcfg, DEV, group=group)
+        lat = out["lat"][group.world]
+
+        def call(st, b):
+            torch.cuda.synchronize(DEV)
+            t0 = time.perf_counter()
+            st, m = step(st, b)
+            torch.cuda.synchronize(DEV)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(float(m["loss"])) and int(m["overflow"]) == 0,
+                  f"rank {root.rank} step {st['step']}: loss {float(m['loss'])}, "
+                  f"overflow {int(m['overflow'])}")
+            return st, m
+        return call
+
+    def publisher(step, st):
+        g = cur["group"]
+        out["digests"][step] = elastic_digest(serving_of(st), cur["plan"], g)
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        publish_state(pub, step, st, meta=plan_meta(cur["plan"]), salts=salts, group=g,
+                      before_latest=lambda: chaos.after_publish(step, pub))
+        out["publish"][step] = {"s": time.perf_counter() - t0, "world": g.world,
+                                "bytes": ft_leaf_bytes(serving_of(st), g)}
+
+    def on_segment(seg, step, st):
+        if seg != 1:
+            return None
+        cur["ckpt"].wait()  # the rows move on the root's ckpt_pg
+        (plan2, st, g2), out["reshard"] = elastic_reshard(
+            cur["plan"], st, 2, cur["group"], mesh_shape=ELASTIC_MESH2,
+            note={"step": step, "seg": seg})
+        if g2 is None:
+            return None, None, None, None
+        # one micro-batch a step, as phase 19's world-2 stretch
+        plan2 = dataclasses.replace(plan2, microbatch=TRAIN_B // 2)
+        cur.update(plan=plan2, group=g2,
+                   ckpt=ckpt.AsyncCheckpointer(ck, keep=2, salts=salts, group=g2))
+        chaos.group = g2
+        return st, make_step(plan2, g2), iter(batches[step:]), cur["ckpt"]
+
+    ops.reset_launches()
+    # the first state is made inside the call: nothing outside holds the
+    # world-4 rows after the reshard
+    state, last = run_stream(ts.init_state(WDLModel(cfg, plan), plan,
+                                           torch.Generator(device=DEV).manual_seed(SEED),
+                                           DEV, group=root),
+                             make_step(plan, root), iter(batches),
+                             segment_steps=STREAM_SEG, n_segments=STREAM_SEGMENTS,
+                             checkpointer=cur["ckpt"], meta_fn=lambda: plan_meta(cur["plan"]),
+                             publisher=publisher, on_segment=on_segment, log=lambda s: None)
+    cur["ckpt"].wait()
+    out["launches"] = dict(ops.launches)
+    out["last"] = last
+    if state is None:  # left at the reshard: hold nothing, wait for the run's end
+        out["left_at"] = last
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(wait_for_reshard(root) is None, f"rank {root.rank}: one reshard only")
+        return out
+    out["final_digest"] = elastic_digest(state, cur["plan"], cur["group"])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(DEV) / 2**30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    end_run(root=root)
+    return out
+
+
+def stream_plan2(serve: bool):
+    """deepfm's plan at world 2 (mesh 2x1), exact capacities: the server's
+    at ``SERVE_B``, or the trainer's after the reshard."""
+    cfg = get_config("deepfm")
+    b = SERVE_B if serve else TRAIN_B
+    return cfg, make_plan(cfg, world=2, per_device_batch=b // 2, mesh_shape=ELASTIC_MESH2,
+                          exact_capacity=True)
+
+
+def stream_server_rank(group, pub: str, limit_s: float, stop: str) -> dict:
+    """One serving process of phase 20: requests of ``SERVE_B`` (its half
+    each), a poll of ``pub`` before each, until it serves step 15, or
+    ``limit_s`` passes or the file ``stop`` appears (agreed each request)."""
+    from repro_torch.core.features import agree_salts
+    from repro_torch.dist import compat
+
+    torch.set_num_threads(2)
+    cfg, splan = stream_plan2(serve=True)
+    check(splan.cache_rows == world_plans(WORLD)[1].cache_rows,
+          "the server's tiers are the trainer's")
+    agree_salts(splan, group)
+    model = WDLModel(cfg, splan)
+    state = init_state(model, splan, torch.Generator(device=DEV).manual_seed(SEED + 5), DEV,
+                       group=group)
+    serve = make_serve_step(model, splan, SERVE_B, ServeConfig(), DEV, group=group)
+    poller = PublishPoller(pub, plan=splan, group=group)
+    rng = np.random.default_rng(SEED + 20)
+    final = STREAM_SEG * STREAM_SEGMENTS
+    recs, loads, digests, out = [], {}, {}, {"rank": group.rank, "timed_out": False}
+    end = time.monotonic() + limit_s
+    ops.reset_launches()
+    while True:
+        failures, skipping = poller.failures, poller.skips_left > 0
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        got = poller.poll(serving_of(state))
+        torch.cuda.synchronize(DEV)
+        poll_ms = (time.perf_counter() - t0) * 1e3
+        if got is not None:
+            state = {**state, **got[0]}
+            loads[got[1]] = poll_ms / 1e3
+            digests[got[1]] = elastic_digest(state, splan, group)
+        kind = ("load" if got is not None else "fail" if poller.failures > failures
+                else "skip" if skipping else "poll")
+        b = make_batch(cfg, SERVE_B, rng)
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        p = serve(state, b)
+        torch.cuda.synchronize(DEV)
+        recs.append({"step": poller.last_step, "kind": kind, "poll_ms": poll_ms,
+                     "serve_ms": (time.perf_counter() - t0) * 1e3})
+        if poller.last_step == final:
+            out["probs"] = compat.all_gather_tiled(p, group).cpu()
+            out["batch"] = b
+            break
+        over = time.monotonic() > end or os.path.exists(stop)
+        if any(v[0] for v in compat.agree([int(over)], group)):
+            out["timed_out"] = True
+            break
+        time.sleep(STREAM_PACE_S)
+    out.update(records=recs, loads=loads, digests=digests, launches=dict(ops.launches),
+               failures_seen=poller.failures)
+    del state, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_phase(t_start: float, request_p50_ms: float) -> dict:
+    """Phase 20: ``stream_rank`` on 4 processes and ``stream_server_rank``
+    on 2 beside them, then the world-1 side in this process and the
+    checks."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = checkpoint_dir()
+    pub, ck = os.path.join(root, "pub"), os.path.join(root, "ckpt")
+    stop = os.path.join(root, "stop")  # the trainer failed: the server stops too
+    served = {}
+
+    def server():
+        try:
+            served["ranks"] = rdist.spawn_ranks(stream_server_rank, 2, pub, STREAM_SERVE_S,
+                                                stop, device="cuda",
+                                                deadline_s=STREAM_SERVE_S + 180)
+        except BaseException as e:  # noqa: BLE001 — raised below, after the trainer
+            served["error"] = e
+
+    try:
+        beside = threading.Thread(target=server)
+        beside.start()
+        try:
+            trained = rdist.spawn_ranks(stream_rank, WORLD, pub, ck, device="cuda",
+                                        deadline_s=STREAM_SERVE_S + 180)
+        except BaseException:
+            Path(stop).touch()
+            raise
+        finally:
+            beside.join()
+        if "error" in served:
+            raise served["error"]
+        t_ranks = time.perf_counter() - t_phase
+        out = stream_one_side(trained, served["ranks"], pub, ck, request_p50_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(ranks_s=t_ranks, phase_s=time.perf_counter() - t_phase)
+    print(f"[wall] phase 20 done at {time.perf_counter() - t_start:.1f}s "
+          f"(ranks {t_ranks:.1f}s, phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def stream_one_side(trained: list, served: list, pub: str, ck: str,
+                    request_p50_ms: float) -> dict:
+    """Phase 20's checks: the ranks that left and stayed, the deltas the
+    server loaded against the trainer's digests, step 10 never served, one
+    step a request on both serving ranks, each rank's launches; then in this
+    process step 15's delta at world 1 against the server's last request,
+    and the stream's checkpoints resumed at world 1."""
+    from repro_torch.dist.compat import WORLD1
+    from repro_torch.runtime import load_published, restore_elastic
+
+    n1 = STREAM_SEG
+    final = STREAM_SEG * STREAM_SEGMENTS
+    check([t["left_at"] for t in trained] == [None, None, n1, n1],
+          f"ranks 2 and 3 leave at step {n1}: {[t['left_at'] for t in trained]}")
+    live = trained[:2]
+    check(all(t["last"] == final for t in live), "the stream ends at step 15")
+    # the trainer's digests at each published step, over the ranks that wrote it
+    pub_digest = {s: gathered([t["digests"][s] for t in (trained if s == n1 else live)])
+                  for s in (n1, STREAM_TORN, final)}
+    for sv in served:
+        check(not sv["timed_out"], f"server rank {sv['rank']} served step {final} in time")
+    steps = [[r["step"] for r in sv["records"]] for sv in served]
+    check(steps[0] == steps[1], "every request's step is the same on both serving ranks")
+    check(sorted(served[0]["loads"]) == [n1, final],
+          f"the server loaded steps {sorted(served[0]['loads'])}: 5 and 15, never 10")
+    for s in (n1, final):
+        got = gathered([sv["digests"][s] for sv in served])
+        check(got == pub_digest[s], f"the delta of step {s} as loaded at world 2 "
+              f"({'recut 4 -> 2' if s == n1 else 'the same world'}): the trainer's digests")
+    recs = served[0]["records"]
+    kinds = [r["kind"] for r in recs]
+    check("fail" in kinds and recs[-1]["kind"] == "load" and recs[-1]["step"] == final
+          and all(r["step"] == n1 for r in recs[kinds.index("fail"):-1]),
+          "the torn step-10 delta skipped, the requests answered from step 5 across it "
+          f"until step 15 loaded: {Counter(kinds)}")
+    # launches: each kernel once a step a trainer rank, once a request a server rank
+    per_step, per_req = ARCHS["deepfm"].train_launches, ARCHS["deepfm"].serve_launches
+    for t in trained:
+        n = final if t["left_at"] is None else n1
+        check(t["launches"] == {k: per_step.get(k, 0) * n for k in t["launches"]}
+              and all(t["launches"].get(k, 0) == n for k in WORLD_KERNELS),
+              f"trainer rank {t['rank']}: each kernel once a step ({n}): {t['launches']}")
+    for sv in served:
+        n = len(sv["records"])
+        check(sv["launches"] == {k: per_req.get(k, 0) * n for k in sv["launches"]}
+              and all(sv["launches"].get(k, 0) == n for k in per_req),
+              f"server rank {sv['rank']}: each serving kernel once a request ({n}): "
+              f"{sv['launches']}")
+
+    # -- world 1 in this process: step 15's delta recut 2 -> 1, the last request
+    cfg, plan1, splan1 = world_plans(1)
+    model = WDLModel(cfg, splan1)
+    sstate = init_state(model, splan1, torch.Generator(device=DEV).manual_seed(SEED + 6), DEV)
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    sstate, at = load_published(pub, sstate, plan=splan1, step=final)
+    torch.cuda.synchronize(DEV)
+    load1_s = time.perf_counter() - t0
+    check(at == final and elastic_digest(sstate, splan1, WORLD1) == pub_digest[final],
+          "step 15's delta recut 2 -> 1: the trainer's digests")
+    probs = make_serve_step(model, splan1, SERVE_B, ServeConfig(), DEV)(
+        sstate, served[0]["batch"]).cpu()
+    err = float((probs - served[0]["probs"]).abs().max())
+    check(err <= TOL, f"the server's last request at world 1: max abs err {err:.3g}")
+    del sstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the stream's checkpoints resumed at world 1 (restore_elastic)
+    state = ts.init_state(WDLModel(cfg, plan1), plan1,
+                          torch.Generator(device=DEV).manual_seed(SEED + 7), DEV)
+    logs = []
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    state, at = restore_elastic(ck, plan1, state, log=logs.append)
+    torch.cuda.synchronize(DEV)
+    resume1_s = time.perf_counter() - t0
+    check(at == final and logs == [f"restored world=2 checkpoint at world=1 (resharded step "
+                                   f"{final})"], f"the stream's checkpoint at world 1: {logs}")
+    check(elastic_digest(state, plan1, WORLD1) == gathered([t["final_digest"] for t in live]),
+          "the stream's step-15 checkpoint at world 1: the trainer's digests")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def p50(vals):
+        return float(np.percentile(vals, 50)) if vals else None
+
+    pubs = {s: {"s": max(t["publish"][s]["s"] for t in trained if s in t["publish"]),
+                "bytes": sum(t["publish"][s]["bytes"] for t in trained if s in t["publish"]),
+                "world": live[0]["publish"][s]["world"]} for s in (n1, STREAM_TORN, final)}
+    for v in pubs.values():
+        v["gb_per_s"] = v["bytes"] / v["s"] / 1e9
+    fails = [max(sv["records"][i]["poll_ms"] for sv in served) / 1e3
+             for i, r in enumerate(recs) if r["kind"] == "fail"]
+    return {
+        "worlds": [WORLD, 2], "segments": [STREAM_SEG] * STREAM_SEGMENTS,
+        "torn": STREAM_TORN, "publish": pubs,
+        "load_s": {"step5_recut_4_to_2": max(sv["loads"][n1] for sv in served),
+                   "step15_same_world": max(sv["loads"][final] for sv in served),
+                   "step15_recut_2_to_1_world1": load1_s, "failed_attempts": fails},
+        "requests": len(recs), "kinds": dict(Counter(r["kind"] for r in recs)),
+        "poll_ms_p50": p50([r["poll_ms"] for r in recs if r["kind"] == "poll"]),
+        "skip_ms_p50": p50([r["poll_ms"] for r in recs if r["kind"] == "skip"]),
+        "serve_ms_p50": p50([r["serve_ms"] for r in recs]),
+        "phase17_request_p50_ms": request_p50_ms,
+        "step_p50_ms": {"world4": p50([ms for t in trained for ms in t["lat"][WORLD][1:]]),
+                        "world2": p50([ms for t in live for ms in t["lat"][2][1:]])},
+        "reshard_4_2": {"s": max(t["reshard"]["s"] for t in trained),
+                        "bytes_sent": sum(t["reshard"]["bytes_sent"] for t in trained)},
+        "resume_world1_s": resume1_s, "last_request_max_abs_err": err,
+        "launches_by_rank": [t["launches"] for t in trained],
+        "server_launches_by_rank": [sv["launches"] for sv in served],
+        "peak_mem_gib_by_rank": [t.get("peak_mem_gib") for t in live]}
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5437,6 +5774,23 @@ def main() -> None:
           f"{el['restore_gb_per_s']:.2f} GB/s ({el['restore_world2_fresh_s']:.2f}s, a fresh "
           f"2-rank spawn), at world 1 {el['restore_world1_s']:.2f}s; "
           f"{el['sentinels_remapped_world1']} tier sentinels remapped at world 1", flush=True)
+    sm = stream_phase(t_start, world["request_p50_ms"])  # phase 20
+    print("[stream] " + json.dumps(sm), flush=True)
+    gbs = {s: round(v["gb_per_s"], 3) for s, v in sm["publish"].items()}
+    ld, sp = sm["load_s"], sm["step_p50_ms"]
+    print(f"[phase 20] {card_stamp()}: 4 then 2 trainer ranks and 2 serving ranks "
+          f"time-sharing one card over gloo (not NCCL numbers), full-width deepfm, "
+          f"exact_capacity, stream 3 x {STREAM_SEG} steps, reshard 4 -> 2 at step "
+          f"{STREAM_SEG}, torn@{STREAM_TORN}: publish GB/s by step {gbs}; load at world 2 "
+          f"{ld['step5_recut_4_to_2']:.2f}s (step 5, recut 4 -> 2), "
+          f"{ld['step15_same_world']:.2f}s (step 15, same world), at world 1 "
+          f"{ld['step15_recut_2_to_1_world1']:.2f}s (recut 2 -> 1); failed attempts s "
+          f"{[round(x, 2) for x in ld['failed_attempts']]}; poll p50 "
+          f"{sm['poll_ms_p50']:.3f}ms a request (phase 17's request p50 "
+          f"{sm['phase17_request_p50_ms']:.3f}ms), serve p50 {sm['serve_ms_p50']:.3f}ms "
+          f"over {sm['requests']} requests {sm['kinds']}; step p50 world 4 "
+          f"{sp['world4']:.3f}ms, world 2 {sp['world2']:.3f}ms; checkpoint resumed at world "
+          f"1 in {sm['resume_world1_s']:.2f}s", flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -5478,11 +5832,16 @@ def main() -> None:
         # phase 19's 10 steps at world 2 after the live reshard, each rank's own
         el2 = ([la[name] for la in el["launches_world2_by_rank"]] if name in WORLD_KERNELS
                else None)
+        # phase 20's stream (4 trainer ranks, 2 after step 5; 2 serving ranks)
+        st20 = ({"trainer": [la[name] for la in sm["launches_by_rank"]],
+                 "server": [la.get(name, 0) for la in sm["server_launches_by_rank"]]}
+                if name in WORLD_KERNELS else None)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
                         "launches_world4_by_rank": world4,
                         "launches_world4_supervised_by_rank": ft4,
                         "launches_world2_resharded_by_rank": el2,
+                        "launches_stream_by_rank": st20,
                         # the kernel's launches on every path run (300 requests,
                         # 30 steps each)
                         "launches_by_path": {f"{ar} {pa}": r2["launches"][name]

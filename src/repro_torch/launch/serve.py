@@ -26,6 +26,9 @@ sasrec or mind, or two-tower retrieval of sasrec or mind, on one card or on
       --n-candidates 1048576 --score-chunk 65536
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \
       --device cpu --devices 4 --mesh 2x2 --batch 64 --n-requests 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm --smoke \\
+      --device cpu --devices 4 --mesh 2x2 --batch 64 --n-requests 3 \\
+      --reload-dir /tmp/pub4
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU it raises.
 ``--strategy mixed``/``auto`` compiles a per-group assignment at the
@@ -42,7 +45,11 @@ checksum; a delta published at another world is recut onto this server's
 plan (``runtime.stream.load_published``); a torn or corrupt delta, or one of
 another plan revision, is skipped and the last good state keeps serving. A delta packed under other table salts raises
 (``PYTHONHASHSEED``). ``--chaos torn@i`` tears the newest delta before
-request ``i``.
+request ``i``. Past world 1 rank 0 reads the published plan and ``LATEST``
+for every rank, the ranks agree on each poll's step (one small agreement a
+request) and load the delta together, each its rows (a delta of another
+world each its new cut of the stored rows), or all keep their last good
+state; rank 0 tears a delta between two agreements and prints every line.
 
 ``--retrieval`` (sasrec, mind) plans as the reference's launcher does (one
 user, no hot tier, exact capacities, a ``mixed``/``auto`` assignment
@@ -59,8 +66,8 @@ generator on the device.
 process each, as ``repro_torch.launch.train`` runs them (its docstring):
 each rank scores ``batch // world`` samples of every request, retrieval
 ranks score ``n // world`` candidates each and merge their top-k; rank 0
-prints. ``--reload-dir``, ``--pin-l2`` and ``--calibrate`` refuse at world
-> 1 (ROADMAP Queue 1 item 6.3).
+prints. ``--pin-l2`` and ``--calibrate`` refuse at world > 1 (ROADMAP Queue 1
+item 6.3b).
 """
 import argparse
 
@@ -156,8 +163,7 @@ def main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     launch_ranks("serve", args, shape, _serve, waiting={
-        "--reload-dir": bool(args.reload_dir), "--pin-l2": args.pin_l2,
-        "--calibrate": args.calibrate != "off"})
+        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"})
 
 
 def _serve(group, args, shape) -> None:
@@ -212,11 +218,11 @@ def _serve(group, args, shape) -> None:
         from repro_torch.runtime import apply_plan_meta
         from repro_torch.train.checkpoint import load_checkpoint_meta
 
-        pub_meta = load_checkpoint_meta(args.reload_dir)
+        pub_meta = load_checkpoint_meta(args.reload_dir, group=group)  # rank 0's reading
         if pub_meta is not None:
             plan = apply_plan_meta(plan, pub_meta)
-            print(f"[serve] following published plan rev {plan.rev} from "
-                  f"{args.reload_dir}")
+            say(f"[serve] following published plan rev {plan.rev} from "
+                f"{args.reload_dir}")
     if plan.strategy:
         strategy = "mixed"  # the published assignment
     else:
@@ -244,9 +250,11 @@ def _serve(group, args, shape) -> None:
         # degraded-mode pickup: a torn, corrupt or pruned delta is skipped with
         # capped backoff and the server keeps its last good state
         from repro_torch.runtime import PublishPoller, parse_fault_plan
-        from repro_torch.runtime.chaos import tear_published
+        from repro_torch.runtime.chaos import tear_published_together
 
-        poller = PublishPoller(args.reload_dir, plan=plan, log=lambda s: print(s, flush=True))
+        # past world 1 the ranks agree on every poll's step and verdict
+        poller = PublishPoller(args.reload_dir, plan=plan, group=group,
+                               log=lambda s: say(s, flush=True))
         if args.chaos:
             torn, fired = parse_fault_plan(args.chaos).torn_publish, set()
     rng = np.random.default_rng(args.seed)
@@ -254,16 +262,15 @@ def _serve(group, args, shape) -> None:
     for i in range(args.n_requests):
         if torn is not None and i in torn and i not in fired:
             fired.add(i)
-            print(f"[serve] chaos: tearing published delta before request {i}",
-                  flush=True)
-            tear_published(args.reload_dir)
+            say(f"[serve] chaos: tearing published delta before request {i}", flush=True)
+            tear_published_together(args.reload_dir, group)
         if poller is not None:
             out = poller.poll({"emb": state["emb"], "dense": state["dense"]})
             if out is not None:
                 loaded, s_pub = out
                 state = {**state, **loaded}
-                print(f"[serve] reloaded published step {s_pub} from {args.reload_dir}",
-                      flush=True)
+                say(f"[serve] reloaded published step {s_pub} from {args.reload_dir}",
+                    flush=True)
         b = make_batch(cfg, args.batch, rng)
         t0 = time.perf_counter()
         probs = serve(state, b)
@@ -271,9 +278,10 @@ def _serve(group, args, shape) -> None:
             torch.cuda.synchronize(device)
         lat.append(time.perf_counter() - t0)
         if poller is not None:  # which delta served the request, and what it gave
-            head = " ".join(f"{float(p):.7f}" for p in probs.reshape(-1)[:4])
-            print(f"[serve] request {i}: step {poller.last_step} "
-                  f"mean_prob={float(probs.mean()):.9f} probs[:4]={head}", flush=True)
+            whole = all_gather_tiled(probs, group)  # the whole request, rank-major
+            head = " ".join(f"{float(p):.7f}" for p in whole.reshape(-1)[:4])
+            say(f"[serve] request {i}: step {poller.last_step} "
+                f"mean_prob={float(whole.mean()):.9f} probs[:4]={head}", flush=True)
     lat = np.array(lat[1:] or lat) * 1e3
     probs = all_gather_tiled(probs, group)  # the whole request, rank-major
     say(f"[serve] {args.arch} B={args.batch}: p50={np.percentile(lat, 50):.1f}ms "

@@ -24,6 +24,10 @@ dcn-v2, sasrec or mind, on one card or on ``--devices`` ranks.
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
       --device cpu --global-batch 32 --stream --segment-steps 5 \\
       --stream-segments 3 --ckpt-dir /tmp/ck --publish-dir /tmp/pub
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --smoke \\
+      --device cpu --devices 4 --mesh 2x2 --global-batch 64 --stream \\
+      --segment-steps 2 --stream-segments 3 --ckpt-dir /tmp/ck4 \\
+      --publish-dir /tmp/pub4 --reshard-to 2x1 --reshard-at 2 --chaos torn@4
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \\
       --global-batch 256 --strategy picasso_narrow --narrow-dim 4 \\
       --l2-budget 2147483648 --pin-l2
@@ -82,10 +86,20 @@ the step (and the ``Supervisor``, which writes a checkpoint at the new world
 there) is rebuilt on the new group, and the run goes on. The launcher starts
 ``max(world, new world)`` processes: those past the live world are spares
 until the reshard names them, and the ranks a scale-down leaves free their
-state and wait for the run's end (``--devices`` counts them all). The flags
-that wait for ROADMAP Queue 1 item 6.3 refuse past world 1 with
-``NotImplementedError`` (``--reshard-to`` takes a run past world 1):
-``--stream``, ``--replan-iters``, ``--pin-l2``, ``--calibrate``.
+state and wait for the run's end (``--devices`` counts them all).
+
+``--stream`` runs at any world: the ranks checkpoint together and publish
+one delta together at every segment boundary (``--publish-dir``; after the
+checkpoint's writer thread, since both use the group's ``ckpt_pg``), a resume restores the newest checkpoint at its own world
+(``restore_verified``, quarantining a corrupt one) or at another
+(``restore_elastic``), and ``--reshard-to`` is applied at the first segment
+boundary at or past ``--reshard-at``: the ranks it drops leave the stream,
+the spares it names join for the segments that remain, and the stream's
+checkpointer is rebuilt on the new group. ``torn@`` tears a delta once
+every rank's rows are in and before ``LATEST`` names it, from rank 0. The flags that wait for ROADMAP Queue 1
+item 6.3b refuse past world 1 with ``NotImplementedError`` (``--reshard-to``
+takes a run past world 1): ``--replan-iters``, ``--pin-l2``,
+``--calibrate``.
 """
 import argparse
 
@@ -238,8 +252,8 @@ def main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     launch_ranks("train", args, shape, _train, waiting={
-        "--stream": args.stream, "--replan-iters": bool(args.replan_iters),
-        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"}, procs=procs)
+        "--replan-iters": bool(args.replan_iters), "--pin-l2": args.pin_l2,
+        "--calibrate": args.calibrate != "off"}, procs=procs)
 
 
 def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
@@ -260,8 +274,8 @@ def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
     if on:
         raise NotImplementedError(
             f"{', '.join(on)} on {procs} ranks: the rest of the runtime past world 1 is "
-            "ROADMAP Queue 1 item 6.3 (stream and publish, --reload-dir, the replanner, "
-            "--pin-l2 and --calibrate wait for it)")
+            "ROADMAP Queue 1 item 6.3b (the replanner, --pin-l2 and --calibrate wait for "
+            "it)")
     seed = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = seed if seed is not None else "0"
     print(f"[{tag}] world={world} mesh={describe(shape)} "
@@ -414,7 +428,8 @@ def _train(root, args, shape) -> None:
                      start=start), depth=2))
     if chaos is not None:
         stream = chaos.wrap_stream(stream)
-    replanner = sup = active_ckpt = None  # active_ckpt: the checkpointer chaos ckpt@ targets
+    # active_ckpt: the checkpointer chaos ckpt@ targets; ckpt: the stream's
+    replanner = sup = active_ckpt = ckpt = None
     reshard_pending = to is not None
 
     def on_metrics(step, m):
@@ -437,8 +452,11 @@ def _train(root, args, shape) -> None:
         """Every rank of a new world, right after the reshard: the salts
         agreed, the guard's history and the step rebuilt on the new group,
         and (``--ckpt-dir``) a Supervisor on it that writes the durable
-        checkpoint at the new world, as the reference does."""
-        nonlocal salts, model, tcfg, step_fn, sup, active_ckpt
+        checkpoint at the new world, as the reference does; under
+        ``--stream`` the stream's checkpointer on the new group instead (the
+        next boundary writes at the new world, as the reference's stream
+        does)."""
+        nonlocal salts, model, tcfg, step_fn, sup, active_ckpt, ckpt
         salts = agree_salts(plan, group)
         if guard is not None:
             guard.group = group
@@ -450,7 +468,9 @@ def _train(root, args, shape) -> None:
             chaos.group = group
         model, tcfg, step_fn = build_step(plan)
         stream.seek(step)
-        if args.ckpt_dir:
+        if args.ckpt_dir and args.stream:
+            ckpt = active_ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts, group=group)
+        elif args.ckpt_dir:
             sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
                              group=group)
             active_ckpt = sup.ckpt
@@ -460,10 +480,11 @@ def _train(root, args, shape) -> None:
             sup.ckpt.save(step, state, meta=sup.meta)
             sup.ckpt.wait()
 
-    def do_reshard(state, step):
-        """The live ranks' reshard to --reshard-to at ``step`` (one-shot):
-        the state moves to the new world's ranks; ``None`` on a rank that
-        leaves it."""
+    def do_reshard(state, step, seg=None):
+        """The live ranks' reshard to --reshard-to at ``step`` (one-shot;
+        under ``--stream`` at the end of segment ``seg``, which the event a
+        spare joins by carries): the state moves to the new world's ranks;
+        ``None`` on a rank that leaves it."""
         nonlocal plan, group, world, reshard_pending
         reshard_pending = False  # applied (or a no-op): never fires again
         new_world = mesh_world(to)
@@ -476,7 +497,9 @@ def _train(root, args, shape) -> None:
             f"{step}", flush=True)
         plan, state, group = reshard_live(plan, state, new_world,
                                           args.global_batch // new_world, group=group,
-                                          mesh_shape=to, note={"step": step})
+                                          mesh_shape=to,
+                                          note={"step": step, **({} if seg is None
+                                                                 else {"seg": seg})})
         world = new_world
         if group is not None:
             join(state, step)
@@ -503,7 +526,7 @@ def _train(root, args, shape) -> None:
             print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
         return state, True
 
-    start = 0
+    start, first_seg = 0, 1
     if group is None:
         # a spare: no state until the reshard names this rank
         ev = wait_for_reshard(root)
@@ -514,6 +537,7 @@ def _train(root, args, shape) -> None:
             apply_plan_meta(plan, ev["meta"]), None, ev["world"],
             args.global_batch // ev["world"], mesh_shape=ev["mesh_shape"], device=device)
         world, start = ev["world"], ev["step"]
+        first_seg = ev.get("seg", 0) + 1  # a stream's: the segments that remain
         if group is None:  # not named: nothing to do but wait for the end
             wait_for_reshard(root)
             return
@@ -541,7 +565,22 @@ def _train(root, args, shape) -> None:
         say(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
             f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world={world},"
             f"{mesh} device={device}, plan rev={plan.rev}")
-        if args.ckpt_dir and not args.stream:
+        if args.ckpt_dir and args.stream:
+            ckpt = active_ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts, group=group)
+            if latest_step(args.ckpt_dir, group) is not None:
+                if meta is not None and int(meta.get("world", world)) != world:
+                    # written at another world: the exact recut, as the
+                    # reference's stream resumes
+                    state, start = restore_elastic(
+                        args.ckpt_dir, plan, state, group=group,
+                        log=lambda s: say(f"[train] elastic {s}", flush=True))
+                else:
+                    state, start = restore_verified(
+                        args.ckpt_dir, state, group=group,
+                        log=lambda s: say(f"[train] {s}", flush=True))
+                stream.seek(start)  # resume replays from the exact batch index
+                say(f"[train] stream resumed at step {start}", flush=True)
+        elif args.ckpt_dir:
             sup = Supervisor(args.ckpt_dir, ckpt_every=args.ckpt_every, salts=salts,
                              group=group)
             active_ckpt = sup.ckpt
@@ -559,37 +598,39 @@ def _train(root, args, shape) -> None:
             stream.seek(start)  # resume replays from the exact batch index
 
     try:
+        step = start
         if args.stream:
             # segments over the unbounded stream (--steps is ignored); each
-            # boundary checkpoints and publishes
-            ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts) if args.ckpt_dir else None
-            active_ckpt = ckpt
-            if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-                state, start = restore_verified(
-                    args.ckpt_dir, state, log=lambda s: print(f"[train] {s}", flush=True))
-                stream.seek(start)  # resume replays from the exact batch index
-                print(f"[train] stream resumed at step {start}", flush=True)
+            # boundary checkpoints, publishes and may reshard
             publisher = None
             if args.publish_dir:
                 def publisher(step, state):
+                    # torn@ tears the delta before LATEST names it
+                    tear = (None if chaos is None else
+                            lambda: chaos.after_publish(step, args.publish_dir))
                     publish_state(args.publish_dir, step, state, meta=plan_meta(plan),
-                                  salts=salts)
-                    print(f"[stream] published step {step} -> {args.publish_dir}",
-                          flush=True)
-                    if chaos is not None:
-                        chaos.after_publish(step, args.publish_dir)
+                                  salts=salts, group=group, before_latest=tear)
+                    say(f"[stream] published step {step} -> {args.publish_dir}",
+                        flush=True)
+
+            def on_segment(seg, step, state):
+                if not (reshard_pending and step >= args.reshard_at):
+                    return None
+                if ckpt is not None:
+                    ckpt.wait()  # the rows move on the root's ckpt_pg
+                state = do_reshard(state, step, seg)
+                return state, step_fn, stream, ckpt
 
             state, last = run_stream(
                 state, step_fn, stream, segment_steps=args.segment_steps,
-                n_segments=args.stream_segments, start_step=start, checkpointer=ckpt,
-                meta_fn=lambda: plan_meta(plan), publisher=publisher,
-                on_metrics=on_metrics)
+                n_segments=args.stream_segments, start_step=start, first_segment=first_seg,
+                checkpointer=ckpt, meta_fn=lambda: plan_meta(plan), publisher=publisher,
+                on_metrics=on_metrics, on_segment=on_segment,
+                log=lambda s: say(s, flush=True))
             if ckpt is not None:
                 ckpt.wait()
-            print(f"[train] stream done at step {last} (world=1)")
-            return
-        step = start
-        if sup is not None:
+            say(f"[train] stream done at step {last} (world={world})")
+        elif sup is not None:
             while step < args.steps:
                 seg_end = next_boundary(step)
                 state = sup.run(state, step_fn, stream, seg_end, start_step=step,
@@ -626,6 +667,13 @@ def _train(root, args, shape) -> None:
                         and step < args.steps):
                     state, _ = do_replan(state, step)
     except BaseException as e:
+        if ckpt is not None:
+            # a joint write in flight ends on every rank (they fail alike at
+            # a crash@ step) before this rank leaves
+            try:
+                ckpt.wait()
+            except Exception:  # noqa: BLE001 — the run's own error is raised below
+                pass
         if to is not None and group is not None:
             end_run(ok=False, why=f"{type(e).__name__}: {e}", root=root)
         raise
@@ -640,6 +688,8 @@ def _train(root, args, shape) -> None:
                 raise RuntimeError("a second reshard: the launcher makes one")
             return
         end_run(root=root)
+    if args.stream:
+        return
     if replanner is not None:
         n_mig = sum(1 for e in replanner.events if e.migrated)
         print(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "

@@ -36,7 +36,15 @@ batch, before the train step takes the rank's slice of it
 ``crash@`` raises on every rank at the same step, which the ranks'
 ``Supervisor`` turns into one agreed rollback; ``ckpt@`` waits for the
 checkpoint every rank writes and then rank 0 alone mangles one leaf file
-of it, once. ``torn@`` belongs to publishing, which runs at world 1 only.
+of it, once. ``torn@`` on the trainer's side tears the delta of the step
+being published once its directory holds every rank's rows and before
+``LATEST`` names it (``publish_state(before_latest=)``; rank 0 alone past
+world 1), so a server polling meanwhile never reads it whole; the files a
+consumer finds are the reference's (``LATEST`` names the torn delta). On a
+serving side of several ranks rank 0
+tears the newest delta before the request, between two agreements of the
+ranks (``tear_published_together``), so no rank is reading it meanwhile and
+every rank's next poll sees it torn.
 """
 from __future__ import annotations
 
@@ -143,6 +151,21 @@ def tear_published(publish_dir: str) -> Optional[str]:
     return corrupt_checkpoint_file(publish_dir, step=step)
 
 
+def tear_published_together(publish_dir: str, group: Any = None) -> Optional[str]:
+    """``tear_published`` from the ranks of a serving ``group`` at once:
+    every rank agrees that its last poll is done, rank 0 tears the delta,
+    and every rank agrees again before it goes on to its next poll. Returns
+    the torn path on rank 0, ``None`` elsewhere."""
+    if group is None or group.world == 1:
+        return tear_published(publish_dir)
+    from repro_torch.dist import compat
+
+    compat.agree([0], group)
+    torn = tear_published(publish_dir) if group.rank == 0 else None
+    compat.agree([0], group)
+    return torn
+
+
 class ChaosStream:
     """Wrap a batch stream, poisoning the configured indices one-shot.
 
@@ -197,7 +220,9 @@ class ChaosController:
       ``ckpt@c`` with ``step >= c``, flush the async writer and mangle the
       newest checkpoint on disk (past world 1, on rank 0 of ``group``, once
       every rank's writer has finished, which ``ckpt.wait()`` implies);
-    - ``after_publish(step, publish_dir)``: same pattern for ``torn@t``.
+    - ``after_publish(step, publish_dir)``: once per ``torn@t`` with ``step
+      >= t``, tear the delta of ``step`` (run it as ``publish_state``'s
+      ``before_latest``; past world 1 rank 0 tears, every rank counts it).
 
     All one-shot; ``fired`` survives rollback replays (see module doc).
     """
@@ -241,6 +266,14 @@ class ChaosController:
     def after_publish(self, step: int, publish_dir: str) -> None:
         for t in sorted(self.plan.torn_publish):
             if step >= t and f"torn@{t}" not in self.fired:
+                if self.group is not None and self.group.world > 1:
+                    # every rank's rows are in: rank 0 alone tears them, and
+                    # every rank counts the fault
+                    if self.group.rank == 0:
+                        log.warning("[chaos] tearing published delta at step %d", step)
+                        corrupt_checkpoint_file(publish_dir, step=step)
+                    self.fired.add(f"torn@{t}")
+                    continue
                 log.warning("[chaos] tearing published delta at step %d", step)
-                if tear_published(publish_dir) is not None:
+                if corrupt_checkpoint_file(publish_dir, step=step) is not None:
                     self.fired.add(f"torn@{t}")

@@ -41,7 +41,7 @@ of other rows (or, worse, re-padding the tier sentinels blindly).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -228,14 +228,7 @@ def reshard_live(plan: PicassoPlan, state: Any, new_world: int, per_device_batch
 
     # the tiers' sentinels, on every rank that holds them
     if live:
-        emb = {}
-        for g in plan.groups:
-            st = state["emb"][str(g.gid)]
-            r_new = new_plan.group(g.gid).rows
-            cut = min(g.rows, r_new)
-            emb[str(g.gid)] = st._replace(cache=remap_sentinels(st.cache, cut, r_new),
-                                          l2=remap_sentinels(st.l2, cut, r_new))
-        state = {**state, "emb": emb}
+        state = remap_tiers(new_plan, state, {g.gid: g.rows for g in plan.groups})
 
     # a rank that joins: the skeleton from rank 0, then the replicated leaves
     joining = w_old <= me < w_new
@@ -293,6 +286,20 @@ def reshard_live(plan: PicassoPlan, state: Any, new_world: int, per_device_batch
     return new_plan, ckpt._unflatten_into(state, flat), new_group
 
 
+def remap_tiers(plan: PicassoPlan, state: Any, old_rows: Dict[int, int]) -> Any:
+    """``state`` (``{"emb", ...}``, at ``plan``'s rows) with every tier key
+    at or past ``min(old_rows[gid], rows)`` set to the new sentinel, the
+    group's ``rows`` (``reshard_state``'s surgery of the tiers, for a state
+    whose row-sharded leaves were recut elsewhere)."""
+    emb = {}
+    for g in plan.groups:
+        st = state["emb"][str(g.gid)]
+        cut = min(int(old_rows[g.gid]), g.rows)
+        emb[str(g.gid)] = st._replace(cache=remap_sentinels(st.cache, cut, g.rows),
+                                      l2=remap_sentinels(st.l2, cut, g.rows))
+    return {**state, "emb": emb}
+
+
 def restore_elastic(ckpt_dir: str, plan: PicassoPlan, template: Any, *,
                     group: Optional[Group] = None, step: Optional[int] = None,
                     log: Optional[Callable[[str], None]] = None) -> Tuple[Any, int]:
@@ -326,13 +333,7 @@ def restore_elastic(ckpt_dir: str, plan: PicassoPlan, template: Any, *,
     else:
         state, s = ckpt.restore_resharded(ckpt_dir, template, step=step, group=grp)
         old = reshard_plan(plan, int(world_ckpt), 1)
-        emb = {}
-        for g in plan.groups:
-            st = state["emb"][str(g.gid)]
-            cut = min(old.group(g.gid).rows, g.rows)
-            emb[str(g.gid)] = st._replace(cache=remap_sentinels(st.cache, cut, g.rows),
-                                          l2=remap_sentinels(st.l2, cut, g.rows))
-        state = {**state, "emb": emb}
+        state = remap_tiers(plan, state, {g.gid: old.group(g.gid).rows for g in plan.groups})
     log(f"restored world={int(world_ckpt)} checkpoint at world={plan.world} "
         f"(resharded step {s})")
     return state, s

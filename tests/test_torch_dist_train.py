@@ -298,13 +298,16 @@ def test_serve_launcher_at_world_4_matches_world_1():
     assert p4 and p4 == re.findall(r"mean_prob=([\d.]+)", w1)
 
 
-@pytest.mark.parametrize("module,flag", [("train", "--replan-iters=5"), ("train", "--stream"),
+@pytest.mark.parametrize("module,flag", [("train", "--replan-iters=5"),
+                                         ("train", "--calibrate=auto"),
                                          ("train", "--pin-l2"), ("serve", "--pin-l2"),
-                                         ("train", "--reshard-to=2 --stream")])
+                                         ("serve", "--calibrate=auto"),
+                                         ("train", "--reshard-to=2 --replan-iters=5")])
 def test_launchers_refuse_waiting_flags_past_world_1(module, flag):
-    """Nothing is dropped silently: a runtime flag that waits for item 6.3
+    """Nothing is dropped silently: a runtime flag that waits for item 6.3b
     raises ``NotImplementedError`` before any rank starts, also where
-    ``--reshard-to`` is what takes the run past world 1."""
+    ``--reshard-to`` is what takes the run past world 1 (``--stream`` and
+    ``--reload-dir`` run past world 1: ``tests/test_torch_dist_stream.py``)."""
     import importlib
 
     mod = importlib.import_module(f"repro_torch.launch.{module}")

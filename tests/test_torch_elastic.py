@@ -504,3 +504,52 @@ def test_load_published_of_the_references_world_4_delta(tmp_path):
         assert mine[k].dtype == v.dtype and mine[k].tobytes() == v.tobytes(), k
     assert any(int((mine[f"emb/{g.gid}/l2/keys"] < g.rows).sum()) for g in one.groups)
 
+
+
+# ------------------------------------------------ the launcher's --stream resume
+
+
+# the reference's launcher can abort in its teardown (its prefetcher's daemon
+# thread inside XLA): once main has returned, exit at once
+_REF_TRAIN = ("import os, sys; from repro.launch.train import main; main(); "
+              "sys.stdout.flush(); sys.stderr.flush(); os._exit(0)")
+
+
+def test_stream_resumes_a_world_2_checkpoint_at_world_1_as_the_reference(tmp_path):
+    """The reference's launcher streams at world 2 (mesh 2x1, checkpoints at
+    steps 2, 4 and 6); copies of its directory resumed at world 1 with
+    ``--stream --stream-segments 1`` restore elastically in both launchers
+    and train steps 7 and 8 to the same printed losses."""
+    import os
+    import re
+    import shutil
+    import subprocess
+    import sys
+
+    from test_torch_dist import HASH_SEED, ROOT, ref_env
+
+    flags = ["--arch", "deepfm", "--smoke", "--global-batch", "64", "--log-every", "1",
+             "--stream", "--segment-steps", "2"]
+
+    def run(entry, d, *extra, env):
+        proc = subprocess.run([sys.executable, *entry, *flags, "--ckpt-dir", str(d), *extra],
+                              capture_output=True, text=True, timeout=600, env=env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        return proc.stdout
+
+    ref = ["-c", _REF_TRAIN]
+    run(ref, tmp_path / "ck", "--devices", "2", "--mesh", "2x1", "--stream-segments", "3",
+        env=ref_env())
+    shutil.copytree(tmp_path / "ck", tmp_path / "port")
+    exp = run(ref, tmp_path / "ck", "--stream-segments", "1", env=ref_env())
+    port_env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED=HASH_SEED,
+                    OMP_NUM_THREADS="1")
+    got = run(["-m", "repro_torch.launch.train"], tmp_path / "port", "--device", "cpu",
+              "--stream-segments", "1", env=port_env)
+    line = "[train] elastic restored world=2 checkpoint at world=1 (resharded step 6)"
+    assert line in exp and line in got, got
+    pat = r"^  step +(\d+) loss=(\S+) .*$"
+    losses = re.findall(pat, got, re.M)
+    assert [s for s, _ in losses] == ["7", "8"]
+    assert losses == re.findall(pat, exp, re.M)
+    assert "[train] stream done at step 8 (world=1)" in got
