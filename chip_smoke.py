@@ -339,7 +339,24 @@ Phases, in order (any failure raises and exits non-zero):
    step-10 checkpoint at world 2 with the same digests. Bytes and seconds
    of each reshard, host RSS peaks, step p50 at each world and the restore
    GB/s are printed as 4 or 2 ranks time-sharing one card over gloo, beside
-   the card's name and power limit. The checkpoints are removed after.
+   the card's name and power limit. The checkpoints are removed after;
+21. the replanner, ``--calibrate`` and ``--pin-l2`` past world 1, on 4
+   ranks sharing the card: ``get_cost_model('force', group=)`` on the small
+   grid (the wire hops timed over the ranks, the kernels on rank 0 alone),
+   one model digest and one mix of unpacked full-width deepfm on every
+   rank, the wire curves printed beside world 1's; phase 17's plan for 10
+   steps, a replan with the hot envelope halved and a step at the new
+   revision: each rank's migrated rows of ``w``/``acc``/``counts``
+   (position-weighted digests) and the new tier equal to the world-1
+   migration of the same state in this process, that step at phase 17's
+   bars, 10 + 1 launches of each of the six kernels a rank; narrow deepfm
+   (a 512 MiB L2, a quarter of phase 8's) unpinned and then with its
+   narrow master and L2 tier in mapped pinned host memory: a step, the
+   host flush, a step, a replan with
+   the L2 envelope halved, a step and a request, bitwise alike (losses,
+   probabilities, digests), with each rank's pinned bytes, steady peak and
+   host-operand launches printed as 4 ranks time-sharing one card over
+   gloo, beside the card's name and power limit.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -349,6 +366,7 @@ seed makes the served rows, and so the probabilities, repeat run to run.
 """
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -5502,6 +5520,362 @@ def stream_one_side(trained: list, served: list, pub: str, ck: str,
         "peak_mem_gib_by_rank": [t.get("peak_mem_gib") for t in live]}
 
 
+# ------------------------------------------------------------------ phase 21
+#
+# The replanner, --calibrate and --pin-l2 past world 1, on phase 17's 4
+# ranks and plan: a calibration at world 4 (every rank the same model and
+# mix), a replan of full-width deepfm that each rank migrates on its cut
+# (held to the world-1 migration of the same state in this process), and
+# narrow deepfm pinned against unpinned at world 4. Times are of 4 ranks
+# time-sharing one card over gloo.
+
+REPLAN_WORLD_STEPS = 10
+# a quarter of phase 8's 2 GiB narrow L2 budget: at 2 GiB the flushes and
+# migrations of the 48.8 M-row tier through gloo took 28-63 s of the phase
+# and the whole script 989.5 s of its 1,200 s limit on a slow host
+PIN_WORLD_L2_BYTES = 536_870_912
+PIN_WORLD_STEPS = 3                  # a step, the flush, a step, the replan, a step
+
+
+def model_digest(model) -> str:
+    """A digest of a cost model's JSON (its curves and stamp)."""
+    raw = json.dumps(model.to_json(), sort_keys=True).encode()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def calib_world_rank(group, workdir: str) -> dict:
+    """(a) ``get_cost_model('force')`` on the small grid at world 4 (the
+    wire hops over the 4 ranks, the kernels on rank 0 alone) and the mix it
+    gives the unpacked full-width plan."""
+    from repro_torch.perf import get_cost_model, load_samples
+
+    path = os.path.join(workdir, "calibration.json")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = get_cost_model("force", path, grid="small", device=DEV, group=group,
+                           log=lambda s: print(f"[phase 21] calib {s}", flush=True))
+    secs = time.perf_counter() - t0
+    plan = make_plan(get_config("deepfm"), world=group.world,
+                     per_device_batch=TRAIN_B // group.world, enable_packing=False,
+                     hot_bytes=1 << 30, flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS,
+                     mesh_shape=WORLD_MESH)
+    asg = compile_assignment(plan, cost_model=model)
+    out = {"s": secs, "digest": model_digest(model), "backend": model.backend,
+           "meta": model.meta, "mix": dict(Counter(asg.strategy.values())),
+           "assignment": dict(asg.strategy),
+           "kernel_launches": {k: ops.launches[k] for k in (
+               "gather_pool", "dedup_adagrad", "tier_probe", "gather_project")}}
+    if group.rank == 0:
+        samples = load_samples(path)
+        out["wire"] = {k: samples[k] for k in ("wire_a2a", "wire_ag")}
+        out["stamp_world"] = json.loads(Path(path).read_text()).get("world")
+    return out
+
+
+def replan_world_rank(group, workdir: str, train_b) -> dict:
+    """(b) phase 17's plan: ten steps, the pre-replan state saved for the
+    world-1 side, one replan with the hot envelope halved (as
+    ``full_width_replan``), the digests of this rank's migrated rows and
+    tiers, and one step at the new revision."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.features import agree_salts
+    from repro_torch.dist.sharding import row_range
+
+    cfg, plan, _ = world_plans(group.world)
+    agree_salts(plan, group)
+    g = plan.groups[0]
+    lo, hi = row_range(g.rows, group)
+    live = min(hi, sum(t.vocab for t in g.tables))
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    step = ts.make_train_step(model, plan, TRAIN_B, ts.TrainConfig(flush_in_step=False), DEV,
+                              group=group)
+    ops.reset_launches()
+    lat = []
+    for b in train_b[:REPLAN_WORLD_STEPS]:
+        rdist.barrier(group)
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize(DEV)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ops.launches)
+    save_shard(state, group, workdir, lo, live)
+    hot_now = plan.cache_rows[g.gid] * (g.dim + 1) * 4
+    rp = Replanner(plan, strategy="picasso", hot_bytes=hot_now // 2, group=group)
+    rdist.barrier(group)
+    res = rp.maybe_replan(state, step=REPLAN_WORLD_STEPS)
+    check(res is not None, f"rank {group.rank}: the world-4 replan with half the hot tier's "
+          f"bytes changes the plan: {rp.events[-1].describe()}")
+    plan2, state = res
+    ev = rp.events[-1]
+    st = state["emb"]["0"]
+    n = live - lo
+    out = {"rank": group.rank, "rows": [lo, hi], "live": live, "lat": lat,
+           "launches": launches, "event": ev.describe(), "seconds": ev.seconds,
+           "meta": plan_meta(plan2), "hot_rows": [plan.cache_rows[g.gid],
+                                                  plan2.cache_rows[g.gid]],
+           "hot_bytes": [plan.hot_bytes, hot_now // 2],
+           "digests": {"w": row_digest(st.w, lo, n), "acc": row_digest(st.acc, lo, n),
+                       "counts": row_digest(st.counts, lo, n)},
+           "tier": [int(bits_sum(x)) for x in st.cache],
+           "keys": st.cache.keys.cpu() if group.rank == 0 else None}
+    step2 = ts.make_train_step(WDLModel(cfg, plan2), plan2, TRAIN_B,
+                               ts.TrainConfig(flush_in_step=False), DEV, group=group)
+    ops.reset_launches()
+    rec = step_record(step2, state, train_b[REPLAN_WORLD_STEPS], plan2, lo, hi)
+    out["train"] = {"records": {REPLAN_WORLD_STEPS + 1: rec},
+                    "launches_after": dict(ops.launches)}
+    del state, step, step2, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pin_world_run(group, cfg, batches, request, pin: bool) -> dict:
+    """(c) one run of narrow deepfm at world 4 (``--narrow-dim 4``,
+    ``PIN_WORLD_L2_BYTES`` of L2 behind an L1 of a quarter of the first
+    batch's unique ids, so the flush after it fills both tiers), its narrow
+    master and L2 tier pinned or not: a step, the host flush, a step, a
+    replan with the L2 envelope halved, a step and a request; the state's
+    digest after the first step, the flush and the replan."""
+    from repro_torch.dist.compat import all_gather_tiled
+
+    kw = dict(world=group.world, per_device_batch=TRAIN_B // group.world, narrow_dim=4,
+              flush_iters=FLUSH_ITERS, warmup_iters=WARMUP_ITERS, mesh_shape=WORLD_MESH,
+              exact_capacity=True)
+    g0 = make_plan(cfg, **kw)
+    d = g0.groups[0].dim
+    n_uniq = int(owned_rows(g0, batches[0], 0, g0.groups[0].rows).numel())
+    plan = make_plan(cfg, hot_bytes=n_uniq // 4 * (d + 1) * 4,
+                     l2_bytes=PIN_WORLD_L2_BYTES, **kw)
+    resolve_assignment(plan, "picasso_narrow", world=group.world)
+    model = WDLModel(cfg, plan)
+    state = ts.init_state(model, plan, torch.Generator(device=DEV).manual_seed(SEED), DEV,
+                          group=group)
+    before = host_memory.pinned_bytes()
+    placed = None
+    if pin:
+        state = pin_to_host(state, plan)
+        placed = check_placement(state, plan, f"rank {group.rank} pinned narrow world 4")
+    out = {"pinned_bytes": host_memory.pinned_bytes() - before, "placed": placed,
+           "l1_rows": plan.cache_rows[0], "l2_rows": plan.l2_rows[0], "digests": {},
+           "losses": []}
+    tcfg = ts.TrainConfig(strategy="picasso_narrow", flush_in_step=False, pin_l2=pin)
+    step = ts.make_train_step(model, plan, TRAIN_B, tcfg, DEV, group=group)
+    state, m = step(state, batches[0])
+    out["losses"].append(float(m["loss"]))
+    out["digests"]["step1"] = state_digest(state)
+    t0 = time.perf_counter()
+    state = ts.make_flush_fn(plan, group=group)(state)
+    torch.cuda.synchronize(DEV)
+    out["flush_s"] = time.perf_counter() - t0
+    out["digests"]["flush"] = state_digest(state)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[1])
+    torch.cuda.synchronize(DEV)
+    out.update(step_ms=(time.perf_counter() - t0) * 1e3,
+               peak_mem_gib=torch.cuda.max_memory_allocated(DEV) / 2**30,
+               launches=dict(ops.launches), host_launches=dict(ops.host_launches),
+               hits={k: int(m[k]) for k in ("cache_hits/l1", "cache_hits/l2")})
+    out["losses"].append(float(m["loss"]))
+    rp = Replanner(plan, strategy="picasso_narrow", l2_bytes=PIN_WORLD_L2_BYTES // 2,
+                   pin_l2=pin, group=group)
+    res = rp.maybe_replan(state, step=2)
+    check(res is not None, f"rank {group.rank}: the narrow replan with half the L2 "
+          f"envelope changes the plan: {rp.events[-1].describe()}")
+    plan2, state = res
+    if pin:
+        check_placement(state, plan2, f"rank {group.rank} pinned after the replan")
+    out.update(event=rp.events[-1].describe(), replan_seconds=rp.events[-1].seconds,
+               l2_rows_after=plan2.l2_rows[0])
+    out["digests"]["replan"] = state_digest(state)
+    model2 = WDLModel(cfg, plan2)
+    step2 = ts.make_train_step(model2, plan2, TRAIN_B,
+                               dataclasses.replace(tcfg, strategy="mixed"), DEV, group=group)
+    state, m = step2(state, batches[2])
+    out["losses"].append(float(m["loss"]))
+    serve = make_serve_step(model2, plan2, TRAIN_B, ServeConfig(strategy="mixed"), DEV,
+                            group=group)
+    out["probs"] = all_gather_tiled(serve(state, request), group).cpu()
+    out["digests"]["end"] = state_digest(state)
+    del state, step, step2, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_rank(group, workdir: str) -> dict:
+    """One rank of phase 21: (a), (b), then (c) unpinned and pinned."""
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = {"rank": group.rank, "calib": calib_world_rank(group, workdir)}
+    out["calib_s"] = time.perf_counter() - t0
+    train_b, _ = world_batches()
+    out["replan"] = replan_world_rank(group, workdir, train_b)
+    out["replan_s"] = time.perf_counter() - t0 - out["calib_s"]
+    cfg = get_config("deepfm")
+    request = make_batch(cfg, TRAIN_B, np.random.default_rng(SEED + 21))
+    out["narrow"] = {pin: pin_world_run(group, cfg, train_b[:PIN_WORLD_STEPS], request, pin)
+                     for pin in (False, True)}
+    out["narrow_s"] = time.perf_counter() - t0 - out["calib_s"] - out["replan_s"]
+    return out
+
+
+def phase21(t_start: float) -> dict:
+    """Phase 21: ``phase21_rank`` on 4 processes, then the world-1 side in
+    this process and the checks."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = checkpoint_dir()
+    try:
+        ranks = rdist.spawn_ranks(phase21_rank, WORLD, workdir, device="cuda",
+                                  workdir=workdir)
+        t_ranks = time.perf_counter() - t_phase
+        out = phase21_one_side(ranks, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out.update(ranks_s=t_ranks, phase_s=time.perf_counter() - t_phase,
+               rank_parts_s={k: [round(r[k], 1) for r in ranks]
+                             for k in ("calib_s", "replan_s", "narrow_s")})
+    print(f"[wall] phase 21 done at {time.perf_counter() - t_start:.1f}s "
+          f"(ranks {t_ranks:.1f}s, phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def phase21_one_side(ranks: list, workdir: str) -> dict:
+    """Phase 21's checks: one model and mix on every rank; each rank's
+    migrated cut the world-1 migration of the same state and a step after
+    it at phase 17's bars; the pinned world-4 run bitwise the unpinned."""
+    from repro_torch.embedding.state import migrate_state
+    from repro_torch.perf.calibration import _bench_wire, GRIDS
+
+    # -- (a) the calibration
+    cal = [r["calib"] for r in ranks]
+    check(len({c["digest"] for c in cal}) == 1
+          and all(c["assignment"] == cal[0]["assignment"] for c in cal),
+          f"every rank holds one cost model and one mix: {[c['digest'] for c in cal]}")
+    c0 = cal[0]
+    check(c0["backend"] == "torch-cuda" and c0["meta"].get("world") == WORLD
+          and c0["stamp_world"] == WORLD and all(v > 0 for v in c0["kernel_launches"].values())
+          and all(not any(c["kernel_launches"].values()) for c in cal[1:]),
+          f"calibrated at world {WORLD}, the kernels timed by rank 0 alone: {cal}")
+    it = {"iters": GRIDS["small"]["iters"], "warmup": GRIDS["small"]["warmup"]}
+    floor = {k: [list(_bench_wire(k, kb, it, DEV)) for kb in GRIDS["small"]["wire_kb"]]
+             for k in ("wire_a2a", "wire_ag")}
+    calib = {"s": ranks[0]["calib_s"], "mix": c0["mix"], "digest": c0["digest"],
+             "wire_world4": c0["wire"], "wire_world1_here": floor}
+
+    # -- (b) the replan: the world-1 migration of the same state
+    rb = [r["replan"] for r in ranks]
+    check(len({json.dumps(r["meta"], sort_keys=True) for r in rb}) == 1
+          and len({r["event"] for r in rb}) == 1,
+          f"every rank reached one revision: {[r['event'] for r in rb]}")
+    cfg, plan1, _ = world_plans(1)
+    resolve_assignment(plan1, "picasso")
+    rows1 = plan1.groups[0].rows
+    model1 = WDLModel(cfg, plan1)
+    state = ts.init_state(model1, plan1, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    st = state["emb"]["0"]
+    for r in rb:
+        lo, live = r["rows"][0], r["live"]
+        shard = torch.load(os.path.join(workdir, f"shard{r['rank']}.pt"))
+        st.w[lo:live].copy_(shard["w"])
+        st.acc[lo:live].copy_(shard["acc"])
+        st.counts[lo:live].copy_(shard["counts"])
+        del shard
+    rep = torch.load(os.path.join(workdir, "replicated.pt"))
+    for dst, src in zip(st.cache, rep["cache"]):
+        dst.copy_(torch.where(src >= rows1, rows1, src) if src.dtype == torch.int32 else src)
+    for name, leaves in (("dense", rep["dense"]), ("m", rep["m"]), ("v", rep["v"])):
+        tree = state["dense"] if name == "dense" else state["opt"][name]
+        for dst, src in zip(tree_leaves(tree), leaves):
+            dst.copy_(src)
+    state["opt"]["t"] = rep["t"].to(DEV)
+    state["step"] = rep["step"]
+    del rep, st
+    new1 = apply_plan_meta(world_plans(1)[1], rb[0]["meta"])
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    state = migrate_state(plan1, new1, state)
+    torch.cuda.synchronize(DEV)
+    migrate1_s = time.perf_counter() - t0
+    st = state["emb"]["0"]
+    rows_equal = all(row_digest(getattr(st, k)[r["rows"][0]:r["live"]], r["rows"][0],
+                                r["live"] - r["rows"][0]) == tuple(r["digests"][k])
+                     for r in rb for k in ("w", "acc", "counts"))
+    keys4 = rb[0]["keys"].to(DEV)
+    keys4 = torch.where(keys4 >= rows1, torch.full_like(keys4, rows1), keys4)
+    tier1 = [int(bits_sum(x)) for x in (st.cache.rows, st.cache.acc)]
+    tiers_equal = (bool(torch.equal(keys4, st.cache.keys))
+                   and all(r["tier"][1:] == tier1 for r in rb))
+    check(len({tuple(r["tier"]) for r in rb}) == 1, "the 4 ranks' new tiers are alike")
+    check(rows_equal and tiers_equal,
+          f"each rank's migrated rows and the new tier are the world-1 migration's: rows "
+          f"{rows_equal}, tier {tiers_equal}")
+    train_b, _ = world_batches()
+    step1 = ts.make_train_step(WDLModel(cfg, new1), new1, TRAIN_B,
+                               ts.TrainConfig(flush_in_step=False), DEV)
+    shared = world_step_check(rb, REPLAN_WORLD_STEPS + 1, step1, state,
+                              train_b[REPLAN_WORLD_STEPS], new1)
+    del state, step1, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_each = ARCHS["deepfm"].train_launches
+    for r in rb:
+        check(r["launches"] == {n: tr_each.get(n, 0) * REPLAN_WORLD_STEPS
+                                for n in r["launches"]}
+              and r["train"]["launches_after"] == {n: tr_each.get(n, 0)
+                                                   for n in r["train"]["launches_after"]}
+              and all(r["launches"].get(n, 0) > 0 for n in WORLD_KERNELS),
+              f"rank {r['rank']} launches {r['launches']} then {r['train']['launches_after']}")
+    secs = {k: max(r["seconds"][k] for r in rb) for k in rb[0]["seconds"]}
+    replan = {"event": rb[0]["event"], "seconds": secs, "hot_rows": rb[0]["hot_rows"],
+              "hot_bytes": rb[0]["hot_bytes"], "world1_migrate_s": migrate1_s,
+              "rows_equal_world1": rows_equal, "tier_equal_world1": tiers_equal,
+              "shared_state": shared,
+              "step_p50_ms": float(np.percentile(
+                  [max(r["lat"][i] for r in rb) for i in range(1, REPLAN_WORLD_STEPS)], 50)),
+              "launches_by_rank": [r["launches"] for r in rb],
+              "launches_after_by_rank": [r["train"]["launches_after"] for r in rb]}
+
+    # -- (c) pinned against unpinned at world 4
+    narrow = {}
+    for r in ranks:
+        u, p = r["narrow"][False], r["narrow"][True]
+        same = (u["losses"] == p["losses"] and u["digests"] == p["digests"]
+                and torch.equal(u["probs"], p["probs"]))
+        check(same, f"rank {r['rank']}: pinned world-4 run bitwise its unpinned run: losses "
+              f"{u['losses']} {p['losses']}")
+        check(all(np.isfinite(u["losses"])) and p["hits"]["cache_hits/l2"] > 0
+              and p["host_launches"].get("tier_probe", 0) > 0
+              and p["host_launches"].get("dedup_adagrad", 0) > 0
+              and not any(u["host_launches"].values()),
+              f"rank {r['rank']}: the L2 tier hit, host operands only when pinned: "
+              f"{p['hits']} {p['host_launches']} {u['host_launches']}")
+        narrow[r["rank"]] = {
+            "pinned_bytes": p["pinned_bytes"], "peak_mem_gib_pinned": p["peak_mem_gib"],
+            "peak_mem_gib_unpinned": u["peak_mem_gib"], "step_ms_pinned": p["step_ms"],
+            "step_ms_unpinned": u["step_ms"], "host_launches": p["host_launches"],
+            "launches": p["launches"], "hits": p["hits"], "flush_s": [u["flush_s"],
+                                                                     p["flush_s"]],
+            "replan_s": [u["replan_seconds"], p["replan_seconds"]]}
+    n0 = ranks[0]["narrow"][True]
+    check(len({tuple(r["narrow"][True]["losses"]) for r in ranks}) == 1,
+          "every rank reports the same summed losses")
+    return {"calib": calib, "replan": replan,
+            "narrow": {"l1_rows": n0["l1_rows"],
+                       "l2_rows": [n0["l2_rows"], n0["l2_rows_after"]],
+                       "l2_bytes": PIN_WORLD_L2_BYTES, "event": n0["event"],
+                       "losses": n0["losses"], "bitwise_unpinned": True, "by_rank": narrow}}
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5792,6 +6166,33 @@ def main() -> None:
           f"{sp['world4']:.3f}ms, world 2 {sp['world2']:.3f}ms; checkpoint resumed at world "
           f"1 in {sm['resume_world1_s']:.2f}s", flush=True)
 
+    rw = phase21(t_start)  # phase 21
+    print("[phase21] " + json.dumps(rw, default=str), flush=True)
+    cw, rr, nw = rw["calib"], rw["replan"], rw["narrow"]
+
+    def us(rows):
+        return [round(y, 1) for _, y in rows]
+
+    print(f"[phase 21] {card_stamp()}: 4 ranks time-sharing one card over gloo (not NCCL "
+          f"numbers). Calibration at world 4 (small grid) {cw['s']:.2f}s, one model on every "
+          f"rank ({cw['digest']}), mix of unpacked full-width deepfm {cw['mix']}; wire us at "
+          f"4, 64, 512 KB a shard: all_to_all {us(cw['wire_world4']['wire_a2a'])}, all_gather "
+          f"{us(cw['wire_world4']['wire_ag'])} (world 1 in this process: "
+          f"{us(cw['wire_world1_here']['wire_a2a'])}, {us(cw['wire_world1_here']['wire_ag'])})."
+          f" Replan of full-width deepfm ({rr['event']}): harvest "
+          f"{rr['seconds']['harvest']:.2f}s compile {rr['seconds']['compile']:.2f}s migrate "
+          f"{rr['seconds']['migrate']:.2f}s (slowest rank), world-1 migration "
+          f"{rr['world1_migrate_s']:.2f}s, step p50 {rr['step_p50_ms']:.3f}ms. Narrow "
+          f"deepfm --pin-l2 at world 4 (L2 {nw['l2_bytes']} bytes, {nw['l2_rows'][0]} rows): "
+          f"pinned bytes by rank {[v['pinned_bytes'] for v in nw['by_rank'].values()]}, "
+          f"steady peak device GiB pinned "
+          f"{[round(v['peak_mem_gib_pinned'], 2) for v in nw['by_rank'].values()]} vs "
+          f"unpinned {[round(v['peak_mem_gib_unpinned'], 2) for v in nw['by_rank'].values()]}"
+          f", host-operand launches a step {nw['by_rank'][0]['host_launches']}, step ms "
+          f"pinned {[round(v['step_ms_pinned'], 1) for v in nw['by_rank'].values()]} vs "
+          f"unpinned {[round(v['step_ms_unpinned'], 1) for v in nw['by_rank'].values()]}",
+          flush=True)
+
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         if name == "host_rows":
@@ -5836,12 +6237,17 @@ def main() -> None:
         st20 = ({"trainer": [la[name] for la in sm["launches_by_rank"]],
                  "server": [la.get(name, 0) for la in sm["server_launches_by_rank"]]}
                 if name in WORLD_KERNELS else None)
+        # phase 21's 10 steps before and 1 step after the world-4 replan
+        rp21 = ([a[name] + b.get(name, 0) for a, b in zip(
+            rr["launches_by_rank"], rr["launches_after_by_rank"])]
+            if name in WORLD_KERNELS else None)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "path": where,
                         "launches_world4_by_rank": world4,
                         "launches_world4_supervised_by_rank": ft4,
                         "launches_world2_resharded_by_rank": el2,
                         "launches_stream_by_rank": st20,
+                        "launches_replan_world4_by_rank": rp21,
                         # the kernel's launches on every path run (300 requests,
                         # 30 steps each)
                         "launches_by_path": {f"{ar} {pa}": r2["launches"][name]

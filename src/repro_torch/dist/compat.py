@@ -50,9 +50,11 @@ What the runtime needs past world 1, where the reference decides once in
 its one process and the port's ranks must decide alike:
 
 * ``agree`` all_gathers a few small ints from every rank over the step's
-  group (a failure class, a verdict, a step); every rank then computes the
-  same decision from the same list. It runs on the thread that runs the
-  steps, as every collective of the step's group does.
+  group (a failure class, a verdict, a step, a digest); every rank then
+  computes the same decision from the same list. ``gather_floats`` does
+  the same for measurements (step times, phase seconds). Both run on the
+  thread that runs the steps, as every collective of the step's group
+  does.
 * a gate: ``Group.gate`` holds, while armed (``arm_gate``), the agreement
   the next collective of the step's group runs before it moves any bytes.
   A supervisor arms it before a step, so a rank that fails before the
@@ -309,6 +311,21 @@ def agree(values: Sequence[int], group: Group) -> List[List[int]]:
     dev = torch.device("cuda", torch.cuda.current_device()) if group.backend == "nccl" else "cpu"
     mine = torch.tensor(vals, dtype=torch.int64, device=dev)
     out = torch.empty((group.world, len(vals)), dtype=torch.int64, device=dev)
+    _call(dist.all_gather, list(out.unbind(0)), mine, group=group.pg)
+    return out.cpu().tolist()
+
+
+def gather_floats(values: Sequence[float], group: Group) -> List[List[float]]:
+    """``agree`` for measurements: every rank's ``values`` (the same count of
+    floats on each, carried as float64), in rank order. At world 1,
+    ``[values]``."""
+    vals = [float(v) for v in values]
+    if group.world == 1:
+        return [vals]
+    _enter(group)
+    dev = torch.device("cuda", torch.cuda.current_device()) if group.backend == "nccl" else "cpu"
+    mine = torch.tensor(vals, dtype=torch.float64, device=dev)
+    out = torch.empty((group.world, len(vals)), dtype=torch.float64, device=dev)
     _call(dist.all_gather, list(out.unbind(0)), mine, group=group.pg)
     return out.cpu().tolist()
 

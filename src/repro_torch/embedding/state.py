@@ -47,7 +47,8 @@ import torch
 from repro_torch.core.jax_random import JaxKey, Rng, rng_normal, rng_split
 from repro_torch.core.packed_embedding import CacheState, ProjState, init_cache
 from repro_torch.core.packing import PackedGroup, PicassoPlan
-from repro_torch.dist.compat import WORLD1, Group, barrier, resolve_group
+from repro_torch.dist.compat import (WORLD1, Group, all_gather_tiled, barrier, psum,
+                                     resolve_group)
 
 
 class EmbeddingState(NamedTuple):
@@ -320,47 +321,48 @@ def tier_gates(plan: PicassoPlan, gid: int, *, use_cache: bool = True,
 # a migrated group take the tiers' write-back in place, so a full-width
 # migration never copies the 7.5 GB table to the host. The old state's
 # tensors are reused; use only the returned state afterwards.
+#
+# Past world 1 each rank migrates its cut of the master, rows ``[base, base
+# + rps)``, with the flush's collectives (``core.packed_embedding``): it
+# writes back the tier rows it owns, the ranking gathers every rank's
+# candidates, and a new replicated tier is the psum of its owners' rows
+# (exact: one owner adds its row to zeros). At world 1 every collective is
+# the identity and the cut is the whole table.
 
 
 def _np_write_back(w: torch.Tensor, acc: torch.Tensor, tier: CacheState,
-                   pinv: Optional[torch.Tensor] = None) -> None:
-    """Owner write-back of a tier into the master, in place: authoritative
-    tier rows (narrowed through ``pinv`` for a narrow master) and adagrad
-    slots land on their row ids; sentinel keys (empty slots) are skipped."""
-    mine = tier.keys < w.shape[0]
-    idx = tier.keys[mine].long()
-    rows = tier.rows[mine]
-    if pinv is not None:
-        rows = rows.to(torch.float32) @ pinv
-    w[idx] = rows.to(w.dtype)
-    acc[idx] = tier.acc[mine].to(acc.dtype)
+                   pinv: Optional[torch.Tensor] = None, base: int = 0) -> None:
+    """Owner write-back of a tier into this rank's master rows (``base``
+    its first row), in place: authoritative tier rows (narrowed through
+    ``pinv`` for a narrow master, one product over the whole tier) and
+    adagrad slots land on their row ids; sentinel keys (empty slots) and
+    other ranks' rows are skipped."""
+    local = tier.keys.to(torch.int64) - base
+    mine = (local >= 0) & (local < w.shape[0])
+    rows = tier.rows if pinv is None else tier.rows.to(torch.float32) @ pinv
+    w[local[mine]] = rows[mine].to(w.dtype)
+    acc[local[mine]] = tier.acc[mine].to(acc.dtype)
 
 
-def _np_load_tier(rows_of, acc: torch.Tensor, keys: torch.Tensor, rows_padded: int,
-                  dtype) -> CacheState:
-    """A fresh tier holding ``keys``: rows from ``rows_of(idx)`` (the synced
-    master's rows at the tier width) and the adagrad slots from ``acc``;
-    sentinel slots stay exactly zero."""
-    mine = (keys < rows_padded)[:, None]
-    idx = torch.clamp(keys.long(), 0, acc.shape[0] - 1)
-    rows = rows_of(idx)
-    zero = torch.zeros((), dtype=dtype, device=acc.device)
-    return CacheState(keys=keys,
-                      rows=torch.where(mine, rows.to(dtype), zero),
-                      acc=torch.where(mine, acc[idx].to(dtype), zero))
-
-
-def _rank_tier_keys(counts: torch.Tensor, h1: int, h2: int, rows_padded: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _rank_tier_keys(counts: torch.Tensor, h1: int, h2: int, rows_padded: int,
+                    group: Group = WORLD1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-(h1+h2) row ids by measured frequency, split hottest-h1 / next-h2,
     each sorted; ties go to the lower row id (the flush's stable descending
     order, ``packed_embedding._top_k_stable``), and rows counted 0 take the
-    sentinel instead."""
+    sentinel instead. ``counts`` is this rank's cut: as the flush's
+    ``_rank_tiers`` each rank keeps its top rows and a second stable top-k
+    over the all_gathered candidates (rank-major, so a tie still goes to
+    the lower row id) ranks them, but every rank keeps ``h1+h2`` candidates,
+    so the keys are the whole table's ranking at any world."""
     from repro_torch.core.packed_embedding import _top_k_stable
 
     h = h1 + h2
     c = counts.reshape(-1).to(torch.int64)
     vals, order = _top_k_stable(c, min(h, c.shape[0]))
+    if group.world > 1:
+        gids = all_gather_tiled(order + group.rank * c.shape[0], group)
+        vals, pick = _top_k_stable(all_gather_tiled(vals, group), min(h, gids.shape[0]))
+        order = gids[pick]
     ranked = torch.where(vals > 0, order, torch.full_like(order, rows_padded))
     if ranked.shape[0] < h:  # a tier larger than the table (degenerate)
         ranked = torch.cat([ranked, torch.full((h - ranked.shape[0],), rows_padded,
@@ -398,21 +400,23 @@ def _exact_rows(keys: torch.Tensor, old_tiers, rows_padded: int):
 def _migrate_group(group: PackedGroup, st: EmbeddingState,
                    gates_old: Tuple[bool, bool], gates_new: Tuple[bool, bool],
                    h1_new: int, h2_new: int, cache_update: str,
-                   nd_old: int, nd_new: int) -> EmbeddingState:
+                   nd_old: int, nd_new: int, ranks: Group = WORLD1) -> EmbeddingState:
     """Move one group's live state onto new tier budgets and gating, on the
-    state's device (the reference's ``_migrate_group`` step for step):
+    state's device (the reference's ``_migrate_group`` step for step);
+    ``st`` holds the rows of rank ``ranks.rank`` (all of them at world 1):
 
     1. in ``'psum'`` mode the active tiers are authoritative for their rows:
-       write them back into the master first, in place (through the
+       each rank writes back the rows it owns, in place (through the
        projection's pseudo-inverse for a narrow master);
     2. re-rank tier residency from the FCounter: the hottest ``h1_new`` rows
        seed L1, the next ``h2_new`` L2, loaded from the just-synced master
-       at full width (ids the old tiers held keep their exact wide rows in
-       ``'psum'`` mode; other narrow rows are widened through the
-       projection);
-    3. a width change re-masters the table (``w @ P`` to widen, a fresh
-       deterministic projection's pseudo-inverse to narrow); an unchanged
-       narrow width keeps the learned projection and the master bitwise;
+       at full width as the psum of the owners' rows (ids the old tiers
+       held keep their exact wide rows in ``'psum'`` mode; other narrow rows
+       are widened through the projection);
+    3. a width change re-masters each rank's own rows (``w @ P`` to widen,
+       a fresh deterministic projection's pseudo-inverse to narrow; the
+       projection is replicated, so this is local); an unchanged narrow
+       width keeps the learned projection and the master bitwise;
     4. adagrad slots and FCounter mass are preserved exactly.
     """
     cache_on_old, l2_on_old = gates_old
@@ -421,7 +425,9 @@ def _migrate_group(group: PackedGroup, st: EmbeddingState,
     w, acc, counts = st.w, st.acc, st.counts
     dtype, dev = w.dtype, w.device
     rows_padded = group.rows
-    psum = cache_update == "psum"
+    rps = w.shape[0]
+    base = ranks.rank * rps  # this rank's first row
+    psum_mode = cache_update == "psum"
 
     narrow_old = st.proj is not None and w.shape[1] < dim
     proj_old = st.proj.kernel.to(torch.float32) if narrow_old else None
@@ -431,31 +437,48 @@ def _migrate_group(group: PackedGroup, st: EmbeddingState,
         old_tiers.append(st.cache)
     if l2_on_old and st.l2 is not None:
         old_tiers.append(st.l2)
-    if psum:
+    if psum_mode:
         pinv_old = _np_proj_pinv(proj_old) if narrow_old else None
         for tier in old_tiers:
-            _np_write_back(w, acc, tier, pinv_old)
+            _np_write_back(w, acc, tier, pinv_old, base)
 
-    def wide_rows(idx: torch.Tensor) -> torch.Tensor:
-        """Full-width rows of the synced master at ``idx`` (the reference's
-        ``w_wide[idx]``)."""
+    def widen(rows: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        """Full-width rows of the synced master (the reference's
+        ``w_wide``): ``rows`` are the master's rows at ``keys`` (global
+        ids), widened through the projection for a narrow master."""
         if not narrow_old:
-            return w[idx]
-        rows = (w[idx].to(torch.float32) @ proj_old).to(dtype)
-        if psum and old_tiers:
-            found, exact = _exact_rows(idx.to(torch.int32), old_tiers, rows_padded)
+            return rows
+        rows = (rows.to(torch.float32) @ proj_old).to(dtype)
+        if psum_mode and old_tiers:
+            found, exact = _exact_rows(keys, old_tiers, rows_padded)
             if exact is not None:
                 rows = torch.where(found[:, None], exact.to(dtype), rows)
         return rows
 
+    def load(keys: torch.Tensor) -> CacheState:
+        """A fresh replicated tier holding ``keys``: the owners' rows and
+        adagrad slots, psum'd at the master's width and then widened;
+        sentinel slots stay exactly zero."""
+        local = keys.to(torch.int64) - base
+        own = ((local >= 0) & (local < rps))[:, None]
+        idx = torch.clamp(local, 0, rps - 1)
+        rows = psum(w[idx] * own.to(dtype), ranks)
+        slots = psum(acc[idx] * own.to(acc.dtype), ranks)
+        mine = (keys < rows_padded)[:, None]
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        return CacheState(keys=keys, rows=torch.where(mine, widen(rows, keys), zero),
+                          acc=torch.where(mine, slots.to(dtype), zero))
+
     def remaster(fn, width: int) -> torch.Tensor:
-        """A new ``[rows, width]`` master, ``fn`` of the wide rows, built in
-        row chunks so no full-width temporary of the table exists."""
-        out = torch.empty((w.shape[0], width), dtype=dtype, device=dev)
+        """A new ``[rps, width]`` master cut, ``fn`` of this rank's wide
+        rows, built in row chunks so no full-width temporary of the table
+        exists."""
+        out = torch.empty((rps, width), dtype=dtype, device=dev)
         step = max(1, (64 << 20) // (4 * max(dim, 1)))
-        for r0 in range(0, w.shape[0], step):
-            idx = torch.arange(r0, min(w.shape[0], r0 + step), device=dev)
-            out[r0:r0 + idx.shape[0]] = fn(wide_rows(idx)).to(dtype)
+        for r0 in range(0, rps, step):
+            idx = torch.arange(r0, min(rps, r0 + step), device=dev)
+            out[r0:r0 + idx.shape[0]] = fn(widen(w[idx], (idx + base).to(torch.int32))
+                                           ).to(dtype)
         return out
 
     proj: Optional[ProjState] = None
@@ -475,14 +498,14 @@ def _migrate_group(group: PackedGroup, st: EmbeddingState,
         w_new = w  # never narrow
 
     keys1, keys2 = _rank_tier_keys(counts, h1_new if cache_on_new else 0,
-                                   h2_new if l2_on_new else 0, rows_padded)
+                                   h2_new if l2_on_new else 0, rows_padded, ranks)
     if cache_on_new:
-        cache = _np_load_tier(wide_rows, acc, keys1, rows_padded, dtype)
+        cache = load(keys1)
     else:  # allocated (the plan budgets rows) but inert under the new strategy
         cache = init_cache(h1_new, dim, rows_padded, dtype, device=dev)
     l2: Optional[CacheState] = None
     if h2_new > 0:
-        l2 = (_np_load_tier(wide_rows, acc, keys2, rows_padded, dtype) if l2_on_new
+        l2 = (load(keys2) if l2_on_new
               else init_cache(h2_new, dim, rows_padded, dtype, device=dev))
     return EmbeddingState(w=w_new, acc=acc, counts=counts, cache=cache, l2=l2, proj=proj)
 
@@ -573,7 +596,7 @@ def reshard_state(new_plan: PicassoPlan, state: Any) -> Any:
 
 def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
                   use_cache: bool = True, use_l2: bool = True,
-                  cache_update: str = "psum") -> Any:
+                  cache_update: str = "psum", group: Optional[Group] = None) -> Any:
     """Carry live embedding state from ``old_plan`` to ``new_plan``, two
     revisions of one structural plan (same gids and dims; what may differ is
     ``cache_rows``/``l2_rows``, the strategy assignment, the narrow widths
@@ -585,10 +608,14 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
     same tensors where the rows did not change: a replan that recompiles
     to the same plan is a no-op); the others migrate on their device
     (``_migrate_group``), their master taking the tiers' write-back in
-    place. The state is the world-1 layout (every row in this process).
-    ``use_cache``/``use_l2``/
-    ``cache_update`` must mirror the engine flags the state was trained
-    under. Takes the full train/serve state (``{"emb": ...}``) or the bare
+    place. Without ``group`` the state is the world-1 layout (every row in
+    this process); past world 1 ``group`` is this rank's ``dist.Group``,
+    the state holds its cut of each master, and every rank of the group
+    calls this together (the plans' rows must then match: a change of world
+    moves rows between ranks, ``runtime.elastic.reshard_live``). Each rank's
+    cut is then the same rows of the world-1 migration of the same state.
+    ``use_cache``/``use_l2``/``cache_update`` must mirror the engine flags
+    the state was trained under. Takes the full train/serve state (``{"emb": ...}``) or the bare
     per-group emb dict and returns the same structure.
 
     A state with host-resident leaves (``--pin-l2``) keeps that placement: a
@@ -600,12 +627,13 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
     if isinstance(state, dict) and "emb" in state:
         return {**state, "emb": migrate_state(old_plan, new_plan, state["emb"],
                                               use_cache=use_cache, use_l2=use_l2,
-                                              cache_update=cache_update)}
+                                              cache_update=cache_update, group=group)}
     old_gids = sorted(g.gid for g in old_plan.groups)
     new_gids = sorted(g.gid for g in new_plan.groups)
     if old_gids != new_gids:
         raise ValueError(f"migrate_state needs revisions of one structural plan; group "
                          f"sets differ: {old_gids} vs {new_gids}")
+    ranks = WORLD1 if group is None else group
     pinned = any(_host_resident(t, st) for st in state.values() for name in _PINNABLE
                  if (t := _leaf(st, name)) is not None)
     names = pinned_leaves(new_plan) if pinned else {}
@@ -623,11 +651,15 @@ def migrate_state(old_plan: PicassoPlan, new_plan: PicassoPlan, state: Any, *,
         nd_old, nd_new = old_plan.narrow_width(g.gid), new_plan.narrow_width(g.gid)
         st = state[str(g.gid)]
         if og.rows != g.rows:  # a world resize: recut padding and sentinels first
+            if ranks.world > 1:
+                raise ValueError(f"g{g.gid}: rows {og.rows} -> {g.rows} across revisions "
+                                 f"at world {ranks.world}: a change of world moves rows "
+                                 "between ranks (runtime.elastic.reshard_live)")
             st = _reshard_group_state(g, st)
         if h_old == h_new and gates_old == gates_new and nd_old == nd_new:
             out[str(g.gid)] = st  # pass-through
         else:
             new = _migrate_group(g, _staged(st), gates_old, gates_new, h_new[0],
-                                 h_new[1], cache_update, nd_old, nd_new)
+                                 h_new[1], cache_update, nd_old, nd_new, ranks)
             out[str(g.gid)] = _place(new, names.get(str(g.gid), ()), reuse=st)
     return out

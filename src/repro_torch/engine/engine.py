@@ -47,22 +47,27 @@ from repro_torch.core.assign import StrategySpec, resolve_assignment
 from repro_torch.core.features import PackedBatch
 from repro_torch.core.interleaving import wave_barrier
 from repro_torch.core.packing import PicassoPlan
-from repro_torch.dist.compat import Group, resolve_group
+from repro_torch.dist.compat import WORLD1, Group, all_gather_tiled, resolve_group
 from repro_torch.embedding.state import EmbeddingState
 from repro_torch.engine.strategies import LookupStrategy, get_strategy
 from repro_torch.kernels import ops
 from repro_torch.optim import grad_compression as gcomp
 
 
-def export_stats(plan: PicassoPlan, emb: Dict[str, EmbeddingState]
-                 ) -> Dict[int, np.ndarray]:
+def export_stats(plan: PicassoPlan, emb: Dict[str, EmbeddingState],
+                 group: Optional[Group] = None) -> Dict[int, np.ndarray]:
     """Harvest the live FCounter: ``gid -> counts`` (host numpy, the full
     logical array). The measurement half of the replanning loop
     (``runtime.replanner``): the counts feed ``compile_assignment(plan,
     stats=...)`` and the stats-driven ``plan_cache``/``plan_l2`` re-budget.
-    Call between steps; it copies each counter to the host (751 MB for
-    full-width deepfm)."""
-    return {g.gid: emb[str(g.gid)].counts.detach().cpu().numpy() for g in plan.groups}
+    Past world 1 every rank of ``group`` (its ``dist.Group``; without one
+    the state is the world-1 layout) calls it together: each group's
+    counter shards are all_gathered in rank order into the logical array,
+    so every rank holds the same stats. Call between steps; it copies each
+    counter to the host (751 MB for full-width deepfm, on every rank)."""
+    grp = WORLD1 if group is None else group
+    return {g.gid: all_gather_tiled(emb[str(g.gid)].counts, grp).detach().cpu().numpy()
+            for g in plan.groups}
 
 
 class EngineContext(NamedTuple):
@@ -156,8 +161,8 @@ class EmbeddingEngine:
                       else [[g.gid for g in plan.groups]])
 
     def export_stats(self, emb: Dict[str, EmbeddingState]) -> Dict[int, np.ndarray]:
-        """Module-level ``export_stats`` bound to this engine's plan."""
-        return export_stats(self.plan, emb)
+        """Module-level ``export_stats`` bound to this engine's plan and group."""
+        return export_stats(self.plan, emb, self.group)
 
     @property
     def metric_keys(self) -> Tuple[str, ...]:

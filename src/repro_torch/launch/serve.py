@@ -66,8 +66,10 @@ generator on the device.
 process each, as ``repro_torch.launch.train`` runs them (its docstring):
 each rank scores ``batch // world`` samples of every request, retrieval
 ranks score ``n // world`` candidates each and merge their top-k; rank 0
-prints. ``--pin-l2`` and ``--calibrate`` refuse at world > 1 (ROADMAP Queue 1
-item 6.3b).
+prints. ``--pin-l2`` pins every rank's L2 leaves (the line prints the bytes
+pinned on all ranks), and ``--calibrate`` gives every rank the same cost
+model, so the same mix (``perf.get_cost_model(group=)``: rank 0 reads and
+writes the file, the wire is timed over the ranks).
 """
 import argparse
 
@@ -162,8 +164,7 @@ def main(argv=None):
         shape = parse_mesh(args.mesh, args.devices)
     except ValueError as e:
         ap.error(str(e))
-    launch_ranks("serve", args, shape, _serve, waiting={
-        "--pin-l2": args.pin_l2, "--calibrate": args.calibrate != "off"})
+    launch_ranks("serve", args, shape, _serve)
 
 
 def _serve(group, args, shape) -> None:
@@ -196,7 +197,7 @@ def _serve(group, args, shape) -> None:
         from repro_torch.perf import get_cost_model
         cost_model = get_cost_model(
             args.calibrate, args.calib_file or None,
-            grid="tiny" if args.smoke else "small", device=device,
+            grid="tiny" if args.smoke else "small", device=device, group=group,
             log=lambda s: print(f"[serve] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.retrieval:
@@ -238,11 +239,12 @@ def _serve(group, args, shape) -> None:
     state = init_state(model, plan, rng, device, group=group)
     if args.pin_l2:
         from repro_torch.embedding.state import pin_l2_to_host, warn_pin_l2_limits
-        from repro_torch.kernels.host_memory import pinned_bytes
+        from repro_torch.launch.train import pinned_total
 
-        warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
+        if lead:
+            warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
         state = pin_l2_to_host(state)
-        print(f"[serve] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
+        say(f"[serve] pin-l2: {pinned_total(group)} bytes pinned", flush=True)
     scfg = ServeConfig(strategy=strategy, use_fused_kernels=args.fused_kernels)
     serve = make_serve_step(model, plan, args.batch, scfg, device, group=group)
     poller = torn = None

@@ -96,10 +96,19 @@ checkpoint's writer thread, since both use the group's ``ckpt_pg``), a resume re
 boundary at or past ``--reshard-at``: the ranks it drops leave the stream,
 the spares it names join for the segments that remain, and the stream's
 checkpointer is rebuilt on the new group. ``torn@`` tears a delta once
-every rank's rows are in and before ``LATEST`` names it, from rank 0. The flags that wait for ROADMAP Queue 1
-item 6.3b refuse past world 1 with ``NotImplementedError`` (``--reshard-to``
-takes a run past world 1): ``--replan-iters``, ``--pin-l2``,
-``--calibrate``.
+every rank's rows are in and before ``LATEST`` names it, from rank 0.
+
+``--replan-iters``, ``--pin-l2`` and ``--calibrate`` run at any world, and
+every rank reaches the decision the reference reaches in its one process:
+``--calibrate`` times the wire hops over every process started and the
+kernels on rank 0 alone, and every rank fits rank 0's samples (rank 0 alone
+reads and writes ``--calib-file``, whose stamp records the world); the
+``Replanner`` harvests the gathered FCounter, feeds back one agreed step
+time, agrees on the new revision before any row moves and migrates each
+rank's cut of the masters; ``--pin-l2`` places each rank's pinned leaves
+(the line prints the bytes pinned on all ranks). After a reshard the
+replanner follows the new plan and group (a spare that joins takes rank 0's
+window and correction) and the state is pinned again on the new world.
 """
 import argparse
 
@@ -251,16 +260,13 @@ def main(argv=None):
                                  f"and --reshard-to {args.reshard_to} need {procs} ranks")
     except ValueError as e:
         ap.error(str(e))
-    launch_ranks("train", args, shape, _train, waiting={
-        "--replan-iters": bool(args.replan_iters), "--pin-l2": args.pin_l2,
-        "--calibrate": args.calibrate != "off"}, procs=procs)
+    launch_ranks("train", args, shape, _train, procs=procs)
 
 
-def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
+def launch_ranks(tag: str, args, shape, body, procs: int = 0) -> None:
     """Run ``body(group, args, shape)`` on ``procs`` ranks (default: the
     world ``prod(shape)``): in this process when that is 1, else in one
-    spawned process a rank. Past one rank the flags in ``waiting`` that are
-    set refuse first, and ``PYTHONHASHSEED`` is fixed before the spawn."""
+    spawned process a rank, ``PYTHONHASHSEED`` fixed before the spawn."""
     import os
 
     from repro_torch.dist.compat import WORLD1, backend_for, spawn_ranks
@@ -270,12 +276,6 @@ def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
     procs = max(procs, world)
     if procs == 1:
         return body(WORLD1, args, shape)
-    on = [flag for flag, set_ in waiting.items() if set_]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)} on {procs} ranks: the rest of the runtime past world 1 is "
-            "ROADMAP Queue 1 item 6.3b (the replanner, --pin-l2 and --calibrate wait for "
-            "it)")
     seed = os.environ.get("PYTHONHASHSEED")
     os.environ["PYTHONHASHSEED"] = seed if seed is not None else "0"
     print(f"[{tag}] world={world} mesh={describe(shape)} "
@@ -285,6 +285,14 @@ def launch_ranks(tag: str, args, shape, body, waiting, procs: int = 0) -> None:
           f"{f' processes={procs}' if procs != world else ''}",
           flush=True)
     spawn_ranks(body, procs, args, shape, device=args.device)
+
+
+def pinned_total(group) -> int:
+    """The bytes ``--pin-l2`` holds pinned on every rank of ``group``."""
+    from repro_torch.dist.compat import agree
+    from repro_torch.kernels.host_memory import pinned_bytes
+
+    return sum(n for n, in agree([pinned_bytes()], group))
 
 
 def _train(root, args, shape) -> None:
@@ -305,7 +313,6 @@ def _train(root, args, shape) -> None:
     from repro_torch.dist import compat
     from repro_torch.embedding.state import pin_to_host, warn_pin_l2_limits
     from repro_torch.engine import maybe_compile, resolve_assignment
-    from repro_torch.kernels.host_memory import pinned_bytes
     from repro_torch.models.wdl import WDLModel
     from repro_torch.runtime import (AnomalyGuard, ChaosController, Replanner,
                                      apply_plan_meta, parse_fault_plan, plan_meta,
@@ -339,10 +346,11 @@ def _train(root, args, shape) -> None:
     device = rank_device(resolve_device(args.device), root)
     cost_model = None
     if args.calibrate != "off":
+        # over every process started, so a spare holds the live ranks' model
         from repro_torch.perf import get_cost_model
         cost_model = get_cost_model(
             args.calibrate, args.calib_file or None,
-            grid="tiny" if args.smoke else "small", device=device,
+            grid="tiny" if args.smoke else "small", device=device, group=root,
             log=lambda s: print(f"[train] calib {s}", flush=True))
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.global_batch % world:
@@ -448,15 +456,23 @@ def _train(root, args, shape) -> None:
             # fault drives the real recovery path of either driver
             chaos.injector(step)
 
+    def make_replanner():
+        return Replanner(plan, strategy=args.strategy, hot_bytes=args.replan_hot_bytes,
+                         l2_bytes=args.replan_l2_bytes, use_cache=not args.no_cache,
+                         cache_update=tcfg.cache_update, cost_model=cost_model,
+                         pin_l2=args.pin_l2, group=group,
+                         log=lambda s: say(f"[train] replan {s}", flush=True))
+
     def join(state, step):
         """Every rank of a new world, right after the reshard: the salts
-        agreed, the guard's history and the step rebuilt on the new group,
-        and (``--ckpt-dir``) a Supervisor on it that writes the durable
-        checkpoint at the new world, as the reference does; under
-        ``--stream`` the stream's checkpointer on the new group instead (the
-        next boundary writes at the new world, as the reference's stream
-        does)."""
-        nonlocal salts, model, tcfg, step_fn, sup, active_ckpt, ckpt
+        agreed, the guard's history, the step and the replanner (rank 0's
+        window, step times, events and correction) on the new group, the
+        state pinned again (``--pin-l2``), and (``--ckpt-dir``) a Supervisor
+        on it that writes the durable checkpoint at the new world, as the
+        reference does; under ``--stream`` the stream's checkpointer on the
+        new group instead (the next boundary writes at the new world, as
+        the reference's stream does). Returns the state."""
+        nonlocal salts, model, tcfg, step_fn, sup, active_ckpt, ckpt, replanner
         salts = agree_salts(plan, group)
         if guard is not None:
             guard.group = group
@@ -467,6 +483,13 @@ def _train(root, args, shape) -> None:
         if chaos is not None:
             chaos.group = group
         model, tcfg, step_fn = build_step(plan)
+        if args.replan_iters:
+            if replanner is None:  # a spare: it joins the loop here
+                replanner = make_replanner()
+            replanner.adopt(plan, group)
+        if args.pin_l2:
+            state = pin_to_host(state, plan)
+            say(f"[train] pin-l2: {pinned_total(group)} bytes pinned", flush=True)
         stream.seek(step)
         if args.ckpt_dir and args.stream:
             ckpt = active_ckpt = AsyncCheckpointer(args.ckpt_dir, salts=salts, group=group)
@@ -479,6 +502,7 @@ def _train(root, args, shape) -> None:
             # restore the new rows and the new world's meta
             sup.ckpt.save(step, state, meta=sup.meta)
             sup.ckpt.wait()
+        return state
 
     def do_reshard(state, step, seg=None):
         """The live ranks' reshard to --reshard-to at ``step`` (one-shot;
@@ -502,7 +526,7 @@ def _train(root, args, shape) -> None:
                                                                  else {"seg": seg})})
         world = new_world
         if group is not None:
-            join(state, step)
+            state = join(state, step)
         return state
 
     def next_boundary(step):
@@ -523,10 +547,23 @@ def _train(root, args, shape) -> None:
         plan, state = out  # migrated under --pin-l2's placement (Replanner(pin_l2=))
         model, tcfg, step_fn = build_step(plan)
         if args.pin_l2:
-            print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
+            say(f"[train] pin-l2: {pinned_total(group)} bytes pinned", flush=True)
         return state, True
 
-    start, first_seg = 0, 1
+    def replan_at(state, step):
+        """The Supervisor's replan at a boundary: a migration writes a
+        plan-consistent restore point (a later failure must not restore
+        pre-migration tier shapes)."""
+        if replanner is None or step >= args.steps:
+            return state
+        state, migrated = do_replan(state, step)
+        if migrated:
+            sup.meta = plan_meta(plan)
+            sup.ckpt.save(step, state, meta=sup.meta)
+            sup.ckpt.wait()
+        return state
+
+    start, first_seg, joined = 0, 1, False
     if group is None:
         # a spare: no state until the reshard names this rank
         ev = wait_for_reshard(root)
@@ -541,7 +578,8 @@ def _train(root, args, shape) -> None:
         if group is None:  # not named: nothing to do but wait for the end
             wait_for_reshard(root)
             return
-        join(state, start)
+        state = join(state, start)
+        joined = True  # the live ranks replan right after the reshard: so does a spare
     else:
         model, tcfg, step_fn = build_step(plan)
         state = init_state(model, plan,
@@ -550,17 +588,12 @@ def _train(root, args, shape) -> None:
         if args.pin_l2:
             # placed once here: the flushes, the journal, restores and the
             # replanner's migration keep it, and the step checks it
-            warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
+            if lead:
+                warn_pin_l2_limits()  # one-time: the no-op notice where torch has no CUDA
             state = pin_to_host(state, plan)
-            print(f"[train] pin-l2: {pinned_bytes()} bytes pinned", flush=True)
+            say(f"[train] pin-l2: {pinned_total(group)} bytes pinned", flush=True)
         if args.replan_iters:
-            replanner = Replanner(plan, strategy=args.strategy,
-                                  hot_bytes=args.replan_hot_bytes,
-                                  l2_bytes=args.replan_l2_bytes,
-                                  use_cache=not args.no_cache,
-                                  cache_update=tcfg.cache_update, cost_model=cost_model,
-                                  pin_l2=args.pin_l2,
-                                  log=lambda s: print(f"[train] replan {s}", flush=True))
+            replanner = make_replanner()
         mesh = f" mesh={describe(shape)} backend={group.backend}" if world > 1 else ""
         say(f"[train] {cfg.name}: {len(plan.groups)} packed groups, "
             f"micro={plan.microbatch}, ilv={len(plan.interleave)} waves, world={world},"
@@ -631,6 +664,8 @@ def _train(root, args, shape) -> None:
                 ckpt.wait()
             say(f"[train] stream done at step {last} (world={world})")
         elif sup is not None:
+            if joined:
+                state = replan_at(state, step)
             while step < args.steps:
                 seg_end = next_boundary(step)
                 state = sup.run(state, step_fn, stream, seg_end, start_step=step,
@@ -640,15 +675,11 @@ def _train(root, args, shape) -> None:
                     state = do_reshard(state, step)
                     if state is None:
                         break  # this rank left the world
-                if replanner is not None and step < args.steps:
-                    state, migrated = do_replan(state, step)
-                    if migrated:
-                        # a plan-consistent restore point: a later failure
-                        # must not restore pre-migration tier shapes
-                        sup.meta = plan_meta(plan)
-                        sup.ckpt.save(step, state, meta=sup.meta)
-                        sup.ckpt.wait()
+                state = replan_at(state, step)
         else:
+            if (joined and replanner is not None and step % args.replan_iters == 0
+                    and step < args.steps):
+                state, _ = do_replan(state, step)
             it = iter(stream)
             while step < args.steps:
                 try:
@@ -692,8 +723,8 @@ def _train(root, args, shape) -> None:
         return
     if replanner is not None:
         n_mig = sum(1 for e in replanner.events if e.migrated)
-        print(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "
-              f"final plan rev={plan.rev}")
+        say(f"[train] replans: {len(replanner.events)} attempted, {n_mig} migrated, "
+            f"final plan rev={plan.rev}")
     if guard is not None:
         say(f"[train] guard: {guard.accepted} accepted, {guard.rejected} rejected")
     say("[train] done")

@@ -1,6 +1,7 @@
 """Runtime adaptation subsystem of the port (``repro.runtime`` in torch).
 ``replanner`` harvests the engine's live frequency statistics, recompiles
-the plan's revisable decisions and migrates the live state, at world 1;
+the plan's revisable decisions and migrates the live state, at any world
+(every rank reaching the same decision);
 ``stream`` is the segmented streaming driver with the publish/pickup
 train-to-serve handoff, at any world and across a change of world at a
 segment boundary; ``guard`` detects and rejects numeric anomalies and
@@ -14,8 +15,8 @@ from repro_torch.runtime.elastic import (end_run, make_submesh, parse_mesh_shape
                                          reshard_live, restore_elastic, wait_for_reshard)
 from repro_torch.runtime.guard import (AnomalyGuard, AnomalyRollback, GuardConfig,
                                        VerdictMismatch)
-from repro_torch.runtime.replanner import (ReplanEvent, Replanner, apply_plan_meta,
-                                           plan_delta, plan_meta)
+from repro_torch.runtime.replanner import (ReplanEvent, Replanner, ReplanMismatch,
+                                           apply_plan_meta, plan_delta, plan_meta)
 from repro_torch.runtime.stream import (PublishPoller, load_published, poll_published,
                                         publish_state, run_stream)
 
@@ -29,6 +30,7 @@ __all__ = [
     "GuardConfig",
     "PublishPoller",
     "ReplanEvent",
+    "ReplanMismatch",
     "Replanner",
     "VerdictMismatch",
     "apply_plan_meta",

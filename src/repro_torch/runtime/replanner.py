@@ -1,5 +1,5 @@
 """Adaptive replanning runtime (``repro.runtime.replanner`` in torch): close
-the measure -> recompile -> migrate loop at world 1.
+the measure -> recompile -> migrate loop, at any world.
 
 Every ``--replan-iters`` steps the trainer calls ``Replanner.maybe_replan``:
 
@@ -12,8 +12,8 @@ Every ``--replan-iters`` steps the trainer calls ``Replanner.maybe_replan``:
 3. **migrate**: if anything changed, ``embedding.state.migrate_state``
    carries the live state across revisions on its device (write-back,
    measured top-(H1+H2) tier re-split, master rows, adagrad slots and the
-   FCounter preserved exactly). At world 1 placing the state onto the new
-   plan's shardings is the identity.
+   FCounter preserved exactly). Each rank keeps its own rows, so placing
+   the state onto the new plan's shardings is the identity.
 
 The caller then rebuilds its train step against the new plan. A recompile
 that lands on an identical plan returns ``None``: no migration, no rebuild,
@@ -33,11 +33,24 @@ trainer's ``--pin-l2``: ``migrate_state`` keeps the leaves the old plan
 pinned where they are, and the replanner pins what the new plan names and
 the old one did not (``embedding.state.pin_to_host``, a no-op for a leaf
 already placed).
-There is no mesh: the port runs one rank.
+
+Past world 1 (``group=``, one process per rank) every rank runs the loop
+together and reaches the decision the reference reaches in its one
+process: the harvest all_gathers the FCounter shards, so every rank
+recompiles from the same stats; the feedback blends one agreed
+measurement (each step's slowest rank, then the window's median), so the
+cost models stay alike; the ranks agree on a digest of the new revision's
+``plan_meta`` before anything moves, and a difference raises
+``ReplanMismatch`` on every rank (ranks on different plans would deadlock
+in the first collective one of them skips); and each rank migrates its
+cut of the masters (``migrate_state(group=)``). An event's ``seconds`` are
+the slowest rank's.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
@@ -47,6 +60,8 @@ import torch
 
 from repro_torch.core.assign import apply_assignment, compile_assignment, resolve_assignment
 from repro_torch.core.packing import PicassoPlan, revise_plan
+from repro_torch.dist.compat import (WORLD1, Group, agree, ckpt_broadcast_object,
+                                     gather_floats)
 from repro_torch.embedding.state import migrate_state, pin_to_host
 from repro_torch.engine.engine import export_stats
 
@@ -122,6 +137,19 @@ def apply_plan_meta(plan: PicassoPlan, meta: Mapping[str, Any]) -> PicassoPlan:
     )
 
 
+def plan_digest(plan: PicassoPlan) -> int:
+    """A signed 64-bit digest of ``plan_meta(plan)`` (what the ranks agree on
+    before a migration)."""
+    raw = json.dumps(plan_meta(plan), sort_keys=True).encode()
+    return int.from_bytes(hashlib.sha256(raw).digest()[:8], "big", signed=True)
+
+
+class ReplanMismatch(RuntimeError):
+    """The ranks of one run reached different replanning decisions (another
+    plan revision, another count of step times). Raised on every rank
+    together, before any state moves; the run cannot go on."""
+
+
 # ---------------------------------------------------------------------------
 # the Replanner
 # ---------------------------------------------------------------------------
@@ -194,6 +222,9 @@ class Replanner:
     pin_l2: mirrors the trainer's ``--pin-l2``: after the migration the
         leaves the new plan pins and the old one did not go to pinned host
         memory (``embedding.state.pin_to_host``).
+    group: this rank's ``dist.Group`` past world 1 (the module docstring);
+        ``None`` at world 1. After a change of world every rank of the new
+        group calls ``adopt``.
     """
 
     def __init__(self, plan: PicassoPlan, *, strategy: Any = "auto",
@@ -202,8 +233,10 @@ class Replanner:
                  cache_update: str = "psum", per_device_batch: Optional[int] = None,
                  overrides: Optional[Mapping[Union[int, str], str]] = None,
                  cost_model=None, pin_l2: bool = False,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None,
+                 group: Optional[Group] = None):
         self.plan = plan
+        self.group = WORLD1 if group is None else group
         self.strategy = strategy
         self.hot_bytes = hot_bytes
         self.l2_bytes = l2_bytes
@@ -223,6 +256,21 @@ class Replanner:
         if not plan.strategy:
             apply_assignment(plan, resolve_assignment(plan, strategy, use_cache=use_cache))
 
+    def adopt(self, plan: PicassoPlan, group: Optional[Group]) -> None:
+        """Follow a change of world: the new plan and group, and on every
+        rank of it rank 0's window, step times, events and cost-model
+        correction (a spare that joins replans in step with the others).
+        Every rank of ``group`` calls it together; no checkpoint may be in
+        flight (it uses the group's ``ckpt_pg``)."""
+        self.plan, self.group = plan, WORLD1 if group is None else group
+        corr = None if self.cost_model is None else self.cost_model.correction
+        window = {k: int(v) for k, v in self._window.items()}
+        window, self._timings_us, self.events, corr = ckpt_broadcast_object(
+            (window, self._timings_us, self.events, corr), self.group)
+        self._window = window
+        if self.cost_model is not None:
+            self.cost_model.correction = corr
+
     def observe(self, metrics: Mapping[str, Any]) -> None:
         """Fold one step's ``overflow*``/``cache_hits*`` metrics into the
         window; the sums stay on the device until ``maybe_replan``."""
@@ -241,18 +289,31 @@ class Replanner:
         self._window = {}
         return window
 
+    def _measured(self) -> Optional[float]:
+        """The window's agreed step time (us): each step's slowest rank (a
+        step ends when its last rank ends), then the median over the
+        window, the same float on every rank; at world 1 the median of this
+        rank's times. ``None`` for a window without timings."""
+        counts = {n for n, in agree([len(self._timings_us)], self.group)}
+        if len(counts) != 1:
+            raise ReplanMismatch(f"the ranks timed {sorted(counts)} steps this window")
+        if not self._timings_us:
+            return None
+        slowest = np.max(np.asarray(gather_floats(self._timings_us, self.group)), axis=0)
+        return float(np.median(slowest))
+
     def _feedback(self, stats: Dict[int, np.ndarray]
                   ) -> Tuple[Optional[float], Optional[float], Optional[float]]:
         """Blend this window's measured-vs-predicted ratio into the cost
         model's correction. The prediction uses the correction the window's
         scores used (before the update), so the EMA converges where the
         corrected prediction equals the measurement; the median ignores the
-        window's slow first steps."""
-        if self.cost_model is None or not self._timings_us:
-            self._timings_us = []
-            return None, None, None
-        measured = float(np.median(self._timings_us))
+        window's slow first steps. Past world 1 the measurement is agreed
+        (``_measured``), so every rank applies the same correction."""
+        measured = None if self.cost_model is None else self._measured()
         self._timings_us = []
+        if measured is None:
+            return None, None, None
         predicted = self.cost_model.predict_step_us(
             self.plan, stats, per_device_batch=self.per_device_batch)
         corr = self.cost_model.observe_measured(measured, predicted)
@@ -278,6 +339,22 @@ class Replanner:
                                                           use_cache=self.use_cache))
         return new_plan
 
+    def _agree_on(self, new_plan: PicassoPlan, step: int) -> None:
+        """Every rank compiled the same revision, or every rank raises
+        ``ReplanMismatch`` (one all_gather of a digest; never a hang)."""
+        digests = [d for d, in agree([plan_digest(new_plan)], self.group)]
+        if len(set(digests)) > 1:
+            odd = [r for r, d in enumerate(digests) if d != digests[0]]
+            raise ReplanMismatch(
+                f"replan at step {step}: rank(s) {odd} compiled another plan revision "
+                f"than rank 0 (plan_meta digests {digests})")
+
+    def _slowest(self, seconds: Dict[str, float]) -> Dict[str, float]:
+        """Each phase's seconds on the slowest rank."""
+        keys = sorted(seconds)
+        rows = gather_floats([seconds[k] for k in keys], self.group)
+        return {k: max(r[i] for r in rows) for i, k in enumerate(keys)}
+
     def maybe_replan(self, state: Dict[str, Any], step: int = -1
                      ) -> Optional[Tuple[PicassoPlan, Dict[str, Any]]]:
         """Harvest -> recompile -> (maybe) migrate. ``None`` when the
@@ -286,18 +363,20 @@ class Replanner:
         (migration writes the tiers back into the master in place)."""
         _sync(state)  # the last step's queued work is not the harvest's
         t0 = time.perf_counter()
-        stats = export_stats(self.plan, state["emb"])
+        stats = export_stats(self.plan, state["emb"], self.group)
         t1 = time.perf_counter()
         # feedback first: the correction lands in the cost model BEFORE the
         # recompile below prices this revision's candidates
         measured, predicted, corr = self._feedback(stats)
         new_plan = self._recompile(stats)
+        self._agree_on(new_plan, step)
         changed = plan_delta(self.plan, new_plan)
         window = self._close_window()
         _sync(state)
         t2 = time.perf_counter()
         seconds = {"harvest": t1 - t0, "compile": t2 - t1}
         if not changed:
+            seconds = self._slowest(seconds)
             ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=self.plan.rev,
                              changed={}, window=window, seconds=seconds,
                              measured_us=measured, predicted_us=predicted,
@@ -306,11 +385,13 @@ class Replanner:
             self.log(ev.describe())
             return None
         new_state = migrate_state(self.plan, new_plan, state, use_cache=self.use_cache,
-                                  use_l2=self.use_l2, cache_update=self.cache_update)
+                                  use_l2=self.use_l2, cache_update=self.cache_update,
+                                  group=self.group)
         if self.pin_l2:  # what the new plan pins and the old one did not
             new_state = pin_to_host(new_state, new_plan)
         _sync(new_state)  # the sort, the write-backs and the tier loads are queued
         seconds["migrate"] = time.perf_counter() - t2
+        seconds = self._slowest(seconds)
         ev = ReplanEvent(step=step, old_rev=self.plan.rev, new_rev=new_plan.rev,
                          changed=changed, window=window, seconds=seconds,
                          measured_us=measured, predicted_us=predicted, correction=corr)

@@ -395,7 +395,7 @@ def test_a_fatal_fault_on_one_rank_ends_the_launch_non_zero(tmp_path):
         # whichever rank ends first ends the spawn: rank 1 with its own
         # error, another with the agreed verdict
         with pytest.raises(Exception, match="TypeError|PeerFailure"):
-            launch_ranks("train", args, (2, 2), _fatal_body, waiting={})
+            launch_ranks("train", args, (2, 2), _fatal_body)
     finally:
         if old is None:
             os.environ.pop("PYTHONHASHSEED", None)

@@ -671,11 +671,58 @@ def test_stream_crash_mid_segment_resumes_at_worlds_4_and_2(tmp_path):
     assert "[train] stream done at step 6 (world=2)" in two
 
 
+@pytest.fixture(scope="module")
+def ref_ckpt(tmp_path_factory):
+    """The reference launcher's world-4 stream of one 2-step segment: its
+    checkpoint (``ck``) and its published delta (``pub``) of step 2."""
+    tmp = tmp_path_factory.mktemp("ref_ckpt")
+    _run("repro", "train", *TRAIN, "--devices", "4", "--mesh", "2x2", "--stream",
+         "--segment-steps", "2", "--stream-segments", "1", "--ckpt-dir", str(tmp / "ck"),
+         "--publish-dir", str(tmp / "pub"))
+    return tmp
+
+
+def flag_checks(port, flag, calib=None, world=W):
+    """What a runtime flag prints past world 1 beside the reference's lines:
+    ``--pin-l2`` on the CPU warns once and pins nothing; ``--calibrate``
+    benches once (rank 0's lines) and stamps its file with the world."""
+    if "--pin-l2" in flag:
+        assert port.count("[pin-l2] warning") == 1, port
+        assert re.search(r"^\[(train|serve)\] pin-l2: 0 bytes pinned$", port, re.M), port
+    if "--calibrate" in flag:
+        assert port.count("calibrated 7 ops") == 1 and port.count("wrote calibration") == 1
+        assert json.loads(Path(calib).read_text())["world"] == world
+
+
 @pytest.mark.parametrize("flag", (("--replan-iters", "2"), ("--pin-l2",),
                                   ("--calibrate", "auto")))
-def test_the_rest_of_item_6_3_still_refuses_past_world_1(flag):
-    from repro_torch.launch.train import main
+def test_the_rest_of_item_6_3_still_refuses_past_world_1(ref_ckpt, tmp_path, flag):
+    """(The name is kept from when these flags refused past world 1.) Each
+    flag runs with ``--stream`` at ``--devices 4 --mesh 2x2``: from the
+    reference's step-2 checkpoint both launchers stream a 2-step segment to
+    the same losses and the same published and done lines. The stream
+    loop never replans, in either package; ``--pin-l2`` is held to the
+    reference unpinned, whose own ``--pin-l2`` fails on this CPU."""
+    mesh = ("--devices", "4", "--mesh", "2x2")
+    tags = (("repro_torch", "port"), ("repro", "ref"))
+    for _, tag in tags:
+        shutil.copytree(ref_ckpt / "ck", tmp_path / f"{tag}_ck")
+    runs = _run_all(*[(pkg, "train", *TRAIN, *mesh, "--stream", "--segment-steps", "2",
+                       "--stream-segments", "1", "--ckpt-dir", str(tmp_path / f"{tag}_ck"),
+                       "--publish-dir", str(tmp_path / f"{tag}_pub"),
+                       *(f for f in flag if pkg == "repro_torch" or f != "--pin-l2"),
+                       *(("--calib-file", str(tmp_path / f"{tag}.json"))
+                         if "--calibrate" in flag else ()))
+                      for pkg, tag in tags])
+    out = {tag: r[1] for (_, tag), r in zip(tags, runs)}
 
-    with pytest.raises(NotImplementedError, match="6.3b"):
-        main(["--arch", "deepfm", "--smoke", "--device", "cpu", "--devices", "4",
-              "--mesh", "2x2", *flag])
+    def lines(tag):
+        return [ln.replace(str(tmp_path / f"{tag}_pub"), "PUB") for ln in
+                out[tag].splitlines() if ln.startswith(("[stream]", "[train] stream"))]
+
+    assert lines("port") == lines("ref") and lines("ref")[-1] == (
+        "[train] stream done at step 4 (world=4)")
+    losses = re.findall(LOSS, out["port"], re.M)
+    assert [s for s, _ in losses] == ["3", "4"] and losses == re.findall(LOSS, out["ref"], re.M)
+    flag_checks(out["port"], flag, tmp_path / "port.json")
+    assert "replan" not in out["port"]

@@ -12,10 +12,13 @@ the floats (masters, tiers, dense parameters, Adam moments) to atol 1e-4. Servin
 trained state, probabilities within 1e-5. Retrieval: sasrec-smoke, 4,096
 candidates in chunks of 300 a rank, ids equal and scores within 1e-5.
 Launchers: both at ``--devices 4 --mesh 2x2`` print ``world=4`` and the
-backend and agree with themselves at world 1.
+backend and agree with themselves at world 1; ``--replan-iters``,
+``--calibrate`` and ``--pin-l2`` run past world 1 and print the reference
+launcher's lines from its world-4 checkpoint or delta.
 """
 import os
 import re
+import shutil
 import subprocess
 import sys
 import types
@@ -27,6 +30,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.data.synthetic import make_batch as jmake_batch
 from test_torch_dist import HASH_SEED, ROOT, W, run_port, run_reference
+from test_torch_dist_stream import LOSS, TRAIN, _run, _run_all, flag_checks, ref_ckpt  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -303,17 +307,63 @@ def test_serve_launcher_at_world_4_matches_world_1():
                                          ("train", "--pin-l2"), ("serve", "--pin-l2"),
                                          ("serve", "--calibrate=auto"),
                                          ("train", "--reshard-to=2 --replan-iters=5")])
-def test_launchers_refuse_waiting_flags_past_world_1(module, flag):
-    """Nothing is dropped silently: a runtime flag that waits for item 6.3b
-    raises ``NotImplementedError`` before any rank starts, also where
-    ``--reshard-to`` is what takes the run past world 1 (``--stream`` and
-    ``--reload-dir`` run past world 1: ``tests/test_torch_dist_stream.py``)."""
-    import importlib
+def test_launchers_refuse_waiting_flags_past_world_1(ref_ckpt, tmp_path, module, flag):
+    """(The name is kept from when these flags refused past world 1.) Each
+    runtime flag runs past world 1 and prints the reference launcher's
+    lines: the trainers resume the reference's world-4 checkpoint of step 2
+    (at ``--devices 4 --mesh 2x2``, or at world 1 with ``--reshard-to 2``
+    taking the run to world 2 at the step-5 boundary) and print the same
+    losses and replan, reshard and elastic lines; the servers load the
+    reference's step-2 delta at ``--devices 4`` and print its mean_prob.
+    ``--replan-iters`` shrinks the hot tier at step 5 (rev 0 -> 1) and a
+    resume of the run's directory at world 4 follows revision 1.
+    ``--pin-l2`` is held to the reference unpinned (its own ``--pin-l2``
+    fails on this CPU)."""
+    mine = flag.split()
+    replan = ["--replan-hot-bytes", "16384"] if "--replan-iters=5" in mine else []
+    world = (["--devices", "2", "--mesh", "1x1"] if "--reshard-to=2" in mine
+             else ["--devices", "4", "--mesh", "2x2"])
+    tags = (("repro_torch", "port"), ("repro", "ref"))
 
-    mod = importlib.import_module(f"repro_torch.launch.{module}")
-    world = [] if "--reshard-to" in flag else ["--devices", "4"]
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        mod.main(["--smoke", "--device", "cpu", *world, *flag.split()])
+    def flags(pkg, tag):
+        calib = (["--calib-file", str(tmp_path / f"{tag}.json")]
+                 if "--calibrate=auto" in mine else [])
+        return [*world, *replan, *calib,
+                *(f for f in mine if pkg == "repro_torch" or f != "--pin-l2")]
+
+    if module == "train":
+        for _, tag in tags:
+            shutil.copytree(ref_ckpt / "ck", tmp_path / f"{tag}_ck")
+        runs = _run_all(*[(pkg, "train", *TRAIN, "--steps", "8" if replan else "4",
+                           "--ckpt-dir", str(tmp_path / f"{tag}_ck"), *flags(pkg, tag))
+                          for pkg, tag in tags])
+        port, ref = (r[1] for r in runs)
+        losses = re.findall(LOSS, port, re.M)
+        assert losses and losses == re.findall(LOSS, ref, re.M)
+        heads = ("[train] replan", "[train] reshard", "[train] elastic", "[train] done")
+        lines = [[ln for ln in text.splitlines() if ln.startswith(heads)]
+                 for text in (port, ref)]
+        assert lines[0] == lines[1] and lines[1][-1] == "[train] done"
+        if replan:
+            assert ("[train] replan step 5: plan rev 0 -> 1, migrated 1 group(s) "
+                    "[g0: L1 4808->416]  [cache_hits=0 overflow=0]") in lines[1]
+            assert "[train] replans: 1 attempted, 1 migrated, final plan rev=1" in lines[1]
+        if "--reshard-to=2" in mine:
+            assert "[train] reshard world 1 -> 2 (mesh 2x1) at step 5" in lines[1]
+        elif replan:
+            again = _run("repro_torch", "train", *TRAIN, "--steps", "10", "--ckpt-dir",
+                         str(tmp_path / "port_ck"), *flags("repro_torch", "port"))
+            assert "[train] resumed plan rev 1 from checkpoint meta" in again
+    else:
+        runs = _run_all(*[(pkg, "serve", "--batch", "64", "--n-requests", "2",
+                           "--reload-dir", str(ref_ckpt / "pub"), *flags(pkg, tag))
+                          for pkg, tag in tags])
+        port, ref = (r[1] for r in runs)
+        mean = r"mean_prob=(\d\.\d{3})$"
+        assert re.findall(mean, port, re.M) == re.findall(mean, ref, re.M) != []
+        for text in (port, ref):
+            assert re.findall(r"reloaded published step (\d+)", text) == ["2"]
+    flag_checks(port, mine, tmp_path / "port.json")
 
 
 def test_reshard_flags_refuse():

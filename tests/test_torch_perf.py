@@ -192,7 +192,7 @@ def test_get_cost_model_lifecycle(tmp_path, monkeypatch):
     calls = []
     samples = {op: [(1.0, 3.0), (100.0, 5.0)] for op in cm.PRICED_OPS}
 
-    def fake(grid, log=None, device="cuda"):
+    def fake(grid, log=None, device="cuda", group=None):
         calls.append((grid, str(device)))
         return samples
 
