@@ -356,7 +356,33 @@ Phases, in order (any failure raises and exits non-zero):
    the L2 envelope halved, a step and a request, bitwise alike (losses,
    probabilities, digests), with each rank's pinned bytes, steady peak and
    host-operand launches printed as 4 ranks time-sharing one card over
-   gloo, beside the card's name and power limit.
+   gloo, beside the card's name and power limit;
+22. the side workloads at world 1, plain torch (the reference reaches no
+   ``pallas_call`` on them, so none of the 17 kernels may launch): every
+   earlier state freed, weights from a CUDA generator, TF32 off.
+   mistral-nemo-12b (all 40 layers, bfloat16 storage) prefills B = 4 x S =
+   2,048 and decodes 32 greedy steps into a cache of 2,080; mixtral-8x22b at
+   4 of its 56 layers prefills B = 1 x S = 6,144 (past its 4,096 window) and
+   decodes 16; each prints its first decoded logits against ``lm_forward``
+   of S + 1 tokens (the gap and the argmax agreement; no bar at bfloat16
+   and full depth). At float32, prefill(S) then decode(1) is held against
+   forward(S + 1) within 1e-4 of scale: mistral-nemo at 2 layers (S = 256)
+   and mixtral at 1 layer (S = 4,608, past the window; no MoE drop). On the
+   same float32 weights copied to the host, the port's CPU run holds the
+   card: stablelm at 2 layers (B = 1 x S = 64: logits within 1e-4 of the
+   largest entry, the train step's loss within rtol 1e-5, every gradient
+   within 1e-4 of its leaf's largest entry), mixtral at 1 layer (logits;
+   layer 0's experts equal off near-ties, counted, and slot and kept equal
+   when every token's experts are), SchNet on ``molecule`` (loss rtol 1e-5,
+   gradients 1e-5 of scale). stablelm-1.6b (24 layers) trains 10 steps of
+   ``make_lm_train_step`` on one repeated batch of 8 x 1,024, and SchNet
+   10 steps of ``make_schnet_step`` on ``molecule``, ``full_graph_sm`` and
+   one ``minibatch_lg`` subgraph (fanout 15-10 from 1,024 seeds of the
+   232,965-node, 114,615,892-edge synthetic graph, built in a process of its
+   own meanwhile); ``ogb_products`` is not run (its [E, 300] rbf alone is 74
+   GB). Every loss finite, step 10's below step 1's. Peak memory, prefill
+   tokens/s, decode ms, step p50 and tokens/s are printed beside the card's
+   name and power limit.
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -369,6 +395,7 @@ import gc
 import hashlib
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -378,6 +405,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
 
@@ -392,15 +420,25 @@ from repro_torch.configs.paper_models import PAPER_MODELS, dlrm  # noqa: E402
 from repro_torch.core import packed_embedding as pe  # noqa: E402
 from repro_torch.core.features import pack_group, table_salts  # noqa: E402
 from repro_torch.core.packing import make_plan  # noqa: E402
+from repro_torch.data.graph import (molecule_batch, pad_subgraph,  # noqa: E402
+                                    sample_neighbors, synthetic_graph)
 from repro_torch.data.pipeline import ReplayableStream  # noqa: E402
 from repro_torch.data.synthetic import batch_stream, make_batch  # noqa: E402
 from repro_torch.embedding.state import pin_to_host, pinned_leaves  # noqa: E402
 from repro_torch.engine import (compile_assignment, maybe_compile,  # noqa: E402
                                 resolve_assignment)
 from repro_torch.kernels import build, host_memory, ops, ref  # noqa: E402
+from repro_torch.launch import cells  # noqa: E402
+from repro_torch.layers import transformer as lmt  # noqa: E402
+from repro_torch.layers.attention import chunked_causal_attention  # noqa: E402
+from repro_torch.layers.mlp import mixed_matmul  # noqa: E402
+from repro_torch.layers.moe import moe_dispatch, top_k_lower_first  # noqa: E402
+from repro_torch.layers.transformer import (init_kv_cache, init_lm_params,  # noqa: E402
+                                            lm_decode_step, lm_forward, lm_prefill)
+from repro_torch.models.schnet import init_schnet, schnet_loss  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim import grad_compression as gcomp  # noqa: E402
-from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
+from repro_torch.optim.optimizers import adam_init, tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import (AnomalyGuard, ChaosController, ChaosStream,  # noqa: E402
                                  FaultPlan, PublishPoller, Replanner, apply_plan_meta,
                                  parse_fault_plan, plan_meta, publish_state, run_stream)
@@ -5876,6 +5914,339 @@ def phase21_one_side(ranks: list, workdir: str) -> dict:
                        "losses": n0["losses"], "bitwise_unpinned": True, "by_rank": narrow}}
 
 
+# ------------------------------------------------------------------ phase 22
+#
+# The side workloads at world 1, full width on the card: the LM family
+# (GQA, sliding-window attention, top-k MoE) and SchNet with its graph data.
+# They are plain torch, as in the reference (no pallas_call on these paths),
+# so none of the 17 kernels may launch here. Weights come from a CUDA
+# generator; float32 products stay full float32 (TF32 off, layers/mlp.py).
+
+# arch, layers (None: all), batch, prefill length, decode steps, cache length
+LM_SERVE = (("mistral-nemo-12b", None, 4, 2048, 32, 2080),
+            ("mixtral-8x22b", 4, 1, 6144, 16, 6160))
+LM_TRAIN = ("stablelm-1.6b", 8, 1024)           # arch, batch, sequence
+# prefill(S) + decode(1) against forward(S + 1), float32: arch, layers, batch, S
+LM_PREFILL_DECODE = (("mistral-nemo-12b", 2, 2, 256), ("mixtral-8x22b", 1, 1, 4608))
+LM_CPU_TRAIN = ("stablelm-1.6b", 2)   # arch, layers: card vs CPU with the train step's grads
+LM_CPU_SEQ = 64
+SIDE_STEPS = 10
+SIDE_TOL = 1e-4            # float32 logits and gradients, card vs CPU, prefill vs forward
+TIE_GAP = 1e-6             # router probabilities this close may order either way
+SIDE_PHASE_S = 150.0
+# minibatch_lg's edges: None takes the registry's 114,615,892 (a CPU rehearsal sets fewer)
+MINIBATCH_EDGES = None
+
+
+def lm_config(arch: str, layers=None, dtype=None):
+    cfg = get_config(arch)
+    kw = {k: v for k, v in (("n_layers", layers), ("dtype", dtype)) if v is not None}
+    return dataclasses.replace(cfg, **kw)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def err_of_scale(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def to_host(tree):
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def side_serve(arch: str, layers, b: int, s: int, n_decode: int, cache_len: int,
+               gen: torch.Generator) -> dict:
+    """Prefill B x S, then greedy decode into a cache of ``cache_len`` (the
+    config's dtype) through ``lm_prefill``/``lm_decode_step``; the first
+    decoded logits against ``lm_forward`` of S + 1 tokens (printed: at
+    bfloat16 storage and full width there is no bar)."""
+    cfg = lm_config(arch, layers)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params = init_lm_params(cfg, gen, DEV)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEV)
+    with torch.no_grad():
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        logits, pre = lm_prefill(cfg, params, toks)
+        torch.cuda.synchronize(DEV)
+        prefill_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits finite")
+        cache = init_kv_cache(cfg, b, cache_len, DEV)
+        cache.k[:, :, :s] = pre.k
+        cache.v[:, :, :s] = pre.v
+        del pre
+        tok = first = logits.argmax(-1)
+        finite, lat = torch.ones((), dtype=torch.bool, device=DEV), []
+        for i in range(n_decode):
+            t0 = time.perf_counter()
+            lg, cache = lm_decode_step(cfg, params, cache, tok[:, None], s + i)
+            torch.cuda.synchronize(DEV)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                lg0 = lg
+            finite &= torch.isfinite(lg).all()
+            tok = lg.argmax(-1)
+        check(bool(finite), f"{arch} decode logits finite")
+        full = lm_forward(cfg, params, torch.cat([toks, first[:, None]], 1), remat=False)
+        full = full[:, s].clone()
+    out = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.dtype, "batch": b, "seq": s,
+           "param_gb": tree_bytes(params) / 1e9, "prefill_s": prefill_s,
+           "prefill_tok_per_s": b * s / prefill_s, "decode_steps": n_decode,
+           "decode_ms_p50": float(np.median(lat)), "decode_ms_first": lat[0],
+           "decode_ms_per_token": float(np.median(lat)) / b, "cache_len": cache_len,
+           "decode_vs_forward_err": err_of_scale(lg0, full),
+           "decode_vs_forward_argmax_equal": int((lg0.argmax(-1) == full.argmax(-1)).sum()),
+           "peak_gib": torch.cuda.max_memory_allocated(DEV) / 2**30}
+    del params, cache, full, lg0, lg, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def side_prefill_decode(arch: str, layers: int, b: int, s: int, gen: torch.Generator):
+    """Float32 at ``layers`` layers: prefill(S) then decode(1) against
+    forward(S + 1) at positions S - 1 and S, no MoE drop (capacity factor
+    E / k, as ``tests/test_transformer.py`` holds them); the parameters are
+    returned for the card-vs-CPU check."""
+    cfg = lm_config(arch, layers, "float32")
+    params = init_lm_params(cfg, gen, DEV)
+    cap = cfg.moe.n_experts / cfg.moe.top_k if cfg.moe else 1.25
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device=DEV)
+    with torch.no_grad():
+        logits, pre = lm_prefill(cfg, params, toks[:, :s], moe_cap=cap)
+        cache = init_kv_cache(cfg, b, s + 1, DEV)
+        cache.k[:, :, :s], cache.v[:, :, :s] = pre.k, pre.v
+        del pre
+        lg, _ = lm_decode_step(cfg, params, cache, toks[:, s:], s, moe_cap=cap)
+        full = lm_forward(cfg, params, toks, remat=False, moe_cap=cap)
+        errs = {"prefill": err_of_scale(logits, full[:, s - 1]),
+                "decode": err_of_scale(lg, full[:, s])}
+    del cache, full
+    for k, e in errs.items():
+        check(e <= SIDE_TOL, f"{arch} x{layers} float32 {k} vs forward: {e:.3g} > {SIDE_TOL}")
+    torch.cuda.empty_cache()
+    return cfg, params, {"arch": arch, "layers": layers, "batch": b, "seq": s,
+                         "window": cfg.swa_window, **{f"{k}_err": e for k, e in errs.items()}}
+
+
+def moe_route(cfg, params, toks) -> dict:
+    """Layer 0's router on this device: probabilities, the top-k experts and
+    the dispatch's slot and kept flags (the layer's first half as
+    ``layers.transformer._layer`` runs it)."""
+    b, s = toks.shape
+    lp = lmt._layer_params(params, 0)
+    x = params["emb"][toks]
+    q, k, v = lmt._qkv(cfg, lp, x, torch.arange(s, device=toks.device))
+    o = chunked_causal_attention(q, k, v, chunk=512, window=cfg.swa_window)
+    x = x + mixed_matmul(o.reshape(b, s, -1), lp["wo"])
+    hx = lmt._rmsnorm(lp["ln2"], x, cfg.norm_eps).reshape(b * s, -1)
+    logits = mixed_matmul(hx, lp["router"])
+    probs = torch.softmax(logits.float(), dim=-1)
+    _, expert = top_k_lower_first(probs, cfg.moe.top_k)
+    _, (_, slot, _, kept), _, _ = moe_dispatch(hx, logits, cfg.moe.n_experts, cfg.moe.top_k)
+    return {"probs": probs, "expert": expert, "slot": slot, "kept": kept}
+
+
+def side_lm_card_vs_cpu(cfg, params, gen: torch.Generator, train: bool) -> dict:
+    """The same float32 weights on the card and, copied, on the CPU: the
+    logits of B = 1 x S = LM_CPU_SEQ; with ``train`` the train step's loss
+    and every gradient leaf; for an MoE config layer 0's routing."""
+    toks = torch.randint(0, cfg.vocab, (1, LM_CPU_SEQ), generator=gen, device=DEV)
+    host, htoks = to_host(params), toks.cpu()
+    with torch.no_grad():
+        logits = err_of_scale(lm_forward(cfg, params, toks, remat=False).cpu(),
+                              lm_forward(cfg, host, htoks, remat=False))
+    check(logits <= SIDE_TOL, f"{cfg.name} card vs CPU logits {logits:.3g}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "logits_err": logits}
+    if train:
+        vg = cells.value_and_grad(cells.lm_loss_fn(cfg))
+        (lc, gc_), (lh, gh) = vg(params, toks), vg(host, htoks)
+        out["loss_rel"] = abs(float(lc) - float(lh)) / abs(float(lh))
+        out["grad_err"] = max(err_of_scale(a.cpu(), b_) for a, b_ in
+                              zip(tree_leaves(gc_), tree_leaves(gh)))
+        check(out["loss_rel"] <= TOL, f"{cfg.name} card vs CPU loss {out['loss_rel']:.3g}")
+        check(out["grad_err"] <= SIDE_TOL, f"{cfg.name} card vs CPU grads {out['grad_err']:.3g}")
+    if cfg.moe is not None:
+        with torch.no_grad():
+            rc, rh = moe_route(cfg, params, toks), moe_route(cfg, host, htoks)
+        ps = torch.sort(rc["probs"].cpu(), dim=-1, descending=True).values
+        gaps = ps[:, :-1] - ps[:, 1:]
+        tied = (gaps[:, :cfg.moe.top_k] < TIE_GAP).any(-1)
+        same = (rc["expert"].cpu() == rh["expert"]).all(-1)
+        check(bool(same[~tied].all()), f"{cfg.name} router experts card vs CPU off a tie")
+        out.update(near_ties=int(tied.sum()), tokens=int(tied.numel()),
+                   expert_rows_differing=int((~same).sum()))
+        if bool(same.all()):
+            check(torch.equal(rc["slot"].cpu(), rh["slot"])
+                  and torch.equal(rc["kept"].cpu(), rh["kept"]),
+                  f"{cfg.name} dispatch slot/kept card vs CPU")
+            out["dispatch_equal"] = True
+    return out
+
+
+def side_steps(step, params, batch, what: str) -> dict:
+    """``SIDE_STEPS`` steps from Adam's zero state on one repeated batch,
+    each timed to its loss on the host: every loss finite, the last below
+    the first; p50 over steps 2 on."""
+    opt = adam_init(params)
+    losses, lat = [], []
+    for _ in range(SIDE_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses), f"{what} losses finite")
+    check(losses[-1] < losses[0], f"{what} step {SIDE_STEPS}'s loss below step 1's")
+    return {"losses": losses, "step_ms": lat, "step_ms_p50": float(np.median(lat[1:]))}
+
+
+def side_train_lm(gen: torch.Generator) -> dict:
+    arch, b, s = LM_TRAIN
+    cfg = lm_config(arch)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params = init_lm_params(cfg, gen, DEV)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEV)
+    out = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.dtype, "batch": b, "seq": s,
+           "param_gb": tree_bytes(params) / 1e9,
+           **side_steps(cells.make_lm_train_step(cfg), params, toks, arch)}
+    del params
+    out.update(tok_per_s=b * s / (out["step_ms_p50"] / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated(DEV) / 2**30)
+    torch.cuda.empty_cache()
+    return out
+
+
+def minibatch_graph(n_nodes: int, n_edges: int, batch_nodes: int, f0: int, f1: int,
+                    seed: int) -> Tuple[dict, dict]:
+    """minibatch_lg's batch: the synthetic power-law graph, ``batch_nodes``
+    seeds sampled at fanout f0-f1 and padded as the reference's cell pads
+    at world 1 (run in a process of its own, beside the LM runs)."""
+    t0 = time.perf_counter()
+    g = synthetic_graph(n_nodes, n_edges, 0, seed=seed, with_feat=False)
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    sub = sample_neighbors(g, rng.choice(n_nodes, batch_nodes, replace=False), (f0, f1), rng)
+    batch = pad_subgraph(sub, g, batch_nodes * (1 + f0 + f0 * f1) + 64,
+                         batch_nodes * f0 + batch_nodes * f0 * f1)
+    return batch, {"graph_s": t1 - t0, "sample_s": time.perf_counter() - t1,
+                   "n_edges": n_edges, "sub_nodes": len(sub["node_ids"]),
+                   "sub_edges": len(sub["src"])}
+
+
+def side_gnn_batches():
+    """molecule and full_graph_sm from GNN_SHAPES, on the host (numpy)."""
+    shapes = {s.name: s for s in get_shapes("schnet")}
+    m, f = shapes["molecule"], shapes["full_graph_sm"]
+    mol = molecule_batch(m["batch"], m["n_nodes"], m["n_edges"], seed=SEED)
+    g = synthetic_graph(f["n_nodes"], f["n_edges"], f["d_feat"], seed=SEED)
+    full = {k: g[k] for k in ("nodes", "src", "dst", "dist", "target")}
+    full["edge_w"] = np.ones(f["n_edges"], np.float32)
+    full["node_w"] = np.ones(f["n_nodes"], np.float32)
+    return {"molecule": (0, mol), "full_graph_sm": (f["d_feat"], full)}
+
+
+def side_train_gnn(name: str, d_feat: int, batch_np: dict, gen: torch.Generator) -> dict:
+    cfg = get_config("schnet")
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()}
+    return {"shape": name, "nodes": int(batch["nodes"].shape[0]),
+            "edges": int(batch["src"].shape[0]), "d_feat": d_feat,
+            **side_steps(cells.make_schnet_step(cfg), init_schnet(cfg, gen, DEV, d_feat=d_feat),
+                         batch, f"schnet {name}")}
+
+
+def side_gnn_card_vs_cpu(batch_np: dict, gen: torch.Generator) -> dict:
+    cfg = get_config("schnet")
+    params = init_schnet(cfg, gen, DEV)
+    vg = cells.value_and_grad(lambda p, b: schnet_loss(cfg, p, b))
+    lc, gc_ = vg(params, {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()})
+    lh, gh = vg(to_host(params), {k: torch.from_numpy(v) for k, v in batch_np.items()})
+    out = {"loss_rel": abs(float(lc) - float(lh)) / abs(float(lh)),
+           "grad_err": max(err_of_scale(a.cpu(), b) for a, b in
+                           zip(tree_leaves(gc_), tree_leaves(gh)))}
+    check(out["loss_rel"] <= TOL, f"schnet molecule card vs CPU loss {out['loss_rel']:.3g}")
+    check(out["grad_err"] <= TOL, f"schnet molecule card vs CPU grads {out['grad_err']:.3g}")
+    return out
+
+
+def side_phase(t_start: float) -> dict:
+    """Phase 22 (module comment above)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize(DEV)  # the context exists even when the phase runs alone
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(DEV)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for the float32 products")
+    ops.reset_launches()
+    mb = {s.name: s for s in get_shapes("schnet")}["minibatch_lg"]
+    n_edges = MINIBATCH_EDGES or mb["n_edges"]
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    graph = pool.submit(minibatch_graph, mb["n_nodes"], n_edges, mb["batch_nodes"],
+                        mb["fanout0"], mb["fanout1"], SEED)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = {"allocated_before_gib": before / 2**30}
+    try:
+        out["serve"] = [side_serve(*spec, gen) for spec in LM_SERVE]
+        print("[phase 22] serve " + json.dumps(out["serve"]), flush=True)
+        out["prefill_decode"], out["card_vs_cpu"] = [], []
+        for arch, layers, b, s in LM_PREFILL_DECODE:
+            cfg, params, r = side_prefill_decode(arch, layers, b, s, gen)
+            out["prefill_decode"].append(r)
+            if cfg.moe is not None:  # the MoE's logits and routing on these weights
+                out["card_vs_cpu"].append(side_lm_card_vs_cpu(cfg, params, gen, False))
+            del params
+            torch.cuda.empty_cache()
+        cfg = lm_config(*LM_CPU_TRAIN, "float32")
+        out["card_vs_cpu"].append(side_lm_card_vs_cpu(cfg, init_lm_params(cfg, gen, DEV),
+                                                      gen, True))
+        torch.cuda.empty_cache()
+        print("[phase 22] prefill/decode and card vs CPU "
+              + json.dumps([out["prefill_decode"], out["card_vs_cpu"]]), flush=True)
+        out["train_lm"] = side_train_lm(gen)
+        print("[phase 22] train " + json.dumps(out["train_lm"]), flush=True)
+        batches = side_gnn_batches()
+        out["gnn_card_vs_cpu"] = side_gnn_card_vs_cpu(batches["molecule"][1], gen)
+        out["train_gnn"] = [side_train_gnn(n, d, b, gen) for n, (d, b) in batches.items()]
+        t0 = time.perf_counter()
+        mb_batch, out["minibatch_graph"] = graph.result()
+        out["minibatch_graph"]["waited_s"] = time.perf_counter() - t0
+        out["train_gnn"].append(side_train_gnn("minibatch_lg", 0, mb_batch, gen))
+        print("[phase 22] schnet " + json.dumps([out["gnn_card_vs_cpu"], out["train_gnn"],
+                                                   out["minibatch_graph"]]), flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    fired = {k: v for counts in (ops.launches, ops.sorts, ops.host_launches)
+             for k, v in counts.items() if v}
+    check(not fired, f"no port kernel launches in phase 22 (plain torch paths): {fired}")
+    out["kernel_launches"] = sum(ops.launches.values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[wall] phase 22 done at {time.perf_counter() - t_start:.1f}s "
+          f"(phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def side_summary(side: dict) -> str:
+    """Phase 22's line beside the card's name and power limit."""
+    tr, mb = side["train_lm"], side["minibatch_graph"]
+    serve = "; ".join(
+        f"{r['arch']} x{r['layers']} ({r['param_gb']:.1f} GB {r['dtype']}) prefill "
+        f"{r['batch']}x{r['seq']} {r['prefill_tok_per_s']:.0f} tok/s, decode "
+        f"{r['decode_ms_p50']:.2f} ms a step of {r['batch']} ({r['decode_ms_per_token']:.2f} "
+        f"ms a token), peak {r['peak_gib']:.1f} GiB, decode vs forward "
+        f"{r['decode_vs_forward_err']:.3g} (argmax equal "
+        f"{r['decode_vs_forward_argmax_equal']}/{r['batch']})" for r in side["serve"])
+    gnn = ", ".join(f"{r['shape']} {r['step_ms_p50']:.2f} ms" for r in side["train_gnn"])
+    over = "" if side["phase_s"] <= SIDE_PHASE_S else f" (over its {SIDE_PHASE_S:.0f}s budget)"
+    return (f"[phase 22] {card_stamp()}: the side workloads at world 1, plain torch "
+            f"({side['kernel_launches']} port kernel launches). {serve}; {tr['arch']} train "
+            f"{tr['batch']}x{tr['seq']} step p50 {tr['step_ms_p50']:.1f} ms "
+            f"({tr['tok_per_s']:.0f} tok/s), loss {tr['losses'][0]:.4f} -> "
+            f"{tr['losses'][-1]:.4f}, peak {tr['peak_gib']:.1f} GiB; schnet step p50 {gnn} "
+            f"(graph of {mb['n_edges']} edges built in {mb['graph_s']:.1f}s); phase "
+            f"{side['phase_s']:.1f}s{over}")
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -6192,6 +6563,10 @@ def main() -> None:
           f"pinned {[round(v['step_ms_pinned'], 1) for v in nw['by_rank'].values()]} vs "
           f"unpinned {[round(v['step_ms_unpinned'], 1) for v in nw['by_rank'].values()]}",
           flush=True)
+
+    side = side_phase(t_start)  # phase 22
+    print("[phase22] " + json.dumps(side), flush=True)
+    print(side_summary(side), flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

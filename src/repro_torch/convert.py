@@ -13,6 +13,11 @@ carry over leaf for leaf).
 With a ``dist.Group`` past world 1 the reference state is the whole
 (gathered) one, and each rank keeps its rows of ``w``/``acc``/``counts``
 (``dist.sharding``), the rest whole.
+
+The side workloads' parameters (``lm_params_from_jax``,
+``schnet_params_from_jax``) and their Adam state (``opt_state_from_jax``)
+carry over leaf for leaf at their dtypes: an ``ml_dtypes`` bfloat16 array
+becomes a ``torch.bfloat16`` tensor through its ``uint16`` bits.
 """
 from __future__ import annotations
 
@@ -30,7 +35,10 @@ from repro_torch.embedding.state import EmbeddingState
 
 
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, copy=True)).to(device)
+    a = np.array(x, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy dtype torch knows
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a).to(device)
 
 
 def _tree(x: Any, device: torch.device) -> Any:
@@ -77,8 +85,27 @@ def train_state_from_jax(state_np: Dict[str, Any], plan: PicassoPlan,
     with ``step`` a host int, so both sides can resume from one state."""
     device = resolve_device(device)
     emb, dense = state_from_jax(state_np["emb"], state_np["dense"], plan, device, group)
-    opt = state_np["opt"]
-    return {"emb": emb, "dense": dense,
-            "opt": {"m": _tree(opt["m"], device), "v": _tree(opt["v"], device),
-                    "t": _tensor(opt["t"], device).to(torch.int32)},
+    return {"emb": emb, "dense": dense, "opt": opt_state_from_jax(state_np["opt"], device),
             "step": int(np.asarray(state_np["step"]))}
+
+
+def lm_params_from_jax(params_np: Dict[str, Any],
+                       device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """A reference ``init_lm_params`` tree (host numpy; stacked ``[L, ...]``
+    layers) -> the port's, each leaf at its dtype."""
+    return _tree(params_np, resolve_device(device))
+
+
+def schnet_params_from_jax(params_np: Dict[str, Any],
+                           device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """A reference ``init_schnet`` tree (host numpy) -> the port's."""
+    return _tree(params_np, resolve_device(device))
+
+
+def opt_state_from_jax(opt_np: Dict[str, Any],
+                       device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """A reference ``adam_init``/``adam_update`` state ``{m, v, t}`` (host
+    numpy) -> the port's, the moments at their leaves' dtypes."""
+    device = resolve_device(device)
+    return {"m": _tree(opt_np["m"], device), "v": _tree(opt_np["v"], device),
+            "t": _tensor(opt_np["t"], device).to(torch.int32)}

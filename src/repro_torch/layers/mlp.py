@@ -34,6 +34,20 @@ def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+def mixed_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as JAX computes it for operands of two dtypes: both promoted
+    to their common dtype first (a float32 activation against a bfloat16
+    weight is a float32 product)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def mixed_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` of two operands, promoted as ``mixed_matmul``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def init_mlp(rng: Rng, d_in: int, dims: Sequence[int], device: torch.device,
              dtype=torch.float32) -> Dict:
     params = {}

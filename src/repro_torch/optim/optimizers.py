@@ -7,6 +7,13 @@ term and in its order (``lr * (m / c1) / (sqrt(v / c2) + eps)`` with the
 step ``t`` an int32 and the bias corrections in float32), so a run matches
 the reference step for step; ``torch.optim.Adam`` orders it differently.
 The updates are functional: they return new tensors.
+
+On a bfloat16 or float16 leaf the types follow JAX's promotion: a Python
+constant (``b1``, ``1 - b2``, ``lr * wd``) is weakly typed and takes the
+leaf's dtype (``weak_scalar``), so the moments are products and sums in that
+dtype; the float32 bias corrections promote the step to float32, and only
+the updated leaf is cast back. On float32 leaves both rules are the plain
+arithmetic, bit for bit.
 """
 from __future__ import annotations
 
@@ -50,9 +57,22 @@ def adam_init(params: Any) -> Dict:
             "t": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def weak_scalar(x: float, dtype: torch.dtype) -> float:
+    """A weakly typed Python constant as JAX sees it beside a ``dtype``
+    array: rounded to that dtype."""
+    return float(torch.tensor(x, dtype=dtype)) if dtype.is_floating_point else x
+
+
+def _float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted against a float32 array (bfloat16 and float16 widen)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _adam_moments(opt, grads, b1, b2):
-    m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, opt["m"], grads)
-    v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, opt["v"], grads)
+    m = tree_map(lambda m, g: (weak_scalar(b1, m.dtype) * m
+                               + weak_scalar(1 - b1, g.dtype) * g), opt["m"], grads)
+    v = tree_map(lambda v, g: (weak_scalar(b2, v.dtype) * v
+                               + weak_scalar(1 - b2, g.dtype) * g * g), opt["v"], grads)
     return m, v
 
 
@@ -71,9 +91,9 @@ def adam_update(params: Any, grads: Any, opt: Dict, lr: float, b1: float = 0.9,
     def upd(p, m, v):
         if p.dtype not in _FLOAT:
             return p
-        step = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+        step = lr * (_float32(m) / c1) / (torch.sqrt(_float32(v) / c2) + eps)
         if wd:
-            step = step + lr * wd * p
+            step = step + weak_scalar(lr * wd, p.dtype) * p
         return (p - step).to(p.dtype)
 
     return tree_map(upd, params, m, v), {"m": m, "v": v, "t": t}
@@ -89,7 +109,8 @@ def lamb_update(params: Any, grads: Any, opt: Dict, lr: float, b1: float = 0.9,
     def upd(p, m, v):
         if p.dtype not in _FLOAT:
             return p
-        r = (m / c1) / (torch.sqrt(v / c2) + eps) + wd * p
+        r = ((_float32(m) / c1) / (torch.sqrt(_float32(v) / c2) + eps)
+             + weak_scalar(wd, p.dtype) * p)
         pn = torch.linalg.norm(p.to(torch.float32))
         rn = torch.linalg.norm(r.to(torch.float32))
         trust = torch.where((pn > 0) & (rn > 0), pn / rn, torch.ones_like(pn))
