@@ -14,7 +14,9 @@ host memory, read and written by the kernels over the bus) and the
 calibrated cost model, and trains full-width deepfm on 4 ranks sharing the
 card (phase 17), then under the Supervisor, the guard and chaos with the
 ranks' checkpoints (phase 18), then through live reshards 4 -> 2 -> 4 and
-checkpoints restored at other worlds (phase 19).
+checkpoints restored at other worlds (phase 19), and runs the side
+workloads (the LM family and SchNet) at world 1 (phase 22) and on 4 ranks
+(phase 23).
 
     python3 chip_smoke.py
 
@@ -382,7 +384,28 @@ Phases, in order (any failure raises and exits non-zero):
    own meanwhile); ``ogb_products`` is not run (its [E, 300] rbf alone is 74
    GB). Every loss finite, step 10's below step 1's. Peak memory, prefill
    tokens/s, decode ms, step p50 and tokens/s are printed beside the card's
-   name and power limit.
+   name and power limit;
+23. the side workloads past world 1, on 4 ranks (mesh 2x2) sharing the card
+   over gloo, plain torch and explicit collectives (0 launches of the 17
+   kernels checked on every rank). Each float32 run is held against the
+   port's world-1 run on the same draw, which the ranks compute two at a
+   time and cut to their blocks: one ``make_lm_train_step`` step from Adam's zero
+   state of stablelm-1.6b at 2 layers (``'fsdp'``, 8 x 256) and of
+   phi3.5-moe at 1 layer (``'fsdp'``, ``moe_shard``, against world 1 with
+   ``moe_groups=2``: the reference's token groups), the loss within rtol
+   1e-5 and Adam's first moment within 1e-4 of each block's scale; SchNet
+   on ``molecule`` alike; mistral-nemo-12b at 2 layers (prefill 4 x 2,048,
+   8 decode steps into 2,056) and mixtral-8x22b at 1 layer (prefill 2 x
+   4,096 into its 4,096-position ring, 8 decode steps wrapping it) through
+   the prefill and decode cells' steps: the prefill logits, every decode
+   step's logits and the final cache blocks within 1e-4 of scale. Then,
+   timed, stablelm-1.6b at 4 of its 24 layers (bf16, ``'fsdp'``) and
+   phi3.5-moe at 1 layer (bf16, ``'zero1'``, ``moe_shard``) train 1 + 2
+   steps of 8 x 1,024, and SchNet 10 steps on ``molecule`` and
+   ``full_graph_sm``. Step and decode p50s, prefill tokens/s, each collective's bytes
+   (``dist.traffic_snapshot``) and each rank's peak memory are printed
+   beside the card's name and power limit, as 4 ranks time-sharing one
+   card (not NCCL numbers).
 
 Prints, before the last line, the card's name and power limit and one JSON
 object of per-kernel numbers; the last line is the JSON device stamp.
@@ -408,6 +431,11 @@ from collections import Counter
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
+
+if __name__ == "__main__" and os.environ.get("PYTHONHASHSEED") != "0":
+    # the fixed seed of the module docstring, taken before the heavy imports
+    os.execve(sys.executable, [sys.executable, *sys.argv],
+              {**os.environ, "PYTHONHASHSEED": "0"})
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -438,7 +466,8 @@ from repro_torch.layers.transformer import (init_kv_cache, init_lm_params,  # no
 from repro_torch.models.schnet import init_schnet, schnet_loss  # noqa: E402
 from repro_torch.models.wdl import WDLModel  # noqa: E402
 from repro_torch.optim import grad_compression as gcomp  # noqa: E402
-from repro_torch.optim.optimizers import adam_init, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.optimizers import (adam_init, tree_leaves, tree_map,  # noqa: E402
+                                          weak_scalar)
 from repro_torch.runtime import (AnomalyGuard, ChaosController, ChaosStream,  # noqa: E402
                                  FaultPlan, PublishPoller, Replanner, apply_plan_meta,
                                  parse_fault_plan, plan_meta, publish_state, run_stream)
@@ -6247,6 +6276,370 @@ def side_summary(side: dict) -> str:
             f"{side['phase_s']:.1f}s{over}")
 
 
+# ------------------------------------------------------------------ phase 23
+#
+# The side workloads past world 1 (ROADMAP item 7b.1): 4 ranks on a 2x2
+# ("data", "model") mesh time-sharing the card over gloo, so no number here
+# is an NCCL number. Plain torch and explicit collectives (dist.spmd), as the
+# reference's GSPMD partitioning is: none of the 17 kernels may launch. The
+# float32 runs are held against the port's own world-1 run on the card on
+# the same draw of weights: the ranks run the world-1 side W23_TURN at a
+# time (the others wait, so that many whole models hold the card's memory at
+# once) and keep their blocks of the results. The whole script must end
+# within its 1,200 s limit on a slow host too: there phase 23 took
+# 198.2 s with nemo at 4 layers, 16 decode steps, stablelm at 6 layers, 1 + 3
+# timed steps and one rank at a time (1,169.4 s in all, on one H100 80GB
+# HBM3 at 700 W), hence the sizes below.
+
+W23_MESH = (2, 2)
+# one train step from a shared state, float32: arch, layers, batch, seq,
+# shard_mode, moe_shard (against world 1 with moe_groups = the data ranks)
+W23_TRAIN_CHECKS = (("stablelm-1.6b", 2, 8, 256, "fsdp", False),
+                    ("phi3.5-moe-42b-a6.6b", 1, 8, 256, "fsdp", True))
+# serving, float32, against world 1: arch, layers, batch, prefill length,
+# decode steps, cache length (mixtral's ring is its 4,096 window: decode
+# writes slots 0-7 over the prefill's first positions)
+W23_SERVE = (("mistral-nemo-12b", 2, 4, 2048, 8, 2056),
+             ("mixtral-8x22b", 1, 2, 4096, 8, 4096))
+# timed training at full width: arch, layers (None: all), shard_mode,
+# moe_shard, batch, seq; one untimed step, then W23_TRAIN_STEPS timed.
+# stablelm at 4 of its 24 layers: over gloo on one H100 80GB HBM3 (700 W) a
+# 24-layer step took 16.0 s (6.56 GB a rank: TP psums of the activations,
+# FSDP gathers); phi3.5-moe at 1 layer: 'zero1' keeps every rank's half of
+# the experts whole, and its update holds the old and the gathered new ones
+# at once (a float32 layer of it took 18.5 GiB a rank there, four ranks the
+# whole card)
+W23_TRAIN = (("stablelm-1.6b", 4, "fsdp", False, 8, 1024),
+             ("phi3.5-moe-42b-a6.6b", 1, "zero1", True, 8, 1024))
+W23_TRAIN_STEPS = 2
+W23_PHASE_S = 180.0
+# the ranks that draw and run the world-1 side at once: a float32 mixtral
+# layer prefilling 2 x 4,096 holds about 18 GB, two of them fit the card
+W23_TURN = 2
+
+
+def w23_in_turn(group, fn):
+    """``fn()`` on ``W23_TURN`` ranks at a time, the others waiting; the
+    rank's result."""
+    from repro_torch import dist as rdist
+    res = None
+    for first in range(0, group.world, W23_TURN):
+        if first <= group.rank < first + W23_TURN:
+            res = fn()
+            torch.cuda.synchronize(DEV)
+            gc.collect()
+            torch.cuda.empty_cache()
+        rdist.barrier(group)
+    return res
+
+
+def w23_clone(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def w23_specs(cfg, fsdp: bool = True):
+    return lmt.lm_param_specs(cfg, dict(zip(("data", "model"), W23_MESH)), fsdp=fsdp)
+
+
+def w23_first_moment(grads):
+    """Adam's first moment after one step from zero: a tenth of the
+    gradient, as ``optimizers._adam_moments`` rounds it."""
+    return tree_map(lambda g: weak_scalar(1 - 0.9, g.dtype) * g.detach(), grads)
+
+
+def w23_tree_err(got, ref) -> float:
+    return max(err_of_scale(a, b) for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+
+
+def w23_train_check(group, arch, layers, b, s, mode, moe_shard) -> dict:
+    """One step of ``make_lm_train_step`` at world 4 from the world-1 draw:
+    the loss at rtol 1e-5 and Adam's first moment (a tenth of the gradient)
+    within 1e-4 of each block's scale of the world-1 step's."""
+    cfg = lm_config(arch, layers, "float32")
+    pspecs, mspecs = w23_specs(cfg, mode == "fsdp"), w23_specs(cfg)
+    toks = torch.randint(0, cfg.vocab, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(SEED + 23))
+    groups = W23_MESH[0] if moe_shard else 1
+
+    def world1():
+        p = init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(SEED + 230), DEV)
+        loss, g = cells.value_and_grad(cells.lm_loss_fn(cfg, moe_groups=groups))(p, toks)
+        mine = (w23_clone(lmt.shard_params(p, pspecs, W23_MESH, group.rank)),
+                w23_first_moment(lmt.shard_params(g, mspecs, W23_MESH, group.rank)))
+        del p, g
+        return float(loss), mine
+
+    loss1, (params, m1) = w23_in_turn(group, world1)
+    step = cells.make_lm_train_step(cfg, group=group, mesh_shape=W23_MESH, shard_mode=mode,
+                                    moe_shard=moe_shard)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    _, opt, loss4 = step(params, adam_init(m1), toks)
+    loss4 = float(loss4)
+    out = {"arch": arch, "layers": cfg.n_layers, "mode": mode, "moe_shard": moe_shard,
+           "moe_groups_world1": groups, "loss_world1": loss1, "loss_world4": loss4,
+           "loss_rel": abs(loss4 - loss1) / abs(loss1), "m_err": w23_tree_err(opt["m"], m1),
+           "step_s": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated(DEV) / 2**30}
+    del params, opt, m1
+    torch.cuda.empty_cache()
+    return out
+
+
+def w23_gnn_check(group, batch_np: dict) -> dict:
+    """SchNet on ``molecule``: one world-4 step against world 1, as above."""
+    cfg = get_config("schnet")
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()}
+    p = init_schnet(cfg, torch.Generator(device=DEV).manual_seed(SEED + 231), DEV)
+    loss1, g = cells.value_and_grad(lambda q, bb: schnet_loss(cfg, q, bb))(p, batch)
+    _, opt, loss4 = cells.make_schnet_step(cfg, group=group)(p, adam_init(p), batch)
+    return {"loss_rel": abs(float(loss4) - float(loss1)) / abs(float(loss1)),
+            "m_err": w23_tree_err(opt["m"], w23_first_moment(g))}
+
+
+def w23_ring(block: torch.Tensor, model, s: int, cache_len: int) -> torch.Tensor:
+    """A rank's prefill cache block ``[L, b, s / tp, G, hd]`` as its block
+    of the decode cell's cache of ``cache_len`` (position ``p`` at slot
+    ``p % cache_len``, the last ``cache_len`` positions on a ring)."""
+    from repro_torch.dist.spmd import gather_along
+    whole = gather_along(block, model, 2)
+    ring = torch.zeros(whole.shape[:2] + (cache_len,) + whole.shape[3:], dtype=whole.dtype,
+                       device=whole.device)
+    lo = max(0, s - cache_len)
+    ring[:, :, torch.arange(lo, s, device=whole.device) % cache_len] = whole[:, :, lo:s]
+    n = cache_len // model.world
+    return ring[:, :, model.rank * n:(model.rank + 1) * n].clone()
+
+
+def w23_serve(group, arch, layers, b, s, n_decode, cache_len) -> dict:
+    """Prefill ``b x s`` and ``n_decode`` teacher-forced decode steps
+    through the cells' steps at world 4, then the same at world 1 on the
+    same draw: the rank's blocks of the prefill logits, each step's logits
+    and the final cache within 1e-4 of scale."""
+    from repro_torch import dist as rdist
+    cfg = lm_config(arch, layers, "float32")
+    specs = w23_specs(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 232)
+    toks = torch.randint(0, cfg.vocab, (b, s + n_decode), generator=gen, device=DEV)
+    cs = cells.cache_specs(b, W23_MESH)
+    axes = rdist.axis_groups(group, W23_MESH)
+    dp, tp = W23_MESH
+    d, m = divmod(group.rank, tp)
+    nb, nv = (b // dp if cs[1] else b), cfg.vocab // tp
+
+    def world1():
+        p = init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(SEED + 233), DEV)
+        with torch.no_grad():
+            logits, pre = lm_prefill(cfg, p, toks[:, :s])
+            cache = lmt.KVCache(*(w23_ring(x, rdist.WORLD1, s, cache_len) for x in pre))
+            del pre
+            dec = cells.make_lm_decode_step(cfg, cache_len)
+            lg = [dec(p, cache, toks[:, s + i:s + i + 1], s + i)[0][:, m * nv:(m + 1) * nv]
+                  .clone() for i in range(n_decode)]
+        mine = {"params": w23_clone(lmt.shard_params(p, specs, W23_MESH, group.rank)),
+                "logits": logits[d * (b // dp):(d + 1) * (b // dp), m * nv:(m + 1) * nv].clone(),
+                "decode": lg,
+                "cache": [x.clone() for x in lmt.shard_params(
+                    {"k": cache.k, "v": cache.v}, {"k": cs, "v": cs}, W23_MESH,
+                    group.rank).values()]}
+        del p, cache, logits
+        return mine
+
+    ref = w23_in_turn(group, world1)
+    params = ref.pop("params")
+    pre_step = cells.make_lm_prefill_step(cfg, group=group, mesh_shape=W23_MESH)
+    dec = cells.make_lm_decode_step(cfg, cache_len, group=group, mesh_shape=W23_MESH)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    rdist.reset_traffic()
+    with torch.no_grad():
+        torch.cuda.synchronize(DEV)
+        t0 = time.perf_counter()
+        logits, pre = pre_step(params, toks[:, :s])
+        torch.cuda.synchronize(DEV)
+        prefill_s = time.perf_counter() - t0
+        prefill_bytes = rdist.traffic_snapshot()
+        cache = lmt.KVCache(*(w23_ring(x, axes["model"], s, cache_len) for x in pre))
+        del pre
+        lat, errs = [], []
+        rdist.reset_traffic()
+        for i in range(n_decode):
+            t0 = time.perf_counter()
+            lg, cache = dec(params, cache, toks[:, s + i:s + i + 1], s + i)
+            torch.cuda.synchronize(DEV)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            errs.append(err_of_scale(lg, ref["decode"][i]))
+        decode_bytes = rdist.traffic_snapshot()
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": b, "seq": s, "cache_len": cache_len,
+           "decode_steps": n_decode, "ring_wraps": s + n_decode > cache_len,
+           "prefill_err": err_of_scale(logits, ref["logits"]),
+           "decode_err": max(errs),
+           "cache_err": max(err_of_scale(a, r) for a, r in zip(cache, ref["cache"])),
+           "prefill_s": prefill_s, "prefill_tok_per_s": b * s / prefill_s,
+           "decode_ms_p50": float(np.median(lat)), "prefill_bytes": prefill_bytes,
+           "decode_bytes_per_step": {k: v / n_decode for k, v in decode_bytes.items()},
+           "peak_gib": torch.cuda.max_memory_allocated(DEV) / 2**30}
+    del params, cache, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def w23_train(group, arch, layers, mode, moe_shard, b, s) -> dict:
+    """The timed full-width training run: the shards of one draw (drawn
+    whole in turn), one untimed step, then ``W23_TRAIN_STEPS`` timed."""
+    from repro_torch import dist as rdist
+    cfg = lm_config(arch, layers)
+    pspecs, mspecs = w23_specs(cfg, mode == "fsdp"), w23_specs(cfg)
+
+    def draw():
+        p = init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(SEED + 234), DEV)
+        mine = (w23_clone(lmt.shard_params(p, pspecs, W23_MESH, group.rank)),
+                adam_init(lmt.shard_params(p, mspecs, W23_MESH, group.rank)))
+        del p
+        return mine
+
+    params, opt = w23_in_turn(group, draw)
+    step = cells.make_lm_train_step(cfg, group=group, mesh_shape=W23_MESH, shard_mode=mode,
+                                    moe_shard=moe_shard)
+    toks = torch.randint(0, cfg.vocab, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(SEED + 235))
+    torch.cuda.reset_peak_memory_stats(DEV)
+    losses, lat = [], []
+    for i in range(1 + W23_TRAIN_STEPS):
+        if i == 1:
+            rdist.reset_traffic()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, toks)
+        losses.append(float(loss))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses), f"{arch} world-4 losses finite")
+    check(losses[-1] < losses[0], f"{arch} world-4 last loss below the first")
+    out = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.dtype, "mode": mode,
+           "moe_shard": moe_shard, "batch": b, "seq": s, "losses": losses, "step_ms": lat,
+           "step_ms_p50": float(np.median(lat[1:])),
+           "tok_per_s": b * s / (float(np.median(lat[1:])) / 1e3),
+           "bytes_per_step": {k: v / W23_TRAIN_STEPS
+                              for k, v in rdist.traffic_snapshot().items()},
+           "param_shard_gb": tree_bytes(params) / 1e9,
+           "peak_gib": torch.cuda.max_memory_allocated(DEV) / 2**30}
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def w23_gnn(group, name: str, d_feat: int, batch_np: dict) -> dict:
+    from repro_torch import dist as rdist
+    cfg = get_config("schnet")
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in batch_np.items()}
+    params = init_schnet(cfg, torch.Generator(device=DEV).manual_seed(SEED + 236), DEV,
+                         d_feat=d_feat)
+    rdist.reset_traffic()
+    out = side_steps(cells.make_schnet_step(cfg, group=group), params, batch,
+                     f"schnet {name} world 4")
+    return {"shape": name, "edges": int(batch["src"].shape[0]), **out,
+            "bytes_per_step": {k: v / SIDE_STEPS for k, v in rdist.traffic_snapshot().items()}}
+
+
+def w23_rank(group) -> dict:
+    """One rank of phase 23: the checks, the serving runs, the training
+    runs, SchNet."""
+    torch.set_num_threads(2)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = {"rank": group.rank, "parts_s": {}}
+    batches = side_gnn_batches()
+    parts = (("gnn_check", lambda: w23_gnn_check(group, batches["molecule"][1])),
+             ("train_checks", lambda: [w23_train_check(group, *x) for x in W23_TRAIN_CHECKS]),
+             ("serve", lambda: [w23_serve(group, *x) for x in W23_SERVE]),
+             ("train", lambda: [w23_train(group, *x) for x in W23_TRAIN]),
+             ("gnn", lambda: [w23_gnn(group, n, d, b) for n, (d, b) in batches.items()]))
+    for name, fn in parts:
+        t1 = time.perf_counter()
+        out[name] = fn()
+        out["parts_s"][name] = time.perf_counter() - t1
+        if group.rank == 0:
+            print(f"[phase 23] rank 0 {name} ({out['parts_s'][name]:.1f}s) "
+                  + json.dumps(out[name]), flush=True)
+    out["launches"] = {k: v for counts in (ops.launches, ops.sorts, ops.host_launches)
+                       for k, v in counts.items() if v}
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase23(t_start: float) -> dict:
+    """Phase 23: ``w23_rank`` on 4 processes sharing the card, then the
+    checks in this process."""
+    from repro_torch import dist as rdist
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = checkpoint_dir()
+    # four processes share the card: growable segments keep each one's
+    # cached blocks from fragmenting its share (the ranks read it at start)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = rdist.spawn_ranks(w23_rank, WORLD, device="cuda", workdir=workdir)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        shutil.rmtree(workdir, ignore_errors=True)
+    for r in ranks:
+        check(not r["launches"], f"no port kernel launches in phase 23 on rank {r['rank']}: "
+                                 f"{r['launches']}")
+        g = r["gnn_check"]
+        check(g["loss_rel"] <= TOL and g["m_err"] <= SIDE_TOL,
+              f"schnet world 4 vs world 1 on rank {r['rank']}: {g}")
+        for c in r["train_checks"]:
+            check(c["loss_rel"] <= TOL and c["m_err"] <= SIDE_TOL,
+                  f"{c['arch']} world 4 vs world 1 on rank {r['rank']}: {c}")
+        for s in r["serve"]:
+            check(max(s["prefill_err"], s["decode_err"], s["cache_err"]) <= SIDE_TOL,
+                  f"{s['arch']} serving world 4 vs world 1 on rank {r['rank']}: {s}")
+    for i in range(len(W23_TRAIN)):
+        check(len({tuple(r["train"][i]["losses"]) for r in ranks}) == 1,
+              "every rank reports the same losses")
+    out = {"ranks": ranks, "phase_s": time.perf_counter() - t_phase}
+    print(f"[wall] phase 23 done at {time.perf_counter() - t_start:.1f}s "
+          f"(phase {out['phase_s']:.1f}s)", flush=True)
+    return out
+
+
+def w23_summary(w23: dict) -> str:
+    """Phase 23's line beside the card's name and power limit."""
+    r0 = w23["ranks"][0]
+    peak = [round(max([x["peak_gib"] for x in r["serve"] + r["train"]]), 1)
+            for r in w23["ranks"]]
+    checks = "; ".join(f"{c['arch']} x{c['layers']} {c['mode']}"
+                       f"{' moe_shard vs world-1 moe_groups=2' if c['moe_shard'] else ''} "
+                       f"loss {c['loss_world4']:.6f} (rel {c['loss_rel']:.2g}) m err "
+                       f"{max(r['train_checks'][i]['m_err'] for r in w23['ranks']):.2g}"
+                       for i, c in enumerate(r0["train_checks"]))
+    serve = "; ".join(
+        f"{s['arch']} x{s['layers']} f32 prefill {s['batch']}x{s['seq']} "
+        f"{s['prefill_tok_per_s']:.0f} tok/s, decode p50 {s['decode_ms_p50']:.1f} ms a step "
+        f"(cache {s['cache_len']}{', ring wrapped' if s['ring_wraps'] else ''}), errs "
+        f"{max(max(x['serve'][i]['prefill_err'], x['serve'][i]['decode_err'], x['serve'][i]['cache_err']) for x in w23['ranks']):.2g}, "
+        f"bytes a decode step {int(sum(s['decode_bytes_per_step'].values()))}"
+        for i, s in enumerate(r0["serve"]))
+    train = "; ".join(
+        f"{t['arch']} x{t['layers']} {t['dtype']} {t['mode']}"
+        f"{' moe_shard' if t['moe_shard'] else ''} {t['batch']}x{t['seq']} step p50 "
+        f"{t['step_ms_p50']:.0f} ms ({t['tok_per_s']:.0f} tok/s), loss {t['losses'][0]:.4f} "
+        f"-> {t['losses'][-1]:.4f}, bytes a step {int(sum(t['bytes_per_step'].values()))}"
+        for t in r0["train"])
+    gnn = ", ".join(f"{g['shape']} {g['step_ms_p50']:.2f} ms" for g in r0["gnn"])
+    over = "" if w23["phase_s"] <= W23_PHASE_S else f" (over its {W23_PHASE_S:.0f}s budget)"
+    return (f"[phase 23] {card_stamp()}: the side workloads at world 4 (mesh 2x2, 4 ranks "
+            f"time-sharing one card over gloo, not NCCL numbers; 0 port kernel launches). "
+            f"World 4 vs world 1: {checks}; schnet molecule m err "
+            f"{max(r['gnn_check']['m_err'] for r in w23['ranks']):.2g}. Serving: {serve}. "
+            f"Training: {train}. SchNet step p50 {gnn}. Peak GiB by rank {peak}; phase "
+            f"{w23['phase_s']:.1f}s{over}")
+
+
 def card_stamp() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -6568,6 +6961,10 @@ def main() -> None:
     print("[phase22] " + json.dumps(side), flush=True)
     print(side_summary(side), flush=True)
 
+    w23 = phase23(t_start)  # phase 23
+    print("[phase23] " + json.dumps(w23), flush=True)
+    print(w23_summary(w23), flush=True)
+
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         if name == "host_rows":
@@ -6659,7 +7056,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if os.environ.get("PYTHONHASHSEED") != "0":
-        os.execve(sys.executable, [sys.executable, *sys.argv],
-                  {**os.environ, "PYTHONHASHSEED": "0"})
     main()

@@ -17,7 +17,11 @@ With a ``dist.Group`` past world 1 the reference state is the whole
 The side workloads' parameters (``lm_params_from_jax``,
 ``schnet_params_from_jax``) and their Adam state (``opt_state_from_jax``)
 carry over leaf for leaf at their dtypes: an ``ml_dtypes`` bfloat16 array
-becomes a ``torch.bfloat16`` tensor through its ``uint16`` bits.
+becomes a ``torch.bfloat16`` tensor through its ``uint16`` bits. Given a
+``rank`` of a ``(data, model)`` mesh and the leaves' ``specs``
+(``layers.transformer.lm_param_specs``; the moments' for the Adam state),
+each returns that rank's shards of the whole (gathered) reference tree;
+SchNet's leaves are replicated, so every rank holds them whole.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.core.packing import PicassoPlan
 from repro_torch.dist.compat import Group, resolve_group
 from repro_torch.dist.sharding import shard_emb_state
 from repro_torch.embedding.state import EmbeddingState
+from repro_torch.layers.transformer import shard_params
 
 
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
@@ -89,23 +94,46 @@ def train_state_from_jax(state_np: Dict[str, Any], plan: PicassoPlan,
             "step": int(np.asarray(state_np["step"]))}
 
 
+def _shards(tree: Any, rank: Optional[int], mesh_shape: Optional[Tuple[int, int]],
+            specs: Optional[Dict]) -> Any:
+    if rank is None:
+        return tree
+    if mesh_shape is None or specs is None:
+        raise ValueError("a rank's shards need the mesh shape and the leaves' specs")
+    return shard_params(tree, specs, mesh_shape, rank)
+
+
 def lm_params_from_jax(params_np: Dict[str, Any],
-                       device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+                       device: Union[str, torch.device] = "cuda",
+                       rank: Optional[int] = None,
+                       mesh_shape: Optional[Tuple[int, int]] = None,
+                       specs: Optional[Dict] = None) -> Dict[str, Any]:
     """A reference ``init_lm_params`` tree (host numpy; stacked ``[L, ...]``
-    layers) -> the port's, each leaf at its dtype."""
-    return _tree(params_np, resolve_device(device))
+    layers) -> the port's, each leaf at its dtype (with ``rank``, its
+    shards at ``specs`` on a mesh of ``mesh_shape``)."""
+    return _tree(_shards(params_np, rank, mesh_shape, specs), resolve_device(device))
 
 
 def schnet_params_from_jax(params_np: Dict[str, Any],
-                           device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """A reference ``init_schnet`` tree (host numpy) -> the port's."""
+                           device: Union[str, torch.device] = "cuda",
+                           rank: Optional[int] = None,
+                           mesh_shape: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+    """A reference ``init_schnet`` tree (host numpy) -> the port's (every
+    rank of a mesh holds it whole)."""
+    if rank is not None and not 0 <= int(rank) < int(np.prod(mesh_shape or (1,))):
+        raise ValueError(f"rank {rank} outside a mesh of {mesh_shape}")
     return _tree(params_np, resolve_device(device))
 
 
 def opt_state_from_jax(opt_np: Dict[str, Any],
-                       device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+                       device: Union[str, torch.device] = "cuda",
+                       rank: Optional[int] = None,
+                       mesh_shape: Optional[Tuple[int, int]] = None,
+                       specs: Optional[Dict] = None) -> Dict[str, Any]:
     """A reference ``adam_init``/``adam_update`` state ``{m, v, t}`` (host
-    numpy) -> the port's, the moments at their leaves' dtypes."""
+    numpy) -> the port's, the moments at their leaves' dtypes (with
+    ``rank``, its shards of the moments at ``specs``; ``t`` whole)."""
     device = resolve_device(device)
-    return {"m": _tree(opt_np["m"], device), "v": _tree(opt_np["v"], device),
+    return {"m": _tree(_shards(opt_np["m"], rank, mesh_shape, specs), device),
+            "v": _tree(_shards(opt_np["v"], rank, mesh_shape, specs), device),
             "t": _tensor(opt_np["t"], device).to(torch.int32)}

@@ -160,11 +160,29 @@ def axis_index(group: Group) -> int:
     return int(group.rank)
 
 
+def mesh_world(shape: Sequence[int]) -> int:
+    """The ranks of a mesh of ``shape``: the product of its sizes."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def rank_coords(rank: int, shape: Sequence[int]) -> tuple:
+    """Rank ``r``'s mesh coordinates, row-major (the last axis fastest)."""
+    out = []
+    for s in reversed(tuple(shape)):
+        rank, c = divmod(int(rank), int(s))
+        out.append(c)
+    return tuple(reversed(out))
+
+
 # ---------------------------------------------------------------------------
 # wire accounting
 # ---------------------------------------------------------------------------
 
-traffic: Dict[str, int] = {"all_to_all": 0, "psum": 0, "all_gather": 0, "rows": 0}
+traffic: Dict[str, int] = {"all_to_all": 0, "psum": 0, "all_gather": 0, "reduce_scatter": 0,
+                           "rows": 0}
 
 
 def reset_traffic() -> None:
@@ -286,6 +304,27 @@ def all_gather_tiled(x: torch.Tensor, group: Group) -> torch.Tensor:
     traffic["all_gather"] += w.numel() * w.element_size() * (group.world - 1)
     shape = (group.world * x.shape[0],) + tuple(x.shape[1:])
     return _unwire(_gather(w, group), x, shape)
+
+
+def reduce_scatter_tiled(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)``: the
+    sum over ranks of ``x`` (dim 0 a multiple of ``world``), floats added in
+    rank order from zero as ``psum`` adds them, and this rank's block of
+    dim 0 of it (one all_to_all, the first half of ``psum``)."""
+    if group.world == 1:
+        return x
+    wld = group.world
+    if x.shape[0] % wld:
+        raise ValueError(f"reduce_scatter of {x.shape[0]} rows over {wld} ranks")
+    if not x.is_floating_point():
+        raise TypeError(f"reduce_scatter of {x.dtype}: sum a floating dtype")
+    _enter(group)
+    traffic["reduce_scatter"] += x.numel() * x.element_size() * (wld - 1) // wld
+    parts = _a2a(x.contiguous(), group).reshape((wld, x.shape[0] // wld) + tuple(x.shape[1:]))
+    acc = torch.zeros_like(parts[0])
+    for p in range(wld):
+        acc += parts[p]
+    return acc
 
 
 def barrier(group: Group) -> None:
@@ -457,6 +496,52 @@ def sub_group(world: int, root: Optional[Group] = None) -> Optional[Group]:
     if root.rank >= world:
         return None
     return Group(root.rank, world, pg, root.backend, ckpt_pg, Gate())
+
+
+_AXIS_GROUPS: Dict[Any, Dict[str, Group]] = {}
+
+
+def axis_groups(root: Group, mesh_shape: Sequence[int],
+                axes: Sequence[str] = ("data", "model")) -> Dict[str, Group]:
+    """This rank's group along each axis of a mesh laid over ``root``'s
+    ranks row-major (``rank_coords``): the ranks that share
+    every other coordinate, numbered by their coordinate on the axis, as
+    ``lax.axis_index(axis)`` numbers them. Every process of ``root`` calls
+    it with the same shape, in the same order: it makes every axis group of
+    the mesh (``torch.distributed.new_group``'s rule), once a mesh and root
+    (cached). An axis of size 1, or a mesh at world 1, gives a group of
+    world 1, whose collectives are identities."""
+    shape = tuple(int(s) for s in mesh_shape)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh {shape} for axes {tuple(axes)}")
+    n = mesh_world(shape)
+    if n != root.world:
+        raise ValueError(f"a mesh of {n} ranks over a group of {root.world}")
+    key = (shape, tuple(axes), root.world, id(root.pg))
+    if key in _AXIS_GROUPS:
+        return _AXIS_GROUPS[key]
+    coords = rank_coords(root.rank, shape)
+    everyone = [rank_coords(r, shape) for r in range(n)]
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    out: Dict[str, Group] = {}
+    for i, (ax, s) in enumerate(zip(axes, shape)):
+        if s == 1:
+            out[ax] = Group(0, 1, None, "none")
+            continue
+        if s == root.world:
+            out[ax] = root._replace(rank=coords[i], gate=None)
+            continue
+        lines: Dict[tuple, List[int]] = {}   # the other coordinates -> the line's ranks
+        for r, c in enumerate(everyone):
+            lines.setdefault(c[:i] + c[i + 1:], []).append(r)
+        mine = None
+        for ranks in lines.values():          # every line, in one order on every rank
+            pg = dist.new_group(ranks=ranks, backend=root.backend, timeout=timeout)
+            if root.rank in ranks:
+                mine = pg
+        out[ax] = Group(coords[i], s, mine, root.backend)
+    _AXIS_GROUPS[key] = out
+    return out
 
 
 EVENT_POLL_S = 0.05  # how often a waiting process looks for the next event

@@ -4,11 +4,17 @@ The reference's mesh names ``("data", "model")`` axes over its devices and
 runs every collective over all of them, so a rank is one device of a flat
 world: ``world = prod(shape)``, and rank ``r`` sits at the row-major
 coordinates ``divmod(r, shape[1])``, as ``lax.axis_index(("data",
-"model"))`` numbers the mesh.
+"model"))`` numbers the mesh. ``mesh_world`` and ``rank_coords`` live in
+``dist.compat`` (its ``axis_groups`` lays a mesh over a group) and are
+re-exported here.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+from repro_torch.dist.compat import mesh_world, rank_coords
+
+__all__ = ["AXES", "describe", "mesh_world", "parse_mesh", "rank_coords"]
 
 AXES = ("data", "model")
 
@@ -28,22 +34,6 @@ def parse_mesh(spec: str, devices: int = 0) -> Tuple[int, ...]:
         raise ValueError(f"--mesh {spec} has {mesh_world(shape)} ranks but --devices "
                          f"{devices}")
     return shape
-
-
-def mesh_world(shape: Tuple[int, ...]) -> int:
-    n = 1
-    for s in shape:
-        n *= int(s)
-    return n
-
-
-def rank_coords(rank: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:
-    """Rank ``r``'s mesh coordinates, row-major (the last axis fastest)."""
-    out = []
-    for s in reversed(shape):
-        rank, c = divmod(int(rank), int(s))
-        out.append(c)
-    return tuple(reversed(out))
 
 
 def describe(shape: Optional[Tuple[int, ...]]) -> str:

@@ -6,6 +6,13 @@ Plain torch, term by term the reference's: float32 logits, a ``-1e30``
 mask, the softmax's weights cast to ``v``'s dtype. Operands of mixed
 dtypes promote as JAX promotes them (``mlp.mixed_einsum``): a float32
 activation against a bfloat16 cache computes in float32.
+
+Past world 1 the decode cache is sharded along S over ``"model"``
+(``repro.launch.cells._cache_specs``), and GSPMD turns the reference's
+softmax over it into a split-K combine; ``decode_attention(group=,
+offset=)`` writes that combine out (flash-decoding): the global max of
+the logits, then psums of each rank's sum of exponentials and of its
+weighted values, masks on global positions.
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.dist.compat import Group, psum
+from repro_torch.dist.spmd import gather_along
 from repro_torch.layers.mlp import mixed_einsum
 
 
@@ -98,14 +107,30 @@ def decode_attention(
     v_cache: torch.Tensor,    # [B, S, G, hd]
     length: Union[int, torch.Tensor],   # [] or [B] valid cache length
     window: Optional[int] = None,
+    group: Optional[Group] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
     """One-token decode against the KV cache: positions ``< length`` (and,
-    with a window, ``>= length - window``) are valid."""
+    with a window, ``>= length - window``) are valid. With ``group`` past
+    world 1 the cache holds this rank's positions ``offset + [0, S)`` of a
+    cache sharded along S, and the softmax combines across the group."""
     b, s, g, hd = k_cache.shape
-    pos = torch.arange(s, device=k_cache.device)
+    pos = offset + torch.arange(s, device=k_cache.device)
     ln = torch.as_tensor(length, device=k_cache.device).reshape(-1, 1)
     valid = pos[None, :] < ln
     if window is not None:
         valid &= pos[None, :] >= ln - window
     mask = valid[:, None, None, None, :]                   # [B,1,1,1,S]
-    return _sdpa(q, k_cache, v_cache, mask)
+    if group is None or group.world == 1:
+        return _sdpa(q, k_cache, v_cache, mask)
+    h = q.shape[2]
+    qg = q.reshape(b, 1, g, h // g, hd)
+    logits = mixed_einsum("bsgrd,btgd->bgrst", qg, k_cache).to(torch.float32)
+    logits = logits / float(np.float32(np.sqrt(hd)))
+    logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=torch.float32,
+                                                    device=logits.device))
+    top = gather_along(logits.amax(-1, keepdim=True)[None], group, 0).amax(0)
+    e = torch.exp(logits - top)
+    denom = psum(e.sum(-1, keepdim=True), group)               # [B,g,r,1,1]
+    o = psum(mixed_einsum("bgrst,btgd->bgrsd", e, v_cache), group) / denom
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(v_cache.dtype)

@@ -11,12 +11,13 @@ three decimal digits and would break the 1e-5 parity with it.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.jax_random import Rng, rng_normal, rng_split
+from repro_torch.dist.compat import Group, psum
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -46,6 +47,18 @@ def mixed_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` of two operands, promoted as ``mixed_matmul``."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, group: Optional[Group] = None
+                 ) -> torch.Tensor:
+    """``mixed_matmul(a, b)`` where ``b`` holds this rank's block of the
+    contraction dim over ``group`` and ``a`` is whole on every rank: the
+    rank's part of the contraction, psum'd over ``group`` (no autograd; a
+    plain product without ``group``)."""
+    if group is None:
+        return mixed_matmul(a, b)
+    n = b.shape[-2]
+    return psum(mixed_matmul(a.narrow(-1, group.rank * n, n), b), group)
 
 
 def init_mlp(rng: Rng, d_in: int, dims: Sequence[int], device: torch.device,

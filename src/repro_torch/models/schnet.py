@@ -1,11 +1,14 @@
 """SchNet [arXiv:1706.08566], the continuous-filter convolution GNN
-(``repro.models.schnet`` in torch, at world 1).
+(``repro.models.schnet`` in torch).
 
 Message passing from plain scatter primitives (no sparse formats):
 rbf(d_ij) -> filter MLP -> m_ij = x_src * W_ij -> a sum into dst
 (``index_add_`` into zeros, the reference's ``segment_sum``). The
-reference's ``axes`` (edge arrays sharded over the mesh, partial node sums
-psum'd) becomes ``group``; past world 1 it raises (ROADMAP Queue 1 item 7b).
+reference's ``axes`` becomes ``group``: past world 1 each rank holds a
+block of the edge arrays and the whole node arrays, and each interaction's
+partial node sum is psum'd (``dist.spmd.psum_psum``: ``lax.psum`` under
+``shard_map(check_vma=False)``, whose transpose is a psum too, so the
+step's pmean of the gradients gives the world-1 gradient).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch.configs.base import SchNetConfig
 from repro_torch.core.jax_random import Rng, rng_normal, rng_split
 from repro_torch.dist.compat import Group
+from repro_torch.dist.spmd import psum_psum
 from repro_torch.layers.mlp import init_linear, linear
 
 _LOG2 = float(np.float32(np.log(2.0)))  # a numpy float64: float32 in JAX
@@ -94,13 +98,6 @@ def init_schnet(cfg: SchNetConfig, rng: Rng, device: Union[str, torch.device],
     return p
 
 
-def _world1(group: Optional[Group]) -> None:
-    if group is not None and int(group.world) > 1:
-        raise NotImplementedError(
-            "SchNet past world 1 (edge-sharded message passing with a psum of the "
-            "node sums) is ROADMAP Queue 1 item 7b")
-
-
 def _segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
                        device=data.device).index_add_(0, ids, data)
@@ -109,11 +106,13 @@ def _segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 def interaction_block(p: Dict, x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       rbf: torch.Tensor, edge_w: torch.Tensor, n_nodes: int,
                       group: Optional[Group] = None) -> torch.Tensor:
-    """One cfconv + atom-wise block."""
-    _world1(group)
+    """One cfconv + atom-wise block. With ``group`` past world 1 the edge
+    arrays are this rank's block and the node sum is psum'd."""
     w = linear(p["filt2"], ssp(linear(p["filt1"], rbf)))            # [E, d]
     m = linear(p["in"], x)[src] * w * edge_w[:, None]                # gather + modulate
     agg = _segment_sum(m, dst, n_nodes)                              # scatter-add
+    if group is not None:
+        agg = psum_psum(agg, group)                                  # combine edge shards
     v = linear(p["out2"], ssp(linear(p["out1"], agg)))
     return x + v
 
@@ -122,7 +121,6 @@ def schnet_forward(cfg: SchNetConfig, p: Dict, nodes: torch.Tensor, src: torch.T
                    dst: torch.Tensor, dist: torch.Tensor, edge_w: torch.Tensor,
                    group: Optional[Group] = None) -> torch.Tensor:
     """nodes: [N, d_feat] float or [N] integer species; returns per-node energy [N]."""
-    _world1(group)
     if nodes.dtype in (torch.int32, torch.int64):
         x = p["species"][nodes]
     else:
@@ -130,7 +128,7 @@ def schnet_forward(cfg: SchNetConfig, p: Dict, nodes: torch.Tensor, src: torch.T
     rbf = rbf_expand(dist, cfg.n_rbf, cfg.cutoff)
     n = x.shape[0]
     for i in range(cfg.n_interactions):
-        x = interaction_block(p[f"int{i}"], x, src, dst, rbf, edge_w, n)
+        x = interaction_block(p[f"int{i}"], x, src, dst, rbf, edge_w, n, group)
     e = linear(p["energy2"], ssp(linear(p["energy1"], x)))
     return e[:, 0]
 

@@ -91,6 +91,33 @@ def run_reference(body: str, inputs, tmp: Path, timeout: int = 600):
         return pickle.load(f)
 
 
+def start_reference(body: str, inputs, tmp: Path, timeout: int = 600, **consts):
+    """``run_reference`` started in the background, so the port's ranks can
+    run beside it: returns a function that waits for the subprocess and
+    returns its ``out``. ``consts`` become the script's module constants."""
+    src, inp, res = tmp / "ref.py", tmp / "ref_in.pkl", tmp / "ref_out.pkl"
+    head = "".join(f"{k} = {v!r}\n" for k, v in consts.items())
+    src.write_text(REF_HEADER + head + textwrap.dedent(body)
+                   + f"\npickle.dump(out, open({str(res)!r}, 'wb'))\n")
+    with open(inp, "wb") as f:
+        pickle.dump(inputs, f)
+    proc = subprocess.Popen([sys.executable, str(src), str(inp)], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, env=ref_env())
+
+    def collect():
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        assert proc.returncode == 0, err[-4000:]
+        with open(res, "rb") as f:
+            return pickle.load(f)
+
+    return collect
+
+
 def run_port(fn, *args, tmp: Path, deadline_s: float = 900):
     """``fn(group, *args)`` on 4 gloo ranks (one thread each) under the
     module's ``PYTHONHASHSEED``; the ranks' results in rank order. Ranks

@@ -211,13 +211,23 @@ def test_schnet_step_matches_reference(name, mesh1):
 
 
 def test_schnet_is_world_1():
+    """A group of world 1 is the world-1 path bitwise; past world 1 each rank
+    takes its block of the edge arrays, padded by zero-weight edges, and
+    the node arrays whole (``tests/test_torch_dist_gnn.py`` runs the step on
+    4 ranks)."""
     cfg = get_config("schnet", smoke=True)
-    four = Group(0, 4, None, "gloo")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tcells.make_schnet_step(cfg, group=four)
     _, batch = BATCHES["molecules"]
     _, tp = _params(0)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        TS.schnet_loss(cfg, tp, _tb(batch), group=four)
     loss1 = TS.schnet_loss(cfg, tp, _tb(batch), group=Group(0, 1, None, "none"))
     assert torch.equal(loss1, TS.schnet_loss(cfg, tp, _tb(batch)))
+    tb = _tb(batch)
+    e = tb["src"].shape[0]
+    blocks = [tcells.edge_block(tb, Group(r, 5, None, "gloo")) for r in range(5)]
+    n = -(-e // 5)
+    for k in tcells.EDGE_KEYS:
+        whole = torch.cat([b[k] for b in blocks])
+        assert whole.shape[0] == 5 * n
+        assert torch.equal(whole[:e], tb[k]) and not whole[e:].any()
+    for k in set(tb) - set(tcells.EDGE_KEYS):
+        assert all(b[k] is tb[k] for b in blocks)
+    assert tcells.edge_block(tb, Group(0, 1, None, "none")) is tb

@@ -1,7 +1,7 @@
 """The port's LM family against the reference on the CPU, part 3: the
 gradients of ``lm_loss`` and three steps of ``make_lm_train_step`` against
 the reference's jitted step on a 1x1 mesh, from the same weights; the
-step's refusal past world 1.
+step's mesh checks.
 
 Bars:
 
@@ -74,7 +74,13 @@ def test_lm_train_step_matches_reference(arch, mesh1):
 
 
 def test_lm_train_step_is_world_1():
+    """A group of world 1 gives the world-1 step (its mesh 1x1); past world 1
+    the step needs a mesh of the group's world and a known shard mode
+    (``tests/test_torch_dist_lm.py`` runs it on 4 ranks)."""
     cfg = get_config("stablelm-1.6b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tcells.make_lm_train_step(cfg, group=Group(0, 4, None, "gloo"))
-    tcells.make_lm_train_step(cfg, group=Group(0, 1, None, "none"))
+    four = Group(0, 4, None, "gloo")
+    with pytest.raises(ValueError, match="mesh"):
+        tcells.make_lm_train_step(cfg, group=four, mesh_shape=(3, 1))
+    with pytest.raises(ValueError, match="shard_mode"):
+        tcells.make_lm_train_step(cfg, group=four, mesh_shape=(2, 2), shard_mode="zero3")
+    tcells.make_lm_train_step(cfg, group=Group(0, 1, None, "none"), mesh_shape=(1, 1))

@@ -30,6 +30,7 @@ from repro.core.packing import make_plan as jmake_plan
 from repro.data.synthetic import batch_stream as jbatch_stream
 from repro.data.synthetic import make_batch as jmake_batch
 from repro.dist.compat import shard_map
+from repro.layers import interactions as jinter
 from repro.layers import mlp as jmlp
 from repro.models import wdl as jwdl
 from repro.dist.sharding import batch_specs, to_named
@@ -47,6 +48,7 @@ from repro_torch.data.synthetic import batch_stream, make_batch
 from repro_torch.engine import EmbeddingEngine
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_launcher
+from repro_torch.layers import interactions as tinter
 from repro_torch.models import wdl as twdl
 from repro_torch.models.wdl import WDLModel
 from repro_torch.optim import optimizers as topt
@@ -82,6 +84,22 @@ def test_train_trajectory_matches_reference(mesh1, cache_update, n_micro):
 MAX_KINKS = 4
 
 
+class _RecordingTorch:
+    """``torch`` for ``repro_torch.layers.interactions`` under
+    ``_KinkAware``: ``relu`` (sasrec's feed-forward, its one call there)
+    records its input first; every other name is torch's own."""
+
+    def __init__(self, record):
+        self._record = record
+
+    def relu(self, z):
+        self._record(z)
+        return torch.relu(z)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
 class _KinkAware:
     """Hands the port's side of an undetermined ReLU kink to the reference.
 
@@ -102,7 +120,15 @@ class _KinkAware:
     Every other unit, and every other quantity, stays the reference's own.
     The caller asserts that no unit differs outside the bound
     (``unexplained``), that every reference call found its port call
-    (``unmatched``), and that at most ``MAX_KINKS`` units were handed over."""
+    (``unmatched``), and that at most ``MAX_KINKS`` units were handed over.
+
+    SASRec's feed-forward (``sasrec_block``: ``relu(ff1(ln2(x)))``) is
+    such a ReLU too, outside any ``mlp``: the port's block runs as it is,
+    its ``torch.relu`` recording the pre-activations
+    (``_RecordingTorch``), and the reference's block takes its mask the
+    same way (sasrec smoke under ``PYTHONHASHSEED=87``, step 7: sample
+    33's position 3, unit 10, at 1.4e-7 with a bound above it; without the
+    hand-over one table row of 16 values parted by up to 4.3e-3)."""
 
     def __init__(self):
         self.port_calls: dict = {}
@@ -111,8 +137,19 @@ class _KinkAware:
     def new_step(self):
         self.port_calls = {}
 
+    def _record(self, key, z):
+        self.port_calls.setdefault((key, tuple(z.shape)), []).append(
+            z.detach().numpy().copy())
+
+    def _ref_relu(self, key, z, x, w, b):
+        mask = jax.pure_callback(
+            lambda zz, xx, ww, bb: self._reconcile(key, zz, xx, ww, bb),
+            jax.ShapeDtypeStruct(z.shape, jnp.bool_),
+            *(jax.lax.stop_gradient(v) for v in (z, x, w, b)))
+        return jnp.where(mask, z, jnp.zeros_like(z))
+
     def __enter__(self):
-        self._orig = (twdl.mlp, jwdl.mlp)
+        self._orig = (twdl.mlp, jwdl.mlp, tinter.torch, jinter.sasrec_block)
         port_orig = twdl.mlp
 
         def port_mlp(p, x, act=torch.relu, final_act=True):
@@ -130,20 +167,29 @@ class _KinkAware:
                 lp = p[f"l{i}"]
                 z = jmlp.linear(lp, x)
                 if i < n - 1 or final_act:
-                    mask = jax.pure_callback(
-                        lambda zz, xx, ww, bb, i=i: self._reconcile(i, zz, xx, ww, bb),
-                        jax.ShapeDtypeStruct(z.shape, jnp.bool_),
-                        *(jax.lax.stop_gradient(v) for v in (z, x, lp["w"], lp["b"])))
-                    x = jnp.where(mask, z, jnp.zeros_like(z))
+                    x = self._ref_relu(i, z, x, lp["w"], lp["b"])
                 else:
                     x = z
             return x
 
+        def ref_sasrec_block(p, x, mask, n_heads):
+            # repro.layers.interactions.sasrec_block, its ReLU reconciled
+            h = jinter.mha(p["attn"], jinter.layernorm(p["ln1"], x), mask, n_heads,
+                           causal=True)
+            x = x + h
+            u = jinter.layernorm(p["ln2"], x)
+            z = jinter.linear(p["ff1"], u)
+            f = jinter.linear(p["ff2"], self._ref_relu("ff1", z, u, p["ff1"]["w"],
+                                                       p["ff1"]["b"]))
+            return (x + f) * mask[..., None].astype(x.dtype)
+
         twdl.mlp, jwdl.mlp = port_mlp, ref_mlp
+        tinter.torch = _RecordingTorch(lambda z: self._record("ff1", z))
+        jinter.sasrec_block = ref_sasrec_block
         return self
 
     def __exit__(self, *exc):
-        twdl.mlp, jwdl.mlp = self._orig
+        twdl.mlp, jwdl.mlp, tinter.torch, jinter.sasrec_block = self._orig
 
     def _reconcile(self, layer, z, x, w, b):
         z = np.asarray(z)
